@@ -20,3 +20,9 @@ import jax  # noqa: E402
 # jax_platforms at interpreter start; the env var alone doesn't win.
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (and nvcc for the hand-written "
+        "kernels); skips where torch.cuda.is_available() is false")

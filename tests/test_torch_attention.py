@@ -1,0 +1,157 @@
+"""The port's fused masked attention against the JAX TPU kernel.
+
+The port's plain PyTorch version (what the wrapper runs on CPU tensors) is
+held against vision_transformer_cam_tpu's ``masked_attention_fused`` run in
+Pallas interpret mode, on packed qkv from the same seeded numpy inputs.  The
+CUDA kernel itself is held against the plain version on the card
+(``test_cuda_kernel_matches_plain_version``, marked ``cuda``), which runs on
+a GPU machine without jax as
+
+    python -m pytest --noconftest -m cuda tests/test_torch_attention.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from vision_transformer_cam_tpu_torch.kernels import attention as tka
+
+try:  # the GPU machine has no jax: there only the cuda-marked test runs
+    import jax.numpy as jnp
+
+    from vision_transformer_cam_tpu.kernels import attention as jka
+except ImportError:
+    jnp = jka = None
+
+# float32 on both sides.  The two sum S, the softmax row and P.V in
+# different orders; these are the JAX kernel tests' own f32 tolerances
+# (tests/test_kernels.py): out 1e-5, cls row 1e-6, head mean / rollout 1e-6.
+TOL = {"out": 1e-5, "cls": 1e-6, "third": 1e-6}
+HEADS, DH, SCALE = 4, 16, 0.25
+
+
+def _inputs(b, n, seed, hot=40.0):
+    """Packed qkv [B, N, 3C] (heads contiguous inside q|k|v), random bg with
+    the cls column 0, a row-stochastic joint; query rows 1-2 are scaled so
+    their logits reach past the serving clamp at 80."""
+    rng = np.random.default_rng(seed)
+    c = HEADS * DH
+    qkv = rng.standard_normal((b, n, 3 * c)).astype(np.float32)
+    qkv[:, 1:3, :c] *= hot
+    bg = (rng.random((b, n)) < 0.3).astype(np.float32)
+    bg[:, 0] = 0.0
+    j = rng.standard_normal((b, n, n))
+    joint = (np.exp(j) / np.exp(j).sum(-1, keepdims=True)).astype(np.float32)
+    return qkv, bg, joint
+
+
+def _jax(qkv, bg, joint, variant, clamp):
+    if jka is None:
+        pytest.skip("needs jax (the JAX reference)")
+    res = jka.masked_attention_fused(
+        jnp.asarray(qkv), jnp.asarray(bg),
+        jnp.asarray(joint) if variant == "rollout" else None,
+        num_heads=HEADS, scale=SCALE, with_headmean=variant == "headmean",
+        clamp_softmax=clamp, interpret=True)
+    return [np.asarray(r) for r in res]
+
+
+def _torch(fn, qkv, bg, joint, variant, clamp):
+    res = fn(torch.from_numpy(qkv), torch.from_numpy(bg),
+             torch.from_numpy(joint) if variant == "rollout" else None,
+             num_heads=HEADS, scale=SCALE,
+             with_headmean=variant == "headmean", clamp_softmax=clamp)
+    return [r.numpy() for r in res]
+
+
+@pytest.mark.parametrize("shape", [(2, 37), (3, 17)])
+@pytest.mark.parametrize("clamp", [False, True])
+@pytest.mark.parametrize("variant", ["plain", "headmean", "rollout"])
+def test_plain_version_matches_jax_kernel(variant, clamp, shape):
+    qkv, bg, joint = _inputs(*shape, seed=shape[1] + 3 * clamp)
+    if clamp:
+        # the inputs really exercise the clamp: some logits exceed 80
+        c = HEADS * DH
+        s = np.einsum("bqd,bkd->bqk", qkv[:, 1:3, :DH],
+                      qkv[:, :, c:c + DH]) * SCALE
+        assert s.max() > 80.0
+    want = _jax(qkv, bg, joint, variant, clamp)
+    got = _torch(tka.masked_attention_fused_ref, qkv, bg, joint, variant,
+                 clamp)
+    assert len(got) == len(want) == (2 if variant == "plain" else 3)
+    for name, g, w in zip(("out", "cls", "third"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        np.testing.assert_allclose(g, w, rtol=0, atol=TOL[name], err_msg=name)
+    # cls rows are probability vectors; the head mean's row 0 is the cls row
+    np.testing.assert_allclose(got[1].sum(-1), 1.0, atol=1e-5)
+    if variant == "headmean":
+        np.testing.assert_allclose(got[2][:, 0], got[1], atol=1e-6)
+
+
+def test_cpu_tensors_run_the_plain_version():
+    qkv, bg, joint = _inputs(2, 37, seed=1)
+    before = tka.launches
+    for variant in ("plain", "headmean", "rollout"):
+        got = _torch(tka.masked_attention_fused, qkv, bg, joint, variant, True)
+        want = _torch(tka.masked_attention_fused_ref, qkv, bg, joint, variant,
+                      True)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    assert tka.launches == before   # only CUDA launches count
+
+
+def test_headmean_dtype_and_bf16_outputs():
+    qkv, bg, _ = _inputs(2, 17, seed=2)
+    q = torch.from_numpy(qkv).to(torch.bfloat16)
+    out, cls_row, hm = tka.masked_attention_fused(
+        q, torch.from_numpy(bg), num_heads=HEADS, scale=SCALE,
+        with_headmean=True, hm_dtype=torch.float32)
+    assert out.dtype == cls_row.dtype == torch.bfloat16
+    assert hm.dtype == torch.float32 and hm.shape == (2, 17, 17)
+
+
+def test_bad_shapes_raise():
+    qkv, bg, joint = _inputs(2, 17, seed=4)
+    q, b, j = (torch.from_numpy(a) for a in (qkv, bg, joint))
+    kw = dict(num_heads=HEADS, scale=SCALE)
+    with pytest.raises(ValueError):
+        tka.masked_attention_fused(q[..., :-1], b, **kw)
+    with pytest.raises(ValueError):
+        tka.masked_attention_fused(q, b[:, :-1], **kw)
+    with pytest.raises(ValueError):
+        tka.masked_attention_fused(q, b, j[:, :-1], **kw)
+    with pytest.raises(ValueError):
+        tka.masked_attention_fused(q.to("meta"), b.to("meta"), **kw)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_matches_plain_version():
+    """The hand-written kernel against its plain version on the card, at
+    ViT-B widths (12 heads of 64) and a ragged N.  Tolerances as in
+    chip_smoke.py: f32 sums in another order (hot rows put logits ~1e2
+    through exp, hence rtol 1e-4); bf16 outputs within 2 bf16 ulps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the CUDA kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for dtype, (atol, rtol) in ((torch.float32, (5e-5, 1e-4)),
+                                (torch.bfloat16, (1e-2, 2 ** -6))):
+        for n in (197, 37):
+            qkv = torch.randn((4, n, 3 * 768), generator=g, device="cuda")
+            qkv[:, 1:4, :768] *= 40.0
+            qkv = qkv.to(dtype)
+            bg = (torch.rand((4, n), generator=g, device="cuda") < 0.3).float()
+            bg[:, 0] = 0.0
+            joint = torch.softmax(torch.randn((4, n, n), generator=g,
+                                              device="cuda"), dim=-1)
+            for variant in ("plain", "headmean", "rollout"):
+                for clamp in (False, True):
+                    kw = dict(num_heads=12, scale=0.125, clamp_softmax=clamp,
+                              with_headmean=variant == "headmean")
+                    j = joint if variant == "rollout" else None
+                    before = tka.launches
+                    got = tka.masked_attention_fused(qkv, bg, j, **kw)
+                    assert tka.launches == before + 1
+                    want = tka.masked_attention_fused_ref(qkv, bg, j, **kw)
+                    for a, w in zip(got, want):
+                        torch.testing.assert_close(
+                            a.float(), w.float(), atol=atol, rtol=rtol)

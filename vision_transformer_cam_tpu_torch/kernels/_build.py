@@ -1,0 +1,94 @@
+"""Build and load the hand-written CUDA kernels.
+
+The sources under ``csrc/`` have a plain C interface (no PyTorch headers), so
+``nvcc`` compiles them in seconds into one shared library, loaded with
+``ctypes``.  The library is built at first use into
+``<repo>/build/torch_kernels/<source hash>/`` and rebuilt when a source or the
+flags change.  Nothing here runs at import time: this module is imported on
+machines without ``nvcc`` or a GPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+LIB_NAME = "libvitcam_kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lib = None
+build_seconds = None   # wall time of the build this process ran, if any
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME") and
+                 os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
+                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels are built from source at first use")
+
+
+def lib_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
+
+
+def build() -> Path:
+    """Compile the library unless this source hash was built already; the
+    compiler's report (``-Xptxas -v``) is kept beside it as ``build.log``."""
+    global build_seconds
+    so = lib_path()
+    if so.exists():
+        return so
+    so.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    # compile to a private name, then rename: a concurrent build never sees
+    # a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    (so.parent / "build.log").write_text(res.stdout + res.stderr)
+    if res.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    os.replace(tmp, so)
+    build_seconds = time.perf_counter() - t0
+    return so
+
+
+def load():
+    """The loaded library with every entry point's ctypes signature set."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn = lib.vitcam_masked_attention_fused
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f, f, i, i, i, i, p]
+        fn.restype = i
+        lib.vitcam_masked_attention_smem_bytes.argtypes = [i, i]
+        lib.vitcam_masked_attention_smem_bytes.restype = ctypes.c_size_t
+        lib.vitcam_cuda_error_string.argtypes = [i]
+        lib.vitcam_cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib

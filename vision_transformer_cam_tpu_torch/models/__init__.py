@@ -1,0 +1,2 @@
+from vision_transformer_cam_tpu_torch.models.vit import (  # noqa: F401
+    ViTCAM, ViTCAMOutput)

@@ -1,0 +1,447 @@
+"""Vision Transformer with the CAM attention-mask feedback, for PyTorch.
+
+The port of vision_transformer_cam_tpu/models/vit.py (inference):
+
+* the blocks run in a Python loop that carries the background-token
+  indicator bg [B, N]; the reference's additive -100 pair mask is rebuilt
+  from it in each block (eager path) or inside the attention kernel;
+* attention emits the head-mean cls row, the statistic the mask update,
+  the rollout and the top-16 selection need, so nothing forces the
+  [B, H, N, N] probabilities out unless a caller asks for them;
+* the attention-rollout joint J <- ((hm + I) / 2) J is carried through the
+  blocks (updated inside the kernel on the kernel path), in float32 under
+  bf16.
+
+Parameter names are the reference's state-dict keys (``blocks.{i}.attn.qkv
+.weight``, ...), so its ``.pth`` state dicts load directly
+(``io.weights.load_state_dict``).  Images are NHWC, as in the JAX package.
+The forward has no host syncs and no data-dependent shapes.  Training
+(dropout, drop-path, remat, the attention backward) comes with the training
+slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vision_transformer_cam_tpu_torch.configs import ViTCAMConfig
+from vision_transformer_cam_tpu_torch.kernels.attention import (
+    masked_attention_fused)
+from vision_transformer_cam_tpu_torch.ops.rollout import (aug_cls_row,
+                                                          aug_normalize)
+
+
+class ViTCAMOutput(NamedTuple):
+    """The reference's 6-tuple return in structured form (same fields as the
+    JAX package's ViTCAMOutput).
+
+      logits            cls-head logits [B, num_classes]
+      head1_logits      top-16 patch-head logits [B, num_classes]
+      attn_cls_rows     head-mean cls attention row per layer [depth, B, N]
+      top_patch_embeds  [B, K, C];  top_patch_idx [B, K]
+      head1_kernel      head1 weight as [C, num_classes] (JAX layout)
+      attn_headmean     [depth, B, N, N] (need_headmean / need_perhead)
+      attn_perhead      [depth, B, H, N, N] (need_perhead)
+      block_outputs     [depth, B, N, C] (need_blocks)
+      rollout_row       row 0 of the rollout joint [B, N] (need_rollout)
+      tokens_prenorm    final block output before the last LayerNorm
+      dist_logits       distilled models in training only; None here
+    """
+
+    logits: torch.Tensor
+    head1_logits: torch.Tensor
+    attn_cls_rows: torch.Tensor
+    top_patch_embeds: torch.Tensor
+    top_patch_idx: torch.Tensor
+    head1_kernel: torch.Tensor
+    attn_headmean: Optional[torch.Tensor] = None
+    attn_perhead: Optional[torch.Tensor] = None
+    block_outputs: Optional[torch.Tensor] = None
+    rollout_row: Optional[torch.Tensor] = None
+    tokens_prenorm: Optional[torch.Tensor] = None
+    dist_logits: Optional[torch.Tensor] = None
+
+
+# config knobs of the JAX package that this package does not implement yet,
+# with the ROADMAP item that ports them
+_UNPORTED = {
+    "attn_block_fusion": "Queue 2 item 8",
+    "mlp_fusion": "Queue 2 item 6",
+    "ln_quant_fusion": "Queue 2 item 7",
+    "int8_fused_gemm": "Queue 1 item 4",
+    "int8_attn_io": "Queue 1 item 4",
+    "int8_attn_out": "Queue 1 item 4",
+    "data_axis": "Queue 1 item 10",
+    "seq_axis": "Queue 1 item 10",
+    "attn_block_b": "Queue 2 item 1 (kernel tuning)",
+    "attn_q_block": "Queue 2 item 1 (kernel tuning)",
+}
+
+
+def check_supported(cfg: ViTCAMConfig) -> None:
+    """Raise for a configuration this package cannot run as asked."""
+    if cfg.attn_impl not in ("eager", "kernel"):
+        raise ValueError(f"attn_impl {cfg.attn_impl!r}: expected 'eager' or "
+                         "'kernel'")
+    for name, item in _UNPORTED.items():
+        if getattr(cfg, name):
+            raise NotImplementedError(
+                f"cfg.{name}={getattr(cfg, name)!r} is not ported yet "
+                f"(ROADMAP {item})")
+    if cfg.matmul_precision not in (None, "highest"):
+        raise NotImplementedError(
+            f"matmul_precision={cfg.matmul_precision!r}: the port runs float32 "
+            "GEMMs in full float32 only (None or 'highest')")
+
+
+# ---------------------------------------------------------------------------
+# primitives
+# ---------------------------------------------------------------------------
+
+def _layer_norm(x, weight, bias, eps):
+    # affine params cast to the activation dtype, so float32 params never
+    # promote a bf16 residual stream
+    return F.layer_norm(x, (x.shape[-1],), weight.to(x.dtype),
+                        bias.to(x.dtype), eps)
+
+
+def _gelu(x, approx=False):
+    return F.gelu(x, approximate="tanh" if approx else "none")
+
+
+def _linear(x, lin: nn.Linear, dtype):
+    """GEMM in the activation dtype (the weights are cast, a no-op unless
+    params and activations differ)."""
+    bias = None if lin.bias is None else lin.bias.to(dtype)
+    return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
+
+
+def _attention_eager(ap, x, bg, cfg: ViTCAMConfig, need_probs, joint=None,
+                     hm_dtype=None):
+    """Reference-shaped attention with the symmetric pair mask
+    mask_value * min(bg_q + bg_k, 1), clamp (serving) after the mask.
+    Returns (out, cls_row [B, N], headmean or None, perhead or None, None);
+    ``joint`` is not consumed here: the caller updates the rollout."""
+    b, n, c = x.shape
+    h, dh = cfg.num_heads, cfg.head_dim
+    qkv = _linear(x, ap.qkv, cfg.dtype)
+    q, k, v = qkv.reshape(b, n, 3, h, dh).permute(2, 0, 3, 1, 4)
+    attn = torch.matmul(q, k.transpose(-1, -2)) * cfg.scale
+    pair = torch.clamp_max(bg[:, :, None] + bg[:, None, :], 1.0)
+    attn = attn + (cfg.mask_value * pair)[:, None, :, :]
+    if cfg.softmax_clamp:
+        attn = torch.clamp_max(attn, 80.0)
+    probs = torch.softmax(attn, dim=-1)
+    cls_row = probs[:, :, 0, :].mean(dim=1)
+    hm = probs.mean(dim=1) if need_probs else None
+    out = torch.matmul(probs, v).transpose(1, 2).reshape(b, n, c)
+    out = _linear(out, ap.proj, cfg.dtype)
+    ph = probs if need_probs == "perhead" else None
+    if hm is not None and hm_dtype is not None:
+        hm = hm.to(hm_dtype)
+    return out, cls_row, hm, ph, None
+
+
+def attention_kernel(ap, x, bg, cfg: ViTCAMConfig, need_probs, joint=None,
+                     hm_dtype=None):
+    """Same signature and returns as ``_attention_eager``, through the fused
+    attention kernel: with ``joint`` it returns the updated rollout joint as
+    the fifth value (rollout variant); need_probs "headmean" emits the
+    head-mean matrix; otherwise the plain variant.  The per-head
+    probabilities only the eager path produces."""
+    if need_probs == "perhead":
+        return _attention_eager(ap, x, bg, cfg, need_probs, joint=joint,
+                                hm_dtype=hm_dtype)
+    qkv = _linear(x, ap.qkv, cfg.dtype)
+    kw = dict(num_heads=cfg.num_heads, scale=cfg.scale,
+              mask_value=cfg.mask_value, clamp_softmax=cfg.softmax_clamp)
+    hm = newj = None
+    if joint is not None:
+        out, cls_row, newj = masked_attention_fused(qkv, bg, joint, **kw)
+    elif need_probs == "headmean":
+        out, cls_row, hm = masked_attention_fused(
+            qkv, bg, with_headmean=True, hm_dtype=hm_dtype, **kw)
+    else:
+        out, cls_row = masked_attention_fused(qkv, bg, **kw)
+    out = _linear(out, ap.proj, cfg.dtype)
+    return out, cls_row.to(cfg.dtype), hm, None, newj
+
+
+def _mask_from_cls_row(cls_row, cfg: ViTCAMConfig):
+    """One rollout step on the cls row -> normalized patch weights mask14
+    [B, num_patches] and the bg indicator [B, N].  Prefix tokens are never
+    background."""
+    mask_i = aug_cls_row(cls_row)[:, cfg.num_tokens:]
+    if cfg.per_sample_mask_norm:
+        mask14 = mask_i / mask_i.amax(dim=-1, keepdim=True)
+    else:
+        mask14 = mask_i / mask_i.amax()          # batch-global, as reference
+    bg_patches = (mask14 < cfg.mask_threshold).to(cls_row.dtype)
+    prefix = torch.zeros((cls_row.shape[0], cfg.num_tokens),
+                         dtype=cls_row.dtype, device=cls_row.device)
+    return mask14, torch.cat([prefix, bg_patches], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# modules (names follow the reference's state-dict keys)
+# ---------------------------------------------------------------------------
+
+class Attention(nn.Module):
+    def __init__(self, dim, qkv_bias, **fk):
+        super().__init__()
+        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias, **fk)
+        self.proj = nn.Linear(dim, dim, **fk)
+
+
+class Mlp(nn.Module):
+    def __init__(self, dim, hidden, **fk):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden, **fk)
+        self.fc2 = nn.Linear(hidden, dim, **fk)
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: ViTCAMConfig, **fk):
+        super().__init__()
+        d = cfg.embed_dim
+        self.norm1 = nn.LayerNorm(d, eps=cfg.ln_eps, **fk)
+        self.attn = Attention(d, cfg.qkv_bias, **fk)
+        self.norm2 = nn.LayerNorm(d, eps=cfg.ln_eps, **fk)
+        self.mlp = Mlp(d, cfg.mlp_hidden, **fk)
+
+
+class PatchEmbed(nn.Module):
+    """The reference's p x p / stride p conv, kept in its [D, C, p, p] layout
+    and applied as a reshape plus one GEMM on NHWC images (no cuDNN, so no
+    TF32 convolution)."""
+
+    def __init__(self, cfg: ViTCAMConfig, **fk):
+        super().__init__()
+        p, c, d = cfg.patch_size, cfg.in_chans, cfg.embed_dim
+        self.img_size, self.patch_size = cfg.img_size, p
+        self.proj = nn.ParameterDict({
+            "weight": nn.Parameter(torch.empty((d, c, p, p), **fk)),
+            "bias": nn.Parameter(torch.empty((d,), **fk))})
+
+    def forward(self, x, dtype):
+        """x: [B, H, W, C] -> [B, num_patches, D] in ``dtype``."""
+        b, h, w, c = x.shape
+        p = self.patch_size
+        if h != self.img_size or w != self.img_size:
+            raise ValueError(
+                f"Input image size ({h}*{w}) doesn't match model "
+                f"({self.img_size}*{self.img_size}).")
+        g = h // p
+        x = x.reshape(b, g, p, g, p, c).permute(0, 1, 3, 2, 4, 5)
+        x = x.reshape(b, g * g, p * p * c)
+        weight = self.proj["weight"]
+        weight = weight.permute(0, 2, 3, 1).reshape(weight.shape[0], p * p * c)
+        return F.linear(x.to(dtype), weight.to(dtype),
+                        self.proj["bias"].to(dtype))
+
+
+class PreLogits(nn.Module):
+    def __init__(self, dim, rep, **fk):
+        super().__init__()
+        self.fc = nn.Linear(dim, rep, **fk)
+
+
+class ViTCAM(nn.Module):
+    """ViT-CAM model.  ``cfg`` may be replaced after construction (for
+    example by ``serving.apply_serving_mode`` or to switch ``attn_impl``); the
+    parameters stay."""
+
+    def __init__(self, cfg: ViTCAMConfig, *, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        fk = dict(device=device, dtype=cfg.param_dtype)
+        d, nc = cfg.embed_dim, cfg.num_classes
+        self.patch_embed = PatchEmbed(cfg, **fk)
+        self.cls_token = nn.Parameter(torch.empty((1, 1, d), **fk))
+        if cfg.distilled:
+            self.dist_token = nn.Parameter(torch.empty((1, 1, d), **fk))
+        self.pos_embed = nn.Parameter(torch.empty((1, cfg.seq_len, d), **fk))
+        self.blocks = nn.ModuleList(Block(cfg, **fk) for _ in range(cfg.depth))
+        self.norm = nn.LayerNorm(d, eps=cfg.ln_eps, **fk)
+        if cfg.has_logits:
+            self.pre_logits = PreLogits(d, cfg.representation_size, **fk)
+        self.head = nn.Linear(cfg.representation_size if cfg.has_logits
+                              else d, nc, **fk)
+        if cfg.distilled:
+            self.head_dist = nn.Linear(d, nc, **fk)
+        self.head1 = nn.Linear(d, nc, **fk)
+        self.init(generator if generator is not None
+                  else torch.Generator().manual_seed(0))
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> None:
+        """The reference's init scheme, drawn on the CPU from ``generator``
+        (so a seed gives the same weights on every device): trunc-normal
+        (std 0.01, cut at +-2) Linears with zero bias, trunc-normal (0.02)
+        tokens and position embedding, kaiming-normal (fan_out) patch
+        embedding, unit LayerNorms, and torch's default Linear init for
+        head1, which the reference creates after its init pass."""
+        cfg = self.cfg
+
+        def fill(t, draw):
+            tmp = torch.empty(t.shape,
+                              dtype=torch.promote_types(t.dtype, torch.float32))
+            draw(tmp)
+            t.copy_(tmp)
+
+        def trunc(t, std):
+            fill(t, lambda a: nn.init.trunc_normal_(
+                a, std=std, a=-2.0, b=2.0, generator=generator))
+
+        def linear(lin, std=0.01):
+            trunc(lin.weight, std)
+            if lin.bias is not None:
+                lin.bias.zero_()
+
+        fan_out = cfg.embed_dim * cfg.patch_size * cfg.patch_size
+        fill(self.patch_embed.proj["weight"], lambda a: a.normal_(
+            0.0, math.sqrt(2.0 / fan_out), generator=generator))
+        self.patch_embed.proj["bias"].zero_()
+        trunc(self.cls_token, 0.02)
+        trunc(self.pos_embed, 0.02)
+        if cfg.distilled:
+            trunc(self.dist_token, 0.02)
+            linear(self.head_dist)
+        for ln in [self.norm] + [m for blk in self.blocks
+                                 for m in (blk.norm1, blk.norm2)]:
+            ln.weight.fill_(1.0)
+            ln.bias.zero_()
+        for blk in self.blocks:
+            for lin in (blk.attn.qkv, blk.attn.proj, blk.mlp.fc1, blk.mlp.fc2):
+                linear(lin)
+        if cfg.has_logits:
+            linear(self.pre_logits.fc)
+        linear(self.head)
+        bound = 1.0 / math.sqrt(cfg.embed_dim)
+        for t in (self.head1.weight, self.head1.bias):
+            fill(t, lambda a: a.uniform_(-bound, bound, generator=generator))
+
+    def embed_tokens(self, x):
+        """Patch embed, prefix tokens (cls, + dist when distilled), position
+        embedding.  x: [B, H, W, C] -> tokens [B, N, D]."""
+        cfg = self.cfg
+        b = x.shape[0]
+        tokens = self.patch_embed(x, cfg.dtype)
+        prefix = [self.cls_token]
+        if cfg.distilled:
+            prefix.append(self.dist_token)
+        prefix = [t.to(cfg.dtype).expand(b, 1, cfg.embed_dim) for t in prefix]
+        tokens = torch.cat(prefix + [tokens], dim=1)
+        return tokens + self.pos_embed.to(cfg.dtype)
+
+    @torch.inference_mode()
+    def forward(self, x, *, need_headmean=False, need_blocks=False,
+                need_perhead=False, need_rollout=False) -> ViTCAMOutput:
+        """x: [B, H, W, C] images.  Returns ViTCAMOutput (eval semantics)."""
+        cfg = self.cfg
+        check_supported(cfg)
+        attn_fn = attention_kernel if cfg.attn_impl == "kernel" \
+            else _attention_eager
+        tokens = self.embed_tokens(x)
+        b, n, dev = tokens.shape[0], cfg.seq_len, tokens.device
+        bg = torch.zeros((b, n), dtype=cfg.dtype, device=dev)
+        need_probs = "perhead" if need_perhead else (
+            "headmean" if (need_headmean or need_rollout) else None)
+        # the joint product accumulates across all layers: float32 even under
+        # bf16 serving
+        rollout_dtype = torch.float32 if cfg.dtype == torch.bfloat16 \
+            else cfg.dtype
+        want_post = (n > 512) if cfg.rollout_post is None else cfg.rollout_post
+        rollout_post = (need_rollout and want_post
+                        and not (need_headmean or need_perhead))
+        carry_rollout = need_rollout and not rollout_post
+        # the kernel updates the joint itself unless the head-mean matrices
+        # are collected too
+        fuse_rollout = carry_rollout and not (need_headmean or need_perhead)
+        joint = torch.eye(n, dtype=rollout_dtype, device=dev).expand(
+            b, n, n).contiguous() if carry_rollout else None
+
+        cls_rows, hms, phs, blocks_out = [], [], [], []
+        for i, blk in enumerate(self.blocks):
+            xn = _layer_norm(tokens, blk.norm1.weight, blk.norm1.bias,
+                             cfg.ln_eps)
+            o, cls_row, hm, ph, newj = attn_fn(
+                blk.attn, xn, bg, cfg, need_probs,
+                joint=joint if fuse_rollout else None,
+                hm_dtype=rollout_dtype if rollout_post else None)
+            tokens = tokens + o
+            yn = _layer_norm(tokens, blk.norm2.weight, blk.norm2.bias,
+                             cfg.ln_eps)
+            hmid = _gelu(_linear(yn, blk.mlp.fc1, cfg.dtype), cfg.gelu_approx)
+            tokens = tokens + _linear(hmid, blk.mlp.fc2, cfg.dtype)
+            # this block's attention sets the mask of the next block
+            if i >= cfg.mask_from:
+                _, bg = _mask_from_cls_row(cls_row, cfg)
+            if carry_rollout:
+                if newj is not None:
+                    joint = newj
+                else:
+                    pt = torch.promote_types(torch.float32, joint.dtype)
+                    joint = torch.matmul(aug_normalize(hm).to(pt),
+                                         joint.to(pt)).to(joint.dtype)
+            cls_rows.append(cls_row)
+            if need_headmean or need_perhead or rollout_post:
+                hms.append(hm)
+            if need_perhead:
+                phs.append(ph)
+            if need_blocks:
+                blocks_out.append(tokens)
+
+        rollout_row = None
+        if carry_rollout:
+            rollout_row = joint[:, 0, :]
+        elif rollout_post:
+            # row = ((e_cls A_L) A_{L-1}) ... A_1 with A_l = (hm_l + I) / 2
+            chain_dt = torch.promote_types(torch.float32, rollout_dtype)
+            r = torch.zeros((b, n), dtype=chain_dt, device=dev)
+            r[:, 0] = 1.0
+            for hm_l in reversed(hms):
+                prod = torch.bmm(r[:, None, :], hm_l.to(chain_dt))[:, 0]
+                r = 0.5 * (prod + r)
+            rollout_row = r.to(rollout_dtype)
+
+        cls_rows = torch.stack(cls_rows)
+        # top-K high-weight patch head, over the patch tokens
+        mask14, _ = _mask_from_cls_row(cls_rows[-1], cfg)
+        top_idx = torch.topk(mask14, cfg.top_k_patches, dim=-1).indices
+        patch_tokens = tokens[:, cfg.num_tokens:, :]
+        top_embeds = torch.gather(
+            patch_tokens, 1,
+            top_idx[:, :, None].expand(-1, -1, cfg.embed_dim))
+        head1_logits = _linear(top_embeds.mean(dim=1), self.head1, cfg.dtype)
+
+        xf = _layer_norm(tokens, self.norm.weight, self.norm.bias, cfg.ln_eps)
+        cls_feat = xf[:, 0]
+        if cfg.has_logits:
+            cls_feat = torch.tanh(_linear(cls_feat, self.pre_logits.fc,
+                                          cfg.dtype))
+        logits = _linear(cls_feat, self.head, cfg.dtype)
+        if cfg.distilled:
+            dist_logits = _linear(xf[:, 1], self.head_dist, cfg.dtype)
+            logits = (logits + dist_logits) / 2.0
+        collect = need_headmean or need_perhead
+        return ViTCAMOutput(
+            logits=logits,
+            head1_logits=head1_logits,
+            attn_cls_rows=cls_rows,
+            top_patch_embeds=top_embeds,
+            top_patch_idx=top_idx,
+            head1_kernel=self.head1.weight.detach().t(),
+            attn_headmean=torch.stack(hms) if collect else None,
+            attn_perhead=torch.stack(phs) if need_perhead else None,
+            block_outputs=torch.stack(blocks_out) if need_blocks else None,
+            rollout_row=rollout_row,
+            tokens_prenorm=tokens,
+        )
