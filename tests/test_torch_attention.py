@@ -88,6 +88,84 @@ def test_plain_version_matches_jax_kernel(variant, clamp, shape):
         np.testing.assert_allclose(got[2][:, 0], got[1], atol=1e-6)
 
 
+def _int8_inputs(b, n, seed, per_head):
+    """int8 qkv with per-head or per-tensor (q, k, v) scales and the output
+    scale; head 0's q scale makes some logits pass the clamp at 80."""
+    rng = np.random.default_rng(seed)
+    qkv = rng.integers(-127, 128, (b, n, 3 * HEADS * DH)).astype(np.int8)
+    bg = (rng.random((b, n)) < 0.3).astype(np.float32)
+    bg[:, 0] = 0.0
+    j = rng.standard_normal((b, n, n))
+    joint = (np.exp(j) / np.exp(j).sum(-1, keepdims=True)).astype(np.float32)
+    if per_head:
+        sc = rng.uniform(0.01, 0.03, 3 * HEADS).astype(np.float32)
+        sc[0] = 0.5
+    else:
+        sc = np.array([0.011, 0.017, 0.023], np.float32)
+    return qkv, bg, joint, np.concatenate([sc, [20.0]]).astype(np.float32)
+
+
+def _run_both(qkv, bg, joint, scales, variant, clamp):
+    if jka is None:
+        pytest.skip("needs jax (the JAX reference)")
+    kw = dict(num_heads=HEADS, scale=SCALE, clamp_softmax=clamp,
+              with_headmean=variant == "headmean")
+    j = joint if variant == "rollout" else None
+    want = jka.masked_attention_fused(
+        jnp.asarray(qkv), jnp.asarray(bg), None if j is None else
+        jnp.asarray(j), jnp.asarray(scales), float_dtype=jnp.float32,
+        interpret=True, **kw)
+    got = tka.masked_attention_fused_ref(
+        torch.from_numpy(qkv), torch.from_numpy(bg),
+        None if j is None else torch.from_numpy(j), torch.from_numpy(scales),
+        float_dtype=torch.float32, **kw)
+    return [r.numpy() for r in got], [np.asarray(r) for r in want]
+
+
+@pytest.mark.parametrize("clamp", [False, True])
+@pytest.mark.parametrize("variant", ["plain", "headmean", "rollout"])
+@pytest.mark.parametrize("option", ["int8_io_per_head", "int8_io_per_tensor",
+                                    "int8_out"])
+def test_plain_version_int8_options_match_jax_kernel(option, variant, clamp):
+    """int8_io (int8 qkv, per-head [3H+1] or per-tensor [4] scales) and
+    int8_out (float qkv, scales [1/s_out]) against the JAX kernel in
+    interpret mode, float_dtype float32, N = 37.  The int8 output within
+    one step on at most 1 % of the elements (the two sum P.V in another
+    order before rounding; measured: equal); cls row, head mean and J' at
+    1e-6 as the float variants (measured <= 4.2e-7).  int8_out leaves the
+    probabilities float: its inputs are the float test's."""
+    if option == "int8_out":
+        qkv, bg, joint = _inputs(2, 37, seed=37 + 3 * clamp)
+        scales = np.array([20.0], np.float32)
+    else:
+        qkv, bg, joint, scales = _int8_inputs(
+            2, 37, seed=23 + clamp, per_head=option.endswith("head"))
+    got, want = _run_both(qkv, bg, joint, scales, variant, clamp)
+    assert len(got) == len(want) == (2 if variant == "plain" else 3)
+    assert got[0].dtype == want[0].dtype == np.int8
+    d = np.abs(got[0].astype(np.int32) - want[0].astype(np.int32))
+    assert d.max() <= 1 and (d > 0).mean() <= 1e-2, (d.max(), (d > 0).mean())
+    assert np.abs(got[0]).max() > 30               # not all rounded to 0
+    for name, g, w in zip(("cls", "third"), got[1:], want[1:]):
+        assert g.dtype == w.dtype == np.float32, name
+        np.testing.assert_allclose(g, w, rtol=0, atol=TOL[name], err_msg=name)
+
+
+def test_int8_scales_are_checked():
+    qkv, bg, _, scales = _int8_inputs(1, 9, seed=3, per_head=True)
+    q, b = torch.from_numpy(qkv), torch.from_numpy(bg)
+    kw = dict(num_heads=HEADS, scale=SCALE)
+    with pytest.raises(ValueError, match="scales"):
+        tka.masked_attention_fused(q, b, **kw)
+    with pytest.raises(ValueError, match="per-head"):
+        tka.masked_attention_fused(q, b, None, torch.ones(5), **kw)
+    with pytest.raises(ValueError, match="int8-out"):
+        tka.masked_attention_fused(q.float(), b, None, torch.ones(4), **kw)
+    out, cls_row = tka.masked_attention_fused(
+        q, b, None, torch.from_numpy(scales), float_dtype=torch.bfloat16, **kw)
+    assert out.dtype == torch.int8 and cls_row.dtype == torch.bfloat16
+
+
 def test_cpu_tensors_run_the_plain_version():
     qkv, bg, joint = _inputs(2, 37, seed=1)
     before = tka.launches

@@ -201,7 +201,7 @@ def test_config_mirrors_jax_config():
 
 
 @pytest.mark.parametrize("knob", [dict(mlp_fusion=True),
-                                  dict(int8_attn_io=True),
+                                  dict(attn_block_fusion=True),
                                   dict(seq_axis="seq"),
                                   dict(matmul_precision="high")])
 def test_unported_knobs_raise(knob):

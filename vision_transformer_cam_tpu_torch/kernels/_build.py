@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels.
 
 The sources under ``csrc/`` have a plain C interface (no PyTorch headers), so
-``nvcc`` compiles them in seconds into one shared library, loaded with
-``ctypes``.  The library is built at first use into
+``nvcc`` compiles them in seconds, one process per source started together,
+and links the objects into one shared library, loaded with ``ctypes``.  The
+library is built at first use into
 ``<repo>/build/torch_kernels/<source hash>/`` and rebuilt when a source or the
 flags change.  Nothing here runs at import time: this module is imported on
 machines without ``nvcc`` or a GPU.
@@ -23,7 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 LIB_NAME = "libvitcam_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 build_seconds = None   # wall time of the build this process ran, if any
@@ -53,26 +54,37 @@ def lib_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the library unless this source hash was built already; the
-    compiler's report (``-Xptxas -v``) is kept beside it as ``build.log``."""
+    """Compile the library unless this source hash was built already: every
+    ``.cu`` to an object in parallel, then one link.  The compilers' reports
+    (``-Xptxas -v``) are kept beside it as ``build.log``."""
     global build_seconds
     so = lib_path()
     if so.exists():
         return so
     so.parent.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    # compile to a private name, then rename: a concurrent build never sees
-    # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (so.parent / "build.log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, so)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=so.parent) as tmpdir:
+        srcs = [s for s in _sources() if s.suffix == ".cu"]
+        objs = [os.path.join(tmpdir, s.stem + ".o") for s in srcs]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, str(s)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(srcs, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        # link to a private name, then rename: a concurrent build never sees
+        # a half-written library
+        tmp = os.path.join(tmpdir, LIB_NAME)
+        res = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                             capture_output=True, text=True) \
+            if all(p.returncode == 0 for p in procs) else None
+        log = "".join(f"== {s.name}\n{lg}" for s, lg in zip(srcs, logs))
+        if res is not None:
+            log += f"== link\n{res.stdout}{res.stderr}"
+        (so.parent / "build.log").write_text(log)
+        if res is None or res.returncode != 0:
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        os.replace(tmp, so)
     build_seconds = time.perf_counter() - t0
     return so
 
@@ -84,7 +96,11 @@ def load():
         lib = ctypes.CDLL(str(build()))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn = lib.vitcam_masked_attention_fused
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, f, f, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, f, f, i, i, i, i,
+                       p]
+        fn.restype = i
+        fn = lib.vitcam_linear_int8
+        fn.argtypes = [p, i, p, i, i, i, p, p, p, i, i, p, i, i, p, i, p]
         fn.restype = i
         lib.vitcam_masked_attention_smem_bytes.argtypes = [i, i]
         lib.vitcam_masked_attention_smem_bytes.restype = ctypes.c_size_t

@@ -1,9 +1,8 @@
 // Fused masked multi-head attention with the CAM statistics, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel vision_transformer_cam_tpu/kernels/attention.py:
-// _attn_kernel_fused (float branches; masked_attention_fused's int8_io and
-// int8_out options are not ported here).  Per image and head, on the packed
-// qkv [B, N, 3C] (heads contiguous inside q|k|v):
+// _attn_kernel_fused, with its int8_io and int8_out options.  Per image and
+// head, on the packed qkv [B, N, 3C] (heads contiguous inside q|k|v):
 //
 //   S   = Q K^T * scale + (1 - bg_q) * (mask_value * bg_k)   (rank-1 mask)
 //   S   = min(S, 80)  (serving clamp)   or   S - rowmax(S)
@@ -11,6 +10,18 @@
 //   cls = mean_h P[0, :]                                      -> cls [B, N]
 //   hm  = mean_h P            (with_headmean)                 -> hm [B, N, N]
 //   J'  = (hm @ J + J) / 2    (rollout, f32, separate buffer) -> newj [B, N, N]
+//
+// int8_io (int8 qkv, the requantized qkv-GEMM output): q and k are staged as
+// integer-valued floats; with dh = 64 and |q|, |k| <= 127 every partial sum
+// of q.k is an integer below 64 * 127^2 < 2^24, so the f32 FMA loop gives
+// the exact int32 dot, and S = dot * ((sq * sk) * scale).  V is staged as
+// (v * sv) rounded to bf16, and P is rounded to bf16 before P V, as the TPU
+// kernel casts both.  int8_out (float qkv) and int8_io store the output as
+// int8 rint(O * inv_out) clipped to +-127 (round half to even, as
+// jnp.round).  The scales live in a small device vector, [3H + 1] per head
+// (sq_0.., sk_0.., sv_0.., inv_out), [4] per tensor, or [1] (inv_out), and
+// are indexed per head at run time.  cls and the head mean are float32 or
+// bf16 (flags), whatever qkv's type.
 //
 // What bounds it on this card.  At ViT-B/16 (N=197, C=768, H=12) and batch
 // 256 one call reads the [B,N,3C] qkv (232 MB in bf16), writes the [B,N,C]
@@ -37,8 +48,10 @@
 //
 // Numerics follow the TPU kernel: S, the softmax, the head mean, the cls row
 // and the rollout product are f32; P (or the unnormalized exponentials when no
-// head mean is needed) is rounded to the element type before P V, as the TPU
-// kernel casts it for its matmul.
+// head mean is needed) is rounded to V's element type (bf16 under int8_io)
+// before P V, as the TPU kernel casts it for its matmul.  S's scale and mask
+// terms are explicitly rounded (__fmul_rn / __fadd_rn), so no FMA contraction
+// moves them away from the plain version.
 //
 // Built by kernels/_build.py with nvcc into a shared library with a plain C
 // interface (no PyTorch headers) and called through ctypes.
@@ -48,6 +61,7 @@
 
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
@@ -58,9 +72,18 @@ constexpr int kDH = 64;              // head dim
 constexpr int kKVStride = kDH + 4;   // float4-aligned, bank-conflict-free rows
 
 enum Mode { kPlain = 0, kHeadmean = 1, kRollout = 2 };
+// flags of the C entry point
+enum Flags { kOutI8 = 1, kClsBf16 = 2, kHmBf16 = 4 };
+// scales vector kinds
+enum Scales { kNoScales = 0, kOutOnly = 1, kPerTensor = 2, kPerHead = 3 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return float(x); }
+
+// V's element type, which P is rounded to before P V: bf16 under int8_io
+template <typename T> struct PVType { using type = T; };
+template <> struct PVType<int8_t> { using type = __nv_bfloat16; };
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
@@ -71,6 +94,11 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 // the value the TPU kernel feeds its P.V matmul: cast to the element type
 template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
+}
+
+__device__ __forceinline__ void store_f(void* p, size_t i, float v, bool bf16) {
+  if (bf16) static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(v);
+  else static_cast<float*>(p)[i] = v;
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -94,24 +122,30 @@ size_t smem_bytes(int n, int mode) {
 }
 
 // Stage rows [k0, k0 + kKC) of one head's K or V (column offset col) as f32;
-// rows past n are zero.
+// rows past n are zero.  With v_scale (int8 V) each value is dequantized and
+// rounded to bf16.
 template <typename T>
 __device__ __forceinline__ void stage_chunk(float* kv_s, const T* __restrict__ qkv_b,
-                                            int k0, int n, int c3, int col) {
+                                            int k0, int n, int c3, int col,
+                                            const float* v_scale = nullptr) {
   for (int i = threadIdx.x; i < kKC * kDH; i += kThreads) {
     const int r = i / kDH, d = i % kDH;
-    kv_s[r * kKVStride + d] =
-        (k0 + r < n) ? to_f(qkv_b[size_t(k0 + r) * c3 + col + d]) : 0.f;
+    float v = (k0 + r < n) ? to_f(qkv_b[size_t(k0 + r) * c3 + col + d]) : 0.f;
+    if (v_scale != nullptr) v = round_to<__nv_bfloat16>(__fmul_rn(v, *v_scale));
+    kv_s[r * kKVStride + d] = v;
   }
 }
 
 template <typename T, int MODE, bool CLAMP>
 __global__ void __launch_bounds__(kThreads)
 masked_attention_kernel(const T* __restrict__ qkv, const float* __restrict__ bg,
-                        const float* __restrict__ joint, T* __restrict__ out,
-                        T* __restrict__ cls, void* __restrict__ hm_out,
-                        float* __restrict__ newj, int n, int heads, float scale,
-                        float mask_value, int hm_f32) {
+                        const float* __restrict__ joint, void* __restrict__ out,
+                        void* __restrict__ cls, void* __restrict__ hm_out,
+                        float* __restrict__ newj, const float* __restrict__ scales,
+                        int scales_kind, int n, int heads, float scale, float mask_value,
+                        int flags) {
+  constexpr bool kInt8In = sizeof(T) == 1;
+  using PV = typename PVType<T>::type;
   extern __shared__ __align__(16) float smem[];
   const int ns = padded(n);
   float* q_s = smem;                                  // [kQB][kDH]
@@ -129,6 +163,12 @@ masked_attention_kernel(const T* __restrict__ qkv, const float* __restrict__ bg,
   const T* qkv_b = qkv + size_t(b) * n * c3;
   const float* bg_b = bg + size_t(b) * n;
   const bool has_cls = q0 == 0;
+  const bool out_i8 = kInt8In || (flags & kOutI8);
+  const bool cls_bf16 = flags & kClsBf16, hm_bf16 = flags & kHmBf16;
+  const float inv_out = scales_kind == kPerHead     ? scales[3 * heads]
+                        : scales_kind == kPerTensor ? scales[3]
+                        : scales_kind == kOutOnly   ? scales[0]
+                                                    : 1.f;
 
   for (int k = tid; k < n; k += kThreads) km_s[k] = bg_b[k] * mask_value;
   for (int r = tid; r < kQB; r += kThreads)
@@ -138,6 +178,14 @@ masked_attention_kernel(const T* __restrict__ qkv, const float* __restrict__ bg,
     for (int i = tid; i < kQB * ns; i += kThreads) hm_s[i] = 0.f;
 
   for (int h = 0; h < heads; ++h) {
+    // int8 qkv: S's scale (sq * sk) * scale and V's dequantization scale
+    float s_scale = scale;
+    const float* v_scale = nullptr;
+    if (kInt8In) {
+      const bool ph = scales_kind == kPerHead;
+      s_scale = __fmul_rn(__fmul_rn(scales[ph ? h : 0], scales[ph ? heads + h : 1]), scale);
+      v_scale = scales + (ph ? 2 * heads + h : 2);
+    }
     for (int i = tid; i < kQB * kDH; i += kThreads) {
       const int r = i / kDH, d = i % kDH;
       q_s[i] = (q0 + r < n) ? to_f(qkv_b[size_t(q0 + r) * c3 + h * kDH + d]) : 0.f;
@@ -171,7 +219,7 @@ masked_attention_kernel(const T* __restrict__ qkv, const float* __restrict__ bg,
 #pragma unroll
           for (int i = 0; i < kRows; ++i) {
             const int r = rg + i * kStep;
-            float s = acc[i] * scale + fg_s[r] * km;
+            float s = __fadd_rn(__fmul_rn(acc[i], s_scale), __fmul_rn(fg_s[r], km));
             if (CLAMP) s = fminf(s, 80.f);
             s_s[r * ns + k] = s;
           }
@@ -207,7 +255,7 @@ masked_attention_kernel(const T* __restrict__ qkv, const float* __restrict__ bg,
         const float e = row[k], p = e / sum;
         if (hm_row) hm_s[r * ns + k] += p;
         if (cls_row) cls_s[k] += p;
-        row[k] = round_to<T>(MODE != kPlain ? p : e);
+        row[k] = round_to<PV>(MODE != kPlain ? p : e);
       }
       if (lane == 0) den_s[r] = sum;
     }
@@ -221,7 +269,7 @@ masked_attention_kernel(const T* __restrict__ qkv, const float* __restrict__ bg,
       for (int i = 0; i < kRows; ++i) acc[i] = 0.f;
       for (int k0 = 0; k0 < n; k0 += kKC) {
         __syncthreads();   // softmax done; previous chunk consumed
-        stage_chunk(kv_s, qkv_b, k0, n, c3, 2 * c + h * kDH);
+        stage_chunk(kv_s, qkv_b, k0, n, c3, 2 * c + h * kDH, v_scale);
         __syncthreads();
         const int kend = min(kKC, ns - k0);   // a multiple of 4
         for (int j = 0; j < kend; j += 4) {
@@ -242,7 +290,13 @@ masked_attention_kernel(const T* __restrict__ qkv, const float* __restrict__ bg,
         const int r = rg + i * kStep;
         if (q0 + r < n) {
           const float o = MODE != kPlain ? acc[i] : acc[i] / den_s[r];
-          out[(size_t(b) * n + q0 + r) * c + h * kDH + d] = from_f<T>(o);
+          const size_t oi = (size_t(b) * n + q0 + r) * c + h * kDH + d;
+          if (out_i8) {
+            const float t = rintf(__fmul_rn(o, inv_out));
+            static_cast<int8_t*>(out)[oi] = static_cast<int8_t>(fminf(fmaxf(t, -127.f), 127.f));
+          } else if constexpr (!kInt8In) {
+            static_cast<T*>(out)[oi] = from_f<T>(o);
+          }
         }
       }
     }
@@ -251,7 +305,7 @@ masked_attention_kernel(const T* __restrict__ qkv, const float* __restrict__ bg,
 
   if (has_cls)
     for (int k = tid; k < n; k += kThreads)
-      cls[size_t(b) * n + k] = from_f<T>(cls_s[k] / heads);
+      store_f(cls, size_t(b) * n + k, cls_s[k] / heads, cls_bf16);
   if constexpr (MODE != kPlain) {
     for (int i = tid; i < kQB * ns; i += kThreads) hm_s[i] = hm_s[i] / heads;
     __syncthreads();
@@ -261,9 +315,7 @@ masked_attention_kernel(const T* __restrict__ qkv, const float* __restrict__ bg,
         const int r = i / n, k = i % n;
         if (q0 + r >= n) break;
         const size_t idx = (size_t(b) * n + q0 + r) * n + k;
-        const float v = hm_s[r * ns + k];
-        if (hm_f32) static_cast<float*>(hm_out)[idx] = v;
-        else static_cast<T*>(hm_out)[idx] = from_f<T>(v);
+        store_f(hm_out, idx, hm_s[r * ns + k], hm_bf16);
       }
     } else {
       // Rollout: newj[b, q0 + r, k] = (sum_j hm[r, j] J[b, j, k] + J[b, q0 + r, k]) / 2.
@@ -294,10 +346,19 @@ masked_attention_kernel(const T* __restrict__ qkv, const float* __restrict__ bg,
   }
 }
 
+// the launch arguments every instance shares
+struct Args {
+  const void *qkv, *bg, *joint;
+  void *out, *cls, *hm, *newj;
+  const float* scales;
+  int scales_kind, batch, n, heads;
+  float scale, mask_value;
+  int flags;
+};
+
 template <typename T, int MODE, bool CLAMP>
-cudaError_t launch(const void* qkv, const void* bg, const void* joint, void* out,
-                   void* cls, void* hm, void* newj, int batch, int n, int heads,
-                   float scale, float mask_value, int hm_f32, cudaStream_t stream) {
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  const int n = a.n;
   auto kernel = masked_attention_kernel<T, MODE, CLAMP>;
   const size_t smem = smem_bytes(n, MODE);
   int dev = 0, max_smem = 0;
@@ -309,42 +370,28 @@ cudaError_t launch(const void* qkv, const void* bg, const void* joint, void* out
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              int(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + kQB - 1) / kQB, batch);
+  const dim3 grid((n + kQB - 1) / kQB, a.batch);
   masked_attention_kernel<T, MODE, CLAMP><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const float*>(bg),
-      static_cast<const float*>(joint), static_cast<T*>(out), static_cast<T*>(cls), hm,
-      static_cast<float*>(newj), n, heads, scale, mask_value, hm_f32);
+      static_cast<const T*>(a.qkv), static_cast<const float*>(a.bg),
+      static_cast<const float*>(a.joint), a.out, a.cls, a.hm, static_cast<float*>(a.newj),
+      a.scales, a.scales_kind, n, a.heads, a.scale, a.mask_value, a.flags);
   return cudaGetLastError();
 }
 
 template <typename T, int MODE>
-cudaError_t launch_clamp(int clamp, const void* qkv, const void* bg, const void* joint,
-                         void* out, void* cls, void* hm, void* newj, int batch, int n,
-                         int heads, float scale, float mask_value, int hm_f32,
-                         cudaStream_t stream) {
-  return clamp ? launch<T, MODE, true>(qkv, bg, joint, out, cls, hm, newj, batch, n,
-                                       heads, scale, mask_value, hm_f32, stream)
-               : launch<T, MODE, false>(qkv, bg, joint, out, cls, hm, newj, batch, n,
-                                        heads, scale, mask_value, hm_f32, stream);
+cudaError_t launch_clamp(int clamp, const Args& a, cudaStream_t stream) {
+  return clamp ? launch<T, MODE, true>(a, stream) : launch<T, MODE, false>(a, stream);
 }
 
 template <typename T>
-cudaError_t launch_mode(int mode, int clamp, const void* qkv, const void* bg,
-                        const void* joint, void* out, void* cls, void* hm, void* newj,
-                        int batch, int n, int heads, float scale, float mask_value,
-                        int hm_f32, cudaStream_t stream) {
+cudaError_t launch_mode(int mode, int clamp, const Args& a, cudaStream_t stream) {
   switch (mode) {
     case kPlain:
-      return launch_clamp<T, kPlain>(clamp, qkv, bg, joint, out, cls, hm, newj, batch,
-                                     n, heads, scale, mask_value, hm_f32, stream);
+      return launch_clamp<T, kPlain>(clamp, a, stream);
     case kHeadmean:
-      return launch_clamp<T, kHeadmean>(clamp, qkv, bg, joint, out, cls, hm, newj,
-                                        batch, n, heads, scale, mask_value, hm_f32,
-                                        stream);
+      return launch_clamp<T, kHeadmean>(clamp, a, stream);
     case kRollout:
-      return launch_clamp<T, kRollout>(clamp, qkv, bg, joint, out, cls, hm, newj,
-                                       batch, n, heads, scale, mask_value, hm_f32,
-                                       stream);
+      return launch_clamp<T, kRollout>(clamp, a, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -354,24 +401,37 @@ cudaError_t launch_mode(int mode, int clamp, const void* qkv, const void* bg,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (qkv, out, cls; hm too unless hm_f32).
+// dtype: 0 = float32, 1 = bfloat16, 2 = int8 (qkv; out too unless int8).
 // mode: 0 = plain, 1 = head mean (hm), 2 = rollout (joint -> newj, f32).
+// scales: device float vector of scales_kind 0 = none, 1 = [inv_out],
+// 2 = [sq, sk, sv, inv_out], 3 = [sq_*, sk_*, sv_*, inv_out] (3H + 1).
+// flags: 1 = int8 out (int8_out; implied by int8 qkv), 2 = cls bf16 (else
+// f32), 4 = hm bf16 (else f32).
 // Returns a cudaError_t; 0 means the kernel was launched.
 int vitcam_masked_attention_fused(const void* qkv, const void* bg, const void* joint,
-                                  void* out, void* cls, void* hm, void* newj, int batch,
-                                  int n, int heads, int head_dim, float scale,
-                                  float mask_value, int dtype, int mode, int clamp,
-                                  int hm_f32, void* stream) {
+                                  void* out, void* cls, void* hm, void* newj,
+                                  const void* scales, int scales_kind, int batch, int n,
+                                  int heads, int head_dim, float scale, float mask_value,
+                                  int dtype, int mode, int clamp, int flags, void* stream) {
   if (head_dim != kDH || batch < 1 || batch > 65535 || n < 1 || heads < 1)
     return cudaErrorInvalidValue;
+  const bool int8_in = dtype == 2;
+  if (scales_kind < 0 || scales_kind > 3 || (scales_kind != kNoScales) != (scales != nullptr))
+    return cudaErrorInvalidValue;
+  if (int8_in != (scales_kind == kPerTensor || scales_kind == kPerHead))
+    return cudaErrorInvalidValue;
+  if (!int8_in && ((flags & kOutI8) != 0) != (scales_kind == kOutOnly))
+    return cudaErrorInvalidValue;
+  const Args a{qkv, bg, joint, out, cls, hm, newj, static_cast<const float*>(scales),
+               scales_kind, batch, n, heads, scale, mask_value, flags};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch_mode<float>(mode, clamp, qkv, bg, joint, out, cls, hm, newj, batch,
-                                n, heads, scale, mask_value, hm_f32, s);
+      return launch_mode<float>(mode, clamp, a, s);
     case 1:
-      return launch_mode<__nv_bfloat16>(mode, clamp, qkv, bg, joint, out, cls, hm, newj,
-                                        batch, n, heads, scale, mask_value, hm_f32, s);
+      return launch_mode<__nv_bfloat16>(mode, clamp, a, s);
+    case 2:
+      return launch_mode<int8_t>(mode, clamp, a, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -1,0 +1,286 @@
+"""The int8 serving GEMM and the fused LayerNorm -> int8 quantize.
+
+``linear_int8`` is the port's one int8 GEMM.  It replaces the TPU kernel
+vision_transformer_cam_tpu/kernels/gemm.py: linear_int8_fused and also the
+XLA-fused int8 GEMMs of ops/quant.py (qlinear, qlinear_requant,
+qlinear_gelu_requant), which have no compiler to fuse their epilogues here.
+On a CUDA tensor it launches the hand-written kernel in
+``csrc/int8_gemm.cu``; on a CPU tensor it runs ``linear_int8_ref``.
+
+``ln_quant`` replaces kernels/gemm.py: ln_quant (LayerNorm, then the static
+int8 quantize, in one pass).  On a CUDA tensor it launches a Triton kernel,
+compiled at its first call; on a CPU tensor it runs ``ln_quant_ref``.
+
+There is no fallback from a kernel to its plain version.  Each wrapper
+counts its CUDA launches (``linear_int8_launches``, ``ln_quant_launches``).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+linear_int8_launches = 0
+ln_quant_launches = 0
+
+ROUTES = ("fused", "qlinear")
+EPILOGUES = ("float", "requant", "gelu")
+_X_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _gelu_f32(y, approximate):
+    """jax.nn.gelu's formulas, op for op, in float32."""
+    if approximate:
+        c = torch.tensor(math.sqrt(2.0 / math.pi), dtype=torch.float32)
+        cdf = 0.5 * (1.0 + torch.tanh(c * (y + 0.044715 * (y * y * y))))
+        return y * cdf
+    sqrt_half = torch.tensor(math.sqrt(0.5), dtype=torch.float32)
+    return 0.5 * y * torch.special.erfc(-y * sqrt_half)
+
+
+def _quantize(x, a, route):
+    """int8 x as given; float x as clip(round(x * inv_a)) on the fused route
+    (kernels/gemm.py: _quantize_tile) or clip(round(x / act_scale)) on the
+    qlinear route (ops/quant.py: qlinear)."""
+    if x.dtype == torch.int8:
+        return x
+    x32 = x.to(torch.float32)
+    t = x32 * a if route == "fused" else x32 / a
+    return torch.clamp(torch.round(t), -127, 127).to(torch.int8)
+
+
+def _check_linear(x, weight_q, col_scale, bias, a_scale, route, epilogue,
+                  out_scales, groups):
+    if route not in ROUTES:
+        raise ValueError(f"route {route!r}: expected one of {ROUTES}")
+    if epilogue not in EPILOGUES:
+        raise ValueError(f"epilogue {epilogue!r}: expected one of {EPILOGUES}")
+    if weight_q.dtype != torch.int8 or weight_q.dim() != 2:
+        raise TypeError(f"weight_q must be int8 [N, K], got {weight_q.dtype} "
+                        f"{tuple(weight_q.shape)}")
+    n, k = weight_q.shape
+    if x.shape[-1] != k:
+        raise ValueError(f"x [..., {x.shape[-1]}] does not match weight_q "
+                         f"[{n}, {k}]")
+    if tuple(col_scale.shape) != (n,):
+        raise ValueError(f"col_scale must be [{n}], got "
+                         f"{tuple(col_scale.shape)}")
+    if bias is not None and tuple(bias.shape) != (n,):
+        raise ValueError(f"bias must be [{n}], got {tuple(bias.shape)}")
+    if a_scale is None or a_scale.numel() != 1:
+        raise ValueError("a_scale must be a one-element tensor")
+    if route == "fused" and x.dtype == torch.int8:
+        raise TypeError("the fused route quantizes a float x; an int8 x "
+                        "takes the qlinear route")
+    if epilogue == "requant":
+        if out_scales is None or out_scales.numel() != groups or \
+                groups < 1 or n % groups:
+            raise ValueError(f"requant needs {groups} out_scales dividing "
+                             f"N={n} into equal groups")
+    elif epilogue == "gelu":
+        if out_scales is None or out_scales.numel() != 1:
+            raise ValueError("the gelu epilogue needs one out_scale")
+
+
+def linear_int8_ref(x, weight_q, col_scale, bias, a_scale, *, route,
+                    epilogue="float", out_scales=None, groups=1,
+                    gelu_approx=True, out_dtype=torch.float32):
+    """Plain PyTorch version of the int8 GEMM.
+
+    x [..., K] float or int8; weight_q int8 [N, K]; col_scale float32 [N];
+    bias float32 [N] or None; a_scale a one-element float32 tensor.
+      route "fused":   xq = q(x * a_scale)  (a_scale = 1 / act_scale),
+                       y = acc * col_scale + bias  (col_scale combined)
+      route "qlinear": xq = x if int8 else q(x / a_scale),
+                       y = (acc * a_scale) * col_scale + bias  (col_scale
+                       the per-channel weight scale)
+      epilogue "float":   y in ``out_dtype``
+      epilogue "requant": int8 round(y / s_col), s_col the ``groups``
+                          ``out_scales`` repeated over equal column groups
+      epilogue "gelu":    int8 round(gelu(y) / out_scales[0])
+    The int8 dot is exact: the operands are cast to float64, where every
+    partial sum (<= 127^2 K < 2^53) is an integer, then rounded to float32
+    as the int32 accumulator's conversion rounds it.
+    """
+    _check_linear(x, weight_q, col_scale, bias, a_scale, route, epilogue,
+                  out_scales, groups)
+    n, k = weight_q.shape
+    lead = x.shape[:-1]
+    a = a_scale.reshape(()).to(torch.float32)
+    xq = _quantize(x.reshape(-1, k), a, route)
+    acc = torch.matmul(xq.to(torch.float64),
+                       weight_q.to(torch.float64).t()).to(torch.float32)
+    cs = col_scale.to(torch.float32)
+    y = acc * cs if route == "fused" else (acc * a) * cs
+    if bias is not None:
+        y = y + bias.to(torch.float32)
+    if epilogue == "float":
+        return y.to(out_dtype).reshape(*lead, n)
+    if epilogue == "requant":
+        s = out_scales.to(torch.float32).reshape(-1).repeat_interleave(
+            n // groups)
+    else:
+        y = _gelu_f32(y, gelu_approx)
+        s = out_scales.to(torch.float32).reshape(())
+    q = torch.clamp(torch.round(y / s), -127, 127).to(torch.int8)
+    return q.reshape(*lead, n)
+
+
+def linear_int8(x, weight_q, col_scale, bias, a_scale, *, route,
+                epilogue="float", out_scales=None, groups=1,
+                gelu_approx=True, out_dtype=torch.float32):
+    """Same contract as ``linear_int8_ref``.  CPU tensors run the plain
+    version; CUDA tensors launch the kernel (x float32, bfloat16 or int8;
+    float outputs float32 or bfloat16) or raise."""
+    global linear_int8_launches
+    if x.device.type == "cpu":
+        return linear_int8_ref(
+            x, weight_q, col_scale, bias, a_scale, route=route,
+            epilogue=epilogue, out_scales=out_scales, groups=groups,
+            gelu_approx=gelu_approx, out_dtype=out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"linear_int8: no kernel for device {x.device}")
+    _check_linear(x, weight_q, col_scale, bias, a_scale, route, epilogue,
+                  out_scales, groups)
+    vecs = [t for t in (col_scale, bias, a_scale, out_scales)
+            if t is not None]
+    if any(t.device != x.device for t in [weight_q] + vecs):
+        raise ValueError("linear_int8: all operands must be on x's device")
+    if any(t.dtype != torch.float32 for t in vecs):
+        raise TypeError("col_scale, bias, a_scale and out_scales must be "
+                        "float32")
+    if x.dtype not in _X_CODES:
+        raise TypeError(f"linear_int8 takes float32, bfloat16 or int8 x, got "
+                        f"{x.dtype}")
+    if epilogue == "float" and out_dtype not in _OUT_CODES:
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got "
+                        f"{out_dtype}")
+    if not (x.is_contiguous() and weight_q.is_contiguous()):
+        raise ValueError("x and weight_q must be contiguous")
+    n, k = weight_q.shape
+    lead = x.shape[:-1]
+    m = x.numel() // k
+    if m == 0:
+        raise ValueError("linear_int8: empty x")
+    out_dt = out_dtype if epilogue == "float" else torch.int8
+    out = torch.empty((m, n), dtype=out_dt, device=x.device)
+
+    from vision_transformer_cam_tpu_torch.kernels import _build
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.vitcam_linear_int8(
+            x.data_ptr(), _X_CODES[x.dtype], weight_q.data_ptr(), m, n, k,
+            a_scale.data_ptr(), col_scale.data_ptr(),
+            None if bias is None else bias.data_ptr(),
+            ROUTES.index(route), EPILOGUES.index(epilogue),
+            None if out_scales is None else out_scales.data_ptr(), groups,
+            int(gelu_approx), out.data_ptr(),
+            _OUT_CODES.get(out_dt, 2), stream)
+    if err:
+        raise RuntimeError(
+            f"linear_int8 kernel launch failed: cudaError {err} "
+            f"({lib.vitcam_cuda_error_string(err).decode()})")
+    linear_int8_launches += 1
+    return out.reshape(*lead, n)
+
+
+# ---------------------------------------------------------------------------
+# LayerNorm -> int8 quantize
+# ---------------------------------------------------------------------------
+
+def _check_ln(x, weight, bias):
+    c = x.shape[-1]
+    if tuple(weight.shape) != (c,) or tuple(bias.shape) != (c,):
+        raise ValueError(f"LayerNorm weight and bias must be [{c}], got "
+                         f"{tuple(weight.shape)} and {tuple(bias.shape)}")
+
+
+def ln_quant_ref(x, weight, bias, *, eps: float, inv_a):
+    """Plain PyTorch version: int8 = clip(round(layer_norm(x) * inv_a)),
+    the LayerNorm with float32 two-pass statistics as the TPU kernel
+    (mean, then the mean of squared deviations; rsqrt(var + eps); affine).
+    x: [..., C] float; weight, bias: [C]; inv_a: 1 / act_scale of the
+    consuming GEMM (a one-element float32 tensor)."""
+    _check_ln(x, weight, bias)
+    x32 = x.to(torch.float32)
+    mean = x32.mean(dim=-1, keepdim=True)
+    d = x32 - mean
+    var = (d * d).mean(dim=-1, keepdim=True)
+    y = d * torch.rsqrt(var + eps)
+    y = y * weight.to(torch.float32) + bias.to(torch.float32)
+    t = y * inv_a.reshape(()).to(torch.float32)
+    return torch.clamp(torch.round(t), -127, 127).to(torch.int8)
+
+
+_ln_quant_kernel = None
+
+
+def _triton_ln_quant():
+    """The Triton kernel, defined and compiled at first use (this module is
+    imported where Triton is absent)."""
+    global _ln_quant_kernel
+    if _ln_quant_kernel is None:
+        import triton
+        import triton.language as tl
+        from triton.language.extra import libdevice
+
+        @triton.jit
+        def ln_quant_kernel(x_ptr, w_ptr, b_ptr, inv_ptr, out_ptr, c, eps,
+                            BLOCK: tl.constexpr):
+            # one program per row: the row (C <= BLOCK) is read once, the
+            # statistics are two float32 passes over registers
+            row = tl.program_id(0).to(tl.int64)
+            cols = tl.arange(0, BLOCK)
+            mask = cols < c
+            x = tl.load(x_ptr + row * c + cols, mask=mask,
+                        other=0.0).to(tl.float32)
+            mean = tl.div_rn(tl.sum(x, axis=0), c.to(tl.float32))
+            d = tl.where(mask, x - mean, 0.0)
+            var = tl.div_rn(tl.sum(d * d, axis=0), c.to(tl.float32))
+            rstd = tl.div_rn(1.0, tl.sqrt_rn(var + eps))
+            w = tl.load(w_ptr + cols, mask=mask, other=0.0).to(tl.float32)
+            b = tl.load(b_ptr + cols, mask=mask, other=0.0).to(tl.float32)
+            y = d * rstd * w + b
+            t = y * tl.load(inv_ptr)
+            q = tl.minimum(tl.maximum(libdevice.rint(t), -127.0), 127.0)
+            tl.store(out_ptr + row * c + cols, q.to(tl.int8), mask=mask)
+
+        _ln_quant_kernel = ln_quant_kernel
+    return _ln_quant_kernel
+
+
+def ln_quant(x, weight, bias, *, eps: float, inv_a):
+    """Same contract as ``ln_quant_ref``.  CPU tensors run the plain
+    version; CUDA tensors launch the Triton kernel (x float32 or bfloat16,
+    contiguous, C <= 8192) or raise."""
+    global ln_quant_launches
+    if x.device.type == "cpu":
+        return ln_quant_ref(x, weight, bias, eps=eps, inv_a=inv_a)
+    if x.device.type != "cuda":
+        raise ValueError(f"ln_quant: no kernel for device {x.device}")
+    _check_ln(x, weight, bias)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"ln_quant takes float32 or bfloat16 x, got {x.dtype}")
+    if inv_a.numel() != 1 or inv_a.dtype != torch.float32:
+        raise TypeError("inv_a must be a one-element float32 tensor")
+    if any(t.device != x.device for t in (weight, bias, inv_a)):
+        raise ValueError("ln_quant: all operands must be on x's device")
+    if not (x.is_contiguous() and weight.is_contiguous()
+            and bias.is_contiguous()):
+        raise ValueError("x, weight and bias must be contiguous")
+    c = x.shape[-1]
+    block = max(16, 1 << (c - 1).bit_length())
+    if block > 8192:
+        raise ValueError(f"ln_quant: rows of C={c} exceed the kernel's 8192")
+    rows = x.numel() // c
+    out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    if rows:
+        kernel = _triton_ln_quant()
+        with torch.cuda.device(x.device):
+            kernel[(rows,)](x, weight, bias, inv_a, out, c, float(eps),
+                            BLOCK=block, num_warps=4 if block <= 2048 else 8)
+        ln_quant_launches += 1
+    return out

@@ -18,6 +18,16 @@ Parameter names are the reference's state-dict keys (``blocks.{i}.attn.qkv
 The forward has no host syncs and no data-dependent shapes.  Training
 (dropout, drop-path, remat, the attention backward) comes with the training
 slice.
+
+int8 serving (``ops.quant.quantize_params`` swaps the GEMMs for ``QLinear``
+modules) follows the JAX package's routing: every int8 GEMM goes through the
+port's one int8 GEMM kernel (``kernels.gemm.linear_int8``), on the
+``int8_fused_gemm`` route or the ``qlinear`` route; on the kernel path the
+attention takes int8 qkv (``int8_attn_io``) or writes int8 output
+(``int8_attn_out``), and ``ln_quant_fusion`` replaces a LayerNorm whose
+consumers are all int8 GEMMs with the fused LayerNorm -> int8 kernel.  The
+eager path keeps the JAX XLA path's meaning: int8 GEMMs, float attention,
+the int8 attention flags ignored.
 """
 
 from __future__ import annotations
@@ -32,6 +42,12 @@ from torch import nn
 from vision_transformer_cam_tpu_torch.configs import ViTCAMConfig
 from vision_transformer_cam_tpu_torch.kernels.attention import (
     masked_attention_fused)
+from vision_transformer_cam_tpu_torch.kernels.gemm import ln_quant
+from vision_transformer_cam_tpu_torch.ops.quant import (QLinear,
+                                                        linear_int8_fused,
+                                                        qlinear,
+                                                        qlinear_gelu_requant,
+                                                        qlinear_requant)
 from vision_transformer_cam_tpu_torch.ops.rollout import (aug_cls_row,
                                                           aug_normalize)
 
@@ -72,10 +88,6 @@ class ViTCAMOutput(NamedTuple):
 _UNPORTED = {
     "attn_block_fusion": "Queue 2 item 8",
     "mlp_fusion": "Queue 2 item 6",
-    "ln_quant_fusion": "Queue 2 item 7",
-    "int8_fused_gemm": "Queue 1 item 4",
-    "int8_attn_io": "Queue 1 item 4",
-    "int8_attn_out": "Queue 1 item 4",
     "data_axis": "Queue 1 item 10",
     "seq_axis": "Queue 1 item 10",
     "attn_block_b": "Queue 2 item 1 (kernel tuning)",
@@ -114,11 +126,26 @@ def _gelu(x, approx=False):
     return F.gelu(x, approximate="tanh" if approx else "none")
 
 
-def _linear(x, lin: nn.Linear, dtype):
-    """GEMM in the activation dtype (the weights are cast, a no-op unless
-    params and activations differ)."""
+def _linear(x, lin, cfg: ViTCAMConfig):
+    """GEMM dispatch.  A float layer runs in the activation dtype (the
+    weights are cast, a no-op unless params and activations differ).  A
+    ``QLinear`` runs the int8 GEMM: with ``cfg.int8_fused_gemm``, a static
+    act_scale and a float x on the fused route (x * inv_a, acc * cs), else
+    on the qlinear route (x / act_scale or int8 x, (acc * sx) * ws)."""
+    if isinstance(lin, QLinear):
+        if cfg.int8_fused_gemm and lin.act_scale is not None \
+                and x.dtype != torch.int8:
+            return linear_int8_fused(x, lin, out_dtype=cfg.dtype)
+        return qlinear(x, lin, out_dtype=cfg.dtype)
+    dtype = cfg.dtype
     bias = None if lin.bias is None else lin.bias.to(dtype)
     return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
+
+
+def _is_static(lin, *extra) -> bool:
+    """An int8 layer with a static act_scale (and the named buffers)."""
+    return isinstance(lin, QLinear) and lin.act_scale is not None and all(
+        getattr(lin, name) is not None for name in extra)
 
 
 def _attention_eager(ap, x, bg, cfg: ViTCAMConfig, need_probs, joint=None,
@@ -129,7 +156,7 @@ def _attention_eager(ap, x, bg, cfg: ViTCAMConfig, need_probs, joint=None,
     ``joint`` is not consumed here: the caller updates the rollout."""
     b, n, c = x.shape
     h, dh = cfg.num_heads, cfg.head_dim
-    qkv = _linear(x, ap.qkv, cfg.dtype)
+    qkv = _linear(x, ap.qkv, cfg)
     q, k, v = qkv.reshape(b, n, 3, h, dh).permute(2, 0, 3, 1, 4)
     attn = torch.matmul(q, k.transpose(-1, -2)) * cfg.scale
     pair = torch.clamp_max(bg[:, :, None] + bg[:, None, :], 1.0)
@@ -140,7 +167,7 @@ def _attention_eager(ap, x, bg, cfg: ViTCAMConfig, need_probs, joint=None,
     cls_row = probs[:, :, 0, :].mean(dim=1)
     hm = probs.mean(dim=1) if need_probs else None
     out = torch.matmul(probs, v).transpose(1, 2).reshape(b, n, c)
-    out = _linear(out, ap.proj, cfg.dtype)
+    out = _linear(out, ap.proj, cfg)
     ph = probs if need_probs == "perhead" else None
     if hm is not None and hm_dtype is not None:
         hm = hm.to(hm_dtype)
@@ -153,22 +180,45 @@ def attention_kernel(ap, x, bg, cfg: ViTCAMConfig, need_probs, joint=None,
     attention kernel: with ``joint`` it returns the updated rollout joint as
     the fifth value (rollout variant); need_probs "headmean" emits the
     head-mean matrix; otherwise the plain variant.  The per-head
-    probabilities only the eager path produces."""
+    probabilities only the eager path produces.
+
+    int8 routing, as the JAX attention_pallas: with ``cfg.int8_attn_io`` and
+    a static int8 qkv carrying per-head [3, H] out_scales, the qkv GEMM
+    requantizes its output per head, the kernel
+    takes int8 qkv and writes int8 output at the proj layer's act_scale;
+    with ``cfg.int8_attn_out`` and a static int8 proj, float qkv and int8
+    output.  ``x`` may be int8 (from ``ln_quant``)."""
     if need_probs == "perhead":
         return _attention_eager(ap, x, bg, cfg, need_probs, joint=joint,
                                 hm_dtype=hm_dtype)
-    qkv = _linear(x, ap.qkv, cfg.dtype)
+    scales = None
+    if cfg.int8_attn_io and _is_static(ap.qkv, "out_scales") \
+            and _is_static(ap.proj):
+        osc = ap.qkv.out_scales
+        if tuple(osc.shape) != (3, cfg.num_heads):
+            raise ValueError(f"qkv out_scales must be per head [3, "
+                             f"{cfg.num_heads}], got {tuple(osc.shape)}")
+        flat = osc.reshape(-1)
+        qkv = qlinear_requant(x, ap.qkv, flat, groups=3 * cfg.num_heads)
+        scales = torch.cat([flat, ap.proj.inv_act.reshape(1)])
+    else:
+        qkv = _linear(x, ap.qkv, cfg)
+        if cfg.int8_attn_out and _is_static(ap.proj):
+            scales = ap.proj.inv_act.reshape(1)
     kw = dict(num_heads=cfg.num_heads, scale=cfg.scale,
-              mask_value=cfg.mask_value, clamp_softmax=cfg.softmax_clamp)
+              mask_value=cfg.mask_value, clamp_softmax=cfg.softmax_clamp,
+              float_dtype=cfg.dtype)
     hm = newj = None
     if joint is not None:
-        out, cls_row, newj = masked_attention_fused(qkv, bg, joint, **kw)
+        out, cls_row, newj = masked_attention_fused(qkv, bg, joint, scales,
+                                                    **kw)
     elif need_probs == "headmean":
         out, cls_row, hm = masked_attention_fused(
-            qkv, bg, with_headmean=True, hm_dtype=hm_dtype, **kw)
+            qkv, bg, None, scales, with_headmean=True, hm_dtype=hm_dtype,
+            **kw)
     else:
-        out, cls_row = masked_attention_fused(qkv, bg, **kw)
-    out = _linear(out, ap.proj, cfg.dtype)
+        out, cls_row = masked_attention_fused(qkv, bg, None, scales, **kw)
+    out = _linear(out, ap.proj, cfg)
     return out, cls_row.to(cfg.dtype), hm, None, newj
 
 
@@ -218,7 +268,8 @@ class Block(nn.Module):
 class PatchEmbed(nn.Module):
     """The reference's p x p / stride p conv, kept in its [D, C, p, p] layout
     and applied as a reshape plus one GEMM on NHWC images (no cuDNN, so no
-    TF32 convolution)."""
+    TF32 convolution).  ``ops.quant.quantize_params`` replaces ``proj`` with
+    a ``QLinear`` of the [D, p*p*C] GEMM weight."""
 
     def __init__(self, cfg: ViTCAMConfig, **fk):
         super().__init__()
@@ -228,8 +279,14 @@ class PatchEmbed(nn.Module):
             "weight": nn.Parameter(torch.empty((d, c, p, p), **fk)),
             "bias": nn.Parameter(torch.empty((d,), **fk))})
 
-    def forward(self, x, dtype):
-        """x: [B, H, W, C] -> [B, num_patches, D] in ``dtype``."""
+    def weight2d(self):
+        """The conv weight as the [D, p*p*C] GEMM weight (K in the NHWC
+        patch order p, p, C)."""
+        weight = self.proj["weight"]
+        return weight.permute(0, 2, 3, 1).reshape(weight.shape[0], -1)
+
+    def forward(self, x, cfg: ViTCAMConfig):
+        """x: [B, H, W, C] -> [B, num_patches, D] in ``cfg.dtype``."""
         b, h, w, c = x.shape
         p = self.patch_size
         if h != self.img_size or w != self.img_size:
@@ -239,9 +296,10 @@ class PatchEmbed(nn.Module):
         g = h // p
         x = x.reshape(b, g, p, g, p, c).permute(0, 1, 3, 2, 4, 5)
         x = x.reshape(b, g * g, p * p * c)
-        weight = self.proj["weight"]
-        weight = weight.permute(0, 2, 3, 1).reshape(weight.shape[0], p * p * c)
-        return F.linear(x.to(dtype), weight.to(dtype),
+        if isinstance(self.proj, QLinear):
+            return _linear(x.to(cfg.dtype).contiguous(), self.proj, cfg)
+        dtype = cfg.dtype
+        return F.linear(x.to(dtype), self.weight2d().to(dtype),
                         self.proj["bias"].to(dtype))
 
 
@@ -328,12 +386,13 @@ class ViTCAM(nn.Module):
         for t in (self.head1.weight, self.head1.bias):
             fill(t, lambda a: a.uniform_(-bound, bound, generator=generator))
 
-    def embed_tokens(self, x):
+    def embed_tokens(self, x, cfg: Optional[ViTCAMConfig] = None):
         """Patch embed, prefix tokens (cls, + dist when distilled), position
-        embedding.  x: [B, H, W, C] -> tokens [B, N, D]."""
-        cfg = self.cfg
+        embedding, under ``cfg`` (default ``self.cfg``).  x: [B, H, W, C] ->
+        tokens [B, N, D]."""
+        cfg = cfg or self.cfg
         b = x.shape[0]
-        tokens = self.patch_embed(x, cfg.dtype)
+        tokens = self.patch_embed(x, cfg)
         prefix = [self.cls_token]
         if cfg.distilled:
             prefix.append(self.dist_token)
@@ -367,20 +426,45 @@ class ViTCAM(nn.Module):
         fuse_rollout = carry_rollout and not (need_headmean or need_perhead)
         joint = torch.eye(n, dtype=rollout_dtype, device=dev).expand(
             b, n, n).contiguous() if carry_rollout else None
+        # fused LN -> int8 (serving): only where every consumer of the LN
+        # output is an int8 GEMM with a static act_scale
+        kernel_io = cfg.attn_impl == "kernel" and cfg.int8_attn_io
+
+        def ln_q_attn(blk):
+            return (cfg.ln_quant_fusion and kernel_io
+                    and _is_static(blk.attn.qkv, "out_scales")
+                    and _is_static(blk.attn.proj))
+
+        def ln_q_mlp(blk):
+            return (cfg.ln_quant_fusion and not cfg.mlp_fusion
+                    and _is_static(blk.mlp.fc1) and _is_static(blk.mlp.fc2))
 
         cls_rows, hms, phs, blocks_out = [], [], [], []
         for i, blk in enumerate(self.blocks):
-            xn = _layer_norm(tokens, blk.norm1.weight, blk.norm1.bias,
-                             cfg.ln_eps)
+            xn = ln_quant(tokens, blk.norm1.weight, blk.norm1.bias,
+                          eps=cfg.ln_eps, inv_a=blk.attn.qkv.inv_act) \
+                if ln_q_attn(blk) else \
+                _layer_norm(tokens, blk.norm1.weight, blk.norm1.bias,
+                            cfg.ln_eps)
             o, cls_row, hm, ph, newj = attn_fn(
                 blk.attn, xn, bg, cfg, need_probs,
                 joint=joint if fuse_rollout else None,
                 hm_dtype=rollout_dtype if rollout_post else None)
             tokens = tokens + o
-            yn = _layer_norm(tokens, blk.norm2.weight, blk.norm2.bias,
-                             cfg.ln_eps)
-            hmid = _gelu(_linear(yn, blk.mlp.fc1, cfg.dtype), cfg.gelu_approx)
-            tokens = tokens + _linear(hmid, blk.mlp.fc2, cfg.dtype)
+            f1, f2 = blk.mlp.fc1, blk.mlp.fc2
+            yn = ln_quant(tokens, blk.norm2.weight, blk.norm2.bias,
+                          eps=cfg.ln_eps, inv_a=f1.inv_act) \
+                if ln_q_mlp(blk) else \
+                _layer_norm(tokens, blk.norm2.weight, blk.norm2.bias,
+                            cfg.ln_eps)
+            if _is_static(f1) and _is_static(f2):
+                # int8 serving: fc1's epilogue emits GELU(fc1) requantized
+                # to fc2's act_scale, so fc2 reads int8
+                hmid = qlinear_gelu_requant(yn, f1, f2.act_scale,
+                                            gelu_approx=cfg.gelu_approx)
+            else:
+                hmid = _gelu(_linear(yn, f1, cfg), cfg.gelu_approx)
+            tokens = tokens + _linear(hmid, f2, cfg)
             # this block's attention sets the mask of the next block
             if i >= cfg.mask_from:
                 _, bg = _mask_from_cls_row(cls_row, cfg)
@@ -420,16 +504,15 @@ class ViTCAM(nn.Module):
         top_embeds = torch.gather(
             patch_tokens, 1,
             top_idx[:, :, None].expand(-1, -1, cfg.embed_dim))
-        head1_logits = _linear(top_embeds.mean(dim=1), self.head1, cfg.dtype)
+        head1_logits = _linear(top_embeds.mean(dim=1), self.head1, cfg)
 
         xf = _layer_norm(tokens, self.norm.weight, self.norm.bias, cfg.ln_eps)
         cls_feat = xf[:, 0]
         if cfg.has_logits:
-            cls_feat = torch.tanh(_linear(cls_feat, self.pre_logits.fc,
-                                          cfg.dtype))
-        logits = _linear(cls_feat, self.head, cfg.dtype)
+            cls_feat = torch.tanh(_linear(cls_feat, self.pre_logits.fc, cfg))
+        logits = _linear(cls_feat, self.head, cfg)
         if cfg.distilled:
-            dist_logits = _linear(xf[:, 1], self.head_dist, cfg.dtype)
+            dist_logits = _linear(xf[:, 1], self.head_dist, cfg)
             logits = (logits + dist_logits) / 2.0
         collect = need_headmean or need_perhead
         return ViTCAMOutput(
