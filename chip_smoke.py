@@ -25,8 +25,35 @@ Phases (any failure raises, and the exit code is non-zero):
      five seeded batches of 4 and 8 images; int8 CAMs against the bf16 ones
      are recorded; bf16, bf16 eager, int8 and int8_hifi are timed at batch
      256, in turns.
-It prints one JSON line describing the kernels, the card line, and as its
-last line {"ok": true, "device": {...}}.  It imports nothing of JAX.
+  5. the backward attention kernel against its plain version (bf16 and
+     float32, clamp off and on, 30 % background and none; at float32 also
+     against torch.autograd through the plain forward): both of its designs
+     (one block per head, the training path's; two kernels) at B=8 N=197 and
+     a ragged B=3 N=37, the two-kernel design at B=2 N=577 and B=1 N=760 (its
+     limit), and both at the training path's B=64 N=197 in bf16; then its time
+     there beside its plain version, the two-kernel design and the backward of
+     F.scaled_dot_product_attention with the same mask (the library call:
+     timed only, never on a path), and the two-kernel design at B=16 N=577;
+  6. the training path: ViT-B/16 at full depth, float32 masters with bf16
+     compute, attn_impl="kernel", remat on, batch 64, seeded weights and
+     batches, through make_optimizer, create_train_state and
+     train_one_epoch over an in-memory loader of 5 batches, then 5
+     train_step calls on one fixed batch (the losses must be finite and
+     fall), one train_step_accum with 2 microbatches and evaluate on 2
+     batches.  The launch counts are set to 0 before and read after each
+     part: per step and layer the forward kernel twice (forward and remat
+     recompute) and the backward kernel once.  Every parameter must have
+     moved; in a second run with freeze_backbone only the heads may; the step
+     count and the learning rate must follow the schedule;
+  7. one float32 training step at batch 8 on the kernel path against the
+     eager path from the same weights (loss and every gradient), and the
+     training throughput of both paths at batch 64, in turns (two readings
+     of 20 steps each per path, with their spread).
+Nothing of the earlier serving phases was reduced.  It prints one JSON line
+describing the kernels (with each one's bound from the shapes it was timed
+at, and the library call's time where one PyTorch call computes the same
+function), the card line, and as its last line {"ok": true, "device":
+{...}}.  It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -48,13 +75,24 @@ KERNELS = {   # name: (route, source, TPU kernel replaced)
     "masked_attention_fused": (
         "cuda", CSRC + "masked_attention.cu",
         "vision_transformer_cam_tpu/kernels/attention.py:133"),
+    # the same kernel as the training path launches it: bf16, plain variant,
+    # no clamp (the forward of fused_attention_diff)
+    "masked_attention_fused[bf16 plain, training]": (
+        "cuda", CSRC + "masked_attention.cu",
+        "vision_transformer_cam_tpu/kernels/attention.py:133"),
     "linear_int8_fused": (
         "cuda", CSRC + "int8_gemm.cu",
         "vision_transformer_cam_tpu/kernels/gemm.py:232"),
     "ln_quant": (
         "triton", "vision_transformer_cam_tpu_torch/kernels/gemm.py",
         "vision_transformer_cam_tpu/kernels/gemm.py:167"),
+    "masked_attention_bwd": (
+        "cuda", CSRC + "masked_attention_bwd.cu",
+        "vision_transformer_cam_tpu/kernels/attention.py:803"),
 }
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense): device
+# memory bytes/s, and operations/s by type
+PEAK = {"bytes": 3.35e12, "int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 VARIANTS = ("plain", "headmean", "rollout")
 # kernel vs plain version on the same card inputs: |a - b| <= atol + rtol*|b|,
 # by output kind.  float32: the two sum in different orders, and the hot query
@@ -66,6 +104,16 @@ TOL = {(torch.float32, "out"): (5e-5, 1e-4),
        (torch.bfloat16, "out"): (1e-2, 2 ** -6),
        (torch.bfloat16, "prob"): (1e-5, 2 ** -6)}
 TOL_JOINT = (1e-6, 1e-4)
+# backward kernel vs its plain version, on d_qkv.  Both form P, dP and dS in
+# float32 from the same inputs and sum in another order.  float32: the hot
+# query rows make |dK| reach the hundreds, so the float32 rounding of sums of
+# that size needs the rtol.  bf16: both round Pb, dSb and d_qkv to bf16; a
+# value next to a rounding boundary may land one bf16 ulp (2^-8 relative)
+# apart, and an ulp of Pb or dSb moves a sum of up to 197 terms: rtol 2^-6
+# (2 ulps of the result) plus an atol for results that cancel to near 0.  On
+# an NVIDIA H100 80GB HBM3 the largest error beyond the rtol read 1.0e-3 over
+# every bf16 case (B=64 N=197), so the atol is 5e-3.
+TOL_BWD = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (5e-3, 2 ** -6)}
 # int8 outputs: the two round the same float value after sums in another
 # order, so a value next to a .5 boundary may round the other way: at most
 # one step, on at most 0.1 % of the elements
@@ -234,6 +282,137 @@ def check_attention():
     return errs
 
 
+def _bwd_call(fn, qkv, bg, d_out, heads, clamp):
+    return fn(qkv, bg, d_out, num_heads=heads, scale=64 ** -0.5,
+              clamp_softmax=clamp)
+
+
+def _two_kernel(qkv, bg, d_out, heads, clamp):
+    """The backward wrapper made to take its two-kernel design at any N (it
+    picks by N: the one-block design up to BWD_ONE_BLOCK_MAX_N), so that both
+    designs can be checked and timed at one shape."""
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    limit, ka.BWD_ONE_BLOCK_MAX_N = ka.BWD_ONE_BLOCK_MAX_N, 0
+    try:
+        return _bwd_call(ka.masked_attention_bwd, qkv, bg, d_out, heads,
+                         clamp)
+    finally:
+        ka.BWD_ONE_BLOCK_MAX_N = limit
+
+
+def bwd_inputs(b, n, heads, dtype, seed):
+    qkv, bg, _, _ = attention_inputs(b, n, heads, dtype, seed=100 + seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    d_out = torch.randn((b, n, heads * 64), generator=g,
+                        device="cuda").to(dtype)
+    return qkv, bg, d_out
+
+
+def check_attention_bwd():
+    """Backward kernel vs its plain version on the card, in both designs at
+    N <= 256 (one block per head, the training path's; two kernels) and in
+    the two-kernel design at N=577 (ViT/16 at 384 pixels) and at N=760, its
+    limit; at float32 without the clamp also vs torch.autograd through the
+    plain forward (an independent check of the formula).  Returns {(dtype
+    name, clamp, n, bg kind, design): worst error}."""
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    errs, failures = {}, []
+    for (b, n) in ((8, 197), (3, 37), (2, 577), (1, 760)):
+        one = ("one-block", lambda *a: _bwd_call(ka.masked_attention_bwd, *a))
+        designs = (one, ("two-kernel", _two_kernel)) \
+            if n <= ka.BWD_ONE_BLOCK_MAX_N else (("two-kernel", one[1]),)
+        for dtype in (torch.bfloat16, torch.float32):
+            qkv, bg, d_out = bwd_inputs(b, n, 12, dtype, seed=n)
+            name = str(dtype).split(".")[-1]
+            for bg_kind, bg_ in (("30% bg", bg), ("no bg",
+                                                  torch.zeros_like(bg))):
+                for clamp in (False, True):
+                    want = _bwd_call(ka.masked_attention_bwd_ref, qkv, bg_,
+                                     d_out, 12, clamp)
+                    auto = None
+                    if dtype == torch.float32 and not clamp:
+                        leaf = qkv.clone().requires_grad_(True)
+                        out, _ = ka.masked_attention_fused_ref(
+                            leaf, bg_, num_heads=12, scale=64 ** -0.5)
+                        auto, = torch.autograd.grad(out, leaf, d_out)
+                    for design, run in designs:
+                        got = run(qkv, bg_, d_out, 12, clamp)
+                        torch.cuda.synchronize()
+                        case = f"attention bwd {design:10s} {name:8s} " \
+                               f"clamp={clamp!s:5s} {bg_kind:6s} B={b} N={n}"
+                        errs[(name, clamp, n, bg_kind, design)] = _compare(
+                            case, (got,), (want,), (TOL_BWD[dtype],),
+                            failures)
+                        if auto is not None:
+                            _compare(case + " vs autograd", (got,), (auto,),
+                                     (TOL_BWD[dtype],), failures)
+    if failures:
+        raise AssertionError("attention backward kernel != plain version:\n"
+                             + "\n".join(failures))
+    return errs
+
+
+def time_attention_bwd(b=64, n=197, heads=12):
+    """At the training path's shape, bf16: the backward kernel held against
+    its plain version (both designs), then the one-block design (the path's),
+    its plain version and the backward of F.scaled_dot_product_attention with
+    the same additive mask (the library call, timed only) in turns, and the
+    two-kernel design beside them.  Then the two-kernel design at N=577,
+    B=16.  Returns (kernel, plain, library, worst error at this shape) ms."""
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    import torch.nn.functional as F
+    qkv, bg, d_out = bwd_inputs(b, n, heads, torch.bfloat16, seed=3)
+    leaf = qkv.clone().requires_grad_(True)
+    q, k, v = leaf.reshape(b, n, 3, heads, 64).permute(2, 0, 3, 1, 4)
+    bgf = bg.float()
+    mask = ((1.0 - bgf)[:, :, None] * (bgf * -100.0)[:, None, :])[:, None] \
+        .to(torch.bfloat16)
+    out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                         scale=64 ** -0.5)
+    out = out.transpose(1, 2).reshape(b, n, heads * 64)
+
+    def kern():
+        return _bwd_call(ka.masked_attention_bwd, qkv, bg, d_out, heads,
+                         False)
+
+    def two():
+        return _two_kernel(qkv, bg, d_out, heads, False)
+
+    def plain():
+        return _bwd_call(ka.masked_attention_bwd_ref, qkv, bg, d_out, heads,
+                         False)
+
+    def library():
+        return torch.autograd.grad(out, leaf, d_out, retain_graph=True)[0]
+    want, failures = plain(), []
+    err = _compare(f"attention bwd one-block bfloat16 B={b} N={n}", (kern(),),
+                   (want,), (TOL_BWD[torch.bfloat16],), failures)
+    _compare(f"attention bwd two-kernel bfloat16 B={b} N={n}", (two(),),
+             (want,), (TOL_BWD[torch.bfloat16],), failures)
+    if failures:
+        raise AssertionError("attention backward kernel != plain version:\n"
+                             + "\n".join(failures))
+    say(f"attention bwd kernel vs SDPA backward (recorded, not gated): max "
+        f"abs dev {float((kern().float() - library().float()).abs().max()):.3e}")
+    l1, s1 = time_ms(library), time_ms(two)
+    k_ms, p_ms = in_turns(kern, plain)
+    lib_ms = (l1 + time_ms(library)) / 2
+    split_ms = (s1 + time_ms(two)) / 2
+    say(f"time attention bwd bf16 B={b} N={n}: kernel (one block per head) "
+        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA backward {lib_ms:.4f} ms; "
+        f"two-kernel design {split_ms:.4f} ms")
+    del leaf, out, want
+    qkv, bg, d_out = bwd_inputs(16, 577, heads, torch.bfloat16, seed=4)
+    long_ms = in_turns(
+        lambda: _bwd_call(ka.masked_attention_bwd, qkv, bg, d_out, heads,
+                          False),
+        lambda: _bwd_call(ka.masked_attention_bwd_ref, qkv, bg, d_out, heads,
+                          False), iters=5)
+    say(f"time attention bwd bf16 B=16 N=577 (two-kernel design): kernel "
+        f"{long_ms[0]:.4f} ms, plain {long_ms[1]:.4f} ms")
+    return k_ms, p_ms, lib_ms, err
+
+
 def gemm_operands(m, k, n, seed, bias=True):
     """Activations ~N(0, 1) in bf16, int8 weights with per-channel scales,
     a static act scale (absmax / 127) and its inverse, a bias."""
@@ -397,6 +576,16 @@ def time_kernels(b=64, n=197):
             k_ms, p_ms = times[("attention", kind, variant)]
             say(f"time attention {kind:8s} {variant:8s} B={b} N={n}: kernel "
                 f"{k_ms:.4f} ms, plain {p_ms:.4f} ms")
+    # the training forward: bf16, plain variant, no clamp
+    qkv, bg, joint, _ = attention_inputs(b, n, 12, torch.bfloat16, seed=1)
+    times[("attention", "bf16 no clamp", "plain")] = in_turns(
+        lambda: _call(ka.masked_attention_fused, "plain", qkv, bg, joint, 12,
+                      False),
+        lambda: _call(ka.masked_attention_fused_ref, "plain", qkv, bg, joint,
+                      12, False))
+    k_ms, p_ms = times[("attention", "bf16 no clamp", "plain")]
+    say(f"time attention bf16 plain, no clamp (the training forward) B={b} "
+        f"N={n}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
     # the int8 GEMMs as the int8 main path calls them (ln_quant and the
     # fused route on): patch fused bf16 -> bf16, qkv int8 -> requant/36,
     # proj int8 -> bf16, fc1 int8 -> gelu, fc2 int8 -> bf16
@@ -436,6 +625,7 @@ def reset_counts():
     from vision_transformer_cam_tpu_torch.kernels import attention as ka
     from vision_transformer_cam_tpu_torch.kernels import gemm
     ka.launches = 0
+    ka.bwd_launches = 0
     gemm.linear_int8_launches = 0
     gemm.ln_quant_launches = 0
 
@@ -445,7 +635,8 @@ def read_counts():
     from vision_transformer_cam_tpu_torch.kernels import gemm
     return {"masked_attention_fused": ka.launches,
             "linear_int8_fused": gemm.linear_int8_launches,
-            "ln_quant": gemm.ln_quant_launches}
+            "ln_quant": gemm.ln_quant_launches,
+            "masked_attention_bwd": ka.bwd_launches}
 
 
 def serve(model, reqs, per_forward, label):
@@ -569,7 +760,9 @@ def main_path(batch=32, requests=3, bench_batch=256):
     totals = {}
     outs_bf16, counts = serve(model, reqs, {"masked_attention_fused":
                                             cfg.depth, "linear_int8_fused": 0,
-                                            "ln_quant": 0}, "bf16")
+                                            "ln_quant": 0,
+                                            "masked_attention_bwd": 0},
+                              "bf16")
     for k, v in counts.items():
         totals[k] = totals.get(k, 0) + v
 
@@ -599,7 +792,8 @@ def main_path(batch=32, requests=3, bench_batch=256):
         qm.cfg = qm.cfg.replace(ln_quant_fusion=True, int8_fused_gemm=True)
         per_fwd = {"masked_attention_fused": cfg.depth,
                    "linear_int8_fused": 1 + 4 * cfg.depth,
-                   "ln_quant": (2 if mode == "int8" else 1) * cfg.depth}
+                   "ln_quant": (2 if mode == "int8" else 1) * cfg.depth,
+                   "masked_attention_bwd": 0}
         outs, counts = serve(qm, reqs, per_fwd, mode)
         for k, v in counts.items():
             totals[k] = totals.get(k, 0) + v
@@ -637,6 +831,288 @@ def main_path(batch=32, requests=3, bench_batch=256):
     return totals
 
 
+def bound(name, nbytes, ops):
+    """(bound ms, "bytes" or "operations"): the least time the card could
+    take, the largest of the bytes over the memory rate and, for each type,
+    its operations ({type: count}) over the peak rate of that type (the
+    types' units may run side by side).  Prints every term."""
+    t_bytes = 1e3 * nbytes / PEAK["bytes"]
+    t_ops = {kind: 1e3 * n / PEAK[kind] for kind, n in ops.items()}
+    say(f"bound {name}: {nbytes / 1e6:.1f} MB -> {t_bytes:.4f} ms; "
+        + ", ".join(f"{n / 1e9:.2f} G{kind} operations -> {t_ops[kind]:.4f} "
+                    f"ms" for kind, n in ops.items()))
+    worst = max(t_ops.values())
+    return max(t_bytes, worst), "bytes" if t_bytes >= worst else "operations"
+
+
+def kernel_bounds(b=64, n=197, heads=12):
+    """Bounds of the kernels at the shapes ``time_kernels`` and
+    ``time_attention_bwd`` time them at (each input read once, each output
+    written once)."""
+    c, m = heads * 64, b * n
+    qk = 2 * b * heads * n * n * 64          # one of the attention products
+    bounds = {
+        # the training path's forward: bf16 qkv and bg in, bf16 out and cls row
+        "masked_attention_fused[bf16 plain, training]": bound(
+            "masked_attention_fused bf16 plain (the training forward)",
+            m * 3 * c * 2 + m * 2 + m * c * 2 + m * 2, {"bf16": 2 * qk}),
+        # int8_io rollout variant: int8 qkv, f32 bg, the scales and the f32
+        # joint in; int8 out, bf16 cls row and the f32 joint out.  QK^T on
+        # int8, PV in bf16, the rollout product hm @ J in f32
+        "masked_attention_fused": bound(
+            "masked_attention_fused int8_io rollout",
+            m * 3 * c + m * 4 + (3 * heads + 1) * 4 + 2 * b * n * n * 4
+            + m * c + m * 2,
+            {"int8": qk, "bf16": qk, "f32": 2 * b * n ** 3}),
+        # bf16 rows in, int8 rows out, the two affine vectors
+        "ln_quant": bound("ln_quant", m * c * 2 + 2 * c * 2 + m * c,
+                          {"f32": 8 * m * c}),
+        # bf16 qkv, dO and f32 bg in, bf16 d_qkv out; five products
+        "masked_attention_bwd": bound("masked_attention_bwd bf16",
+                                      7 * m * c * 2 + m * 4,
+                                      {"bf16": 5 * qk}),
+    }
+    # the five GEMMs as the int8 path calls them: x (bf16 for the patch
+    # embed, else int8), the int8 weight, float32 scale and bias vectors;
+    # out bf16, or int8 after a requant / GELU-requant epilogue
+    total, kinds = 0.0, set()
+    for shape, (k, n_out) in GEMM_SHAPES.items():
+        x_size = 2 if shape == "patch" else 1
+        out_size = 1 if shape in ("qkv", "fc1") else 2
+        t, kind = bound(f"linear_int8 {shape}",
+                        m * k * x_size + n_out * k + 3 * n_out * 4
+                        + m * n_out * out_size, {"int8": 2 * m * k * n_out})
+        total += t
+        kinds.add(kind)
+    bounds["linear_int8_fused"] = (total, kinds.pop() if len(kinds) == 1
+                                   else "operations")
+    return bounds
+
+
+class MemoryLoader:
+    """An in-memory loader of seeded batches (numpy image / label arrays),
+    standing in for ``data.loader.BatchLoader``."""
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def __len__(self):
+        return len(self.batches)
+
+    def __iter__(self):
+        return iter(self.batches)
+
+
+def seeded_batch(b, seed, size=224, classes=20):
+    """Images ~N(0, 1) and multi-hot labels (about 10 % on, at least one per
+    image) from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, size, size, 3), dtype=np.float32)
+    y = (rng.random((b, classes)) < 0.1).astype(np.float32)
+    y[np.arange(b), rng.integers(0, classes, b)] = 1.0
+    return {"image": x, "label": y}
+
+
+def train_model(impl, dtype=torch.bfloat16, remat=True):
+    """ViT-B/16 (the VOC head) with float32 masters and ``dtype`` compute,
+    weights from torch.Generator seed 0."""
+    from vision_transformer_cam_tpu_torch import configs
+    from vision_transformer_cam_tpu_torch.models.vit import ViTCAM
+    cfg = configs.vit_base_patch16_224_in21k(num_classes=20).replace(
+        representation_size=None, dtype=dtype, attn_impl=impl, remat=remat)
+    return ViTCAM(cfg, device="cuda",
+                  generator=torch.Generator().manual_seed(0))
+
+
+def _cuda(batch):
+    return (torch.from_numpy(batch["image"]).cuda(),
+            torch.from_numpy(batch["label"]).cuda())
+
+
+def _expect_counts(label, fwd, bwd):
+    counts = read_counts()
+    say(f"train path {label}: launches forward kernel "
+        f"{counts['masked_attention_fused']} (expected {fwd}), backward "
+        f"kernel {counts['masked_attention_bwd']} (expected {bwd})")
+    if (counts["masked_attention_fused"], counts["masked_attention_bwd"]) \
+            != (fwd, bwd) or counts["linear_int8_fused"] \
+            or counts["ln_quant"]:
+        raise AssertionError(f"{label}: launch counts {counts}")
+    return counts
+
+
+def train_path(batch=64):
+    """The training path at full width and depth: mixed precision (float32
+    masters, bf16 compute), attn_impl="kernel", remat on.  Returns the launch
+    counts of the whole path."""
+    import math
+    from vision_transformer_cam_tpu_torch import configs
+    from vision_transformer_cam_tpu_torch.train import loop, state as statelib
+    from vision_transformer_cam_tpu_torch.train import step as steplib
+
+    # no warm-up, so that the first steps move the loss; 5 steps per epoch
+    ocfg = configs.OptimConfig(lr=1e-4, warmup_epochs=0, epochs=10,
+                               linear_lr_scaling=False, clip_grad=1.0)
+    spe = 5
+    model = train_model("kernel")
+    depth = model.cfg.depth
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    opt, schedule = statelib.make_optimizer(model, ocfg, batch, spe)
+    state = statelib.create_train_state(model, opt)
+    loader = MemoryLoader([seeded_batch(batch, 100 + i) for i in range(spe)])
+    totals = {}
+
+    def phase(label, steps_fwd, steps_bwd):
+        for k, v in _expect_counts(label, steps_fwd * depth,
+                                   steps_bwd * depth).items():
+            totals[k] = totals.get(k, 0) + v
+        reset_counts()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    state, means = loop.train_one_epoch(state, loader, 0, 0, log_every=1)
+    torch.cuda.synchronize()
+    say(f"train path: one epoch of {spe} steps x {batch} images in "
+        f"{time.perf_counter() - t0:.2f} s (first includes warm-up); mean "
+        f"loss {means['loss']:.4f}, f1 {means['f1']:.4f}")
+    # per step with remat: the forward kernel runs in the forward and again
+    # in the recompute, the backward kernel once, per layer
+    phase("train_one_epoch", 2 * spe, spe)
+    if state.step != spe or not math.isfinite(means["loss"]):
+        raise AssertionError(f"epoch: step {state.step}, loss {means}")
+
+    x, y = _cuda(seeded_batch(batch, 7))
+    losses = []
+    for _ in range(5):
+        state, metrics = steplib.train_step(state, x, y, 0)
+        losses.append(float(metrics["loss"]))
+    say(f"train path: 5 steps on one fixed batch, losses "
+        + ", ".join(f"{v:.4f}" for v in losses))
+    phase("5 x train_step", 10, 5)
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+
+    state, metrics = steplib.train_step_accum(state, x, y, 0, accum_steps=2)
+    say(f"train path: train_step_accum (2 microbatches) loss "
+        f"{float(metrics['loss']):.4f}")
+    phase("train_step_accum", 4, 2)
+    if not math.isfinite(float(metrics["loss"])):
+        raise AssertionError("train_step_accum: loss not finite")
+
+    # step count and learning rate: 11 steps taken, 5 per epoch, so the next
+    # step is in epoch 2 of 10 on the cosine
+    want_lr = ocfg.min_lr + 0.5 * (ocfg.lr - ocfg.min_lr) * (
+        1.0 + math.cos(math.pi * 2 / 10))
+    say(f"train path: step {state.step}, optimizer count {opt.count}, lr "
+        f"{schedule(state.step):.6e} (expected {want_lr:.6e}); epoch 0 lr "
+        f"{schedule(0):.6e}")
+    if (state.step, opt.count) != (11, 11) or schedule(0) != ocfg.lr \
+            or abs(schedule(state.step) - want_lr) > 1e-12:
+        raise AssertionError("step count or learning rate off the schedule")
+
+    res = loop.evaluate(model, MemoryLoader(
+        [seeded_batch(batch, 200), seeded_batch(batch // 2, 201)]))
+    say(f"train path: evaluate {res}")
+    phase("evaluate", 2, 0)
+    if res["n_samples"] != batch + batch // 2 or not all(
+            0.0 <= res[k] <= 1.0 for k in ("mAP_196patch", "mAP_16patch")):
+        raise AssertionError(f"evaluate: {res}")
+
+    stuck = [k for k, v in model.state_dict().items()
+             if torch.equal(v, before[k])]
+    if stuck:
+        raise AssertionError(f"parameters that did not move: {stuck}")
+    del state, opt, model
+
+    # freeze_backbone: only the heads move
+    model = train_model("kernel")
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    mask = statelib.trainable_mask(model, True)
+    opt, _ = statelib.make_optimizer(model, ocfg, batch, spe,
+                                     freeze_mask=mask)
+    state = statelib.create_train_state(model, opt)
+    for _ in range(2):
+        state, metrics = steplib.train_step(state, x, y, 0)
+    phase("2 x train_step, frozen backbone", 4, 2)
+    after = model.state_dict()
+    moved = {k for k in after if not torch.equal(after[k], before[k])}
+    heads = {k for k, t in mask.items() if t}
+    say(f"train path, freeze_backbone: moved {sorted(moved)}")
+    if moved != heads or not math.isfinite(float(metrics["loss"])):
+        raise AssertionError(f"freeze: moved {sorted(moved)}, trainable "
+                             f"{sorted(heads)}")
+    return totals
+
+
+# kernel path vs eager path, one float32 step from the same state, batch 8:
+# the two sum in another order through 12 layers and their backward; the CPU
+# tests hold the same pair to atol 2e-5 on gradients at a tiny width, and the
+# full width adds the rtol
+TRAIN_TOL = {"loss": 1e-5, "grad": (2e-5, 1e-3)}
+
+
+def train_kernel_vs_eager(batch=8):
+    from vision_transformer_cam_tpu_torch.train import step as steplib
+    x, y = _cuda(seeded_batch(batch, 9))
+    got = {}
+    for impl in ("kernel", "eager"):
+        model = train_model(impl, dtype=torch.float32)
+        loss, _ = steplib.loss_fn(model, x, y, None)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        got[impl] = (float(loss.detach()), dict(zip(
+            (n for n, _ in model.named_parameters()), grads)))
+    d_loss = abs(got["kernel"][0] - got["eager"][0])
+    atol, rtol = TRAIN_TOL["grad"]
+    worst, bad = 0.0, []
+    for name, g in got["kernel"][1].items():
+        ref = got["eager"][1][name]
+        err = (g - ref).abs()
+        worst = max(worst, float(err.max()))
+        if float((err - atol - rtol * ref.abs()).max()) > 0 \
+                or not torch.isfinite(g).all():
+            bad.append(name)
+    say(f"f32 train step, kernel vs eager (B={batch}): loss "
+        f"{got['kernel'][0]:.6f} vs {got['eager'][0]:.6f} (diff {d_loss:.3e}"
+        f", tol {TRAIN_TOL['loss']}), gradients max abs err {worst:.3e} "
+        f"(atol {atol}, rtol {rtol})")
+    if d_loss > TRAIN_TOL["loss"] or bad:
+        raise AssertionError(f"kernel and eager train steps disagree: loss "
+                             f"diff {d_loss:.3e}, gradients of {bad}")
+
+
+def train_throughput(batch=64, steps=20):
+    """img/s of the training step, kernel and eager attention path, mixed
+    precision, remat on, in turns; host clock around synchronised steps."""
+    from vision_transformer_cam_tpu_torch import configs
+    from vision_transformer_cam_tpu_torch.train import state as statelib
+    from vision_transformer_cam_tpu_torch.train import step as steplib
+    x, y = _cuda(seeded_batch(batch, 11))
+    states = {}
+    for impl in ("kernel", "eager"):
+        model = train_model(impl)
+        opt, _ = statelib.make_optimizer(model, configs.OptimConfig(), batch,
+                                         100)
+        states[impl] = statelib.create_train_state(model, opt)
+
+    def rate(impl):
+        states[impl], _ = steplib.train_step(states[impl], x, y, 0)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(steps):
+            states[impl], _ = steplib.train_step(states[impl], x, y, 0)
+        torch.cuda.synchronize()
+        return batch * steps / (time.perf_counter() - t)
+    rates = {}
+    for impl in ("kernel", "eager", "eager", "kernel"):
+        rates.setdefault(impl, []).append(rate(impl))
+    for impl, r in rates.items():
+        say(f"train throughput, {impl} attention path, batch {batch}, mixed "
+            f"precision, remat, {steps} steps per reading: {np.mean(r):.1f} "
+            f"img/s ({r[0]:.1f}, {r[1]:.1f}; spread "
+            f"{100 * abs(r[0] - r[1]) / np.mean(r):.1f} %); peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB so far")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -652,23 +1128,45 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     build_kernels()
     attn_errs = check_attention()
+    check_attention_bwd()
     gemm_err = check_gemm()
     ln_err = check_ln_quant()
     times = time_kernels()
+    bwd_ms = time_attention_bwd()
     launches = main_path()
+    train_launches = train_path()
+    launches["masked_attention_fused[bf16 plain, training]"] = \
+        train_launches["masked_attention_fused"]
+    launches["masked_attention_bwd"] += train_launches["masked_attention_bwd"]
+    train_kernel_vs_eager()
+    train_throughput()
     gemm_ms = sum(times[("gemm", s)][0] for s in GEMM_SHAPES)
     gemm_plain = sum(times[("gemm", s)][1] for s in GEMM_SHAPES)
-    stats = {
+    stats = {   # name: (max abs err, kernel ms, plain ms)
         "masked_attention_fused": (
             attn_errs[("per_head", "rollout", True, 197)],
             *times[("attention", "int8_io", "rollout")]),
+        "masked_attention_fused[bf16 plain, training]": (
+            attn_errs[("bfloat16", "plain", False, 197)],
+            *times[("attention", "bf16 no clamp", "plain")]),
         "linear_int8_fused": (gemm_err, gemm_ms, gemm_plain),
         "ln_quant": (float(ln_err), *times[("ln_quant",)]),
+        # the error at the training path's shape (B=64, N=197, bf16)
+        "masked_attention_bwd": (bwd_ms[3], *bwd_ms[:2]),
     }
+    # one PyTorch call that computes the same function: only the backward has
+    # one (the backward of scaled_dot_product_attention).  The forward also
+    # returns the cls row and the rollout update, ln_quant the int8 rows of a
+    # LayerNorm, and the int8 GEMM quantizes and requantizes around the
+    # product: no single call gives those
+    library = {"masked_attention_bwd": bwd_ms[2]}
+    bounds = kernel_bounds()
     say(json.dumps({"kernels": [
         {"name": name, "route": route, "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": stats[name][0],
-         "ms": stats[name][1], "plain_ms": stats[name][2]}
+         "ms": stats[name][1], "plain_ms": stats[name][2],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         "library_ms": library.get(name)}
         for name, (route, src, rep) in KERNELS.items()]}))
     say(card)
     say(json.dumps({"ok": True, "device": {

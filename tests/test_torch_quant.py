@@ -55,7 +55,7 @@ def _pair(dtype="float32", seed=0):
     tcfg = tcfgs.ViTCAMConfig(**TINY, dtype=TDT[dtype],
                               param_dtype=TDT[dtype])
     params = jvit.init(jcfg, jax.random.key(seed))
-    model = ViTCAM(tcfg)
+    model = ViTCAM(tcfg, device="cpu")
     load_state_dict(model, state_dict_from_jax_params(
         jax.tree.map(np.asarray, params), tcfg))
     return params, jcfg, model, tcfg
@@ -118,7 +118,7 @@ def test_quantize_params_bit_identical_and_carried_across(static):
         np.testing.assert_array_equal(_np(g), _np(w), err_msg=k)
     # the carried-across tree loads into a fresh float model as QLinear
     fresh = ViTCAM(tcfg.replace(dtype=torch.bfloat16,
-                                param_dtype=torch.bfloat16))
+                                param_dtype=torch.bfloat16), device="cpu")
     load_state_dict(fresh, want)
     assert isinstance(fresh.blocks[0].attn.qkv, tquant.QLinear)
     back = fresh.state_dict()

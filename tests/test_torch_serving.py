@@ -45,7 +45,7 @@ def test_bf16_config_matches_jax():
 
 
 def test_off_mode_is_identity():
-    model = ViTCAM(tcfgs.ViTCAMConfig(**TINY))
+    model = ViTCAM(tcfgs.ViTCAMConfig(**TINY), device="cpu")
     cfg = model.cfg
     assert tserving.apply_serving_mode(model, "off") is model
     assert model.cfg is cfg and model.head.weight.dtype == torch.float32
@@ -75,7 +75,7 @@ def test_serving_config_matches_jax(mode, img_size):
 
 @pytest.mark.parametrize("mode", ["int8", "int8_hifi"])
 def test_int8_modes_need_calibration_images(mode):
-    model = ViTCAM(tcfgs.ViTCAMConfig(**TINY))
+    model = ViTCAM(tcfgs.ViTCAMConfig(**TINY), device="cpu")
     with pytest.raises(ValueError, match="calib_images"):
         tserving.apply_serving_mode(model, mode)
     assert model.cfg.dtype == torch.float32     # left as it was
@@ -107,7 +107,7 @@ def test_bf16_serving_matches_jax_bf16():
     params = jvit.init(jcfg, jax.random.key(1))
     qkv = params["blocks"]["attn"]["qkv"]
     qkv["kernel"] = qkv["kernel"] * 10.0
-    model = ViTCAM(tcfg)
+    model = ViTCAM(tcfg, device="cpu")
     load_state_dict(model, state_dict_from_jax_params(
         jax.tree.map(np.asarray, params), tcfg))
     jparams, jc = jserving.apply_serving_mode(params, jcfg, "bf16")
@@ -176,7 +176,7 @@ def _int8_pair(mode, dtype, knobs):
     # off the TPU JAX serves through XLA, which ignores the int8 attention
     # flags: force its Pallas path (interpret mode here)
     jc = jc.replace(attn_impl="pallas", **KNOBS[knobs])
-    model = ViTCAM(tc.replace(**KNOBS[knobs]))
+    model = ViTCAM(tc.replace(**KNOBS[knobs]), device="cpu")
     load_state_dict(model, state_dict_from_jax_params(_np_tree(jq), tc))
     return jq, jc, model
 
@@ -219,7 +219,8 @@ def test_int8_attention_io_needs_per_head_scales():
     out_scales, what both packages' calibration records; per-tensor [3]
     scales raise rather than take a route no producer feeds."""
     cfg = tcfgs.ViTCAMConfig(**TINY)
-    model = ViTCAM(cfg, generator=torch.Generator().manual_seed(1))
+    model = ViTCAM(cfg, device="cpu",
+                   generator=torch.Generator().manual_seed(1))
     calib = np.random.default_rng(3).standard_normal(
         (4, 32, 32, 3)).astype(np.float32)
     tserving.apply_serving_mode(model, "int8", calib_images=calib)
@@ -259,8 +260,10 @@ def test_int8_serving_distilled_model():
     int8 forward keeps the float model's accuracy class (logits cosine >
     0.99, as the JAX package's own test)."""
     cfg = tcfgs.ViTCAMConfig(**TINY, distilled=True)
-    ref = ViTCAM(cfg, generator=torch.Generator().manual_seed(1))
-    model = ViTCAM(cfg, generator=torch.Generator().manual_seed(1))
+    ref = ViTCAM(cfg, device="cpu",
+                 generator=torch.Generator().manual_seed(1))
+    model = ViTCAM(cfg, device="cpu",
+                   generator=torch.Generator().manual_seed(1))
     rng = np.random.default_rng(15)
     calib = rng.standard_normal((4, 32, 32, 3)).astype(np.float32)
     x = torch.from_numpy(rng.standard_normal((2, 32, 32, 3)).astype(

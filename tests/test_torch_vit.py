@@ -46,7 +46,7 @@ def _pair(dtype=torch.float64, seed=0, jax_impl="xla", **kw):
     qkv = params["blocks"]["attn"]["qkv"]
     qkv["kernel"] = qkv["kernel"] * QKV_GAIN
     np_params = jax.tree.map(np.asarray, params)
-    model = tvit.ViTCAM(tcfg)
+    model = tvit.ViTCAM(tcfg, device="cpu")
     load_state_dict(model, state_dict_from_jax_params(np_params, tcfg))
     return params, jcfg, model
 
@@ -206,12 +206,13 @@ def test_config_mirrors_jax_config():
                                   dict(matmul_precision="high")])
 def test_unported_knobs_raise(knob):
     with pytest.raises(NotImplementedError):
-        tvit.ViTCAM(tcfgs.ViTCAMConfig(**TINY, **knob))
+        tvit.ViTCAM(tcfgs.ViTCAMConfig(**TINY, **knob), device="cpu")
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports without pulling in jax or the JAX
-    package (the GPU machine has no jax)."""
+    """Every module of the port imports without pulling in jax, optax, orbax
+    or the JAX package (the GPU machine has none of them), and no source
+    names a module of the JAX package."""
     pkg = os.path.join(REPO, "vision_transformer_cam_tpu_torch")
     mods = []
     for root, _, files in os.walk(pkg):
@@ -222,11 +223,23 @@ def test_port_imports_no_jax():
     code = ("import importlib, sys\n"
             f"for m in {sorted(mods)!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'vision_transformer_cam_tpu')]\n"
+            "('jax', 'jaxlib', 'optax', 'orbax', "
+            "'vision_transformer_cam_tpu')]\n"
             "assert not bad, bad\n"
             "print(len(" f"{sorted(mods)!r}" "))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) == len(mods) >= 12
+    assert int(res.stdout.strip()) == len(mods) >= 28
+    for name in ("train.step", "train.loop", "train.state", "train.schedule",
+                 "train.checkpoint", "cli.train", "data.loader", "data.voc12",
+                 "data.transforms", "ops.losses", "utils.metrics"):
+        assert "vision_transformer_cam_tpu_torch." + name in mods
+    for root, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                src = open(os.path.join(root, f)).read()
+                assert "vision_transformer_cam_tpu." not in src, f
+                assert "import jax" not in src and "import optax" not in src \
+                    and "import orbax" not in src, f

@@ -37,7 +37,7 @@ def test_state_dict_bit_identical_to_jax_export(kind):
         assert g.dtype == w.dtype and g.shape == w.shape, k
         np.testing.assert_array_equal(g, w, err_msg=k)
     # ... and they are exactly the port model's parameter names and shapes
-    own = ViTCAM(tcfg).state_dict()
+    own = ViTCAM(tcfg, device="cpu").state_dict()
     assert sorted(own) == sorted(got)
     assert all(tuple(own[k].shape) == tuple(got[k].shape) for k in own)
 
@@ -51,7 +51,7 @@ def test_reference_state_dict_loads_and_round_trips(kind):
     sd = jweights.state_dict_from_pytree(params, jcfg)
     sd.update({"norm1.weight": np.ones(256, np.float32),
                "norm2.bias": np.zeros(32, np.float32)})
-    model = tweights.load_state_dict(ViTCAM(tcfg), sd)
+    model = tweights.load_state_dict(ViTCAM(tcfg, device="cpu"), sd)
     own = {k: v.numpy() for k, v in model.state_dict().items()}
     for k, v in own.items():
         np.testing.assert_array_equal(v, sd[k], err_msg=k)
@@ -66,7 +66,7 @@ def test_head_surgery_and_cast():
     params, jcfg, tcfg = _jax_params("plain", seed=2)
     sd = jweights.state_dict_from_pytree(params, jcfg)
     model = ViTCAM(tcfg.replace(param_dtype=torch.bfloat16,
-                                dtype=torch.bfloat16))
+                                dtype=torch.bfloat16), device="cpu")
     head_before = model.head.weight.detach().clone()
     tweights.load_state_dict(model, sd, del_keys=tweights.DEFAULT_DEL_KEYS)
     assert torch.equal(model.head.weight, head_before)   # kept, not loaded
@@ -79,7 +79,7 @@ def test_head_surgery_and_cast():
 def test_bad_state_dicts_raise():
     params, jcfg, tcfg = _jax_params("plain", seed=3)
     sd = jweights.state_dict_from_pytree(params, jcfg)
-    model = ViTCAM(tcfg)
+    model = ViTCAM(tcfg, device="cpu")
     with pytest.raises(KeyError):
         tweights.load_state_dict(model, {k: v for k, v in sd.items()
                                          if k != "head1.bias"})
@@ -93,9 +93,12 @@ def test_bad_state_dicts_raise():
 
 def test_init_is_seeded_with_the_reference_scheme():
     tcfg = tcfgs.ViTCAMConfig(**TINY)
-    a = ViTCAM(tcfg, generator=torch.Generator().manual_seed(5)).state_dict()
-    b = ViTCAM(tcfg, generator=torch.Generator().manual_seed(5)).state_dict()
-    c = ViTCAM(tcfg, generator=torch.Generator().manual_seed(6)).state_dict()
+    a = ViTCAM(tcfg, device="cpu",
+               generator=torch.Generator().manual_seed(5)).state_dict()
+    b = ViTCAM(tcfg, device="cpu",
+               generator=torch.Generator().manual_seed(5)).state_dict()
+    c = ViTCAM(tcfg, device="cpu",
+               generator=torch.Generator().manual_seed(6)).state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["blocks.0.attn.qkv.weight"],
                            c["blocks.0.attn.qkv.weight"])

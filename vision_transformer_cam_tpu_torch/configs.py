@@ -1,7 +1,8 @@
 """Typed model configuration: the PyTorch counterpart of
 vision_transformer_cam_tpu/configs.py's ``ViTCAMConfig`` and ViT model zoo.
 
-Field for field the same dataclass, with torch dtypes.  ``attn_impl`` names
+Field for field the same dataclasses (``ViTCAMConfig``, ``DataConfig``,
+``OptimConfig``, ``TrainConfig``), with torch dtypes.  ``attn_impl`` names
 the port's two attention paths: ``"eager"`` (plain PyTorch with the reference's
 symmetric pair mask, the JAX ``"xla"`` path) and ``"kernel"`` (the fused CUDA
 kernel, the JAX ``"pallas"`` path).  The TPU tuning and sharding knobs keep
@@ -12,7 +13,7 @@ set that this package does not implement yet (``models.vit.check_supported``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -36,7 +37,7 @@ class ViTCAMConfig:
     representation_size: Optional[int] = None  # pre_logits layer if set
     distilled: bool = False
 
-    # --- regularization (training only; the forward here is inference) ---
+    # --- regularization (the training forward only) ---
     drop_ratio: float = 0.0
     attn_drop_ratio: float = 0.0
     drop_path_ratio: float = 0.0
@@ -112,6 +113,74 @@ class ViTCAMConfig:
 
     def replace(self, **kw) -> "ViTCAMConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """VOC12 data pipeline configuration (the JAX package's DataConfig)."""
+
+    voc12_root: str = ""
+    img_name_list_path: str = ""
+    cls_labels_path: str = ""  # cls_labels.npy; derived from voc12 dir if empty
+    img_size: int = 224
+    # ImageNet normalization, exactly the reference's constants
+    mean: Tuple[float, float, float] = (0.485, 0.456, 0.406)
+    std: Tuple[float, float, float] = (0.229, 0.224, 0.225)
+    batch_size: int = 32
+    shuffle: bool = True
+    drop_last: bool = True
+    seg_labels: bool = False
+    num_threads: int = 4
+    # C++ batched JPEG pipeline of the JAX package; not ported yet (the
+    # loader raises when it is asked for)
+    native_decode: bool = False
+    prefetch: int = 2
+    seed: int = 0
+    loader_impl: str = "auto"  # "auto" | "native" | "pil"
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimConfig:
+    """timm create_optimizer / create_scheduler-compatible hyperparameters
+    (the reference's argparse defaults)."""
+
+    opt: str = "adamw"
+    lr: float = 5e-4
+    # the entry scales lr by batch / 512
+    linear_lr_scaling: bool = True
+    opt_eps: float = 1e-8
+    betas: Tuple[float, float] = (0.9, 0.999)
+    weight_decay: float = 0.05
+    clip_grad: Optional[float] = None
+    sched: str = "cosine"
+    epochs: int = 1000
+    warmup_epochs: int = 5
+    warmup_lr: float = 1e-6
+    min_lr: float = 1e-5
+    cooldown_epochs: int = 10
+    decay_epochs: float = 30
+    decay_rate: float = 0.1
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    optim: OptimConfig = dataclasses.field(default_factory=OptimConfig)
+    batch_size: int = 16
+    seed: int = 0
+    freeze_backbone: bool = False
+    log_every: int = 50
+    ckpt_dir: str = "./weights"
+    # the sharding knobs of the JAX package keep their fields; the trainer
+    # runs on one device and raises when one is set away from these defaults
+    # (train.loop.check_supported)
+    mesh_shape: Tuple[int, ...] = (-1,)
+    mesh_axes: Tuple[str, ...] = ("data",)
+    # gradient accumulation: microbatches per optimizer step (exact
+    # full-batch semantics: the dual loss is a sample mean)
+    grad_accum: int = 1
+    zero1: bool = False
+    pipeline: int = 0
+    pp_microbatches: int = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,179 @@
+"""Batched host data pipeline with background prefetch.
+
+Replaces the reference's torch DataLoader + DistributedSampler.  Decode and
+resize run on a thread pool (PIL releases the GIL in both), batches are
+assembled as contiguous NHWC numpy arrays, and a bounded queue keeps
+``prefetch`` batches ready ahead of the consumer.  Per-process sharding for
+multi-GPU training takes the process_index / process_count stripe of the
+epoch permutation, as DistributedSampler does.  The port's own copy of the
+JAX package's data/loader.py; ``device_prefetch`` moves each batch to the
+trainer's device.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterator
+
+import numpy as np
+
+
+class BatchLoader:
+    def __init__(self, dataset, batch_size: int, *, shuffle: bool = True,
+                 drop_last: bool = True, seed: int = 0, num_threads: int = 4,
+                 prefetch: int = 2, process_index: int = 0,
+                 process_count: int = 1, native_decode: bool = False):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        if native_decode:
+            raise NotImplementedError(
+                "native_decode (the C++ batched JPEG pipeline) is not ported "
+                "yet (ROADMAP Queue 1 item 6); the PIL pipeline is the exact "
+                "reference-parity one")
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.seed = seed
+        self.num_threads = max(1, num_threads)
+        self.prefetch = max(1, prefetch)
+        self.process_index = process_index
+        self.process_count = process_count
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int):
+        """DistributedSampler.set_epoch equivalent: reshuffle per epoch."""
+        self.epoch = epoch
+
+    def _epoch_indices(self) -> np.ndarray:
+        return self._epoch_indices_with_pad()[0]
+
+    def _epoch_indices_with_pad(self):
+        """(indices, is_pad): per-host stripe of the epoch permutation.
+
+        The stripe pads to a multiple of process_count by wrapping (the
+        DistributedSampler recipe) so every host runs the same number of
+        steps — required for the collective train step.  `is_pad` marks the
+        wrapped duplicates so metric code can count each sample exactly
+        ONCE (DistributedSampler itself double-counts up to
+        process_count-1 val samples in eval; fixed here by construction)."""
+        n = len(self.dataset)
+        if self.shuffle:
+            rng = np.random.default_rng(self.seed + self.epoch)
+            idx = rng.permutation(n)
+        else:
+            idx = np.arange(n)
+        is_pad = np.zeros(n, bool)
+        if self.process_count > 1:
+            total = -(-n // self.process_count) * self.process_count
+            # np.resize cycles the permutation, so datasets SMALLER than
+            # process_count still fill the stripe (idx[:total-n] would
+            # under-fill there — unequal per-host step counts deadlock the
+            # collective train step)
+            idx = np.concatenate([idx, np.resize(idx, total - n)])
+            is_pad = np.concatenate([is_pad, np.ones(total - n, bool)])
+            idx = idx[self.process_index::self.process_count]
+            is_pad = is_pad[self.process_index::self.process_count]
+        return idx, is_pad
+
+    def __len__(self):
+        n = len(self._epoch_indices())
+        return n // self.batch_size if self.drop_last \
+            else -(-n // self.batch_size)
+
+    def __iter__(self) -> Iterator[dict]:
+        idx, is_pad = self._epoch_indices_with_pad()
+        # batch count from the indices just built (len(self) would redo the
+        # permutation+stripe work and could silently drift from idx)
+        nb = len(idx) // self.batch_size if self.drop_last \
+            else -(-len(idx) // self.batch_size)
+        emit_pad = self.process_count > 1
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+
+        def collate(items):
+            batch = {"name": [it["name"] for it in items],
+                     "image": np.stack([it["image"] for it in items])}
+            if "label" in items[0]:
+                batch["label"] = np.stack([it["label"] for it in items])
+            if "seg_label" in items[0]:
+                # seg labels keep native size; batch=1 paths use them directly
+                segs = [it["seg_label"] for it in items]
+                batch["seg_label"] = np.stack(segs) if len(
+                    {s.shape for s in segs}) == 1 else segs
+            return batch
+
+        def offer(item) -> bool:
+            """Bounded put that keeps checking `stop`: a plain q.put would
+            block forever if the consumer abandons iteration while the queue
+            is full."""
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        error: list = []
+
+        def producer():
+            try:
+                with ThreadPoolExecutor(self.num_threads) as pool:
+                    for b in range(nb):
+                        if stop.is_set():
+                            return
+                        lo, hi = b * self.batch_size, (b + 1) * self.batch_size
+                        sl = idx[lo:hi]
+                        batch = collate(list(pool.map(
+                            self.dataset.__getitem__, sl)))
+                        if emit_pad:
+                            batch["is_pad"] = is_pad[lo:hi].copy()
+                        if not offer(batch):
+                            return
+            except Exception as e:  # surface decode errors to the consumer
+                error.append(e)
+            offer(None)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while True:
+                batch = q.get()
+                if batch is None:
+                    if error:
+                        raise error[0]
+                    return
+                yield batch
+        finally:
+            stop.set()
+
+
+def device_prefetch(iterator, device, size: int = 2):
+    """Move each batch's ``image`` and ``label`` arrays to ``device`` as
+    tensors, keeping ``size`` batches in flight so that the copy to the
+    device overlaps the step before it (the copies are asynchronous from
+    pinned memory on a CUDA device)."""
+    import collections
+
+    import torch
+
+    device = torch.device(device)
+
+    def put(batch):
+        out = dict(batch)
+        for k in ("image", "label"):
+            if isinstance(out.get(k), np.ndarray):
+                t = torch.from_numpy(out[k])
+                if device.type == "cuda":
+                    t = t.pin_memory()
+                out[k] = t.to(device, non_blocking=True)
+        return out
+
+    buf = collections.deque()
+    for batch in iterator:
+        buf.append(put(batch))
+        if len(buf) >= size:
+            yield buf.popleft()
+    while buf:
+        yield buf.popleft()

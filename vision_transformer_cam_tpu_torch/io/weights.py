@@ -13,6 +13,11 @@ bit for bit onto the buffers of the port's ``QLinear`` (``weight_q`` [out,
 in], ``weight_scale``, ``act_scale``, ``out_scales``, ``bias`` in float32),
 and ``load_state_dict`` installs ``QLinear`` modules where a state dict
 holds them, so both packages can serve the same int8 weights and scales.
+
+``load_weights`` reads the containers the trainer meets: a reference ``.pth``
+state dict (with the head-key surgery) or a checkpoint of the port's own
+trainer.  ``optimizer_state_from_jax`` carries optax AdamW moments across, so
+both packages can take the same step from the same state.
 """
 
 from __future__ import annotations
@@ -26,8 +31,11 @@ import torch
 # (its unused norm1 / norm2 modules); skipped on load.
 _DEAD_PREFIXES = ("norm1.", "norm2.")
 
-# the reference's head-key surgery when fine-tuning from a checkpoint
+# the reference's head-key surgery when fine-tuning from a checkpoint, and
+# from a pretrained one (whose pre_logits layer goes too)
 DEFAULT_DEL_KEYS = ("head.weight", "head.bias")
+PRETRAIN_DEL_KEYS = ("head.weight", "head.bias",
+                     "pre_logits.fc.weight", "pre_logits.fc.bias")
 
 
 def _t(w):  # JAX kernels are [in, out]; torch Linear stores [out, in]
@@ -150,3 +158,29 @@ def load_state_dict(model: torch.nn.Module, sd: Mapping,
         raise KeyError(f"missing checkpoint keys {sorted(missing)}")
     model.load_state_dict(new, strict=False)
     return model
+
+
+def load_weights(path: str, model: torch.nn.Module,
+                 del_keys: Sequence[str] = ()) -> torch.nn.Module:
+    """Load model weights from a file into ``model``: a checkpoint of the
+    port's trainer (``train.checkpoint.save``: the ``model`` entry is loaded
+    verbatim, optimizer moments and step are dropped) or a reference-format
+    ``.pth`` state dict, where ``del_keys`` (the reference's head-key
+    surgery) are dropped and keep the model's current values."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd.get("model"), Mapping) and "optimizer" in sd:
+        return load_state_dict(model, sd["model"])
+    # a pretrained checkpoint may carry a pre_logits layer the model lacks
+    own = model.state_dict()
+    sd = {k: v for k, v in sd.items() if k in own or k not in del_keys}
+    return load_state_dict(model, sd, del_keys=del_keys)
+
+
+def optimizer_state_from_jax(mu: Mapping, nu: Mapping, count: int,
+                             cfg) -> dict:
+    """optax AdamW moments (``ScaleByAdamState.mu`` / ``.nu``: trees shaped
+    like the JAX parameters, as numpy arrays) and its step count -> the state
+    dict of the port's ``train.state.Optimizer`` (``load_state_dict``)."""
+    return {"count": int(count),
+            "mu": state_dict_from_jax_params(mu, cfg),
+            "nu": state_dict_from_jax_params(nu, cfg)}

@@ -102,6 +102,11 @@ def load():
         fn = lib.vitcam_linear_int8
         fn.argtypes = [p, i, p, i, i, i, p, p, p, i, i, p, i, i, p, i, p]
         fn.restype = i
+        fn = lib.vitcam_masked_attention_bwd
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, f, f, i, i, p]
+        fn.restype = i
+        lib.vitcam_masked_attention_bwd_smem_bytes.argtypes = [i, i]
+        lib.vitcam_masked_attention_bwd_smem_bytes.restype = ctypes.c_size_t
         lib.vitcam_masked_attention_smem_bytes.argtypes = [i, i]
         lib.vitcam_masked_attention_smem_bytes.restype = ctypes.c_size_t
         lib.vitcam_cuda_error_string.argtypes = [i]

@@ -10,8 +10,16 @@ in ``csrc/masked_attention.cu``; on a CPU tensor it runs
 which the CPU tests hold against the JAX kernel.  There is no fallback from
 one to the other.
 
-``launches`` counts the CUDA kernel launches made through the wrapper, so a
-run can show that its main path went through the kernel.
+``masked_attention_bwd`` is the port of the TPU backward kernel (same file:
+masked_attention_bwd): d_qkv from (qkv, bg, dO) with the probabilities
+recomputed on chip, ``csrc/masked_attention_bwd.cu`` on a CUDA tensor and
+``masked_attention_bwd_ref`` on a CPU tensor.  ``fused_attention_diff`` joins
+the two into a differentiable attention (the TPU package's custom_vjp of the
+same name) for training.
+
+``launches`` and ``bwd_launches`` count the CUDA kernel launches made through
+the forward and the backward wrapper, so a run can show that its main path
+went through the kernels.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ from __future__ import annotations
 import torch
 
 launches = 0
+bwd_launches = 0
 
 # mode codes of the C entry point
 _PLAIN, _HEADMEAN, _ROLLOUT = 0, 1, 2
@@ -26,7 +35,15 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # scales-vector kinds and flags of the C entry point
 _NO_SCALES, _OUT_ONLY, _PER_TENSOR, _PER_HEAD = 0, 1, 2, 3
 _OUT_I8, _CLS_BF16, _HM_BF16 = 1, 2, 4
-HEAD_DIM = 64   # the CUDA kernel's head width
+HEAD_DIM = 64   # the CUDA kernels' head width
+# The CUDA backward has two designs.  Up to BWD_ONE_BLOCK_MAX_N one block per
+# (image, head) keeps dK and dV [N, 64] in float32 in shared memory beside two
+# [32, N] tiles: (192 * ceil4(N) + N + 8480) floats, which fit the 227 KB a
+# block may use on sm_90 for N <= 256.  Past it two kernels run, one per query
+# tile (dQ and the rows' softmax statistics) and one per key tile (dK, dV),
+# and the first one's (64 * ceil4(N) + N + 8480) floats allow N <= BWD_MAX_N.
+BWD_ONE_BLOCK_MAX_N = 256
+BWD_MAX_N = 760
 
 
 def _scales_kind(qkv, scales, num_heads):
@@ -178,8 +195,9 @@ def masked_attention_fused(qkv, bg, joint=None, scales=None, *,
     if any(t.device != qkv.device for t in tensors):
         raise ValueError("qkv, bg, joint and scales must be on the same device")
     if any(t.requires_grad for t in tensors):
-        raise ValueError("the CUDA attention kernel has no backward; call it "
-                         "under torch.no_grad() or torch.inference_mode()")
+        raise ValueError("masked_attention_fused is not differentiable; call "
+                         "it without gradient tracking, or use "
+                         "fused_attention_diff")
     if qkv.dtype not in _DTYPE_CODES:
         raise TypeError(f"the CUDA attention kernel takes bfloat16, float32 "
                         f"or int8 qkv, got {qkv.dtype}")
@@ -244,3 +262,167 @@ def masked_attention_fused(qkv, bg, joint=None, scales=None, *,
     if third is None:
         return out, cls_row
     return out, cls_row, third
+
+
+def _check_bwd_shapes(qkv, bg, d_out, num_heads):
+    _check_shapes(qkv, bg, None, num_heads)
+    b, n, c3 = qkv.shape
+    if tuple(d_out.shape) != (b, n, c3 // 3):
+        raise ValueError(f"d_out must be [B, N, C] = {(b, n, c3 // 3)}, got "
+                         f"{tuple(d_out.shape)}")
+
+
+def masked_attention_bwd_ref(qkv, bg, d_out, *, num_heads: int, scale: float,
+                             mask_value: float = -100.0,
+                             clamp_softmax: bool = False):
+    """Plain PyTorch version of the backward kernel: d_qkv [B, N, 3C] (qkv's
+    dtype) of the plain ``masked_attention_fused`` output for the cotangent
+    d_out [B, N, C].
+
+    P is recomputed as the forward computes it (rank-1 mask; ``min(S, 80)``
+    with ``clamp_softmax``, else the row-max subtract) in at least float32:
+
+      dV = Pb^T dO;  dP = dO V^T;  dS = (P * (dP - rowsum(dP * P))) * scale;
+      dQ = dSb K;    dK = dSb^T Q
+
+    with Pb and dSb the values of P and dS rounded to qkv's dtype, d_out read
+    in qkv's dtype, and every product summed in at least float32, as the TPU
+    kernel.  The clamp differentiates as the identity.  bg gets no gradient,
+    and the cls row's cotangent is not an input: its consumers (the mask
+    threshold, the top-k indices) have zero derivative."""
+    _check_bwd_shapes(qkv, bg, d_out, num_heads)
+    b, n, c3 = qkv.shape
+    h, dh, dt = num_heads, c3 // 3 // num_heads, qkv.dtype
+    acc = torch.promote_types(dt, torch.float32)
+    q, k, v = (t.to(acc) for t in qkv.reshape(b, n, 3, h, dh).permute(
+        2, 0, 3, 1, 4))                                    # [B, H, N, dh]
+    do = d_out.to(dt).reshape(b, n, h, dh).permute(0, 2, 1, 3).to(acc)
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    bgf = bg.to(acc)
+    s = s + ((1.0 - bgf)[:, :, None] * (bgf * mask_value)[:, None, :])[:, None]
+    s = torch.clamp_max(s, 80.0) if clamp_softmax else \
+        s - s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s)
+    p = e / e.sum(dim=-1, keepdim=True)
+    pb = p.to(dt).to(acc)
+    dv = torch.matmul(pb.transpose(-1, -2), do)
+    dp = torch.matmul(do, v.transpose(-1, -2))
+    ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True))) * scale
+    dsb = ds.to(dt).to(acc)
+    dq = torch.matmul(dsb, k)
+    dk = torch.matmul(dsb.transpose(-1, -2), q)
+    return torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4).reshape(
+        b, n, c3).to(dt)
+
+
+def masked_attention_bwd(qkv, bg, d_out, *, num_heads: int, scale: float,
+                         mask_value: float = -100.0,
+                         clamp_softmax: bool = False):
+    """Same contract as ``masked_attention_bwd_ref``.  CPU tensors run the
+    plain version; CUDA tensors launch the kernel (bf16 or float32 qkv and
+    d_out of one dtype, head width 64, N <= ``BWD_MAX_N``, bg float32 or
+    bf16) or raise.
+
+    Static rule on N: the one-block design runs for N <=
+    ``BWD_ONE_BLOCK_MAX_N`` (where it is the faster one) and the two-kernel
+    design for longer sequences."""
+    global bwd_launches
+    kw = dict(num_heads=num_heads, scale=scale, mask_value=mask_value,
+              clamp_softmax=clamp_softmax)
+    if qkv.device.type == "cpu":
+        return masked_attention_bwd_ref(qkv, bg, d_out, **kw)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"masked_attention_bwd: no kernel for device "
+                         f"{qkv.device}")
+    _check_bwd_shapes(qkv, bg, d_out, num_heads)
+    if bg.device != qkv.device or d_out.device != qkv.device:
+        raise ValueError("qkv, bg and d_out must be on the same device")
+    if qkv.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the CUDA attention backward takes bfloat16 or "
+                        f"float32 qkv, got {qkv.dtype}")
+    if d_out.dtype != qkv.dtype:
+        raise TypeError(f"d_out must have qkv's dtype {qkv.dtype}, got "
+                        f"{d_out.dtype}")
+    if not bg.is_floating_point() or bg.dtype == torch.float64:
+        raise TypeError(f"bg must be a float32/bfloat16 tensor, got {bg.dtype}")
+    if not (qkv.is_contiguous() and d_out.is_contiguous()):
+        raise ValueError("qkv and d_out must be contiguous")
+    b, n, c3 = qkv.shape
+    dh = c3 // 3 // num_heads
+    if dh != HEAD_DIM:
+        raise ValueError(f"the CUDA attention backward takes head width "
+                         f"{HEAD_DIM}, got {dh}")
+    if n > BWD_MAX_N:
+        raise ValueError(f"the CUDA attention backward takes N <= "
+                         f"{BWD_MAX_N} (its shared memory), got {n}")
+    split = n > BWD_ONE_BLOCK_MAX_N
+
+    from vision_transformer_cam_tpu_torch.kernels import _build
+    lib = _build.load()
+    bg32 = bg.detach().to(torch.float32).contiguous()
+    d_qkv = torch.empty_like(qkv)
+    # per row: max, sum of exponentials, rowsum(dP * P), from the first of
+    # the two kernels to the second
+    stats = torch.empty((b, num_heads, n, 3), dtype=torch.float32,
+                        device=qkv.device) if split else None
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = lib.vitcam_masked_attention_bwd(
+            qkv.data_ptr(), bg32.data_ptr(), d_out.data_ptr(),
+            d_qkv.data_ptr(), stats.data_ptr() if split else None, b, n,
+            num_heads, dh, float(scale), float(mask_value),
+            _DTYPE_CODES[qkv.dtype], int(clamp_softmax), stream)
+    if err:
+        msg = lib.vitcam_cuda_error_string(err).decode()
+        raise RuntimeError(
+            f"masked_attention_bwd kernel launch failed: cudaError {err} "
+            f"({msg}); shared memory needed "
+            f"{lib.vitcam_masked_attention_bwd_smem_bytes(n, int(split))} "
+            f"bytes")
+    bwd_launches += 1
+    return d_qkv
+
+
+class _FusedAttentionDiff(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, bg, num_heads, scale, mask_value, clamp_softmax):
+        out, cls_row = masked_attention_fused(
+            qkv.detach(), bg.detach(), num_heads=num_heads, scale=scale,
+            mask_value=mask_value, clamp_softmax=clamp_softmax)
+        ctx.save_for_backward(qkv, bg)
+        ctx.kw = dict(num_heads=num_heads, scale=scale, mask_value=mask_value,
+                      clamp_softmax=clamp_softmax)
+        ctx.mark_non_differentiable(cls_row)
+        return out, cls_row
+
+    @staticmethod
+    def backward(ctx, d_out, _d_cls):
+        qkv, bg = ctx.saved_tensors
+        d_qkv = masked_attention_bwd(qkv.detach(), bg.detach(),
+                                     d_out.to(qkv.dtype).contiguous(),
+                                     **ctx.kw)
+        return d_qkv, None, None, None, None, None
+
+
+def fused_attention_diff(qkv, bg, *, num_heads: int, scale: float,
+                         mask_value: float = -100.0,
+                         clamp_softmax: bool = False):
+    """Differentiable plain fused attention, (out [B, N, C], cls_row [B, N]).
+
+    Forward: ``masked_attention_fused`` without gradient tracking; only
+    (qkv, bg) are kept for the backward.  Backward: ``masked_attention_bwd``,
+    which recomputes P; the gradient reaches qkv only.  cls_row is marked
+    non-differentiable and bg gets no gradient: both are consumed through
+    thresholds and top-k indices alone.  On CUDA tensors both directions
+    launch their kernels, on CPU tensors both run their plain versions.
+
+    On a CUDA tensor the backward kernel takes N <= ``BWD_MAX_N`` (the TPU
+    kernel: 640) and raises past it: nothing here leaves the kernels for
+    autograd through the plain version."""
+    if qkv.device.type == "cuda" and qkv.shape[1] > BWD_MAX_N:
+        raise ValueError(
+            f"fused_attention_diff: the CUDA backward kernel takes N <= "
+            f"{BWD_MAX_N}, got {qkv.shape[1]}; train this shape with "
+            f"attn_impl='eager'")
+    return _FusedAttentionDiff.apply(qkv, bg, num_heads, scale, mask_value,
+                                     clamp_softmax)

@@ -56,20 +56,14 @@
 // Built by kernels/_build.py with nvcc into a shared library with a plain C
 // interface (no PyTorch headers) and called through ctypes.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
 #include <cmath>
-#include <cstddef>
-#include <cstdint>
+
+#include "attention_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kQB = 32;              // query rows per block
-constexpr int kKC = 64;              // keys per staged K / V chunk
-constexpr int kDH = 64;              // head dim
-constexpr int kKVStride = kDH + 4;   // float4-aligned, bank-conflict-free rows
 
 enum Mode { kPlain = 0, kHeadmean = 1, kRollout = 2 };
 // flags of the C entry point
@@ -77,41 +71,14 @@ enum Flags { kOutI8 = 1, kClsBf16 = 2, kHmBf16 = 4 };
 // scales vector kinds
 enum Scales { kNoScales = 0, kOutOnly = 1, kPerTensor = 2, kPerHead = 3 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f(int8_t x) { return float(x); }
-
 // V's element type, which P is rounded to before P V: bf16 under int8_io
 template <typename T> struct PVType { using type = T; };
 template <> struct PVType<int8_t> { using type = __nv_bfloat16; };
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);   // round to nearest even
-}
-
-// the value the TPU kernel feeds its P.V matmul: cast to the element type
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
 
 __device__ __forceinline__ void store_f(void* p, size_t i, float v, bool bf16) {
   if (bf16) static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(v);
   else static_cast<float*>(p)[i] = v;
 }
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__host__ __device__ inline int padded(int n) { return (n + 3) & ~3; }
 
 size_t smem_bytes(int n, int mode) {
   const size_t ns = padded(n);
@@ -119,21 +86,6 @@ size_t smem_bytes(int n, int mode) {
   if (mode != kPlain) floats += kQB * ns;
   floats += ns + n + 2 * kQB;
   return floats * sizeof(float);
-}
-
-// Stage rows [k0, k0 + kKC) of one head's K or V (column offset col) as f32;
-// rows past n are zero.  With v_scale (int8 V) each value is dequantized and
-// rounded to bf16.
-template <typename T>
-__device__ __forceinline__ void stage_chunk(float* kv_s, const T* __restrict__ qkv_b,
-                                            int k0, int n, int c3, int col,
-                                            const float* v_scale = nullptr) {
-  for (int i = threadIdx.x; i < kKC * kDH; i += kThreads) {
-    const int r = i / kDH, d = i % kDH;
-    float v = (k0 + r < n) ? to_f(qkv_b[size_t(k0 + r) * c3 + col + d]) : 0.f;
-    if (v_scale != nullptr) v = round_to<__nv_bfloat16>(__fmul_rn(v, *v_scale));
-    kv_s[r * kKVStride + d] = v;
-  }
 }
 
 template <typename T, int MODE, bool CLAMP>
@@ -197,7 +149,7 @@ masked_attention_kernel(const T* __restrict__ qkv, const float* __restrict__ bg,
       const int kj = tid % kKC, rg = tid / kKC;
       for (int k0 = 0; k0 < n; k0 += kKC) {
         __syncthreads();   // q_s staged; previous chunk consumed
-        stage_chunk(kv_s, qkv_b, k0, n, c3, c + h * kDH);
+        stage_chunk<kThreads>(kv_s, qkv_b, k0, n, c3, c + h * kDH);
         __syncthreads();
         float acc[kRows];
 #pragma unroll
@@ -269,7 +221,7 @@ masked_attention_kernel(const T* __restrict__ qkv, const float* __restrict__ bg,
       for (int i = 0; i < kRows; ++i) acc[i] = 0.f;
       for (int k0 = 0; k0 < n; k0 += kKC) {
         __syncthreads();   // softmax done; previous chunk consumed
-        stage_chunk(kv_s, qkv_b, k0, n, c3, 2 * c + h * kDH, v_scale);
+        stage_chunk<kThreads>(kv_s, qkv_b, k0, n, c3, 2 * c + h * kDH, v_scale);
         __syncthreads();
         const int kend = min(kKC, ns - k0);   // a multiple of 4
         for (int j = 0; j < kend; j += 4) {

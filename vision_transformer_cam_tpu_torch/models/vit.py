@@ -1,6 +1,6 @@
 """Vision Transformer with the CAM attention-mask feedback, for PyTorch.
 
-The port of vision_transformer_cam_tpu/models/vit.py (inference):
+The port of vision_transformer_cam_tpu/models/vit.py:
 
 * the blocks run in a Python loop that carries the background-token
   indicator bg [B, N]; the reference's additive -100 pair mask is rebuilt
@@ -15,9 +15,14 @@ The port of vision_transformer_cam_tpu/models/vit.py (inference):
 Parameter names are the reference's state-dict keys (``blocks.{i}.attn.qkv
 .weight``, ...), so its ``.pth`` state dicts load directly
 (``io.weights.load_state_dict``).  Images are NHWC, as in the JAX package.
-The forward has no host syncs and no data-dependent shapes.  Training
-(dropout, drop-path, remat, the attention backward) comes with the training
-slice.
+The forward has no host syncs and no data-dependent shapes.
+
+``ViTCAM.forward`` is the eval forward (under ``torch.inference_mode``);
+``ViTCAM.forward_train`` is the training forward of the JAX ``forward(...,
+train=True, rng=...)``: gradients enabled, the clamped softmax neutralised,
+dropout at the embedding and at six sites per block, stochastic depth,
+``cfg.remat`` as ``torch.utils.checkpoint`` per block, the int8 routes off,
+and on the kernel path the differentiable ``fused_attention_diff``.
 
 int8 serving (``ops.quant.quantize_params`` swaps the GEMMs for ``QLinear``
 modules) follows the JAX package's routing: every int8 GEMM goes through the
@@ -38,10 +43,11 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vision_transformer_cam_tpu_torch.configs import ViTCAMConfig
 from vision_transformer_cam_tpu_torch.kernels.attention import (
-    masked_attention_fused)
+    fused_attention_diff, masked_attention_fused)
 from vision_transformer_cam_tpu_torch.kernels.gemm import ln_quant
 from vision_transformer_cam_tpu_torch.ops.quant import (QLinear,
                                                         linear_int8_fused,
@@ -50,6 +56,7 @@ from vision_transformer_cam_tpu_torch.ops.quant import (QLinear,
                                                         qlinear_requant)
 from vision_transformer_cam_tpu_torch.ops.rollout import (aug_cls_row,
                                                           aug_normalize)
+from vision_transformer_cam_tpu_torch.utils import resolve_device
 
 
 class ViTCAMOutput(NamedTuple):
@@ -66,7 +73,7 @@ class ViTCAMOutput(NamedTuple):
       block_outputs     [depth, B, N, C] (need_blocks)
       rollout_row       row 0 of the rollout joint [B, N] (need_rollout)
       tokens_prenorm    final block output before the last LayerNorm
-      dist_logits       distilled models in training only; None here
+      dist_logits       distilled models in training only, else None
     """
 
     logits: torch.Tensor
@@ -148,12 +155,55 @@ def _is_static(lin, *extra) -> bool:
         getattr(lin, name) is not None for name in extra)
 
 
+# the dropout sites of one block, in the JAX body's order
+_SITES = ("attn", "proj", "mlp1", "mlp2", "dp1", "dp2")
+_EMBED_SITE = 0xD0
+
+
+def _fold(seed: int, *data: int) -> int:
+    """A new seed from ``seed`` and integers (the port's jax.random.fold_in):
+    every dropout site of every layer and step draws from its own stream."""
+    for d in data:
+        seed = (seed * 6364136223846793005 + d + 1442695040888963407) \
+            % (1 << 63)
+    return seed
+
+
+def _uniform(shape, seed: int, device):
+    """float32 U[0, 1) of ``shape`` from a generator seeded with ``seed``, so
+    a block recomputed under ``torch.utils.checkpoint`` (which restores only
+    the global RNG state) redraws the same mask."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.rand(shape, generator=gen, device=device,
+                      dtype=torch.float32)
+
+
+def _dropout(x, rate: float, seed: Optional[int]):
+    if rate == 0.0 or seed is None:
+        return x
+    keep = 1.0 - rate
+    mask = _uniform(x.shape, seed, x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def _drop_path(x, rate: float, seed: Optional[int]):
+    """Per-sample stochastic depth."""
+    if seed is None:
+        return x
+    keep = 1.0 - rate
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    mask = torch.floor(keep + _uniform(shape, seed, x.device)).to(x.dtype)
+    return x / keep * mask
+
+
 def _attention_eager(ap, x, bg, cfg: ViTCAMConfig, need_probs, joint=None,
-                     hm_dtype=None):
+                     hm_dtype=None, train=False, rngs=None):
     """Reference-shaped attention with the symmetric pair mask
     mask_value * min(bg_q + bg_k, 1), clamp (serving) after the mask.
     Returns (out, cls_row [B, N], headmean or None, perhead or None, None);
-    ``joint`` is not consumed here: the caller updates the rollout."""
+    ``joint`` is not consumed here: the caller updates the rollout.  With
+    ``rngs`` (training) dropout falls on the probabilities and on the
+    projection's output."""
     b, n, c = x.shape
     h, dh = cfg.num_heads, cfg.head_dim
     qkv = _linear(x, ap.qkv, cfg)
@@ -166,8 +216,12 @@ def _attention_eager(ap, x, bg, cfg: ViTCAMConfig, need_probs, joint=None,
     probs = torch.softmax(attn, dim=-1)
     cls_row = probs[:, :, 0, :].mean(dim=1)
     hm = probs.mean(dim=1) if need_probs else None
-    out = torch.matmul(probs, v).transpose(1, 2).reshape(b, n, c)
+    used = _dropout(probs, cfg.attn_drop_ratio, rngs["attn"]) if rngs \
+        else probs
+    out = torch.matmul(used, v).transpose(1, 2).reshape(b, n, c)
     out = _linear(out, ap.proj, cfg)
+    if rngs:
+        out = _dropout(out, cfg.drop_ratio, rngs["proj"])
     ph = probs if need_probs == "perhead" else None
     if hm is not None and hm_dtype is not None:
         hm = hm.to(hm_dtype)
@@ -175,12 +229,20 @@ def _attention_eager(ap, x, bg, cfg: ViTCAMConfig, need_probs, joint=None,
 
 
 def attention_kernel(ap, x, bg, cfg: ViTCAMConfig, need_probs, joint=None,
-                     hm_dtype=None):
+                     hm_dtype=None, train=False, rngs=None):
     """Same signature and returns as ``_attention_eager``, through the fused
     attention kernel: with ``joint`` it returns the updated rollout joint as
     the fifth value (rollout variant); need_probs "headmean" emits the
     head-mean matrix; otherwise the plain variant.  The per-head
     probabilities only the eager path produces.
+
+    Under ``train`` only the plain call is differentiable
+    (``fused_attention_diff``: forward kernel, backward kernel).  By a static
+    rule on the arguments, as the JAX attention_pallas, a training call goes
+    to the eager path when it needs the rollout joint, the head mean, the
+    per-head probabilities, or dropout on the probabilities or the
+    projection (``rngs`` with ``attn_drop_ratio`` or ``drop_ratio`` > 0);
+    the int8 options are off under ``train``.
 
     int8 routing, as the JAX attention_pallas: with ``cfg.int8_attn_io`` and
     a static int8 qkv carrying per-head [3, H] out_scales, the qkv GEMM
@@ -188,9 +250,19 @@ def attention_kernel(ap, x, bg, cfg: ViTCAMConfig, need_probs, joint=None,
     takes int8 qkv and writes int8 output at the proj layer's act_scale;
     with ``cfg.int8_attn_out`` and a static int8 proj, float qkv and int8
     output.  ``x`` may be int8 (from ``ln_quant``)."""
-    if need_probs == "perhead":
+    needs_dropout = rngs is not None and (cfg.attn_drop_ratio > 0
+                                          or cfg.drop_ratio > 0)
+    if need_probs == "perhead" or needs_dropout or (
+            train and (joint is not None or need_probs == "headmean")):
         return _attention_eager(ap, x, bg, cfg, need_probs, joint=joint,
-                                hm_dtype=hm_dtype)
+                                hm_dtype=hm_dtype, train=train, rngs=rngs)
+    if train:
+        qkv = _linear(x, ap.qkv, cfg)
+        out, cls_row = fused_attention_diff(
+            qkv, bg, num_heads=cfg.num_heads, scale=cfg.scale,
+            mask_value=cfg.mask_value, clamp_softmax=cfg.softmax_clamp)
+        return _linear(out, ap.proj, cfg), cls_row.to(cfg.dtype), None, \
+            None, None
     scales = None
     if cfg.int8_attn_io and _is_static(ap.qkv, "out_scales") \
             and _is_static(ap.proj):
@@ -312,14 +384,15 @@ class PreLogits(nn.Module):
 class ViTCAM(nn.Module):
     """ViT-CAM model.  ``cfg`` may be replaced after construction (for
     example by ``serving.apply_serving_mode`` or to switch ``attn_impl``); the
-    parameters stay."""
+    parameters stay.  They are built on ``device``: the card by default
+    (``utils.resolve_device``), the CPU only when asked (``device="cpu"``)."""
 
     def __init__(self, cfg: ViTCAMConfig, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
-        fk = dict(device=device, dtype=cfg.param_dtype)
+        fk = dict(device=resolve_device(device), dtype=cfg.param_dtype)
         d, nc = cfg.embed_dim, cfg.num_classes
         self.patch_embed = PatchEmbed(cfg, **fk)
         self.cls_token = nn.Parameter(torch.empty((1, 1, d), **fk))
@@ -404,11 +477,36 @@ class ViTCAM(nn.Module):
     def forward(self, x, *, need_headmean=False, need_blocks=False,
                 need_perhead=False, need_rollout=False) -> ViTCAMOutput:
         """x: [B, H, W, C] images.  Returns ViTCAMOutput (eval semantics)."""
+        return self._forward(x, False, None, need_headmean, need_blocks,
+                             need_perhead, need_rollout)
+
+    def forward_train(self, x, *, rng: Optional[int] = None,
+                      need_headmean=False, need_blocks=False,
+                      need_perhead=False,
+                      need_rollout=False) -> ViTCAMOutput:
+        """The training forward, with gradients: the clamped softmax is
+        neutralised (the backward differentiates the unclamped softmax), the
+        int8 routes are off, distilled models return ``dist_logits`` beside
+        unaveraged ``logits``, and ``cfg.remat`` recomputes each block in the
+        backward.  ``rng`` (an integer seed, folded per layer and site) turns
+        dropout and stochastic depth on at the config's ratios; None leaves
+        them off.  ``attn_cls_rows`` and the bg mask carry no gradient."""
+        return self._forward(x, True, rng, need_headmean, need_blocks,
+                             need_perhead, need_rollout)
+
+    def _forward(self, x, train, rng, need_headmean, need_blocks,
+                 need_perhead, need_rollout) -> ViTCAMOutput:
         cfg = self.cfg
         check_supported(cfg)
+        if train and cfg.softmax_clamp:
+            cfg = cfg.replace(softmax_clamp=False)
         attn_fn = attention_kernel if cfg.attn_impl == "kernel" \
             else _attention_eager
-        tokens = self.embed_tokens(x)
+        tokens = self.embed_tokens(x, cfg)
+        use_rng = train and rng is not None
+        if use_rng:
+            tokens = _dropout(tokens, cfg.drop_ratio, _fold(rng, _EMBED_SITE))
+        dpr = torch.linspace(0.0, cfg.drop_path_ratio, cfg.depth).tolist()
         b, n, dev = tokens.shape[0], cfg.seq_len, tokens.device
         bg = torch.zeros((b, n), dtype=cfg.dtype, device=dev)
         need_probs = "perhead" if need_perhead else (
@@ -418,7 +516,7 @@ class ViTCAM(nn.Module):
         rollout_dtype = torch.float32 if cfg.dtype == torch.bfloat16 \
             else cfg.dtype
         want_post = (n > 512) if cfg.rollout_post is None else cfg.rollout_post
-        rollout_post = (need_rollout and want_post
+        rollout_post = (need_rollout and want_post and not train
                         and not (need_headmean or need_perhead))
         carry_rollout = need_rollout and not rollout_post
         # the kernel updates the joint itself unless the head-mean matrices
@@ -431,16 +529,17 @@ class ViTCAM(nn.Module):
         kernel_io = cfg.attn_impl == "kernel" and cfg.int8_attn_io
 
         def ln_q_attn(blk):
-            return (cfg.ln_quant_fusion and kernel_io
+            return (cfg.ln_quant_fusion and not train and kernel_io
                     and _is_static(blk.attn.qkv, "out_scales")
                     and _is_static(blk.attn.proj))
 
         def ln_q_mlp(blk):
-            return (cfg.ln_quant_fusion and not cfg.mlp_fusion
+            return (cfg.ln_quant_fusion and not train and not cfg.mlp_fusion
                     and _is_static(blk.mlp.fc1) and _is_static(blk.mlp.fc2))
 
-        cls_rows, hms, phs, blocks_out = [], [], [], []
-        for i, blk in enumerate(self.blocks):
+        def block(i, blk, tokens, bg, joint):
+            rngs = {site: _fold(rng, i + 1, j)
+                    for j, site in enumerate(_SITES)} if use_rng else None
             xn = ln_quant(tokens, blk.norm1.weight, blk.norm1.bias,
                           eps=cfg.ln_eps, inv_a=blk.attn.qkv.inv_act) \
                 if ln_q_attn(blk) else \
@@ -449,7 +548,10 @@ class ViTCAM(nn.Module):
             o, cls_row, hm, ph, newj = attn_fn(
                 blk.attn, xn, bg, cfg, need_probs,
                 joint=joint if fuse_rollout else None,
-                hm_dtype=rollout_dtype if rollout_post else None)
+                hm_dtype=rollout_dtype if rollout_post else None,
+                train=train, rngs=rngs)
+            if use_rng and cfg.drop_path_ratio > 0:
+                o = _drop_path(o, dpr[i], rngs["dp1"])
             tokens = tokens + o
             f1, f2 = blk.mlp.fc1, blk.mlp.fc2
             yn = ln_quant(tokens, blk.norm2.weight, blk.norm2.bias,
@@ -457,14 +559,23 @@ class ViTCAM(nn.Module):
                 if ln_q_mlp(blk) else \
                 _layer_norm(tokens, blk.norm2.weight, blk.norm2.bias,
                             cfg.ln_eps)
-            if _is_static(f1) and _is_static(f2):
+            if _is_static(f1) and _is_static(f2) and not train:
                 # int8 serving: fc1's epilogue emits GELU(fc1) requantized
                 # to fc2's act_scale, so fc2 reads int8
                 hmid = qlinear_gelu_requant(yn, f1, f2.act_scale,
                                             gelu_approx=cfg.gelu_approx)
             else:
                 hmid = _gelu(_linear(yn, f1, cfg), cfg.gelu_approx)
-            tokens = tokens + _linear(hmid, f2, cfg)
+                if use_rng:
+                    hmid = _dropout(hmid, cfg.drop_ratio, rngs["mlp1"])
+            ymlp = _linear(hmid, f2, cfg)
+            if use_rng:
+                ymlp = _dropout(ymlp, cfg.drop_ratio, rngs["mlp2"])
+                if cfg.drop_path_ratio > 0:
+                    ymlp = _drop_path(ymlp, dpr[i], rngs["dp2"])
+            tokens = tokens + ymlp
+            # the cls row feeds thresholds and top-k indices only: no gradient
+            cls_row = cls_row.detach()
             # this block's attention sets the mask of the next block
             if i >= cfg.mask_from:
                 _, bg = _mask_from_cls_row(cls_row, cfg)
@@ -475,6 +586,19 @@ class ViTCAM(nn.Module):
                     pt = torch.promote_types(torch.float32, joint.dtype)
                     joint = torch.matmul(aug_normalize(hm).to(pt),
                                          joint.to(pt)).to(joint.dtype)
+            return tokens, bg, joint, cls_row, hm, ph
+
+        cls_rows, hms, phs, blocks_out = [], [], [], []
+        for i, blk in enumerate(self.blocks):
+            if train and cfg.remat:
+                # keep only the block's inputs for the backward and recompute
+                # its internals (qkv, the MLP hidden tensor) there
+                tokens, bg, joint, cls_row, hm, ph = checkpoint(
+                    block, i, blk, tokens, bg, joint, use_reentrant=False,
+                    preserve_rng_state=False)
+            else:
+                tokens, bg, joint, cls_row, hm, ph = block(i, blk, tokens, bg,
+                                                           joint)
             cls_rows.append(cls_row)
             if need_headmean or need_perhead or rollout_post:
                 hms.append(hm)
@@ -511,9 +635,13 @@ class ViTCAM(nn.Module):
         if cfg.has_logits:
             cls_feat = torch.tanh(_linear(cls_feat, self.pre_logits.fc, cfg))
         logits = _linear(cls_feat, self.head, cfg)
+        dist_logits = None
         if cfg.distilled:
             dist_logits = _linear(xf[:, 1], self.head_dist, cfg)
-            logits = (logits + dist_logits) / 2.0
+            # train: the heads stay separate (the loss reads dist_logits so
+            # head_dist trains); eval: their average
+            if not train:
+                logits = (logits + dist_logits) / 2.0
         collect = need_headmean or need_perhead
         return ViTCAMOutput(
             logits=logits,
@@ -527,4 +655,5 @@ class ViTCAM(nn.Module):
             block_outputs=torch.stack(blocks_out) if need_blocks else None,
             rollout_row=rollout_row,
             tokens_prenorm=tokens,
+            dist_logits=dist_logits if train else None,
         )

@@ -8,7 +8,10 @@ Serves ViT-B/16 (in21k, the VOC head: 20 classes, no representation layer)
 with random weights from seed 0, as ``chip_smoke.py`` does: "bf16" through
 the attention kernel, "eager" the same bf16 model with ``attn_impl="eager"``,
 "int8" and "int8_hifi" calibrated on 16 numpy images from seed 1 with
-``ln_quant_fusion`` and ``int8_fused_gemm`` on.  It prints the card's name
+``ln_quant_fusion`` and ``int8_fused_gemm`` on.  The modes "train" and
+"train_eager" profile one training step instead (``--train_batch`` images,
+float32 masters with bf16 compute, remat on) on the kernel and the eager
+attention path.  It prints the card's name
 and power limit (nvidia-smi), then for each mode the
 wall time per forward (host clock around synchronised forwards, after two
 warm-up forwards), then the device time per forward of each kernel group
@@ -31,6 +34,7 @@ import torch
 # kernel groups, first match of a substring of the kernel's name
 GROUPS = (
     ("attention kernel", ("masked_attention_kernel",)),
+    ("attention backward kernel", ("masked_attention_bwd_",)),
     ("int8 GEMM kernel", ("linear_int8_kernel",)),
     ("ln_quant kernel", ("ln_quant_kernel",)),
     ("float GEMMs (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass", "gemv")),
@@ -49,12 +53,14 @@ def group_of(kernel_name: str) -> str:
     return OTHER
 
 
-def served_models(modes, device="cuda"):
+def served_models(modes, device=None):
     """{mode: model} for the requested modes; "bf16" and "eager" share one
     model and differ in ``cfg.attn_impl``, set by ``forward_fn``."""
     from vision_transformer_cam_tpu_torch import configs, serving
     from vision_transformer_cam_tpu_torch.models.vit import ViTCAM
+    from vision_transformer_cam_tpu_torch.utils import resolve_device
 
+    device = resolve_device(device)
     cfg = configs.vit_base_patch16_224_in21k(num_classes=20).replace(
         representation_size=None)
 
@@ -88,6 +94,34 @@ def forward_fn(model, mode, x):
     def step():
         model.cfg = cfg
         cam_from_rollout_row(model(x, need_rollout=True).rollout_row, g)
+    return step
+
+
+def train_step_fn(batch: int, impl: str, device=None):
+    """One training step (mixed precision: float32 masters, bf16 compute;
+    remat on; seeded batch) on the ``impl`` attention path, for
+    ``profile_mode``."""
+    from vision_transformer_cam_tpu_torch import configs
+    from vision_transformer_cam_tpu_torch.models.vit import ViTCAM
+    from vision_transformer_cam_tpu_torch.train import state as statelib
+    from vision_transformer_cam_tpu_torch.train.step import train_step
+    from vision_transformer_cam_tpu_torch.utils import resolve_device
+
+    device = resolve_device(device)
+    cfg = configs.vit_base_patch16_224_in21k(num_classes=20).replace(
+        representation_size=None, dtype=torch.bfloat16, attn_impl=impl)
+    model = ViTCAM(cfg, device=device,
+                   generator=torch.Generator().manual_seed(0))
+    opt, _ = statelib.make_optimizer(model, configs.OptimConfig(), batch, 1)
+    holder = [statelib.create_train_state(model, opt)]
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal(
+        (batch, cfg.img_size, cfg.img_size, 3), dtype=np.float32)).to(device)
+    y = torch.from_numpy((rng.random((batch, cfg.num_classes)) < 0.1)
+                         .astype(np.float32)).to(device)
+
+    def step():
+        holder[0], _ = train_step(holder[0], x, y)
     return step
 
 
@@ -131,7 +165,12 @@ def main(argv=None) -> int:
     ap.add_argument("--forwards", type=int, default=3)
     ap.add_argument("--modes", nargs="+",
                     default=["bf16", "eager", "int8", "int8_hifi"],
-                    choices=["bf16", "eager", "int8", "int8_hifi"])
+                    choices=["bf16", "eager", "int8", "int8_hifi", "train",
+                             "train_eager"],
+                    help="serving modes (a forward at --batch), or train / "
+                         "train_eager: one training step at --train_batch "
+                         "on the kernel / eager attention path")
+    ap.add_argument("--train_batch", type=int, default=64)
     ap.add_argument("--out", help="file for the full key_averages tables")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -142,27 +181,31 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    models = served_models(args.modes)
+    models = served_models([m for m in args.modes
+                            if not m.startswith("train")])
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (args.batch, 224, 224, 3), dtype=np.float32)).cuda()
     result, tables = {}, []
     for mode in args.modes:
-        wall, groups, table = profile_mode(
-            forward_fn(models[mode], mode, x), args.forwards)
+        step = train_step_fn(
+            args.train_batch, "eager" if mode == "train_eager" else "kernel") \
+            if mode.startswith("train") else forward_fn(models[mode], mode, x)
+        wall, groups, table = profile_mode(step, args.forwards)
         busy = sum(ms for ms, _ in groups.values())
-        print(f"== {mode}, batch {args.batch}: wall {wall:.2f} ms per forward, "
+        batch = args.train_batch if mode.startswith("train") else args.batch
+        print(f"== {mode}, batch {batch}: wall {wall:.2f} ms per forward, "
               f"device {busy:.2f} ms ({busy / wall:.1%} busy)", flush=True)
         for group, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
             print(f"   {group:42s} {ms:9.3f} ms {n:7.1f} launches "
                   f"{ms / busy:6.1%}", flush=True)
-        result[mode] = {"wall_ms": wall, "device_ms": busy,
+        result[mode] = {"batch": batch, "wall_ms": wall, "device_ms": busy,
                         "groups": {g: {"ms": ms, "launches": n}
                                    for g, (ms, n) in groups.items()}}
         tables.append(f"== {mode}\n{table}\n")
     if args.out:
         with open(args.out, "w") as f:
             f.writelines(tables)
-    print(json.dumps({"batch": args.batch, "forwards": args.forwards,
+    print(json.dumps({"forwards": args.forwards,
                       "card": card, "modes": result}))
     return 0
 
