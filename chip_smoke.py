@@ -12,8 +12,15 @@ Phases (any failure raises, and the exit code is non-zero):
      per-tensor scales; int8_out; plain, head-mean and rollout variants;
      clamp on and off; ViT-B B=8 N=197 and a ragged B=3 N=37), the int8 GEMM
      (each prologue and epilogue at the five ViT-B GEMM shapes, M = 8*197,
-     and a ragged M=111 K=200 N=72) and ln_quant; then times each kernel
-     against its plain version at B=64;
+     and a ragged M=111 K=200 N=72), ln_quant, the fused MLP kernels
+     (mlp_fused at bf16 and float32, both GELUs; mlp_fused_int8 bit for bit
+     at float32 output; M = 8*197 at the ViT-B widths and a ragged M=111 with
+     C, HID = 72, 200 and 66, 150) and the attention block kernel (bf16 and
+     float32, with and without the joint, clamp on and off, 30 % background
+     and none, B=8 N=197, a ragged B=3 N=37, and N=256 and N=17, the ends
+     of its range); then times each kernel
+     against its plain version at B=64, the three fused kernels also beside
+     the unfused route of several launches that the port already has;
   4. the main path: ViT-B/16 with random weights from a seed answers 3
      requests of 32 images with the rollout CAM in serving mode "bf16",
      then, calibrated on 16 seeded images, in "int8" and "int8_hifi" with
@@ -24,7 +31,14 @@ Phases (any failure raises, and the exit code is non-zero):
      path with the same quantized model on the CPU (the plain versions) on
      five seeded batches of 4 and 8 images; int8 CAMs against the bf16 ones
      are recorded; bf16, bf16 eager, int8 and int8_hifi are timed at batch
-     256, in turns.
+     256, in turns.  Then the two fused paths, served the same way: "bf16
+     fused" (mlp_fusion and attn_block_fusion on: 12 attention_block_fused,
+     12 mlp_fused and no attention-kernel launch per forward; held to the bf16
+     kernel path) and "int8 fused" (the int8 model with both knobs on: 12
+     mlp_fused_int8, 12 attention, 25 int8 GEMM and 12 ln_quant launches, the
+     quantized qkv layer falling through the block kernel; held to the CPU
+     plain versions as the other int8 paths), both in the batch-256 timing;
+     and at float32, batch 4, the fused kernel path against the eager path;
   5. the backward attention kernel against its plain version (bf16 and
      float32, clamp off and on, 30 % background and none; at float32 also
      against torch.autograd through the plain forward): both of its designs
@@ -49,7 +63,7 @@ Phases (any failure raises, and the exit code is non-zero):
      eager path from the same weights (loss and every gradient), and the
      training throughput of both paths at batch 64, in turns (two readings
      of 20 steps each per path, with their spread).
-Nothing of the earlier serving phases was reduced.  It prints one JSON line
+Nothing of the earlier phases was reduced.  It prints one JSON line
 describing the kernels (with each one's bound from the shapes it was timed
 at, and the library call's time where one PyTorch call computes the same
 function), the card line, and as its last line {"ok": true, "device":
@@ -89,6 +103,20 @@ KERNELS = {   # name: (route, source, TPU kernel replaced)
     "masked_attention_bwd": (
         "cuda", CSRC + "masked_attention_bwd.cu",
         "vision_transformer_cam_tpu/kernels/attention.py:803"),
+    # the same forward kernel as the bf16 serving path launches it: bf16 qkv,
+    # rollout variant, clamp on
+    "masked_attention_fused[bf16 rollout, serving]": (
+        "cuda", CSRC + "masked_attention.cu",
+        "vision_transformer_cam_tpu/kernels/attention.py:133"),
+    "mlp_fused": (
+        "cuda", CSRC + "mlp_fused.cu",
+        "vision_transformer_cam_tpu/kernels/gemm.py:46"),
+    "mlp_fused_int8": (
+        "cuda", CSRC + "mlp_fused.cu",
+        "vision_transformer_cam_tpu/kernels/gemm.py:55"),
+    "attention_block_fused": (
+        "cuda", CSRC + "attention_block.cu",
+        "vision_transformer_cam_tpu/kernels/attention.py:663"),
 }
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense): device
 # memory bytes/s, and operations/s by type
@@ -104,6 +132,18 @@ TOL = {(torch.float32, "out"): (5e-5, 1e-4),
        (torch.bfloat16, "out"): (1e-2, 2 ** -6),
        (torch.bfloat16, "prob"): (1e-5, 2 ** -6)}
 TOL_JOINT = (1e-6, 1e-4)
+# The block kernel forms qkv itself and is held to the tolerances above.  At
+# float32 its inputs have two hot heads (logits ~ N(0, 40^2), past the clamp).
+# At bf16 the kernel and its plain version sum the qkv GEMM in another order
+# before both round qkv to bf16, so some elements land one bf16 ulp apart; a
+# hot head (|q| ~ 40) would magnify one such ulp of k into 0.04 of a logit,
+# so the bf16 cases use inputs with logits of order 1, where an ulp moves a
+# logit by ~1e-3 and P by the same relative amount, within the 2^-6 rtol.
+# The fused MLP against its plain version: float32 sums in another order
+# (rtol 1e-4 as above); at bf16 both round the hidden tensor and the output
+# to bf16, and an ulp of a hidden value moves a sum of 3072 terms by far less
+# than the output's own ulp.
+TOL_MLP = {torch.float32: (5e-5, 1e-4), torch.bfloat16: (1e-2, 2 ** -6)}
 # backward kernel vs its plain version, on d_qkv.  Both form P, dP and dS in
 # float32 from the same inputs and sum in another order.  float32: the hot
 # query rows make |dK| reach the hundreds, so the float32 rounding of sums of
@@ -429,11 +469,16 @@ def gemm_operands(m, k, n, seed, bias=True):
 def gemm_cases(shape, n):
     """(label, route, x kind, epilogue, extra) for every prologue and
     epilogue at this GEMM shape (requant with 3 and 36 column groups where
-    they divide N), plus the float32 and bias-free forms on the ragged
-    shape."""
+    they divide N; the int8 epilogues on the fused route too), plus the
+    float32 and bias-free forms on the ragged shape."""
     cases = [("fused bf16->bf16", "fused", "x", "float", {}),
              ("qlinear bf16->bf16", "qlinear", "x", "float", {}),
-             ("qlinear int8->bf16", "qlinear", "xq", "float", {})]
+             ("qlinear int8->bf16", "qlinear", "xq", "float", {}),
+             # the fused route's int8 epilogues (inverse scales multiply):
+             # the first launch of the unfused int8 MLP chain
+             ("fused gelu tanh x", "fused", "x", "gelu",
+              {"gelu_approx": True}),
+             ("fused requant/3 x", "fused", "x", "requant", {"groups": 3})]
     for x_kind in ("x", "xq"):
         for groups in (3, 36):
             if n % groups == 0:
@@ -464,6 +509,8 @@ def _gemm_args(ops, route, x_kind, epilogue, extra, seed):
     else:
         kw["gelu_approx"] = extra["gelu_approx"]
         kw["out_scales"] = torch.full((1,), 0.1, device="cuda")
+    if epilogue != "float" and route == "fused":
+        kw["out_scales"] = 1.0 / kw["out_scales"]
     cs = ops["cs"] if route == "fused" else ops["ws"]
     a = ops["inv"] if route == "fused" else ops["act"]
     b = None if extra.get("nobias") else ops["b"]
@@ -526,6 +573,156 @@ def check_ln_quant():
         raise AssertionError("ln_quant != plain version:\n"
                              + "\n".join(failures))
     return worst
+
+
+def mlp_operands(m, c, hid, dtype, seed):
+    """x ~ N(0, 1), weights ~ N(0, 1 / fan_in) in the torch layout, biases
+    ~ 0.1 N(0, 1), all of ``dtype``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, gain=1.0):
+        return (gain * torch.randn(shape, generator=g, device="cuda")).to(dtype)
+    return (rnd(m, c), rnd(hid, c, gain=c ** -0.5), rnd(hid, gain=0.1),
+            rnd(c, hid, gain=hid ** -0.5), rnd(c, gain=0.1))
+
+
+def check_mlp():
+    """mlp_fused vs its plain version on the card: the ViT-B widths at
+    M = 8 * 197 and ragged small shapes (M=111; C, HID = 72, 200 and, off
+    every vector width, 66, 150), bf16 and float32, both GELUs.  Returns the
+    worst error at the ViT-B widths in bf16."""
+    from vision_transformer_cam_tpu_torch.kernels import gemm
+    worst, failures = 0.0, []
+    for si, (m, c, hid) in enumerate(((8 * 197, 768, 3072), (111, 72, 200),
+                                      (111, 66, 150))):
+        for dtype in (torch.bfloat16, torch.float32):
+            ops = mlp_operands(m, c, hid, dtype, seed=20 + si)
+            for approx in (True, False):
+                got = gemm.mlp_fused(*ops, gelu_approx=approx)
+                want = gemm.mlp_fused_plain(*ops, gelu_approx=approx)
+                torch.cuda.synchronize()
+                name = str(dtype).split(".")[-1]
+                err = _compare(
+                    f"mlp_fused {name:8s} {'tanh' if approx else 'erf':4s} "
+                    f"M={m} C={c} HID={hid}", (got,), (want,),
+                    (TOL_MLP[dtype],), failures)
+                if c == 768 and dtype == torch.bfloat16:
+                    worst = max(worst, err)
+    if failures:
+        raise AssertionError("mlp_fused != plain version:\n"
+                             + "\n".join(failures))
+    return worst
+
+
+def mlp_int8_operands(m, c, hid, x_dtype, seed):
+    """The operands of mlp_fused_int8: activations ~N(0, 1), int8 weights
+    with per-channel scales, static act scales (fc1: absmax / 127; fc2: 6 /
+    127, so the hidden tensor clips a little), combined scales, biases."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((m, c), generator=g, device="cuda").to(x_dtype)
+
+    def layer(n, k, act):
+        wq = torch.randint(-127, 128, (n, k), generator=g, device="cuda",
+                           dtype=torch.int8)
+        ws = 1e-3 * (1 + torch.rand((n,), generator=g, device="cuda"))
+        return wq, ws * act, torch.randn((n,), generator=g, device="cuda")
+    act1 = x.float().abs().amax() / 127.0
+    act2 = torch.tensor(6.0 / 127.0, device="cuda")
+    w1q, cs1, b1 = layer(hid, c, act1)
+    w2q, cs2, b2 = layer(c, hid, act2)
+    return x, w1q, cs1, b1, w2q, cs2, b2, 1.0 / act1, 1.0 / act2
+
+
+def check_mlp_int8():
+    """mlp_fused_int8 vs its plain version (the chain of two fused-route int8
+    GEMMs) on the card.  Both run the same rounded float32 operations on
+    exact integer sums, so the float32 output is held to 1e-6 relative
+    (printed: whether it is equal bit for bit) and the bf16 output to one
+    bf16 ulp.  Returns the worst float32 error at the ViT-B widths."""
+    from vision_transformer_cam_tpu_torch.kernels import gemm
+    worst, failures = 0.0, []
+    for si, (m, c, hid) in enumerate(((8 * 197, 768, 3072), (111, 72, 200),
+                                      (111, 66, 150))):
+        for x_dtype, out_dtype in ((torch.bfloat16, torch.float32),
+                                   (torch.bfloat16, torch.bfloat16),
+                                   (torch.float32, torch.float32)):
+            ops = mlp_int8_operands(m, c, hid, x_dtype, seed=30 + si)
+            for approx in (True, False):
+                kw = dict(gelu_approx=approx, out_dtype=out_dtype)
+                got = gemm.mlp_fused_int8(*ops, **kw)
+                want = gemm.mlp_fused_int8_plain(*ops, **kw)
+                torch.cuda.synchronize()
+                names = [str(d).split(".")[-1] for d in (x_dtype, out_dtype)]
+                rtol = 1e-6 if out_dtype == torch.float32 else 2 ** -8
+                err = _compare(
+                    f"mlp_fused_int8 {names[0]}->{names[1]} "
+                    f"{'tanh' if approx else 'erf':4s} M={m} C={c} HID={hid} "
+                    f"(bit for bit: {torch.equal(got, want)})", (got,),
+                    (want,), ((0.0, rtol),), failures)
+                if c == 768 and out_dtype == torch.float32:
+                    worst = max(worst, err)
+    if failures:
+        raise AssertionError("mlp_fused_int8 != plain version:\n"
+                             + "\n".join(failures))
+    return worst
+
+
+def block_operands(b, n, heads, dtype, seed, hot):
+    """The operands of attention_block_fused: xn ~ N(0, 1), tokens ~ N(0, 1),
+    weights ~ N(0, 1 / C) in the torch layout, biases ~ 0.1 N(0, 1), a random
+    bg with 30 % background (cls column 0) and a row-stochastic float32
+    joint.  ``hot`` scales the q rows of heads 0 and 1 of the qkv weight by
+    40, so that logits of those heads pass the clamp at 80."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c = heads * 64
+
+    def rnd(*shape, gain=1.0):
+        return gain * torch.randn(shape, generator=g, device="cuda")
+    ops = (rnd(b, n, c), rnd(b, n, c), rnd(3 * c, c, gain=c ** -0.5),
+           rnd(3 * c, gain=0.1), rnd(c, c, gain=c ** -0.5), rnd(c, gain=0.1))
+    if hot:
+        ops[2][:128] *= 40.0
+    bg = (torch.rand((b, n), generator=g, device="cuda") < 0.3).float()
+    bg[:, 0] = 0.0
+    joint = torch.softmax(rnd(b, n, n), dim=-1)
+    return tuple(t.to(dtype).contiguous() for t in ops), bg.to(dtype), joint
+
+
+def check_attention_block():
+    """attention_block_fused vs its plain version on the card: bf16 and
+    float32, with and without the joint, clamp on and off, 30 % background
+    and none, B=8 N=197 (clusters of 7 blocks), a ragged B=3 N=37 (2), and
+    the ends of its range, B=2 N=256 (8) and B=2 N=17 (1).  Returns {(dtype
+    name, joint, clamp, n, bg kind): worst error}."""
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    errs, failures = {}, []
+    for (b, n) in ((8, 197), (3, 37), (2, 256), (2, 17)):
+        for dtype in (torch.bfloat16, torch.float32):
+            ops, bg, joint = block_operands(b, n, 12, dtype, seed=40 + n,
+                                            hot=dtype == torch.float32)
+            name = str(dtype).split(".")[-1]
+            for bg_kind, bg_ in (("30% bg", bg), ("no bg",
+                                                  torch.zeros_like(bg))):
+                for with_joint in (True, False):
+                    for clamp in (False, True):
+                        kw = dict(num_heads=12, scale=64 ** -0.5,
+                                  clamp_softmax=clamp)
+                        j = joint if with_joint else None
+                        got = ka.attention_block_fused(*ops, bg_, j, **kw)
+                        want = ka.attention_block_fused_plain(*ops, bg_, j,
+                                                              **kw)
+                        torch.cuda.synchronize()
+                        case = f"attention block {name:8s} " \
+                               f"joint={with_joint!s:5s} clamp={clamp!s:5s} " \
+                               f"{bg_kind:6s} B={b} N={n}"
+                        tols = [TOL[(dtype, "out")], TOL[(dtype, "prob")],
+                                TOL_JOINT]
+                        errs[(name, with_joint, clamp, n, bg_kind)] = \
+                            _compare(case, got, want, tols, failures)
+    if failures:
+        raise AssertionError("attention block kernel != plain version:\n"
+                             + "\n".join(failures))
+    return errs
 
 
 def time_ms(fn, iters=20, warmup=3):
@@ -621,13 +818,78 @@ def time_kernels(b=64, n=197):
     return times
 
 
+def time_fused(b=64, n=197, heads=12):
+    """The three fused kernels at ViT-B shapes and B=64, in turns with their
+    plain versions, and beside each the unfused route the port already has,
+    a yardstick for the shape and not the same single call: F.linear ->
+    F.gelu -> F.linear; two fused-route int8 GEMM launches; the qkv GEMM, the
+    attention kernel, the proj GEMM and the residual add.  Returns {name:
+    (kernel ms, plain ms, unfused route ms)}."""
+    import torch.nn.functional as F
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    from vision_transformer_cam_tpu_torch.kernels import gemm
+    c, m = heads * 64, b * n
+    times = {}
+
+    x, w1, b1, w2, b2 = mlp_operands(m, c, 4 * c, torch.bfloat16, seed=50)
+    k_ms, p_ms = in_turns(
+        lambda: gemm.mlp_fused(x, w1, b1, w2, b2),
+        lambda: gemm.mlp_fused_plain(x, w1, b1, w2, b2), iters=5)
+    u_ms = time_ms(lambda: F.linear(F.gelu(F.linear(x, w1, b1),
+                                           approximate="tanh"), w2, b2), 5)
+    times["mlp_fused"] = (k_ms, p_ms, u_ms)
+    say(f"time mlp_fused bf16 M={m} C={c} HID={4 * c}: kernel {k_ms:.4f} ms, "
+        f"plain {p_ms:.4f} ms; unfused F.linear, F.gelu, F.linear (cuBLAS "
+        f"and ATen) {u_ms:.4f} ms")
+
+    ops = mlp_int8_operands(m, c, 4 * c, torch.bfloat16, seed=51)
+    xq, w1q, cs1, b1q, w2q, cs2, b2q, inv1, inv2 = ops
+    one = torch.ones((), device="cuda")
+
+    def chain():
+        hq = gemm.linear_int8(xq, w1q, cs1, b1q, inv1, route="fused",
+                              epilogue="gelu", out_scales=inv2.reshape(1))
+        return gemm.linear_int8(hq.float(), w2q, cs2, b2q, one,
+                                route="fused", out_dtype=torch.bfloat16)
+    k_ms, p_ms = in_turns(lambda: gemm.mlp_fused_int8(*ops),
+                          lambda: gemm.mlp_fused_int8_plain(*ops), iters=5)
+    u_ms = time_ms(chain, 5)
+    times["mlp_fused_int8"] = (k_ms, p_ms, u_ms)
+    say(f"time mlp_fused_int8 bf16 M={m} C={c} HID={4 * c}: kernel "
+        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms; unfused chain of two int8 GEMM "
+        f"launches (and the cast between them) {u_ms:.4f} ms")
+
+    bops, bg, joint = block_operands(b, n, heads, torch.bfloat16, seed=52,
+                                     hot=False)
+    xn, tok, wqkv, bqkv, wproj, bproj = bops
+    kw = dict(num_heads=heads, scale=64 ** -0.5, clamp_softmax=True)
+
+    def unfused():
+        o, _, _ = ka.masked_attention_fused(F.linear(xn, wqkv, bqkv), bg,
+                                            joint, **kw)
+        return tok + F.linear(o, wproj, bproj)
+    k_ms, p_ms = in_turns(
+        lambda: ka.attention_block_fused(*bops, bg, joint, **kw),
+        lambda: ka.attention_block_fused_plain(*bops, bg, joint, **kw),
+        iters=5)
+    u_ms = time_ms(unfused, 5)
+    times["attention_block_fused"] = (k_ms, p_ms, u_ms)
+    say(f"time attention_block_fused bf16 rollout B={b} N={n}: kernel "
+        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms; unfused qkv GEMM, attention "
+        f"kernel, proj GEMM, add {u_ms:.4f} ms")
+    return times
+
+
 def reset_counts():
     from vision_transformer_cam_tpu_torch.kernels import attention as ka
     from vision_transformer_cam_tpu_torch.kernels import gemm
     ka.launches = 0
     ka.bwd_launches = 0
+    ka.block_launches = 0
     gemm.linear_int8_launches = 0
     gemm.ln_quant_launches = 0
+    gemm.mlp_fused_launches = 0
+    gemm.mlp_fused_int8_launches = 0
 
 
 def read_counts():
@@ -636,13 +898,16 @@ def read_counts():
     return {"masked_attention_fused": ka.launches,
             "linear_int8_fused": gemm.linear_int8_launches,
             "ln_quant": gemm.ln_quant_launches,
-            "masked_attention_bwd": ka.bwd_launches}
+            "masked_attention_bwd": ka.bwd_launches,
+            "mlp_fused": gemm.mlp_fused_launches,
+            "mlp_fused_int8": gemm.mlp_fused_int8_launches,
+            "attention_block_fused": ka.block_launches}
 
 
 def serve(model, reqs, per_forward, label):
     """The requests through ``model`` with the rollout CAM; the launch
     counts are set to 0 before and read after, and must be ``per_forward``
-    times the number of requests."""
+    (a kernel it does not name: 0) times the number of requests."""
     from vision_transformer_cam_tpu_torch.ops.rollout import (
         cam_from_rollout_row)
     g = model.cfg.grid_size
@@ -654,7 +919,7 @@ def serve(model, reqs, per_forward, label):
         outs.append((out, cam_from_rollout_row(out.rollout_row, g)))
     torch.cuda.synchronize()
     counts = read_counts()
-    want = {k: v * len(reqs) for k, v in per_forward.items()}
+    want = {k: per_forward.get(k, 0) * len(reqs) for k in counts}
     say(f"main path {label}: {len(reqs)} requests x {reqs[0].shape[0]} images "
         f"in {time.perf_counter() - t0:.3f} s (first includes warm-up), "
         f"launches {counts} (expected {want})")
@@ -752,6 +1017,23 @@ def main_path(batch=32, requests=3, bench_batch=256):
         f"logits {d_logit:.3e} (tol 2e-4)")
     if not (d_roll <= 1e-5 and d_logit <= 2e-4):
         raise AssertionError("f32 kernel path disagrees with the eager path")
+    # the same with both serving fusions on: every block through the block
+    # kernel and the fused MLP kernel, at float32
+    model.cfg = cfg.replace(attn_impl="kernel", mlp_fusion=True,
+                            attn_block_fusion=True)
+    reset_counts()
+    got = model(x, need_rollout=True)
+    model.cfg = cfg
+    counts = read_counts()
+    d_roll = float((got.rollout_row - want.rollout_row).abs().max())
+    d_logit = float((got.logits - want.logits).abs().max())
+    say(f"f32 fused kernel path vs eager (B=4): rollout row {d_roll:.3e} (tol "
+        f"1e-5), logits {d_logit:.3e} (tol 2e-4); launches {counts}")
+    if not (d_roll <= 1e-5 and d_logit <= 2e-4) or \
+            (counts["attention_block_fused"], counts["mlp_fused"],
+             counts["masked_attention_fused"]) != (cfg.depth, cfg.depth, 0):
+        raise AssertionError("f32 fused kernel path disagrees with the eager "
+                             "path, or did not run its kernels")
 
     serving.apply_serving_mode(model, "bf16")
     kcfg = model.cfg
@@ -765,6 +1047,8 @@ def main_path(batch=32, requests=3, bench_batch=256):
                               "bf16")
     for k, v in counts.items():
         totals[k] = totals.get(k, 0) + v
+    totals["masked_attention_fused[bf16 rollout, serving]"] = \
+        counts["masked_attention_fused"]
 
     # the same model on the eager attention path
     model.cfg = kcfg.replace(attn_impl="eager")
@@ -780,12 +1064,30 @@ def main_path(batch=32, requests=3, bench_batch=256):
     if not (d_cam <= 5e-2 and d_logit <= 5e-2):
         raise AssertionError("bf16 kernel path disagrees with the eager path")
 
+    # the bf16 fused path: the block kernel and the fused MLP kernel on every
+    # layer, against the bf16 kernel path
+    fused = dict(mlp_fusion=True, attn_block_fusion=True)
+    model.cfg = kcfg.replace(**fused)
+    outs, counts = serve(model, reqs, {"attention_block_fused": cfg.depth,
+                                       "mlp_fused": cfg.depth}, "bf16 fused")
+    model.cfg = kcfg
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+    d_cam, d_logit, ov = deviation(outs, outs_bf16)
+    say(f"bf16 fused vs bf16 kernel path: CAM max abs dev {d_cam:.3e} (tol "
+        f"5e-2), logits max abs dev {d_logit:.3e} (tol 5e-2), top-16 overlap "
+        f"{ov:.4f}")
+    if not (d_cam <= 5e-2 and d_logit <= 5e-2):
+        raise AssertionError("bf16 fused path disagrees with the bf16 kernel "
+                             "path")
+
     # int8 serving, calibrated on 16 seeded images, with the fused LN ->
     # int8 and the fused-quantize GEMM route on
     calib = np.random.default_rng(1).standard_normal(
         (16, cfg.img_size, cfg.img_size, 3), dtype=np.float32)
     served = {"bf16": (model, kcfg),
-              "eager": (model, kcfg.replace(attn_impl="eager"))}
+              "eager": (model, kcfg.replace(attn_impl="eager")),
+              "bf16_fused": (model, kcfg.replace(**fused))}
     for mode in ("int8", "int8_hifi"):
         qm = serving.apply_serving_mode(new_model(), mode,
                                         calib_images=calib)
@@ -803,6 +1105,26 @@ def main_path(batch=32, requests=3, bench_batch=256):
             f"dev {d_cam:.3e}, logits max abs dev {d_logit:.3e}, top-16 "
             f"overlap {ov:.4f}")
         served[mode] = (qm, qm.cfg)
+        if mode != "int8":
+            continue
+        # the int8 fused path: the same model with mlp_fusion on (and
+        # attn_block_fusion, which a quantized qkv layer falls through): the
+        # fused int8 MLP kernel replaces fc1, fc2 and the second ln_quant
+        qm.cfg = qm.cfg.replace(**fused)
+        outs_f, counts = serve(
+            qm, reqs, {"masked_attention_fused": cfg.depth,
+                       "linear_int8_fused": 1 + 2 * cfg.depth,
+                       "ln_quant": cfg.depth, "mlp_fused_int8": cfg.depth},
+            "int8 fused")
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        whole_path_check(qm, "int8 fused", g)
+        d_cam, d_logit, ov = deviation(outs_f, outs)
+        say(f"int8 fused vs int8 (recorded, not gated): CAM max abs dev "
+            f"{d_cam:.3e}, logits max abs dev {d_logit:.3e}, top-16 overlap "
+            f"{ov:.4f}")
+        served["int8_fused"] = (qm, qm.cfg)
+        qm.cfg = served["int8"][1]
 
     # throughput at batch 256, in turns; "eager" is the bf16 model on the
     # eager attention path
@@ -819,8 +1141,8 @@ def main_path(batch=32, requests=3, bench_batch=256):
             cam_from_rollout_row(m(xb, need_rollout=True).rollout_row, g)
         torch.cuda.synchronize()
         return bench_batch * iters / (time.perf_counter() - t)
-    order = ("bf16", "eager", "int8", "int8_hifi", "int8_hifi", "int8",
-             "eager", "bf16")
+    order = ("bf16", "eager", "int8", "int8_hifi", "bf16_fused", "int8_fused",
+             "int8_fused", "bf16_fused", "int8_hifi", "int8", "eager", "bf16")
     rates = {}
     for mode in order:
         rates.setdefault(mode, []).append(rate(mode))
@@ -872,6 +1194,32 @@ def kernel_bounds(b=64, n=197, heads=12):
                                       7 * m * c * 2 + m * 4,
                                       {"bf16": 5 * qk}),
     }
+    hid = 4 * c
+    bounds.update({
+        # the bf16 serving path's launch: bf16 qkv and bg and the f32 joint
+        # in; bf16 out and cls row and the f32 joint out
+        "masked_attention_fused[bf16 rollout, serving]": bound(
+            "masked_attention_fused bf16 rollout (the bf16 serving path)",
+            m * 3 * c * 2 + m * 2 + 2 * b * n * n * 4 + m * c * 2 + m * 2,
+            {"bf16": 2 * qk, "f32": 2 * b * n ** 3}),
+        # bf16 x, both weights and biases in, bf16 out; two products
+        "mlp_fused": bound(
+            "mlp_fused bf16", 2 * m * c * 2 + 2 * c * hid * 2 + (hid + c) * 2,
+            {"bf16": 4 * m * c * hid}),
+        # bf16 x, int8 weights, f32 scale and bias vectors and the two
+        # inverse act scales in, bf16 out
+        "mlp_fused_int8": bound(
+            "mlp_fused_int8", 2 * m * c * 2 + 2 * c * hid
+            + 2 * (hid + c) * 4 + 8, {"int8": 4 * m * c * hid}),
+        # bf16 xn and tokens, the qkv and proj weights and biases, f32 bg
+        # and the f32 joint in; bf16 tokens and cls row and the f32 joint
+        # out.  qkv and proj GEMMs, QK^T and PV at the bf16 rate, hm @ J f32
+        "attention_block_fused": bound(
+            "attention_block_fused bf16 rollout",
+            3 * m * c * 2 + 4 * c * c * 2 + 4 * c * 2 + m * 4
+            + 2 * b * n * n * 4 + m * 2,
+            {"bf16": 2 * m * c * 4 * c + 2 * qk, "f32": 2 * b * n ** 3}),
+    })
     # the five GEMMs as the int8 path calls them: x (bf16 for the patch
     # embed, else int8), the int8 weight, float32 scale and bias vectors;
     # out bf16, or int8 after a requant / GELU-requant epilogue
@@ -935,8 +1283,9 @@ def _expect_counts(label, fwd, bwd):
         f"{counts['masked_attention_fused']} (expected {fwd}), backward "
         f"kernel {counts['masked_attention_bwd']} (expected {bwd})")
     if (counts["masked_attention_fused"], counts["masked_attention_bwd"]) \
-            != (fwd, bwd) or counts["linear_int8_fused"] \
-            or counts["ln_quant"]:
+            != (fwd, bwd) or any(
+                v for k, v in counts.items() if k not in
+                ("masked_attention_fused", "masked_attention_bwd")):
         raise AssertionError(f"{label}: launch counts {counts}")
     return counts
 
@@ -1131,7 +1480,11 @@ def main() -> int:
     check_attention_bwd()
     gemm_err = check_gemm()
     ln_err = check_ln_quant()
+    mlp_err = check_mlp()
+    mlp8_err = check_mlp_int8()
+    block_errs = check_attention_block()
     times = time_kernels()
+    fused_ms = time_fused()
     bwd_ms = time_attention_bwd()
     launches = main_path()
     train_launches = train_path()
@@ -1153,12 +1506,22 @@ def main() -> int:
         "ln_quant": (float(ln_err), *times[("ln_quant",)]),
         # the error at the training path's shape (B=64, N=197, bf16)
         "masked_attention_bwd": (bwd_ms[3], *bwd_ms[:2]),
+        "masked_attention_fused[bf16 rollout, serving]": (
+            attn_errs[("bfloat16", "rollout", True, 197)],
+            *times[("attention", "bf16", "rollout")]),
+        "mlp_fused": (mlp_err, *fused_ms["mlp_fused"][:2]),
+        "mlp_fused_int8": (mlp8_err, *fused_ms["mlp_fused_int8"][:2]),
+        "attention_block_fused": (
+            block_errs[("bfloat16", True, True, 197, "30% bg")],
+            *fused_ms["attention_block_fused"][:2]),
     }
     # one PyTorch call that computes the same function: only the backward has
     # one (the backward of scaled_dot_product_attention).  The forward also
     # returns the cls row and the rollout update, ln_quant the int8 rows of a
     # LayerNorm, and the int8 GEMM quantizes and requantizes around the
-    # product: no single call gives those
+    # product: no single call gives those.  Nor does one call give an MLP
+    # (two GEMMs around a GELU) or the attention sub-block: their unfused
+    # routes of several calls are timed as yardsticks in time_fused
     library = {"masked_attention_bwd": bwd_ms[2]}
     bounds = kernel_bounds()
     say(json.dumps({"kernels": [
@@ -1168,6 +1531,11 @@ def main() -> int:
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": library.get(name)}
         for name, (route, src, rep) in KERNELS.items()]}))
+    # every launch above was followed by a synchronisation: a last one, with a
+    # read back, shows that the card is still answering
+    torch.cuda.synchronize()
+    if float(torch.ones(8, device="cuda").sum()) != 8.0:
+        raise AssertionError("the card does not answer after the run")
     say(card)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

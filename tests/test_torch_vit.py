@@ -200,9 +200,7 @@ def test_config_mirrors_jax_config():
         tcfgs.resolve_model("vit_typo")
 
 
-@pytest.mark.parametrize("knob", [dict(mlp_fusion=True),
-                                  dict(attn_block_fusion=True),
-                                  dict(seq_axis="seq"),
+@pytest.mark.parametrize("knob", [dict(seq_axis="seq"),
                                   dict(matmul_precision="high")])
 def test_unported_knobs_raise(knob):
     with pytest.raises(NotImplementedError):

@@ -105,6 +105,19 @@ def load():
         fn = lib.vitcam_masked_attention_bwd
         fn.argtypes = [p, p, p, p, p, i, i, i, i, f, f, i, i, p]
         fn.restype = i
+        fn = lib.vitcam_mlp_fused
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+        fn.restype = i
+        fn = lib.vitcam_mlp_fused_int8
+        fn.argtypes = [p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+        fn.restype = i
+        fn = lib.vitcam_attention_block_fused
+        fn.argtypes = [p] * 11 + [i, i, i, i, f, f, i, i, i, p]
+        fn.restype = i
+        lib.vitcam_mlp_fused_smem_bytes.argtypes = [i, i]
+        lib.vitcam_mlp_fused_smem_bytes.restype = ctypes.c_size_t
+        lib.vitcam_attention_block_smem_bytes.argtypes = [i, i, i, i]
+        lib.vitcam_attention_block_smem_bytes.restype = ctypes.c_size_t
         lib.vitcam_masked_attention_bwd_smem_bytes.argtypes = [i, i]
         lib.vitcam_masked_attention_bwd_smem_bytes.restype = ctypes.c_size_t
         lib.vitcam_masked_attention_smem_bytes.argtypes = [i, i]

@@ -17,9 +17,15 @@ recomputed on chip, ``csrc/masked_attention_bwd.cu`` on a CUDA tensor and
 the two into a differentiable attention (the TPU package's custom_vjp of the
 same name) for training.
 
-``launches`` and ``bwd_launches`` count the CUDA kernel launches made through
-the forward and the backward wrapper, so a run can show that its main path
-went through the kernels.
+``attention_block_fused`` is the port of the TPU kernel of the same name:
+the whole attention sub-block, ``tokens + proj(attention(qkv(xn)))`` with the
+cls row and the rollout update, in one launch; neither the qkv tensor nor the
+attention output reaches device memory.  ``csrc/attention_block.cu`` on a
+CUDA tensor, ``attention_block_fused_plain`` on a CPU tensor.
+
+``launches``, ``bwd_launches`` and ``block_launches`` count the CUDA kernel
+launches made through the forward, the backward and the block wrapper, so a
+run can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch
 
 launches = 0
 bwd_launches = 0
+block_launches = 0
 
 # mode codes of the C entry point
 _PLAIN, _HEADMEAN, _ROLLOUT = 0, 1, 2
@@ -44,6 +51,11 @@ HEAD_DIM = 64   # the CUDA kernels' head width
 # and the first one's (64 * ceil4(N) + N + 8480) floats allow N <= BWD_MAX_N.
 BWD_ONE_BLOCK_MAX_N = 256
 BWD_MAX_N = 760
+# The block kernel gives every 32 query rows of an image one thread block and
+# joins an image's blocks into one cluster, of at most 8 blocks.
+BLOCK_ROWS = 32
+BLOCK_MAX_N = 8 * BLOCK_ROWS
+BLOCK_MAX_C = 768   # its [32, C] output tile and staging in shared memory
 
 
 def _scales_kind(qkv, scales, num_heads):
@@ -426,3 +438,136 @@ def fused_attention_diff(qkv, bg, *, num_heads: int, scale: float,
             f"attn_impl='eager'")
     return _FusedAttentionDiff.apply(qkv, bg, num_heads, scale, mask_value,
                                      clamp_softmax)
+
+
+def _check_block(xn, tokens, wqkv, bqkv, wproj, bproj, bg, joint, num_heads):
+    if xn.dim() != 3 or xn.shape[-1] % num_heads:
+        raise ValueError(f"xn must be [B, N, C] with C divisible by "
+                         f"num_heads={num_heads}, got {tuple(xn.shape)}")
+    b, n, c = xn.shape
+    for name, t, shape in (("tokens", tokens, (b, n, c)),
+                           ("wqkv", wqkv, (3 * c, c)),
+                           ("bqkv", bqkv, (3 * c,)), ("wproj", wproj, (c, c)),
+                           ("bproj", bproj, (c,)), ("bg", bg, (b, n))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    if joint is not None and tuple(joint.shape) != (b, n, n):
+        raise ValueError(f"joint must be [B, N, N] = {(b, n, n)}, got "
+                         f"{tuple(joint.shape)}")
+
+
+def attention_block_fused_plain(xn, tokens, wqkv, bqkv, wproj, bproj, bg,
+                                joint=None, *, num_heads: int, scale: float,
+                                mask_value: float = -100.0,
+                                clamp_softmax: bool = False):
+    """Plain PyTorch version of the block kernel.
+
+    xn (the LayerNorm output) and tokens (the residual stream) [B, N, C];
+    wqkv [3C, C] and wproj [C, C] in the torch layout [out, in] (the TPU
+    kernel takes the transposes); bqkv [3C], bproj [C]; bg [B, N]; joint
+    [B, N, N] or None.  Returns (tokens + proj(attention(qkv(xn))) in xn's
+    type, cls_row [B, N] in xn's type) and, with a joint, J' = (hm @ J + J)
+    / 2 in joint's type.
+
+    The roundings of the TPU kernel: qkv sums in float32, gets its bias
+    there and is rounded to xn's type; the attention core is
+    ``masked_attention_fused_ref`` on that qkv (rank-1 mask, clamp or
+    row-max, normalised P rounded before P.V with a joint, unnormalised
+    exponentials and a division after it without); its output is rounded to
+    xn's type before proj; proj, its bias and the residual add are float32,
+    then cast."""
+    _check_block(xn, tokens, wqkv, bqkv, wproj, bproj, bg, joint, num_heads)
+    acc = torch.promote_types(xn.dtype, torch.float32)
+    qkv = (torch.matmul(xn.to(acc), wqkv.to(acc).t())
+           + bqkv.to(acc)).to(xn.dtype)
+    res = masked_attention_fused_ref(
+        qkv, bg, joint, num_heads=num_heads, scale=scale,
+        mask_value=mask_value, clamp_softmax=clamp_softmax)
+    proj = torch.matmul(res[0].to(acc), wproj.to(acc).t()) + bproj.to(acc)
+    return ((tokens.to(acc) + proj).to(xn.dtype),) + tuple(res[1:])
+
+
+def attention_block_fused(xn, tokens, wqkv, bqkv, wproj, bproj, bg,
+                          joint=None, *, num_heads: int, scale: float,
+                          mask_value: float = -100.0,
+                          clamp_softmax: bool = False):
+    """Same contract as ``attention_block_fused_plain``.  CPU tensors run the
+    plain version; CUDA tensors launch the kernel or raise.  The kernel takes
+    xn, tokens, weights and biases all float32 or all bfloat16, contiguous;
+    head width 64; N <= ``BLOCK_MAX_N`` (the TPU kernel tiles queries at 512;
+    here an image's query tiles form one cluster of at most 8 blocks) and
+    C <= ``BLOCK_MAX_C`` (its shared memory); bg float32 or bfloat16; joint
+    float32.  It reads the weights in the torch layout: no transposed copy
+    is made."""
+    global block_launches
+    kw = dict(num_heads=num_heads, scale=scale, mask_value=mask_value,
+              clamp_softmax=clamp_softmax)
+    args = (xn, tokens, wqkv, bqkv, wproj, bproj)
+    if xn.device.type == "cpu":
+        return attention_block_fused_plain(*args, bg, joint, **kw)
+    if xn.device.type != "cuda":
+        raise ValueError(f"attention_block_fused: no kernel for device "
+                         f"{xn.device}")
+    _check_block(*args, bg, joint, num_heads)
+    given = [t for t in args + (bg, joint) if t is not None]
+    if any(t.device != xn.device for t in given):
+        raise ValueError("attention_block_fused: all operands must be on "
+                         "xn's device")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in given):
+        raise ValueError("attention_block_fused is not differentiable; call "
+                         "it without gradient tracking")
+    if xn.dtype not in (torch.float32, torch.bfloat16) or \
+            any(t.dtype != xn.dtype for t in args):
+        raise TypeError("attention_block_fused takes xn, tokens, weights and "
+                        "biases all float32 or all bfloat16, got "
+                        f"{[t.dtype for t in args]}")
+    if not bg.is_floating_point() or bg.dtype == torch.float64:
+        raise TypeError(f"bg must be a float32/bfloat16 tensor, got {bg.dtype}")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in args):
+        raise ValueError("attention_block_fused: operands must be contiguous "
+                         "and 16-byte aligned")
+    b, n, c = xn.shape
+    if c // num_heads != HEAD_DIM:
+        raise ValueError(f"the CUDA block kernel takes head width "
+                         f"{HEAD_DIM}, got {c // num_heads}")
+    if n > BLOCK_MAX_N:
+        raise ValueError(f"the CUDA block kernel takes N <= {BLOCK_MAX_N}, "
+                         f"got {n}; serve this shape without "
+                         "attn_block_fusion")
+    if c > BLOCK_MAX_C:
+        raise ValueError(f"the CUDA block kernel takes C <= {BLOCK_MAX_C}, "
+                         f"got {c}; serve this width without "
+                         "attn_block_fusion")
+    if joint is not None and (joint.dtype != torch.float32
+                              or not joint.is_contiguous()):
+        raise TypeError("joint must be a contiguous float32 tensor")
+
+    from vision_transformer_cam_tpu_torch.kernels import _build
+    lib = _build.load()
+    bg32 = bg.to(torch.float32).contiguous()
+    out = torch.empty_like(xn)
+    cls_row = torch.empty((b, n), dtype=xn.dtype, device=xn.device)
+    # never in place: every block of an image reads all of J
+    newj = torch.empty_like(joint) if joint is not None else None
+    with torch.cuda.device(xn.device):
+        stream = torch.cuda.current_stream(xn.device).cuda_stream
+        err = lib.vitcam_attention_block_fused(
+            xn.data_ptr(), tokens.data_ptr(), wqkv.data_ptr(),
+            bqkv.data_ptr(), wproj.data_ptr(), bproj.data_ptr(),
+            bg32.data_ptr(), joint.data_ptr() if joint is not None else None,
+            out.data_ptr(), cls_row.data_ptr(),
+            newj.data_ptr() if joint is not None else None, b, n, num_heads,
+            c // num_heads, float(scale), float(mask_value),
+            _DTYPE_CODES[xn.dtype], int(clamp_softmax),
+            -(-n // BLOCK_ROWS), stream)
+    if err:
+        msg = lib.vitcam_cuda_error_string(err).decode()
+        need = lib.vitcam_attention_block_smem_bytes(
+            n, num_heads, int(joint is not None), _DTYPE_CODES[xn.dtype])
+        raise RuntimeError(
+            f"attention_block_fused kernel launch failed: cudaError {err} "
+            f"({msg}); shared memory needed {need} bytes")
+    block_launches += 1
+    if newj is None:
+        return out, cls_row
+    return out, cls_row, newj

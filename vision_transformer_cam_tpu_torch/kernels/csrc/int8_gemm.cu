@@ -16,6 +16,9 @@
 //   epilogue  float:   y as float32 / bfloat16
 //             requant: clip(rint(y / s[n / (N / groups)]), +-127) as int8
 //             gelu:    clip(rint(gelu(y) / s[0]), +-127) as int8 (tanh or erf)
+//             On the fused route s holds inverse scales and multiplies
+//             (rint(y * s)), as that route's prologue does: the op order of
+//             the TPU fused MLP kernel, whose two GEMMs this route repeats.
 //
 // Every float step is an explicitly rounded __fmul_rn / __fadd_rn /
 // __fdiv_rn, so nvcc cannot contract a multiply and an add into one FMA and
@@ -49,6 +52,8 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "int8_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -67,10 +72,6 @@ enum Epilogue { kFloat = 0, kRequant = 1, kGelu = 2 };
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-__device__ __forceinline__ int clip_rint(float t) {
-  return static_cast<int>(fminf(fmaxf(rintf(t), -127.f), 127.f));
-}
-
 // One element of the x tile as an int8 value (in an int).
 template <typename XT>
 __device__ __forceinline__ int quant_x(const XT* x, size_t idx, float a, int route) {
@@ -80,23 +81,6 @@ __device__ __forceinline__ int quant_x(const XT* x, size_t idx, float a, int rou
 template <>
 __device__ __forceinline__ int quant_x<int8_t>(const int8_t* x, size_t idx, float, int) {
   return x[idx];
-}
-
-__device__ __forceinline__ int pack4(int a, int b, int c, int d) {
-  return (a & 0xff) | ((b & 0xff) << 8) | ((c & 0xff) << 16) | (int(unsigned(d) << 24));
-}
-
-// jax.nn.gelu, op for op, in float32
-__device__ __forceinline__ float gelu(float y, int approx) {
-  if (approx) {
-    const float c = 0.7978845608028654f;   // sqrt(2 / pi) in float32
-    const float y3 = __fmul_rn(__fmul_rn(y, y), y);
-    const float inner = __fmul_rn(c, __fadd_rn(y, __fmul_rn(0.044715f, y3)));
-    const float cdf = __fmul_rn(0.5f, __fadd_rn(1.f, tanhf(inner)));
-    return __fmul_rn(y, cdf);
-  }
-  const float sqrt_half = 0.7071067811865476f;
-  return __fmul_rn(__fmul_rn(0.5f, y), erfcf(__fmul_rn(-y, sqrt_half)));
 }
 
 template <typename XT, typename OT>
@@ -190,7 +174,9 @@ linear_int8_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w, int M
       const size_t o = size_t(gm) * N + gn;
       if constexpr (sizeof(OT) == 1) {
         if (epilogue == kGelu) y = gelu(y, gelu_approx);
-        out[o] = static_cast<OT>(clip_rint(__fdiv_rn(y, s)));
+        // fused route: s is an inverse scale
+        const float t = route == kFused ? __fmul_rn(y, s) : __fdiv_rn(y, s);
+        out[o] = static_cast<OT>(clip_rint(t));
       } else if constexpr (sizeof(OT) == 2) {
         out[o] = __float2bfloat16(y);
       } else {

@@ -1,4 +1,5 @@
-"""The int8 serving GEMM and the fused LayerNorm -> int8 quantize.
+"""The int8 serving GEMM, the fused LayerNorm -> int8 quantize and the fused
+MLP kernels.
 
 ``linear_int8`` is the port's one int8 GEMM.  It replaces the TPU kernel
 vision_transformer_cam_tpu/kernels/gemm.py: linear_int8_fused and also the
@@ -11,8 +12,15 @@ On a CUDA tensor it launches the hand-written kernel in
 int8 quantize, in one pass).  On a CUDA tensor it launches a Triton kernel,
 compiled at its first call; on a CPU tensor it runs ``ln_quant_ref``.
 
+``mlp_fused`` and ``mlp_fused_int8`` replace kernels/gemm.py: mlp_fused and
+mlp_fused_int8 (fc1 -> GELU -> fc2 in one launch; the [M, HID] hidden tensor
+never reaches device memory).  On a CUDA tensor they launch the hand-written
+kernels in ``csrc/mlp_fused.cu``; on a CPU tensor they run ``mlp_fused_plain``
+and ``mlp_fused_int8_plain``.
+
 There is no fallback from a kernel to its plain version.  Each wrapper
-counts its CUDA launches (``linear_int8_launches``, ``ln_quant_launches``).
+counts its CUDA launches (``linear_int8_launches``, ``ln_quant_launches``,
+``mlp_fused_launches``, ``mlp_fused_int8_launches``).
 """
 
 from __future__ import annotations
@@ -23,6 +31,8 @@ import torch
 
 linear_int8_launches = 0
 ln_quant_launches = 0
+mlp_fused_launches = 0
+mlp_fused_int8_launches = 0
 
 ROUTES = ("fused", "qlinear")
 EPILOGUES = ("float", "requant", "gelu")
@@ -100,6 +110,9 @@ def linear_int8_ref(x, weight_q, col_scale, bias, a_scale, *, route,
       epilogue "requant": int8 round(y / s_col), s_col the ``groups``
                           ``out_scales`` repeated over equal column groups
       epilogue "gelu":    int8 round(gelu(y) / out_scales[0])
+    On the fused route ``out_scales`` holds inverse scales and multiplies
+    (round(y * s)), as that route's prologue does: the op order of the TPU
+    fused MLP kernel, whose two GEMMs this route repeats.
     The int8 dot is exact: the operands are cast to float64, where every
     partial sum (<= 127^2 K < 2^53) is an integer, then rounded to float32
     as the int32 accumulator's conversion rounds it.
@@ -124,7 +137,8 @@ def linear_int8_ref(x, weight_q, col_scale, bias, a_scale, *, route,
     else:
         y = _gelu_f32(y, gelu_approx)
         s = out_scales.to(torch.float32).reshape(())
-    q = torch.clamp(torch.round(y / s), -127, 127).to(torch.int8)
+    t = y * s if route == "fused" else y / s
+    q = torch.clamp(torch.round(t), -127, 127).to(torch.int8)
     return q.reshape(*lead, n)
 
 
@@ -185,6 +199,193 @@ def linear_int8(x, weight_q, col_scale, bias, a_scale, *, route,
             f"({lib.vitcam_cuda_error_string(err).decode()})")
     linear_int8_launches += 1
     return out.reshape(*lead, n)
+
+
+# ---------------------------------------------------------------------------
+# fused MLP: fc2(gelu(fc1(x))), the hidden tensor kept on chip
+# ---------------------------------------------------------------------------
+
+# the fused MLP kernels keep a [32, C] float32 accumulator in shared memory
+MLP_MAX_C = 768
+
+
+def _launch_error(lib, name, err, c, kind):
+    """kind: 0 the float32 kernel, 1 the bfloat16 one, 2 the int8 one."""
+    return RuntimeError(
+        f"{name} kernel launch failed: cudaError {err} "
+        f"({lib.vitcam_cuda_error_string(err).decode()}); shared memory "
+        f"needed {lib.vitcam_mlp_fused_smem_bytes(c, kind)} bytes")
+
+
+def _check_mlp(x, w1, b1, w2, b2):
+    if w1.dim() != 2 or w2.dim() != 2:
+        raise ValueError("w1 and w2 must be 2-D, [HID, C] and [C, HID]")
+    hid, c = w1.shape
+    if x.shape[-1] != c or tuple(w2.shape) != (c, hid):
+        raise ValueError(f"x [..., {x.shape[-1]}], w1 {tuple(w1.shape)} and "
+                         f"w2 {tuple(w2.shape)} do not chain as [.., C] x "
+                         "[HID, C]^T x [C, HID]^T")
+    for name, b, n in (("b1", b1, hid), ("b2", b2, c)):
+        if b is not None and tuple(b.shape) != (n,):
+            raise ValueError(f"{name} must be [{n}], got {tuple(b.shape)}")
+    return c, hid
+
+
+def mlp_fused_plain(x, w1, b1, w2, b2, *, gelu_approx: bool = True):
+    """Plain PyTorch version of the fused MLP.
+
+    x [..., C]; w1 [HID, C], w2 [C, HID] in the torch layout [out, in] (the
+    TPU kernel takes the transposes); b1 [HID], b2 [C].  The roundings of
+    the TPU kernel: both products sum in at least float32, the bias and the
+    GELU (jax.nn.gelu's formulas) are float32, the hidden tensor is rounded
+    to x's type before fc2, b2 is added in float32, and the result is cast
+    to x's type."""
+    c, _ = _check_mlp(x, w1, b1, w2, b2)
+    if b1 is None or b2 is None:
+        raise ValueError("mlp_fused needs both biases")
+    acc = torch.promote_types(x.dtype, torch.float32)
+    h = torch.matmul(x.reshape(-1, c).to(acc), w1.to(acc).t()) + b1.to(acc)
+    h = _gelu_f32(h, gelu_approx).to(x.dtype)
+    out = torch.matmul(h.to(acc), w2.to(acc).t()) + b2.to(acc)
+    return out.to(x.dtype).reshape(x.shape)
+
+
+def mlp_fused(x, w1, b1, w2, b2, *, gelu_approx: bool = True):
+    """Same contract as ``mlp_fused_plain``.  CPU tensors run the plain
+    version; CUDA tensors launch the kernel (x, weights and biases all
+    float32 or all bfloat16, contiguous, C <= ``MLP_MAX_C``) or raise.  The
+    kernel reads the weights in the torch layout: no transposed copy is
+    made."""
+    global mlp_fused_launches
+    if x.device.type == "cpu":
+        return mlp_fused_plain(x, w1, b1, w2, b2, gelu_approx=gelu_approx)
+    if x.device.type != "cuda":
+        raise ValueError(f"mlp_fused: no kernel for device {x.device}")
+    c, hid = _check_mlp(x, w1, b1, w2, b2)
+    ops = (x, w1, b1, w2, b2)
+    if b1 is None or b2 is None:
+        raise ValueError("mlp_fused needs both biases")
+    if x.dtype not in _OUT_CODES or any(t.dtype != x.dtype for t in ops):
+        raise TypeError("mlp_fused takes x, weights and biases all float32 "
+                        f"or all bfloat16, got {[t.dtype for t in ops]}")
+    if any(t.device != x.device for t in ops):
+        raise ValueError("mlp_fused: all operands must be on x's device")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in ops):
+        raise ValueError("mlp_fused: operands must be contiguous and "
+                         "16-byte aligned")
+    m = x.numel() // c
+    if m == 0:
+        raise ValueError("mlp_fused: empty x")
+    if c > MLP_MAX_C:
+        raise ValueError(f"the CUDA mlp_fused kernel takes C <= {MLP_MAX_C}, "
+                         f"got {c}; serve this width without mlp_fusion")
+    out = torch.empty_like(x)
+
+    from vision_transformer_cam_tpu_torch.kernels import _build
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.vitcam_mlp_fused(
+            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            b2.data_ptr(), out.data_ptr(), m, c, hid, _OUT_CODES[x.dtype],
+            int(gelu_approx), stream)
+    if err:
+        raise _launch_error(lib, "mlp_fused", err, c, _OUT_CODES[x.dtype])
+    mlp_fused_launches += 1
+    return out
+
+
+def _check_mlp_int8(x, w1q, cs1, b1, w2q, cs2, b2, inv_a1, inv_a2):
+    c, hid = _check_mlp(x, w1q, b1, w2q, b2)
+    if w1q.dtype != torch.int8 or w2q.dtype != torch.int8:
+        raise TypeError("w1q and w2q must be int8")
+    if tuple(cs1.shape) != (hid,) or tuple(cs2.shape) != (c,):
+        raise ValueError(f"cs1 must be [{hid}] and cs2 [{c}], got "
+                         f"{tuple(cs1.shape)} and {tuple(cs2.shape)}")
+    if inv_a1.numel() != 1 or inv_a2.numel() != 1:
+        raise ValueError("inv_a1 and inv_a2 must be one-element tensors")
+    return c, hid
+
+
+def mlp_fused_int8_plain(x, w1q, cs1, b1, w2q, cs2, b2, inv_a1, inv_a2, *,
+                         gelu_approx: bool = True,
+                         out_dtype=torch.bfloat16):
+    """Plain PyTorch version of the fused int8 MLP: the chain of two
+    fused-route int8 GEMMs, in the TPU kernel's op order.
+
+    x [..., C] float; w1q int8 [HID, C], w2q int8 [C, HID] (torch layout);
+    cs1 [HID], cs2 [C] the combined scales act_scale x weight_scale; b1, b2
+    float32 or None; inv_a1, inv_a2 = 1 / act_scale of fc1 and fc2:
+
+      xq = q(x * inv_a1);  h = gelu(acc1 * cs1 + b1);  hq = q(h * inv_a2)
+      out = acc2 * cs2 + b2, cast to ``out_dtype``
+
+    with exact int32 sums and q = clip(round(.), +-127).  The second GEMM
+    takes hq as integer-valued float32 with a unit scale, which its
+    prologue quantizes to itself."""
+    _check_mlp_int8(x, w1q, cs1, b1, w2q, cs2, b2, inv_a1, inv_a2)
+    hq = linear_int8_ref(x, w1q, cs1, b1, inv_a1, route="fused",
+                         epilogue="gelu", out_scales=inv_a2.reshape(1),
+                         gelu_approx=gelu_approx)
+    one = torch.ones((), dtype=torch.float32, device=x.device)
+    return linear_int8_ref(hq.to(torch.float32), w2q, cs2, b2, one,
+                           route="fused", epilogue="float",
+                           out_dtype=out_dtype)
+
+
+def mlp_fused_int8(x, w1q, cs1, b1, w2q, cs2, b2, inv_a1, inv_a2, *,
+                   gelu_approx: bool = True, out_dtype=torch.bfloat16):
+    """Same contract as ``mlp_fused_int8_plain``.  CPU tensors run the plain
+    version; CUDA tensors launch the kernel (x float32 or bfloat16; scales,
+    biases and the inverse act scales float32; out float32 or bfloat16;
+    C <= ``MLP_MAX_C``) or raise."""
+    global mlp_fused_int8_launches
+    args = (x, w1q, cs1, b1, w2q, cs2, b2, inv_a1, inv_a2)
+    if x.device.type == "cpu":
+        return mlp_fused_int8_plain(*args, gelu_approx=gelu_approx,
+                                    out_dtype=out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"mlp_fused_int8: no kernel for device {x.device}")
+    c, hid = _check_mlp_int8(*args)
+    given = [t for t in args if t is not None]
+    vecs = [t for t in (cs1, b1, cs2, b2, inv_a1, inv_a2) if t is not None]
+    if any(t.device != x.device for t in given):
+        raise ValueError("mlp_fused_int8: all operands must be on x's device")
+    if any(t.dtype != torch.float32 for t in vecs):
+        raise TypeError("scales, biases and inverse act scales must be "
+                        "float32")
+    if x.dtype not in _OUT_CODES or out_dtype not in _OUT_CODES:
+        raise TypeError(f"mlp_fused_int8 takes float32 or bfloat16 x and "
+                        f"out_dtype, got {x.dtype} and {out_dtype}")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in (x, w1q, w2q)) or \
+            not all(t.is_contiguous() for t in vecs):
+        raise ValueError("mlp_fused_int8: operands must be contiguous, x "
+                         "and the weights 16-byte aligned")
+    m = x.numel() // c
+    if m == 0:
+        raise ValueError("mlp_fused_int8: empty x")
+    if c > MLP_MAX_C:
+        raise ValueError(f"the CUDA mlp_fused_int8 kernel takes C <= "
+                         f"{MLP_MAX_C}, got {c}; serve this width without "
+                         "mlp_fusion")
+    out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+
+    from vision_transformer_cam_tpu_torch.kernels import _build
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.vitcam_mlp_fused_int8(
+            x.data_ptr(), _OUT_CODES[x.dtype], w1q.data_ptr(),
+            cs1.data_ptr(), None if b1 is None else b1.data_ptr(),
+            w2q.data_ptr(), cs2.data_ptr(),
+            None if b2 is None else b2.data_ptr(), inv_a1.data_ptr(),
+            inv_a2.data_ptr(), out.data_ptr(), _OUT_CODES[out_dtype], m, c,
+            hid, int(gelu_approx), stream)
+    if err:
+        raise _launch_error(lib, "mlp_fused_int8", err, c, 2)
+    mlp_fused_int8_launches += 1
+    return out
 
 
 # ---------------------------------------------------------------------------

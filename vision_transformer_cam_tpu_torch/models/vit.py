@@ -33,6 +33,16 @@ attention takes int8 qkv (``int8_attn_io``) or writes int8 output
 consumers are all int8 GEMMs with the fused LayerNorm -> int8 kernel.  The
 eager path keeps the JAX XLA path's meaning: int8 GEMMs, float attention,
 the int8 attention flags ignored.
+
+The serving fusions follow the JAX routing too, in the eval forward only
+(the kernels have no backward): ``cfg.attn_block_fusion`` on the kernel path
+replaces the qkv GEMM, the attention, the proj GEMM and the residual add of
+a block whose attention layers are float with one launch of
+``attention_block_fused`` (a quantized qkv falls through to the attention
+kernel); ``cfg.mlp_fusion`` replaces fc1 -> GELU -> fc2 with one launch of
+``mlp_fused`` (float layers) or ``mlp_fused_int8`` (two static int8 layers,
+fed the float LayerNorm output), and a partially quantized MLP takes the
+unfused chain.
 """
 
 from __future__ import annotations
@@ -47,10 +57,11 @@ from torch.utils.checkpoint import checkpoint
 
 from vision_transformer_cam_tpu_torch.configs import ViTCAMConfig
 from vision_transformer_cam_tpu_torch.kernels.attention import (
-    fused_attention_diff, masked_attention_fused)
-from vision_transformer_cam_tpu_torch.kernels.gemm import ln_quant
+    attention_block_fused, fused_attention_diff, masked_attention_fused)
+from vision_transformer_cam_tpu_torch.kernels.gemm import ln_quant, mlp_fused
 from vision_transformer_cam_tpu_torch.ops.quant import (QLinear,
                                                         linear_int8_fused,
+                                                        mlp_fused_int8,
                                                         qlinear,
                                                         qlinear_gelu_requant,
                                                         qlinear_requant)
@@ -93,8 +104,6 @@ class ViTCAMOutput(NamedTuple):
 # config knobs of the JAX package that this package does not implement yet,
 # with the ROADMAP item that ports them
 _UNPORTED = {
-    "attn_block_fusion": "Queue 2 item 8",
-    "mlp_fusion": "Queue 2 item 6",
     "data_axis": "Queue 1 item 10",
     "seq_axis": "Queue 1 item 10",
     "attn_block_b": "Queue 2 item 1 (kernel tuning)",
@@ -537,6 +546,14 @@ class ViTCAM(nn.Module):
             return (cfg.ln_quant_fusion and not train and not cfg.mlp_fusion
                     and _is_static(blk.mlp.fc1) and _is_static(blk.mlp.fc2))
 
+        # the whole-sub-block kernel: inference on the kernel path, and no
+        # stacked probabilities wanted (it emits the rollout update, not the
+        # head-mean matrices)
+        use_block_kernel = (cfg.attn_impl == "kernel" and not train
+                            and cfg.attn_block_fusion
+                            and need_probs in (None, "headmean")
+                            and (need_probs is None or fuse_rollout))
+
         def block(i, blk, tokens, bg, joint):
             rngs = {site: _fold(rng, i + 1, j)
                     for j, site in enumerate(_SITES)} if use_rng else None
@@ -545,30 +562,60 @@ class ViTCAM(nn.Module):
                 if ln_q_attn(blk) else \
                 _layer_norm(tokens, blk.norm1.weight, blk.norm1.bias,
                             cfg.ln_eps)
-            o, cls_row, hm, ph, newj = attn_fn(
-                blk.attn, xn, bg, cfg, need_probs,
-                joint=joint if fuse_rollout else None,
-                hm_dtype=rollout_dtype if rollout_post else None,
-                train=train, rngs=rngs)
-            if use_rng and cfg.drop_path_ratio > 0:
-                o = _drop_path(o, dpr[i], rngs["dp1"])
-            tokens = tokens + o
+            ap, dt = blk.attn, cfg.dtype
+            if use_block_kernel and not isinstance(ap.qkv, QLinear) \
+                    and not isinstance(ap.proj, QLinear):
+                # the whole sub-block in one launch: its result replaces the
+                # attention call and the residual add
+                bqkv = ap.qkv.bias if ap.qkv.bias is not None else \
+                    torch.zeros((3 * cfg.embed_dim,), dtype=dt, device=dev)
+                res = attention_block_fused(
+                    xn, tokens, ap.qkv.weight.to(dt), bqkv.to(dt),
+                    ap.proj.weight.to(dt), ap.proj.bias.to(dt), bg,
+                    joint if fuse_rollout else None, num_heads=cfg.num_heads,
+                    scale=cfg.scale, mask_value=cfg.mask_value,
+                    clamp_softmax=cfg.softmax_clamp)
+                tokens, cls_row = res[0], res[1].to(dt)
+                newj = res[2] if fuse_rollout else None
+                hm = ph = None
+            else:
+                o, cls_row, hm, ph, newj = attn_fn(
+                    ap, xn, bg, cfg, need_probs,
+                    joint=joint if fuse_rollout else None,
+                    hm_dtype=rollout_dtype if rollout_post else None,
+                    train=train, rngs=rngs)
+                if use_rng and cfg.drop_path_ratio > 0:
+                    o = _drop_path(o, dpr[i], rngs["dp1"])
+                tokens = tokens + o
             f1, f2 = blk.mlp.fc1, blk.mlp.fc2
             yn = ln_quant(tokens, blk.norm2.weight, blk.norm2.bias,
                           eps=cfg.ln_eps, inv_a=f1.inv_act) \
                 if ln_q_mlp(blk) else \
                 _layer_norm(tokens, blk.norm2.weight, blk.norm2.bias,
                             cfg.ln_eps)
-            if _is_static(f1) and _is_static(f2) and not train:
-                # int8 serving: fc1's epilogue emits GELU(fc1) requantized
-                # to fc2's act_scale, so fc2 reads int8
-                hmid = qlinear_gelu_requant(yn, f1, f2.act_scale,
-                                            gelu_approx=cfg.gelu_approx)
+            # serving-only fused MLP kernels (no backward): the int8 one where
+            # both layers are static int8, the float one where both are
+            # float; a partially quantized MLP takes the unfused chain
+            use_mlp_kernel = cfg.mlp_fusion and not train
+            if use_mlp_kernel and _is_static(f1) and _is_static(f2):
+                ymlp = mlp_fused_int8(yn, f1, f2, gelu_approx=cfg.gelu_approx,
+                                      out_dtype=dt)
+            elif use_mlp_kernel and not isinstance(f1, QLinear) \
+                    and not isinstance(f2, QLinear):
+                ymlp = mlp_fused(yn, f1.weight.to(dt), f1.bias.to(dt),
+                                 f2.weight.to(dt), f2.bias.to(dt),
+                                 gelu_approx=cfg.gelu_approx)
             else:
-                hmid = _gelu(_linear(yn, f1, cfg), cfg.gelu_approx)
-                if use_rng:
-                    hmid = _dropout(hmid, cfg.drop_ratio, rngs["mlp1"])
-            ymlp = _linear(hmid, f2, cfg)
+                if _is_static(f1) and _is_static(f2) and not train:
+                    # int8 serving: fc1's epilogue emits GELU(fc1)
+                    # requantized to fc2's act_scale, so fc2 reads int8
+                    hmid = qlinear_gelu_requant(yn, f1, f2.act_scale,
+                                                gelu_approx=cfg.gelu_approx)
+                else:
+                    hmid = _gelu(_linear(yn, f1, cfg), cfg.gelu_approx)
+                    if use_rng:
+                        hmid = _dropout(hmid, cfg.drop_ratio, rngs["mlp1"])
+                ymlp = _linear(hmid, f2, cfg)
             if use_rng:
                 ymlp = _dropout(ymlp, cfg.drop_ratio, rngs["mlp2"])
                 if cfg.drop_path_ratio > 0:

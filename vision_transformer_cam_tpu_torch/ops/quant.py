@@ -156,6 +156,17 @@ def linear_int8_fused(x, ql: QLinear, out_dtype=torch.bfloat16):
                             out_dtype=out_dtype)
 
 
+def mlp_fused_int8(x, fc1: QLinear, fc2: QLinear, gelu_approx=True,
+                   out_dtype=torch.bfloat16):
+    """The JAX ``mlp_fusion`` route for two static int8 layers
+    (kernels/gemm.py: mlp_fused_int8): fc1 -> GELU -> fc2 in one launch, the
+    float ``x`` quantized in the kernel by ``x * inv_act``."""
+    return gemm.mlp_fused_int8(
+        x, fc1.weight_q, fc1.comb_scale, fc1.bias, fc2.weight_q,
+        fc2.comb_scale, fc2.bias, fc1.inv_act, fc2.inv_act,
+        gelu_approx=gelu_approx, out_dtype=out_dtype)
+
+
 # ---------------------------------------------------------------------------
 # model-level quantization and calibration
 # ---------------------------------------------------------------------------

@@ -2,13 +2,17 @@
 
     python -m vision_transformer_cam_tpu_torch.profile_serving \
         [--batch 256] [--forwards 3] [--modes bf16 eager int8 int8_hifi] \
-        [--out FILE]
+        [--mlp-fusion] [--attn-block-fusion] [--out FILE]
 
 Serves ViT-B/16 (in21k, the VOC head: 20 classes, no representation layer)
 with random weights from seed 0, as ``chip_smoke.py`` does: "bf16" through
 the attention kernel, "eager" the same bf16 model with ``attn_impl="eager"``,
 "int8" and "int8_hifi" calibrated on 16 numpy images from seed 1 with
-``ln_quant_fusion`` and ``int8_fused_gemm`` on.  The modes "train" and
+``ln_quant_fusion`` and ``int8_fused_gemm`` on.  ``--mlp-fusion`` and
+``--attn-block-fusion`` turn the serving fusions on in every serving mode
+(``cfg.mlp_fusion``: the fused MLP kernels; ``cfg.attn_block_fusion``: the
+whole-sub-block attention kernel, which a quantized qkv layer falls
+through).  The modes "train" and
 "train_eager" profile one training step instead (``--train_batch`` images,
 float32 masters with bf16 compute, remat on) on the kernel and the eager
 attention path.  It prints the card's name
@@ -33,6 +37,8 @@ import torch
 
 # kernel groups, first match of a substring of the kernel's name
 GROUPS = (
+    ("attention block kernel", ("attention_block_kernel",)),
+    ("fused MLP kernel", ("mlp_fused_kernel", "mlp_fused_int8_kernel")),
     ("attention kernel", ("masked_attention_kernel",)),
     ("attention backward kernel", ("masked_attention_bwd_",)),
     ("int8 GEMM kernel", ("linear_int8_kernel",)),
@@ -83,12 +89,13 @@ def served_models(modes, device=None):
     return models
 
 
-def forward_fn(model, mode, x):
+def forward_fn(model, mode, x, mlp_fusion=False, attn_block_fusion=False):
     """One served request: the forward with the rollout CAM."""
     from vision_transformer_cam_tpu_torch.ops.rollout import (
         cam_from_rollout_row)
     impl = "eager" if mode == "eager" else "kernel"
-    cfg = model.cfg.replace(attn_impl=impl)
+    cfg = model.cfg.replace(attn_impl=impl, mlp_fusion=mlp_fusion,
+                            attn_block_fusion=attn_block_fusion)
     g = cfg.grid_size
 
     def step():
@@ -170,6 +177,11 @@ def main(argv=None) -> int:
                     help="serving modes (a forward at --batch), or train / "
                          "train_eager: one training step at --train_batch "
                          "on the kernel / eager attention path")
+    ap.add_argument("--mlp-fusion", action="store_true",
+                    help="serve with cfg.mlp_fusion (the fused MLP kernels)")
+    ap.add_argument("--attn-block-fusion", action="store_true",
+                    help="serve with cfg.attn_block_fusion (the "
+                         "whole-sub-block attention kernel)")
     ap.add_argument("--train_batch", type=int, default=64)
     ap.add_argument("--out", help="file for the full key_averages tables")
     args = ap.parse_args(argv)
@@ -189,7 +201,9 @@ def main(argv=None) -> int:
     for mode in args.modes:
         step = train_step_fn(
             args.train_batch, "eager" if mode == "train_eager" else "kernel") \
-            if mode.startswith("train") else forward_fn(models[mode], mode, x)
+            if mode.startswith("train") else forward_fn(
+                models[mode], mode, x, args.mlp_fusion,
+                args.attn_block_fusion)
         wall, groups, table = profile_mode(step, args.forwards)
         busy = sum(ms for ms, _ in groups.values())
         batch = args.train_batch if mode.startswith("train") else args.batch
@@ -205,8 +219,10 @@ def main(argv=None) -> int:
     if args.out:
         with open(args.out, "w") as f:
             f.writelines(tables)
-    print(json.dumps({"forwards": args.forwards,
-                      "card": card, "modes": result}))
+    print(json.dumps({"forwards": args.forwards, "card": card,
+                      "mlp_fusion": args.mlp_fusion,
+                      "attn_block_fusion": args.attn_block_fusion,
+                      "modes": result}))
     return 0
 
 
