@@ -63,6 +63,30 @@ Phases (any failure raises, and the exit code is non-zero):
      eager path from the same weights (loss and every gradient), and the
      training throughput of both paths at batch 64, in turns (two readings
      of 20 steps each per path, with their spread).
+  8. the sequence-parallel kernel (masked_attention_seq_local) against its
+     plain version on every rank's shard of 1, 2, 4 and 8 ranks at N = 197,
+     577 and 1025 (Np = 1032 at 8), float32 and bf16, clamp on and off, with
+     and without the head mean (float32 and the element type), no background,
+     30 % and all but cls; the stitched shards against the attention kernel
+     of the unsharded path where that takes the length; its time at B=16
+     N=577 C=1024 (one rank, and a shard of four) beside its plain version
+     and F.scaled_dot_product_attention with the same mask (timed only);
+  9. the sequence-parallel main path: ViT-L/16@384 at full depth and width
+     (24 layers, C=1024, 16 heads, N=577), seeded random weights of the 224
+     model loaded through the 224 -> 384 pos-embed interpolation, bf16
+     serving, apply_seq_parallel on a one-rank NCCL process group: 3
+     requests of 16 images with the rollout CAM; 24 seq-kernel launches per
+     forward and no launch of the unsharded attention kernel; held to the
+     same model's unsharded kernel path (bf16 gates) and, at float32 and
+     batch 2, to rollout row 1e-5 and logits 2e-4; throughput at batch 16 in
+     turns with the unsharded kernel path (rollout_post on and off) and the
+     eager path; then the same model with --seq_parallel 2 in two spawned
+     processes that share the card (gloo, CUDA tensors staged through host
+     memory), rank 0's outputs against the one-rank run;
+ 10. the validate entry point: cli.validate with ViT-L/16@384, --serving
+     bf16, --seq_parallel 1, pseudo-seg PNGs, rollout-CAM overlays and
+     scoring, on a faked VOC tree written to a temporary directory from a
+     numpy seed.
 Nothing of the earlier phases was reduced.  It prints one JSON line
 describing the kernels (with each one's bound from the shapes it was timed
 at, and the library call's time where one PyTorch call computes the same
@@ -117,6 +141,9 @@ KERNELS = {   # name: (route, source, TPU kernel replaced)
     "attention_block_fused": (
         "cuda", CSRC + "attention_block.cu",
         "vision_transformer_cam_tpu/kernels/attention.py:663"),
+    "masked_attention_seq_local": (
+        "cuda", CSRC + "masked_attention_seq.cu",
+        "vision_transformer_cam_tpu/kernels/attention.py:433"),
 }
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense): device
 # memory bytes/s, and operations/s by type
@@ -725,6 +752,163 @@ def check_attention_block():
     return errs
 
 
+def seq_inputs(b, n, heads, dtype, seed, bg_kind="30%"):
+    """Packed qkv [B, N, 3C] with hot query rows 1-3 (logits past the clamp)
+    and a background of the given kind (cls column never background)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c = heads * 64
+    share = {"none": 0.0, "30%": 0.3, "all but cls": 1.1}[bg_kind]
+    bg = (torch.rand((b, n), generator=g, device="cuda") < share).float()
+    bg[:, 0] = 0.0
+    qkv = torch.randn((b, n, 3 * c), generator=g, device="cuda")
+    qkv[:, 1:4, :c] *= 40.0
+    return qkv.to(dtype).contiguous(), bg.to(dtype)
+
+
+def seq_shards(qkv, bg, sp):
+    """The token axis zero-padded to a multiple of ``sp``: per rank (q, bg_q),
+    and the K | V rows and bg of all ranks."""
+    b, n, c3 = qkv.shape
+    c, nq = c3 // 3, -(-n // sp)
+    pad = nq * sp - n
+    qkv_p = torch.nn.functional.pad(qkv, (0, 0, 0, pad))
+    bg_p = torch.nn.functional.pad(bg, (0, pad))
+    kv = qkv_p[:, :, c:].contiguous()
+    shards = [(qkv_p[:, r * nq:(r + 1) * nq, :c].contiguous(),
+               bg_p[:, r * nq:(r + 1) * nq].contiguous()) for r in range(sp)]
+    return shards, kv, bg_p
+
+
+def check_attention_seq(b=2, heads=16):
+    """The sequence-parallel kernel against its plain version on every rank's
+    shard, and the stitched shards against the attention kernel of the
+    unsharded path where that takes the length.  Returns the worst error of
+    the (bf16, clamp, float32 head mean) cases at N=577."""
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    failures, n_cases, kept = [], 0, 0.0
+    kw = dict(num_heads=heads, scale=64 ** -0.5)
+    for n in (197, 577, 1025):
+        for sp in (1, 2, 4, 8):
+            for dtype in (torch.float32, torch.bfloat16):
+                worst = {"out": 0.0, "row0": 0.0, "hm": 0.0, "stitched": 0.0}
+                hms = (None, torch.float32) if dtype == torch.float32 else \
+                    (None, torch.float32, torch.bfloat16)
+                for bi, bg_kind in enumerate(("none", "30%", "all but cls")):
+                    qkv, bg = seq_inputs(b, n, heads, dtype, 100 * n + bi,
+                                         bg_kind)
+                    shards, kv, bg_k = seq_shards(qkv, bg, sp)
+                    for clamp in (False, True):
+                        for hm_dt in hms:
+                            ckw = dict(kw, clamp_softmax=clamp, n_real=n,
+                                       with_headmean=hm_dt is not None,
+                                       hm_dtype=hm_dt)
+                            got_all = []
+                            for rank, (q, bg_q) in enumerate(shards):
+                                got = ka.masked_attention_seq_local(
+                                    q, kv, bg_q, bg_k, **ckw)
+                                want = ka.masked_attention_seq_local_ref(
+                                    q, kv, bg_q, bg_k, **ckw)
+                                got_all.append(got)
+                                n_cases += 1
+                                tols = [TOL[(dtype, "out")],
+                                        TOL[(dtype, "prob")],
+                                        TOL[(hm_dt or dtype, "prob")]]
+                                for name, g_, w_, (atol, rtol) in zip(
+                                        ("out", "row0", "hm"), got, want,
+                                        tols):
+                                    g_, w_ = g_.float(), w_.float()
+                                    err = (g_ - w_).abs()
+                                    worst[name] = max(worst[name],
+                                                      float(err.max()))
+                                    if n == 577 and clamp and \
+                                            dtype == torch.bfloat16 and \
+                                            hm_dt == torch.float32:
+                                        kept = max(kept, float(err.max()))
+                                    if not torch.isfinite(g_).all() or float(
+                                            (err - atol - rtol * w_.abs())
+                                            .max()) > 0:
+                                        failures.append(
+                                            f"N={n} sp={sp} rank {rank} "
+                                            f"{dtype} clamp={clamp} hm="
+                                            f"{hm_dt} bg={bg_kind} {name}: "
+                                            f"{float(err.max()):.3e}")
+                            # stitched shards against the unsharded kernel
+                            limit = 780 if hm_dt is not None else 1516
+                            if n > limit:
+                                continue
+                            ref = ka.masked_attention_fused(
+                                qkv, bg, with_headmean=hm_dt is not None,
+                                hm_dtype=hm_dt, clamp_softmax=clamp, **kw)
+                            out = torch.cat([g_[0] for g_ in got_all],
+                                            dim=1)[:, :n]
+                            pairs = [(out, ref[0], TOL[(dtype, "out")]),
+                                     (got_all[0][1][:, :n], ref[1],
+                                      TOL[(dtype, "prob")])]
+                            if hm_dt is not None:
+                                hm = torch.cat([g_[2] for g_ in got_all],
+                                               dim=1)[:, :n, :n]
+                                pairs.append((hm, ref[2],
+                                              TOL[(hm_dt, "prob")]))
+                            for g_, w_, (atol, rtol) in pairs:
+                                err = (g_.float() - w_.float()).abs()
+                                worst["stitched"] = max(worst["stitched"],
+                                                        float(err.max()))
+                                if float((err - atol - rtol * w_.float().abs()
+                                          ).max()) > 0:
+                                    failures.append(
+                                        f"N={n} sp={sp} {dtype} clamp={clamp}"
+                                        f" hm={hm_dt} bg={bg_kind} stitched "
+                                        f"vs masked_attention_fused: "
+                                        f"{float(err.max()):.3e}")
+                torch.cuda.synchronize()
+                say(f"check attention_seq N={n} sp={sp} (NQ={-(-n // sp)}, "
+                    f"Np={-(-n // sp) * sp}) {str(dtype).split('.')[-1]:8s}: "
+                    "max abs err " + ", ".join(f"{k} {v:.2e}"
+                                               for k, v in worst.items()))
+    say(f"check attention_seq: {n_cases} shard cases")
+    if failures:
+        raise AssertionError("sequence-parallel kernel != plain version:\n"
+                             + "\n".join(failures[:40]))
+    return kept
+
+
+def time_attention_seq(b=16, n=577, heads=16):
+    """The sequence-parallel kernel at the ViT-L/16@384 shape, bf16, clamp,
+    float32 head mean (as the main path launches it): one rank (NQ = 577) and
+    a shard of four (NQ = 145, Np = 580), in turns with the plain version;
+    and F.scaled_dot_product_attention on the same q, K, V with the additive
+    mask as a yardstick for the shape (it returns neither row0 nor hm).
+    Returns {sp: (kernel ms, plain ms, sdpa ms)}."""
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    qkv, bg = seq_inputs(b, n, heads, torch.bfloat16, 7)
+    c = heads * 64
+    times = {}
+    for sp in (1, 4):
+        shards, kv, bg_k = seq_shards(qkv, bg, sp)
+        q, bg_q = shards[0]
+        kw = dict(num_heads=heads, scale=64 ** -0.5, clamp_softmax=True,
+                  with_headmean=True, hm_dtype=torch.float32, n_real=n)
+        k_ms, p_ms = in_turns(
+            lambda: ka.masked_attention_seq_local(q, kv, bg_q, bg_k, **kw),
+            lambda: ka.masked_attention_seq_local_ref(q, kv, bg_q, bg_k,
+                                                      **kw))
+        nq, np_ = q.shape[1], kv.shape[1]
+        qh = q.reshape(b, nq, heads, 64).transpose(1, 2)
+        kh, vh = kv.reshape(b, np_, 2, heads, 64).permute(2, 0, 3, 1, 4)
+        mask = ((1 - bg_q.float())[:, :, None]
+                * (-100.0 * bg_k.float())[:, None, :])
+        mask[:, :, n:] = -1e9
+        mask = mask[:, None].to(torch.bfloat16)
+        sdpa = time_ms(lambda: torch.nn.functional
+                       .scaled_dot_product_attention(qh, kh, vh,
+                                                     attn_mask=mask))
+        times[sp] = (k_ms, p_ms, sdpa)
+        say(f"time attention_seq bf16 hm f32 B={b} N={n} sp={sp} (NQ={nq}, "
+            f"Np={np_}): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+            f"F.scaled_dot_product_attention (no row0, no hm) {sdpa:.4f} ms")
+    return times
+
+
 def time_ms(fn, iters=20, warmup=3):
     for _ in range(warmup):
         fn()
@@ -886,6 +1070,7 @@ def reset_counts():
     ka.launches = 0
     ka.bwd_launches = 0
     ka.block_launches = 0
+    ka.seq_launches = 0
     gemm.linear_int8_launches = 0
     gemm.ln_quant_launches = 0
     gemm.mlp_fused_launches = 0
@@ -901,7 +1086,8 @@ def read_counts():
             "masked_attention_bwd": ka.bwd_launches,
             "mlp_fused": gemm.mlp_fused_launches,
             "mlp_fused_int8": gemm.mlp_fused_int8_launches,
-            "attention_block_fused": ka.block_launches}
+            "attention_block_fused": ka.block_launches,
+            "masked_attention_seq_local": ka.seq_launches}
 
 
 def serve(model, reqs, per_forward, label):
@@ -1234,6 +1420,16 @@ def kernel_bounds(b=64, n=197, heads=12):
         kinds.add(kind)
     bounds["linear_int8_fused"] = (total, kinds.pop() if len(kinds) == 1
                                    else "operations")
+    # the sequence-parallel kernel as time_attention_seq times it on one
+    # rank (ViT-L/16@384: B=16, NQ = Np = 577, C=1024, 16 heads): bf16 q and
+    # K | V and the two f32 bg rows in; bf16 out and row0 and the f32 head
+    # mean [B, NQ, Np] out; both products at the bf16 rate
+    sb, sn, sc, sh = 16, 577, 1024, 16
+    bounds["masked_attention_seq_local"] = bound(
+        "masked_attention_seq_local bf16, f32 head mean",
+        sb * sn * sc * 2 + sb * sn * 2 * sc * 2 + 2 * sb * sn * 4
+        + sb * sn * sc * 2 + sb * sn * 2 + sb * sn * sn * 4,
+        {"bf16": 4 * sb * sh * sn * sn * 64})
     return bounds
 
 
@@ -1462,6 +1658,241 @@ def train_throughput(batch=64, steps=20):
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB so far")
 
 
+SEQ_GATES = {"cam": 5e-2, "logits": 5e-2}
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def seq_path(batch=16, requests=3):
+    """The sequence-parallel main path at the full size of ViT-L/16@384;
+    returns the launch counts of its three requests."""
+    import torch.distributed as dist
+    from vision_transformer_cam_tpu_torch import configs, serving
+    from vision_transformer_cam_tpu_torch.io.weights import load_state_dict
+    from vision_transformer_cam_tpu_torch.models.vit import ViTCAM
+    from vision_transformer_cam_tpu_torch.ops.rollout import (
+        cam_from_rollout_row)
+    from vision_transformer_cam_tpu_torch.parallel import mesh as pmesh
+    from vision_transformer_cam_tpu_torch.parallel.worker import run_forward
+
+    def sized(factory):
+        return factory(num_classes=20).replace(representation_size=None)
+
+    cfg = sized(configs.vit_large_patch16_384)
+    small = ViTCAM(sized(configs.vit_large_patch16_224), device="cuda",
+                   generator=torch.Generator().manual_seed(0))
+    sd = {k: v.clone() for k, v in small.state_dict().items()}
+    del small
+    model = ViTCAM(cfg, device="cuda",
+                   generator=torch.Generator().manual_seed(1))
+    load_state_dict(model, sd)
+    pe = model.pos_embed
+    if tuple(pe.shape) != (1, 577, 1024) or not torch.isfinite(pe).all() \
+            or not torch.equal(pe[:, 0], sd["pos_embed"][:, 0]):
+        raise AssertionError("224 -> 384 pos-embed interpolation failed")
+    say(f"seq path: ViT-L/16@384, depth {cfg.depth}, C={cfg.embed_dim}, "
+        f"{cfg.num_heads} heads, N={cfg.seq_len}; 224 weights loaded, "
+        f"pos_embed {tuple(sd['pos_embed'].shape)} -> {tuple(pe.shape)}")
+    rng = np.random.default_rng(0)
+
+    def images(b):
+        return torch.from_numpy(rng.standard_normal(
+            (b, cfg.img_size, cfg.img_size, 3), dtype=np.float32)).cuda()
+
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1)
+    mesh = pmesh.seq_parallel_mesh(1)
+    say(f"seq path: process group {dist.get_backend()}, world "
+        f"{dist.get_world_size()}, mesh {mesh.shape}")
+
+    # float32, batch 2: the sequence-parallel kernel path against the
+    # unsharded kernel path at the CPU tests' tolerances
+    x = images(2)
+    model.cfg = cfg.replace(attn_impl="kernel")
+    want = model(x, need_rollout=True)
+    model.cfg = pmesh.apply_seq_parallel(model.cfg)
+    reset_counts()
+    with pmesh.set_mesh(mesh):
+        got = model(x, need_rollout=True)
+    counts = read_counts()
+    d_roll = float((got.rollout_row - want.rollout_row).abs().max())
+    d_logit = float((got.logits - want.logits).abs().max())
+    say(f"f32 seq path vs unsharded kernel path (B=2): rollout row "
+        f"{d_roll:.3e} (tol 1e-5), logits {d_logit:.3e} (tol 2e-4); launches "
+        f"{counts}")
+    if not (d_roll <= 1e-5 and d_logit <= 2e-4) or \
+            (counts["masked_attention_seq_local"],
+             counts["masked_attention_fused"]) != (cfg.depth, 0):
+        raise AssertionError("f32 sequence-parallel path disagrees with the "
+                             "unsharded kernel path, or did not run its kernel")
+    model.cfg = cfg
+
+    state_bf16 = {k: v.detach().to(torch.bfloat16) if v.is_floating_point()
+                  else v.detach() for k, v in model.state_dict().items()}
+    serving.apply_serving_mode(model, "bf16")
+    kcfg = model.cfg
+    sp_cfg = pmesh.apply_seq_parallel(kcfg)
+    g = cfg.grid_size
+    reqs = [images(batch) for _ in range(requests)]
+    model.cfg = sp_cfg
+    with pmesh.set_mesh(mesh):
+        outs_sp, counts = serve(model, reqs, {"masked_attention_seq_local":
+                                              cfg.depth}, "seq bf16")
+    model.cfg = kcfg
+    refs = []
+    for x in reqs:
+        ref = model(x, need_rollout=True)
+        refs.append((ref, cam_from_rollout_row(ref.rollout_row, g)))
+    d_cam, d_logit, ov = deviation(outs_sp, refs)
+    say(f"seq bf16 vs unsharded bf16 kernel path: CAM max abs dev {d_cam:.3e} "
+        f"(tol {SEQ_GATES['cam']}), logits max abs dev {d_logit:.3e} (tol "
+        f"{SEQ_GATES['logits']}), top-16 overlap {ov:.4f}")
+    if not (d_cam <= SEQ_GATES["cam"] and d_logit <= SEQ_GATES["logits"]):
+        raise AssertionError("sequence-parallel bf16 path disagrees with the "
+                             "unsharded kernel path")
+
+    # throughput at one fixed batch, in turns
+    served = {"seq": sp_cfg, "kernel": kcfg,
+              "kernel, rollout carry": kcfg.replace(rollout_post=False),
+              "eager": kcfg.replace(attn_impl="eager")}
+    xb = reqs[0]
+
+    def rate(mode, iters=3):
+        model.cfg = served[mode]
+        with pmesh.set_mesh(mesh):
+            cam_from_rollout_row(model(xb, need_rollout=True).rollout_row, g)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(iters):
+                cam_from_rollout_row(
+                    model(xb, need_rollout=True).rollout_row, g)
+            torch.cuda.synchronize()
+        return batch * iters / (time.perf_counter() - t)
+    order = list(served) + list(served)[::-1]
+    rates = {}
+    for mode in order:
+        rates.setdefault(mode, []).append(rate(mode))
+    model.cfg = kcfg
+    for mode, r in rates.items():
+        say(f"ViT-L/16@384 {mode} CAM throughput, batch {batch}: "
+            f"{np.mean(r):.1f} img/s ({r[0]:.1f}, {r[1]:.1f})")
+
+    # two ranks that share this card: NCCL refuses two ranks on one device,
+    # so gloo carries the collectives and CUDA tensors are staged through
+    # host memory; the kernels run on the card in both processes
+    t0 = time.perf_counter()
+    ranks = run_forward(cfg, state_bf16, reqs[0].cpu(), world=2, n_seq=2,
+                        device="cuda", backend="gloo", serving_mode="bf16",
+                        fwd_kw=dict(need_rollout=True), timeout=400)
+    ref_out, ref_cam = outs_sp[0]
+    for rank, res in enumerate(ranks):
+        cam = cam_from_rollout_row(res["rollout_row"], g)
+        d_cam = float((cam - ref_cam.cpu()).abs().max())
+        d_logit = float((res["logits"].float()
+                         - ref_out.logits.float().cpu()).abs().max())
+        say(f"two ranks on one card, rank {rank}: transport "
+            f"{res['transport']}; {res['seq_launches']} seq-kernel launches; "
+            f"vs the one-rank run: CAM max abs dev {d_cam:.3e} (tol "
+            f"{SEQ_GATES['cam']}), logits max abs dev {d_logit:.3e} (tol "
+            f"{SEQ_GATES['logits']})")
+        if res["seq_launches"] != cfg.depth or not (
+                d_cam <= SEQ_GATES["cam"] and d_logit <= SEQ_GATES["logits"]):
+            raise AssertionError(f"two-rank run, rank {rank}: disagrees with "
+                                 "the one-rank run or did not run the kernel")
+    say(f"two ranks on one card: {time.perf_counter() - t0:.1f} s with the "
+        "processes' start")
+    dist.destroy_process_group()
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def fake_voc_tree(root, n=12, seed=0):
+    """A VOC-shaped tree of ``n`` seeded random images of differing sizes
+    with segmentation PNGs and annotation XMLs; returns the split file."""
+    import PIL.Image
+    rng = np.random.default_rng(seed)
+    for d in ("JPEGImages", "SegmentationClass", "Annotations"):
+        os.makedirs(os.path.join(root, d))
+    cats = ["dog", "cat", "person", "car", "bird", "sofa"]
+    names = [f"2008_{i:06d}" for i in range(n)]
+    for i, name in enumerate(names):
+        h, w = 300 + 17 * (i % 7), 500 - 23 * (i % 5)
+        # smooth blocks, so the JPEG is not pure noise
+        arr = np.kron(rng.integers(0, 256, size=(h // 20 + 1, w // 20 + 1, 3),
+                                   dtype=np.uint8),
+                      np.ones((20, 20, 1), np.uint8))[:h, :w]
+        PIL.Image.fromarray(arr).save(
+            os.path.join(root, "JPEGImages", f"{name}.jpg"))
+        seg = np.kron(rng.integers(0, 21, size=(h // 50 + 1, w // 50 + 1)),
+                      np.ones((50, 50), np.int64))[:h, :w].astype(np.uint8)
+        PIL.Image.fromarray(seg, mode="P").save(
+            os.path.join(root, "SegmentationClass", f"{name}.png"))
+        with open(os.path.join(root, "Annotations", f"{name}.xml"), "w") as f:
+            f.write("<annotation>" + "".join(
+                f"<object><name>{c}</name></object>"
+                for c in (cats[i % 6], cats[(i + 2) % 6])) + "</annotation>")
+    split = os.path.join(root, "split.txt")
+    with open(split, "w") as f:
+        f.write("".join(f"/JPEGImages/{name}.jpg /SegmentationClass/{name}.png"
+                        "\n" for name in names))
+    return split, names
+
+
+def validate_path(n_images=12, batch=4):
+    """cli.validate on the card: ViT-L/16@384, bf16 serving, --seq_parallel 1,
+    pseudo-seg PNGs, rollout-CAM overlays and scores on a faked VOC tree."""
+    import tempfile
+
+    import PIL.Image
+    from vision_transformer_cam_tpu_torch.cli import validate as vcli
+    with tempfile.TemporaryDirectory() as root:
+        split, names = fake_voc_tree(root, n_images)
+        seg_dir, cam_dir = os.path.join(root, "seg"), os.path.join(root, "cam")
+        cwd = os.getcwd()
+        os.chdir(root)        # the CLI writes its log into the working directory
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            res = vcli.main(["--model_name", "vit_large_patch16_384",
+                             "--dataset_path", root, "--val_img_name_path",
+                             split, "--batch_size", str(batch), "--serving",
+                             "bf16", "--seq_parallel", "1", "--seg_pred_dir",
+                             seg_dir, "--ori_cam_path", cam_dir])
+        finally:
+            os.chdir(cwd)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        say(f"validate: {res}; {time.perf_counter() - t0:.1f} s; launches "
+            f"{counts}")
+        n_batches = -(-n_images // batch)
+        if counts["masked_attention_seq_local"] != 24 * n_batches or \
+                counts["masked_attention_fused"]:
+            raise AssertionError("validate did not go through the sequence-"
+                                 "parallel kernel")
+        if res["n_images"] != n_images or not all(
+                np.isfinite(res[k]) for k in ("mAP", "mIoU", "global_acc")):
+            raise AssertionError(f"validate results not finite: {res}")
+        for name in names:
+            png = PIL.Image.open(os.path.join(seg_dir, f"{name}.png"))
+            src = PIL.Image.open(os.path.join(root, "JPEGImages",
+                                              f"{name}.jpg"))
+            cam = PIL.Image.open(os.path.join(cam_dir,
+                                              f"{name}_rollout_cam.jpg"))
+            if png.size != src.size or cam.size != src.size or \
+                    png.getpalette()[:6] != [0, 0, 0, 128, 0, 0]:
+                raise AssertionError(f"validate artifacts of {name} are wrong")
+        say(f"validate: {n_images} pseudo-seg PNGs (VOC palette, source "
+            f"sizes) and {n_images} rollout-CAM overlays written")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1483,6 +1914,8 @@ def main() -> int:
     mlp_err = check_mlp()
     mlp8_err = check_mlp_int8()
     block_errs = check_attention_block()
+    seq_err = check_attention_seq()
+    seq_ms = time_attention_seq()
     times = time_kernels()
     fused_ms = time_fused()
     bwd_ms = time_attention_bwd()
@@ -1493,6 +1926,9 @@ def main() -> int:
     launches["masked_attention_bwd"] += train_launches["masked_attention_bwd"]
     train_kernel_vs_eager()
     train_throughput()
+    launches["masked_attention_seq_local"] = \
+        seq_path()["masked_attention_seq_local"]
+    validate_path()
     gemm_ms = sum(times[("gemm", s)][0] for s in GEMM_SHAPES)
     gemm_plain = sum(times[("gemm", s)][1] for s in GEMM_SHAPES)
     stats = {   # name: (max abs err, kernel ms, plain ms)
@@ -1514,6 +1950,9 @@ def main() -> int:
         "attention_block_fused": (
             block_errs[("bfloat16", True, True, 197, "30% bg")],
             *fused_ms["attention_block_fused"][:2]),
+        # the error over the bf16, clamp, float32-head-mean cases at N=577,
+        # the time on one rank at B=16 N=577
+        "masked_attention_seq_local": (seq_err, *seq_ms[1][:2]),
     }
     # one PyTorch call that computes the same function: only the backward has
     # one (the backward of scaled_dot_product_attention).  The forward also
@@ -1522,7 +1961,11 @@ def main() -> int:
     # product: no single call gives those.  Nor does one call give an MLP
     # (two GEMMs around a GELU) or the attention sub-block: their unfused
     # routes of several calls are timed as yardsticks in time_fused
-    library = {"masked_attention_bwd": bwd_ms[2]}
+    # The sequence-parallel kernel's products are those of
+    # scaled_dot_product_attention with the same additive mask, which returns
+    # neither row0 nor the head mean: its time is the yardstick for the shape
+    library = {"masked_attention_bwd": bwd_ms[2],
+               "masked_attention_seq_local": seq_ms[1][2]}
     bounds = kernel_bounds()
     say(json.dumps({"kernels": [
         {"name": name, "route": route, "source": src, "replaces": rep,

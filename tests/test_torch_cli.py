@@ -1,6 +1,6 @@
-"""The port's data copies, fit and train CLI on a synthetic VOC tree with a
-tiny model, on the CPU (``--device cpu`` / ``device="cpu"``).  The fixtures
-follow tests/test_cli.py's."""
+"""The port's data copies, fit, train CLI and validate CLI on a synthetic VOC
+tree with a tiny model, on the CPU (``--device cpu`` / ``device="cpu"``).
+The fixtures follow tests/test_cli.py's."""
 
 import os
 
@@ -10,11 +10,16 @@ import torch
 
 import PIL.Image
 
+from vision_transformer_cam_tpu import configs as jconfigs
 from vision_transformer_cam_tpu.cli import train as jcli
+from vision_transformer_cam_tpu.cli import validate as jvcli
 from vision_transformer_cam_tpu.data import loader as jloader
 from vision_transformer_cam_tpu.data import voc12 as jvoc
+from vision_transformer_cam_tpu.io import weights as jwio
+from vision_transformer_cam_tpu.models import vit as jvit
 from vision_transformer_cam_tpu_torch import configs
 from vision_transformer_cam_tpu_torch.cli import train as tcli
+from vision_transformer_cam_tpu_torch.cli import validate as tvcli
 from vision_transformer_cam_tpu_torch.data import loader as tloader
 from vision_transformer_cam_tpu_torch.data import voc12 as tvoc
 from vision_transformer_cam_tpu_torch.train import checkpoint as tckpt
@@ -120,8 +125,13 @@ def test_device_prefetch_moves_image_and_label(voc_tree):
     assert all(isinstance(b[k], torch.Tensor) and b[k].dtype == torch.float32
                for b in batches for k in ("image", "label"))
     assert batches[0]["name"] == NAMES[:3]
-    with pytest.raises(NotImplementedError, match="native_decode"):
-        tloader.BatchLoader(ds, 2, native_decode=True)
+    # native_decode: the C++ pipeline where the library builds, PIL where
+    # not; the same batches as the JAX package's loader either way
+    got = list(tloader.BatchLoader(ds, 2, shuffle=False, native_decode=True))
+    want = list(jloader.BatchLoader(ds, 2, shuffle=False, native_decode=True))
+    for a, b in zip(got, want, strict=True):
+        assert a["name"] == b["name"]
+        np.testing.assert_array_equal(a["image"], b["image"])
 
 
 def test_fit_one_epoch_then_resume(voc_tree, tmp_path):
@@ -181,7 +191,7 @@ def test_train_cli_runs_on_the_card_by_default(voc_tree, tiny_zoo):
                                    ("--seq_parallel", "2"),
                                    ("--mesh_shape", "2"),
                                    ("--mesh_shape", "2,2"),
-                                   ("--native_decode",)])
+                                   ("--pp_microbatches", "2")])
 def test_train_cli_refuses_unported_options(voc_tree, tiny_zoo, flags):
     with pytest.raises(NotImplementedError):
         tcli.main(_cli_args(voc_tree, tiny_zoo, "--device", "cpu", *flags))
@@ -197,3 +207,182 @@ def test_train_cli_has_the_jax_cli_surface():
         if dest != "device":        # honoured here: the card by default
             assert got[dest] == spec, dest
     assert got["device"][0] == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# the validate / pseudo-seg entry point
+# ---------------------------------------------------------------------------
+
+def _val_factory(kind):
+    def factory(num_classes=20, has_logits=False):
+        cfgs = jconfigs if kind == "jax" else configs
+        return cfgs.ViTCAMConfig(img_size=32, patch_size=8, embed_dim=64,
+                                 depth=7, num_heads=4,
+                                 num_classes=num_classes, mask_from=2,
+                                 top_k_patches=4)
+    return factory
+
+
+@pytest.fixture()
+def val_zoo(monkeypatch, tmp_path):
+    """A tiny model in both zoos and one weights file for both CLIs, made
+    from a JAX ``vit.init`` tree (their random initialisations differ), with
+    a qkv gain that makes the mask engage on some patches (a larger one
+    masks all but a few, and the top-K patches then tie at float32
+    underflow, where any order is right) and a head1 bias that puts some
+    classes past the pseudo-seg gate."""
+    import jax
+    monkeypatch.setitem(configs.MODEL_ZOO, "tinyval", _val_factory("torch"))
+    monkeypatch.setitem(jconfigs.MODEL_ZOO, "tinyval", _val_factory("jax"))
+    jcfg = _val_factory("jax")()
+    params = jvit.init(jcfg, jax.random.key(0))
+    params["blocks"]["attn"]["qkv"]["kernel"] = \
+        params["blocks"]["attn"]["qkv"]["kernel"] * 10.0
+    bias = np.full((20,), -3.0, np.float32)
+    bias[[7, 11, 14]] = 4.0
+    params["head1"]["bias"] = jax.numpy.asarray(bias)
+    path = str(tmp_path / "tinyval.pth")
+    torch.save({k: torch.from_numpy(np.array(v)) for k, v in
+                jwio.state_dict_from_pytree(params, jcfg).items()}, path)
+    return "tinyval", path
+
+
+def _val_args(voc_tree, zoo, weights, seg_dir, *extra):
+    return ["--model_name", zoo, "--weights", weights,
+            "--dataset_path", str(voc_tree),
+            "--val_img_name_path", str(voc_tree / "split.txt"),
+            "--batch_size", "3", "--seg_pred_dir", str(seg_dir), *extra]
+
+
+def _png_bytes(seg_dir):
+    return {n: open(os.path.join(seg_dir, f"{n}.png"), "rb").read()
+            for n in NAMES}
+
+
+@pytest.mark.parametrize("extra", [(), ("--batch_global_mask_norm",)],
+                         ids=["per_sample", "batch_global"])
+def test_validate_cli_matches_jax_cli(voc_tree, tmp_path, val_zoo,
+                                      monkeypatch, extra):
+    """Byte-identical pseudo-seg PNGs and equal mAP / mIoU from both CLIs on
+    the same tree and weights (float32, eager / XLA attention)."""
+    monkeypatch.chdir(tmp_path)
+    zoo, weights = val_zoo
+    want = jvcli.main(_val_args(voc_tree, zoo, weights, tmp_path / "j",
+                                *extra))
+    got = tvcli.main(_val_args(voc_tree, zoo, weights, tmp_path / "t",
+                               "--device", "cpu", *extra))
+    assert _png_bytes(tmp_path / "t") == _png_bytes(tmp_path / "j")
+    segs = [np.asarray(PIL.Image.open(tmp_path / "t" / f"{n}.png"))
+            for n in NAMES]
+    assert any((s > 0).any() for s in segs)        # not all background
+    assert got["n_images"] == want["n_images"] == 4
+    for key in ("mAP", "mIoU", "global_acc"):
+        assert got[key] == pytest.approx(want[key], abs=1e-9), key
+    logs = [f for f in os.listdir(tmp_path) if f.startswith("validating_log")]
+    assert logs
+
+
+def test_validate_cli_seq_parallel_one_rank_equals_without(voc_tree, tmp_path,
+                                                           val_zoo,
+                                                           monkeypatch,
+                                                           capsys):
+    monkeypatch.chdir(tmp_path)
+    zoo, weights = val_zoo
+    base = tvcli.main(_val_args(voc_tree, zoo, weights, tmp_path / "a",
+                                "--device", "cpu", "--attn_impl", "kernel"))
+    sp = tvcli.main(_val_args(voc_tree, zoo, weights, tmp_path / "b",
+                              "--device", "cpu", "--attn_impl", "kernel",
+                              "--seq_parallel", "1"))
+    assert "sequence parallelism: mesh {'data': 1, 'seq': 1}" in \
+        capsys.readouterr().out
+    assert _png_bytes(tmp_path / "a") == _png_bytes(tmp_path / "b")
+    for key in ("mAP", "mIoU", "global_acc", "n_images"):
+        assert sp[key] == base[key], key
+    # and the JAX CLI with --seq_parallel on its 8-device mesh agrees (its
+    # XLA path: see tests/test_torch_seq.py on its kernel path at N = 17)
+    want = jvcli.main(_val_args(voc_tree, zoo, weights, tmp_path / "j",
+                                "--seq_parallel", "4", "--batch_size", "2"))
+    assert _png_bytes(tmp_path / "j") == _png_bytes(tmp_path / "a")
+    assert sp["mIoU"] == pytest.approx(want["mIoU"], abs=1e-9)
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_validate_cli_serving_modes(voc_tree, tmp_path, val_zoo, monkeypatch,
+                                    mode):
+    """--serving on the CPU: both CLIs resolve the attention path by device
+    (eager / XLA here), cast to bf16, calibrate int8 on the split's first
+    images; the PNGs are written and the segmentation scores agree within
+    bf16 noise (the mAP of four images ranks twenty near-equal random-weight
+    logits, which bf16 reorders: it is only held to its range)."""
+    monkeypatch.chdir(tmp_path)
+    zoo, weights = val_zoo
+    want = jvcli.main(_val_args(voc_tree, zoo, weights, tmp_path / "j",
+                                "--serving", mode))
+    got = tvcli.main(_val_args(voc_tree, zoo, weights, tmp_path / "t",
+                               "--device", "cpu", "--serving", mode,
+                               "--seq_parallel", "1"))
+    assert set(_png_bytes(tmp_path / "t")) == set(NAMES)
+    assert got["n_images"] == 4
+    assert 0.0 <= got["mAP"] <= 1.0 and 0.0 <= want["mAP"] <= 1.0
+    assert got["mIoU"] == pytest.approx(want["mIoU"], abs=2.0)
+    assert got["global_acc"] == pytest.approx(want["global_acc"], abs=0.05)
+
+
+def test_validate_cli_exports_rollout_cams(voc_tree, tmp_path, val_zoo,
+                                           monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    zoo, weights = val_zoo
+    cams = tmp_path / "cams"
+    tvcli.main(_val_args(voc_tree, zoo, weights, tmp_path / "t", "--device",
+                         "cpu", "--ori_cam_path", str(cams), "--limit", "3"))
+    assert sorted(os.listdir(cams)) == [f"{n}_rollout_cam.jpg"
+                                        for n in NAMES[:3]]
+    for f in os.listdir(cams):
+        assert PIL.Image.open(cams / f).size[0] > 0
+
+
+def test_validate_cli_native_decode_and_palette_json(voc_tree, tmp_path,
+                                                     val_zoo, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    zoo, weights = val_zoo
+    from vision_transformer_cam_tpu_torch.data.palette import (
+        save_palette_json)
+    save_palette_json(str(tmp_path / "palette.json"))
+    res = tvcli.main(_val_args(voc_tree, zoo, weights, tmp_path / "t",
+                               "--device", "cpu", "--native_decode",
+                               "--palette_json",
+                               str(tmp_path / "palette.json")))
+    assert res["n_images"] == 4 and np.isfinite(res["mIoU"])
+    im = PIL.Image.open(tmp_path / "t" / f"{NAMES[0]}.png")
+    assert im.getpalette()[:6] == [0, 0, 0, 128, 0, 0]
+
+
+def test_validate_cli_device_and_unported_options(voc_tree, tmp_path,
+                                                  val_zoo):
+    zoo, weights = val_zoo
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        tvcli.main(_val_args(voc_tree, zoo, weights, tmp_path / "t",
+                             "--device", "cpu", "--data_parallel"))
+    with pytest.raises(ValueError, match="does not divide"):
+        tvcli.main(_val_args(voc_tree, zoo, weights, tmp_path / "t",
+                             "--device", "cpu", "--seq_parallel", "2"))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            tvcli.main(_val_args(voc_tree, zoo, weights, tmp_path / "t"))
+
+
+def test_validate_cli_has_the_jax_cli_surface():
+    def surface(parser):
+        return {a.dest: (a.default, a.type, a.required)
+                for a in parser._actions if a.dest != "help"}
+    got, want = surface(tvcli.build_parser()), surface(jvcli.build_parser())
+    assert set(got) == set(want)
+    for dest, spec in want.items():
+        if dest != "device":        # honoured here: the card by default
+            assert got[dest] == spec, dest
+    assert got["device"][0] == "cuda"
+    actions = {a.dest: a for a in tvcli.build_parser()._actions}
+    assert actions["attn_impl"].choices == ["auto", "eager", "kernel"]
+    # the help says what the code does: the kernel path is kept
+    assert "kernel" in actions["seq_parallel"].help
+    assert "overridden" not in actions["seq_parallel"].help

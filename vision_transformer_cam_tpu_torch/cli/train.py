@@ -60,7 +60,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="'-1' or '1': one device (sharded meshes are not "
                         "ported yet)")
     p.add_argument("--native_decode", action="store_true",
-                   help="the C++ batched JPEG pipeline (not ported yet)")
+                   help="the C++ batched JPEG pipeline (PIL where the "
+                        "library is unavailable)")
     p.add_argument("--resume", action="store_true",
                    help="resume full train state from the latest checkpoint")
     p.add_argument("--grad_accum", type=int, default=1,

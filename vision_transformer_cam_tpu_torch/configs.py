@@ -7,7 +7,9 @@ the port's two attention paths: ``"eager"`` (plain PyTorch with the reference's
 symmetric pair mask, the JAX ``"xla"`` path) and ``"kernel"`` (the fused CUDA
 kernel, the JAX ``"pallas"`` path).  The TPU tuning and sharding knobs keep
 their fields so configurations carry over, but the model raises when one is
-set that this package does not implement yet (``models.vit.check_supported``).
+set that this package does not implement yet (``models.vit.check_supported``);
+``seq_axis`` with ``data_axis`` beside it (``parallel.apply_seq_parallel``)
+is the sequence-parallel inference layout.
 """
 
 from __future__ import annotations
@@ -131,8 +133,8 @@ class DataConfig:
     drop_last: bool = True
     seg_labels: bool = False
     num_threads: int = 4
-    # C++ batched JPEG pipeline of the JAX package; not ported yet (the
-    # loader raises when it is asked for)
+    # the C++ batched JPEG pipeline (io/native_loader); PIL where the
+    # library is absent
     native_decode: bool = False
     prefetch: int = 2
     seed: int = 0
@@ -181,6 +183,16 @@ class TrainConfig:
     zero1: bool = False
     pipeline: int = 0
     pp_microbatches: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class PseudoSegConfig:
+    """validate.py pseudo-segmentation constants (validate.py:133,184,244)."""
+
+    cls_threshold: float = 0.9
+    fg_cos_threshold: float = 0.5
+    bg_rollout_threshold: float = 0.05
+    bg_blocks_from: int = 5  # rollout bg mask uses blocks 6..12 (validate.py:227)
 
 
 # ---------------------------------------------------------------------------

@@ -27,11 +27,13 @@ class BatchLoader:
                  process_count: int = 1, native_decode: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
-        if native_decode:
-            raise NotImplementedError(
-                "native_decode (the C++ batched JPEG pipeline) is not ported "
-                "yet (ROADMAP Queue 1 item 6); the PIL pipeline is the exact "
-                "reference-parity one")
+        # native batched JPEG decode (io/native_loader) replaces PIL per-item
+        # when the dataset exposes image_path()/meta() and the .so builds
+        self.native_decode = native_decode and hasattr(dataset, "image_path")
+        if self.native_decode:
+            from vision_transformer_cam_tpu_torch.io import native_loader
+            self.native_decode = native_loader.available()
+            self._native = native_loader
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
@@ -103,6 +105,21 @@ class BatchLoader:
                     {s.shape for s in segs}) == 1 else segs
             return batch
 
+        def native_batch(sl):
+            ds = self.dataset
+            try:
+                imgs = self._native.decode_batch(
+                    [ds.image_path(i) for i in sl], ds.img_size,
+                    tuple(ds.mean), tuple(ds.std), self.num_threads)
+            except ValueError:
+                # libjpeg rejects files PIL would accept (CMYK JPEGs, a PNG
+                # with a .jpg extension): fall back to the per-item PIL path
+                # for this batch instead of aborting the run
+                return collate([ds[i] for i in sl])
+            items = [dict(ds.meta(i), image=imgs[j])
+                     for j, i in enumerate(sl)]
+            return collate(items)
+
         def offer(item) -> bool:
             """Bounded put that keeps checking `stop`: a plain q.put would
             block forever if the consumer abandons iteration while the queue
@@ -125,8 +142,11 @@ class BatchLoader:
                             return
                         lo, hi = b * self.batch_size, (b + 1) * self.batch_size
                         sl = idx[lo:hi]
-                        batch = collate(list(pool.map(
-                            self.dataset.__getitem__, sl)))
+                        if self.native_decode:
+                            batch = native_batch(sl)
+                        else:
+                            batch = collate(list(pool.map(
+                                self.dataset.__getitem__, sl)))
                         if emit_pad:
                             batch["is_pad"] = is_pad[lo:hi].copy()
                         if not offer(batch):

@@ -4,8 +4,7 @@ The reference's voc12/data.py (split parsing with the [-15:-4] name slice,
 XML and cls_labels.npy multi-hot label loading, image / seg-label path
 resolution) plus voc12/make_cls_labels.py, feeding the batched host pipeline
 of ``data.loader``.  The port's own copy of the JAX package's data/voc12.py
-(numpy, and PIL imported inside the functions that decode); the SBD
-conversion tools wait for the tools slice.
+(numpy, and PIL imported inside the functions that decode).
 """
 
 from __future__ import annotations
@@ -87,6 +86,44 @@ def make_cls_labels(train_list_path: str, val_list_path: str, voc12_root: str,
     d = {n: load_image_label_from_xml(n, voc12_root) for n in names}
     np.save(out_path, d)
     return d
+
+
+def read_sbd_segmentation(mat_path: str) -> np.ndarray:
+    """GTcls.Segmentation from one SBD benchmark_RELEASE .mat (MATLAB v5
+    struct: GTcls.{Segmentation uint8 [H,W], Boundaries, CategoriesPresent})
+    -> uint8 [H, W] VOC class ids.  The last manual step of reconstructing
+    the reference's 10 582-image train_aug split (docs/training.md
+    'Reconstructing the train_aug split')."""
+    try:
+        from scipy.io import loadmat
+    except ImportError as e:  # pragma: no cover - scipy is in the base image
+        raise RuntimeError(
+            "SBD .mat conversion requires scipy (scipy.io.loadmat); "
+            "install scipy or convert with any standard public script") from e
+    m = loadmat(mat_path)
+    if "GTcls" not in m:
+        raise ValueError(f"{mat_path}: no GTcls struct — not an SBD "
+                         "cls ground-truth file")
+    seg = m["GTcls"]["Segmentation"][0, 0]
+    return np.ascontiguousarray(seg, np.uint8)
+
+
+def convert_sbd(mat_dir: str, out_dir: str, ids=None) -> int:
+    """Convert SBD cls/*.mat ground truth to VOC-palette PNGs named
+    <id>.png in out_dir (the SegmentationClassAug convention).  ids: only
+    convert these (e.g. dataset/train.txt ∪ val.txt); default = every .mat
+    in mat_dir.  Returns the number converted."""
+    import os
+
+    from vision_transformer_cam_tpu_torch.data.palette import save_indexed_png
+    os.makedirs(out_dir, exist_ok=True)
+    if ids is None:
+        ids = sorted(os.path.splitext(f)[0] for f in os.listdir(mat_dir)
+                     if f.endswith(".mat"))
+    for name in ids:
+        seg = read_sbd_segmentation(os.path.join(mat_dir, f"{name}.mat"))
+        save_indexed_png(os.path.join(out_dir, f"{name}.png"), seg)
+    return len(ids)
 
 
 class VOC12Dataset:

@@ -130,13 +130,26 @@ def _install_quantized(model: torch.nn.Module, sd: Mapping) -> None:
         setattr(parent, attr, q.to(dev))
 
 
+def _resized_pos_embed(pos_embed, cfg):
+    """A checkpoint trained at another resolution: the grid part of its
+    pos_embed, bicubic-interpolated to the model's grid (in the checkpoint's
+    dtype, float32 at least)."""
+    from vision_transformer_cam_tpu_torch.ops.interpolate import (
+        interpolate_pos_embed)
+    old_grid = int(round((pos_embed.shape[1] - cfg.num_tokens) ** 0.5))
+    dt = torch.promote_types(pos_embed.dtype, torch.float32)
+    return interpolate_pos_embed(pos_embed.to(dt), old_grid, cfg.grid_size,
+                                 num_tokens=cfg.num_tokens)
+
+
 def load_state_dict(model: torch.nn.Module, sd: Mapping,
                     del_keys: Sequence[str] = ()) -> torch.nn.Module:
     """Load a reference-format state dict (numpy arrays or tensors) into
     ``model``, cast to each parameter's dtype and device.  The reference's
     dead model-level norm1/norm2 keys are skipped; keys in ``del_keys`` are
     dropped and keep the model's current values (the reference's head-key
-    surgery).  Int8 layers in ``sd`` (``<name>.weight_q``) become
+    surgery).  A ``pos_embed`` of another grid size is bicubic-interpolated
+    to the model's (``ops.interpolate.interpolate_pos_embed``).  Int8 layers in ``sd`` (``<name>.weight_q``) become
     ``QLinear`` modules first.  Any other missing or unexpected key
     raises."""
     _install_quantized(model, sd)
@@ -149,6 +162,8 @@ def load_state_dict(model: torch.nn.Module, sd: Mapping,
             raise KeyError(f"unexpected checkpoint key {k}")
         t = v if isinstance(v, torch.Tensor) else torch.from_numpy(
             np.array(v, order="C"))
+        if k == "pos_embed" and t.shape[1] != own[k].shape[1]:
+            t = _resized_pos_embed(t, model.cfg)
         if tuple(t.shape) != tuple(own[k].shape):
             raise ValueError(f"checkpoint key {k} has shape {tuple(t.shape)}, "
                              f"the model {tuple(own[k].shape)}")

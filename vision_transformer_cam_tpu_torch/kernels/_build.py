@@ -114,6 +114,11 @@ def load():
         fn = lib.vitcam_attention_block_fused
         fn.argtypes = [p] * 11 + [i, i, i, i, f, f, i, i, i, p]
         fn.restype = i
+        fn = lib.vitcam_masked_attention_seq
+        fn.argtypes = [p] * 7 + [i, i, i, i, i, i, f, f, i, i, i, i, p]
+        fn.restype = i
+        lib.vitcam_masked_attention_seq_smem_bytes.argtypes = [i, i]
+        lib.vitcam_masked_attention_seq_smem_bytes.restype = ctypes.c_size_t
         lib.vitcam_mlp_fused_smem_bytes.argtypes = [i, i]
         lib.vitcam_mlp_fused_smem_bytes.restype = ctypes.c_size_t
         lib.vitcam_attention_block_smem_bytes.argtypes = [i, i, i, i]

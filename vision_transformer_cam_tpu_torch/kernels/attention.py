@@ -23,9 +23,19 @@ cls row and the rollout update, in one launch; neither the qkv tensor nor the
 attention output reaches device memory.  ``csrc/attention_block.cu`` on a
 CUDA tensor, ``attention_block_fused_plain`` on a CPU tensor.
 
-``launches``, ``bwd_launches`` and ``block_launches`` count the CUDA kernel
-launches made through the forward, the backward and the block wrapper, so a
-run can show that its main path went through the kernels.
+``masked_attention_seq_local`` is the port of the TPU sequence-parallel
+kernel (same file: _masked_attention_seq_local): a rank's local query rows
+against the gathered K | V rows of a token axis padded to the group size,
+with the padded key columns killed, ``csrc/masked_attention_seq.cu`` on a
+CUDA tensor and ``masked_attention_seq_local_ref`` on a CPU tensor.
+``masked_attention_seq`` is the TPU package's wrapper of the same name
+written out for ``torch.distributed``: all-gather of K | V and bg over the
+sequence group, the local kernel call, the cls row from sequence-rank 0.
+
+``launches``, ``bwd_launches``, ``block_launches`` and ``seq_launches`` count
+the CUDA kernel launches made through the forward, the backward, the block
+and the sequence-parallel wrapper, so a run can show that its main path went
+through the kernels.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ import torch
 launches = 0
 bwd_launches = 0
 block_launches = 0
+seq_launches = 0
 
 # mode codes of the C entry point
 _PLAIN, _HEADMEAN, _ROLLOUT = 0, 1, 2
@@ -56,6 +67,11 @@ BWD_MAX_N = 760
 BLOCK_ROWS = 32
 BLOCK_MAX_N = 8 * BLOCK_ROWS
 BLOCK_MAX_C = 768   # its [32, C] output tile and staging in shared memory
+# The sequence-parallel kernel keeps a [QB, Np] float32 tile of S (and one of
+# the head mean) in shared memory, QB = 32 query rows or 16 where 32 do not
+# fit: (33 * ceil4(Np) + Np + 5408) floats at QB = 16 with the head mean fit
+# the 227 KB for Np <= SEQ_MAX_NP (N = 1025 padded to 8 ranks is 1032).
+SEQ_MAX_NP = 1536
 
 
 def _scales_kind(qkv, scales, num_heads):
@@ -571,3 +587,189 @@ def attention_block_fused(xn, tokens, wqkv, bqkv, wproj, bproj, bg,
     if newj is None:
         return out, cls_row
     return out, cls_row, newj
+
+
+def _check_seq_shapes(q, kv, bg_q, bg_k, num_heads, n_real):
+    if q.dim() != 3 or q.shape[-1] % num_heads:
+        raise ValueError(f"q must be [B, NQ, C] with C divisible by "
+                         f"num_heads={num_heads}, got {tuple(q.shape)}")
+    b, nq, c = q.shape
+    if kv.dim() != 3 or kv.shape[0] != b or kv.shape[2] != 2 * c \
+            or kv.shape[1] < nq:
+        raise ValueError(f"kv must be [B, Np, 2C] = ({b}, Np >= {nq}, "
+                         f"{2 * c}), got {tuple(kv.shape)}")
+    np_ = kv.shape[1]
+    if tuple(bg_q.shape) != (b, nq) or tuple(bg_k.shape) != (b, np_):
+        raise ValueError(f"bg_q must be {(b, nq)} and bg_k {(b, np_)}, got "
+                         f"{tuple(bg_q.shape)} and {tuple(bg_k.shape)}")
+    if not 0 <= n_real <= np_:
+        raise ValueError(f"n_real must lie in [0, Np = {np_}], got {n_real}")
+
+
+def masked_attention_seq_local_ref(q, kv, bg_q, bg_k, *, num_heads: int,
+                                   scale: float, mask_value: float = -100.0,
+                                   with_headmean: bool = False,
+                                   clamp_softmax: bool = False, hm_dtype=None,
+                                   n_real: int = 0):
+    """Plain PyTorch version of the sequence-parallel kernel.
+
+    q: [B, NQ, C], this rank's query rows; kv: [B, Np, 2C], the K | V rows
+    of every rank (heads contiguous inside each half); bg_q [B, NQ] and bg_k
+    [B, Np] background indicators; ``n_real`` the unpadded token count (0:
+    Np).  Returns (out [B, NQ, C], row0 [B, Np]) in q's dtype and, with
+    ``with_headmean``, hm [B, NQ, Np] in ``hm_dtype`` or q's dtype.
+
+    S = q k^T * scale + (1 - bg_q) * (mask_value * bg_k) + kill, with kill =
+    -1e9 on key columns >= n_real: padded keys are removed outright, not
+    masked at mask_value.  Then ``min(S, 80)`` or the row-max subtraction,
+    E = exp(S), and the row sum is kept above 1e-30.  row0 is the head-mean
+    normalised row of the LOCAL row 0, the cls row only on the rank that
+    holds global row 0.  With the head mean P = E / sum is rounded to V's
+    dtype before P.V; without it E is rounded and the product divided
+    afterwards, as the TPU kernel orders them.  Everything is computed in at
+    least float32."""
+    _check_seq_shapes(q, kv, bg_q, bg_k, num_heads, n_real)
+    b, nq, c = q.shape
+    np_ = kv.shape[1]
+    h, dh = num_heads, c // num_heads
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qh = q.reshape(b, nq, h, dh).permute(0, 2, 1, 3).to(acc)
+    k, v = kv.reshape(b, np_, 2, h, dh).permute(2, 0, 3, 1, 4)
+    s = torch.matmul(qh, k.to(acc).transpose(-1, -2)) * scale
+    kill = torch.zeros((np_,), dtype=acc, device=q.device)
+    kill[(n_real or np_):] = -1e9
+    s = s + ((1.0 - bg_q.to(acc))[:, :, None]
+             * (bg_k.to(acc) * mask_value)[:, None, :])[:, None] + kill
+    s = torch.clamp_max(s, 80.0) if clamp_softmax else \
+        s - s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s)
+    denom = e.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    row0 = (e[:, :, 0, :] / denom[:, :, 0, :]).sum(dim=1) / num_heads
+    if with_headmean:
+        p = e / denom
+        hm = p.sum(dim=1) / num_heads
+        ov = torch.matmul(p.to(v.dtype).to(acc), v.to(acc))
+    else:
+        ov = torch.matmul(e.to(v.dtype).to(acc), v.to(acc)) / denom
+    out = ov.to(q.dtype).transpose(1, 2).reshape(b, nq, c)
+    if with_headmean:
+        return out, row0.to(q.dtype), hm.to(hm_dtype or q.dtype)
+    return out, row0.to(q.dtype)
+
+
+def masked_attention_seq_local(q, kv, bg_q, bg_k, *, num_heads: int,
+                               scale: float, mask_value: float = -100.0,
+                               with_headmean: bool = False,
+                               clamp_softmax: bool = False, hm_dtype=None,
+                               n_real: int = 0):
+    """Same contract as ``masked_attention_seq_local_ref``.  CPU tensors run
+    the plain version; CUDA tensors launch the kernel (q and kv both float32
+    or both bfloat16, contiguous, head width 64, Np <= ``SEQ_MAX_NP``, bg
+    float32 or bf16, hm float32 or bf16) or raise."""
+    global seq_launches
+    kw = dict(num_heads=num_heads, scale=scale, mask_value=mask_value,
+              with_headmean=with_headmean, clamp_softmax=clamp_softmax,
+              hm_dtype=hm_dtype, n_real=n_real)
+    if q.device.type == "cpu":
+        return masked_attention_seq_local_ref(q, kv, bg_q, bg_k, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"masked_attention_seq_local: no kernel for device "
+                         f"{q.device}")
+    _check_seq_shapes(q, kv, bg_q, bg_k, num_heads, n_real)
+    tensors = (q, kv, bg_q, bg_k)
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("q, kv, bg_q and bg_k must be on the same device")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError("masked_attention_seq_local is not differentiable; "
+                         "call it without gradient tracking")
+    if q.dtype not in (torch.float32, torch.bfloat16) or kv.dtype != q.dtype:
+        raise TypeError(f"the CUDA sequence-parallel kernel takes q and kv "
+                        f"both bfloat16 or both float32, got {q.dtype} and "
+                        f"{kv.dtype}")
+    for bg in (bg_q, bg_k):
+        if not bg.is_floating_point() or bg.dtype == torch.float64:
+            raise TypeError(f"bg must be a float32/bfloat16 tensor, got "
+                            f"{bg.dtype}")
+    if not (q.is_contiguous() and kv.is_contiguous()):
+        raise ValueError("q and kv must be contiguous")
+    b, nq, c = q.shape
+    np_ = kv.shape[1]
+    if c // num_heads != HEAD_DIM:
+        raise ValueError(f"the CUDA sequence-parallel kernel takes head "
+                         f"width {HEAD_DIM}, got {c // num_heads}")
+    if np_ > SEQ_MAX_NP:
+        raise ValueError(f"the CUDA sequence-parallel kernel takes Np <= "
+                         f"{SEQ_MAX_NP} (its shared memory), got {np_}")
+    hm_dtype = hm_dtype or q.dtype
+    if hm_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"hm_dtype must be float32 or bfloat16, got "
+                        f"{hm_dtype}")
+
+    from vision_transformer_cam_tpu_torch.kernels import _build
+    lib = _build.load()
+    dev = q.device
+    bgq32 = bg_q.to(torch.float32).contiguous()
+    bgk32 = bg_k.to(torch.float32).contiguous()
+    out = torch.empty_like(q)
+    # only the block of local row 0 writes row0, and it writes all of it
+    row0 = torch.empty((b, np_), dtype=q.dtype, device=dev)
+    hm = torch.empty((b, nq, np_), dtype=hm_dtype, device=dev) \
+        if with_headmean else None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.vitcam_masked_attention_seq(
+            q.data_ptr(), kv.data_ptr(), bgq32.data_ptr(), bgk32.data_ptr(),
+            out.data_ptr(), row0.data_ptr(),
+            hm.data_ptr() if with_headmean else None, b, nq, np_,
+            n_real or np_, num_heads, c // num_heads, float(scale),
+            float(mask_value), _DTYPE_CODES[q.dtype], int(with_headmean),
+            int(clamp_softmax), int(hm_dtype == torch.bfloat16), stream)
+    if err:
+        msg = lib.vitcam_cuda_error_string(err).decode()
+        need = lib.vitcam_masked_attention_seq_smem_bytes(
+            np_, int(with_headmean))
+        raise RuntimeError(
+            f"masked_attention_seq_local kernel launch failed: cudaError "
+            f"{err} ({msg}); shared memory needed {need} bytes")
+    seq_launches += 1
+    if with_headmean:
+        return out, row0, hm
+    return out, row0
+
+
+def masked_attention_seq(qkv_local, bg_local, *, group, n_real: int,
+                         num_heads: int, scale: float,
+                         mask_value: float = -100.0,
+                         with_headmean: bool = False,
+                         clamp_softmax: bool = False, hm_dtype=None):
+    """Sequence-parallel fused masked attention on one rank of a sequence
+    group (``parallel.mesh.SeqMesh``; None is a group of one rank).
+
+    qkv_local: [B, NQ, 3C], this rank's rows of a token axis that the caller
+    padded to Np = group size * NQ; bg_local: [B, NQ]; ``n_real`` the
+    unpadded token count N.  The K | V columns and bg are all-gathered over
+    the group, ``masked_attention_seq_local`` runs on the local query rows,
+    and the cls row is taken from sequence-rank 0 (a broadcast; only there
+    is local row 0 the global one).  Returns (out [B, NQ, C], the local
+    rows; cls_row [B, N], the same on every rank; and with ``with_headmean``
+    hm [B, NQ, N]): the padded key columns are cut off, the padded query
+    rows of the last rank are the caller's to drop."""
+    c = qkv_local.shape[-1] // 3
+    q = qkv_local[:, :, :c].contiguous()
+    kv_l = qkv_local[:, :, c:]
+    if group is None or group.seq_size == 1:
+        kv, bg_k = kv_l.contiguous(), bg_local
+    else:
+        kv = group.all_gather(kv_l.contiguous(), dim=1)
+        bg_k = group.all_gather(bg_local.contiguous(), dim=1)
+    res = masked_attention_seq_local(
+        q, kv, bg_local, bg_k, num_heads=num_heads, scale=scale,
+        mask_value=mask_value, with_headmean=with_headmean,
+        clamp_softmax=clamp_softmax, hm_dtype=hm_dtype, n_real=n_real)
+    row0 = res[1]
+    if group is not None and group.seq_size > 1:
+        row0 = group.broadcast_from_seq0(row0)
+    cls_row = row0[:, :n_real]
+    if with_headmean:
+        return res[0], cls_row, res[2][:, :, :n_real]
+    return res[0], cls_row

@@ -43,6 +43,17 @@ kernel); ``cfg.mlp_fusion`` replaces fc1 -> GELU -> fc2 with one launch of
 ``mlp_fused`` (float layers) or ``mlp_fused_int8`` (two static int8 layers,
 fed the float LayerNorm output), and a partially quantized MLP takes the
 unfused chain.
+
+Sequence parallelism (``cfg.seq_axis``, set by ``parallel.apply_seq_parallel``;
+inference only) is the JAX package's token-sharded layout with the
+collectives written out: every rank of a sequence group embeds the same
+batch, keeps its slice of the token axis (zero-padded to a multiple of the
+group size; the padded rows never reach a statistic or an output), runs
+LayerNorm, the GEMMs, the MLP and the residuals on its rows, and meets the
+other ranks in the attention (``masked_attention_seq``: K | V gathered, the
+cls row from sequence-rank 0), in the rollout and at the end, where the
+tokens are gathered and the heads run alike on every rank.  The model must
+be called under ``parallel.set_mesh``.
 """
 
 from __future__ import annotations
@@ -57,7 +68,8 @@ from torch.utils.checkpoint import checkpoint
 
 from vision_transformer_cam_tpu_torch.configs import ViTCAMConfig
 from vision_transformer_cam_tpu_torch.kernels.attention import (
-    attention_block_fused, fused_attention_diff, masked_attention_fused)
+    attention_block_fused, fused_attention_diff, masked_attention_fused,
+    masked_attention_seq)
 from vision_transformer_cam_tpu_torch.kernels.gemm import ln_quant, mlp_fused
 from vision_transformer_cam_tpu_torch.ops.quant import (QLinear,
                                                         linear_int8_fused,
@@ -104,8 +116,6 @@ class ViTCAMOutput(NamedTuple):
 # config knobs of the JAX package that this package does not implement yet,
 # with the ROADMAP item that ports them
 _UNPORTED = {
-    "data_axis": "Queue 1 item 10",
-    "seq_axis": "Queue 1 item 10",
     "attn_block_b": "Queue 2 item 1 (kernel tuning)",
     "attn_q_block": "Queue 2 item 1 (kernel tuning)",
 }
@@ -121,6 +131,24 @@ def check_supported(cfg: ViTCAMConfig) -> None:
             raise NotImplementedError(
                 f"cfg.{name}={getattr(cfg, name)!r} is not ported yet "
                 f"(ROADMAP {item})")
+    if cfg.data_axis and not cfg.seq_axis:
+        # beside seq_axis it names the batch groups of the (data, seq) grid;
+        # alone it asks for batch-sharded kernels over several cards
+        raise NotImplementedError(
+            f"cfg.data_axis={cfg.data_axis!r} without seq_axis (data "
+            "parallelism) is not ported yet (ROADMAP Queue 1 item 10)")
+    if cfg.seq_axis:
+        bad = [name for name in
+               ("attn_block_fusion", "mlp_fusion", "ln_quant_fusion",
+                "int8_fused_gemm", "int8_attn_io", "int8_attn_out")
+               if getattr(cfg, name)]
+        if bad:
+            raise ValueError(
+                f"cfg.seq_axis={cfg.seq_axis!r} (sequence parallelism) "
+                f"composes with attn_impl='kernel', but {', '.join(bad)} "
+                "request batch-axis kernel fusions that would see "
+                "sequence-sharded operands. Drop those knobs (plain int8 "
+                "qlinear GEMMs are fine) or drop seq_axis.")
     if cfg.matmul_precision not in (None, "highest"):
         raise NotImplementedError(
             f"matmul_precision={cfg.matmul_precision!r}: the port runs float32 "
@@ -301,6 +329,51 @@ def attention_kernel(ap, x, bg, cfg: ViTCAMConfig, need_probs, joint=None,
         out, cls_row = masked_attention_fused(qkv, bg, None, scales, **kw)
     out = _linear(out, ap.proj, cfg)
     return out, cls_row.to(cfg.dtype), hm, None, newj
+
+
+def _attention_seq(ap, x, bg, cfg: ViTCAMConfig, need_probs, mesh,
+                   hm_dtype=None):
+    """Attention on one rank of a sequence group.  x: [B, NQ, C], this rank's
+    rows of the padded token axis; bg: [B, N], the same on every rank.
+    Returns (out [B, NQ, C], cls_row [B, N] the same on every rank, the
+    local rows of the head mean [B, NQ, N] or None, the local rows of the
+    per-head probabilities [B, H, NQ, N] or None).
+
+    ``attn_impl="kernel"`` goes through ``masked_attention_seq``; the
+    per-head probabilities only the eager form produces.  The eager form is
+    ``_attention_eager`` on the local query rows against the gathered K and
+    V, cut back to the N real keys, with the symmetric pair mask and the
+    clamp after it."""
+    b, nq, c = x.shape
+    n, h, dh = cfg.seq_len, cfg.num_heads, cfg.head_dim
+    bg_local = mesh.local_rows(bg)
+    qkv = _linear(x, ap.qkv, cfg)
+    if cfg.attn_impl == "kernel" and need_probs != "perhead":
+        res = masked_attention_seq(
+            qkv, bg_local, group=mesh, n_real=n, num_heads=h,
+            scale=cfg.scale, mask_value=cfg.mask_value,
+            with_headmean=need_probs == "headmean",
+            clamp_softmax=cfg.softmax_clamp, hm_dtype=hm_dtype)
+        out, cls_row = res[0], res[1].to(cfg.dtype)
+        hm = res[2] if need_probs == "headmean" else None
+        return _linear(out, ap.proj, cfg), cls_row, hm, None
+    q, k, v = qkv.reshape(b, nq, 3, h, dh).permute(2, 0, 3, 1, 4)
+    k = mesh.all_gather(k.contiguous(), dim=2)[:, :, :n]
+    v = mesh.all_gather(v.contiguous(), dim=2)[:, :, :n]
+    attn = torch.matmul(q, k.transpose(-1, -2)) * cfg.scale
+    pair = torch.clamp_max(bg_local[:, :, None] + bg[:, None, :], 1.0)
+    attn = attn + (cfg.mask_value * pair)[:, None, :, :]
+    if cfg.softmax_clamp:
+        attn = torch.clamp_max(attn, 80.0)
+    probs = torch.softmax(attn, dim=-1)
+    cls_row = mesh.broadcast_from_seq0(
+        probs[:, :, 0, :].mean(dim=1).contiguous())
+    hm = probs.mean(dim=1) if need_probs else None
+    out = torch.matmul(probs, v).transpose(1, 2).reshape(b, nq, c)
+    out = _linear(out, ap.proj, cfg)
+    if hm is not None and hm_dtype is not None:
+        hm = hm.to(hm_dtype)
+    return out, cls_row, hm, probs if need_probs == "perhead" else None
 
 
 def _mask_from_cls_row(cls_row, cfg: ViTCAMConfig):
@@ -507,6 +580,13 @@ class ViTCAM(nn.Module):
                  need_perhead, need_rollout) -> ViTCAMOutput:
         cfg = self.cfg
         check_supported(cfg)
+        if cfg.seq_axis:
+            if train:
+                raise NotImplementedError(
+                    "forward_train under cfg.seq_axis (sequence-parallel "
+                    "training) is not ported yet (ROADMAP Queue 1 item 10)")
+            return self._forward_seq(x, need_headmean, need_blocks,
+                                     need_perhead, need_rollout)
         if train and cfg.softmax_clamp:
             cfg = cfg.replace(softmax_clamp=False)
         attn_fn = attention_kernel if cfg.attn_impl == "kernel" \
@@ -667,7 +747,18 @@ class ViTCAM(nn.Module):
                 r = 0.5 * (prod + r)
             rollout_row = r.to(rollout_dtype)
 
-        cls_rows = torch.stack(cls_rows)
+        collect = need_headmean or need_perhead
+        return self._heads(
+            cfg, tokens, torch.stack(cls_rows), rollout_row, train,
+            attn_headmean=torch.stack(hms) if collect else None,
+            attn_perhead=torch.stack(phs) if need_perhead else None,
+            block_outputs=torch.stack(blocks_out) if need_blocks else None)
+
+    def _heads(self, cfg, tokens, cls_rows, rollout_row, train, *,
+               attn_headmean, attn_perhead, block_outputs) -> ViTCAMOutput:
+        """What follows the blocks: the top-16 patch head, the final
+        LayerNorm and the class heads, on complete tokens [B, N, C] and cls
+        rows [depth, B, N]."""
         # top-K high-weight patch head, over the patch tokens
         mask14, _ = _mask_from_cls_row(cls_rows[-1], cfg)
         top_idx = torch.topk(mask14, cfg.top_k_patches, dim=-1).indices
@@ -689,7 +780,6 @@ class ViTCAM(nn.Module):
             # head_dist trains); eval: their average
             if not train:
                 logits = (logits + dist_logits) / 2.0
-        collect = need_headmean or need_perhead
         return ViTCAMOutput(
             logits=logits,
             head1_logits=head1_logits,
@@ -697,10 +787,109 @@ class ViTCAM(nn.Module):
             top_patch_embeds=top_embeds,
             top_patch_idx=top_idx,
             head1_kernel=self.head1.weight.detach().t(),
-            attn_headmean=torch.stack(hms) if collect else None,
-            attn_perhead=torch.stack(phs) if need_perhead else None,
-            block_outputs=torch.stack(blocks_out) if need_blocks else None,
+            attn_headmean=attn_headmean,
+            attn_perhead=attn_perhead,
+            block_outputs=block_outputs,
             rollout_row=rollout_row,
             tokens_prenorm=tokens,
             dist_logits=dist_logits if train else None,
         )
+
+    def _forward_seq(self, x, need_headmean, need_blocks, need_perhead,
+                     need_rollout) -> ViTCAMOutput:
+        """The eval forward on one rank of a sequence group (see the module
+        docstring).  Every rank of the group passes the same ``x``; every
+        output is complete and the same on every rank, as the unsharded
+        forward's."""
+        from vision_transformer_cam_tpu_torch.parallel.mesh import current_mesh
+        cfg = self.cfg
+        mesh = current_mesh(cfg.seq_axis)
+        if mesh.seq_size > 1 and any(
+                isinstance(m, QLinear) and m.act_scale is None
+                for m in self.blocks.modules()):
+            # a dynamic scale is the absmax of the whole activation tensor;
+            # a rank sees only its rows
+            raise NotImplementedError(
+                "int8 layers without static act scales (dynamic per-tensor "
+                "quantization) under cfg.seq_axis: calibrate the scales "
+                "(serving.apply_serving_mode)")
+        # embedded alike on every rank, then cut to this rank's rows
+        tokens = mesh.local_rows(self.embed_tokens(x, cfg)).contiguous()
+        b, nq, dev = tokens.shape[0], tokens.shape[1], tokens.device
+        n = cfg.seq_len
+        bg = torch.zeros((b, n), dtype=cfg.dtype, device=dev)
+        need_probs = "perhead" if need_perhead else (
+            "headmean" if (need_headmean or need_rollout) else None)
+        rollout_dtype = torch.float32 if cfg.dtype == torch.bfloat16 \
+            else cfg.dtype
+        want_post = (n > 512) if cfg.rollout_post is None else cfg.rollout_post
+        rollout_post = (need_rollout and want_post
+                        and not (need_headmean or need_perhead))
+        carry_rollout = need_rollout and not rollout_post
+        # this rank's rows of the identity, for (hm + I) and as J_0's rows
+        eye_local = mesh.local_rows(
+            torch.eye(n, dtype=rollout_dtype, device=dev), dim=0)
+        joint = eye_local.expand(b, nq, n).contiguous() if carry_rollout \
+            else None
+
+        cls_rows, hms, phs, blocks_out = [], [], [], []
+        for i, blk in enumerate(self.blocks):
+            xn = _layer_norm(tokens, blk.norm1.weight, blk.norm1.bias,
+                             cfg.ln_eps)
+            o, cls_row, hm, ph = _attention_seq(
+                blk.attn, xn, bg, cfg, need_probs, mesh,
+                hm_dtype=rollout_dtype if rollout_post else None)
+            tokens = tokens + o
+            f1, f2 = blk.mlp.fc1, blk.mlp.fc2
+            yn = _layer_norm(tokens, blk.norm2.weight, blk.norm2.bias,
+                             cfg.ln_eps)
+            if _is_static(f1) and _is_static(f2):
+                hmid = qlinear_gelu_requant(yn, f1, f2.act_scale,
+                                            gelu_approx=cfg.gelu_approx)
+            else:
+                hmid = _gelu(_linear(yn, f1, cfg), cfg.gelu_approx)
+            tokens = tokens + _linear(hmid, f2, cfg)
+            # the cls row is the same on every rank, and so is the mask
+            if i >= cfg.mask_from:
+                _, bg = _mask_from_cls_row(cls_row, cfg)
+            if carry_rollout:
+                # J' rows local = aug(hm) rows local @ all of J
+                pt = torch.promote_types(torch.float32, joint.dtype)
+                aug = hm + eye_local.to(hm.dtype)
+                aug = aug / aug.sum(dim=-1, keepdim=True)
+                full = mesh.all_gather(joint, dim=1)[:, :n]
+                joint = torch.matmul(aug.to(pt), full.to(pt)).to(joint.dtype)
+            cls_rows.append(cls_row)
+            if need_headmean or need_perhead or rollout_post:
+                hms.append(hm)
+            if need_perhead:
+                phs.append(ph)
+            if need_blocks:
+                blocks_out.append(tokens)
+
+        rollout_row = None
+        if carry_rollout:
+            rollout_row = mesh.broadcast_from_seq0(joint[:, 0, :].contiguous())
+        elif rollout_post:
+            # the reversed chain: each rank adds r[its rows] . hm[its rows];
+            # the padded rows of r are zero
+            chain_dt = torch.promote_types(torch.float32, rollout_dtype)
+            r = torch.zeros((b, n), dtype=chain_dt, device=dev)
+            r[:, 0] = 1.0
+            for hm_l in reversed(hms):
+                part = torch.bmm(mesh.local_rows(r)[:, None, :],
+                                 hm_l.to(chain_dt))[:, 0]
+                r = 0.5 * (mesh.all_reduce_sum(part) + r)
+            rollout_row = r.to(rollout_dtype)
+
+        def rows(t, dim):
+            """Local rows gathered into the complete tensor, padding cut."""
+            return mesh.all_gather(t, dim=dim).narrow(dim, 0, n)
+
+        collect = need_headmean or need_perhead
+        return self._heads(
+            cfg, rows(tokens, 1), torch.stack(cls_rows), rollout_row, False,
+            attn_headmean=rows(torch.stack(hms), 2) if collect else None,
+            attn_perhead=rows(torch.stack(phs), 3) if need_perhead else None,
+            block_outputs=rows(torch.stack(blocks_out), 2) if need_blocks
+            else None)

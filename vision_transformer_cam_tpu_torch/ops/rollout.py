@@ -69,3 +69,31 @@ def per_block_cams(cls_rows, grid_size, prefix_tokens=None):
     m = aug0[..., p:]
     m = m.reshape(*m.shape[:-1], grid_size, grid_size)
     return m / m.amax(dim=(-1, -2), keepdim=True)
+
+
+def bg_rollout_row(cls_rows, from_block: int, prefix_tokens: int = 1):
+    """validate.py:224-235: head-mean attention averaged over blocks
+    [from_block:], one rollout step, cls->patch row normalized by max.
+
+    Averaging full matrices then taking row 0 of the row-normalized (M + I)
+    equals running aug_cls_row on the averaged cls rows, since row sums of the
+    average stay 1.  cls_rows: [L, B, N] -> [B, num_patches] in [0, 1].
+    """
+    if from_block >= cls_rows.shape[0]:
+        raise ValueError(
+            f"bg rollout from_block={from_block} >= depth "
+            f"{cls_rows.shape[0]}: the empty mean would be silently NaN "
+            "and every pseudo-seg pixel background")
+    aug0 = aug_cls_row(cls_rows[from_block:].mean(dim=0))
+    m = aug0[:, prefix_tokens:]
+    # the result must be a g*g patch grid downstream: a distilled row (cls +
+    # dist, N = g*g + 2) sliced with the default prefix 1 leaves g*g + 1
+    # entries; catch that here instead of as a reshape error at the call site
+    n_patch = m.shape[-1]
+    g = int(round(float(n_patch) ** 0.5))
+    if g * g != n_patch:
+        raise ValueError(
+            f"bg rollout row has {n_patch} patch entries after dropping "
+            f"{prefix_tokens} prefix token(s): not a square patch grid; "
+            "pass prefix_tokens=cfg.num_tokens (2 for distilled models)")
+    return m / m.amax(dim=-1, keepdim=True)

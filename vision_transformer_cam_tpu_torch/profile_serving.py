@@ -2,9 +2,11 @@
 
     python -m vision_transformer_cam_tpu_torch.profile_serving \
         [--batch 256] [--forwards 3] [--modes bf16 eager int8 int8_hifi] \
+        [--model vit_base] [--seq-parallel 1] \
         [--mlp-fusion] [--attn-block-fusion] [--out FILE]
 
-Serves ViT-B/16 (in21k, the VOC head: 20 classes, no representation layer)
+Serves ``--model`` (default ViT-B/16 in21k; any zoo name, for example
+``vit_large_patch16_384``; the VOC head: 20 classes, no representation layer)
 with random weights from seed 0, as ``chip_smoke.py`` does: "bf16" through
 the attention kernel, "eager" the same bf16 model with ``attn_impl="eager"``,
 "int8" and "int8_hifi" calibrated on 16 numpy images from seed 1 with
@@ -12,7 +14,10 @@ the attention kernel, "eager" the same bf16 model with ``attn_impl="eager"``,
 ``--attn-block-fusion`` turn the serving fusions on in every serving mode
 (``cfg.mlp_fusion``: the fused MLP kernels; ``cfg.attn_block_fusion``: the
 whole-sub-block attention kernel, which a quantized qkv layer falls
-through).  The modes "train" and
+through).  ``--seq-parallel 1`` serves through the sequence-parallel
+forward on a mesh of this one rank (``parallel.apply_seq_parallel``: the
+"seq" attention kernel, no fusions, no int8 attention I/O).  The modes
+"train" and
 "train_eager" profile one training step instead (``--train_batch`` images,
 float32 masters with bf16 compute, remat on) on the kernel and the eager
 attention path.  It prints the card's name
@@ -39,6 +44,7 @@ import torch
 GROUPS = (
     ("attention block kernel", ("attention_block_kernel",)),
     ("fused MLP kernel", ("mlp_fused_kernel", "mlp_fused_int8_kernel")),
+    ("sequence-parallel attention kernel", ("masked_attention_seq_kernel",)),
     ("attention kernel", ("masked_attention_kernel",)),
     ("attention backward kernel", ("masked_attention_bwd_",)),
     ("int8 GEMM kernel", ("linear_int8_kernel",)),
@@ -59,7 +65,7 @@ def group_of(kernel_name: str) -> str:
     return OTHER
 
 
-def served_models(modes, device=None):
+def served_models(modes, device=None, model_name="vit_base"):
     """{mode: model} for the requested modes; "bf16" and "eager" share one
     model and differ in ``cfg.attn_impl``, set by ``forward_fn``."""
     from vision_transformer_cam_tpu_torch import configs, serving
@@ -67,7 +73,7 @@ def served_models(modes, device=None):
     from vision_transformer_cam_tpu_torch.utils import resolve_device
 
     device = resolve_device(device)
-    cfg = configs.vit_base_patch16_224_in21k(num_classes=20).replace(
+    cfg = configs.resolve_model(model_name)(num_classes=20).replace(
         representation_size=None)
 
     def new_model():
@@ -89,18 +95,25 @@ def served_models(modes, device=None):
     return models
 
 
-def forward_fn(model, mode, x, mlp_fusion=False, attn_block_fusion=False):
+def forward_fn(model, mode, x, mlp_fusion=False, attn_block_fusion=False,
+               seq_parallel=0):
     """One served request: the forward with the rollout CAM."""
     from vision_transformer_cam_tpu_torch.ops.rollout import (
         cam_from_rollout_row)
+    from vision_transformer_cam_tpu_torch.parallel import mesh as pmesh
     impl = "eager" if mode == "eager" else "kernel"
     cfg = model.cfg.replace(attn_impl=impl, mlp_fusion=mlp_fusion,
                             attn_block_fusion=attn_block_fusion)
+    mesh = None
+    if seq_parallel:
+        cfg = pmesh.apply_seq_parallel(cfg)
+        mesh = pmesh.seq_parallel_mesh(seq_parallel)
     g = cfg.grid_size
 
     def step():
         model.cfg = cfg
-        cam_from_rollout_row(model(x, need_rollout=True).rollout_row, g)
+        with pmesh.set_mesh(mesh):
+            cam_from_rollout_row(model(x, need_rollout=True).rollout_row, g)
     return step
 
 
@@ -182,6 +195,11 @@ def main(argv=None) -> int:
     ap.add_argument("--attn-block-fusion", action="store_true",
                     help="serve with cfg.attn_block_fusion (the "
                          "whole-sub-block attention kernel)")
+    ap.add_argument("--model", default="vit_base",
+                    help="zoo name of the served model (serving modes)")
+    ap.add_argument("--seq-parallel", type=int, default=0, choices=[0, 1],
+                    help="1: serve through the sequence-parallel forward on "
+                         "a mesh of this one rank")
     ap.add_argument("--train_batch", type=int, default=64)
     ap.add_argument("--out", help="file for the full key_averages tables")
     args = ap.parse_args(argv)
@@ -194,16 +212,18 @@ def main(argv=None) -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
     models = served_models([m for m in args.modes
-                            if not m.startswith("train")])
+                            if not m.startswith("train")],
+                           model_name=args.model)
+    size = next(iter(models.values())).cfg.img_size if models else 224
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
-        (args.batch, 224, 224, 3), dtype=np.float32)).cuda()
+        (args.batch, size, size, 3), dtype=np.float32)).cuda()
     result, tables = {}, []
     for mode in args.modes:
         step = train_step_fn(
             args.train_batch, "eager" if mode == "train_eager" else "kernel") \
             if mode.startswith("train") else forward_fn(
                 models[mode], mode, x, args.mlp_fusion,
-                args.attn_block_fusion)
+                args.attn_block_fusion, args.seq_parallel)
         wall, groups, table = profile_mode(step, args.forwards)
         busy = sum(ms for ms, _ in groups.values())
         batch = args.train_batch if mode.startswith("train") else args.batch
@@ -220,6 +240,7 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             f.writelines(tables)
     print(json.dumps({"forwards": args.forwards, "card": card,
+                      "model": args.model, "seq_parallel": args.seq_parallel,
                       "mlp_fusion": args.mlp_fusion,
                       "attn_block_fusion": args.attn_block_fusion,
                       "modes": result}))
