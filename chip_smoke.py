@@ -87,6 +87,27 @@ Phases (any failure raises, and the exit code is non-zero):
      bf16, --seq_parallel 1, pseudo-seg PNGs, rollout-CAM overlays and
      scoring, on a faked VOC tree written to a temporary directory from a
      numpy seed.
+ 11. the split-tensor kernel (masked_attention, v1) against its plain
+     version: float32 and bf16, with and without the head mean, 30 %
+     background, none and all, B=8 N=197, a ragged B=3 N=37 and B=2 N=577;
+     its time at B=64 N=197 bf16 beside its plain version, the fused
+     kernel's plain variant and F.scaled_dot_product_attention (timed only);
+ 12. the fused attention kernel with q_block 16 against 32 at B=8 N=197
+     (bit-identical out), q_block 16 alone at N=1025 against the plain
+     version, and a forced q_block 32 there refused;
+ 13. the eight attn_variants kernels against run_ref at B=8 N=197 and B=3
+     N=37, bf16 and float32; then ``attn_variants --all`` at B=512 (eight
+     ms/layer lines and the differences) and each variant beside its plain
+     version;
+ 14. the bench entry point through ``bench.main``, one JSON line each:
+     default (int8), --bf16, --int8-hifi, --bf16 --xla, --no-cam, --latency,
+     --mlp-fusion, --train --mixed --batch 64, ViT-L/16@384 --batch 16
+     --bf16, and --f32 --batch 64 with and without --precision high (batch
+     512 elsewhere); every run's launch counts are held to what its
+     configuration must launch (12 attention launches per forward, 49 int8
+     GEMM launches per int8 forward, ...);
+ 15. microbench (attn-v1, attn-v1-headmean, attn-rollout, model) at its
+     default batch and qblock_sweep --batch 16 --seq 577 --bf16 --post.
 Nothing of the earlier phases was reduced.  It prints one JSON line
 describing the kernels (with each one's bound from the shapes it was timed
 at, and the library call's time where one PyTorch call computes the same
@@ -144,6 +165,16 @@ KERNELS = {   # name: (route, source, TPU kernel replaced)
     "masked_attention_seq_local": (
         "cuda", CSRC + "masked_attention_seq.cu",
         "vision_transformer_cam_tpu/kernels/attention.py:433"),
+    # the split-tensor ("v1") kernel, which only scripts.microbench drives
+    "masked_attention": (
+        "cuda", CSRC + "masked_attention_v1.cu",
+        "vision_transformer_cam_tpu/kernels/attention.py:39"),
+    # the ablation kernels, one row each (scripts.attn_variants drives them)
+    **{f"attn_variants[{v}]": (
+        "cuda", CSRC + "attn_variants.cu",
+        "scripts/attn_variants.py:" + ("85" if v == "headbatch" else "32"))
+       for v in ("full", "noexp", "matmul-only", "nomask", "int8qk", "int8pv",
+                 "int8both", "headbatch")},
 }
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense): device
 # memory bytes/s, and operations/s by type
@@ -910,24 +941,15 @@ def time_attention_seq(b=16, n=577, heads=16):
 
 
 def time_ms(fn, iters=20, warmup=3):
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    """Mean ms of ``fn()`` between two CUDA events (the package's timer)."""
+    from vision_transformer_cam_tpu_torch.utils import profiling
+    return profiling.time_ms(fn, iters, warmup)
 
 
 def in_turns(kern, plain, iters=20):
     """(kernel ms, plain ms), each the mean of two runs, in turns."""
-    p1, k1 = time_ms(plain, iters), time_ms(kern, iters)
-    k2, p2 = time_ms(kern, iters), time_ms(plain, iters)
-    return (k1 + k2) / 2, (p1 + p2) / 2
+    from vision_transformer_cam_tpu_torch.utils import profiling
+    return profiling.in_turns(kern, plain, iters)
 
 
 def time_kernels(b=64, n=197):
@@ -1067,10 +1089,14 @@ def time_fused(b=64, n=197, heads=12):
 def reset_counts():
     from vision_transformer_cam_tpu_torch.kernels import attention as ka
     from vision_transformer_cam_tpu_torch.kernels import gemm
+    from vision_transformer_cam_tpu_torch.scripts import attn_variants as av
     ka.launches = 0
     ka.bwd_launches = 0
     ka.block_launches = 0
     ka.seq_launches = 0
+    ka.v1_launches = 0
+    for variant in av.launches:
+        av.launches[variant] = 0
     gemm.linear_int8_launches = 0
     gemm.ln_quant_launches = 0
     gemm.mlp_fused_launches = 0
@@ -1088,6 +1114,15 @@ def read_counts():
             "mlp_fused_int8": gemm.mlp_fused_int8_launches,
             "attention_block_fused": ka.block_launches,
             "masked_attention_seq_local": ka.seq_launches}
+
+
+def read_new_counts():
+    """The launch counts of the split-tensor kernel and of the ablation
+    variants, which no serving or training path runs."""
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    from vision_transformer_cam_tpu_torch.scripts import attn_variants as av
+    return {"masked_attention": ka.v1_launches,
+            **{f"attn_variants[{v}]": n for v, n in av.launches.items()}}
 
 
 def serve(model, reqs, per_forward, label):
@@ -1430,6 +1465,27 @@ def kernel_bounds(b=64, n=197, heads=12):
         sb * sn * sc * 2 + sb * sn * 2 * sc * 2 + 2 * sb * sn * 4
         + sb * sn * sc * 2 + sb * sn * 2 + sb * sn * sn * 4,
         {"bf16": 4 * sb * sh * sn * sn * 64})
+    # the split-tensor kernel as time_attention_v1 times it (no head mean):
+    # bf16 q, k, v and the f32 bg in, bf16 out and cls row out
+    bounds["masked_attention"] = bound(
+        "masked_attention (v1) bf16", 4 * m * c * 2 + m * 4 + m * 2,
+        {"bf16": 2 * qk})
+    # the ablation kernels at the script's shape (B=512): bf16 qkv, f32 bg
+    # and joint in; bf16 out and cls row and the f32 joint out; a product in
+    # its int8 form counts at the int8 rate
+    vb = 512
+    vm, vqk = vb * n, 2 * vb * heads * n * n * 64
+    nbytes = vm * 3 * c * 2 + vm * 4 + 2 * vb * n * n * 4 + vm * c * 2 + vm * 2
+    hmj = {"f32": 2 * vb * n ** 3}
+    for variant, ops in (("int8qk", {"int8": vqk, "bf16": vqk}),
+                         ("int8pv", {"int8": vqk, "bf16": vqk}),
+                         ("int8both", {"int8": 2 * vqk})):
+        bounds[f"attn_variants[{variant}]"] = bound(
+            f"attn_variants {variant} B={vb}", nbytes, dict(ops, **hmj))
+    for variant in ("full", "noexp", "matmul-only", "nomask", "headbatch"):
+        bounds[f"attn_variants[{variant}]"] = bound(
+            f"attn_variants {variant} B={vb}", nbytes,
+            dict({"bf16": 2 * vqk}, **hmj))
     return bounds
 
 
@@ -1893,6 +1949,337 @@ def validate_path(n_images=12, batch=4):
     return counts
 
 
+def v1_inputs(b, n, heads, dtype, seed, bg_kind="30%"):
+    """Split q, k, v [B, H, N, 64] with hot query rows 1-3 (logits of order
+    1e2) and a background of the given kind; the cls column may be
+    background too, the pair mask has no special column."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn((b, heads, n, 64), generator=g, device="cuda")
+               for _ in range(3))
+    q[:, :, 1:4] *= 40.0
+    share = {"none": 0.0, "30%": 0.3, "all": 1.1}[bg_kind]
+    bg = (torch.rand((b, n), generator=g, device="cuda") < share).float()
+    return tuple(t.to(dtype).contiguous() for t in (q, k, v)), bg
+
+
+def check_attention_v1():
+    """The split-tensor kernel (masked_attention) against its plain version on
+    the card: float32 and bf16, with and without the head mean, 30 %
+    background, none and all; B=8 N=197, a ragged B=3 N=37, and B=2 N=577.
+    Returns the worst error of the bf16 cases at N=197 without the head
+    mean."""
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    failures, kept = [], 0.0
+    for (b, n) in ((8, 197), (3, 37), (2, 577)):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            for bi, bg_kind in enumerate(("30%", "none", "all")):
+                (q, k, v), bg = v1_inputs(b, n, 12, dtype, 7 * n + bi, bg_kind)
+                for hm in (False, True):
+                    kw = dict(scale=64 ** -0.5, with_headmean=hm)
+                    got = ka.masked_attention(q, k, v, bg, **kw)
+                    want = ka.masked_attention_ref(q, k, v, bg, **kw)
+                    torch.cuda.synchronize()
+                    tols = [TOL[(dtype, "out")], TOL[(dtype, "prob")],
+                            TOL[(dtype, "prob")]]
+                    err = _compare(
+                        f"attention v1 {name:8s} hm={hm!s:5s} bg={bg_kind:4s} "
+                        f"B={b} N={n}", got, want, tols, failures)
+                    if n == 197 and dtype == torch.bfloat16 and not hm:
+                        kept = max(kept, err)
+    if failures:
+        raise AssertionError("split-tensor attention kernel != plain version:"
+                             "\n" + "\n".join(failures))
+    return kept
+
+
+def time_attention_v1(b=64, n=197, heads=12):
+    """The split-tensor kernel at B=64 N=197 bf16 in turns with its plain
+    version, with and without the head mean; beside it the fused kernel's
+    plain variant on the same values packed (no clamp) and
+    F.scaled_dot_product_attention with the additive [B, 1, N, N] pair mask
+    (out only, neither cls row nor head mean: the yardstick for the shape,
+    timed only).  Returns {with_headmean: (kernel ms, plain ms)} and the SDPA
+    ms."""
+    import torch.nn.functional as F
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    (q, k, v), bg = v1_inputs(b, n, heads, torch.bfloat16, 5)
+    times = {}
+    for hm in (False, True):
+        kw = dict(scale=64 ** -0.5, with_headmean=hm)
+        times[hm] = in_turns(lambda: ka.masked_attention(q, k, v, bg, **kw),
+                             lambda: ka.masked_attention_ref(q, k, v, bg,
+                                                             **kw))
+    qkv = torch.stack([q, k, v]).permute(1, 3, 0, 2, 4).reshape(
+        b, n, 3 * heads * 64).contiguous()
+    fused = time_ms(lambda: ka.masked_attention_fused(
+        qkv, bg, num_heads=heads, scale=64 ** -0.5))
+    pair = (torch.clamp_max(bg[:, :, None] + bg[:, None, :], 1.0)
+            * -100.0)[:, None].to(torch.bfloat16)
+    sdpa = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=pair, scale=64 ** -0.5))
+    say(f"time attention v1 bf16 B={b} N={n}: kernel {times[False][0]:.4f} "
+        f"ms, plain {times[False][1]:.4f} ms; with the head mean kernel "
+        f"{times[True][0]:.4f} ms, plain {times[True][1]:.4f} ms; the fused "
+        f"kernel's plain variant on the packed values {fused:.4f} ms; "
+        f"F.scaled_dot_product_attention (out only) {sdpa:.4f} ms")
+    return times, sdpa
+
+
+def check_q_block():
+    """The fused attention kernel with q_block 16 against 32 at B=8 N=197
+    (head-mean and rollout variants: out, cls row and head mean must be equal
+    bit for bit, the joint within 1e-6), q_block 16 alone at N=1025 against
+    the plain version, and a forced q_block 32 there must be refused."""
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    failures, refused = [], ""
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        qkv, bg, joint, _ = attention_inputs(8, 197, 12, dtype, seed=61)
+        for variant in ("headmean", "rollout"):
+            kw = dict(num_heads=12, scale=64 ** -0.5, clamp_softmax=True,
+                      with_headmean=variant == "headmean")
+            j = joint if variant == "rollout" else None
+            r16 = ka.masked_attention_fused(qkv, bg, j, q_block=16, **kw)
+            r32 = ka.masked_attention_fused(qkv, bg, j, q_block=32, **kw)
+            torch.cuda.synchronize()
+            same = [torch.equal(a, b_) for a, b_ in zip(r16, r32)]
+            d3 = float((r16[2].float() - r32[2].float()).abs().max())
+            say(f"check q_block 16 vs 32 {name:8s} {variant:8s} B=8 N=197: "
+                f"bit-identical out {same[0]}, cls {same[1]}, third "
+                f"{same[2]} (max abs dev {d3:.2e})")
+            if not (same[0] and same[1]) or d3 > 1e-6 or \
+                    (variant == "headmean" and not same[2]):
+                failures.append(f"q_block 16 vs 32 {name} {variant}")
+        qkv, bg, joint, _ = attention_inputs(2, 1025, 16, dtype, seed=62)
+        for variant in ("headmean", "rollout"):
+            kw = dict(num_heads=16, scale=64 ** -0.5, clamp_softmax=True,
+                      with_headmean=variant == "headmean")
+            j = joint if variant == "rollout" else None
+            got = ka.masked_attention_fused(qkv, bg, j, q_block=16, **kw)
+            auto = ka.masked_attention_fused(qkv, bg, j, **kw)
+            want = ka.masked_attention_fused_ref(qkv, bg, j, **kw)
+            torch.cuda.synchronize()
+            tols = [TOL[(dtype, "out")], TOL[(dtype, "prob")],
+                    TOL_JOINT if variant == "rollout"
+                    else TOL[(dtype, "prob")]]
+            _compare(f"attention q_block=16 {name:8s} {variant:8s} B=2 "
+                     f"N=1025", got, want, tols, failures)
+            if not all(torch.equal(a, b_) for a, b_ in zip(got, auto)):
+                failures.append(f"q_block auto != 16 at N=1025 {name}")
+            try:
+                ka.masked_attention_fused(qkv, bg, j, q_block=32, **kw)
+                failures.append("q_block=32 at N=1025 was not refused")
+            except RuntimeError as e:
+                refused = str(e)
+    say(f"check q_block=32 at N=1025 is refused: {refused[:160]}")
+    if failures:
+        raise AssertionError("q_block: " + "; ".join(failures))
+
+
+# The ablation variants against their plain versions.  float32 and bf16 as the
+# attention kernel (TOL); noexp divides by a row sum of logits, so its inputs
+# have q and k of mean 0.5 (row sums of order 1e2, away from 0) and its
+# float32 outputs get rtol 1e-3.  The int8 products are exact in both, and
+# the quantized operands come from the same float32 divisions, but P differs
+# in its last bit (another summation order), so a value of P * 127 next to a
+# .5 boundary may round to the other int8: that moves one term of P V by a
+# whole step of V (max|v| / 127); such elements may make up 0.1 % of out.
+VARIANT_RTOL_NOEXP = 1e-3
+
+
+def variant_inputs(b, n, heads, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c = heads * 64
+    qkv = torch.randn((b, n, 3 * c), generator=g, device="cuda")
+    qkv[:, :, :2 * c] += 0.5
+    bg = (torch.rand((b, n), generator=g, device="cuda") < 0.3).float()
+    bg[:, 0] = 0.0
+    joint = torch.softmax(torch.randn((b, n, n), generator=g, device="cuda"),
+                          dim=-1)
+    return qkv.to(dtype).contiguous(), bg, joint
+
+
+def check_attn_variants():
+    """The eight ablation kernels against run_ref on the card: bf16 and
+    float32, B=8 N=197 and a ragged B=3 N=37.  Returns {variant: worst error
+    of the bf16 case at N=197}."""
+    from vision_transformer_cam_tpu_torch.scripts import attn_variants as av
+    failures, errs = [], {}
+    for (b, n) in ((8, 197), (3, 37)):
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            qkv, bg, joint = variant_inputs(b, n, 12, dtype, seed=70 + n)
+            step = float(qkv[:, :, 2 * 768:].float().abs().max()) / 127.0
+            for variant in av._VARIANTS:
+                got = av.run(qkv, bg, joint, variant)
+                want = av.run_ref(qkv, bg, joint, variant)
+                torch.cuda.synchronize()
+                atol, rtol = TOL[(dtype, "out")]
+                if variant == "noexp":
+                    rtol = max(rtol, VARIANT_RTOL_NOEXP)
+                tols = [(atol, rtol), (TOL[(dtype, "prob")][0], rtol),
+                        (TOL_JOINT[0], max(TOL_JOINT[1], rtol))]
+                case = f"attn_variants {variant:11s} {name:8s} B={b} N={n}"
+                if variant in ("int8pv", "int8both"):
+                    # out: within the tolerance but for the share that a
+                    # rounding flip of P moved by at most a step of V
+                    err = (got[0].float() - want[0].float()).abs()
+                    over = err > atol + rtol * want[0].float().abs()
+                    share, worst = float(over.float().mean()), float(err.max())
+                    say(f"check {case}: out max abs err {worst:.2e}, "
+                        f"{share:.2e} of the elements past the tolerance "
+                        f"(a step of V is {step:.2e})")
+                    if share > I8_FRAC or worst > 2 * step + atol or \
+                            not torch.isfinite(got[0].float()).all():
+                        failures.append(f"{case} out: {worst:.3e} on "
+                                        f"{share:.2e}")
+                    e = _compare(case, got[1:], want[1:], tols[1:], failures)
+                    e = max(e, worst)
+                else:
+                    e = _compare(case, got, want, tols, failures)
+                if n == 197 and dtype == torch.bfloat16:
+                    errs[variant] = e
+    if failures:
+        raise AssertionError("ablation kernel != plain version:\n"
+                             + "\n".join(failures))
+    return errs
+
+
+def time_attn_variants(b=512):
+    """``attn_variants --all`` at the script's batch (eight ms/layer lines
+    and the differences, through its own ``main``; the launch counts are set
+    to 0 before and read after), then each variant in turns with its plain
+    version at the same shape.  Returns ({variant: (kernel ms, plain ms)},
+    {row name: launches})."""
+    from vision_transformer_cam_tpu_torch.scripts import attn_variants as av
+    reset_counts()
+    ms = av.main(["--all", "--batch", str(b)])
+    counts = {k: v for k, v in read_new_counts().items()
+              if k.startswith("attn_variants")}
+    say(f"attn_variants --all: launches {counts}")
+    if set(ms) != set(av._VARIANTS) or any(v != 62 for v in counts.values()):
+        raise AssertionError(f"attn_variants --all: {ms}, launches {counts}")
+    qkv, bg, joint = av.inputs(b, "cuda")
+    times = {}
+    with torch.inference_mode():
+        for variant in av._VARIANTS:
+            times[variant] = in_turns(
+                lambda: av.run(qkv, bg, joint, variant),
+                lambda: av.run_ref(qkv, bg, joint, variant), iters=3)
+            say(f"time attn_variants {variant:11s} bf16 B={b} N=197: kernel "
+                f"{times[variant][0]:.4f} ms, plain {times[variant][1]:.4f} "
+                f"ms")
+        # is the mask's cost its own arithmetic, or what masked logits do to exp
+        # and the division (exp(-100) is a float32 denormal)?  The same
+        # kernels on the same qkv without any background token, in turns
+        zero = torch.zeros_like(bg)
+        for variant in ("full", "nomask", "noexp", "int8qk"):
+            with_bg, without = in_turns(
+                lambda: av.run(qkv, bg, joint, variant),
+                lambda: av.run(qkv, zero, joint, variant), iters=5)
+            say(f"time attn_variants {variant:11s} bf16 B={b} N=197, 30 % "
+                f"background {with_bg:.4f} ms, no background {without:.4f} "
+                f"ms")
+    return times, counts
+
+
+def _capture(fn, *args, **kw):
+    """fn's return value and what it printed (printed again here)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = fn(*args, **kw)
+    text = buf.getvalue()
+    sys.stdout.write(text)
+    sys.stdout.flush()
+    return res, text
+
+
+def bench_path():
+    """The bench entry point, one JSON line per run through ``bench.main``,
+    with the launch counts set to 0 before each and read after it.  Returns
+    the summed launch counts."""
+    from vision_transformer_cam_tpu_torch import bench
+    fwd, lat = 2 + 10 * 3, 2 + 10 * 15      # forwards of a run
+    steps = 2 + 5 * 3                       # training steps of a run
+    int8 = {"masked_attention_fused": 12, "linear_int8_fused": 49}
+    runs = [   # argv, {kernel: launches per forward or step}, how many
+        ([], int8, fwd),
+        (["--bf16"], {"masked_attention_fused": 12}, fwd),
+        (["--int8-hifi"], int8, fwd),
+        (["--bf16", "--xla"], {}, fwd),
+        (["--no-cam"], int8, fwd),
+        (["--latency"], int8, lat),
+        (["--mlp-fusion"], {"masked_attention_fused": 12,
+                            "linear_int8_fused": 25, "mlp_fused_int8": 12},
+         fwd),
+        # remat: the forward kernel runs in the forward and in the recompute
+        (["--train", "--mixed", "--batch", "64"],
+         {"masked_attention_fused": 24, "masked_attention_bwd": 12}, steps),
+        (["--model", "vit_large_patch16_384", "--batch", "16", "--bf16"],
+         {"masked_attention_fused": 24}, fwd),
+        (["--f32", "--precision", "high", "--batch", "64"],
+         {"masked_attention_fused": 12}, fwd),
+        (["--f32", "--batch", "64"], {"masked_attention_fused": 12}, fwd),
+    ]
+    totals = {}
+    for argv, per, times in runs:
+        reset_counts()
+        t0 = time.perf_counter()
+        line, text = _capture(bench.main, argv)
+        counts = read_counts()
+        want = {k: per.get(k, 0) * times for k in counts}
+        say(f"bench {' '.join(argv) or '(default, int8)'}: "
+            f"{time.perf_counter() - t0:.1f} s, launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        printed = json.loads(text.strip().splitlines()[-1])
+        if printed != line or set(line) != {"metric", "value", "unit",
+                                            "device"} \
+                or not line["metric"].startswith("torch_") \
+                or not np.isfinite(line["value"]) or line["value"] <= 0 \
+                or line["device"] != card_line():
+            raise AssertionError(f"bench {argv}: bad line {text!r}")
+        if counts != want:
+            raise AssertionError(f"bench {argv}: launch counts {counts}, "
+                                 f"expected {want}")
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+    if torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("--precision high was not restored")
+    return totals
+
+
+def scripts_path():
+    """microbench (the two split-tensor variants, attn-rollout, model) at the
+    script's batch and qblock_sweep at the ViT-L/16@384 shape, through their
+    ``main``; returns the split-tensor kernel's launch count."""
+    from vision_transformer_cam_tpu_torch.scripts import microbench, qblock_sweep
+    reset_counts()
+    for variant in ("attn-v1", "attn-v1-headmean", "attn-rollout", "model"):
+        line = microbench.main([variant])
+        if not line.startswith(variant) or "not a device time" in line:
+            raise AssertionError(f"microbench {variant}: {line!r}")
+    v1 = read_new_counts()["masked_attention"]
+    fused = read_counts()["masked_attention_fused"]
+    say(f"microbench: launches masked_attention {v1} (expected 124), "
+        f"masked_attention_fused {fused} (expected {62 + 12 * 32})")
+    if v1 != 2 * 62 or fused != 62 + 12 * 32:
+        raise AssertionError("microbench: launch counts are off")
+    res = qblock_sweep.main(["--batch", "16", "--seq", "577", "--bf16",
+                             "--post"])
+    if set(res) != {16, 32} or not all(res.values()):
+        raise AssertionError(f"qblock_sweep: {res}")
+    # the same sweep at the ViT-B/16 serving shape (bf16, rollout variant)
+    say("qblock_sweep --batch 256 --seq 197 --heads 12 --bf16:")
+    res = qblock_sweep.main(["--batch", "256", "--seq", "197", "--heads",
+                             "12", "--bf16"])
+    if set(res) != {16, 32} or not all(res.values()):
+        raise AssertionError(f"qblock_sweep: {res}")
+    return v1
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1915,7 +2302,11 @@ def main() -> int:
     mlp8_err = check_mlp_int8()
     block_errs = check_attention_block()
     seq_err = check_attention_seq()
+    v1_err = check_attention_v1()
+    check_q_block()
+    variant_errs = check_attn_variants()
     seq_ms = time_attention_seq()
+    v1_ms, v1_sdpa = time_attention_v1()
     times = time_kernels()
     fused_ms = time_fused()
     bwd_ms = time_attention_bwd()
@@ -1929,6 +2320,13 @@ def main() -> int:
     launches["masked_attention_seq_local"] = \
         seq_path()["masked_attention_seq_local"]
     validate_path()
+    # the measurement entry points: the launch counts of every run are set to
+    # 0 before it and read after it
+    variant_ms, variant_launches = time_attn_variants()
+    launches.update(variant_launches)
+    for name, count in bench_path().items():
+        launches[name] = launches.get(name, 0) + count
+    launches["masked_attention"] = scripts_path()
     gemm_ms = sum(times[("gemm", s)][0] for s in GEMM_SHAPES)
     gemm_plain = sum(times[("gemm", s)][1] for s in GEMM_SHAPES)
     stats = {   # name: (max abs err, kernel ms, plain ms)
@@ -1953,6 +2351,12 @@ def main() -> int:
         # the error over the bf16, clamp, float32-head-mean cases at N=577,
         # the time on one rank at B=16 N=577
         "masked_attention_seq_local": (seq_err, *seq_ms[1][:2]),
+        # the bf16 cases at N=197 without the head mean; the time at B=64
+        "masked_attention": (v1_err, *v1_ms[False]),
+        # the bf16 case at B=8 N=197 (an int8 P V out: the largest deviation,
+        # a rounding flip of P); the time at the script's B=512
+        **{f"attn_variants[{v}]": (variant_errs[v], *variant_ms[v])
+           for v in variant_ms},
     }
     # one PyTorch call that computes the same function: only the backward has
     # one (the backward of scaled_dot_product_attention).  The forward also
@@ -1964,8 +2368,12 @@ def main() -> int:
     # The sequence-parallel kernel's products are those of
     # scaled_dot_product_attention with the same additive mask, which returns
     # neither row0 nor the head mean: its time is the yardstick for the shape
+    # Likewise for the split-tensor kernel (SDPA with the additive pair mask
+    # gives out, neither the cls row nor the head mean).  No call computes an
+    # ablation variant.
     library = {"masked_attention_bwd": bwd_ms[2],
-               "masked_attention_seq_local": seq_ms[1][2]}
+               "masked_attention_seq_local": seq_ms[1][2],
+               "masked_attention": v1_sdpa}
     bounds = kernel_bounds()
     say(json.dumps({"kernels": [
         {"name": name, "route": route, "source": src, "replaces": rep,

@@ -202,6 +202,65 @@ def test_bad_shapes_raise():
         tka.masked_attention_fused(q.to("meta"), b.to("meta"), **kw)
 
 
+@pytest.mark.parametrize("q_block", [0, 16, 32])
+@pytest.mark.parametrize("variant", ["plain", "headmean", "rollout"])
+def test_q_block_leaves_the_plain_version_unaffected(variant, q_block):
+    """q_block is the CUDA kernel's tile height: on CPU tensors the wrapper
+    takes 0, 16 and 32 and the results are the plain version's."""
+    qkv, bg, joint = _inputs(2, 37, seed=5)
+    want = _torch(tka.masked_attention_fused_ref, qkv, bg, joint, variant,
+                  True)
+    got = tka.masked_attention_fused(
+        torch.from_numpy(qkv), torch.from_numpy(bg),
+        torch.from_numpy(joint) if variant == "rollout" else None,
+        num_heads=HEADS, scale=SCALE, with_headmean=variant == "headmean",
+        clamp_softmax=True, q_block=q_block)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("q_block", [24, 8, 64, -16])
+def test_q_block_other_than_16_or_32_is_refused(q_block):
+    qkv, bg, _ = _inputs(1, 9, seed=6)
+    with pytest.raises(ValueError, match=r"q_block.*\(16, 32\)"):
+        tka.masked_attention_fused(torch.from_numpy(qkv),
+                                   torch.from_numpy(bg), num_heads=HEADS,
+                                   scale=SCALE, q_block=q_block)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["headmean", "rollout"])
+def test_cuda_kernel_q_block_16_equals_32_and_reaches_n_1025(variant):
+    """Both tile heights give the same float32 out bit for bit (the joint
+    within 1e-6); past N = 780 only 16 rows fit and the auto choice takes
+    them, a forced 32 raises with the bytes it needs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the CUDA kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for n in (197, 1025):
+        qkv = torch.randn((2, n, 3 * 768), generator=g, device="cuda")
+        bg = (torch.rand((2, n), generator=g, device="cuda") < 0.3).float()
+        bg[:, 0] = 0.0
+        joint = torch.softmax(torch.randn((2, n, n), generator=g,
+                                          device="cuda"), dim=-1)
+        kw = dict(num_heads=12, scale=0.125, clamp_softmax=True,
+                  with_headmean=variant == "headmean")
+        j = joint if variant == "rollout" else None
+        r16 = tka.masked_attention_fused(qkv, bg, j, q_block=16, **kw)
+        if n == 197:
+            r32 = tka.masked_attention_fused(qkv, bg, j, q_block=32, **kw)
+            assert torch.equal(r16[0], r32[0]) and torch.equal(r16[1], r32[1])
+            torch.testing.assert_close(r16[2], r32[2], rtol=0, atol=1e-6)
+        else:
+            auto = tka.masked_attention_fused(qkv, bg, j, **kw)
+            assert all(torch.equal(a, b) for a, b in zip(r16, auto))
+            want = tka.masked_attention_fused_ref(qkv, bg, j, **kw)
+            for a, w in zip(r16, want):
+                torch.testing.assert_close(a, w, atol=5e-5, rtol=1e-4)
+            with pytest.raises(RuntimeError, match="shared memory"):
+                tka.masked_attention_fused(qkv, bg, j, q_block=32, **kw)
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version():
     """The hand-written kernel against its plain version on the card, at

@@ -201,10 +201,100 @@ def test_config_mirrors_jax_config():
 
 
 @pytest.mark.parametrize("knob", [dict(data_axis="data"),
-                                  dict(matmul_precision="high")])
+                                  dict(matmul_precision="bfloat16")])
 def test_unported_knobs_raise(knob):
-    with pytest.raises(NotImplementedError):
+    """Data parallelism is not ported; a matmul precision the card has no
+    mode for is refused by name.  No tuning knob is left unported."""
+    with pytest.raises((NotImplementedError, ValueError)) as err:
         tvit.ViTCAM(tcfgs.ViTCAMConfig(**TINY, **knob), device="cpu")
+    assert list(knob)[0] in str(err.value)
+    assert tvit._UNPORTED == {}
+
+
+@pytest.mark.parametrize("q_block", [16, 32])
+def test_attn_q_block_reaches_the_kernel_wrapper(monkeypatch, q_block):
+    """cfg.attn_q_block is handed to masked_attention_fused on every layer
+    and changes no result on the CPU (the plain version has no tiles)."""
+    cfg = tcfgs.ViTCAMConfig(**TINY, attn_impl="kernel")
+    model = tvit.ViTCAM(cfg, device="cpu")
+    x = torch.from_numpy(_images().astype(np.float32))
+    want = model(x, need_rollout=True)
+    seen = []
+    real = tvit.masked_attention_fused
+
+    def spy(*args, **kw):
+        seen.append(kw.get("q_block"))
+        return real(*args, **kw)
+    monkeypatch.setattr(tvit, "masked_attention_fused", spy)
+    model.cfg = cfg.replace(attn_q_block=q_block)
+    got = model(x, need_rollout=True)
+    assert seen == [q_block] * cfg.depth
+    assert torch.equal(got.logits, want.logits)
+    assert torch.equal(got.rollout_row, want.rollout_row)
+
+
+@pytest.mark.parametrize("bad", [dict(attn_q_block=24),
+                                 dict(attn_block_b=-1)])
+def test_bad_tile_knobs_raise(bad):
+    with pytest.raises(ValueError, match=list(bad)[0]):
+        tvit.ViTCAM(tcfgs.ViTCAMConfig(**TINY, **bad), device="cpu")
+
+
+@pytest.mark.parametrize("impl", ["eager", "kernel"])
+def test_attn_block_b_changes_nothing(impl):
+    """Images per TPU kernel program: no counterpart on the card; any value
+    is taken and the outputs are bit-identical."""
+    cfg = tcfgs.ViTCAMConfig(**TINY, attn_impl=impl)
+    model = tvit.ViTCAM(cfg, device="cpu")
+    x = torch.from_numpy(_images().astype(np.float32))
+    want = model(x, need_rollout=True)
+    model.cfg = cfg.replace(attn_block_b=4)
+    got = model(x, need_rollout=True)
+    for name in ("logits", "head1_logits", "attn_cls_rows", "rollout_row"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+@pytest.mark.parametrize("value,mode", [(None, "highest"),
+                                        ("highest", "highest"),
+                                        ("float32", "highest"),
+                                        ("high", "high"),
+                                        ("tensorfloat32", "high")])
+def test_matmul_precision_is_set_around_the_forward_and_restored(
+        monkeypatch, value, mode):
+    cfg = tcfgs.ViTCAMConfig(**TINY, attn_impl="kernel")
+    model = tvit.ViTCAM(cfg, device="cpu")
+    x = torch.from_numpy(_images().astype(np.float32))
+    want = model(x, need_rollout=True)
+    seen = []
+    real = tvit.masked_attention_fused
+
+    def spy(*args, **kw):
+        seen.append(torch.get_float32_matmul_precision())
+        return real(*args, **kw)
+    monkeypatch.setattr(tvit, "masked_attention_fused", spy)
+    before = torch.get_float32_matmul_precision()
+    model.cfg = cfg.replace(matmul_precision=value)
+    got = model(x, need_rollout=True)
+    assert seen == [mode] * cfg.depth
+    assert torch.get_float32_matmul_precision() == before
+    # on the CPU the float32 GEMMs are full float32 in either mode
+    assert torch.equal(got.logits, want.logits)
+    assert torch.equal(got.rollout_row, want.rollout_row)
+
+
+def test_matmul_precision_high_trains_on_the_eager_path_only():
+    """The backward kernel's products are full float32: the kernel path
+    refuses to train at "high" and names the eager path (no hidden
+    reroute)."""
+    x = torch.from_numpy(_images().astype(np.float32))
+    cfg = tcfgs.ViTCAMConfig(**TINY, matmul_precision="high")
+    with pytest.raises(ValueError, match="attn_impl='eager'"):
+        tvit.ViTCAM(cfg.replace(attn_impl="kernel"),
+                    device="cpu").forward_train(x)
+    before = torch.get_float32_matmul_precision()
+    out = tvit.ViTCAM(cfg, device="cpu").forward_train(x)
+    assert torch.isfinite(out.logits).all()
+    assert torch.get_float32_matmul_precision() == before
 
 
 def test_port_imports_no_jax():
@@ -235,7 +325,10 @@ def test_port_imports_no_jax():
                  "data.transforms", "ops.losses", "utils.metrics",
                  "parallel", "parallel.mesh", "parallel.worker", "cam",
                  "cam.pseudo_seg", "cam.render", "cli.validate",
-                 "io.native_loader", "data.palette", "ops.interpolate"):
+                 "io.native_loader", "data.palette", "ops.interpolate",
+                 "bench", "utils.profiling", "scripts", "scripts.microbench",
+                 "scripts.attn_variants", "scripts.qblock_sweep",
+                 "profile_serving"):
         assert "vision_transformer_cam_tpu_torch." + name in mods
     for root, _, files in os.walk(pkg):
         for f in files:

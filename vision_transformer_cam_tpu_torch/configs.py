@@ -62,7 +62,10 @@ class ViTCAMConfig:
 
     # --- implementation switches ---
     attn_impl: str = "eager"  # "eager" | "kernel"
-    # None or "highest": float32 GEMMs in full float32 (TF32 stays off)
+    # float32 GEMM precision, set around each forward
+    # (torch.set_float32_matmul_precision): None, "highest" or "float32" =
+    # full float32; "high" or "tensorfloat32" = TF32 in the cuBLAS GEMMs,
+    # the hand-written kernels' own products staying float32
     matmul_precision: Optional[str] = None
     gelu_approx: bool = False     # tanh GELU (serving); exact erf otherwise
     remat: bool = True            # training slice
@@ -72,7 +75,12 @@ class ViTCAMConfig:
     int8_fused_gemm: bool = False
     int8_attn_io: bool = False
     int8_attn_out: bool = False
+    # images per TPU kernel program: no counterpart on the card, whose grid
+    # is one thread block per (query tile, image) already; any value >= 0 is
+    # taken and changes nothing
     attn_block_b: int = 0
+    # query rows per thread block of the attention kernel, the rows of S it
+    # holds in shared memory: 16 or 32; 0 = 32 where the tiles fit, else 16
     attn_q_block: int = 0
     # rollout CAM as a post-loop vector chain over the per-layer head-mean
     # matrices instead of the [B, N, N] joint carry; None = auto (N > 512)

@@ -26,6 +26,10 @@ LIB_NAME = "libvitcam_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# the entry points of csrc/attn_variants.cu, vitcam_attn_variant_<name>
+ATTN_VARIANT_ENTRIES = ("full", "noexp", "nomask", "matmul_only", "int8qk",
+                        "int8pv", "int8both", "headbatch")
+
 _lib = None
 build_seconds = None   # wall time of the build this process ran, if any
 
@@ -97,8 +101,15 @@ def load():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn = lib.vitcam_masked_attention_fused
         fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, f, f, i, i, i, i,
-                       p]
+                       i, p]
         fn.restype = i
+        fn = lib.vitcam_masked_attention_v1
+        fn.argtypes = [p] * 7 + [i, i, i, i, f, f, i, i, p]
+        fn.restype = i
+        for variant in ATTN_VARIANT_ENTRIES:
+            fn = getattr(lib, "vitcam_attn_variant_" + variant)
+            fn.argtypes = [p] * 6 + [i, i, i, i, f, i, p]
+            fn.restype = i
         fn = lib.vitcam_linear_int8
         fn.argtypes = [p, i, p, i, i, i, p, p, p, i, i, p, i, i, p, i, p]
         fn.restype = i
@@ -125,8 +136,12 @@ def load():
         lib.vitcam_attention_block_smem_bytes.restype = ctypes.c_size_t
         lib.vitcam_masked_attention_bwd_smem_bytes.argtypes = [i, i]
         lib.vitcam_masked_attention_bwd_smem_bytes.restype = ctypes.c_size_t
-        lib.vitcam_masked_attention_smem_bytes.argtypes = [i, i]
+        lib.vitcam_masked_attention_smem_bytes.argtypes = [i, i, i]
         lib.vitcam_masked_attention_smem_bytes.restype = ctypes.c_size_t
+        lib.vitcam_masked_attention_v1_smem_bytes.argtypes = [i, i]
+        lib.vitcam_masked_attention_v1_smem_bytes.restype = ctypes.c_size_t
+        lib.vitcam_attn_variant_smem_bytes.argtypes = [i, i, i]
+        lib.vitcam_attn_variant_smem_bytes.restype = ctypes.c_size_t
         lib.vitcam_cuda_error_string.argtypes = [i]
         lib.vitcam_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -32,10 +32,16 @@ CUDA tensor and ``masked_attention_seq_local_ref`` on a CPU tensor.
 written out for ``torch.distributed``: all-gather of K | V and bg over the
 sequence group, the local kernel call, the cls row from sequence-rank 0.
 
-``launches``, ``bwd_launches``, ``block_launches`` and ``seq_launches`` count
-the CUDA kernel launches made through the forward, the backward, the block
-and the sequence-parallel wrapper, so a run can show that its main path went
-through the kernels.
+``masked_attention`` is the port of the TPU package's first attention kernel
+(same file: masked_attention), on split q, k, v [B, H, N, dh] with the
+reference's symmetric pair mask and the row-max softmax,
+``csrc/masked_attention_v1.cu`` on a CUDA tensor and ``masked_attention_ref``
+on a CPU tensor.  No model path runs it; ``scripts.microbench`` drives it.
+
+``launches``, ``bwd_launches``, ``block_launches``, ``seq_launches`` and
+``v1_launches`` count the CUDA kernel launches made through the forward, the
+backward, the block, the sequence-parallel and the split-tensor wrapper, so a
+run can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ launches = 0
 bwd_launches = 0
 block_launches = 0
 seq_launches = 0
+v1_launches = 0
 
 # mode codes of the C entry point
 _PLAIN, _HEADMEAN, _ROLLOUT = 0, 1, 2
@@ -72,6 +79,12 @@ BLOCK_MAX_C = 768   # its [32, C] output tile and staging in shared memory
 # fit: (33 * ceil4(Np) + Np + 5408) floats at QB = 16 with the head mean fit
 # the 227 KB for Np <= SEQ_MAX_NP (N = 1025 padded to 8 ranks is 1032).
 SEQ_MAX_NP = 1536
+# The forward kernel's query tile (``q_block``) is 32 rows or 16.  With the
+# head mean or the rollout it keeps two [q_block, N] float32 tiles in shared
+# memory: N <= 780 at 32 rows, N <= 1536 at 16; the plain variant's one tile
+# fits both past that.  The split-tensor kernel tiles the same way.
+Q_BLOCKS = (16, 32)
+V1_MAX_N = 1536
 
 
 def _scales_kind(qkv, scales, num_heads):
@@ -203,12 +216,21 @@ def masked_attention_fused(qkv, bg, joint=None, scales=None, *,
                            mask_value: float = -100.0,
                            with_headmean: bool = False,
                            clamp_softmax: bool = False, hm_dtype=None,
-                           float_dtype=torch.bfloat16):
+                           float_dtype=torch.bfloat16, q_block: int = 0):
     """Same contract as ``masked_attention_fused_ref``.  CPU tensors run the
     plain version; CUDA tensors launch the kernel (bf16, float32 or int8
     qkv, head width 64, bg float32 or bf16, joint float32, scales float32)
-    or raise."""
+    or raise.
+
+    ``q_block`` is the number of query rows a thread block owns, the rows of
+    S it holds in shared memory: 0 picks 32 where the tiles fit and 16 past
+    that (N > 780 with the head mean or the rollout), 16 or 32 forces it, and
+    a forced 32 that does not fit raises with the bytes it needs.  The
+    results do not depend on it beyond the order of float sums."""
     global launches
+    if q_block not in (0,) + Q_BLOCKS:
+        raise ValueError(f"q_block must be 0 (auto) or one of {Q_BLOCKS}, "
+                         f"got {q_block}")
     kw = dict(num_heads=num_heads, scale=scale, mask_value=mask_value,
               with_headmean=with_headmean, clamp_softmax=clamp_softmax,
               hm_dtype=hm_dtype, float_dtype=float_dtype)
@@ -279,13 +301,15 @@ def masked_attention_fused(qkv, bg, joint=None, scales=None, *,
             third.data_ptr() if mode == _ROLLOUT else None,
             scales.data_ptr() if scales is not None else None, kind,
             b, n, num_heads, c // num_heads, float(scale), float(mask_value),
-            _DTYPE_CODES[qkv.dtype], mode, int(clamp_softmax), flags, stream)
+            _DTYPE_CODES[qkv.dtype], mode, int(clamp_softmax), flags, q_block,
+            stream)
     if err:
         msg = lib.vitcam_cuda_error_string(err).decode()
+        need = lib.vitcam_masked_attention_smem_bytes(n, mode, q_block)
         raise RuntimeError(
             f"masked_attention_fused kernel launch failed: cudaError {err} "
-            f"({msg}); shared memory needed "
-            f"{lib.vitcam_masked_attention_smem_bytes(n, mode)} bytes")
+            f"({msg}); q_block={q_block} at N={n} needs {need} bytes of "
+            f"shared memory")
     launches += 1
     if third is None:
         return out, cls_row
@@ -773,3 +797,111 @@ def masked_attention_seq(qkv_local, bg_local, *, group, n_real: int,
     if with_headmean:
         return res[0], cls_row, res[2][:, :, :n_real]
     return res[0], cls_row
+
+
+def _check_v1(q, k, v, bg):
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k and v must be [B, H, N, dh] of one shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if tuple(bg.shape) != (q.shape[0], q.shape[2]):
+        raise ValueError(f"bg must be [B, N] = {(q.shape[0], q.shape[2])}, "
+                         f"got {tuple(bg.shape)}")
+
+
+def masked_attention_ref(q, k, v, bg, *, scale: float,
+                         mask_value: float = -100.0,
+                         with_headmean: bool = False):
+    """Plain PyTorch version of the split-tensor kernel, following the TPU
+    kernel line by line.
+
+    q, k, v: [B, H, N, dh]; bg: [B, N] (1.0 = background).  Returns (out
+    [B, H, N, dh], cls_row [B, N]) and with ``with_headmean`` the head-mean
+    probabilities [B, N, N], all in q's dtype.
+
+      S = q k^T * scale + mask_value * min(bg_i + bg_j, 1)   (pair mask)
+      S = S - rowmax(S);  E = exp(S);  P = E / rowsum(E)
+      out_h = P_h v_h with P rounded to v's dtype;  cls_row = mean_h P[0]
+
+    in at least float32.  The pair mask reaches every query row, and an
+    all-background image gives the unmasked softmax (every logit is shifted
+    by mask_value alike)."""
+    _check_v1(q, k, v, bg)
+    heads = q.shape[1]
+    acc = torch.promote_types(q.dtype, torch.float32)
+    s = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
+    bgf = bg.to(acc)
+    pair = torch.clamp_max(bgf[:, :, None] + bgf[:, None, :], 1.0) * mask_value
+    s = s + pair[:, None]
+    s = s - s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s)
+    p = e / e.sum(dim=-1, keepdim=True)
+    cls_row = (p[:, :, 0, :].sum(dim=1) / heads).to(q.dtype)
+    out = torch.matmul(p.to(v.dtype).to(acc), v.to(acc)).to(q.dtype)
+    if with_headmean:
+        return out, cls_row, (p.sum(dim=1) / heads).to(q.dtype)
+    return out, cls_row
+
+
+def masked_attention(q, k, v, bg, *, scale: float, mask_value: float = -100.0,
+                     with_headmean: bool = False):
+    """Same contract as ``masked_attention_ref``.  CPU tensors run the plain
+    version; CUDA tensors launch the kernel (q, k, v all float32 or all
+    bfloat16, contiguous, head width 64, N <= ``V1_MAX_N``, bg float32 or
+    bf16) or raise.  It has no backward, as the TPU kernel has none."""
+    global v1_launches
+    kw = dict(scale=scale, mask_value=mask_value, with_headmean=with_headmean)
+    if q.device.type == "cpu":
+        return masked_attention_ref(q, k, v, bg, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"masked_attention: no kernel for device {q.device}")
+    _check_v1(q, k, v, bg)
+    tensors = (q, k, v, bg)
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("q, k, v and bg must be on the same device")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError("masked_attention is not differentiable; call it "
+                         "without gradient tracking")
+    if q.dtype not in (torch.float32, torch.bfloat16) or \
+            k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"the CUDA split-tensor attention kernel takes q, k "
+                        f"and v all bfloat16 or all float32, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    if not bg.is_floating_point() or bg.dtype == torch.float64:
+        raise TypeError(f"bg must be a float32/bfloat16 tensor, got {bg.dtype}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("q, k and v must be contiguous")
+    b, h, n, dh = q.shape
+    if dh != HEAD_DIM:
+        raise ValueError(f"the CUDA split-tensor attention kernel takes head "
+                         f"width {HEAD_DIM}, got {dh}")
+    if n > V1_MAX_N:
+        raise ValueError(f"the CUDA split-tensor attention kernel takes N <= "
+                         f"{V1_MAX_N} (its shared memory), got {n}")
+
+    from vision_transformer_cam_tpu_torch.kernels import _build
+    lib = _build.load()
+    bg32 = bg.to(torch.float32).contiguous()
+    out = torch.empty_like(q)
+    cls_row = torch.empty((b, n), dtype=q.dtype, device=q.device)
+    hm = torch.empty((b, n, n), dtype=q.dtype, device=q.device) \
+        if with_headmean else None
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.vitcam_masked_attention_v1(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bg32.data_ptr(),
+            out.data_ptr(), cls_row.data_ptr(),
+            hm.data_ptr() if with_headmean else None, b, n, h, dh,
+            float(scale), float(mask_value), _DTYPE_CODES[q.dtype],
+            int(with_headmean), stream)
+    if err:
+        msg = lib.vitcam_cuda_error_string(err).decode()
+        need = lib.vitcam_masked_attention_v1_smem_bytes(n,
+                                                         int(with_headmean))
+        raise RuntimeError(
+            f"masked_attention kernel launch failed: cudaError {err} "
+            f"({msg}); shared memory needed {need} bytes")
+    v1_launches += 1
+    if with_headmean:
+        return out, cls_row, hm
+    return out, cls_row

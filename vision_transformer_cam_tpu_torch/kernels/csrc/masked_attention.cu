@@ -34,10 +34,12 @@
 // bandwidth, not by device memory.  Tensor cores (mma / wgmma) are the lever
 // for later work.
 //
-// What the design does about it.  A block owns QB = 32 query rows of one
-// image.  A whole key row of S ([QB, N] f32) fits in shared memory for
-// N <= 780 (N <= 1516 without the head mean), so the softmax is exact in one
-// pass and needs no online rescaling; the cls row and the head mean need the
+// What the design does about it.  A block owns QB query rows of one image,
+// QB = 32 or 16 (the wrapper's q_block: 32 where the tiles fit the 227 KB a
+// block may use, else 16, or the one the caller forces).  A whole key row of
+// S ([QB, N] f32) fits in shared memory for N <= 780 at QB = 32 and for
+// N <= 1536 at QB = 16 with the head mean or the rollout, so the softmax is
+// exact in one pass and needs no online rescaling; the cls row and the head mean need the
 // normalized P anyway.  S, P and the head-mean tile never reach device
 // memory; K and V are staged per head in 64-key chunks and re-read from L2
 // by each of the ceil(N/32) query tiles.  Inner loops use 16-byte shared
@@ -63,7 +65,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kQB = 32;              // query rows per block
+constexpr size_t kMaxSmem = 232448;  // 227 KB, the most a block may ask for
 
 enum Mode { kPlain = 0, kHeadmean = 1, kRollout = 2 };
 // flags of the C entry point
@@ -80,15 +82,24 @@ __device__ __forceinline__ void store_f(void* p, size_t i, float v, bool bf16) {
   else static_cast<float*>(p)[i] = v;
 }
 
-size_t smem_bytes(int n, int mode) {
+size_t smem_bytes(int n, int mode, int qb) {
   const size_t ns = padded(n);
-  size_t floats = size_t(kQB) * kDH + size_t(kKC) * kKVStride + kQB * ns;
-  if (mode != kPlain) floats += kQB * ns;
-  floats += ns + n + 2 * kQB;
+  size_t floats = size_t(qb) * kDH + size_t(kKC) * kKVStride + qb * ns;
+  if (mode != kPlain) floats += qb * ns;
+  floats += ns + n + 2 * qb;
   return floats * sizeof(float);
 }
 
-template <typename T, int MODE, bool CLAMP>
+// query rows per block: the forced 16 or 32, or for 0 the larger one whose
+// tiles fit; 0 when nothing fits (the launch then fails on its shared memory)
+int pick_qb(int n, int mode, int q_block) {
+  if (q_block) return q_block;
+  if (smem_bytes(n, mode, 32) <= kMaxSmem) return 32;
+  if (smem_bytes(n, mode, 16) <= kMaxSmem) return 16;
+  return 0;
+}
+
+template <typename T, int MODE, bool CLAMP, int kQB>
 __global__ void __launch_bounds__(kThreads)
 masked_attention_kernel(const T* __restrict__ qkv, const float* __restrict__ bg,
                         const float* __restrict__ joint, void* __restrict__ out,
@@ -305,14 +316,14 @@ struct Args {
   const float* scales;
   int scales_kind, batch, n, heads;
   float scale, mask_value;
-  int flags;
+  int flags, q_block;
 };
 
-template <typename T, int MODE, bool CLAMP>
+template <typename T, int MODE, bool CLAMP, int kQB>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const int n = a.n;
-  auto kernel = masked_attention_kernel<T, MODE, CLAMP>;
-  const size_t smem = smem_bytes(n, MODE);
+  auto kernel = masked_attention_kernel<T, MODE, CLAMP, kQB>;
+  const size_t smem = smem_bytes(n, MODE, kQB);
   int dev = 0, max_smem = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -323,16 +334,28 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
                              int(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((n + kQB - 1) / kQB, a.batch);
-  masked_attention_kernel<T, MODE, CLAMP><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(a.qkv), static_cast<const float*>(a.bg),
       static_cast<const float*>(a.joint), a.out, a.cls, a.hm, static_cast<float*>(a.newj),
       a.scales, a.scales_kind, n, a.heads, a.scale, a.mask_value, a.flags);
   return cudaGetLastError();
 }
 
+template <typename T, int MODE, bool CLAMP>
+cudaError_t launch_qb(const Args& a, cudaStream_t stream) {
+  switch (pick_qb(a.n, MODE, a.q_block)) {
+    case 32:
+      return launch<T, MODE, CLAMP, 32>(a, stream);
+    case 16:
+      return launch<T, MODE, CLAMP, 16>(a, stream);
+    default:
+      return cudaErrorInvalidConfiguration;
+  }
+}
+
 template <typename T, int MODE>
 cudaError_t launch_clamp(int clamp, const Args& a, cudaStream_t stream) {
-  return clamp ? launch<T, MODE, true>(a, stream) : launch<T, MODE, false>(a, stream);
+  return clamp ? launch_qb<T, MODE, true>(a, stream) : launch_qb<T, MODE, false>(a, stream);
 }
 
 template <typename T>
@@ -359,13 +382,16 @@ extern "C" {
 // 2 = [sq, sk, sv, inv_out], 3 = [sq_*, sk_*, sv_*, inv_out] (3H + 1).
 // flags: 1 = int8 out (int8_out; implied by int8 qkv), 2 = cls bf16 (else
 // f32), 4 = hm bf16 (else f32).
+// q_block: query rows per block, 16 or 32, or 0 for the larger one that fits.
 // Returns a cudaError_t; 0 means the kernel was launched.
 int vitcam_masked_attention_fused(const void* qkv, const void* bg, const void* joint,
                                   void* out, void* cls, void* hm, void* newj,
                                   const void* scales, int scales_kind, int batch, int n,
                                   int heads, int head_dim, float scale, float mask_value,
-                                  int dtype, int mode, int clamp, int flags, void* stream) {
-  if (head_dim != kDH || batch < 1 || batch > 65535 || n < 1 || heads < 1)
+                                  int dtype, int mode, int clamp, int flags, int q_block,
+                                  void* stream) {
+  if (head_dim != kDH || batch < 1 || batch > 65535 || n < 1 || heads < 1 ||
+      (q_block != 0 && q_block != 16 && q_block != 32))
     return cudaErrorInvalidValue;
   const bool int8_in = dtype == 2;
   if (scales_kind < 0 || scales_kind > 3 || (scales_kind != kNoScales) != (scales != nullptr))
@@ -375,7 +401,7 @@ int vitcam_masked_attention_fused(const void* qkv, const void* bg, const void* j
   if (!int8_in && ((flags & kOutI8) != 0) != (scales_kind == kOutOnly))
     return cudaErrorInvalidValue;
   const Args a{qkv, bg, joint, out, cls, hm, newj, static_cast<const float*>(scales),
-               scales_kind, batch, n, heads, scale, mask_value, flags};
+               scales_kind, batch, n, heads, scale, mask_value, flags, q_block};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
@@ -389,7 +415,10 @@ int vitcam_masked_attention_fused(const void* qkv, const void* bg, const void* j
   }
 }
 
-size_t vitcam_masked_attention_smem_bytes(int n, int mode) { return smem_bytes(n, mode); }
+size_t vitcam_masked_attention_smem_bytes(int n, int mode, int q_block) {
+  const int qb = pick_qb(n, mode, q_block);
+  return smem_bytes(n, mode, qb ? qb : 16);
+}
 
 const char* vitcam_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

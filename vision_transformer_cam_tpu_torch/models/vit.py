@@ -58,6 +58,7 @@ be called under ``parallel.set_mesh``.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple, Optional
 
@@ -115,10 +116,27 @@ class ViTCAMOutput(NamedTuple):
 
 # config knobs of the JAX package that this package does not implement yet,
 # with the ROADMAP item that ports them
-_UNPORTED = {
-    "attn_block_b": "Queue 2 item 1 (kernel tuning)",
-    "attn_q_block": "Queue 2 item 1 (kernel tuning)",
-}
+_UNPORTED = {}
+
+# cfg.matmul_precision -> torch.set_float32_matmul_precision: full float32,
+# or TF32 in the cuBLAS GEMMs ("high").  The hand-written kernels' in-kernel
+# products stay float32 either way, the hybrid the JAX package runs on its
+# TPU kernels.
+_MATMUL_PRECISION = {None: "highest", "highest": "highest",
+                     "float32": "highest", "high": "high",
+                     "tensorfloat32": "high"}
+
+
+@contextlib.contextmanager
+def matmul_precision(cfg: ViTCAMConfig):
+    """``cfg.matmul_precision`` set around a forward and restored after it."""
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision(
+        _MATMUL_PRECISION[cfg.matmul_precision])
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(before)
 
 
 def check_supported(cfg: ViTCAMConfig) -> None:
@@ -149,10 +167,16 @@ def check_supported(cfg: ViTCAMConfig) -> None:
                 "request batch-axis kernel fusions that would see "
                 "sequence-sharded operands. Drop those knobs (plain int8 "
                 "qlinear GEMMs are fine) or drop seq_axis.")
-    if cfg.matmul_precision not in (None, "highest"):
-        raise NotImplementedError(
-            f"matmul_precision={cfg.matmul_precision!r}: the port runs float32 "
-            "GEMMs in full float32 only (None or 'highest')")
+    if cfg.matmul_precision not in _MATMUL_PRECISION:
+        raise ValueError(
+            f"matmul_precision={cfg.matmul_precision!r}: expected one of "
+            f"{[k for k in _MATMUL_PRECISION]}")
+    if cfg.attn_q_block not in (0, 16, 32):
+        raise ValueError(
+            f"attn_q_block={cfg.attn_q_block!r}: the attention kernel's "
+            "query tile is 16 or 32 rows (0 = auto)")
+    if cfg.attn_block_b < 0:
+        raise ValueError(f"attn_block_b={cfg.attn_block_b!r} must be >= 0")
 
 
 # ---------------------------------------------------------------------------
@@ -294,6 +318,14 @@ def attention_kernel(ap, x, bg, cfg: ViTCAMConfig, need_probs, joint=None,
         return _attention_eager(ap, x, bg, cfg, need_probs, joint=joint,
                                 hm_dtype=hm_dtype, train=train, rngs=rngs)
     if train:
+        if _MATMUL_PRECISION[cfg.matmul_precision] != "highest":
+            # the JAX package sends this case to its XLA path; nothing here
+            # leaves the kernels unasked
+            raise ValueError(
+                f"matmul_precision={cfg.matmul_precision!r} with "
+                "attn_impl='kernel' in training: the backward kernel's "
+                "products are full float32; train this precision with "
+                "attn_impl='eager'")
         qkv = _linear(x, ap.qkv, cfg)
         out, cls_row = fused_attention_diff(
             qkv, bg, num_heads=cfg.num_heads, scale=cfg.scale,
@@ -316,7 +348,7 @@ def attention_kernel(ap, x, bg, cfg: ViTCAMConfig, need_probs, joint=None,
             scales = ap.proj.inv_act.reshape(1)
     kw = dict(num_heads=cfg.num_heads, scale=cfg.scale,
               mask_value=cfg.mask_value, clamp_softmax=cfg.softmax_clamp,
-              float_dtype=cfg.dtype)
+              float_dtype=cfg.dtype, q_block=cfg.attn_q_block)
     hm = newj = None
     if joint is not None:
         out, cls_row, newj = masked_attention_fused(qkv, bg, joint, scales,
@@ -559,8 +591,9 @@ class ViTCAM(nn.Module):
     def forward(self, x, *, need_headmean=False, need_blocks=False,
                 need_perhead=False, need_rollout=False) -> ViTCAMOutput:
         """x: [B, H, W, C] images.  Returns ViTCAMOutput (eval semantics)."""
-        return self._forward(x, False, None, need_headmean, need_blocks,
-                             need_perhead, need_rollout)
+        with matmul_precision(self.cfg):
+            return self._forward(x, False, None, need_headmean, need_blocks,
+                                 need_perhead, need_rollout)
 
     def forward_train(self, x, *, rng: Optional[int] = None,
                       need_headmean=False, need_blocks=False,
@@ -573,8 +606,9 @@ class ViTCAM(nn.Module):
         backward.  ``rng`` (an integer seed, folded per layer and site) turns
         dropout and stochastic depth on at the config's ratios; None leaves
         them off.  ``attn_cls_rows`` and the bg mask carry no gradient."""
-        return self._forward(x, True, rng, need_headmean, need_blocks,
-                             need_perhead, need_rollout)
+        with matmul_precision(self.cfg):
+            return self._forward(x, True, rng, need_headmean, need_blocks,
+                                 need_perhead, need_rollout)
 
     def _forward(self, x, train, rng, need_headmean, need_blocks,
                  need_perhead, need_rollout) -> ViTCAMOutput:

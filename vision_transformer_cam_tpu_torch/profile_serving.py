@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 
@@ -206,10 +205,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_serving: no CUDA device", file=sys.stderr)
         return 1
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    from vision_transformer_cam_tpu_torch.utils.profiling import card_line
+    card = card_line()
     print(card, flush=True)
     models = served_models([m for m in args.modes
                             if not m.startswith("train")],

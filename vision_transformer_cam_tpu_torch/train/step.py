@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from vision_transformer_cam_tpu_torch.models.vit import _fold
+from vision_transformer_cam_tpu_torch.models.vit import (_fold,
+                                                        matmul_precision)
 from vision_transformer_cam_tpu_torch.ops.losses import (
     dual_head_loss, multilabel_soft_margin_loss)
 from vision_transformer_cam_tpu_torch.train.state import TrainState
@@ -46,8 +47,10 @@ def loss_fn(model, images, labels, rng):
 
 
 def _grads(model, images, labels, rng):
-    loss, (parts, logits) = loss_fn(model, images, labels, rng)
-    grads = torch.autograd.grad(loss, list(model.parameters()))
+    # the backward's GEMMs at the forward's precision (cfg.matmul_precision)
+    with matmul_precision(model.cfg):
+        loss, (parts, logits) = loss_fn(model, images, labels, rng)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
     return loss.detach(), {k: v.detach() for k, v in parts.items()}, \
         logits.detach(), grads
 
