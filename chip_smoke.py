@@ -41,13 +41,14 @@ Phases (any failure raises, and the exit code is non-zero):
      and at float32, batch 4, the fused kernel path against the eager path;
   5. the backward attention kernel against its plain version (bf16 and
      float32, clamp off and on, 30 % background and none; at float32 also
-     against torch.autograd through the plain forward): both of its designs
-     (one block per head, the training path's; two kernels) at B=8 N=197 and
-     a ragged B=3 N=37, the two-kernel design at B=2 N=577 and B=1 N=760 (its
-     limit), and both at the training path's B=64 N=197 in bf16; then its time
-     there beside its plain version, the two-kernel design and the backward of
-     F.scaled_dot_product_attention with the same mask (the library call:
-     timed only, never on a path), and the two-kernel design at B=16 N=577;
+     against torch.autograd through the plain forward) in every design that
+     takes the shape: at bf16 the tensor-core design (the training path's;
+     launched twice for identical bits) and the FMA designs bf16 ran before
+     (one block per head up to N=256, two kernels), at float32 the two FMA
+     designs; B=8 N=197, a ragged B=3 N=37, B=2 N=577 and B=1 N=760 (the
+     limit); then at bf16, B=64 N=197 and B=16 N=577, each design, the plain
+     version and the backward of F.scaled_dot_product_attention with the
+     same mask (the library call: timed only, never on a path) in turns;
   6. the training path: ViT-B/16 at full depth, float32 masters with bf16
      compute, attn_impl="kernel", remat on, batch 64, seeded weights and
      batches, through make_optimizer, create_train_state and
@@ -65,12 +66,15 @@ Phases (any failure raises, and the exit code is non-zero):
      of 20 steps each per path, with their spread).
   8. the sequence-parallel kernel (masked_attention_seq_local) against its
      plain version on every rank's shard of 1, 2, 4 and 8 ranks at N = 197,
-     577 and 1025 (Np = 1032 at 8), float32 and bf16, clamp on and off, with
-     and without the head mean (float32 and the element type), no background,
-     30 % and all but cls; the stitched shards against the attention kernel
-     of the unsharded path where that takes the length; its time at B=16
-     N=577 C=1024 (one rank, and a shard of four) beside its plain version
-     and F.scaled_dot_product_attention with the same mask (timed only);
+     577 and 1025 (Np = 1032 at 8), float32 (the FMA design) and bf16 (the
+     tensor-core design, launched twice for identical bits), clamp on and
+     off, with and without the head mean (float32 and the element type), no
+     background, 30 % and all but cls; the stitched shards against the
+     attention kernel of the unsharded path where that takes the length; at
+     B=16 N=577 C=1024 (one rank, and a shard of four) the tensor-core
+     design, the FMA design bf16 ran before (both held to the plain version
+     there), the plain version and F.scaled_dot_product_attention with the
+     same mask (timed only), in turns;
   9. the sequence-parallel main path: ViT-L/16@384 at full depth and width
      (24 layers, C=1024, 16 heads, N=577), seeded random weights of the 224
      model loaded through the 224 -> 384 pos-embed interpolation, bf16
@@ -385,17 +389,41 @@ def _bwd_call(fn, qkv, bg, d_out, heads, clamp):
               clamp_softmax=clamp)
 
 
-def _two_kernel(qkv, bg, d_out, heads, clamp):
-    """The backward wrapper made to take its two-kernel design at any N (it
-    picks by N: the one-block design up to BWD_ONE_BLOCK_MAX_N), so that both
-    designs can be checked and timed at one shape."""
+def _bwd_design(design, qkv, bg, d_out, heads, clamp):
+    """The backward wrapper made to take ``design`` ("tensor-core",
+    "one-block" or "two-kernel") whatever its rule picks at this dtype and N
+    (bf16 through the wrapper's private switch of the bf16 design, float32
+    through the one-block limit), so that the designs can be checked and
+    timed at one shape."""
     from vision_transformer_cam_tpu_torch.kernels import attention as ka
-    limit, ka.BWD_ONE_BLOCK_MAX_N = ka.BWD_ONE_BLOCK_MAX_N, 0
+    saved = ka._bwd_bf16_design, ka.BWD_ONE_BLOCK_MAX_N
+    if qkv.dtype == torch.bfloat16:
+        ka._bwd_bf16_design = design
+    else:
+        ka.BWD_ONE_BLOCK_MAX_N = ka.BWD_MAX_N if design == "one-block" else 0
     try:
         return _bwd_call(ka.masked_attention_bwd, qkv, bg, d_out, heads,
                          clamp)
     finally:
-        ka.BWD_ONE_BLOCK_MAX_N = limit
+        ka._bwd_bf16_design, ka.BWD_ONE_BLOCK_MAX_N = saved
+
+
+def bwd_designs(dtype, n):
+    """The backward designs that take (dtype, N), the path's first: bf16
+    the tensor-core design, then the FMA designs it ran before."""
+    fma = (("one-block",) if n <= 256 else ()) + ("two-kernel",)
+    return (("tensor-core",) if dtype == torch.bfloat16 else ()) + fma
+
+
+def round_robin(fns, iters=20):
+    """{name: mean ms} of two ``time_ms`` runs of each function, in turns
+    (the order, then the order reversed)."""
+    names = list(fns)
+    got = {name: [] for name in names}
+    for order in (names, names[::-1]):
+        for name in order:
+            got[name].append(time_ms(fns[name], iters))
+    return {name: sum(v) / len(v) for name, v in got.items()}
 
 
 def bwd_inputs(b, n, heads, dtype, seed):
@@ -407,18 +435,18 @@ def bwd_inputs(b, n, heads, dtype, seed):
 
 
 def check_attention_bwd():
-    """Backward kernel vs its plain version on the card, in both designs at
-    N <= 256 (one block per head, the training path's; two kernels) and in
-    the two-kernel design at N=577 (ViT/16 at 384 pixels) and at N=760, its
-    limit; at float32 without the clamp also vs torch.autograd through the
-    plain forward (an independent check of the formula).  Returns {(dtype
-    name, clamp, n, bg kind, design): worst error}."""
+    """Backward kernel vs its plain version on the card, in every design that
+    takes the shape: bf16 the tensor-core design (the training path's) and
+    the FMA designs it ran before, float32 the one-block design (N <= 256)
+    and the two-kernel design; B=8 N=197, a ragged B=3 N=37, B=2 N=577
+    (ViT/16 at 384 pixels) and B=1 N=760, the limit.  At float32 without the
+    clamp also vs torch.autograd through the plain forward (an independent
+    check of the formula).  The tensor-core design runs twice on the same
+    inputs and must give identical bits.  Returns {(dtype name, clamp, n, bg
+    kind, design): worst error}."""
     from vision_transformer_cam_tpu_torch.kernels import attention as ka
     errs, failures = {}, []
     for (b, n) in ((8, 197), (3, 37), (2, 577), (1, 760)):
-        one = ("one-block", lambda *a: _bwd_call(ka.masked_attention_bwd, *a))
-        designs = (one, ("two-kernel", _two_kernel)) \
-            if n <= ka.BWD_ONE_BLOCK_MAX_N else (("two-kernel", one[1]),)
         for dtype in (torch.bfloat16, torch.float32):
             qkv, bg, d_out = bwd_inputs(b, n, 12, dtype, seed=n)
             name = str(dtype).split(".")[-1]
@@ -433,10 +461,10 @@ def check_attention_bwd():
                         out, _ = ka.masked_attention_fused_ref(
                             leaf, bg_, num_heads=12, scale=64 ** -0.5)
                         auto, = torch.autograd.grad(out, leaf, d_out)
-                    for design, run in designs:
-                        got = run(qkv, bg_, d_out, 12, clamp)
+                    for design in bwd_designs(dtype, n):
+                        got = _bwd_design(design, qkv, bg_, d_out, 12, clamp)
                         torch.cuda.synchronize()
-                        case = f"attention bwd {design:10s} {name:8s} " \
+                        case = f"attention bwd {design:11s} {name:8s} " \
                                f"clamp={clamp!s:5s} {bg_kind:6s} B={b} N={n}"
                         errs[(name, clamp, n, bg_kind, design)] = _compare(
                             case, (got,), (want,), (TOL_BWD[dtype],),
@@ -444,6 +472,11 @@ def check_attention_bwd():
                         if auto is not None:
                             _compare(case + " vs autograd", (got,), (auto,),
                                      (TOL_BWD[dtype],), failures)
+                        if design == "tensor-core" and not torch.equal(
+                                got, _bwd_design(design, qkv, bg_, d_out, 12,
+                                                 clamp)):
+                            failures.append(f"{case}: a second launch gave "
+                                            "other bits")
     if failures:
         raise AssertionError("attention backward kernel != plain version:\n"
                              + "\n".join(failures))
@@ -451,64 +484,52 @@ def check_attention_bwd():
 
 
 def time_attention_bwd(b=64, n=197, heads=12):
-    """At the training path's shape, bf16: the backward kernel held against
-    its plain version (both designs), then the one-block design (the path's),
-    its plain version and the backward of F.scaled_dot_product_attention with
-    the same additive mask (the library call, timed only) in turns, and the
-    two-kernel design beside them.  Then the two-kernel design at N=577,
-    B=16.  Returns (kernel, plain, library, worst error at this shape) ms."""
+    """bf16, no clamp (the training path's call): at the training path's
+    shape the tensor-core design (the path's) held against its plain
+    version, then in turns with the FMA designs bf16 ran before (one block
+    per head, two kernels), the plain version and the backward of
+    F.scaled_dot_product_attention with the same additive mask (the library
+    call, timed only); then the same at B=16 N=577 (the two-kernel FMA
+    design).  Returns (kernel, plain, library, worst error at the path's
+    shape) ms."""
     from vision_transformer_cam_tpu_torch.kernels import attention as ka
     import torch.nn.functional as F
-    qkv, bg, d_out = bwd_inputs(b, n, heads, torch.bfloat16, seed=3)
-    leaf = qkv.clone().requires_grad_(True)
-    q, k, v = leaf.reshape(b, n, 3, heads, 64).permute(2, 0, 3, 1, 4)
-    bgf = bg.float()
-    mask = ((1.0 - bgf)[:, :, None] * (bgf * -100.0)[:, None, :])[:, None] \
-        .to(torch.bfloat16)
-    out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                         scale=64 ** -0.5)
-    out = out.transpose(1, 2).reshape(b, n, heads * 64)
-
-    def kern():
-        return _bwd_call(ka.masked_attention_bwd, qkv, bg, d_out, heads,
-                         False)
-
-    def two():
-        return _two_kernel(qkv, bg, d_out, heads, False)
-
-    def plain():
-        return _bwd_call(ka.masked_attention_bwd_ref, qkv, bg, d_out, heads,
-                         False)
-
-    def library():
-        return torch.autograd.grad(out, leaf, d_out, retain_graph=True)[0]
-    want, failures = plain(), []
-    err = _compare(f"attention bwd one-block bfloat16 B={b} N={n}", (kern(),),
-                   (want,), (TOL_BWD[torch.bfloat16],), failures)
-    _compare(f"attention bwd two-kernel bfloat16 B={b} N={n}", (two(),),
-             (want,), (TOL_BWD[torch.bfloat16],), failures)
-    if failures:
-        raise AssertionError("attention backward kernel != plain version:\n"
-                             + "\n".join(failures))
-    say(f"attention bwd kernel vs SDPA backward (recorded, not gated): max "
-        f"abs dev {float((kern().float() - library().float()).abs().max()):.3e}")
-    l1, s1 = time_ms(library), time_ms(two)
-    k_ms, p_ms = in_turns(kern, plain)
-    lib_ms = (l1 + time_ms(library)) / 2
-    split_ms = (s1 + time_ms(two)) / 2
-    say(f"time attention bwd bf16 B={b} N={n}: kernel (one block per head) "
-        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA backward {lib_ms:.4f} ms; "
-        f"two-kernel design {split_ms:.4f} ms")
-    del leaf, out, want
-    qkv, bg, d_out = bwd_inputs(16, 577, heads, torch.bfloat16, seed=4)
-    long_ms = in_turns(
-        lambda: _bwd_call(ka.masked_attention_bwd, qkv, bg, d_out, heads,
-                          False),
-        lambda: _bwd_call(ka.masked_attention_bwd_ref, qkv, bg, d_out, heads,
-                          False), iters=5)
-    say(f"time attention bwd bf16 B=16 N=577 (two-kernel design): kernel "
-        f"{long_ms[0]:.4f} ms, plain {long_ms[1]:.4f} ms")
-    return k_ms, p_ms, lib_ms, err
+    res = None
+    for (bb, nn) in ((b, n), (16, 577)):
+        qkv, bg, d_out = bwd_inputs(bb, nn, heads, torch.bfloat16,
+                                    seed=3 if nn == n else 4)
+        leaf = qkv.clone().requires_grad_(True)
+        q, k, v = leaf.reshape(bb, nn, 3, heads, 64).permute(2, 0, 3, 1, 4)
+        bgf = bg.float()
+        mask = ((1.0 - bgf)[:, :, None] * (bgf * -100.0)[:, None, :]
+                )[:, None].to(torch.bfloat16)
+        out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                             scale=64 ** -0.5)
+        out = out.transpose(1, 2).reshape(bb, nn, heads * 64)
+        fns = {d: (lambda d=d: _bwd_design(d, qkv, bg, d_out, heads, False))
+               for d in bwd_designs(torch.bfloat16, nn)}
+        fns["plain"] = lambda: _bwd_call(ka.masked_attention_bwd_ref, qkv,
+                                         bg, d_out, heads, False)
+        fns["SDPA backward"] = lambda: torch.autograd.grad(
+            out, leaf, d_out, retain_graph=True)[0]
+        want, failures = fns["plain"](), []
+        errs = {d: _compare(f"attention bwd {d} bfloat16 B={bb} N={nn}",
+                            (fns[d](),), (want,), (TOL_BWD[torch.bfloat16],),
+                            failures) for d in bwd_designs(torch.bfloat16, nn)}
+        if failures:
+            raise AssertionError("attention backward kernel != plain "
+                                 "version:\n" + "\n".join(failures))
+        say(f"attention bwd kernel vs SDPA backward B={bb} N={nn} (recorded, "
+            f"not gated): max abs dev "
+            f"{float((fns['tensor-core']().float() - fns['SDPA backward']().float()).abs().max()):.3e}")
+        ms = round_robin(fns, iters=20 if nn == n else 5)
+        say(f"time attention bwd bf16 B={bb} N={nn}: " + ", ".join(
+            f"{name} {t:.4f} ms" for name, t in ms.items()))
+        if res is None:
+            res = (ms["tensor-core"], ms["plain"], ms["SDPA backward"],
+                   errs["tensor-core"])
+        del leaf, out, want, fns
+    return res
 
 
 def gemm_operands(m, k, n, seed, bias=True):
@@ -812,8 +833,9 @@ def seq_shards(qkv, bg, sp):
 
 def check_attention_seq(b=2, heads=16):
     """The sequence-parallel kernel against its plain version on every rank's
-    shard, and the stitched shards against the attention kernel of the
-    unsharded path where that takes the length.  Returns the worst error of
+    shard (bf16: the tensor-core design, launched twice for identical bits;
+    float32: the FMA design), and the stitched shards against the attention
+    kernel of the unsharded path where that takes the length.  Returns the worst error of
     the (bf16, clamp, float32 head mean) cases at N=577."""
     from vision_transformer_cam_tpu_torch.kernels import attention as ka
     failures, n_cases, kept = [], 0, 0.0
@@ -841,6 +863,16 @@ def check_attention_seq(b=2, heads=16):
                                     q, kv, bg_q, bg_k, **ckw)
                                 got_all.append(got)
                                 n_cases += 1
+                                # the tensor-core design: identical bits
+                                # from a second launch
+                                if dtype == torch.bfloat16 and not all(
+                                        torch.equal(x, y) for x, y in zip(
+                                            got, ka.masked_attention_seq_local(
+                                                q, kv, bg_q, bg_k, **ckw))):
+                                    failures.append(
+                                        f"N={n} sp={sp} rank {rank} hm="
+                                        f"{hm_dt} clamp={clamp} bg={bg_kind}:"
+                                        " a second launch gave other bits")
                                 tols = [TOL[(dtype, "out")],
                                         TOL[(dtype, "prob")],
                                         TOL[(hm_dt or dtype, "prob")]]
@@ -903,26 +935,34 @@ def check_attention_seq(b=2, heads=16):
     return kept
 
 
+def _seq_design(design, *args, **kw):
+    """The sequence-parallel wrapper made to run its bf16 call on ``design``
+    ("tensor-core", the path's, or "fma", the design bf16 ran before)."""
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    saved, ka._seq_bf16_design = ka._seq_bf16_design, design
+    try:
+        return ka.masked_attention_seq_local(*args, **kw)
+    finally:
+        ka._seq_bf16_design = saved
+
+
 def time_attention_seq(b=16, n=577, heads=16):
     """The sequence-parallel kernel at the ViT-L/16@384 shape, bf16, clamp,
     float32 head mean (as the main path launches it): one rank (NQ = 577) and
-    a shard of four (NQ = 145, Np = 580), in turns with the plain version;
-    and F.scaled_dot_product_attention on the same q, K, V with the additive
-    mask as a yardstick for the shape (it returns neither row0 nor hm).
-    Returns {sp: (kernel ms, plain ms, sdpa ms)}."""
+    a shard of four (NQ = 145, Np = 580).  The FMA design bf16 ran before is
+    held against the plain version too, then the tensor-core design (the
+    path's), the FMA design, the plain version and
+    F.scaled_dot_product_attention on the same q, K, V with the additive
+    mask (a yardstick for the shape: it returns neither row0 nor hm) run in
+    turns.  Returns {sp: (kernel ms, plain ms, sdpa ms, fma design ms)}."""
     from vision_transformer_cam_tpu_torch.kernels import attention as ka
     qkv, bg = seq_inputs(b, n, heads, torch.bfloat16, 7)
-    c = heads * 64
     times = {}
     for sp in (1, 4):
         shards, kv, bg_k = seq_shards(qkv, bg, sp)
         q, bg_q = shards[0]
         kw = dict(num_heads=heads, scale=64 ** -0.5, clamp_softmax=True,
                   with_headmean=True, hm_dtype=torch.float32, n_real=n)
-        k_ms, p_ms = in_turns(
-            lambda: ka.masked_attention_seq_local(q, kv, bg_q, bg_k, **kw),
-            lambda: ka.masked_attention_seq_local_ref(q, kv, bg_q, bg_k,
-                                                      **kw))
         nq, np_ = q.shape[1], kv.shape[1]
         qh = q.reshape(b, nq, heads, 64).transpose(1, 2)
         kh, vh = kv.reshape(b, np_, 2, heads, 64).permute(2, 0, 3, 1, 4)
@@ -930,13 +970,30 @@ def time_attention_seq(b=16, n=577, heads=16):
                 * (-100.0 * bg_k.float())[:, None, :])
         mask[:, :, n:] = -1e9
         mask = mask[:, None].to(torch.bfloat16)
-        sdpa = time_ms(lambda: torch.nn.functional
-                       .scaled_dot_product_attention(qh, kh, vh,
-                                                     attn_mask=mask))
-        times[sp] = (k_ms, p_ms, sdpa)
+        fns = {d: (lambda d=d: _seq_design(d, q, kv, bg_q, bg_k, **kw))
+               for d in ("tensor-core", "fma")}
+        fns["plain"] = lambda: ka.masked_attention_seq_local_ref(
+            q, kv, bg_q, bg_k, **kw)
+        fns["SDPA"] = lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask)
+        want, failures = fns["plain"](), []
+        for d in ("tensor-core", "fma"):
+            tols = [TOL[(torch.bfloat16, "out")],
+                    TOL[(torch.bfloat16, "prob")],
+                    TOL[(torch.float32, "prob")]]
+            _compare(f"attention_seq {d} bf16 hm f32 B={b} N={n} sp={sp}",
+                     fns[d](), want, tols, failures)
+        if failures:
+            raise AssertionError("sequence-parallel kernel != plain version:"
+                                 "\n" + "\n".join(failures))
+        ms = round_robin(fns)
+        times[sp] = (ms["tensor-core"], ms["plain"], ms["SDPA"], ms["fma"])
         say(f"time attention_seq bf16 hm f32 B={b} N={n} sp={sp} (NQ={nq}, "
-            f"Np={np_}): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-            f"F.scaled_dot_product_attention (no row0, no hm) {sdpa:.4f} ms")
+            f"Np={np_}): tensor-core design {ms['tensor-core']:.4f} ms, FMA "
+            f"design {ms['fma']:.4f} ms, plain {ms['plain']:.4f} ms, "
+            f"F.scaled_dot_product_attention (no row0, no hm) "
+            f"{ms['SDPA']:.4f} ms")
+        del want, fns
     return times
 
 

@@ -213,12 +213,19 @@ def test_cuda_bwd_kernel_matches_plain_version():
             bg = (torch.rand((4, n), generator=g, device="cuda") < 0.3) \
                 .float()
             bg[:, 0] = 0.0
-            before = tka.bwd_launches
+            # 30 % background, then none and all (the mask off both ways)
+            for bg_ in (bg, torch.zeros_like(bg), torch.ones_like(bg)):
+                before = tka.bwd_launches
+                got = tka.masked_attention_bwd(qkv, bg_, d_out, **kw)
+                assert tka.bwd_launches == before + 1
+                want = tka.masked_attention_bwd_ref(qkv, bg_, d_out, **kw)
+                err = (got.float() - want.float()).abs()
+                assert float((err - atol - rtol * want.float().abs()
+                              ).max()) <= 0
+                # every design sums in a fixed order: the same bits again
+                assert torch.equal(
+                    got, tka.masked_attention_bwd(qkv, bg_, d_out, **kw))
             got = tka.masked_attention_bwd(qkv, bg, d_out, **kw)
-            assert tka.bwd_launches == before + 1
-            want = tka.masked_attention_bwd_ref(qkv, bg, d_out, **kw)
-            err = (got.float() - want.float()).abs()
-            assert float((err - atol - rtol * want.float().abs()).max()) <= 0
             leaf = qkv.clone().requires_grad_(True)
             out, _ = tka.fused_attention_diff(leaf, bg, **kw)
             auto, = torch.autograd.grad(out, leaf, d_out)

@@ -237,6 +237,10 @@ def test_int8_attention_io_needs_per_head_scales():
     ("void (anonymous namespace)::linear_int8_kernel<signed char, "
      "__nv_bfloat16>", "int8 GEMM kernel"),
     ("ln_quant_kernel", "ln_quant kernel"),
+    ("void (anonymous namespace)::masked_attention_seq_tc_kernel<true, "
+     "true>(...)", "sequence-parallel attention kernel"),
+    ("void (anonymous namespace)::masked_attention_bwd_tc_dkv_kernel<false>"
+     "(...)", "attention backward kernel"),
     ("nvjet_tst_128x192_64x4_2x1_v_bz_coopB_TNT", "float GEMMs (cuBLAS)"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n", "float GEMMs (cuBLAS)"),
     ("void at::native::(anonymous namespace)::vectorized_layer_norm_kernel",

@@ -114,7 +114,7 @@ def load():
         fn.argtypes = [p, i, p, i, i, i, p, p, p, i, i, p, i, i, p, i, p]
         fn.restype = i
         fn = lib.vitcam_masked_attention_bwd
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, f, f, i, i, p]
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, f, f, i, i, i, p]
         fn.restype = i
         fn = lib.vitcam_mlp_fused
         fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
@@ -126,9 +126,9 @@ def load():
         fn.argtypes = [p] * 11 + [i, i, i, i, f, f, i, i, i, p]
         fn.restype = i
         fn = lib.vitcam_masked_attention_seq
-        fn.argtypes = [p] * 7 + [i, i, i, i, i, i, f, f, i, i, i, i, p]
+        fn.argtypes = [p] * 7 + [i, i, i, i, i, i, f, f, i, i, i, i, i, p]
         fn.restype = i
-        lib.vitcam_masked_attention_seq_smem_bytes.argtypes = [i, i]
+        lib.vitcam_masked_attention_seq_smem_bytes.argtypes = [i, i, i]
         lib.vitcam_masked_attention_seq_smem_bytes.restype = ctypes.c_size_t
         lib.vitcam_mlp_fused_smem_bytes.argtypes = [i, i]
         lib.vitcam_mlp_fused_smem_bytes.restype = ctypes.c_size_t

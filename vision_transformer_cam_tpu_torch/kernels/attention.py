@@ -61,24 +61,39 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _NO_SCALES, _OUT_ONLY, _PER_TENSOR, _PER_HEAD = 0, 1, 2, 3
 _OUT_I8, _CLS_BF16, _HM_BF16 = 1, 2, 4
 HEAD_DIM = 64   # the CUDA kernels' head width
-# The CUDA backward has two designs.  Up to BWD_ONE_BLOCK_MAX_N one block per
-# (image, head) keeps dK and dV [N, 64] in float32 in shared memory beside two
-# [32, N] tiles: (192 * ceil4(N) + N + 8480) floats, which fit the 227 KB a
-# block may use on sm_90 for N <= 256.  Past it two kernels run, one per query
-# tile (dQ and the rows' softmax statistics) and one per key tile (dK, dV),
-# and the first one's (64 * ceil4(N) + N + 8480) floats allow N <= BWD_MAX_N.
+# The CUDA backward has three designs.  bf16 runs the tensor-core design for
+# every N <= BWD_MAX_N: a dQ kernel per 64 query rows and a dK / dV kernel per
+# 64 keys, products on mma.sync, a [B, H, N, 3] float32 scratch of row
+# statistics between them.  float32 keeps the FMA designs: up to
+# BWD_ONE_BLOCK_MAX_N one block per (image, head) keeps dK and dV [N, 64] in
+# float32 in shared memory beside two [32, N] tiles: (192 * ceil4(N) + N +
+# 8480) floats, which fit the 227 KB a block may use on sm_90 for N <= 256.
+# Past it two kernels run, one per query tile (dQ and the rows' softmax
+# statistics) and one per key tile (dK, dV), and the first one's (64 *
+# ceil4(N) + N + 8480) floats allow N <= BWD_MAX_N.
 BWD_ONE_BLOCK_MAX_N = 256
 BWD_MAX_N = 760
+BWD_DESIGNS = {"one-block": 0, "two-kernel": 1, "tensor-core": 2}
+# The design bf16 runs.  Only chip_smoke.py sets another ("one-block" or
+# "two-kernel", the FMA designs bf16 ran before), to time the designs side by
+# side; no config field or flag reaches it.
+_bwd_bf16_design = "tensor-core"
 # The block kernel gives every 32 query rows of an image one thread block and
 # joins an image's blocks into one cluster, of at most 8 blocks.
 BLOCK_ROWS = 32
 BLOCK_MAX_N = 8 * BLOCK_ROWS
 BLOCK_MAX_C = 768   # its [32, C] output tile and staging in shared memory
-# The sequence-parallel kernel keeps a [QB, Np] float32 tile of S (and one of
+# The sequence-parallel kernel takes Np <= SEQ_MAX_NP (N = 1025 padded to 8
+# ranks is 1032).  bf16 runs its tensor-core design (16 query rows a block;
+# S in registers; the [16, Np] float32 head mean in shared memory).  float32
+# runs the FMA design, which keeps a [QB, Np] float32 tile of S (and one of
 # the head mean) in shared memory, QB = 32 query rows or 16 where 32 do not
 # fit: (33 * ceil4(Np) + Np + 5408) floats at QB = 16 with the head mean fit
-# the 227 KB for Np <= SEQ_MAX_NP (N = 1025 padded to 8 ranks is 1032).
+# the 227 KB for Np <= 1536.
 SEQ_MAX_NP = 1536
+SEQ_DESIGNS = {"fma": 0, "tensor-core": 1}
+# The design bf16 runs; only chip_smoke.py sets "fma", to time the earlier one
+_seq_bf16_design = "tensor-core"
 # The forward kernel's query tile (``q_block``) is 32 rows or 16.  With the
 # head mean or the rollout it keeps two [q_block, N] float32 tiles in shared
 # memory: N <= 780 at 32 rows, N <= 1536 at 16; the plain variant's one tile
@@ -367,6 +382,25 @@ def masked_attention_bwd_ref(qkv, bg, d_out, *, num_heads: int, scale: float,
         b, n, c3).to(dt)
 
 
+def bwd_design(dtype, n: int) -> str:
+    """The CUDA backward design for qkv of ``dtype`` at sequence length
+    ``n``: "tensor-core" for bf16 (every N <= ``BWD_MAX_N``); for float32
+    "one-block" up to ``BWD_ONE_BLOCK_MAX_N`` and "two-kernel" past it.
+    Raises past ``BWD_MAX_N``."""
+    if n > BWD_MAX_N:
+        raise ValueError(f"the CUDA attention backward takes N <= "
+                         f"{BWD_MAX_N} (its shared memory), got {n}")
+    if dtype == torch.bfloat16:
+        return _bwd_bf16_design
+    return "one-block" if n <= BWD_ONE_BLOCK_MAX_N else "two-kernel"
+
+
+def bwd_scratch_shape(design: str, b: int, heads: int, n: int):
+    """Shape of the float32 row-statistics scratch a design passes from its
+    dQ kernel to its dK / dV kernel, or None (the one-block design)."""
+    return None if design == "one-block" else (b, heads, n, 3)
+
+
 def masked_attention_bwd(qkv, bg, d_out, *, num_heads: int, scale: float,
                          mask_value: float = -100.0,
                          clamp_softmax: bool = False):
@@ -375,9 +409,10 @@ def masked_attention_bwd(qkv, bg, d_out, *, num_heads: int, scale: float,
     d_out of one dtype, head width 64, N <= ``BWD_MAX_N``, bg float32 or
     bf16) or raise.
 
-    Static rule on N: the one-block design runs for N <=
-    ``BWD_ONE_BLOCK_MAX_N`` (where it is the faster one) and the two-kernel
-    design for longer sequences."""
+    The design follows ``bwd_design``: the tensor-core design for bf16; for
+    float32 the one-block design up to ``BWD_ONE_BLOCK_MAX_N`` and the
+    two-kernel design past it.  The tensor-core design needs qkv and d_out
+    16-byte aligned."""
     global bwd_launches
     kw = dict(num_heads=num_heads, scale=scale, mask_value=mask_value,
               clamp_softmax=clamp_softmax)
@@ -404,33 +439,35 @@ def masked_attention_bwd(qkv, bg, d_out, *, num_heads: int, scale: float,
     if dh != HEAD_DIM:
         raise ValueError(f"the CUDA attention backward takes head width "
                          f"{HEAD_DIM}, got {dh}")
-    if n > BWD_MAX_N:
-        raise ValueError(f"the CUDA attention backward takes N <= "
-                         f"{BWD_MAX_N} (its shared memory), got {n}")
-    split = n > BWD_ONE_BLOCK_MAX_N
+    design = bwd_design(qkv.dtype, n)
+    if design == "tensor-core" and (qkv.data_ptr() % 16
+                                    or d_out.data_ptr() % 16):
+        raise ValueError("the tensor-core attention backward needs qkv and "
+                         "d_out 16-byte aligned")
 
     from vision_transformer_cam_tpu_torch.kernels import _build
     lib = _build.load()
     bg32 = bg.detach().to(torch.float32).contiguous()
     d_qkv = torch.empty_like(qkv)
-    # per row: max, sum of exponentials, rowsum(dP * P), from the first of
-    # the two kernels to the second
-    stats = torch.empty((b, num_heads, n, 3), dtype=torch.float32,
-                        device=qkv.device) if split else None
+    # per row statistics, from the first of two kernels to the second
+    shape = bwd_scratch_shape(design, b, num_heads, n)
+    stats = None if shape is None else torch.empty(
+        shape, dtype=torch.float32, device=qkv.device)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = lib.vitcam_masked_attention_bwd(
             qkv.data_ptr(), bg32.data_ptr(), d_out.data_ptr(),
-            d_qkv.data_ptr(), stats.data_ptr() if split else None, b, n,
-            num_heads, dh, float(scale), float(mask_value),
-            _DTYPE_CODES[qkv.dtype], int(clamp_softmax), stream)
+            d_qkv.data_ptr(), None if stats is None else stats.data_ptr(), b,
+            n, num_heads, dh, float(scale), float(mask_value),
+            _DTYPE_CODES[qkv.dtype], int(clamp_softmax), BWD_DESIGNS[design],
+            stream)
     if err:
         msg = lib.vitcam_cuda_error_string(err).decode()
+        need = lib.vitcam_masked_attention_bwd_smem_bytes(
+            n, BWD_DESIGNS[design])
         raise RuntimeError(
-            f"masked_attention_bwd kernel launch failed: cudaError {err} "
-            f"({msg}); shared memory needed "
-            f"{lib.vitcam_masked_attention_bwd_smem_bytes(n, int(split))} "
-            f"bytes")
+            f"masked_attention_bwd kernel launch failed ({design} design): "
+            f"cudaError {err} ({msg}); shared memory needed {need} bytes")
     bwd_launches += 1
     return d_qkv
 
@@ -630,6 +667,12 @@ def _check_seq_shapes(q, kv, bg_q, bg_k, num_heads, n_real):
         raise ValueError(f"n_real must lie in [0, Np = {np_}], got {n_real}")
 
 
+def seq_design(dtype) -> str:
+    """The CUDA sequence-parallel design for q of ``dtype``: "tensor-core"
+    for bf16, "fma" for float32 (its gates need full float32 products)."""
+    return _seq_bf16_design if dtype == torch.bfloat16 else "fma"
+
+
 def masked_attention_seq_local_ref(q, kv, bg_q, bg_k, *, num_heads: int,
                                    scale: float, mask_value: float = -100.0,
                                    with_headmean: bool = False,
@@ -689,7 +732,8 @@ def masked_attention_seq_local(q, kv, bg_q, bg_k, *, num_heads: int,
     """Same contract as ``masked_attention_seq_local_ref``.  CPU tensors run
     the plain version; CUDA tensors launch the kernel (q and kv both float32
     or both bfloat16, contiguous, head width 64, Np <= ``SEQ_MAX_NP``, bg
-    float32 or bf16, hm float32 or bf16) or raise."""
+    float32 or bf16, hm float32 or bf16) or raise: bf16 its tensor-core
+    design (kv 16-byte aligned), float32 its FMA design."""
     global seq_launches
     kw = dict(num_heads=num_heads, scale=scale, mask_value=mask_value,
               with_headmean=with_headmean, clamp_softmax=clamp_softmax,
@@ -728,6 +772,10 @@ def masked_attention_seq_local(q, kv, bg_q, bg_k, *, num_heads: int,
     if hm_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"hm_dtype must be float32 or bfloat16, got "
                         f"{hm_dtype}")
+    design = seq_design(q.dtype)
+    if design == "tensor-core" and kv.data_ptr() % 16:
+        raise ValueError("the tensor-core sequence-parallel kernel needs kv "
+                         "16-byte aligned")
 
     from vision_transformer_cam_tpu_torch.kernels import _build
     lib = _build.load()
@@ -747,14 +795,16 @@ def masked_attention_seq_local(q, kv, bg_q, bg_k, *, num_heads: int,
             hm.data_ptr() if with_headmean else None, b, nq, np_,
             n_real or np_, num_heads, c // num_heads, float(scale),
             float(mask_value), _DTYPE_CODES[q.dtype], int(with_headmean),
-            int(clamp_softmax), int(hm_dtype == torch.bfloat16), stream)
+            int(clamp_softmax), int(hm_dtype == torch.bfloat16),
+            SEQ_DESIGNS[design], stream)
     if err:
         msg = lib.vitcam_cuda_error_string(err).decode()
         need = lib.vitcam_masked_attention_seq_smem_bytes(
-            np_, int(with_headmean))
+            np_, int(with_headmean), SEQ_DESIGNS[design])
         raise RuntimeError(
-            f"masked_attention_seq_local kernel launch failed: cudaError "
-            f"{err} ({msg}); shared memory needed {need} bytes")
+            f"masked_attention_seq_local kernel launch failed ({design} "
+            f"design): cudaError {err} ({msg}); shared memory needed {need} "
+            f"bytes")
     seq_launches += 1
     if with_headmean:
         return out, row0, hm

@@ -30,6 +30,7 @@
 #pragma once
 
 #include "attention_common.cuh"
+#include "mma_common.cuh"
 
 namespace {
 
@@ -169,20 +170,6 @@ __device__ __forceinline__ void tile_fma(float (&acc)[TM * kGTN], const float* a
 // ---------------------------------------------------------------------------
 // bfloat16 path
 // ---------------------------------------------------------------------------
-
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // dst[0..8) = src[0..8) where the row holds `left` more elements (zeros past
 // it; all zeros for src == nullptr): one 16-byte asynchronous copy where the

@@ -43,7 +43,8 @@ import torch
 GROUPS = (
     ("attention block kernel", ("attention_block_kernel",)),
     ("fused MLP kernel", ("mlp_fused_kernel", "mlp_fused_int8_kernel")),
-    ("sequence-parallel attention kernel", ("masked_attention_seq_kernel",)),
+    ("sequence-parallel attention kernel", ("masked_attention_seq_kernel",
+                                            "masked_attention_seq_tc_kernel")),
     ("attention kernel", ("masked_attention_kernel",)),
     ("attention backward kernel", ("masked_attention_bwd_",)),
     ("int8 GEMM kernel", ("linear_int8_kernel",)),
