@@ -10,16 +10,23 @@ Phases (any failure raises, and the exit code is non-zero):
   3. holds every kernel against its plain PyTorch version on the card:
      the attention kernel (bf16 and float32; int8_io with per-head and
      per-tensor scales; int8_out; plain, head-mean and rollout variants;
-     clamp on and off; ViT-B B=8 N=197 and a ragged B=3 N=37), the int8 GEMM
+     clamp on and off; ViT-B B=8 N=197 and a ragged B=3 N=37; bf16 and int8
+     in the tensor-core design, launched twice for identical bits, and in the
+     FMA design they ran before), the int8 GEMM
      (each prologue and epilogue at the five ViT-B GEMM shapes, M = 8*197,
-     and a ragged M=111 K=200 N=72), ln_quant, the fused MLP kernels
+     and a ragged M=111 K=200 N=72; the tensor-core design bit for bit the
+     dp4a design it replaced), ln_quant, the fused MLP kernels
      (mlp_fused at bf16 and float32, both GELUs; mlp_fused_int8 bit for bit
-     at float32 output; M = 8*197 at the ViT-B widths and a ragged M=111 with
+     at float32 output, and bit for bit the chain of two linear_int8
+     launches; M = 8*197 at the ViT-B widths and a ragged M=111 with
      C, HID = 72, 200 and 66, 150) and the attention block kernel (bf16 and
      float32, with and without the joint, clamp on and off, 30 % background
      and none, B=8 N=197, a ragged B=3 N=37, and N=256 and N=17, the ends
      of its range); then times each kernel
-     against its plain version at B=64, the three fused kernels also beside
+     against its plain version at B=64 (the attention variants and the int8
+     GEMMs in turns with the designs they ran before; the GEMMs beside bf16
+     F.linear and torch._int_mm; kernel 1's int8 rollout variants also at
+     B=16 N=577), the three fused kernels also beside
      the unfused route of several launches that the port already has;
   4. the main path: ViT-B/16 with random weights from a seed answers 3
      requests of 32 images with the rollout CAM in serving mode "bf16",
@@ -344,8 +351,11 @@ def _compare(case, got, want, tols, failures):
 
 
 def check_attention():
-    """Attention kernel vs plain version on the card; returns {(kind,
-    variant, clamp, n): worst error} (int8 outputs count in steps)."""
+    """Attention kernel vs plain version on the card, in every design that
+    takes the dtype (bf16 and int8: the tensor-core design, launched twice
+    for identical bits, and the FMA design they ran before; float32: the FMA
+    design); returns {(kind, variant, clamp, n): worst error} of the path's
+    design (int8 outputs count in steps)."""
     from vision_transformer_cam_tpu_torch.kernels import attention as ka
     errs, failures = {}, []
     for (b, n) in ((8, 197), (3, 37)):
@@ -364,24 +374,63 @@ def check_attention():
             fdt = torch.bfloat16 if dtype == torch.int8 else dtype
             for variant in VARIANTS:
                 for clamp in (False, True):
-                    got = _call(ka.masked_attention_fused, variant, qkv, bg,
-                                joint, 12, clamp, scales)
                     want = _call(ka.masked_attention_fused_ref, variant, qkv,
                                  bg, joint, 12, clamp, scales)
-                    torch.cuda.synchronize()
                     kind = opt or str(dtype).split(".")[-1]
-                    case = f"attention {kind:10s} {variant:8s} " \
-                           f"clamp={clamp!s:5s} B={b} N={n}"
                     tols = [None if scales is not None else TOL[(fdt, "out")],
                             TOL[(fdt, "prob")],
                             TOL_JOINT if variant == "rollout"
                             else TOL[(fdt, "prob")]]
-                    errs[(kind, variant, clamp, n)] = _compare(
-                        case, got, want, tols, failures)
+                    for design in fwd_designs(dtype):
+                        got = _fwd_design(design, _call,
+                                          ka.masked_attention_fused, variant,
+                                          qkv, bg, joint, 12, clamp, scales)
+                        torch.cuda.synchronize()
+                        case = f"attention {design:11s} {kind:10s} " \
+                               f"{variant:8s} clamp={clamp!s:5s} B={b} N={n}"
+                        err = _compare(case, got, want, tols, failures)
+                        if design == fwd_designs(dtype)[0]:
+                            errs[(kind, variant, clamp, n)] = err
+                        if design == "tensor-core" and not all(
+                                torch.equal(x, y) for x, y in zip(got, _call(
+                                    ka.masked_attention_fused, variant, qkv,
+                                    bg, joint, 12, clamp, scales))):
+                            failures.append(f"{case}: a second launch gave "
+                                            "other bits")
     if failures:
         raise AssertionError("attention kernel != plain version:\n"
                              + "\n".join(failures))
     return errs
+
+
+def fwd_designs(dtype):
+    """The forward designs that take qkv of ``dtype``, the path's first:
+    bf16 and int8 the tensor-core design, then the FMA design they ran
+    before; float32 the FMA design."""
+    return ("fma",) if dtype == torch.float32 else ("tensor-core", "fma")
+
+
+def _fwd_design(design, fn, *args, **kw):
+    """``fn(*args, **kw)`` with the forward wrapper's bf16 / int8 design set
+    to ``design`` ("tensor-core", the path's, or "fma", the design those
+    dtypes ran before); float32 runs the FMA design either way."""
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    saved, ka._fwd_bf16_design = ka._fwd_bf16_design, design
+    try:
+        return fn(*args, **kw)
+    finally:
+        ka._fwd_bf16_design = saved
+
+
+def _gemm_design(design, *args, **kw):
+    """``linear_int8`` on ``design`` ("tensor-core", the path's, or "dp4a",
+    the design it ran before)."""
+    from vision_transformer_cam_tpu_torch.kernels import gemm
+    saved, gemm._int8_gemm_design = gemm._int8_gemm_design, design
+    try:
+        return gemm.linear_int8(*args, **kw)
+    finally:
+        gemm._int8_gemm_design = saved
 
 
 def _bwd_call(fn, qkv, bg, d_out, heads, clamp):
@@ -415,15 +464,46 @@ def bwd_designs(dtype, n):
     return (("tensor-core",) if dtype == torch.bfloat16 else ()) + fma
 
 
-def round_robin(fns, iters=20):
-    """{name: mean ms} of two ``time_ms`` runs of each function, in turns
-    (the order, then the order reversed)."""
+def round_robin(fns, iters=20, timer=None):
+    """{name: mean ms} of two runs of each function by ``timer`` (default
+    ``time_ms``), in turns (the order, then the order reversed)."""
+    timer = timer or time_ms
     names = list(fns)
     got = {name: [] for name in names}
     for order in (names, names[::-1]):
         for name in order:
-            got[name].append(time_ms(fns[name], iters))
+            got[name].append(timer(fns[name], iters))
     return {name: sum(v) / len(v) for name, v in got.items()}
+
+
+def graph_ms(fn, iters=20, warmup=3):
+    """Mean device ms of ``fn()``: ``iters`` calls captured in one CUDA graph
+    and replayed between two CUDA events, so the wrapper's host work (checks,
+    allocation, the ctypes call), which for a call shorter than it would be
+    timed in place of the kernel, stays out of the reading."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    # relaxed: the wrappers set a kernel attribute (not a stream operation)
+    # while the graph is captured
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / iters
+    del graph
+    return ms
 
 
 def bwd_inputs(b, n, heads, dtype, seed):
@@ -600,7 +680,10 @@ def check_gemm(m=8 * 197):
     """int8 GEMM vs its plain version on the card.  Float outputs: the two
     run the same rounded operations on the exact integer dot, so they are
     held to 1e-6 relative (float32) or one bf16 ulp (2^-8 relative); int8
-    outputs to one step on at most 0.1 %.  Returns the worst float error."""
+    outputs to one step on at most 0.1 %.  The tensor-core design (the
+    path's) and the dp4a design it replaced run one epilogue on the same
+    exact dot: they must give the same bits.  Returns the worst float
+    error."""
     from vision_transformer_cam_tpu_torch.kernels import gemm
     shapes = dict(GEMM_SHAPES, ragged=(200, 72))
     worst, failures = 0.0, []
@@ -611,8 +694,13 @@ def check_gemm(m=8 * 197):
             args, kw = _gemm_args(ops, route, x_kind, epi, extra, si)
             got = gemm.linear_int8(*args, **kw)
             want = gemm.linear_int8_ref(*args, **kw)
+            same = torch.equal(got, _gemm_design("dp4a", *args, **kw))
             torch.cuda.synchronize()
-            case = f"gemm {shape:6s} M={mm} K={k} N={n} {label}"
+            case = f"gemm {shape:6s} M={mm} K={k} N={n} {label} (bits of " \
+                   f"the dp4a design: {same})"
+            if not same:
+                failures.append(f"{case}: the tensor-core and the dp4a "
+                                "designs differ")
             if epi == "float":
                 rtol = 1e-6 if kw["out_dtype"] == torch.float32 else 2 ** -8
                 tol = (0.0, rtol)
@@ -712,12 +800,27 @@ def mlp_int8_operands(m, c, hid, x_dtype, seed):
     return x, w1q, cs1, b1, w2q, cs2, b2, 1.0 / act1, 1.0 / act2
 
 
+def mlp_int8_chain(x, w1q, cs1, b1, w2q, cs2, b2, inv_a1, inv_a2, *,
+                   gelu_approx=True, out_dtype=torch.bfloat16):
+    """The fused int8 MLP as two fused-route linear_int8 launches (the
+    tensor-core GEMM): GELU-requant, then the float epilogue."""
+    from vision_transformer_cam_tpu_torch.kernels import gemm
+    hq = gemm.linear_int8(x, w1q, cs1, b1, inv_a1, route="fused",
+                          epilogue="gelu", out_scales=inv_a2.reshape(1),
+                          gelu_approx=gelu_approx)
+    one = torch.ones((), device=x.device)
+    return gemm.linear_int8(hq.float(), w2q, cs2, b2, one, route="fused",
+                            out_dtype=out_dtype)
+
+
 def check_mlp_int8():
     """mlp_fused_int8 vs its plain version (the chain of two fused-route int8
     GEMMs) on the card.  Both run the same rounded float32 operations on
     exact integer sums, so the float32 output is held to 1e-6 relative
     (printed: whether it is equal bit for bit) and the bf16 output to one
-    bf16 ulp.  Returns the worst float32 error at the ViT-B widths."""
+    bf16 ulp; against the same chain of two linear_int8 launches on the card
+    (the tensor-core GEMM) it must be equal bit for bit.  Returns the worst
+    float32 error at the ViT-B widths."""
     from vision_transformer_cam_tpu_torch.kernels import gemm
     worst, failures = 0.0, []
     for si, (m, c, hid) in enumerate(((8 * 197, 768, 3072), (111, 72, 200),
@@ -730,14 +833,20 @@ def check_mlp_int8():
                 kw = dict(gelu_approx=approx, out_dtype=out_dtype)
                 got = gemm.mlp_fused_int8(*ops, **kw)
                 want = gemm.mlp_fused_int8_plain(*ops, **kw)
+                chain = mlp_int8_chain(*ops, **kw)
                 torch.cuda.synchronize()
                 names = [str(d).split(".")[-1] for d in (x_dtype, out_dtype)]
                 rtol = 1e-6 if out_dtype == torch.float32 else 2 ** -8
+                case = f"mlp_fused_int8 {names[0]}->{names[1]} " \
+                       f"{'tanh' if approx else 'erf':4s} M={m} C={c} " \
+                       f"HID={hid}"
                 err = _compare(
-                    f"mlp_fused_int8 {names[0]}->{names[1]} "
-                    f"{'tanh' if approx else 'erf':4s} M={m} C={c} HID={hid} "
-                    f"(bit for bit: {torch.equal(got, want)})", (got,),
-                    (want,), ((0.0, rtol),), failures)
+                    f"{case} (bit for bit: plain {torch.equal(got, want)}, "
+                    f"two linear_int8 launches {torch.equal(got, chain)})",
+                    (got,), (want,), ((0.0, rtol),), failures)
+                if not torch.equal(got, chain):
+                    failures.append(f"{case}: not the chain of two "
+                                    "linear_int8 launches bit for bit")
                 if c == 768 and out_dtype == torch.float32:
                     worst = max(worst, err)
     if failures:
@@ -1010,11 +1119,31 @@ def in_turns(kern, plain, iters=20):
 
 
 def time_kernels(b=64, n=197):
-    """Each kernel against its plain version at ViT-B shapes and B=64;
-    the int8 GEMMs also against bf16 F.linear at the same shape."""
+    """Each kernel against its plain version at ViT-B shapes and B=64, in
+    turns: the attention variants (bf16 and int8 in the tensor-core design
+    and the FMA design they ran before) and the int8 GEMMs (the tensor-core
+    and the dp4a design), the GEMMs also beside bf16 F.linear and
+    torch._int_mm (the bare int8 product: no quantize, no epilogue) at the
+    same shape; then kernel 1's int8 rollout variants at ViT-L/16@384's
+    N = 577 (B=16, 16 heads), checked against the plain version and timed
+    the same way.  Returns {key: (kernel ms, plain ms)} and, under
+    ("earlier", ...) keys, the earlier design's ms."""
     from vision_transformer_cam_tpu_torch.kernels import attention as ka
     from vision_transformer_cam_tpu_torch.kernels import gemm
     times = {}
+
+    def attention_turns(label, dtype, qkv, bg, joint, heads, variant, clamp,
+                        scales, iters=20):
+        fns = {d: (lambda d=d: _fwd_design(
+            d, _call, ka.masked_attention_fused, variant, qkv, bg, joint,
+            heads, clamp, scales)) for d in fwd_designs(dtype)}
+        fns["plain"] = lambda: _call(ka.masked_attention_fused_ref, variant,
+                                     qkv, bg, joint, heads, clamp, scales)
+        ms = round_robin(fns, iters)
+        say(f"time attention {label}: " + ", ".join(
+            f"{name} {t:.4f} ms" for name, t in ms.items()))
+        return ms
+
     for kind in ("bf16", "float32", "int8_io", "int8_out"):
         dtype = {"bf16": torch.bfloat16, "float32": torch.float32,
                  "int8_io": torch.int8, "int8_out": torch.bfloat16}[kind]
@@ -1025,27 +1154,48 @@ def time_kernels(b=64, n=197):
                                        if kind == "int8_out" else None)
         for variant in VARIANTS if kind in ("bf16", "float32") \
                 else ("rollout",):
-            def kern():
-                _call(ka.masked_attention_fused, variant, qkv, bg, joint, 12,
-                      clamp, scales)
-
-            def plain():
-                _call(ka.masked_attention_fused_ref, variant, qkv, bg, joint,
-                      12, clamp, scales)
-            times[("attention", kind, variant)] = in_turns(kern, plain)
-            k_ms, p_ms = times[("attention", kind, variant)]
-            say(f"time attention {kind:8s} {variant:8s} B={b} N={n}: kernel "
-                f"{k_ms:.4f} ms, plain {p_ms:.4f} ms")
+            ms = attention_turns(f"{kind:8s} {variant:8s} B={b} N={n}", dtype,
+                                 qkv, bg, joint, 12, variant, clamp, scales)
+            times[("attention", kind, variant)] = (
+                ms[fwd_designs(dtype)[0]], ms["plain"])
+            if dtype != torch.float32:
+                times[("earlier", "attention", kind, variant)] = ms["fma"]
     # the training forward: bf16, plain variant, no clamp
     qkv, bg, joint, _ = attention_inputs(b, n, 12, torch.bfloat16, seed=1)
-    times[("attention", "bf16 no clamp", "plain")] = in_turns(
-        lambda: _call(ka.masked_attention_fused, "plain", qkv, bg, joint, 12,
-                      False),
-        lambda: _call(ka.masked_attention_fused_ref, "plain", qkv, bg, joint,
-                      12, False))
-    k_ms, p_ms = times[("attention", "bf16 no clamp", "plain")]
-    say(f"time attention bf16 plain, no clamp (the training forward) B={b} "
-        f"N={n}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+    ms = attention_turns(f"bf16 plain, no clamp (the training forward) B={b} "
+                         f"N={n}", torch.bfloat16, qkv, bg, joint, 12, "plain",
+                         False, None)
+    times[("attention", "bf16 no clamp", "plain")] = (ms["tensor-core"],
+                                                      ms["plain"])
+    times[("earlier", "attention", "bf16 no clamp", "plain")] = ms["fma"]
+    # kernel 1's int8 rollout variants past 512 tokens (ViT-L/16@384): the
+    # int8 route of serving.py stops at 640 tokens; recorded, not routed
+    ln, lb, lh = 577, 16, 16
+    for kind in ("int8_io", "int8_out"):
+        dtype = torch.int8 if kind == "int8_io" else torch.bfloat16
+        qkv, bg, joint, sc = attention_inputs(lb, ln, lh, dtype, seed=2)
+        scales = torch.cat([sc, torch.tensor([20.0], device="cuda")]) \
+            if kind == "int8_io" else torch.tensor([20.0], device="cuda")
+        want = _call(ka.masked_attention_fused_ref, "rollout", qkv, bg, joint,
+                     lh, True, scales)
+        failures = []
+        for design in fwd_designs(dtype):
+            _compare(f"attention {design} {kind} rollout clamp B={lb} N={ln} "
+                     f"H={lh}", _fwd_design(
+                         design, _call, ka.masked_attention_fused, "rollout",
+                         qkv, bg, joint, lh, True, scales), want,
+                     [None, TOL[(torch.bfloat16, "prob")], TOL_JOINT],
+                     failures)
+        if failures:
+            raise AssertionError("attention kernel != plain version:\n"
+                                 + "\n".join(failures))
+        ms = attention_turns(f"{kind:8s} rollout  B={lb} N={ln} H={lh}",
+                             dtype, qkv, bg, joint, lh, "rollout", True,
+                             scales, iters=10)
+        times[("attention", kind, "rollout", ln)] = (ms["tensor-core"],
+                                                     ms["plain"])
+        times[("earlier", "attention", kind, "rollout", ln)] = ms["fma"]
+        del want
     # the int8 GEMMs as the int8 main path calls them (ln_quant and the
     # fused route on): patch fused bf16 -> bf16, qkv int8 -> requant/36,
     # proj int8 -> bf16, fc1 int8 -> gelu, fc2 int8 -> bf16
@@ -1058,17 +1208,58 @@ def time_kernels(b=64, n=197):
         ops = gemm_operands(b * n, k, n_out, seed=10 + si)
         route, x_kind, epi, extra = path[shape]
         args, kw = _gemm_args(ops, route, x_kind, epi, extra, si)
-        times[("gemm", shape)] = in_turns(
-            lambda: gemm.linear_int8(*args, **kw),
-            lambda: gemm.linear_int8_ref(*args, **kw), iters=5)
+        fns = {"tensor-core": lambda: _gemm_design("tensor-core", *args,
+                                                   **kw),
+               "dp4a": lambda: _gemm_design("dp4a", *args, **kw),
+               "plain": lambda: gemm.linear_int8_ref(*args, **kw)}
+        ms = round_robin(fns, iters=5)
+        # the same calls' device time, out of a CUDA graph: a call shorter
+        # than the wrapper's host work is timed as that work by time_ms
+        dev = round_robin({d: fns[d] for d in ("tensor-core", "dp4a")},
+                          iters=10, timer=graph_ms)
+        times[("gemm", shape)] = (ms["tensor-core"], ms["plain"])
+        times[("earlier", "gemm", shape)] = ms["dp4a"]
+        times[("gemm_graph", shape)] = dev["tensor-core"]
+        times[("earlier", "gemm_graph", shape)] = dev["dp4a"]
         wb = torch.randn((n_out, k), device="cuda").to(torch.bfloat16)
-        times[("gemm_bf16", shape)] = time_ms(
-            lambda: torch.nn.functional.linear(ops["x"], wb, None), 5)
-        k_ms, p_ms = times[("gemm", shape)]
+        xq = torch.clamp(torch.round(ops["x"].float() / ops["act"]), -127,
+                         127).to(torch.int8)
+        wt = ops["wq"].t()   # [K, N], column major: cuBLASLt's int8 layout
+        yard_fns = {
+            "bf16 F.linear": lambda: torch.nn.functional.linear(ops["x"], wb,
+                                                                None),
+            "torch._int_mm": lambda: torch._int_mm(xq, wt)}
+        yard = round_robin(yard_fns, iters=5)
+        yard_dev = round_robin(yard_fns, iters=10, timer=graph_ms)
+        times[("gemm_bf16", shape)] = yard["bf16 F.linear"]
+        times[("gemm_int_mm", shape)] = yard["torch._int_mm"]
+        times[("gemm_bf16_graph", shape)] = yard_dev["bf16 F.linear"]
+        times[("gemm_int_mm_graph", shape)] = yard_dev["torch._int_mm"]
         say(f"time int8 GEMM {shape:5s} M={b * n} K={k} N={n_out} "
-            f"({route}, {x_kind}, {epi}): kernel {k_ms:.4f} ms, plain "
-            f"{p_ms:.4f} ms, bf16 F.linear {times[('gemm_bf16', shape)]:.4f} "
-            f"ms")
+            f"({route}, {x_kind}, {epi}): tensor-core {ms['tensor-core']:.4f} "
+            f"ms, dp4a {ms['dp4a']:.4f} ms, plain {ms['plain']:.4f} ms; "
+            f"bf16 F.linear {yard['bf16 F.linear']:.4f} ms, torch._int_mm "
+            f"(int32 product only) {yard['torch._int_mm']:.4f} ms; out of a "
+            f"CUDA graph (device time): tensor-core "
+            f"{dev['tensor-core']:.4f} ms, dp4a {dev['dp4a']:.4f} ms, bf16 "
+            f"F.linear {yard_dev['bf16 F.linear']:.4f} ms, torch._int_mm "
+            f"{yard_dev['torch._int_mm']:.4f} ms")
+    five = {"tensor-core": [times[("gemm", s_)][0] for s_ in GEMM_SHAPES],
+            "dp4a": [times[("earlier", "gemm", s_)] for s_ in GEMM_SHAPES],
+            "plain": [times[("gemm", s_)][1] for s_ in GEMM_SHAPES],
+            "bf16 F.linear": [times[("gemm_bf16", s_)] for s_ in GEMM_SHAPES],
+            "torch._int_mm": [times[("gemm_int_mm", s_)]
+                              for s_ in GEMM_SHAPES],
+            "tensor-core out of a CUDA graph": [times[("gemm_graph", s_)]
+                                                for s_ in GEMM_SHAPES],
+            "dp4a out of a CUDA graph": [
+                times[("earlier", "gemm_graph", s_)] for s_ in GEMM_SHAPES],
+            "bf16 F.linear out of a CUDA graph": [
+                times[("gemm_bf16_graph", s_)] for s_ in GEMM_SHAPES],
+            "torch._int_mm out of a CUDA graph": [
+                times[("gemm_int_mm_graph", s_)] for s_ in GEMM_SHAPES]}
+    say("time int8 GEMM, the five: " + ", ".join(
+        f"{name} {sum(v):.4f} ms" for name, v in five.items()))
     x = torch.randn((b * n, 768), device="cuda").to(torch.bfloat16)
     w = torch.ones(768, device="cuda", dtype=torch.bfloat16)
     inv = torch.tensor(30.0, device="cuda")
@@ -1472,6 +1663,35 @@ def kernel_bounds(b=64, n=197, heads=12):
                                       7 * m * c * 2 + m * 4,
                                       {"bf16": 5 * qk}),
     }
+    # the other variants time_kernels times (row 1 of the kernel table):
+    # bf16 head mean (bf16 hm out), the float32 variants (float32 in and out,
+    # products at the f32 peak of the FMA design), int8_out rollout (bf16 qkv
+    # in, int8 out); and the int8 rollout variants at ViT-L/16@384's N = 577
+    f32_ops = {"f32": 2 * qk}
+    for name, nbytes, ops in (
+            ("bf16 headmean", m * 3 * c * 2 + m * 2 + m * c * 2 + m * 2
+             + b * n * n * 2, {"bf16": 2 * qk}),
+            ("f32 plain", m * 3 * c * 4 + m * 4 + m * c * 4 + m * 4, f32_ops),
+            ("f32 headmean", m * 3 * c * 4 + m * 4 + m * c * 4 + m * 4
+             + b * n * n * 4, f32_ops),
+            ("f32 rollout", m * 3 * c * 4 + m * 4 + 2 * b * n * n * 4
+             + m * c * 4 + m * 4, {"f32": 2 * qk + 2 * b * n ** 3}),
+            ("int8_out rollout", m * 3 * c * 2 + m * 2 + 4
+             + 2 * b * n * n * 4 + m * c + m * 2,
+             {"bf16": 2 * qk, "f32": 2 * b * n ** 3})):
+        bounds[f"masked_attention_fused[{name}]"] = bound(
+            f"masked_attention_fused {name}", nbytes, ops)
+    lb, ln, lh = 16, 577, 16
+    lm, lc, lqk = lb * ln, lh * 64, 2 * lb * lh * ln * ln * 64
+    bounds["masked_attention_fused[int8_io rollout, N=577]"] = bound(
+        "masked_attention_fused int8_io rollout B=16 N=577 H=16",
+        lm * 3 * lc + lm * 4 + (3 * lh + 1) * 4 + 2 * lb * ln * ln * 4
+        + lm * lc + lm * 2,
+        {"int8": lqk, "bf16": lqk, "f32": 2 * lb * ln ** 3})
+    bounds["masked_attention_fused[int8_out rollout, N=577]"] = bound(
+        "masked_attention_fused int8_out rollout B=16 N=577 H=16",
+        lm * 3 * lc * 2 + lm * 2 + 4 + 2 * lb * ln * ln * 4 + lm * lc
+        + lm * 2, {"bf16": 2 * lqk, "f32": 2 * lb * ln ** 3})
     hid = 4 * c
     bounds.update({
         # the bf16 serving path's launch: bf16 qkv and bg and the f32 joint
@@ -2384,7 +2604,9 @@ def main() -> int:
     for name, count in bench_path().items():
         launches[name] = launches.get(name, 0) + count
     launches["masked_attention"] = scripts_path()
-    gemm_ms = sum(times[("gemm", s)][0] for s in GEMM_SHAPES)
+    # the GEMMs' device time out of a CUDA graph: the shortest of them take
+    # less than the wrapper's host work, which the event timing reads instead
+    gemm_ms = sum(times[("gemm_graph", s)] for s in GEMM_SHAPES)
     gemm_plain = sum(times[("gemm", s)][1] for s in GEMM_SHAPES)
     stats = {   # name: (max abs err, kernel ms, plain ms)
         "masked_attention_fused": (

@@ -1,20 +1,26 @@
 """The denormal flush of the tensor-core kernels, held to the JAX package.
 
-The bf16 tensor-core designs of the sequence-parallel kernel and of the
-attention backward flush exponentials and probabilities below 2^-126 (the
-float32 denormals) to zero: a masked logit is s - 100, and exp(-100) is a
-denormal, on whose slow path exp would run.  The TPU flushes them too.  Here
-the plain versions run with every exponential below 2^-126 set to zero, and
-must stay within the parity tolerances of the unflushed plain versions
-against the JAX kernels (Pallas interpret mode, float32, on the CPU):
-``tests/test_torch_seq.py``'s (out 1e-5, row0 and the head mean 1e-6) and
-``tests/test_torch_attention_bwd.py``'s (2e-4).  The inputs make the flush
-bite: a background of all but the cls token, and hot query rows whose logits
-pass the clamp at 80.
+The tensor-core designs of the fused attention forward (bf16 and int8 qkv),
+of the sequence-parallel kernel and of the attention backward flush
+exponentials and probabilities below 2^-126 (the float32 denormals) to zero:
+a masked logit is s - 100, and exp(-100) is a denormal, on whose slow path
+exp would run.  The TPU flushes them too.  Here the plain versions run with
+every exponential below 2^-126 set to zero, and must stay within the parity
+tolerances of the unflushed plain versions against the JAX kernels (Pallas
+interpret mode, float32, on the CPU): ``tests/test_torch_attention.py``'s
+(out 1e-5, cls row, head mean and rollout 1e-6; an int8 out within one step
+on at most 1 %), ``tests/test_torch_seq.py``'s (out 1e-5, row0 and the head
+mean 1e-6) and ``tests/test_torch_attention_bwd.py``'s (2e-4).  The inputs
+make the flush bite: a background of all but the cls token, and hot query
+rows whose logits pass the clamp at 80.
 
-The wrappers' design rule (which design and scratch each dtype and length
-gets) is tested here too: it decides what runs on the card.
+The wrappers' design rules (which design and scratch each dtype and length
+gets) are tested here too: they decide what runs on the card.
 """
+
+import dataclasses
+import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -23,7 +29,9 @@ import torch
 import jax.numpy as jnp
 
 from vision_transformer_cam_tpu.kernels import attention as jattn
+from vision_transformer_cam_tpu_torch import configs
 from vision_transformer_cam_tpu_torch.kernels import attention as tattn
+from vision_transformer_cam_tpu_torch.kernels import gemm as tgemm
 
 TINY_F32 = 2.0 ** -126     # the smallest normal float32
 SCALE8, SCALE64 = 8 ** -0.5, 64 ** -0.5
@@ -92,6 +100,69 @@ def test_flushed_seq_ref_matches_jax_kernel(flushed_exp, sp, hm, clamp,
     assert flushed_exp.count > 0    # the flush did bite
 
 
+def _fused_inputs(option, clamp, bg_kind):
+    """Kernel 1's inputs at B=2, N=37, four heads of 16: the float test's
+    background-heavy, hot-row qkv (``float``, and ``int8_out`` with the
+    output scale 1/s_out = 20), or int8 qkv with per-head scales whose head
+    0 q scale passes the clamp (``int8_io``); a row-stochastic joint."""
+    heads, n = 4, 37
+    qkv, bg = _inputs(2, n, heads * 16, 60 + clamp, bg_kind)
+    rng = np.random.default_rng(61 + clamp)
+    j = rng.standard_normal((2, n, n))
+    joint = (np.exp(j) / np.exp(j).sum(-1, keepdims=True)).astype(np.float32)
+    scales = None
+    if option == "int8_out":
+        scales = np.array([20.0], np.float32)
+    elif option == "int8_io":
+        qkv = rng.integers(-127, 128, qkv.shape).astype(np.int8)
+        sc = rng.uniform(0.01, 0.03, 3 * heads).astype(np.float32)
+        sc[0] = 0.5
+        scales = np.concatenate([sc, [20.0]]).astype(np.float32)
+    return qkv, bg, joint, scales
+
+
+@pytest.mark.parametrize("bg_kind", ["all_but_cls", "30%"])
+@pytest.mark.parametrize("option", ["float", "int8_io", "int8_out"])
+@pytest.mark.parametrize("clamp", [False, True], ids=["rowmax", "clamp"])
+@pytest.mark.parametrize("variant", ["plain", "headmean", "rollout"])
+def test_flushed_fused_ref_matches_jax_kernel(flushed_exp, variant, clamp,
+                                              option, bg_kind):
+    """The flushed plain version of kernel 1 (masked_attention_fused_ref)
+    against JAX masked_attention_fused in interpret mode, float32
+    (float_dtype float32 under int8_io), B=2, N=37, H=4, dh=16: plain, head
+    mean and rollout, clamp and row max, float qkv, int8_io and int8_out.
+    Float outputs at tests/test_torch_attention.py's tolerances, an int8
+    output within one step on at most 1 % of its elements."""
+    qkv, bg, joint, scales = _fused_inputs(option, clamp, bg_kind)
+    kw = dict(num_heads=4, scale=0.25, clamp_softmax=clamp,
+              with_headmean=variant == "headmean")
+    j = joint if variant == "rollout" else None
+    jkw = dict(kw, float_dtype=jnp.float32) if option == "int8_io" else kw
+    want = jattn.masked_attention_fused(
+        jnp.asarray(qkv), jnp.asarray(bg), None if j is None else
+        jnp.asarray(j), None if scales is None else jnp.asarray(scales),
+        interpret=True, **jkw)
+    got = tattn.masked_attention_fused_ref(
+        torch.from_numpy(qkv), torch.from_numpy(bg),
+        None if j is None else torch.from_numpy(j),
+        None if scales is None else torch.from_numpy(scales),
+        float_dtype=torch.float32, **kw)
+    assert len(got) == len(want) == (2 if variant == "plain" else 3)
+    for name, g, w in zip(("out", "cls", "third"), got, want):
+        g, w = g.numpy(), np.asarray(w)
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        if g.dtype == np.int8:
+            d = np.abs(g.astype(np.int32) - w.astype(np.int32))
+            assert d.max() <= 1 and (d > 0).mean() <= 1e-2, name
+            assert np.abs(g).max() > 30, name     # not all rounded to 0
+            continue
+        assert np.isfinite(g).all(), name
+        np.testing.assert_allclose(g, w, rtol=0,
+                                   atol=1e-5 if name == "out" else 1e-6,
+                                   err_msg=name)
+    assert flushed_exp.count > 0    # the flush did bite
+
+
 @pytest.mark.parametrize("bg_kind", ["all_but_cls", "30%"])
 @pytest.mark.parametrize("clamp", [False, True], ids=["rowmax", "clamp"])
 def test_flushed_bwd_ref_matches_jax_kernel(flushed_exp, clamp, bg_kind):
@@ -144,3 +215,44 @@ def test_seq_design_rule():
     assert tattn.seq_design(torch.float32) == "fma"
     assert set(tattn.SEQ_DESIGNS) == {"tensor-core", "fma"}
     assert tattn.SEQ_MAX_NP >= -(-1025 // 8) * 8
+
+
+@pytest.mark.parametrize("dtype,design", [
+    (torch.bfloat16, "tensor-core"),
+    (torch.int8, "tensor-core"),
+    (torch.float32, "fma"),
+])
+def test_fwd_design_rule(dtype, design):
+    """bf16 and int8 qkv take the fused forward's tensor-core design (the
+    serving and training paths'), float32 its FMA design; nothing else has
+    a CUDA design."""
+    assert tattn.fwd_design(dtype) == design
+    assert set(tattn.FWD_DESIGNS) == {"tensor-core", "fma"}
+    assert tattn._fwd_bf16_design == "tensor-core"
+    with pytest.raises(TypeError, match="bfloat16, float32 or int8"):
+        tattn.fwd_design(torch.float16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_int8_gemm_design_rule(dtype):
+    """Every x dtype of linear_int8 (the float routes quantize in the
+    kernel, int8 x streams in) takes the tensor-core design."""
+    assert tgemm.int8_gemm_design(dtype) == "tensor-core"
+    assert set(tgemm.INT8_GEMM_DESIGNS) == {"tensor-core", "dp4a"}
+    with pytest.raises(TypeError, match="float32, bfloat16 or int8"):
+        tgemm.int8_gemm_design(torch.float16)
+
+
+def test_no_config_field_reaches_the_design_switches():
+    """The private design switches of the kernels are set nowhere in the
+    port but where they are defined, and no config field names a design:
+    the earlier designs are reachable only by setting the switches by
+    hand, as chip_smoke.py does to time them side by side."""
+    fields = {f.name for f in dataclasses.fields(configs.ViTCAMConfig)}
+    assert not any("design" in f for f in fields), fields
+    pkg = pathlib.Path(tattn.__file__).resolve().parents[1]
+    switch = re.compile(r"_(fwd|seq|bwd)_bf16_design\s*=|_int8_gemm_design"
+                        r"\s*=")
+    setters = sorted(str(p.relative_to(pkg)) for p in pkg.rglob("*.py")
+                     if switch.search(p.read_text()))
+    assert setters == ["kernels/attention.py", "kernels/gemm.py"], setters

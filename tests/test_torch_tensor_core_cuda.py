@@ -1,0 +1,237 @@
+"""The tensor-core designs of the int8 GEMM and of the fused attention
+forward, on the card.
+
+``linear_int8`` runs mma.sync.m16n8k32 (s8) for every route; the fused
+attention forward runs its tensor-core design for bf16 and int8 qkv.  Each
+is held against its plain version and against the design it replaced (the
+``__dp4a`` GEMM, the FMA attention), which stay compiled behind the private
+switches ``kernels.gemm._int8_gemm_design`` and
+``kernels.attention._fwd_bf16_design``.  The tests need a CUDA GPU (the
+kernels have no CPU mode) and skip here; on the card:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_tensor_core_cuda.py
+
+Tolerances as in chip_smoke.py: float GEMM outputs 1e-6 relative (float32)
+or one bf16 ulp, int8 outputs one step on at most 0.1 % of the elements;
+attention out 1e-2 + 2^-6 relative (bf16), probabilities 1e-5 + 2^-6, the
+float32 rollout update 1e-6 + 1e-4.
+"""
+
+import pytest
+import torch
+
+from vision_transformer_cam_tpu_torch.kernels import attention as tka
+from vision_transformer_cam_tpu_torch.kernels import gemm as tgemm
+
+GEMM_SHAPES = {"patch": (768, 768), "qkv": (768, 2304), "proj": (768, 768),
+               "fc1": (768, 3072), "fc2": (3072, 768), "ragged": (200, 72)}
+TOL_OUT, TOL_PROB, TOL_JOINT = (1e-2, 2 ** -6), (1e-5, 2 ** -6), (1e-6, 1e-4)
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the CUDA kernels have no CPU mode")
+
+
+def _with(module, name, value, fn, *args, **kw):
+    saved = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        return fn(*args, **kw)
+    finally:
+        setattr(module, name, saved)
+
+
+def _int8_close(got, want, frac=1e-3):
+    d = (got.int() - want.int()).abs()
+    assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= frac
+
+
+def _close(got, want, tol):
+    atol, rtol = tol
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().sub(atol + rtol * want.abs()).max()) <= 0
+
+
+def _gemm_cases(shape, n):
+    """(route, x kind, epilogue, extra) for every prologue and epilogue."""
+    cases = [("fused", "x", "float", {}), ("qlinear", "x", "float", {}),
+             ("qlinear", "xq", "float", {}),
+             ("fused", "x", "gelu", {"gelu_approx": True}),
+             ("fused", "x", "requant", {"groups": 3})]
+    for x_kind in ("x", "xq"):
+        for groups in (3, 36):
+            if n % groups == 0:
+                cases.append(("qlinear", x_kind, "requant",
+                              {"groups": groups}))
+        for approx in (True, False):
+            cases.append(("qlinear", x_kind, "gelu", {"gelu_approx": approx}))
+    if shape == "ragged":
+        cases += [("fused", "x32", "float", {}),
+                  ("qlinear", "x32", "float", {"nobias": True})]
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(GEMM_SHAPES))
+def test_cuda_int8_gemm_tensor_core_matches_plain_and_dp4a(shape):
+    """Every route and epilogue at the five ViT-B GEMM shapes (M = 8 * 197)
+    and a ragged one (M = 111, K = 200, N = 72): the tensor-core design
+    against the plain version, and bit for bit against the dp4a design (both
+    run one epilogue on the exact int32 dot)."""
+    _card()
+    k, n = GEMM_SHAPES[shape]
+    m = 111 if shape == "ragged" else 8 * 197
+    g = torch.Generator(device="cuda").manual_seed(k + n)
+    x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+    wq = torch.randint(-127, 128, (n, k), generator=g, device="cuda",
+                       dtype=torch.int8)
+    ws = 1e-3 * (1 + torch.rand((n,), generator=g, device="cuda"))
+    act = x.float().abs().amax() / 127.0
+    bias = torch.randn((n,), generator=g, device="cuda")
+    xs = {"x": x, "x32": x.float(),
+          "xq": torch.clamp(torch.round(x.float() / act), -127, 127)
+          .to(torch.int8)}
+    for route, x_kind, epi, extra in _gemm_cases(shape, n):
+        kw = dict(route=route, epilogue=epi)
+        if epi == "float":
+            kw["out_dtype"] = torch.float32 if x_kind == "x32" \
+                else torch.bfloat16
+        elif epi == "requant":
+            kw["groups"] = extra["groups"]
+            kw["out_scales"] = 0.1 + 0.1 * torch.rand(
+                (extra["groups"],), generator=g, device="cuda")
+        else:
+            kw["gelu_approx"] = extra["gelu_approx"]
+            kw["out_scales"] = torch.full((1,), 0.1, device="cuda")
+        if epi != "float" and route == "fused":
+            kw["out_scales"] = 1.0 / kw["out_scales"]
+        args = (xs[x_kind], wq, ws * act if route == "fused" else ws,
+                None if extra.get("nobias") else bias,
+                1.0 / act if route == "fused" else act)
+        before = tgemm.linear_int8_launches
+        got = tgemm.linear_int8(*args, **kw)
+        assert tgemm.linear_int8_launches == before + 1
+        want = tgemm.linear_int8_ref(*args, **kw)
+        old = _with(tgemm, "_int8_gemm_design", "dp4a", tgemm.linear_int8,
+                    *args, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, old), (route, x_kind, epi)
+        if epi == "float":
+            rtol = 1e-6 if kw["out_dtype"] == torch.float32 else 2 ** -8
+            _close(got, want, (0.0, rtol))
+        else:
+            _int8_close(got, want)
+
+
+def _attention_inputs(b, n, heads, option, seed):
+    """Packed qkv with hot query rows (logits past the clamp at 80), 30 %
+    background (cls column never), a row-stochastic float32 joint, and for
+    int8 options their scales."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c = heads * 64
+    bg = (torch.rand((b, n), generator=g, device="cuda") < 0.3).float()
+    bg[:, 0] = 0.0
+    joint = torch.softmax(torch.randn((b, n, n), generator=g, device="cuda"),
+                          dim=-1)
+    if option == "int8_io":
+        qkv = torch.randint(-127, 128, (b, n, 3 * c), generator=g,
+                            device="cuda", dtype=torch.int8)
+        sc = 0.01 + 0.02 * torch.rand((3 * heads,), generator=g,
+                                      device="cuda")
+        sc[0] = 0.3
+        return qkv, bg, joint, torch.cat([sc, torch.tensor([20.0],
+                                                           device="cuda")])
+    qkv = torch.randn((b, n, 3 * c), generator=g, device="cuda")
+    qkv[:, 1:4, :c] *= 40.0
+    scales = torch.tensor([20.0], device="cuda") if option == "int8_out" \
+        else None
+    return qkv.to(torch.bfloat16).contiguous(), bg.to(torch.bfloat16), joint, \
+        scales
+
+
+def _attention_cases(n, q_block):
+    for option in ("bf16", "int8_io", "int8_out"):
+        for variant in ("plain", "headmean", "rollout"):
+            for clamp in (False, True):
+                refused = q_block == 32 and n > 780 and variant != "plain"
+                yield option, variant, clamp, refused
+
+
+def _run(fn, qkv, bg, joint, scales, variant, clamp, q_block=None):
+    kw = dict(num_heads=12, scale=0.125, clamp_softmax=clamp,
+              with_headmean=variant == "headmean")
+    if q_block is not None:
+        kw["q_block"] = q_block
+    return fn(qkv, bg, joint if variant == "rollout" else None, scales, **kw)
+
+
+def _hold(got, want, int8_out, variant, k=1):
+    """got against want at k times the tolerances (k = 2 between two
+    designs, each held to the plain version at k = 1)."""
+    tols = (None if int8_out else TOL_OUT, TOL_PROB,
+            TOL_JOINT if variant == "rollout" else TOL_PROB)
+    for a, w, tol in zip(got, want, tols):
+        if tol is None:
+            _int8_close(a, w, k * 1e-3)
+        else:
+            _close(a, w, (k * tol[0], k * tol[1]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_block", [16, 32])
+@pytest.mark.parametrize("n", [197, 577, 1025])
+def test_cuda_attention_tensor_core_matches_plain_version(n, q_block):
+    """Every variant (plain, head mean, rollout; clamp and row max) on bf16
+    qkv, int8_out and int8_io at B=2 and 12 heads of 64, with q_block 16 and
+    32 (one or two m16 tiles a block): the tensor-core design against the
+    plain version; a second launch gives the same bits.  q_block 32 past
+    N = 780 with the head mean or the rollout is refused."""
+    _card()
+    for option, variant, clamp, refused in _attention_cases(n, q_block):
+        qkv, bg, joint, scales = _attention_inputs(2, n, 12, option,
+                                                   seed=n + q_block)
+        if refused:
+            with pytest.raises(RuntimeError, match="shared memory"):
+                _run(tka.masked_attention_fused, qkv, bg, joint, scales,
+                     variant, clamp, q_block)
+            continue
+        before = tka.launches
+        got = _run(tka.masked_attention_fused, qkv, bg, joint, scales,
+                   variant, clamp, q_block)
+        assert tka.launches == before + 1
+        again = _run(tka.masked_attention_fused, qkv, bg, joint, scales,
+                     variant, clamp, q_block)
+        want = _run(tka.masked_attention_fused_ref, qkv, bg, joint, scales,
+                    variant, clamp)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        _hold(got, want, scales is not None, variant)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [197, 577])
+def test_cuda_attention_tensor_core_matches_fma_design(n):
+    """On the same inputs the tensor-core design against the FMA design it
+    replaced (held to each other at twice the tolerances each meets against
+    the plain version), and q_block 16 against 32 in the tensor-core
+    design: out and cls row bit for bit, the head mean too, the rollout
+    update to 1e-6."""
+    _card()
+    for option, variant, clamp, _ in _attention_cases(n, 16):
+        qkv, bg, joint, scales = _attention_inputs(2, n, 12, option, seed=n)
+        new = _run(tka.masked_attention_fused, qkv, bg, joint, scales,
+                   variant, clamp, 16)
+        wide = _run(tka.masked_attention_fused, qkv, bg, joint, scales,
+                    variant, clamp, 32)
+        old = _with(tka, "_fwd_bf16_design", "fma", _run,
+                    tka.masked_attention_fused, qkv, bg, joint, scales,
+                    variant, clamp)
+        torch.cuda.synchronize()
+        _hold(new, old, scales is not None, variant, k=2)
+        assert torch.equal(new[0], wide[0]) and torch.equal(new[1], wide[1])
+        if variant == "headmean":
+            assert torch.equal(new[2], wide[2])
+        elif variant == "rollout":
+            _close(new[2], wide[2], (1e-6, 0.0))

@@ -101,7 +101,7 @@ def load():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn = lib.vitcam_masked_attention_fused
         fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, f, f, i, i, i, i,
-                       i, p]
+                       i, i, p]
         fn.restype = i
         fn = lib.vitcam_masked_attention_v1
         fn.argtypes = [p] * 7 + [i, i, i, i, f, f, i, i, p]
@@ -111,7 +111,7 @@ def load():
             fn.argtypes = [p] * 6 + [i, i, i, i, f, i, p]
             fn.restype = i
         fn = lib.vitcam_linear_int8
-        fn.argtypes = [p, i, p, i, i, i, p, p, p, i, i, p, i, i, p, i, p]
+        fn.argtypes = [p, i, p, i, i, i, p, p, p, i, i, p, i, i, p, i, i, p]
         fn.restype = i
         fn = lib.vitcam_masked_attention_bwd
         fn.argtypes = [p, p, p, p, p, i, i, i, i, f, f, i, i, i, p]

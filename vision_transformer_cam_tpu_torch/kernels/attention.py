@@ -5,7 +5,8 @@
 with its int8 serving options: ``int8_io`` (int8 qkv with per-head or
 per-tensor scales, int8 output) and ``int8_out`` (float qkv, int8 output).
 On a CUDA tensor it launches the hand-written Hopper kernel
-in ``csrc/masked_attention.cu``; on a CPU tensor it runs
+in ``csrc/masked_attention.cu`` (bf16 and int8 qkv its tensor-core design,
+float32 its FMA design: ``fwd_design``); on a CPU tensor it runs
 ``masked_attention_fused_ref``, the plain PyTorch version of the same math,
 which the CPU tests hold against the JAX kernel.  There is no fallback from
 one to the other.
@@ -95,10 +96,22 @@ SEQ_DESIGNS = {"fma": 0, "tensor-core": 1}
 # The design bf16 runs; only chip_smoke.py sets "fma", to time the earlier one
 _seq_bf16_design = "tensor-core"
 # The forward kernel's query tile (``q_block``) is 32 rows or 16.  With the
-# head mean or the rollout it keeps two [q_block, N] float32 tiles in shared
-# memory: N <= 780 at 32 rows, N <= 1536 at 16; the plain variant's one tile
-# fits both past that.  The split-tensor kernel tiles the same way.
+# head mean or the rollout its FMA design keeps two [q_block, N] float32
+# tiles in shared memory: N <= 780 at 32 rows, N <= 1536 at 16; the plain
+# variant's one tile fits both past that.  The tensor-core design takes the
+# same (q_block, N) pairs as one or two m16 tiles (16 rows by default).  The
+# split-tensor kernel tiles the same way.
 Q_BLOCKS = (16, 32)
+# The forward kernel has two designs.  bf16 and int8 qkv run the tensor-core
+# design: 16 query rows a block of 8 warps, QK^T on mma.sync (bf16, or s8
+# with exact int32 sums under int8_io), P V on bf16 mma.sync, S in
+# registers, K and V staged by cp.async into per-warp rings.  float32 runs
+# the FMA design (a [q_block, N] float32 tile of S in shared memory, float32
+# products): its gates need full float32 products.
+FWD_DESIGNS = {"fma": 0, "tensor-core": 1}
+# The design bf16 and int8 qkv run; only chip_smoke.py sets "fma", to time
+# the earlier one beside it.  No config field or flag reaches it.
+_fwd_bf16_design = "tensor-core"
 V1_MAX_N = 1536
 
 
@@ -123,6 +136,16 @@ def _scales_kind(qkv, scales, num_heads):
         raise ValueError("int8-out mode takes scales = [1/s_out], got "
                          f"{scales.numel()} entries")
     return _OUT_ONLY
+
+
+def fwd_design(dtype) -> str:
+    """The CUDA forward design for qkv of ``dtype``: "tensor-core" for
+    bfloat16 and int8 (the serving and training paths'), "fma" for float32
+    (its gates need full float32 products)."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"the CUDA attention kernel takes bfloat16, float32 "
+                        f"or int8 qkv, got {dtype}")
+    return "fma" if dtype == torch.float32 else _fwd_bf16_design
 
 
 def _check_shapes(qkv, bg, joint, num_heads):
@@ -237,11 +260,14 @@ def masked_attention_fused(qkv, bg, joint=None, scales=None, *,
     qkv, head width 64, bg float32 or bf16, joint float32, scales float32)
     or raise.
 
-    ``q_block`` is the number of query rows a thread block owns, the rows of
-    S it holds in shared memory: 0 picks 32 where the tiles fit and 16 past
-    that (N > 780 with the head mean or the rollout), 16 or 32 forces it, and
-    a forced 32 that does not fit raises with the bytes it needs.  The
-    results do not depend on it beyond the order of float sums."""
+    ``q_block`` is the number of query rows a thread block owns: 16 or 32
+    forces it, and a forced 32 past N = 780 with the head mean or the
+    rollout (where the FMA design's two [32, N] float32 tiles do not fit)
+    raises with the bytes it needs, in either design.  0 picks 32 where the
+    tiles fit and 16 past that in the FMA design, and 16 (one m16 tile, two
+    blocks an SM) in the tensor-core design.  The results do not depend on
+    it beyond the order of float sums in the FMA design, and not at all in
+    the tensor-core design (bit for bit; the rollout update to 1e-6)."""
     global launches
     if q_block not in (0,) + Q_BLOCKS:
         raise ValueError(f"q_block must be 0 (auto) or one of {Q_BLOCKS}, "
@@ -263,9 +289,7 @@ def masked_attention_fused(qkv, bg, joint=None, scales=None, *,
         raise ValueError("masked_attention_fused is not differentiable; call "
                          "it without gradient tracking, or use "
                          "fused_attention_diff")
-    if qkv.dtype not in _DTYPE_CODES:
-        raise TypeError(f"the CUDA attention kernel takes bfloat16, float32 "
-                        f"or int8 qkv, got {qkv.dtype}")
+    design = fwd_design(qkv.dtype)
     if not bg.is_floating_point() or bg.dtype == torch.float64:
         raise TypeError(f"bg must be a float32/bfloat16 tensor, got {bg.dtype}")
     if scales is not None and (scales.dtype != torch.float32
@@ -273,6 +297,9 @@ def masked_attention_fused(qkv, bg, joint=None, scales=None, *,
         raise TypeError("scales must be a contiguous float32 tensor")
     if not qkv.is_contiguous():
         raise ValueError("qkv must be contiguous")
+    if design == "tensor-core" and qkv.data_ptr() % 16:
+        raise ValueError("the tensor-core attention kernel needs qkv 16-byte "
+                         "aligned")
     b, n, c3 = qkv.shape
     c = c3 // 3
     if c // num_heads != HEAD_DIM:
@@ -317,14 +344,15 @@ def masked_attention_fused(qkv, bg, joint=None, scales=None, *,
             scales.data_ptr() if scales is not None else None, kind,
             b, n, num_heads, c // num_heads, float(scale), float(mask_value),
             _DTYPE_CODES[qkv.dtype], mode, int(clamp_softmax), flags, q_block,
-            stream)
+            FWD_DESIGNS[design], stream)
     if err:
         msg = lib.vitcam_cuda_error_string(err).decode()
         need = lib.vitcam_masked_attention_smem_bytes(n, mode, q_block)
         raise RuntimeError(
-            f"masked_attention_fused kernel launch failed: cudaError {err} "
-            f"({msg}); q_block={q_block} at N={n} needs {need} bytes of "
-            f"shared memory")
+            f"masked_attention_fused kernel launch failed ({design} design): "
+            f"cudaError {err} ({msg}); q_block={q_block} at N={n} needs "
+            f"{need} bytes of shared memory (the FMA design's tiles, which "
+            f"set the q_block contract of both designs)")
     launches += 1
     if third is None:
         return out, cls_row

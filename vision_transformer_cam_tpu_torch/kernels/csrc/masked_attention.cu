@@ -11,49 +11,70 @@
 //   hm  = mean_h P            (with_headmean)                 -> hm [B, N, N]
 //   J'  = (hm @ J + J) / 2    (rollout, f32, separate buffer) -> newj [B, N, N]
 //
-// int8_io (int8 qkv, the requantized qkv-GEMM output): q and k are staged as
-// integer-valued floats; with dh = 64 and |q|, |k| <= 127 every partial sum
-// of q.k is an integer below 64 * 127^2 < 2^24, so the f32 FMA loop gives
-// the exact int32 dot, and S = dot * ((sq * sk) * scale).  V is staged as
-// (v * sv) rounded to bf16, and P is rounded to bf16 before P V, as the TPU
-// kernel casts both.  int8_out (float qkv) and int8_io store the output as
-// int8 rint(O * inv_out) clipped to +-127 (round half to even, as
-// jnp.round).  The scales live in a small device vector, [3H + 1] per head
-// (sq_0.., sk_0.., sv_0.., inv_out), [4] per tensor, or [1] (inv_out), and
-// are indexed per head at run time.  cls and the head mean are float32 or
-// bf16 (flags), whatever qkv's type.
+// int8_io (int8 qkv, the requantized qkv-GEMM output): S = dot * ((sq * sk) *
+// scale) with the exact integer dot of q and k; V enters as (v * sv) rounded
+// to bf16, and P is rounded to bf16 before P V, as the TPU kernel casts both.
+// int8_out (float qkv) and int8_io store the output as int8 rint(O * inv_out)
+// clipped to +-127 (round half to even, as jnp.round).  The scales live in a
+// small device vector, [3H + 1] per head (sq_0.., sk_0.., sv_0.., inv_out),
+// [4] per tensor, or [1] (inv_out), and are indexed per head at run time.
+// cls and the head mean are float32 or bf16 (flags), whatever qkv's type.
 //
 // What bounds it on this card.  At ViT-B/16 (N=197, C=768, H=12) and batch
-// 256 one call reads the [B,N,3C] qkv (232 MB in bf16), writes the [B,N,C]
-// output (77 MB) and, in the rollout variant, reads and writes the [B,N,N]
-// f32 joint (40 MB each way): about 0.4 GB, 0.12 ms at 3.35 TB/s.  Its
-// arithmetic is 2*2*N*N*64*H*B = 30.5 GFLOP for QK^T and PV plus 2*N^3*B =
-// 3.9 GFLOP for the rollout product.  This first design runs all of it as
-// f32 FMAs on the CUDA cores, fed from shared memory (67 TFLOP/s peak,
-// >= 0.5 ms), so the kernel is bound by the FMA pipes and shared-memory
-// bandwidth, not by device memory.  Tensor cores (mma / wgmma) are the lever
-// for later work.
+// 64 one call reads the [B,N,3C] qkv (58 MB in bf16), writes the [B,N,C]
+// output and, in the rollout variant, reads and writes the [B,N,N] f32 joint:
+// about 97 MB, 0.029 ms at 3.35 TB/s.  Its products are 7.6 GFLOP for QK^T
+// and PV (0.008 ms at the bf16 tensor-core peak) plus 1.0 GFLOP of float32
+// for the rollout product (0.015 ms at the f32 peak): bound by bytes.
 //
-// What the design does about it.  A block owns QB query rows of one image,
-// QB = 32 or 16 (the wrapper's q_block: 32 where the tiles fit the 227 KB a
-// block may use, else 16, or the one the caller forces).  A whole key row of
-// S ([QB, N] f32) fits in shared memory for N <= 780 at QB = 32 and for
-// N <= 1536 at QB = 16 with the head mean or the rollout, so the softmax is
-// exact in one pass and needs no online rescaling; the cls row and the head mean need the
-// normalized P anyway.  S, P and the head-mean tile never reach device
-// memory; K and V are staged per head in 64-key chunks and re-read from L2
-// by each of the ceil(N/32) query tiles.  Inner loops use 16-byte shared
-// loads with a 68-float row stride (conflict free), and every operand that
-// all lanes of a warp share is a broadcast.  The rollout product reads the
-// whole J[b] and writes only this tile's rows of newj: other tiles of the
-// same image read J[b] at the same time, so the update is never in place.
+// Two designs.
+//
+// The FMA design (float32, and bf16 / int8 where it is asked for).  A block
+// owns QB query rows of one image, QB = 32 or 16 (the wrapper's q_block: 32
+// where the tiles fit the 227 KB a block may use, else 16, or the one the
+// caller forces).  A whole key row of S ([QB, N] f32) fits in shared memory
+// for N <= 780 at QB = 32 and for N <= 1536 at QB = 16 with the head mean or
+// the rollout, so the softmax is exact in one pass.  K and V are staged per
+// head in 64-key chunks, converted to float32 (int8 q and k as
+// integer-valued floats: every partial sum of the dot is an integer below
+// 64 * 127^2 < 2^24, so the f32 FMA loop gives the exact int32 dot), and
+// both products are float32 FMAs on the CUDA cores, fed from shared memory
+// with 16-byte loads.  The float32 instance stays on it: its gates need full
+// float32 products.
+//
+// The tensor-core design (bf16 and int8 qkv, the serving and training
+// paths'): the sequence-parallel kernel's tensor-core design on the packed
+// qkv.  A block of 8 warps owns 16 query rows of one image (q_block 32: two
+// m16 tiles that share every staged chunk; the same (q_block, N) pairs as the
+// FMA design are taken), and S never sits in shared memory.  The warps take
+// the 16-key chunks in turn, each staging its chunks of K and V with 16-byte
+// cp.async copies into a private two-stage ring of swizzled tiles, so the key
+// loops wait on no block barrier.  QK^T runs on mma.sync.m16n8k16 (bf16) or
+// mma.sync.m16n8k32 (int8, the exact int32 dot); P V on m16n8k16, its V
+// fragments built in registers from the int8 chunk under int8_io.  Per head
+// two passes over the keys: the first forms each row's sum of exponentials
+// (and its maximum without the clamp), the second forms P = E / den, adds it
+// into the head mean and the cls row, and rounds it to bf16 in registers as
+// the A fragment of P V.  The head mean, the one [QB, N] float32 state that
+// crosses heads, lives in shared memory, each element owned by one thread:
+// the sums run in a fixed order, no atomics, two launches and both q_block
+// values give identical bits.  Exponentials and probabilities below 2^-126
+// are flushed to zero (a masked logit is s - 100, and exp(-100) is a
+// denormal, on whose slow path exp and the division would otherwise run); the
+// TPU flushes them too.
+//
+// Both designs write the cls row and the head mean or this tile's rows of the
+// rollout update J' from the float32 head-mean tile (rollout_rows): the
+// product reads the whole J[b], so the update is never in place.
 //
 // Numerics follow the TPU kernel: S, the softmax, the head mean, the cls row
 // and the rollout product are f32; P (or the unnormalized exponentials when no
 // head mean is needed) is rounded to V's element type (bf16 under int8_io)
 // before P V, as the TPU kernel casts it for its matmul.  S's scale and mask
 // terms are explicitly rounded (__fmul_rn / __fadd_rn), so no FMA contraction
-// moves them away from the plain version.
+// moves them away from the plain version.  The tensor-core design multiplies
+// by 1 / den where the plain version divides, and sums P V in another order:
+// an ulp apart.
 //
 // Built by kernels/_build.py with nvcc into a shared library with a plain C
 // interface (no PyTorch headers) and called through ctypes.
@@ -61,6 +82,7 @@
 #include <cmath>
 
 #include "attention_common.cuh"
+#include "mma_common.cuh"
 
 namespace {
 
@@ -97,6 +119,48 @@ int pick_qb(int n, int mode, int q_block) {
   if (smem_bytes(n, mode, 32) <= kMaxSmem) return 32;
   if (smem_bytes(n, mode, 16) <= kMaxSmem) return 16;
   return 0;
+}
+
+// Rollout rows of one query tile: newj[b, q0 + r, k] = (sum_j hm[r, j]
+// J[b, j, k] + J[b, q0 + r, k]) / 2 in float32, from the tile's head mean
+// hm_s [QB][stride] (zeros past n; stride a multiple of 4).  Thread: one
+// column k, all QB rows; hm_s reads are warp broadcasts.  The update is
+// never in place: other tiles of the image read J[b] at the same time.  The
+// tensor-core design unrolls the key loop four times (UNROLL), so that the
+// loads of later J rows are in flight while earlier ones are summed (its
+// 16-row tile is bound by their latency from L2); the FMA design's register
+// budget does not take that (its bf16 rollout went from 1.26 to 1.91 ms at
+// B=64 N=197 on an NVIDIA H100 80GB HBM3 at 700 W).
+template <int QB, int THREADS, int UNROLL>
+__device__ __forceinline__ void rollout_rows(const float* hm_s, int stride,
+                                             const float* __restrict__ joint,
+                                             float* __restrict__ newj, int b, int q0, int n) {
+  const float* jb = joint + size_t(b) * n * n;
+  float* nb = newj + size_t(b) * n * n;
+  for (int k = threadIdx.x; k < n; k += THREADS) {
+    float acc[QB];
+#pragma unroll
+    for (int r = 0; r < QB; ++r) acc[r] = 0.f;
+#pragma unroll (UNROLL)
+    for (int j = 0; j < n; j += 4) {   // j < n; j + 1..3 may not be
+      const float j0 = jb[size_t(j) * n + k];
+      const float j1 = j + 1 < n ? jb[size_t(j + 1) * n + k] : 0.f;
+      const float j2 = j + 2 < n ? jb[size_t(j + 2) * n + k] : 0.f;
+      const float j3 = j + 3 < n ? jb[size_t(j + 3) * n + k] : 0.f;
+#pragma unroll
+      for (int r = 0; r < QB; ++r) {
+        const float4 hv = *reinterpret_cast<const float4*>(hm_s + r * stride + j);
+        acc[r] += hv.x * j0 + hv.y * j1 + hv.z * j2 + hv.w * j3;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < QB; ++r)
+      if (q0 + r < n) nb[size_t(q0 + r) * n + k] = 0.5f * (acc[r] + jb[size_t(q0 + r) * n + k]);
+  }
+}
+
+__device__ __forceinline__ int clip_i8(float t) {
+  return static_cast<int>(fminf(fmaxf(t, -127.f), 127.f));
 }
 
 template <typename T, int MODE, bool CLAMP, int kQB>
@@ -281,30 +345,452 @@ masked_attention_kernel(const T* __restrict__ qkv, const float* __restrict__ bg,
         store_f(hm_out, idx, hm_s[r * ns + k], hm_bf16);
       }
     } else {
-      // Rollout: newj[b, q0 + r, k] = (sum_j hm[r, j] J[b, j, k] + J[b, q0 + r, k]) / 2.
-      // Thread: one column k, all kQB rows; hm_s reads are warp broadcasts.
-      const float* jb = joint + size_t(b) * n * n;
-      float* nb = newj + size_t(b) * n * n;
-      for (int k = tid; k < n; k += kThreads) {
-        float acc[kQB];
+      rollout_rows<kQB, kThreads, 1>(hm_s, ns, joint, newj, b, q0, n);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The tensor-core design (bf16 and int8 qkv)
+// ---------------------------------------------------------------------------
+
+constexpr int kTcWarps = 8;
+constexpr int kTcThreads = 32 * kTcWarps;
+constexpr int kTcChunk = 16;                  // keys of a staged chunk
+constexpr int kTcOStride = kDH + 8;           // float row pitch of the O exchange
+
+__host__ __device__ inline int tc_keys(int n) { return (n + kTcChunk - 1) / kTcChunk * kTcChunk; }
+__host__ __device__ inline int tc_hm_stride(int n) { return ((n + 31) & ~31) + 8; }
+
+// bytes of a warp's ring: two stages of a (K, V) chunk pair, or the warp's
+// partial O tile when the heads' products meet, whichever is larger
+__host__ __device__ constexpr int tc_ring_bytes(int elem_bytes, int mt) {
+  return 4 * kTcChunk * kDH * elem_bytes > mt * 16 * kTcOStride * 4
+             ? 4 * kTcChunk * kDH * elem_bytes
+             : mt * 16 * kTcOStride * 4;
+}
+
+size_t tc_smem_bytes(int n, int mode, int mt, int elem_bytes) {
+  const int qb = 16 * mt;
+  size_t floats = size_t(2) * tc_keys(n)             // key mask, cls sums
+                  + size_t(kTcWarps) * qb * 2        // row statistics of each warp
+                  + 2 * qb;                          // 1 - bg_q, den
+  if (mode != kPlain) floats += size_t(qb) * tc_hm_stride(n);
+  return size_t(kTcWarps) * tc_ring_bytes(elem_bytes, mt) + floats * sizeof(float);
+}
+
+// byte offset of (row, byte) in an int8 [rows][64] chunk: segment s of row r
+// at s ^ (r / 2 % 4), so the 8 rows an ldmatrix reads lie in 8 bank groups
+__device__ __forceinline__ int swz64(int row, int byte) {
+  return row * kDH + ((((byte >> 4) ^ (row >> 1)) & 3) << 4) + (byte & 15);
+}
+
+// Stage 16 rows of 64 int8 (row r at src + r * pitch) into a swizzled chunk
+// by one warp; rows >= `valid` are zero-filled.
+__device__ __forceinline__ void stage_rows64_i8(int8_t* dst, const int8_t* __restrict__ src,
+                                                size_t pitch, int valid, int lane) {
 #pragma unroll
-        for (int r = 0; r < kQB; ++r) acc[r] = 0.f;
-        for (int j = 0; j < ns; j += 4) {   // j < n; j + 1..3 may not be
-          const float j0 = jb[size_t(j) * n + k];
-          const float j1 = j + 1 < n ? jb[size_t(j + 1) * n + k] : 0.f;
-          const float j2 = j + 2 < n ? jb[size_t(j + 2) * n + k] : 0.f;
-          const float j3 = j + 3 < n ? jb[size_t(j + 3) * n + k] : 0.f;
+  for (int j = 0; j < kTcChunk * 4 / 32; ++j) {
+    const int seg = lane + 32 * j, r = seg >> 2, sg = seg & 3;
+    const bool ok = r < valid;
+    cp_async16(dst + swz64(r, sg * 16), src + (ok ? size_t(r) * pitch + sg * 16 : 0), ok ? 16 : 0);
+  }
+}
+
+// The A fragments of rows r0 + g, r0 + g + 8 of int8 q (two k32 steps);
+// rows >= `valid` are zero.
+__device__ __forceinline__ void a_rows64_i8(unsigned (&a)[2][4], const int8_t* __restrict__ src,
+                                            size_t pitch, int r0, int valid, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const bool lo = r0 + g < valid, hi = r0 + g + 8 < valid;
+  const unsigned* plo = reinterpret_cast<const unsigned*>(src + size_t(lo ? r0 + g : 0) * pitch);
+  const unsigned* phi = reinterpret_cast<const unsigned*>(src + size_t(hi ? r0 + g + 8 : 0) * pitch);
 #pragma unroll
-          for (int r = 0; r < kQB; ++r) {
-            const float4 hv = *reinterpret_cast<const float4*>(hm_s + r * ns + j);
-            acc[r] += hv.x * j0 + hv.y * j1 + hv.z * j2 + hv.w * j3;
+  for (int kk = 0; kk < 2; ++kk) {
+    a[kk][0] = lo ? __ldg(plo + kk * 8 + t) : 0u;
+    a[kk][1] = hi ? __ldg(phi + kk * 8 + t) : 0u;
+    a[kk][2] = lo ? __ldg(plo + kk * 8 + 4 + t) : 0u;
+    a[kk][3] = hi ? __ldg(phi + kk * 8 + 4 + t) : 0u;
+  }
+}
+
+// What one instance keeps per element type: the Q fragments, the staging of
+// K and V, the logits of a chunk and the V fragments of P V.
+template <typename T> struct Tc;
+
+template <> struct Tc<bf16> {
+  using QFrag = unsigned[4][4];
+  static constexpr int kChunk = kTcChunk * kDH;     // elements of a staged K or V chunk
+  static __device__ __forceinline__ void q_frags(QFrag& qa, const bf16* q, size_t pitch, int r0,
+                                                 int valid, int lane) {
+    a_rows64(qa, q, pitch, r0, valid, lane);
+  }
+  static __device__ __forceinline__ void stage(bf16* dst, const bf16* src, size_t pitch,
+                                               int valid, int lane) {
+    stage_rows64<kTcChunk, 32>(dst, src, pitch, valid, lane);
+  }
+  // the dot products of one 16-key chunk: d[mt][nt] (two n8 tiles of keys)
+  template <int MT>
+  static __device__ __forceinline__ void dots(float (&d)[MT][2][4], const QFrag (&qa)[MT],
+                                              const bf16* k_s, int lane) {
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) d[mt][nt][0] = d[mt][nt][1] = d[mt][nt][2] = d[mt][nt][3] = 0.f;
+#pragma unroll
+      for (int kp = 0; kp < 2; ++kp) {
+        unsigned b[4];
+        b_rows(b, k_s, nt, kp, lane);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma16816(d[mt][nt], qa[mt][2 * kp], b[0], b[1]);
+          mma16816(d[mt][nt], qa[mt][2 * kp + 1], b[2], b[3]);
+        }
+      }
+    }
+  }
+  // the B fragments of n8 tiles 2j and 2j + 1 of V
+  static __device__ __forceinline__ void v_frags(unsigned (&vb)[4], const bf16* v_s, int j, float,
+                                                 int lane) {
+    b_cols(vb, v_s, 0, j, lane);
+  }
+};
+
+template <> struct Tc<int8_t> {
+  using QFrag = unsigned[2][4];
+  static constexpr int kChunk = kTcChunk * kDH;
+  static __device__ __forceinline__ void q_frags(QFrag& qa, const int8_t* q, size_t pitch,
+                                                 int r0, int valid, int lane) {
+    a_rows64_i8(qa, q, pitch, r0, valid, lane);
+  }
+  static __device__ __forceinline__ void stage(int8_t* dst, const int8_t* src, size_t pitch,
+                                               int valid, int lane) {
+    stage_rows64_i8(dst, src, pitch, valid, lane);
+  }
+  // exact int32 dot products on the int8 tensor cores, as float
+  template <int MT>
+  static __device__ __forceinline__ void dots(float (&d)[MT][2][4], const QFrag (&qa)[MT],
+                                              const int8_t* k_s, int lane) {
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      unsigned b[4];
+      ldsm_x4(b, k_s + swz64(nt * 8 + (lane & 7), (lane >> 3) * 16));
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        int c[4] = {0, 0, 0, 0};
+        mma16832_s8(c, qa[mt][0], b[0], b[1]);
+        mma16832_s8(c, qa[mt][1], b[2], b[3]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[mt][nt][e] = __int2float_rn(c[e]);
+      }
+    }
+  }
+  // (v * sv) rounded to bf16, as the B fragments of n8 tiles 2j and 2j + 1
+  static __device__ __forceinline__ void v_frags(unsigned (&vb)[4], const int8_t* v_s, int j,
+                                                 float sv, int lane) {
+    const int g = lane >> 2, t = lane & 3;
+    auto vf = [&](int key, int d) { return __fmul_rn(float(v_s[swz64(key, d)]), sv); };
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int d = (2 * j + h) * 8 + g;
+      vb[2 * h] = pack_bf16(vf(2 * t, d), vf(2 * t + 1, d));
+      vb[2 * h + 1] = pack_bf16(vf(2 * t + 8, d), vf(2 * t + 9, d));
+    }
+  }
+};
+
+// A block owns QB = 16 * MT query rows of one image (MT m16 tiles); its 8
+// warps take the 16-key chunks in turn (warp w: chunks w, w + 8, ...), each
+// staging its own chunks of K and V in a private two-stage ring, so the key
+// loops wait on no block barrier; a staged chunk feeds all MT tiles.  Per
+// head: pass 1 forms each row's softmax sum (and maximum without the clamp),
+// the warps' partials meet in shared memory; pass 2 forms P, adds it into
+// the head mean and the cls row (each element owned by one thread: a fixed
+// order of sums, no atomics) and feeds it, rounded to bf16, to P V; the
+// warps' partial O tiles are summed in shared memory.  After the heads the
+// block writes the cls row, the head mean, or its rows of the rollout update.
+// One m16 tile leaves room for two blocks an SM (at most 128 registers a
+// thread); two hold their fragments in up to 255.
+template <typename T, int MODE, bool CLAMP, int MT>
+__global__ void __launch_bounds__(kTcThreads, MT == 1 ? 2 : 1)
+masked_attention_tc_kernel(const T* __restrict__ qkv, const float* __restrict__ bg,
+                           const float* __restrict__ joint, void* __restrict__ out,
+                           void* __restrict__ cls, void* __restrict__ hm_out,
+                           float* __restrict__ newj, const float* __restrict__ scales,
+                           int scales_kind, int n, int heads, float scale, float mask_value,
+                           int flags) {
+  using TC = Tc<T>;
+  constexpr bool kInt8In = sizeof(T) == 1;
+  constexpr int QB = 16 * MT;
+  constexpr int kRing = tc_ring_bytes(sizeof(T), MT);
+  constexpr int kStage = 2 * TC::kChunk;            // elements of one (K, V) stage
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nk = tc_keys(n), hs = tc_hm_stride(n);
+  unsigned char* rings = smem_raw;                                       // [warps][kRing]
+  float* km_s = reinterpret_cast<float*>(rings + kTcWarps * kRing);      // [nk]
+  float* cls_s = km_s + nk;                                              // [nk]
+  float* st_s = cls_s + nk;                          // [warps][QB][2]: max, sum
+  float* fg_s = st_s + kTcWarps * QB * 2;            // [QB]
+  float* den_s = fg_s + QB;                          // [QB]
+  float* hm_s = den_s + QB;                          // [QB][hs], not in kPlain
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tg = lane & 3;
+  const int b = blockIdx.y, q0 = blockIdx.x * QB;
+  const int c = heads * kDH, c3 = 3 * c;
+  const T* qkv_b = qkv + size_t(b) * n * c3;
+  const bool has_cls = q0 == 0;
+  const bool out_i8 = kInt8In || (flags & kOutI8);
+  const float inv_out = scales_kind == kPerHead     ? scales[3 * heads]
+                        : scales_kind == kPerTensor ? scales[3]
+                        : scales_kind == kOutOnly   ? scales[0]
+                                                    : 1.f;
+  T* ring = reinterpret_cast<T*>(rings + warp * kRing);
+  const int n_chunks = nk / kTcChunk;
+  const int mine = warp < n_chunks ? (n_chunks - warp + kTcWarps - 1) / kTcWarps : 0;
+
+  for (int k = tid; k < nk; k += kTcThreads) {
+    km_s[k] = k < n ? bg[size_t(b) * n + k] * mask_value : 0.f;
+    cls_s[k] = 0.f;
+  }
+  for (int r = tid; r < QB; r += kTcThreads)
+    fg_s[r] = (q0 + r < n) ? 1.f - bg[size_t(b) * n + q0 + r] : 0.f;
+  if (MODE != kPlain)
+    for (int i = tid; i < QB * hs; i += kTcThreads) hm_s[i] = 0.f;
+  __syncthreads();
+  float fg[MT][2];
+  bool row_ok[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    fg[mt][0] = fg_s[mt * 16 + g];
+    fg[mt][1] = fg_s[mt * 16 + g + 8];
+    row_ok[mt][0] = q0 + mt * 16 + g < n;
+    row_ok[mt][1] = q0 + mt * 16 + g + 8 < n;
+  }
+
+  // stage chunk i of this warp (K, and V with with_v) into stage i % 2
+  auto stage = [&](int h, int i, bool with_v) {
+    const int k0 = (warp + i * kTcWarps) * kTcChunk;
+    T* dst = ring + (i & 1) * kStage;
+    const T* src = qkv_b + size_t(k0) * c3 + c + h * kDH;
+    TC::stage(dst, src, c3, n - k0, lane);
+    if (with_v) TC::stage(dst + TC::kChunk, src + c, c3, n - k0, lane);
+    cp_async_commit();
+  };
+  // S of one chunk: scaled, masked, clamped; -inf on keys >= n
+  auto logits = [&](float (&s)[MT][2][4], const typename TC::QFrag (&qa)[MT], const T* k_s,
+                    int k0, float s_scale) {
+    TC::template dots<MT>(s, qa, k_s, lane);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int k = k0 + nt * 8 + 2 * tg + (e & 1);
+          float v = -INFINITY;
+          if (k < n) {
+            v = __fadd_rn(__fmul_rn(s[mt][nt][e], s_scale), __fmul_rn(fg[mt][e >> 1], km_s[k]));
+            if (CLAMP) v = fminf(v, 80.f);
+          }
+          s[mt][nt][e] = v;
+        }
+  };
+
+  if (mine) stage(0, 0, false);
+  for (int h = 0; h < heads; ++h) {
+    // int8 qkv: S's scale (sq * sk) * scale and V's dequantization scale
+    float s_scale = scale, sv = 1.f;
+    if (kInt8In) {
+      const bool ph = scales_kind == kPerHead;
+      s_scale = __fmul_rn(__fmul_rn(scales[ph ? h : 0], scales[ph ? heads + h : 1]), scale);
+      sv = scales[ph ? 2 * heads + h : 2];
+    }
+    typename TC::QFrag qa[MT];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) TC::q_frags(qa[mt], qkv_b + h * kDH, c3, q0 + mt * 16, n, lane);
+
+    // pass 1: per row the maximum (without the clamp) and the sum of exp
+    float m[MT][2], l[MT][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      m[mt][0] = m[mt][1] = CLAMP ? 0.f : -INFINITY;
+      l[mt][0] = l[mt][1] = 0.f;
+    }
+    for (int i = 0; i < mine; ++i) {
+      if (i + 1 < mine) {
+        stage(h, i + 1, false);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncwarp();
+      float s[MT][2][4];
+      logits(s, qa, ring + (i & 1) * kStage, (warp + i * kTcWarps) * kTcChunk, s_scale);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          if (!CLAMP) {
+            const float nm = fmaxf(m[mt][hf],
+                                   quad_max(fmaxf(fmaxf(s[mt][0][2 * hf], s[mt][0][2 * hf + 1]),
+                                                  fmaxf(s[mt][1][2 * hf], s[mt][1][2 * hf + 1]))));
+            l[mt][hf] = nm == m[mt][hf] ? l[mt][hf] : l[mt][hf] * exp_ftz(m[mt][hf] - nm);
+            m[mt][hf] = nm;
+          }
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+            l[mt][hf] += exp_ftz(s[mt][nt][2 * hf] - m[mt][hf]) +
+                         exp_ftz(s[mt][nt][2 * hf + 1] - m[mt][hf]);
+        }
+      __syncwarp();   // this stage is read before the chunk after next lands in it
+    }
+    if (mine) stage(h, 0, true);   // pass 2's first chunk loads across the barrier
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const float lsum = quad_sum(l[mt][hf]);
+        if (tg == 0) {
+          float* st = st_s + (warp * QB + mt * 16 + g + 8 * hf) * 2;
+          st[0] = m[mt][hf];
+          st[1] = lsum;
+        }
+      }
+    __syncthreads();
+    // every thread combines the warps' partials of its rows, in one order
+    float mx[MT][2], inv[MT][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = mt * 16 + g + 8 * hf;
+        float mr = CLAMP ? 0.f : -INFINITY, den = 0.f;
+        if (!CLAMP)
+          for (int w = 0; w < kTcWarps; ++w) mr = fmaxf(mr, st_s[(w * QB + r) * 2]);
+        for (int w = 0; w < kTcWarps; ++w) {
+          const float* st = st_s + (w * QB + r) * 2;
+          den += CLAMP || st[0] == mr ? st[1] : st[1] * exp_ftz(st[0] - mr);
+        }
+        mx[mt][hf] = mr;
+        inv[mt][hf] = 1.f / den;
+        if (warp == 0 && tg == 0) den_s[r] = den;
+      }
+
+    // pass 2: P, the head mean and the cls row, O = P V
+    float o[MT][8][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) o[mt][j][0] = o[mt][j][1] = o[mt][j][2] = o[mt][j][3] = 0.f;
+    for (int i = 0; i < mine; ++i) {
+      if (i + 1 < mine) {
+        stage(h, i + 1, true);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncwarp();
+      const T* k_s = ring + (i & 1) * kStage;
+      const int k0 = (warp + i * kTcWarps) * kTcChunk;
+      float s[MT][2][4];
+      logits(s, qa, k_s, k0, s_scale);
+      unsigned pa[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const int k = k0 + nt * 8 + 2 * tg;
+          float p[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float ex = exp_ftz(s[mt][nt][e] - mx[mt][e >> 1]);
+            p[e] = ftz(ex * inv[mt][e >> 1]);
+            s[mt][nt][e] = MODE != kPlain ? p[e] : ex;
+          }
+          if (MODE != kPlain) {
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf)
+              if (row_ok[mt][hf]) {
+                float2* h2 = reinterpret_cast<float2*>(hm_s + (mt * 16 + g + 8 * hf) * hs + k);
+                *h2 = make_float2(h2->x + p[2 * hf], h2->y + p[2 * hf + 1]);
+              }
+          }
+          if (has_cls && mt == 0 && g == 0) {
+            cls_s[k] += p[0];
+            cls_s[k + 1] += p[1];
           }
         }
-#pragma unroll
-        for (int r = 0; r < kQB; ++r)
-          if (q0 + r < n)
-            nb[size_t(q0 + r) * n + k] = 0.5f * (acc[r] + jb[size_t(q0 + r) * n + k]);
+        a_from_c(pa[mt], s[mt][0], s[mt][1]);
       }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        unsigned vb[4];
+        TC::v_frags(vb, k_s + TC::kChunk, j, sv, lane);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma16816(o[mt][2 * j], pa[mt], vb[0], vb[1]);
+          mma16816(o[mt][2 * j + 1], pa[mt], vb[2], vb[3]);
+        }
+      }
+      __syncwarp();
+    }
+
+    // the warps' partial O tiles meet in their own rings, summed in one order
+    float* ox = reinterpret_cast<float*>(ring);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        *reinterpret_cast<float2*>(ox + (mt * 16 + g) * kTcOStride + j * 8 + 2 * tg) =
+            make_float2(o[mt][j][0], o[mt][j][1]);
+        *reinterpret_cast<float2*>(ox + (mt * 16 + g + 8) * kTcOStride + j * 8 + 2 * tg) =
+            make_float2(o[mt][j][2], o[mt][j][3]);
+      }
+    __syncthreads();
+    for (int idx = tid; idx < QB * (kDH / 4); idx += kTcThreads) {
+      const int r = idx / (kDH / 4), d = (idx % (kDH / 4)) * 4;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int w = 0; w < kTcWarps; ++w) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            reinterpret_cast<const float*>(rings + w * kRing) + r * kTcOStride + d);
+        acc.x += v.x, acc.y += v.y, acc.z += v.z, acc.w += v.w;
+      }
+      if (q0 + r >= n) continue;
+      if (MODE == kPlain) {
+        const float den = den_s[r];
+        acc.x /= den, acc.y /= den, acc.z /= den, acc.w /= den;
+      }
+      const size_t oi = (size_t(b) * n + q0 + r) * c + h * kDH + d;
+      if (out_i8) {
+        auto q8 = [&](float v) { return clip_i8(rintf(__fmul_rn(v, inv_out))); };
+        *reinterpret_cast<unsigned*>(static_cast<int8_t*>(out) + oi) =
+            (q8(acc.x) & 0xffu) | ((q8(acc.y) & 0xffu) << 8) | ((q8(acc.z) & 0xffu) << 16) |
+            (unsigned(q8(acc.w)) << 24);
+      } else if constexpr (!kInt8In) {
+        *reinterpret_cast<uint2*>(static_cast<bf16*>(out) + oi) =
+            make_uint2(pack_bf16(acc.x, acc.y), pack_bf16(acc.z, acc.w));
+      }
+    }
+    __syncthreads();   // the rings are free again
+    if (mine && h + 1 < heads) stage(h + 1, 0, false);
+  }
+
+  if (has_cls)
+    for (int k = tid; k < n; k += kTcThreads)
+      store_f(cls, size_t(b) * n + k, cls_s[k] / heads, flags & kClsBf16);
+  if constexpr (MODE != kPlain) {
+    for (int i = tid; i < QB * hs; i += kTcThreads) hm_s[i] = hm_s[i] / heads;
+    __syncthreads();
+    if constexpr (MODE == kHeadmean) {
+      const bool hm_bf16 = flags & kHmBf16;
+      for (int i = tid; i < QB * n; i += kTcThreads) {
+        const int r = i / n, k = i % n;
+        if (q0 + r >= n) break;
+        store_f(hm_out, (size_t(b) * n + q0 + r) * n + k, hm_s[r * hs + k], hm_bf16);
+      }
+    } else {
+      rollout_rows<QB, kTcThreads, 4>(hm_s, hs, joint, newj, b, q0, n);
     }
   }
 }
@@ -341,8 +827,35 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <typename T, int MODE, bool CLAMP, int MT>
+cudaError_t launch_tc(const Args& a, cudaStream_t stream) {
+  auto kernel = masked_attention_tc_kernel<T, MODE, CLAMP, MT>;
+  const size_t smem = tc_smem_bytes(a.n, MODE, MT, sizeof(T));
+  if (smem > kMaxSmem) return cudaErrorInvalidConfiguration;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         int(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.n + 16 * MT - 1) / (16 * MT), a.batch);
+  kernel<<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const T*>(a.qkv), static_cast<const float*>(a.bg),
+      static_cast<const float*>(a.joint), a.out, a.cls, a.hm, static_cast<float*>(a.newj),
+      a.scales, a.scales_kind, a.n, a.heads, a.scale, a.mask_value, a.flags);
+  return cudaGetLastError();
+}
+
+// The tensor-core design takes the q_block contract of the FMA design, so
+// that a configuration runs on either: 32 query rows (two m16 tiles) where
+// the FMA design's [32, N] tiles fit, 16 (one) otherwise; auto takes 16, the
+// tile that lets two blocks share an SM.
 template <typename T, int MODE, bool CLAMP>
-cudaError_t launch_qb(const Args& a, cudaStream_t stream) {
+cudaError_t launch_qb(int design, const Args& a, cudaStream_t stream) {
+  if constexpr (sizeof(T) != sizeof(float)) {
+    if (design == 1) {
+      if (a.q_block != 32) return launch_tc<T, MODE, CLAMP, 1>(a, stream);
+      if (smem_bytes(a.n, MODE, 32) > kMaxSmem) return cudaErrorInvalidConfiguration;
+      return launch_tc<T, MODE, CLAMP, 2>(a, stream);
+    }
+  }
   switch (pick_qb(a.n, MODE, a.q_block)) {
     case 32:
       return launch<T, MODE, CLAMP, 32>(a, stream);
@@ -354,19 +867,20 @@ cudaError_t launch_qb(const Args& a, cudaStream_t stream) {
 }
 
 template <typename T, int MODE>
-cudaError_t launch_clamp(int clamp, const Args& a, cudaStream_t stream) {
-  return clamp ? launch_qb<T, MODE, true>(a, stream) : launch_qb<T, MODE, false>(a, stream);
+cudaError_t launch_clamp(int clamp, int design, const Args& a, cudaStream_t stream) {
+  return clamp ? launch_qb<T, MODE, true>(design, a, stream)
+               : launch_qb<T, MODE, false>(design, a, stream);
 }
 
 template <typename T>
-cudaError_t launch_mode(int mode, int clamp, const Args& a, cudaStream_t stream) {
+cudaError_t launch_mode(int mode, int clamp, int design, const Args& a, cudaStream_t stream) {
   switch (mode) {
     case kPlain:
-      return launch_clamp<T, kPlain>(clamp, a, stream);
+      return launch_clamp<T, kPlain>(clamp, design, a, stream);
     case kHeadmean:
-      return launch_clamp<T, kHeadmean>(clamp, a, stream);
+      return launch_clamp<T, kHeadmean>(clamp, design, a, stream);
     case kRollout:
-      return launch_clamp<T, kRollout>(clamp, a, stream);
+      return launch_clamp<T, kRollout>(clamp, design, a, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -382,16 +896,20 @@ extern "C" {
 // 2 = [sq, sk, sv, inv_out], 3 = [sq_*, sk_*, sv_*, inv_out] (3H + 1).
 // flags: 1 = int8 out (int8_out; implied by int8 qkv), 2 = cls bf16 (else
 // f32), 4 = hm bf16 (else f32).
-// q_block: query rows per block, 16 or 32, or 0 for the larger one that fits.
+// q_block: query rows per block, 16 or 32, or 0 for auto (the FMA design:
+// the larger one that fits; the tensor-core design: 16).
+// design: 0 = the FMA design (every dtype), 1 = the tensor-core design
+// (bfloat16 and int8 qkv, 16-byte aligned).
 // Returns a cudaError_t; 0 means the kernel was launched.
 int vitcam_masked_attention_fused(const void* qkv, const void* bg, const void* joint,
                                   void* out, void* cls, void* hm, void* newj,
                                   const void* scales, int scales_kind, int batch, int n,
                                   int heads, int head_dim, float scale, float mask_value,
                                   int dtype, int mode, int clamp, int flags, int q_block,
-                                  void* stream) {
+                                  int design, void* stream) {
   if (head_dim != kDH || batch < 1 || batch > 65535 || n < 1 || heads < 1 ||
-      (q_block != 0 && q_block != 16 && q_block != 32))
+      (q_block != 0 && q_block != 16 && q_block != 32) || design < 0 || design > 1 ||
+      (design == 1 && dtype == 0))
     return cudaErrorInvalidValue;
   const bool int8_in = dtype == 2;
   if (scales_kind < 0 || scales_kind > 3 || (scales_kind != kNoScales) != (scales != nullptr))
@@ -405,16 +923,17 @@ int vitcam_masked_attention_fused(const void* qkv, const void* bg, const void* j
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch_mode<float>(mode, clamp, a, s);
+      return launch_mode<float>(mode, clamp, design, a, s);
     case 1:
-      return launch_mode<__nv_bfloat16>(mode, clamp, a, s);
+      return launch_mode<__nv_bfloat16>(mode, clamp, design, a, s);
     case 2:
-      return launch_mode<int8_t>(mode, clamp, a, s);
+      return launch_mode<int8_t>(mode, clamp, design, a, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+// the FMA design's bytes: its tiles set the q_block contract of both designs
 size_t vitcam_masked_attention_smem_bytes(int n, int mode, int q_block) {
   const int qb = pick_qb(n, mode, q_block);
   return smem_bytes(n, mode, qb ? qb : 16);

@@ -1,7 +1,9 @@
 // Tensor-core and asynchronous-copy building blocks for sm_90a, shared by the
-// bf16 kernels: 16-byte cp.async copies into shared memory, ldmatrix fragment
-// loads (plain and transposed), the m16n8k16 bf16 mma.sync with float32
-// accumulators, and an exponential that flushes float32 denormals to zero.
+// tensor-core kernels: 16-byte cp.async copies into shared memory, ldmatrix
+// fragment loads (plain and transposed, bf16 and int8 tiles), the m16n8k16
+// bf16 mma.sync with float32 accumulators, the m16n8k32 s8 mma.sync with
+// int32 accumulators, and an exponential that flushes float32 denormals to
+// zero.
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row major)  a0 = A[g][2t..2t+1]    a1 = A[g+8][2t..2t+1]
@@ -88,6 +90,28 @@ __device__ __forceinline__ void b_cols(unsigned (&r)[4], const bf16* x, int kt, 
                                        int lane) {
   const int i = lane >> 3, row = kt * 16 + (i & 1) * 8 + (lane & 7);
   ldmatrix_x4_trans(r, x + swz(row, np * 16 + (i >> 1) * 8));
+}
+
+// four 8 x 16-byte matrices of any element type (int8 tiles): lane l gets
+// the 32-bit word l % 4 of row l / 4 of each
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// c += a b on the int8 tensor cores, exact int32 sums (m16n8k32: A 16 x 32
+// row major, a0 = A[g][4t..4t+3], a1 = A[g+8][..], a2 = A[g][16+4t..],
+// a3 = A[g+8][16+4t..]; B 32 x 8 held as [n][k], b0 = B[n=g][4t..4t+3],
+// b1 = B[g][16+4t..]; C as for m16n8k16)
+__device__ __forceinline__ void mma16832_s8(int (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                            unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // c += a b on the tensor cores

@@ -6,7 +6,8 @@ vision_transformer_cam_tpu/kernels/gemm.py: linear_int8_fused and also the
 XLA-fused int8 GEMMs of ops/quant.py (qlinear, qlinear_requant,
 qlinear_gelu_requant), which have no compiler to fuse their epilogues here.
 On a CUDA tensor it launches the hand-written kernel in
-``csrc/int8_gemm.cu``; on a CPU tensor it runs ``linear_int8_ref``.
+``csrc/int8_gemm.cu`` (its tensor-core design, ``int8_gemm_design``); on a
+CPU tensor it runs ``linear_int8_ref``.
 
 ``ln_quant`` replaces kernels/gemm.py: ln_quant (LayerNorm, then the static
 int8 quantize, in one pass).  On a CUDA tensor it launches a Triton kernel,
@@ -38,6 +39,14 @@ ROUTES = ("fused", "qlinear")
 EPILOGUES = ("float", "requant", "gelu")
 _X_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The CUDA int8 GEMM has two designs: "tensor-core" (mma.sync.m16n8k32 on
+# the int8 tensor cores, 128 x 128 tiles in a three-stage cp.async ring) and
+# "dp4a" (the first design, __dp4a on the CUDA cores).  Both run the same
+# epilogue on the exact int32 dot and give the same bits.
+INT8_GEMM_DESIGNS = {"dp4a": 0, "tensor-core": 1}
+# The design every call runs.  Only chip_smoke.py sets "dp4a", to time the
+# earlier design beside the new one; no config field or flag reaches it.
+_int8_gemm_design = "tensor-core"
 
 
 def _gelu_f32(y, approximate):
@@ -94,6 +103,15 @@ def _check_linear(x, weight_q, col_scale, bias, a_scale, route, epilogue,
             raise ValueError("the gelu epilogue needs one out_scale")
 
 
+def int8_gemm_design(x_dtype) -> str:
+    """The CUDA int8 GEMM design for x of ``x_dtype`` (float32, bfloat16 or
+    int8): the tensor-core design for every one of them."""
+    if x_dtype not in _X_CODES:
+        raise TypeError(f"linear_int8 takes float32, bfloat16 or int8 x, got "
+                        f"{x_dtype}")
+    return _int8_gemm_design
+
+
 def linear_int8_ref(x, weight_q, col_scale, bias, a_scale, *, route,
                     epilogue="float", out_scales=None, groups=1,
                     gelu_approx=True, out_dtype=torch.float32):
@@ -147,7 +165,8 @@ def linear_int8(x, weight_q, col_scale, bias, a_scale, *, route,
                 gelu_approx=True, out_dtype=torch.float32):
     """Same contract as ``linear_int8_ref``.  CPU tensors run the plain
     version; CUDA tensors launch the kernel (x float32, bfloat16 or int8;
-    float outputs float32 or bfloat16) or raise."""
+    float outputs float32 or bfloat16) in the design ``int8_gemm_design``
+    names, or raise."""
     global linear_int8_launches
     if x.device.type == "cpu":
         return linear_int8_ref(
@@ -165,9 +184,7 @@ def linear_int8(x, weight_q, col_scale, bias, a_scale, *, route,
     if any(t.dtype != torch.float32 for t in vecs):
         raise TypeError("col_scale, bias, a_scale and out_scales must be "
                         "float32")
-    if x.dtype not in _X_CODES:
-        raise TypeError(f"linear_int8 takes float32, bfloat16 or int8 x, got "
-                        f"{x.dtype}")
+    design = int8_gemm_design(x.dtype)
     if epilogue == "float" and out_dtype not in _OUT_CODES:
         raise TypeError(f"out_dtype must be float32 or bfloat16, got "
                         f"{out_dtype}")
@@ -192,10 +209,11 @@ def linear_int8(x, weight_q, col_scale, bias, a_scale, *, route,
             ROUTES.index(route), EPILOGUES.index(epilogue),
             None if out_scales is None else out_scales.data_ptr(), groups,
             int(gelu_approx), out.data_ptr(),
-            _OUT_CODES.get(out_dt, 2), stream)
+            _OUT_CODES.get(out_dt, 2), INT8_GEMM_DESIGNS[design], stream)
     if err:
         raise RuntimeError(
-            f"linear_int8 kernel launch failed: cudaError {err} "
+            f"linear_int8 kernel launch failed ({design} design): "
+            f"cudaError {err} "
             f"({lib.vitcam_cuda_error_string(err).decode()})")
     linear_int8_launches += 1
     return out.reshape(*lead, n)

@@ -45,9 +45,10 @@ GROUPS = (
     ("fused MLP kernel", ("mlp_fused_kernel", "mlp_fused_int8_kernel")),
     ("sequence-parallel attention kernel", ("masked_attention_seq_kernel",
                                             "masked_attention_seq_tc_kernel")),
-    ("attention kernel", ("masked_attention_kernel",)),
+    ("attention kernel", ("masked_attention_kernel",
+                          "masked_attention_tc_kernel")),
     ("attention backward kernel", ("masked_attention_bwd_",)),
-    ("int8 GEMM kernel", ("linear_int8_kernel",)),
+    ("int8 GEMM kernel", ("linear_int8_kernel", "linear_int8_tc_kernel")),
     ("ln_quant kernel", ("ln_quant_kernel",)),
     ("float GEMMs (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass", "gemv")),
     ("softmax", ("softmax",)),
