@@ -19,15 +19,20 @@ Phases (any failure raises, and the exit code is non-zero):
      (mlp_fused at bf16 and float32, both GELUs; mlp_fused_int8 bit for bit
      at float32 output, and bit for bit the chain of two linear_int8
      launches; M = 8*197 at the ViT-B widths and a ragged M=111 with
-     C, HID = 72, 200 and 66, 150) and the attention block kernel (bf16 and
-     float32, with and without the joint, clamp on and off, 30 % background
-     and none, B=8 N=197, a ragged B=3 N=37, and N=256 and N=17, the ends
-     of its range); then times each kernel
-     against its plain version at B=64 (the attention variants and the int8
-     GEMMs in turns with the designs they ran before; the GEMMs beside bf16
-     F.linear and torch._int_mm; kernel 1's int8 rollout variants also at
-     B=16 N=577), the three fused kernels also beside
-     the unfused route of several launches that the port already has;
+     C, HID = 72, 200 and 66, 150) and the attention block kernel (bf16 in
+     its tensor-core design, launched twice for identical bits, and in the
+     FMA design it ran before, and float32; with and without the joint,
+     clamp on and off, 30 % background and none, B=8 N=197, a ragged B=3
+     N=37, and N=256 and N=17, the ends of its range), and reads the block
+     kernel's occupancy (clusters at once, registers, local and shared
+     memory) in both designs; then times each kernel
+     against its plain version at B=64 (the attention variants, the int8
+     GEMMs and the block kernel in turns with the designs they ran before;
+     the GEMMs beside bf16 F.linear and torch._int_mm; kernel 1's int8
+     rollout variants also at B=16 N=577; ln_quant also at batch 256's rows,
+     and it and the GEMMs also out of a CUDA graph), the three fused kernels
+     also beside the unfused route of several launches that the port
+     already has;
   4. the main path: ViT-B/16 with random weights from a seed answers 3
      requests of 32 images with the rollout CAM in serving mode "bf16",
      then, calibrated on 16 seeded images, in "int8" and "int8_hifi" with
@@ -876,12 +881,33 @@ def block_operands(b, n, heads, dtype, seed, hot):
     return tuple(t.to(dtype).contiguous() for t in ops), bg.to(dtype), joint
 
 
+def block_designs(dtype):
+    """The block kernel's designs that take xn of ``dtype``, the path's
+    first: bf16 the tensor-core design, then the FMA design it ran before;
+    float32 the FMA design."""
+    return ("fma",) if dtype == torch.float32 else ("tensor-core", "fma")
+
+
+def _block_design(design, fn, *args, **kw):
+    """``fn(*args, **kw)`` with the block wrapper's bf16 design set to
+    ``design`` ("tensor-core", the path's, or "fma", the design bf16 ran
+    before); float32 runs the FMA design either way."""
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    saved, ka._block_bf16_design = ka._block_bf16_design, design
+    try:
+        return fn(*args, **kw)
+    finally:
+        ka._block_bf16_design = saved
+
+
 def check_attention_block():
-    """attention_block_fused vs its plain version on the card: bf16 and
-    float32, with and without the joint, clamp on and off, 30 % background
+    """attention_block_fused vs its plain version on the card, in every
+    design that takes the dtype (bf16: the tensor-core design, launched twice
+    for identical bits, and the FMA design it ran before; float32: the FMA
+    design): with and without the joint, clamp on and off, 30 % background
     and none, B=8 N=197 (clusters of 7 blocks), a ragged B=3 N=37 (2), and
     the ends of its range, B=2 N=256 (8) and B=2 N=17 (1).  Returns {(dtype
-    name, joint, clamp, n, bg kind): worst error}."""
+    name, joint, clamp, n, bg kind): worst error} of the path's design."""
     from vision_transformer_cam_tpu_torch.kernels import attention as ka
     errs, failures = {}, []
     for (b, n) in ((8, 197), (3, 37), (2, 256), (2, 17)):
@@ -896,21 +922,70 @@ def check_attention_block():
                         kw = dict(num_heads=12, scale=64 ** -0.5,
                                   clamp_softmax=clamp)
                         j = joint if with_joint else None
-                        got = ka.attention_block_fused(*ops, bg_, j, **kw)
                         want = ka.attention_block_fused_plain(*ops, bg_, j,
                                                               **kw)
-                        torch.cuda.synchronize()
-                        case = f"attention block {name:8s} " \
-                               f"joint={with_joint!s:5s} clamp={clamp!s:5s} " \
-                               f"{bg_kind:6s} B={b} N={n}"
                         tols = [TOL[(dtype, "out")], TOL[(dtype, "prob")],
                                 TOL_JOINT]
-                        errs[(name, with_joint, clamp, n, bg_kind)] = \
-                            _compare(case, got, want, tols, failures)
+                        for design in block_designs(dtype):
+                            got = _block_design(design,
+                                                ka.attention_block_fused,
+                                                *ops, bg_, j, **kw)
+                            torch.cuda.synchronize()
+                            case = f"attention block {design:11s} " \
+                                   f"{name:8s} joint={with_joint!s:5s} " \
+                                   f"clamp={clamp!s:5s} {bg_kind:6s} " \
+                                   f"B={b} N={n}"
+                            err = _compare(case, got, want, tols, failures)
+                            if design == block_designs(dtype)[0]:
+                                errs[(name, with_joint, clamp, n,
+                                      bg_kind)] = err
+                            if design == "tensor-core" and not all(
+                                    torch.equal(x, y) for x, y in zip(
+                                        got, ka.attention_block_fused(
+                                            *ops, bg_, j, **kw))):
+                                failures.append(f"{case}: a second launch "
+                                                "gave other bits")
     if failures:
         raise AssertionError("attention block kernel != plain version:\n"
                              + "\n".join(failures))
     return errs
+
+
+def block_occupancy(heads=12):
+    """For each instance of the block kernel the serving path could run
+    (rollout, clamp) at N = 197 (clusters of 7) and N = 256 (8): how many
+    clusters the card holds at once (cudaOccupancyMaxActiveClusters), the
+    registers and local memory per thread and the shared memory per block.
+    Returns {(design, dtype name, n): (clusters, registers, local bytes,
+    shared bytes)}."""
+    import ctypes
+
+    from vision_transformer_cam_tpu_torch.kernels import _build
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    lib, got = _build.load(), {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n in (197, 256):
+        for dtype in (torch.bfloat16, torch.float32):
+            for design in block_designs(dtype):
+                info = (ctypes.c_int * 4)()
+                err = lib.vitcam_attention_block_occupancy(
+                    n, heads, 1, 1, ka._DTYPE_CODES[dtype],
+                    ka.BLOCK_DESIGNS[design], info)
+                if err:
+                    raise RuntimeError(
+                        f"attention block occupancy ({design}, {dtype}, "
+                        f"N={n}): cudaError {err} "
+                        f"({lib.vitcam_cuda_error_string(err).decode()})")
+                name = str(dtype).split(".")[-1]
+                got[(design, name, n)] = tuple(info)
+                blocks = -(-n // ka.BLOCK_ROWS)
+                say(f"occupancy attention block {design:11s} {name:8s} "
+                    f"rollout clamp N={n}: {info[0]} clusters of {blocks} "
+                    f"at once ({info[0] * blocks} blocks on {sms} SMs), "
+                    f"{info[1]} registers, {info[2]} bytes of local "
+                    f"memory per thread, {info[3]} bytes of shared memory "
+                    f"per block")
+    return got
 
 
 def seq_inputs(b, n, heads, dtype, seed, bg_kind="30%"):
@@ -1260,15 +1335,25 @@ def time_kernels(b=64, n=197):
                 times[("gemm_int_mm_graph", s_)] for s_ in GEMM_SHAPES]}
     say("time int8 GEMM, the five: " + ", ".join(
         f"{name} {sum(v):.4f} ms" for name, v in five.items()))
-    x = torch.randn((b * n, 768), device="cuda").to(torch.bfloat16)
+    # ln_quant at the B=64 rows and at batch 256's, by CUDA events around
+    # the wrapper calls and as device time out of a CUDA graph (a call this
+    # short is otherwise timed as the wrapper's host work), beside its bound
     w = torch.ones(768, device="cuda", dtype=torch.bfloat16)
     inv = torch.tensor(30.0, device="cuda")
-    times[("ln_quant",)] = in_turns(
-        lambda: gemm.ln_quant(x, w, w, eps=1e-6, inv_a=inv),
-        lambda: gemm.ln_quant_ref(x, w, w, eps=1e-6, inv_a=inv))
-    say(f"time ln_quant [{b * n}, 768] bf16: kernel "
-        f"{times[('ln_quant',)][0]:.4f} ms, plain "
-        f"{times[('ln_quant',)][1]:.4f} ms")
+    for m in (b * n, 4 * b * n):
+        x = torch.randn((m, 768), device="cuda").to(torch.bfloat16)
+        fns = {"kernel": lambda: gemm.ln_quant(x, w, w, eps=1e-6, inv_a=inv),
+               "plain": lambda: gemm.ln_quant_ref(x, w, w, eps=1e-6,
+                                                  inv_a=inv)}
+        ms = round_robin(fns)
+        dev = round_robin({"kernel": fns["kernel"]}, timer=graph_ms)
+        bound_ms = ln_quant_bound(m, 768)[0]
+        times[("ln_quant", m)] = (ms["kernel"], ms["plain"])
+        times[("ln_quant_graph", m)] = dev["kernel"]
+        say(f"time ln_quant [{m}, 768] bf16: kernel {ms['kernel']:.4f} ms, "
+            f"plain {ms['plain']:.4f} ms; out of a CUDA graph (device time) "
+            f"{dev['kernel']:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({100 * bound_ms / dev['kernel']:.1f} % of the bound's rate)")
     return times
 
 
@@ -1322,15 +1407,20 @@ def time_fused(b=64, n=197, heads=12):
         o, _, _ = ka.masked_attention_fused(F.linear(xn, wqkv, bqkv), bg,
                                             joint, **kw)
         return tok + F.linear(o, wproj, bproj)
-    k_ms, p_ms = in_turns(
-        lambda: ka.attention_block_fused(*bops, bg, joint, **kw),
-        lambda: ka.attention_block_fused_plain(*bops, bg, joint, **kw),
-        iters=5)
-    u_ms = time_ms(unfused, 5)
-    times["attention_block_fused"] = (k_ms, p_ms, u_ms)
-    say(f"time attention_block_fused bf16 rollout B={b} N={n}: kernel "
-        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms; unfused qkv GEMM, attention "
-        f"kernel, proj GEMM, add {u_ms:.4f} ms")
+    fns = {d: (lambda d=d: _block_design(d, ka.attention_block_fused, *bops,
+                                         bg, joint, **kw))
+           for d in block_designs(torch.bfloat16)}
+    fns["plain"] = lambda: ka.attention_block_fused_plain(*bops, bg, joint,
+                                                          **kw)
+    fns["unfused"] = unfused
+    ms = round_robin(fns, iters=5)
+    times["attention_block_fused"] = (ms["tensor-core"], ms["plain"],
+                                      ms["unfused"])
+    times[("earlier", "attention_block_fused")] = ms["fma"]
+    say(f"time attention_block_fused bf16 rollout B={b} N={n}, in turns: "
+        f"tensor-core {ms['tensor-core']:.4f} ms, fma (earlier) "
+        f"{ms['fma']:.4f} ms, plain {ms['plain']:.4f} ms; unfused qkv GEMM, "
+        f"attention kernel, proj GEMM, add {ms['unfused']:.4f} ms")
     return times
 
 
@@ -1636,6 +1726,13 @@ def bound(name, nbytes, ops):
     return max(t_bytes, worst), "bytes" if t_bytes >= worst else "operations"
 
 
+def ln_quant_bound(m, c):
+    """ln_quant's bound on [m, c]: bf16 rows and the two affine vectors in,
+    int8 rows out."""
+    return bound(f"ln_quant [{m}, {c}]", m * c * 2 + 2 * c * 2 + m * c,
+                 {"f32": 8 * m * c})
+
+
 def kernel_bounds(b=64, n=197, heads=12):
     """Bounds of the kernels at the shapes ``time_kernels`` and
     ``time_attention_bwd`` time them at (each input read once, each output
@@ -1655,9 +1752,7 @@ def kernel_bounds(b=64, n=197, heads=12):
             m * 3 * c + m * 4 + (3 * heads + 1) * 4 + 2 * b * n * n * 4
             + m * c + m * 2,
             {"int8": qk, "bf16": qk, "f32": 2 * b * n ** 3}),
-        # bf16 rows in, int8 rows out, the two affine vectors
-        "ln_quant": bound("ln_quant", m * c * 2 + 2 * c * 2 + m * c,
-                          {"f32": 8 * m * c}),
+        "ln_quant": ln_quant_bound(m, c),
         # bf16 qkv, dO and f32 bg in, bf16 d_qkv out; five products
         "masked_attention_bwd": bound("masked_attention_bwd bf16",
                                       7 * m * c * 2 + m * 4,
@@ -2578,6 +2673,7 @@ def main() -> int:
     mlp_err = check_mlp()
     mlp8_err = check_mlp_int8()
     block_errs = check_attention_block()
+    block_occupancy()
     seq_err = check_attention_seq()
     v1_err = check_attention_v1()
     check_q_block()
@@ -2616,7 +2712,9 @@ def main() -> int:
             attn_errs[("bfloat16", "plain", False, 197)],
             *times[("attention", "bf16 no clamp", "plain")]),
         "linear_int8_fused": (gemm_err, gemm_ms, gemm_plain),
-        "ln_quant": (float(ln_err), *times[("ln_quant",)]),
+        # device time out of a CUDA graph at the B=64 rows (12608)
+        "ln_quant": (float(ln_err), times[("ln_quant_graph", 64 * 197)],
+                     times[("ln_quant", 64 * 197)][1]),
         # the error at the training path's shape (B=64, N=197, bf16)
         "masked_attention_bwd": (bwd_ms[3], *bwd_ms[:2]),
         "masked_attention_fused[bf16 rollout, serving]": (

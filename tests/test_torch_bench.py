@@ -1,7 +1,9 @@
 """The port's measurement entry points (``bench``, ``scripts.microbench``,
-``scripts.qblock_sweep``) on the CPU: the bench config against the JAX
-package's root ``bench.py`` flag by flag, and every mode and variant run at a
-tiny size (``--device cpu``: the kernels' plain versions)."""
+``scripts.qblock_sweep``, ``scripts.block_ablation``) on the CPU: the bench
+config against the JAX package's root ``bench.py`` flag by flag, and every
+mode and variant run at a tiny size (``--device cpu``: the kernels' plain
+versions); the block kernel's ablation, which runs only on the card, by the
+cuts it makes in the kernel's source."""
 
 import dataclasses
 import json
@@ -16,7 +18,9 @@ import jax.numpy as jnp
 from vision_transformer_cam_tpu_torch import bench as tbench
 from vision_transformer_cam_tpu_torch import configs as tcfgs
 from vision_transformer_cam_tpu_torch import serving as tserving
-from vision_transformer_cam_tpu_torch.scripts import microbench, qblock_sweep
+from vision_transformer_cam_tpu_torch.kernels import _build
+from vision_transformer_cam_tpu_torch.scripts import (block_ablation,
+                                                      microbench, qblock_sweep)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -239,3 +243,28 @@ def test_qblock_sweep_candidates_bwd_and_failures(capsys):
     assert res["bwd"] is None and "FAIL" in capsys.readouterr().out
     with pytest.raises(SystemExit, match="unknown flag --sq"):
         qblock_sweep.main(base + ["--sq", "3"])
+
+
+@pytest.mark.parametrize("variant", list(block_ablation.VARIANTS))
+def test_block_ablation_cuts_match_the_kernel_source(variant):
+    """Each variant of the block kernel's ablation cuts its parts out of the
+    current attention_block.cu: every cut's text occurs there once (the
+    script refuses a source it no longer matches) and changes it."""
+    src = (_build.CSRC / block_ablation.SOURCE).read_text()
+    cuts = block_ablation.VARIANTS[variant]
+    got = block_ablation.cut_source(src, cuts)
+    assert (got == src) == (not cuts)
+    for cut in cuts:
+        old, new = block_ablation.CUTS[cut]
+        assert src.count(old) == 1 and got.count(new) >= 1
+    with pytest.raises(ValueError, match="update CUTS"):
+        block_ablation.cut_source(src.replace(
+            block_ablation.CUTS["core"][0], ""), ("core",))
+
+
+def test_block_ablation_runs_on_the_card_only():
+    with pytest.raises(SystemExit, match="unknown flag --bacth"):
+        block_ablation.main(["--bacth", "2"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="is_available"):
+            block_ablation.main(["--batch", "2"])

@@ -1,18 +1,20 @@
 """The denormal flush of the tensor-core kernels, held to the JAX package.
 
 The tensor-core designs of the fused attention forward (bf16 and int8 qkv),
-of the sequence-parallel kernel and of the attention backward flush
-exponentials and probabilities below 2^-126 (the float32 denormals) to zero:
-a masked logit is s - 100, and exp(-100) is a denormal, on whose slow path
-exp would run.  The TPU flushes them too.  Here the plain versions run with
-every exponential below 2^-126 set to zero, and must stay within the parity
-tolerances of the unflushed plain versions against the JAX kernels (Pallas
-interpret mode, float32, on the CPU): ``tests/test_torch_attention.py``'s
-(out 1e-5, cls row, head mean and rollout 1e-6; an int8 out within one step
-on at most 1 %), ``tests/test_torch_seq.py``'s (out 1e-5, row0 and the head
-mean 1e-6) and ``tests/test_torch_attention_bwd.py``'s (2e-4).  The inputs
-make the flush bite: a background of all but the cls token, and hot query
-rows whose logits pass the clamp at 80.
+of the sequence-parallel kernel, of the attention backward and of the
+attention block kernel's core flush exponentials and probabilities below
+2^-126 (the float32 denormals) to zero: a masked logit is s - 100, and
+exp(-100) is a denormal, on whose slow path exp would run.  The TPU flushes
+them too.  Here the plain versions run with every exponential below 2^-126
+set to zero, and must stay within the parity tolerances of the unflushed
+plain versions against the JAX kernels (Pallas interpret mode, float32, on
+the CPU): ``tests/test_torch_attention.py``'s (out 1e-5, cls row, head mean
+and rollout 1e-6; an int8 out within one step on at most 1 %),
+``tests/test_torch_seq.py``'s (out 1e-5, row0 and the head mean 1e-6),
+``tests/test_torch_attention_bwd.py``'s (2e-4) and
+``tests/test_torch_fusions.py``'s (tokens 2e-4, cls row and rollout 1e-5).
+The inputs make the flush bite: a background of all but the cls token, and
+hot query rows whose logits pass the clamp at 80.
 
 The wrappers' design rules (which design and scratch each dtype and length
 gets) are tested here too: they decide what runs on the card.
@@ -185,6 +187,76 @@ def test_flushed_bwd_ref_matches_jax_kernel(flushed_exp, clamp, bg_kind):
     assert flushed_exp.count > 0
 
 
+def _block_inputs(seed, bg_kind):
+    """The block kernel's operands at tests/test_torch_fusions.py's shape
+    (B=3, N=37, C=64, four heads of 16): xn and tokens ~ N(0, 1) with hot
+    rows 1-2 of xn (x2), weights in the JAX layout [in, out] ~ N(0, 1/64)
+    with the q and k columns x6 (logits pass the clamp at 80), biases ~ 0.1
+    N(0, 1), a background (all but the cls token, or 30 %) and a
+    row-stochastic joint."""
+    rng = np.random.default_rng(seed)
+    c = 64
+    xn = rng.standard_normal((3, 37, c)).astype(np.float32)
+    xn[:, 1:3] *= 2.0
+    tok = rng.standard_normal((3, 37, c)).astype(np.float32)
+    wqkv = (rng.standard_normal((c, 3 * c)) / 8.0).astype(np.float32)
+    wqkv[:, :2 * c] *= 6.0
+    bqkv = (0.1 * rng.standard_normal(3 * c)).astype(np.float32)
+    wproj = (rng.standard_normal((c, c)) / 8.0).astype(np.float32)
+    bproj = (0.1 * rng.standard_normal(c)).astype(np.float32)
+    share = 1.1 if bg_kind == "all_but_cls" else 0.3
+    bg = (rng.random((3, 37)) < share).astype(np.float32)
+    bg[:, 0] = 0.0
+    j = rng.standard_normal((3, 37, 37))
+    joint = (np.exp(j) / np.exp(j).sum(-1, keepdims=True)).astype(np.float32)
+    return (xn, tok, wqkv, bqkv, wproj, bproj), bg, joint
+
+
+@pytest.mark.parametrize("bg_kind", ["all_but_cls", "30%"])
+@pytest.mark.parametrize("clamp", [False, True], ids=["rowmax", "clamp"])
+@pytest.mark.parametrize("with_joint", [False, True],
+                         ids=["no_joint", "joint"])
+def test_flushed_block_plain_matches_jax_kernel(flushed_exp, with_joint,
+                                                clamp, bg_kind):
+    """The flushed plain version of the block kernel
+    (attention_block_fused_plain) against JAX attention_block_fused in
+    interpret mode, float32, B=3, N=37, four heads of 16, at
+    tests/test_torch_fusions.py's tolerances: tokens 2e-4, cls row and the
+    rollout update 1e-5."""
+    ops, bg, joint = _block_inputs(80 + 2 * with_joint + clamp, bg_kind)
+    kw = dict(num_heads=4, scale=0.25, clamp_softmax=clamp)
+    want = jattn.attention_block_fused(
+        *(jnp.asarray(a) for a in ops), jnp.asarray(bg),
+        jnp.asarray(joint) if with_joint else None, interpret=True, **kw)
+    xn, tok, wqkv, bqkv, wproj, bproj = (torch.from_numpy(a) for a in ops)
+    got = tattn.attention_block_fused_plain(
+        xn, tok, wqkv.t().contiguous(), bqkv, wproj.t().contiguous(), bproj,
+        torch.from_numpy(bg), torch.from_numpy(joint) if with_joint else None,
+        **kw)
+    assert len(got) == len(want) == 2 + with_joint
+    for name, g, w, tol in zip(("tokens", "cls", "joint"), got, want,
+                               (2e-4, 1e-5, 1e-5)):
+        g, w = g.numpy(), np.asarray(w)
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert np.isfinite(g).all(), name
+        np.testing.assert_allclose(g, w, rtol=0, atol=tol, err_msg=name)
+    assert flushed_exp.count > 0    # the flush did bite
+
+
+@pytest.mark.parametrize("dtype,design", [
+    (torch.bfloat16, "tensor-core"),
+    (torch.float32, "fma"),
+])
+def test_block_design_rule(dtype, design):
+    """bf16 takes the block kernel's tensor-core core (the bf16 fused
+    serving path's), float32 its FMA core; nothing else has a CUDA design."""
+    assert tattn.block_design(dtype) == design
+    assert set(tattn.BLOCK_DESIGNS) == {"tensor-core", "fma"}
+    assert tattn._block_bf16_design == "tensor-core"
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        tattn.block_design(torch.float16)
+
+
 @pytest.mark.parametrize("dtype,n,design", [
     (torch.bfloat16, 37, "tensor-core"),
     (torch.bfloat16, 197, "tensor-core"),
@@ -251,8 +323,8 @@ def test_no_config_field_reaches_the_design_switches():
     fields = {f.name for f in dataclasses.fields(configs.ViTCAMConfig)}
     assert not any("design" in f for f in fields), fields
     pkg = pathlib.Path(tattn.__file__).resolve().parents[1]
-    switch = re.compile(r"_(fwd|seq|bwd)_bf16_design\s*=|_int8_gemm_design"
-                        r"\s*=")
+    switch = re.compile(r"_(fwd|seq|bwd|block)_bf16_design\s*=|"
+                        r"_int8_gemm_design\s*=")
     setters = sorted(str(p.relative_to(pkg)) for p in pkg.rglob("*.py")
                      if switch.search(p.read_text()))
     assert setters == ["kernels/attention.py", "kernels/gemm.py"], setters

@@ -237,6 +237,10 @@ def test_int8_attention_io_needs_per_head_scales():
     ("void (anonymous namespace)::linear_int8_kernel<signed char, "
      "__nv_bfloat16>", "int8 GEMM kernel"),
     ("ln_quant_kernel", "ln_quant kernel"),
+    ("void (anonymous namespace)::attention_block_kernel<float, true, "
+     "false>(...)", "attention block kernel"),
+    ("void (anonymous namespace)::attention_block_tc_kernel<true, true>"
+     "(...)", "attention block kernel"),
     ("void (anonymous namespace)::masked_attention_seq_tc_kernel<true, "
      "true>(...)", "sequence-parallel attention kernel"),
     ("void (anonymous namespace)::masked_attention_bwd_tc_dkv_kernel<false>"

@@ -1,13 +1,15 @@
-"""The tensor-core designs of the int8 GEMM and of the fused attention
-forward, on the card.
+"""The tensor-core designs of the int8 GEMM, of the fused attention forward
+and of the attention block kernel's core, on the card.
 
 ``linear_int8`` runs mma.sync.m16n8k32 (s8) for every route; the fused
-attention forward runs its tensor-core design for bf16 and int8 qkv.  Each
-is held against its plain version and against the design it replaced (the
-``__dp4a`` GEMM, the FMA attention), which stay compiled behind the private
-switches ``kernels.gemm._int8_gemm_design`` and
-``kernels.attention._fwd_bf16_design``.  The tests need a CUDA GPU (the
-kernels have no CPU mode) and skip here; on the card:
+attention forward runs its tensor-core design for bf16 and int8 qkv, the
+attention block kernel its tensor-core core for bf16.  Each is held against
+its plain version and against the design it replaced (the ``__dp4a`` GEMM,
+the FMA attention, the FMA block core), which stay compiled behind the
+private switches ``kernels.gemm._int8_gemm_design``,
+``kernels.attention._fwd_bf16_design`` and ``_block_bf16_design``.  The
+tests need a CUDA GPU (the kernels have no CPU mode) and skip here; on the
+card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_tensor_core_cuda.py
 
@@ -235,3 +237,62 @@ def test_cuda_attention_tensor_core_matches_fma_design(n):
             assert torch.equal(new[2], wide[2])
         elif variant == "rollout":
             _close(new[2], wide[2], (1e-6, 0.0))
+
+
+def _block_operands(b, n, seed):
+    """bf16 operands of attention_block_fused at ViT-B widths (12 heads of
+    64): xn and tokens ~ N(0, 1), weights ~ N(0, 1 / C) in the torch layout
+    (logits of order 1, as chip_smoke.py's bf16 cases), biases ~ 0.1 N(0, 1),
+    30 % background (cls column never) and a row-stochastic float32 joint."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c = 768
+
+    def rnd(*shape, gain=1.0):
+        return gain * torch.randn(shape, generator=g, device="cuda")
+    ops = tuple(t.to(torch.bfloat16).contiguous() for t in (
+        rnd(b, n, c), rnd(b, n, c), rnd(3 * c, c, gain=c ** -0.5),
+        rnd(3 * c, gain=0.1), rnd(c, c, gain=c ** -0.5), rnd(c, gain=0.1)))
+    bg = (torch.rand((b, n), generator=g, device="cuda") < 0.3).float()
+    bg[:, 0] = 0.0
+    joint = torch.softmax(rnd(b, n, n), dim=-1)
+    return ops, bg.to(torch.bfloat16), joint
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [17, 37, 197, 256])
+def test_cuda_attention_block_tensor_core_matches_plain_and_fma(n):
+    """The block kernel's tensor-core design at clusters of 1, 2, 7 and 8
+    blocks (N = 17, 37, 197, 256), B=2: with and without the joint, clamp
+    and row max, 30 % background and none; one launch each, and a second
+    launch gives the same bits.  Against the plain version: out and cls row
+    at chip_smoke.py's bf16 tolerances, the rollout update at the bf16
+    probability tolerance (the kernel forms qkv itself, summing in another
+    order than the plain version before both round it to bf16, and an ulp
+    of qkv moves P by ~1e-3 relative: at N = 197 the update reads 3.8e-6
+    from the plain version in both designs, past TOL_JOINT).  Against the
+    FMA design, which runs the same qkv GEMM: the rollout update at
+    TOL_JOINT (3.7e-9 apart on an NVIDIA H100), out and cls row at twice
+    the bf16 tolerances."""
+    _card()
+    assert tka.block_design(torch.bfloat16) == "tensor-core"
+    ops, bg, joint = _block_operands(2, n, seed=n)
+    for bg_ in (bg, torch.zeros_like(bg)):
+        for j in (joint, None):
+            for clamp in (False, True):
+                kw = dict(num_heads=12, scale=0.125, clamp_softmax=clamp)
+                before = tka.block_launches
+                got = tka.attention_block_fused(*ops, bg_, j, **kw)
+                assert tka.block_launches == before + 1
+                again = tka.attention_block_fused(*ops, bg_, j, **kw)
+                want = tka.attention_block_fused_plain(*ops, bg_, j, **kw)
+                old = _with(tka, "_block_bf16_design", "fma",
+                            tka.attention_block_fused, *ops, bg_, j, **kw)
+                torch.cuda.synchronize()
+                assert len(got) == len(want) == len(old) == 2 + (j is not None)
+                assert all(torch.equal(a, b) for a, b in zip(got, again))
+                for a, w, tol in zip(got, want, (TOL_OUT, TOL_PROB,
+                                                 TOL_PROB)):
+                    _close(a, w, tol)
+                for a, o, tol in zip(got, old, ((2e-2, 2 ** -5),
+                                                (2e-5, 2 ** -5), TOL_JOINT)):
+                    _close(a, o, tol)

@@ -123,7 +123,10 @@ def load():
         fn.argtypes = [p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
         fn.restype = i
         fn = lib.vitcam_attention_block_fused
-        fn.argtypes = [p] * 11 + [i, i, i, i, f, f, i, i, i, p]
+        fn.argtypes = [p] * 11 + [i, i, i, i, f, f, i, i, i, i, p]
+        fn.restype = i
+        fn = lib.vitcam_attention_block_occupancy
+        fn.argtypes = [i, i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
         fn.restype = i
         fn = lib.vitcam_masked_attention_seq
         fn.argtypes = [p] * 7 + [i, i, i, i, i, i, f, f, i, i, i, i, i, p]
@@ -132,7 +135,7 @@ def load():
         lib.vitcam_masked_attention_seq_smem_bytes.restype = ctypes.c_size_t
         lib.vitcam_mlp_fused_smem_bytes.argtypes = [i, i]
         lib.vitcam_mlp_fused_smem_bytes.restype = ctypes.c_size_t
-        lib.vitcam_attention_block_smem_bytes.argtypes = [i, i, i, i]
+        lib.vitcam_attention_block_smem_bytes.argtypes = [i, i, i, i, i]
         lib.vitcam_attention_block_smem_bytes.restype = ctypes.c_size_t
         lib.vitcam_masked_attention_bwd_smem_bytes.argtypes = [i, i]
         lib.vitcam_masked_attention_bwd_smem_bytes.restype = ctypes.c_size_t

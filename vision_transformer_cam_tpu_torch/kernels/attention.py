@@ -22,7 +22,8 @@ same name) for training.
 the whole attention sub-block, ``tokens + proj(attention(qkv(xn)))`` with the
 cls row and the rollout update, in one launch; neither the qkv tensor nor the
 attention output reaches device memory.  ``csrc/attention_block.cu`` on a
-CUDA tensor, ``attention_block_fused_plain`` on a CPU tensor.
+CUDA tensor (bf16 its tensor-core attention core, float32 its FMA core:
+``block_design``), ``attention_block_fused_plain`` on a CPU tensor.
 
 ``masked_attention_seq_local`` is the port of the TPU sequence-parallel
 kernel (same file: _masked_attention_seq_local): a rank's local query rows
@@ -84,6 +85,17 @@ _bwd_bf16_design = "tensor-core"
 BLOCK_ROWS = 32
 BLOCK_MAX_N = 8 * BLOCK_ROWS
 BLOCK_MAX_C = 768   # its [32, C] output tile and staging in shared memory
+# The block kernel's attention core has two designs.  bf16 runs the
+# tensor-core design: the head's K and V as bf16 in every block of the
+# cluster (each block pushes its rows to the others through distributed
+# shared memory), QK^T and P V on mma.sync, S in registers, two passes over
+# the keys a head.  float32 runs the FMA design (K and V pulled as float32
+# chunks, a [32, N] float32 tile of S, float32 products): its gates need full
+# float32 products.
+BLOCK_DESIGNS = {"fma": 0, "tensor-core": 1}
+# The design bf16 runs; only chip_smoke.py sets "fma", to time the earlier
+# one beside it.  No config field or flag reaches it.
+_block_bf16_design = "tensor-core"
 # The sequence-parallel kernel takes Np <= SEQ_MAX_NP (N = 1025 padded to 8
 # ranks is 1032).  bf16 runs its tensor-core design (16 query rows a block;
 # S in registers; the [16, Np] float32 head mean in shared memory).  float32
@@ -561,6 +573,15 @@ def _check_block(xn, tokens, wqkv, bqkv, wproj, bproj, bg, joint, num_heads):
                          f"{tuple(joint.shape)}")
 
 
+def block_design(dtype) -> str:
+    """The CUDA block kernel's design for xn of ``dtype``: "tensor-core" for
+    bfloat16, "fma" for float32 (its gates need full float32 products)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the CUDA block kernel takes bfloat16 or float32, "
+                        f"got {dtype}")
+    return "fma" if dtype == torch.float32 else _block_bf16_design
+
+
 def attention_block_fused_plain(xn, tokens, wqkv, bqkv, wproj, bproj, bg,
                                 joint=None, *, num_heads: int, scale: float,
                                 mask_value: float = -100.0,
@@ -647,6 +668,8 @@ def attention_block_fused(xn, tokens, wqkv, bqkv, wproj, bproj, bg,
                               or not joint.is_contiguous()):
         raise TypeError("joint must be a contiguous float32 tensor")
 
+    design = block_design(xn.dtype)
+
     from vision_transformer_cam_tpu_torch.kernels import _build
     lib = _build.load()
     bg32 = bg.to(torch.float32).contiguous()
@@ -664,14 +687,15 @@ def attention_block_fused(xn, tokens, wqkv, bqkv, wproj, bproj, bg,
             newj.data_ptr() if joint is not None else None, b, n, num_heads,
             c // num_heads, float(scale), float(mask_value),
             _DTYPE_CODES[xn.dtype], int(clamp_softmax),
-            -(-n // BLOCK_ROWS), stream)
+            -(-n // BLOCK_ROWS), BLOCK_DESIGNS[design], stream)
     if err:
         msg = lib.vitcam_cuda_error_string(err).decode()
         need = lib.vitcam_attention_block_smem_bytes(
-            n, num_heads, int(joint is not None), _DTYPE_CODES[xn.dtype])
+            n, num_heads, int(joint is not None), _DTYPE_CODES[xn.dtype],
+            BLOCK_DESIGNS[design])
         raise RuntimeError(
-            f"attention_block_fused kernel launch failed: cudaError {err} "
-            f"({msg}); shared memory needed {need} bytes")
+            f"attention_block_fused kernel launch failed ({design} design): "
+            f"cudaError {err} ({msg}); shared memory needed {need} bytes")
     block_launches += 1
     if newj is None:
         return out, cls_row

@@ -121,44 +121,6 @@ int pick_qb(int n, int mode, int q_block) {
   return 0;
 }
 
-// Rollout rows of one query tile: newj[b, q0 + r, k] = (sum_j hm[r, j]
-// J[b, j, k] + J[b, q0 + r, k]) / 2 in float32, from the tile's head mean
-// hm_s [QB][stride] (zeros past n; stride a multiple of 4).  Thread: one
-// column k, all QB rows; hm_s reads are warp broadcasts.  The update is
-// never in place: other tiles of the image read J[b] at the same time.  The
-// tensor-core design unrolls the key loop four times (UNROLL), so that the
-// loads of later J rows are in flight while earlier ones are summed (its
-// 16-row tile is bound by their latency from L2); the FMA design's register
-// budget does not take that (its bf16 rollout went from 1.26 to 1.91 ms at
-// B=64 N=197 on an NVIDIA H100 80GB HBM3 at 700 W).
-template <int QB, int THREADS, int UNROLL>
-__device__ __forceinline__ void rollout_rows(const float* hm_s, int stride,
-                                             const float* __restrict__ joint,
-                                             float* __restrict__ newj, int b, int q0, int n) {
-  const float* jb = joint + size_t(b) * n * n;
-  float* nb = newj + size_t(b) * n * n;
-  for (int k = threadIdx.x; k < n; k += THREADS) {
-    float acc[QB];
-#pragma unroll
-    for (int r = 0; r < QB; ++r) acc[r] = 0.f;
-#pragma unroll (UNROLL)
-    for (int j = 0; j < n; j += 4) {   // j < n; j + 1..3 may not be
-      const float j0 = jb[size_t(j) * n + k];
-      const float j1 = j + 1 < n ? jb[size_t(j + 1) * n + k] : 0.f;
-      const float j2 = j + 2 < n ? jb[size_t(j + 2) * n + k] : 0.f;
-      const float j3 = j + 3 < n ? jb[size_t(j + 3) * n + k] : 0.f;
-#pragma unroll
-      for (int r = 0; r < QB; ++r) {
-        const float4 hv = *reinterpret_cast<const float4*>(hm_s + r * stride + j);
-        acc[r] += hv.x * j0 + hv.y * j1 + hv.z * j2 + hv.w * j3;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < QB; ++r)
-      if (q0 + r < n) nb[size_t(q0 + r) * n + k] = 0.5f * (acc[r] + jb[size_t(q0 + r) * n + k]);
-  }
-}
-
 __device__ __forceinline__ int clip_i8(float t) {
   return static_cast<int>(fminf(fmaxf(t, -127.f), 127.f));
 }

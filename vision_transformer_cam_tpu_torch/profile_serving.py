@@ -41,7 +41,8 @@ import torch
 
 # kernel groups, first match of a substring of the kernel's name
 GROUPS = (
-    ("attention block kernel", ("attention_block_kernel",)),
+    ("attention block kernel", ("attention_block_kernel",
+                                "attention_block_tc_kernel")),
     ("fused MLP kernel", ("mlp_fused_kernel", "mlp_fused_int8_kernel")),
     ("sequence-parallel attention kernel", ("masked_attention_seq_kernel",
                                             "masked_attention_seq_tc_kernel")),
