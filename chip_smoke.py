@@ -15,11 +15,15 @@ Phases (any failure raises, and the exit code is non-zero):
      FMA design they ran before), the int8 GEMM
      (each prologue and epilogue at the five ViT-B GEMM shapes, M = 8*197,
      and a ragged M=111 K=200 N=72; the tensor-core design bit for bit the
-     dp4a design it replaced), ln_quant, the fused MLP kernels
-     (mlp_fused at bf16 and float32, both GELUs; mlp_fused_int8 bit for bit
-     at float32 output, and bit for bit the chain of two linear_int8
-     launches; M = 8*197 at the ViT-B widths and a ragged M=111 with
-     C, HID = 72, 200 and 66, 150) and the attention block kernel (bf16 in
+     dp4a design it replaced), ln_quant, the fused MLP kernels in every
+     design that takes the shape (bf16 and int8: the wgmma design, launched
+     twice for identical bits, and the mma design it replaced; mlp_fused at
+     bf16 and float32, both GELUs, the designs within TOL_MLP of each other;
+     mlp_fused_int8 bit for bit at float32 output, and bit for bit the chain
+     of two linear_int8 launches and the other design; M = 8*197 and 8*197+37
+     at the ViT-B widths, M=111 with C, HID = 64, 256 and, the mma design
+     only, 72, 200 and 66, 150), their occupancy in both designs (blocks an
+     SM, registers, spills, shared memory) and the attention block kernel (bf16 in
      its tensor-core design, launched twice for identical bits, and in the
      FMA design it ran before, and float32; with and without the joint,
      clamp on and off, 30 % background and none, B=8 N=197, a ragged B=3
@@ -32,7 +36,7 @@ Phases (any failure raises, and the exit code is non-zero):
      rollout variants also at B=16 N=577; ln_quant also at batch 256's rows,
      and it and the GEMMs also out of a CUDA graph), the three fused kernels
      also beside the unfused route of several launches that the port
-     already has;
+     already has (the MLP kernels in both designs, also at M = 50432);
   4. the main path: ViT-B/16 with random weights from a seed answers 3
      requests of 32 images with the rollout CAM in serving mode "bf16",
      then, calibrated on 16 seeded images, in "int8" and "int8_hifi" with
@@ -169,11 +173,13 @@ KERNELS = {   # name: (route, source, TPU kernel replaced)
     "masked_attention_fused[bf16 rollout, serving]": (
         "cuda", CSRC + "masked_attention.cu",
         "vision_transformer_cam_tpu/kernels/attention.py:133"),
+    # the Hopper design (64-row tiles, a TMA ring, wgmma); the earlier design
+    # (mlp_fused.cu) takes float32 and the shapes it does not
     "mlp_fused": (
-        "cuda", CSRC + "mlp_fused.cu",
+        "cuda", CSRC + "mlp_fused_wgmma.cu",
         "vision_transformer_cam_tpu/kernels/gemm.py:46"),
     "mlp_fused_int8": (
-        "cuda", CSRC + "mlp_fused.cu",
+        "cuda", CSRC + "mlp_fused_wgmma.cu",
         "vision_transformer_cam_tpu/kernels/gemm.py:55"),
     "attention_block_fused": (
         "cuda", CSRC + "attention_block.cu",
@@ -758,28 +764,74 @@ def mlp_operands(m, c, hid, dtype, seed):
             rnd(c, hid, gain=hid ** -0.5), rnd(c, gain=0.1))
 
 
+# (M, C, HID) of the fused MLP checks: the ViT-B widths at M = 8 * 197, two
+# ragged shapes only the earlier design takes (72, 200; 66, 150: off every
+# vector width), the ViT-B widths with a tail of 37 rows past a multiple of
+# 64, and the narrowest width the wgmma design takes (C = 64: most of its W2
+# tiles out of bounds).  Shape i's operands come from seed 20 + i (bf16,
+# float32) or 30 + i (int8).
+MLP_SHAPES = ((8 * 197, 768, 3072), (111, 72, 200), (111, 66, 150),
+              (8 * 197 + 37, 768, 3072), (111, 64, 256))
+
+
+def mlp_designs(c, hid, dtype):
+    """The fused MLP designs that take the shape, the path's first (dtype
+    torch.int8 for mlp_fused_int8): where that is the wgmma design, then the
+    earlier mma design it replaced."""
+    from vision_transformer_cam_tpu_torch.kernels import gemm
+    first = gemm.mlp_design(c, hid, dtype)
+    return (first, "mma") if first == "wgmma" else (first,)
+
+
+def _mlp_design(design, fn, *args, **kw):
+    """``fn(*args, **kw)`` with both fused MLP wrappers' bf16 / int8 design
+    set to ``design`` ("wgmma", the path's, or "mma", the design they ran
+    before); shapes the wgmma design does not take run "mma" either way."""
+    from vision_transformer_cam_tpu_torch.kernels import gemm
+    saved = gemm._mlp_bf16_design, gemm._mlp_int8_design
+    gemm._mlp_bf16_design = gemm._mlp_int8_design = design
+    try:
+        return fn(*args, **kw)
+    finally:
+        gemm._mlp_bf16_design, gemm._mlp_int8_design = saved
+
+
 def check_mlp():
-    """mlp_fused vs its plain version on the card: the ViT-B widths at
-    M = 8 * 197 and ragged small shapes (M=111; C, HID = 72, 200 and, off
-    every vector width, 66, 150), bf16 and float32, both GELUs.  Returns the
-    worst error at the ViT-B widths in bf16."""
+    """mlp_fused vs its plain version on the card at MLP_SHAPES, bf16 and
+    float32, both GELUs, in every design that takes the shape: bf16 the
+    wgmma design (launched twice for identical bits, and held to the mma
+    design at the same tolerance) and the mma design it replaced; float32
+    the FMA design.  Returns the worst error of the path's design at the
+    ViT-B widths in bf16."""
     from vision_transformer_cam_tpu_torch.kernels import gemm
     worst, failures = 0.0, []
-    for si, (m, c, hid) in enumerate(((8 * 197, 768, 3072), (111, 72, 200),
-                                      (111, 66, 150))):
+    for si, (m, c, hid) in enumerate(MLP_SHAPES):
         for dtype in (torch.bfloat16, torch.float32):
             ops = mlp_operands(m, c, hid, dtype, seed=20 + si)
             for approx in (True, False):
-                got = gemm.mlp_fused(*ops, gelu_approx=approx)
                 want = gemm.mlp_fused_plain(*ops, gelu_approx=approx)
-                torch.cuda.synchronize()
                 name = str(dtype).split(".")[-1]
-                err = _compare(
-                    f"mlp_fused {name:8s} {'tanh' if approx else 'erf':4s} "
-                    f"M={m} C={c} HID={hid}", (got,), (want,),
-                    (TOL_MLP[dtype],), failures)
-                if c == 768 and dtype == torch.bfloat16:
-                    worst = max(worst, err)
+                got = {}
+                for design in mlp_designs(c, hid, dtype):
+                    got[design] = _mlp_design(design, gemm.mlp_fused, *ops,
+                                              gelu_approx=approx)
+                    torch.cuda.synchronize()
+                    case = f"mlp_fused {design:5s} {name:8s} " \
+                           f"{'tanh' if approx else 'erf':4s} M={m} C={c} " \
+                           f"HID={hid}"
+                    err = _compare(case, (got[design],), (want,),
+                                   (TOL_MLP[dtype],), failures)
+                    if c == 768 and dtype == torch.bfloat16 and \
+                            design == mlp_designs(c, hid, dtype)[0]:
+                        worst = max(worst, err)
+                if "wgmma" in got:
+                    _compare(f"mlp_fused wgmma against mma {name} M={m} "
+                             f"C={c} HID={hid}", (got["wgmma"],),
+                             (got["mma"],), (TOL_MLP[dtype],), failures)
+                    if not torch.equal(got["wgmma"], gemm.mlp_fused(
+                            *ops, gelu_approx=approx)):
+                        failures.append(f"mlp_fused wgmma M={m} C={c}: a "
+                                        "second launch gave other bits")
     if failures:
         raise AssertionError("mlp_fused != plain version:\n"
                              + "\n".join(failures))
@@ -820,44 +872,112 @@ def mlp_int8_chain(x, w1q, cs1, b1, w2q, cs2, b2, inv_a1, inv_a2, *,
 
 def check_mlp_int8():
     """mlp_fused_int8 vs its plain version (the chain of two fused-route int8
-    GEMMs) on the card.  Both run the same rounded float32 operations on
-    exact integer sums, so the float32 output is held to 1e-6 relative
-    (printed: whether it is equal bit for bit) and the bf16 output to one
-    bf16 ulp; against the same chain of two linear_int8 launches on the card
-    (the tensor-core GEMM) it must be equal bit for bit.  Returns the worst
-    float32 error at the ViT-B widths."""
+    GEMMs) on the card at MLP_SHAPES, in every design that takes the shape
+    (the wgmma design, launched twice for identical bits, and the mma design
+    it replaced).  Both run the same rounded float32 operations on exact
+    integer sums, so the float32 output is held to 1e-6 relative (printed:
+    whether it is equal bit for bit) and the bf16 output to one bf16 ulp;
+    against the same chain of two linear_int8 launches on the card (the
+    tensor-core GEMM), and the two designs against each other, it must be
+    equal bit for bit.  Returns the worst float32 error of the path's design
+    at the ViT-B widths."""
     from vision_transformer_cam_tpu_torch.kernels import gemm
     worst, failures = 0.0, []
-    for si, (m, c, hid) in enumerate(((8 * 197, 768, 3072), (111, 72, 200),
-                                      (111, 66, 150))):
+    for si, (m, c, hid) in enumerate(MLP_SHAPES):
+        designs = mlp_designs(c, hid, torch.int8)
         for x_dtype, out_dtype in ((torch.bfloat16, torch.float32),
                                    (torch.bfloat16, torch.bfloat16),
                                    (torch.float32, torch.float32)):
             ops = mlp_int8_operands(m, c, hid, x_dtype, seed=30 + si)
             for approx in (True, False):
                 kw = dict(gelu_approx=approx, out_dtype=out_dtype)
-                got = gemm.mlp_fused_int8(*ops, **kw)
                 want = gemm.mlp_fused_int8_plain(*ops, **kw)
                 chain = mlp_int8_chain(*ops, **kw)
-                torch.cuda.synchronize()
                 names = [str(d).split(".")[-1] for d in (x_dtype, out_dtype)]
                 rtol = 1e-6 if out_dtype == torch.float32 else 2 ** -8
-                case = f"mlp_fused_int8 {names[0]}->{names[1]} " \
-                       f"{'tanh' if approx else 'erf':4s} M={m} C={c} " \
-                       f"HID={hid}"
-                err = _compare(
-                    f"{case} (bit for bit: plain {torch.equal(got, want)}, "
-                    f"two linear_int8 launches {torch.equal(got, chain)})",
-                    (got,), (want,), ((0.0, rtol),), failures)
-                if not torch.equal(got, chain):
-                    failures.append(f"{case}: not the chain of two "
-                                    "linear_int8 launches bit for bit")
-                if c == 768 and out_dtype == torch.float32:
-                    worst = max(worst, err)
+                got = {}
+                for design in designs:
+                    got[design] = _mlp_design(design, gemm.mlp_fused_int8,
+                                              *ops, **kw)
+                    torch.cuda.synchronize()
+                    case = f"mlp_fused_int8 {design:5s} " \
+                           f"{names[0]}->{names[1]} " \
+                           f"{'tanh' if approx else 'erf':4s} M={m} C={c} " \
+                           f"HID={hid}"
+                    err = _compare(
+                        f"{case} (bit for bit: plain "
+                        f"{torch.equal(got[design], want)}, two linear_int8 "
+                        f"launches {torch.equal(got[design], chain)})",
+                        (got[design],), (want,), ((0.0, rtol),), failures)
+                    if not torch.equal(got[design], chain):
+                        failures.append(f"{case}: not the chain of two "
+                                        "linear_int8 launches bit for bit")
+                    if c == 768 and out_dtype == torch.float32 and \
+                            design == designs[0]:
+                        worst = max(worst, err)
+                if "wgmma" in got:
+                    if not torch.equal(got["wgmma"], got["mma"]):
+                        failures.append(f"mlp_fused_int8 M={m} C={c} "
+                                        f"{names}: the wgmma and mma designs "
+                                        "differ")
+                    if not torch.equal(got["wgmma"],
+                                       gemm.mlp_fused_int8(*ops, **kw)):
+                        failures.append(f"mlp_fused_int8 wgmma M={m} C={c}: "
+                                        "a second launch gave other bits")
     if failures:
         raise AssertionError("mlp_fused_int8 != plain version:\n"
                              + "\n".join(failures))
     return worst
+
+
+def mlp_occupancy(c=768):
+    """For the fused MLP kernel instances the serving paths run (bf16; int8
+    with bf16 x and out) in both designs at C = ``c``: blocks an SM holds at
+    once, registers a thread at launch and local memory
+    (cudaFuncGetAttributes), shared memory a block; and from ptxas
+    (build.log) every entry of the two sources with its registers and spill
+    bytes (the wgmma design's consumers run at setmaxnreg 240, its producer
+    at 24: ptxas reports the launch figure).  Returns {(design, kind):
+    (blocks, registers, local bytes, shared bytes)}."""
+    import ctypes
+
+    from vision_transformer_cam_tpu_torch.kernels import _build
+    lib, got = _build.load(), {}
+    for design, fn, threads in (
+            ("wgmma", lib.vitcam_mlp_wgmma_occupancy, 384),
+            ("mma", lib.vitcam_mlp_fused_occupancy, 256)):
+        for kind, name in ((1, "bf16"), (2, "int8")):
+            info = (ctypes.c_int * 4)()
+            err = fn(c, kind, info)
+            if err:
+                raise RuntimeError(
+                    f"mlp occupancy ({design}, {name}): cudaError {err} "
+                    f"({lib.vitcam_cuda_error_string(err).decode()})")
+            got[(design, name)] = tuple(info)
+            say(f"mlp_occupancy {design:5s} {name:4s} C={c}: {info[0]} "
+                f"blocks of {threads} threads an SM, {info[1]} registers a "
+                f"thread at launch, {info[2]} bytes of local memory a "
+                f"thread, {info[3]} bytes of shared memory a block")
+    log = (_build.lib_path().parent / "build.log").read_text()
+    for part in re.split(r"^== ", log, flags=re.M)[1:]:
+        src, _, body = part.partition("\n")
+        if src not in ("mlp_fused_wgmma.cu", "mlp_fused.cu"):
+            continue
+        for entry, props in re.findall(
+                r"Compiling entry function '(\S+)'.*?\n(.*?Used \d+ "
+                r"registers)", body, flags=re.S):
+            regs = re.search(r"Used (\d+) registers", props).group(1)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                              r"spill loads", props)
+            short = re.search(r"(mlp_\w*?_kernel)I(\w+?)EEv", entry)
+            if short:
+                entry = f"{short.group(1)}<{short.group(2)}>"
+            say(f"mlp_occupancy ptxas {src} {entry}: {regs} registers, "
+                f"spill stores {spill.group(1) if spill else '?'} bytes, "
+                f"spill loads {spill.group(2) if spill else '?'} bytes")
+        for warn in re.findall(r".*(?:warning|setmaxnreg).*", body):
+            say(f"mlp_occupancy ptxas {src}: {warn.strip()}")
+    return got
 
 
 def block_operands(b, n, heads, dtype, seed, hot):
@@ -1358,45 +1478,71 @@ def time_kernels(b=64, n=197):
 
 
 def time_fused(b=64, n=197, heads=12):
-    """The three fused kernels at ViT-B shapes and B=64, in turns with their
-    plain versions, and beside each the unfused route the port already has,
-    a yardstick for the shape and not the same single call: F.linear ->
-    F.gelu -> F.linear; two fused-route int8 GEMM launches; the qkv GEMM, the
-    attention kernel, the proj GEMM and the residual add.  Returns {name:
-    (kernel ms, plain ms, unfused route ms)}."""
+    """The three fused kernels at ViT-B shapes and B=64 (the MLP kernels
+    also at batch 256's M = 50432), in turns with the designs they ran
+    before and their plain versions, and beside each the unfused route the
+    port already has, a yardstick for the shape and not the same single
+    call: F.linear -> F.gelu -> F.linear; two fused-route int8 GEMM
+    launches; the qkv GEMM, the attention kernel, the proj GEMM and the
+    residual add.  Returns {name: (kernel ms, plain ms, unfused route ms)},
+    the MLP kernels at M = 50432 under (name, M), and the earlier designs'
+    ms under ("earlier", ...) keys."""
     import torch.nn.functional as F
     from vision_transformer_cam_tpu_torch.kernels import attention as ka
     from vision_transformer_cam_tpu_torch.kernels import gemm
     c, m = heads * 64, b * n
     times = {}
 
-    x, w1, b1, w2, b2 = mlp_operands(m, c, 4 * c, torch.bfloat16, seed=50)
-    k_ms, p_ms = in_turns(
-        lambda: gemm.mlp_fused(x, w1, b1, w2, b2),
-        lambda: gemm.mlp_fused_plain(x, w1, b1, w2, b2), iters=5)
-    u_ms = time_ms(lambda: F.linear(F.gelu(F.linear(x, w1, b1),
-                                           approximate="tanh"), w2, b2), 5)
-    times["mlp_fused"] = (k_ms, p_ms, u_ms)
-    say(f"time mlp_fused bf16 M={m} C={c} HID={4 * c}: kernel {k_ms:.4f} ms, "
-        f"plain {p_ms:.4f} ms; unfused F.linear, F.gelu, F.linear (cuBLAS "
-        f"and ATen) {u_ms:.4f} ms")
+    hid = 4 * c
+    # the two fused MLP kernels at B=64 and at batch 256's rows: the wgmma
+    # design, the mma design it replaced, the plain version and the unfused
+    # route, in turns
+    for rows in (m, 4 * m):
+        x, w1, b1, w2, b2 = mlp_operands(rows, c, hid, torch.bfloat16,
+                                         seed=50)
+        fns = {d: (lambda d=d: _mlp_design(d, gemm.mlp_fused, x, w1, b1, w2,
+                                           b2))
+               for d in ("wgmma", "mma")}
+        fns["plain"] = lambda: gemm.mlp_fused_plain(x, w1, b1, w2, b2)
+        fns["unfused"] = lambda: F.linear(F.gelu(F.linear(x, w1, b1),
+                                                 approximate="tanh"), w2, b2)
+        ms = round_robin(fns, iters=5)
+        key = "mlp_fused" if rows == m else ("mlp_fused", rows)
+        times[key] = (ms["wgmma"], ms["plain"], ms["unfused"])
+        times[("earlier",) + ((key,) if rows == m else key)] = ms["mma"]
+        bound_ms = mlp_bound(rows, c, hid, torch.bfloat16)[0]
+        say(f"time mlp_fused bf16 M={rows} C={c} HID={hid}, in turns: wgmma "
+            f"{ms['wgmma']:.4f} ms, mma (earlier) {ms['mma']:.4f} ms, plain "
+            f"{ms['plain']:.4f} ms; unfused F.linear, F.gelu, F.linear "
+            f"(cuBLAS and ATen) {ms['unfused']:.4f} ms; bound {bound_ms:.4f} "
+            f"ms ({100 * bound_ms / ms['wgmma']:.1f} % of the bound's rate)")
+        del x, w1, b1, w2, b2, fns
 
-    ops = mlp_int8_operands(m, c, 4 * c, torch.bfloat16, seed=51)
-    xq, w1q, cs1, b1q, w2q, cs2, b2q, inv1, inv2 = ops
-    one = torch.ones((), device="cuda")
+        ops = mlp_int8_operands(rows, c, hid, torch.bfloat16, seed=51)
+        xq, w1q, cs1, b1q, w2q, cs2, b2q, inv1, inv2 = ops
+        one = torch.ones((), device="cuda")
 
-    def chain():
-        hq = gemm.linear_int8(xq, w1q, cs1, b1q, inv1, route="fused",
-                              epilogue="gelu", out_scales=inv2.reshape(1))
-        return gemm.linear_int8(hq.float(), w2q, cs2, b2q, one,
-                                route="fused", out_dtype=torch.bfloat16)
-    k_ms, p_ms = in_turns(lambda: gemm.mlp_fused_int8(*ops),
-                          lambda: gemm.mlp_fused_int8_plain(*ops), iters=5)
-    u_ms = time_ms(chain, 5)
-    times["mlp_fused_int8"] = (k_ms, p_ms, u_ms)
-    say(f"time mlp_fused_int8 bf16 M={m} C={c} HID={4 * c}: kernel "
-        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms; unfused chain of two int8 GEMM "
-        f"launches (and the cast between them) {u_ms:.4f} ms")
+        def chain():
+            hq = gemm.linear_int8(xq, w1q, cs1, b1q, inv1, route="fused",
+                                  epilogue="gelu", out_scales=inv2.reshape(1))
+            return gemm.linear_int8(hq.float(), w2q, cs2, b2q, one,
+                                    route="fused", out_dtype=torch.bfloat16)
+        fns = {d: (lambda d=d: _mlp_design(d, gemm.mlp_fused_int8, *ops))
+               for d in ("wgmma", "mma")}
+        fns["plain"] = lambda: gemm.mlp_fused_int8_plain(*ops)
+        fns["unfused"] = chain
+        ms = round_robin(fns, iters=5)
+        key = "mlp_fused_int8" if rows == m else ("mlp_fused_int8", rows)
+        times[key] = (ms["wgmma"], ms["plain"], ms["unfused"])
+        times[("earlier",) + ((key,) if rows == m else key)] = ms["mma"]
+        bound_ms = mlp_bound(rows, c, hid, torch.int8)[0]
+        say(f"time mlp_fused_int8 bf16 M={rows} C={c} HID={hid}, in turns: "
+            f"wgmma {ms['wgmma']:.4f} ms, mma (earlier) {ms['mma']:.4f} ms, "
+            f"plain {ms['plain']:.4f} ms; unfused chain of two int8 GEMM "
+            f"launches (and the cast between them) {ms['unfused']:.4f} ms; "
+            f"bound {bound_ms:.4f} ms ({100 * bound_ms / ms['wgmma']:.1f} % "
+            f"of the bound's rate)")
+        del ops, xq, w1q, w2q, fns
 
     bops, bg, joint = block_operands(b, n, heads, torch.bfloat16, seed=52,
                                      hot=False)
@@ -1733,6 +1879,18 @@ def ln_quant_bound(m, c):
                  {"f32": 8 * m * c})
 
 
+def mlp_bound(m, c, hid, dtype):
+    """The fused MLP's bound on [m, c] rows: bf16 x in and out; bf16
+    weights and biases and two products at the bf16 rate, or (dtype
+    torch.int8) int8 weights, float32 scale and bias vectors and the two
+    inverse act scales and the products at the int8 rate."""
+    if dtype == torch.int8:
+        return bound(f"mlp_fused_int8 M={m}", 2 * m * c * 2 + 2 * c * hid
+                     + 2 * (hid + c) * 4 + 8, {"int8": 4 * m * c * hid})
+    return bound(f"mlp_fused bf16 M={m}", 2 * m * c * 2 + 2 * c * hid * 2
+                 + (hid + c) * 2, {"bf16": 4 * m * c * hid})
+
+
 def kernel_bounds(b=64, n=197, heads=12):
     """Bounds of the kernels at the shapes ``time_kernels`` and
     ``time_attention_bwd`` time them at (each input read once, each output
@@ -1795,15 +1953,8 @@ def kernel_bounds(b=64, n=197, heads=12):
             "masked_attention_fused bf16 rollout (the bf16 serving path)",
             m * 3 * c * 2 + m * 2 + 2 * b * n * n * 4 + m * c * 2 + m * 2,
             {"bf16": 2 * qk, "f32": 2 * b * n ** 3}),
-        # bf16 x, both weights and biases in, bf16 out; two products
-        "mlp_fused": bound(
-            "mlp_fused bf16", 2 * m * c * 2 + 2 * c * hid * 2 + (hid + c) * 2,
-            {"bf16": 4 * m * c * hid}),
-        # bf16 x, int8 weights, f32 scale and bias vectors and the two
-        # inverse act scales in, bf16 out
-        "mlp_fused_int8": bound(
-            "mlp_fused_int8", 2 * m * c * 2 + 2 * c * hid
-            + 2 * (hid + c) * 4 + 8, {"int8": 4 * m * c * hid}),
+        "mlp_fused": mlp_bound(m, c, hid, torch.bfloat16),
+        "mlp_fused_int8": mlp_bound(m, c, hid, torch.int8),
         # bf16 xn and tokens, the qkv and proj weights and biases, f32 bg
         # and the f32 joint in; bf16 tokens and cls row and the f32 joint
         # out.  qkv and proj GEMMs, QK^T and PV at the bf16 rate, hm @ J f32
@@ -2672,6 +2823,7 @@ def main() -> int:
     ln_err = check_ln_quant()
     mlp_err = check_mlp()
     mlp8_err = check_mlp_int8()
+    mlp_occupancy()
     block_errs = check_attention_block()
     block_occupancy()
     seq_err = check_attention_seq()

@@ -324,7 +324,8 @@ def test_no_config_field_reaches_the_design_switches():
     assert not any("design" in f for f in fields), fields
     pkg = pathlib.Path(tattn.__file__).resolve().parents[1]
     switch = re.compile(r"_(fwd|seq|bwd|block)_bf16_design\s*=|"
-                        r"_int8_gemm_design\s*=")
+                        r"_int8_gemm_design\s*=|"
+                        r"_mlp_(bf16|int8)_design\s*=")
     setters = sorted(str(p.relative_to(pkg)) for p in pkg.rglob("*.py")
                      if switch.search(p.read_text()))
     assert setters == ["kernels/attention.py", "kernels/gemm.py"], setters

@@ -225,6 +225,48 @@ def test_mlp_fused_int8_checks():
         tgemm.mlp_fused_int8(x.to("meta"), *args)
 
 
+# the design each (C, HID) takes at bf16 and int8: the wgmma design where C
+# and HID are multiples of 64 (C <= 768), the mma design elsewhere; no kernel
+# past C = 768
+MLP_ROUTES = {(768, 3072): "wgmma", (64, 256): "wgmma", (72, 200): "mma",
+              (66, 150): "mma", (1024, 4096): None}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "int8"])
+@pytest.mark.parametrize("shape", list(MLP_ROUTES))
+def test_mlp_design_routes_by_shape(shape, dtype):
+    """``mlp_design`` is the one rule the two wrappers route by: float32
+    keeps the FMA design (TF32 would change the numbers), bf16 and int8 take
+    the wgmma design where the TMA boxes and wgmma tiles fit, and C past 768
+    has no kernel.  The private switches turn "wgmma" into "mma" only."""
+    c, hid = shape
+    dt = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "int8": torch.int8}[dtype]
+    want = MLP_ROUTES[shape]
+    if want is None:
+        with pytest.raises(ValueError, match="C <= 768"):
+            tgemm.mlp_design(c, hid, dt)
+        return
+    if dt == torch.float32:
+        want = "fma"
+    assert tgemm.mlp_design(c, hid, dt) == want
+    switch = "_mlp_int8_design" if dt == torch.int8 else "_mlp_bf16_design"
+    assert getattr(tgemm, switch) == "wgmma"
+    saved = getattr(tgemm, switch)
+    setattr(tgemm, switch, "mma")
+    try:
+        assert tgemm.mlp_design(c, hid, dt) == ("mma" if want == "wgmma"
+                                                else want)
+    finally:
+        setattr(tgemm, switch, saved)
+    assert set(tgemm.MLP_DESIGNS) == {"wgmma", "mma", "fma"}
+
+
+def test_mlp_design_rejects_other_types():
+    with pytest.raises(TypeError, match="bfloat16, float32 or int8"):
+        tgemm.mlp_design(768, 3072, torch.float16)
+
+
 # ---------------------------------------------------------------------------
 # 3. attention_block_fused
 # ---------------------------------------------------------------------------

@@ -243,6 +243,8 @@ def test_int8_attention_io_needs_per_head_scales():
      "(...)", "attention block kernel"),
     ("void (anonymous namespace)::masked_attention_seq_tc_kernel<true, "
      "true>(...)", "sequence-parallel attention kernel"),
+    ("void (anonymous namespace)::mlp_wgmma_kernel<true, __nv_bfloat16, "
+     "__nv_bfloat16>(CUtensorMap_st, ...)", "fused MLP kernel"),
     ("void (anonymous namespace)::masked_attention_bwd_tc_dkv_kernel<false>"
      "(...)", "attention backward kernel"),
     ("nvjet_tst_128x192_64x4_2x1_v_bz_coopB_TNT", "float GEMMs (cuBLAS)"),

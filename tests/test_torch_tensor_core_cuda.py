@@ -1,13 +1,16 @@
-"""The tensor-core designs of the int8 GEMM, of the fused attention forward
-and of the attention block kernel's core, on the card.
+"""The tensor-core designs of the int8 GEMM, of the fused attention forward,
+of the attention block kernel's core and of the fused MLP kernels, on the
+card.
 
 ``linear_int8`` runs mma.sync.m16n8k32 (s8) for every route; the fused
 attention forward runs its tensor-core design for bf16 and int8 qkv, the
-attention block kernel its tensor-core core for bf16.  Each is held against
-its plain version and against the design it replaced (the ``__dp4a`` GEMM,
-the FMA attention, the FMA block core), which stay compiled behind the
-private switches ``kernels.gemm._int8_gemm_design``,
-``kernels.attention._fwd_bf16_design`` and ``_block_bf16_design``.  The
+attention block kernel its tensor-core core for bf16, the fused MLP kernels
+their wgmma design for bf16 and int8.  Each is held against its plain
+version and against the design it replaced (the ``__dp4a`` GEMM, the FMA
+attention, the FMA block core, the mma.sync MLP), which stay compiled behind
+the private switches ``kernels.gemm._int8_gemm_design``,
+``kernels.attention._fwd_bf16_design``, ``_block_bf16_design`` and
+``kernels.gemm._mlp_bf16_design`` / ``_mlp_int8_design``.  The
 tests need a CUDA GPU (the kernels have no CPU mode) and skip here; on the
 card:
 
@@ -296,3 +299,90 @@ def test_cuda_attention_block_tensor_core_matches_plain_and_fma(n):
                 for a, o, tol in zip(got, old, ((2e-2, 2 ** -5),
                                                 (2e-5, 2 ** -5), TOL_JOINT)):
                     _close(a, o, tol)
+
+
+def _mlp_operands(m, c, hid, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, gain=1.0):
+        return (gain * torch.randn(shape, generator=g, device="cuda")).to(
+            torch.bfloat16)
+    return (rnd(m, c), rnd(hid, c, gain=c ** -0.5), rnd(hid, gain=0.1),
+            rnd(c, hid, gain=hid ** -0.5), rnd(c, gain=0.1))
+
+
+def _mlp_int8_operands(m, c, hid, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((m, c), generator=g, device="cuda").to(torch.bfloat16)
+
+    def layer(n, k, act):
+        wq = torch.randint(-127, 128, (n, k), generator=g, device="cuda",
+                           dtype=torch.int8)
+        ws = 1e-3 * (1 + torch.rand((n,), generator=g, device="cuda"))
+        return wq, ws * act, torch.randn((n,), generator=g, device="cuda")
+    act1 = x.float().abs().amax() / 127.0
+    act2 = torch.tensor(6.0 / 127.0, device="cuda")
+    w1q, cs1, b1 = layer(hid, c, act1)
+    w2q, cs2, b2 = layer(c, hid, act2)
+    return x, w1q, cs1, b1, w2q, cs2, b2, 1.0 / act1, 1.0 / act2
+
+
+def _mlp_old(fn, *args, **kw):
+    """``fn`` with both fused MLP wrappers on the mma design."""
+    return _with(tgemm, "_mlp_bf16_design", "mma", _with, tgemm,
+                 "_mlp_int8_design", "mma", fn, *args, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8 * 197, 8 * 197 + 37])
+def test_cuda_mlp_wgmma_matches_plain_and_mma(m):
+    """The fused MLP kernels' wgmma design at the ViT-B widths (C = 768,
+    HID = 3072), M = 8 * 197 and with a tail of 37 rows past a multiple of
+    64, both GELUs.  mlp_fused (bf16): against its plain version at
+    chip_smoke.py's TOL_MLP for bf16 (1e-2 + 2^-6 relative: both round the
+    hidden tensor and the output to bf16, and sum in another order), and
+    against the mma design at the same tolerance.  mlp_fused_int8 (bf16 x,
+    float32 and bf16 out): bit for bit the mma design and the chain of two
+    fused-route linear_int8 launches (exact int32 sums, the same rounded
+    float steps), within 1e-6 relative (float32 out) or one bf16 ulp of its
+    plain version.  One launch each, and a second launch gives the same
+    bits."""
+    _card()
+    c, hid = 768, 3072
+    assert tgemm.mlp_design(c, hid, torch.bfloat16) == "wgmma"
+    assert tgemm.mlp_design(c, hid, torch.int8) == "wgmma"
+    ops = _mlp_operands(m, c, hid, seed=m)
+    for approx in (True, False):
+        before = tgemm.mlp_fused_launches
+        got = tgemm.mlp_fused(*ops, gelu_approx=approx)
+        assert tgemm.mlp_fused_launches == before + 1
+        again = tgemm.mlp_fused(*ops, gelu_approx=approx)
+        want = tgemm.mlp_fused_plain(*ops, gelu_approx=approx)
+        old = _mlp_old(tgemm.mlp_fused, *ops, gelu_approx=approx)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        _close(got, want, (1e-2, 2 ** -6))
+        _close(got, old, (1e-2, 2 ** -6))
+    ops = _mlp_int8_operands(m, c, hid, seed=m + 1)
+    x, w1q, cs1, b1, w2q, cs2, b2, inv1, inv2 = ops
+    one = torch.ones((), device="cuda")
+    for out_dtype in (torch.float32, torch.bfloat16):
+        for approx in (True, False):
+            kw = dict(gelu_approx=approx, out_dtype=out_dtype)
+            before = tgemm.mlp_fused_int8_launches
+            got = tgemm.mlp_fused_int8(*ops, **kw)
+            assert tgemm.mlp_fused_int8_launches == before + 1
+            again = tgemm.mlp_fused_int8(*ops, **kw)
+            old = _mlp_old(tgemm.mlp_fused_int8, *ops, **kw)
+            hq = tgemm.linear_int8(x, w1q, cs1, b1, inv1, route="fused",
+                                   epilogue="gelu", out_scales=inv2.reshape(1),
+                                   gelu_approx=approx)
+            chain = tgemm.linear_int8(hq.float(), w2q, cs2, b2, one,
+                                      route="fused", out_dtype=out_dtype)
+            want = tgemm.mlp_fused_int8_plain(*ops, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again)
+            assert torch.equal(got, old)
+            assert torch.equal(got, chain)
+            _close(got, want, (0.0, 1e-6 if out_dtype == torch.float32
+                               else 2 ** -8))

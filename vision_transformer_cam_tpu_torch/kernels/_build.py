@@ -122,6 +122,16 @@ def load():
         fn = lib.vitcam_mlp_fused_int8
         fn.argtypes = [p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
         fn.restype = i
+        fn = lib.vitcam_mlp_wgmma
+        fn.argtypes = [p] * 6 + [i, i, i, i, p]
+        fn.restype = i
+        fn = lib.vitcam_mlp_wgmma_int8
+        fn.argtypes = [p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+        fn.restype = i
+        for name in ("vitcam_mlp_wgmma_occupancy", "vitcam_mlp_fused_occupancy"):
+            fn = getattr(lib, name)
+            fn.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
+            fn.restype = i
         fn = lib.vitcam_attention_block_fused
         fn.argtypes = [p] * 11 + [i, i, i, i, f, f, i, i, i, i, p]
         fn.restype = i
@@ -135,6 +145,8 @@ def load():
         lib.vitcam_masked_attention_seq_smem_bytes.restype = ctypes.c_size_t
         lib.vitcam_mlp_fused_smem_bytes.argtypes = [i, i]
         lib.vitcam_mlp_fused_smem_bytes.restype = ctypes.c_size_t
+        lib.vitcam_mlp_wgmma_smem_bytes.argtypes = [i, i]
+        lib.vitcam_mlp_wgmma_smem_bytes.restype = ctypes.c_size_t
         lib.vitcam_attention_block_smem_bytes.argtypes = [i, i, i, i, i]
         lib.vitcam_attention_block_smem_bytes.restype = ctypes.c_size_t
         lib.vitcam_masked_attention_bwd_smem_bytes.argtypes = [i, i]

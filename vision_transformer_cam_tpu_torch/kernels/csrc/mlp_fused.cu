@@ -27,9 +27,17 @@
 // tensor cores with cp.async double buffering at bf16, f32 FMAs on the CUDA
 // cores at float32 (a thread makes 16 vector loads for 192 FMAs).  The int8
 // kernel runs mma.sync.m16n8k32 on the int8 tensor cores, its weight chunks
-// double buffered the same way.  wgmma with TMA is the lever left.
+// double buffered the same way.  Each block streams both weights from L2 for
+// its 32 rows, and that traffic sets the pace (PERF.md).
 // Limit: C <= 768 for both kernels (the accumulator's shared memory); the
 // launch fails past it.
+//
+// This is the earlier design.  bf16 and int8 calls whose shape the Hopper
+// design takes (mlp_fused_wgmma.cu: 64-row tiles, a TMA ring, wgmma) run that
+// one; this file keeps float32, the shapes it does not take (C or HID not a
+// multiple of 64), and, behind the private switches
+// kernels.gemm._mlp_bf16_design / _mlp_int8_design = "mma", the earlier
+// design of bf16 and int8 for timing beside the new one.
 //
 // Built by kernels/_build.py with nvcc into the shared library with a plain C
 // interface (no PyTorch headers) and called through ctypes.
@@ -399,6 +407,33 @@ size_t vitcam_mlp_fused_smem_bytes(int c, int kind) {
   return kind == 2   ? mlp_int8_smem_bytes(c)
          : kind == 1 ? mlp_smem_bytes<__nv_bfloat16>(c)
                      : mlp_smem_bytes<float>(c);
+}
+
+// The kernel instance the serving path runs (kind 0: float32, 1: bf16, 2:
+// int8 with bf16 x and out) at width c: info = {blocks an SM holds at once,
+// registers a thread, local memory bytes a thread, dynamic shared memory
+// bytes a block}.
+int vitcam_mlp_fused_occupancy(int c, int kind, int* info) {
+  const size_t smem = vitcam_mlp_fused_smem_bytes(c, kind);
+  const void* fn = kind == 2   ? reinterpret_cast<const void*>(
+                                     mlp_fused_int8_kernel<__nv_bfloat16, __nv_bfloat16>)
+                   : kind == 1 ? reinterpret_cast<const void*>(mlp_fused_kernel<__nv_bfloat16>)
+                               : reinterpret_cast<const void*>(mlp_fused_kernel<float>);
+  cudaError_t err = kind == 2   ? prepare(mlp_fused_int8_kernel<__nv_bfloat16, __nv_bfloat16>, smem)
+                    : kind == 1 ? prepare(mlp_fused_kernel<__nv_bfloat16>, smem)
+                                : prepare(mlp_fused_kernel<float>, smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kGT, smem);
+  if (err != cudaSuccess) return err;
+  info[0] = blocks;
+  info[1] = attr.numRegs;
+  info[2] = int(attr.localSizeBytes);
+  info[3] = int(smem);
+  return cudaSuccess;
 }
 
 }  // extern "C"

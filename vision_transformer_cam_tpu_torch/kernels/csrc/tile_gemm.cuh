@@ -21,6 +21,11 @@
 //             elements, which makes every fragment load conflict free.  A
 //             warp owns all 32 rows and BN / 8 columns.
 //
+// The fused MLP's bf16 products ran here until its Hopper design
+// (mlp_fused_wgmma.cu); they still do for its earlier design, which stays
+// behind the private switch kernels.gemm._mlp_bf16_design = "mma", and for
+// the shapes the new design does not take.
+//
 // Frag<TM, T> says which element of the tile an accumulator is, so callers
 // write one epilogue for both.  Ragged rows, columns and k are staged as
 // zeros, so no shape needs to be a multiple of anything; where the row pitch

@@ -16,8 +16,10 @@ compiled at its first call; on a CPU tensor it runs ``ln_quant_ref``.
 ``mlp_fused`` and ``mlp_fused_int8`` replace kernels/gemm.py: mlp_fused and
 mlp_fused_int8 (fc1 -> GELU -> fc2 in one launch; the [M, HID] hidden tensor
 never reaches device memory).  On a CUDA tensor they launch the hand-written
-kernels in ``csrc/mlp_fused.cu``; on a CPU tensor they run ``mlp_fused_plain``
-and ``mlp_fused_int8_plain``.
+kernel that ``mlp_design`` names: the Hopper design in
+``csrc/mlp_fused_wgmma.cu`` (TMA, wgmma) or the earlier one in
+``csrc/mlp_fused.cu``; on a CPU tensor they run ``mlp_fused_plain`` and
+``mlp_fused_int8_plain``.
 
 There is no fallback from a kernel to its plain version.  Each wrapper
 counts its CUDA launches (``linear_int8_launches``, ``ln_quant_launches``,
@@ -224,15 +226,53 @@ def linear_int8(x, weight_q, col_scale, bias, a_scale, *, route,
 # ---------------------------------------------------------------------------
 
 # the fused MLP kernels keep a [32, C] float32 accumulator in shared memory
+# (csrc/mlp_fused.cu) or a [64, C] one in the registers of two warpgroups
+# (csrc/mlp_fused_wgmma.cu)
 MLP_MAX_C = 768
+# The designs of the fused MLP kernels: "wgmma" (csrc/mlp_fused_wgmma.cu:
+# 64-row blocks, a producer warp's TMA ring of weight tiles, wgmma, the fc2
+# sums in registers), "mma" (csrc/mlp_fused.cu: 32-row blocks, mma.sync with
+# cp.async double buffering, the fc2 sums in shared memory) and "fma" (the
+# float32 kernel of csrc/mlp_fused.cu, FMAs on the CUDA cores).
+MLP_DESIGNS = ("wgmma", "mma", "fma")
+# The design bf16 / int8 calls run where the shape allows the wgmma design.
+# Only chip_smoke.py sets "mma", to time the earlier design beside the new
+# one; no config field or flag reaches them.
+_mlp_bf16_design = "wgmma"
+_mlp_int8_design = "wgmma"
 
 
-def _launch_error(lib, name, err, c, kind):
+def mlp_design(c: int, hid: int, dtype) -> str:
+    """The CUDA design a fused MLP call of width ``c``, hidden width
+    ``hid`` and element type ``dtype`` runs: torch.bfloat16 or torch.float32
+    for ``mlp_fused``, torch.int8 for ``mlp_fused_int8`` (whatever its x).
+
+    The rule, and the only one: C past ``MLP_MAX_C`` has no kernel (raises);
+    float32 runs "fma" (TF32 would change the numbers); bf16 and int8 run
+    "wgmma" where C and HID are multiples of 64 (the TMA boxes and wgmma
+    tiles), else "mma".  ``_mlp_bf16_design`` / ``_mlp_int8_design`` = "mma"
+    turn "wgmma" into "mma".  It picks by shape before the launch; a launch
+    that fails raises and is never retried in another design."""
+    if c > MLP_MAX_C:
+        raise ValueError(f"the CUDA fused MLP kernels take C <= {MLP_MAX_C}, "
+                         f"got {c}; serve this width without mlp_fusion")
+    if dtype == torch.float32:
+        return "fma"
+    if dtype not in (torch.bfloat16, torch.int8):
+        raise TypeError(f"mlp_design: bfloat16, float32 or int8, got {dtype}")
+    if c % 64 or hid % 64:
+        return "mma"
+    return _mlp_int8_design if dtype == torch.int8 else _mlp_bf16_design
+
+
+def _launch_error(lib, name, err, c, kind, design):
     """kind: 0 the float32 kernel, 1 the bfloat16 one, 2 the int8 one."""
+    smem = (lib.vitcam_mlp_wgmma_smem_bytes if design == "wgmma"
+            else lib.vitcam_mlp_fused_smem_bytes)(c, kind)
     return RuntimeError(
-        f"{name} kernel launch failed: cudaError {err} "
+        f"{name} kernel launch failed ({design} design): cudaError {err} "
         f"({lib.vitcam_cuda_error_string(err).decode()}); shared memory "
-        f"needed {lib.vitcam_mlp_fused_smem_bytes(c, kind)} bytes")
+        f"needed {smem} bytes")
 
 
 def _check_mlp(x, w1, b1, w2, b2):
@@ -270,10 +310,10 @@ def mlp_fused_plain(x, w1, b1, w2, b2, *, gelu_approx: bool = True):
 
 def mlp_fused(x, w1, b1, w2, b2, *, gelu_approx: bool = True):
     """Same contract as ``mlp_fused_plain``.  CPU tensors run the plain
-    version; CUDA tensors launch the kernel (x, weights and biases all
-    float32 or all bfloat16, contiguous, C <= ``MLP_MAX_C``) or raise.  The
-    kernel reads the weights in the torch layout: no transposed copy is
-    made."""
+    version; CUDA tensors launch the kernel of ``mlp_design`` (x, weights
+    and biases all float32 or all bfloat16, contiguous, C <= ``MLP_MAX_C``)
+    or raise.  The kernel reads the weights in the torch layout: no
+    transposed copy is made."""
     global mlp_fused_launches
     if x.device.type == "cpu":
         return mlp_fused_plain(x, w1, b1, w2, b2, gelu_approx=gelu_approx)
@@ -294,21 +334,23 @@ def mlp_fused(x, w1, b1, w2, b2, *, gelu_approx: bool = True):
     m = x.numel() // c
     if m == 0:
         raise ValueError("mlp_fused: empty x")
-    if c > MLP_MAX_C:
-        raise ValueError(f"the CUDA mlp_fused kernel takes C <= {MLP_MAX_C}, "
-                         f"got {c}; serve this width without mlp_fusion")
+    design = mlp_design(c, hid, x.dtype)
     out = torch.empty_like(x)
 
     from vision_transformer_cam_tpu_torch.kernels import _build
     lib = _build.load()
+    ptrs = (x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            b2.data_ptr(), out.data_ptr(), m, c, hid)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.vitcam_mlp_fused(
-            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), out.data_ptr(), m, c, hid, _OUT_CODES[x.dtype],
-            int(gelu_approx), stream)
+        if design == "wgmma":
+            err = lib.vitcam_mlp_wgmma(*ptrs, int(gelu_approx), stream)
+        else:
+            err = lib.vitcam_mlp_fused(*ptrs, _OUT_CODES[x.dtype],
+                                       int(gelu_approx), stream)
     if err:
-        raise _launch_error(lib, "mlp_fused", err, c, _OUT_CODES[x.dtype])
+        raise _launch_error(lib, "mlp_fused", err, c, _OUT_CODES[x.dtype],
+                            design)
     mlp_fused_launches += 1
     return out
 
@@ -354,9 +396,9 @@ def mlp_fused_int8_plain(x, w1q, cs1, b1, w2q, cs2, b2, inv_a1, inv_a2, *,
 def mlp_fused_int8(x, w1q, cs1, b1, w2q, cs2, b2, inv_a1, inv_a2, *,
                    gelu_approx: bool = True, out_dtype=torch.bfloat16):
     """Same contract as ``mlp_fused_int8_plain``.  CPU tensors run the plain
-    version; CUDA tensors launch the kernel (x float32 or bfloat16; scales,
-    biases and the inverse act scales float32; out float32 or bfloat16;
-    C <= ``MLP_MAX_C``) or raise."""
+    version; CUDA tensors launch the kernel of ``mlp_design`` (x float32 or
+    bfloat16; scales, biases and the inverse act scales float32; out float32
+    or bfloat16; C <= ``MLP_MAX_C``) or raise."""
     global mlp_fused_int8_launches
     args = (x, w1q, cs1, b1, w2q, cs2, b2, inv_a1, inv_a2)
     if x.device.type == "cpu":
@@ -383,17 +425,16 @@ def mlp_fused_int8(x, w1q, cs1, b1, w2q, cs2, b2, inv_a1, inv_a2, *,
     m = x.numel() // c
     if m == 0:
         raise ValueError("mlp_fused_int8: empty x")
-    if c > MLP_MAX_C:
-        raise ValueError(f"the CUDA mlp_fused_int8 kernel takes C <= "
-                         f"{MLP_MAX_C}, got {c}; serve this width without "
-                         "mlp_fusion")
+    design = mlp_design(c, hid, torch.int8)
     out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
 
     from vision_transformer_cam_tpu_torch.kernels import _build
     lib = _build.load()
+    fn = lib.vitcam_mlp_wgmma_int8 if design == "wgmma" \
+        else lib.vitcam_mlp_fused_int8
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.vitcam_mlp_fused_int8(
+        err = fn(
             x.data_ptr(), _OUT_CODES[x.dtype], w1q.data_ptr(),
             cs1.data_ptr(), None if b1 is None else b1.data_ptr(),
             w2q.data_ptr(), cs2.data_ptr(),
@@ -401,7 +442,7 @@ def mlp_fused_int8(x, w1q, cs1, b1, w2q, cs2, b2, inv_a1, inv_a2, *,
             inv_a2.data_ptr(), out.data_ptr(), _OUT_CODES[out_dtype], m, c,
             hid, int(gelu_approx), stream)
     if err:
-        raise _launch_error(lib, "mlp_fused_int8", err, c, 2)
+        raise _launch_error(lib, "mlp_fused_int8", err, c, 2, design)
     mlp_fused_int8_launches += 1
     return out
 
