@@ -109,16 +109,21 @@ Phases (any failure raises, and the exit code is non-zero):
      numpy seed.
  11. the split-tensor kernel (masked_attention, v1) against its plain
      version: float32 and bf16, with and without the head mean, 30 %
-     background, none and all, B=8 N=197, a ragged B=3 N=37 and B=2 N=577;
-     its time at B=64 N=197 bf16 beside its plain version, the fused
-     kernel's plain variant and F.scaled_dot_product_attention (timed only);
+     background, none and all, B=8 N=197, a ragged B=3 N=37 and B=2 N=577
+     (bf16 in its tensor-core design, launched twice for identical bits, and
+     in the FMA design it ran before); its time at B=64 N=197 bf16 in both
+     designs in turns with its plain version, beside the fused kernel's
+     plain variant and F.scaled_dot_product_attention (timed only);
  12. the fused attention kernel with q_block 16 against 32 at B=8 N=197
      (bit-identical out), q_block 16 alone at N=1025 against the plain
      version, and a forced q_block 32 there refused;
  13. the eight attn_variants kernels against run_ref at B=8 N=197 and B=3
-     N=37, bf16 and float32; then ``attn_variants --all`` at B=512 (eight
-     ms/layer lines and the differences) and each variant beside its plain
-     version;
+     N=37, bf16 (the tensor-core design, launched twice for identical bits,
+     and the FMA design it ran before) and float32, and the tensor-core
+     ``full`` bit for bit against kernel 1's bf16 rollout variant; then
+     ``attn_variants --all`` at B=512 (eight ms/layer lines and the
+     differences) and each variant in both designs in turns with its plain
+     version, ``full`` also beside kernel 1;
  14. the bench entry point through ``bench.main``, one JSON line each:
      default (int8), --bf16, --int8-hifi, --bf16 --xla, --no-cam, --latency,
      --mlp-fusion, --train --mixed --batch 64, ViT-L/16@384 --batch 16
@@ -415,9 +420,10 @@ def check_attention():
 
 
 def fwd_designs(dtype):
-    """The forward designs that take qkv of ``dtype``, the path's first:
-    bf16 and int8 the tensor-core design, then the FMA design they ran
-    before; float32 the FMA design."""
+    """The designs of kernel 1, the split-tensor kernel and the ablation
+    kernels that take ``dtype``, the path's first: bf16 and int8 the
+    tensor-core design, then the FMA design they ran before; float32 the FMA
+    design."""
     return ("fma",) if dtype == torch.float32 else ("tensor-core", "fma")
 
 
@@ -2485,12 +2491,25 @@ def v1_inputs(b, n, heads, dtype, seed, bg_kind="30%"):
     return tuple(t.to(dtype).contiguous() for t in (q, k, v)), bg
 
 
+def _switched(module, name, value, fn, *args, **kw):
+    """``fn(*args, **kw)`` with ``module.name`` (a private design switch) set
+    to ``value`` for the call."""
+    saved = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        return fn(*args, **kw)
+    finally:
+        setattr(module, name, saved)
+
+
 def check_attention_v1():
     """The split-tensor kernel (masked_attention) against its plain version on
-    the card: float32 and bf16, with and without the head mean, 30 %
+    the card, in every design that takes the dtype (bf16: the tensor-core
+    design, launched twice for identical bits, and the FMA design it ran
+    before; float32: the FMA design): with and without the head mean, 30 %
     background, none and all; B=8 N=197, a ragged B=3 N=37, and B=2 N=577.
-    Returns the worst error of the bf16 cases at N=197 without the head
-    mean."""
+    Returns the worst error of the bf16 cases at N=197 without the head mean
+    in the tensor-core design."""
     from vision_transformer_cam_tpu_torch.kernels import attention as ka
     failures, kept = [], 0.0
     for (b, n) in ((8, 197), (3, 37), (2, 577)):
@@ -2500,16 +2519,24 @@ def check_attention_v1():
                 (q, k, v), bg = v1_inputs(b, n, 12, dtype, 7 * n + bi, bg_kind)
                 for hm in (False, True):
                     kw = dict(scale=64 ** -0.5, with_headmean=hm)
-                    got = ka.masked_attention(q, k, v, bg, **kw)
                     want = ka.masked_attention_ref(q, k, v, bg, **kw)
-                    torch.cuda.synchronize()
                     tols = [TOL[(dtype, "out")], TOL[(dtype, "prob")],
                             TOL[(dtype, "prob")]]
-                    err = _compare(
-                        f"attention v1 {name:8s} hm={hm!s:5s} bg={bg_kind:4s} "
-                        f"B={b} N={n}", got, want, tols, failures)
-                    if n == 197 and dtype == torch.bfloat16 and not hm:
-                        kept = max(kept, err)
+                    for design in fwd_designs(dtype):
+                        got = _switched(ka, "_v1_bf16_design", design,
+                                        ka.masked_attention, q, k, v, bg, **kw)
+                        torch.cuda.synchronize()
+                        case = (f"attention v1 {design:11s} {name:8s} "
+                                f"hm={hm!s:5s} bg={bg_kind:4s} B={b} N={n}")
+                        err = _compare(case, got, want, tols, failures)
+                        if design == "tensor-core":
+                            again = ka.masked_attention(q, k, v, bg, **kw)
+                            if not all(torch.equal(x, y)
+                                       for x, y in zip(got, again)):
+                                failures.append(f"{case}: a second launch "
+                                                "gave other bits")
+                            if n == 197 and not hm:
+                                kept = max(kept, err)
     if failures:
         raise AssertionError("split-tensor attention kernel != plain version:"
                              "\n" + "\n".join(failures))
@@ -2517,22 +2544,27 @@ def check_attention_v1():
 
 
 def time_attention_v1(b=64, n=197, heads=12):
-    """The split-tensor kernel at B=64 N=197 bf16 in turns with its plain
-    version, with and without the head mean; beside it the fused kernel's
-    plain variant on the same values packed (no clamp) and
-    F.scaled_dot_product_attention with the additive [B, 1, N, N] pair mask
-    (out only, neither cls row nor head mean: the yardstick for the shape,
-    timed only).  Returns {with_headmean: (kernel ms, plain ms)} and the SDPA
-    ms."""
+    """The split-tensor kernel at B=64 N=197 bf16, with and without the head
+    mean, in turns: the tensor-core design, the FMA design it replaced and
+    the plain version; beside them the fused kernel's plain variant on the
+    same values packed (no clamp) and F.scaled_dot_product_attention with the
+    additive [B, 1, N, N] pair mask (out only, neither cls row nor head mean:
+    the yardstick for the shape, timed only).  Returns ({with_headmean:
+    (kernel ms, plain ms)}, the SDPA ms, {with_headmean: earlier ms})."""
     import torch.nn.functional as F
     from vision_transformer_cam_tpu_torch.kernels import attention as ka
     (q, k, v), bg = v1_inputs(b, n, heads, torch.bfloat16, 5)
-    times = {}
+    times, earlier = {}, {}
     for hm in (False, True):
         kw = dict(scale=64 ** -0.5, with_headmean=hm)
-        times[hm] = in_turns(lambda: ka.masked_attention(q, k, v, bg, **kw),
-                             lambda: ka.masked_attention_ref(q, k, v, bg,
-                                                             **kw))
+        fns = {d: (lambda d=d: _switched(ka, "_v1_bf16_design", d,
+                                         ka.masked_attention, q, k, v, bg,
+                                         **kw))
+               for d in fwd_designs(torch.bfloat16)}
+        fns["plain"] = lambda: ka.masked_attention_ref(q, k, v, bg, **kw)
+        ms = round_robin(fns)
+        times[hm] = (ms["tensor-core"], ms["plain"])
+        earlier[hm] = ms["fma"]
     qkv = torch.stack([q, k, v]).permute(1, 3, 0, 2, 4).reshape(
         b, n, 3 * heads * 64).contiguous()
     fused = time_ms(lambda: ka.masked_attention_fused(
@@ -2541,12 +2573,14 @@ def time_attention_v1(b=64, n=197, heads=12):
             * -100.0)[:, None].to(torch.bfloat16)
     sdpa = time_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=pair, scale=64 ** -0.5))
-    say(f"time attention v1 bf16 B={b} N={n}: kernel {times[False][0]:.4f} "
-        f"ms, plain {times[False][1]:.4f} ms; with the head mean kernel "
-        f"{times[True][0]:.4f} ms, plain {times[True][1]:.4f} ms; the fused "
-        f"kernel's plain variant on the packed values {fused:.4f} ms; "
-        f"F.scaled_dot_product_attention (out only) {sdpa:.4f} ms")
-    return times, sdpa
+    say(f"time attention v1 bf16 B={b} N={n}, in turns: tensor-core "
+        f"{times[False][0]:.4f} ms, fma (earlier) {earlier[False]:.4f} ms, "
+        f"plain {times[False][1]:.4f} ms; with the head mean tensor-core "
+        f"{times[True][0]:.4f} ms, fma {earlier[True]:.4f} ms, plain "
+        f"{times[True][1]:.4f} ms; the fused kernel's plain variant on the "
+        f"packed values {fused:.4f} ms; F.scaled_dot_product_attention (out "
+        f"only) {sdpa:.4f} ms")
+    return times, sdpa, earlier
 
 
 def check_q_block():
@@ -2623,10 +2657,23 @@ def variant_inputs(b, n, heads, dtype, seed):
     return qkv.to(dtype).contiguous(), bg, joint
 
 
+def _kernel1_rollout(qkv, bg, joint):
+    """Kernel 1's rollout variant as the bf16 serving path launches it (clamp,
+    mask -100), at the ablation script's scale: what ``full`` computes."""
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    from vision_transformer_cam_tpu_torch.scripts import attn_variants as av
+    return ka.masked_attention_fused(qkv, bg, joint, num_heads=av.H,
+                                     scale=av.SCALE, clamp_softmax=True)
+
+
 def check_attn_variants():
-    """The eight ablation kernels against run_ref on the card: bf16 and
-    float32, B=8 N=197 and a ragged B=3 N=37.  Returns {variant: worst error
-    of the bf16 case at N=197}."""
+    """The eight ablation kernels against run_ref on the card, in every design
+    that takes the dtype (bf16: the tensor-core design, launched twice for
+    identical bits, and the FMA design it ran before; float32: the FMA
+    design): B=8 N=197 and a ragged B=3 N=37; and the tensor-core ``full``
+    bit for bit against kernel 1's bf16 rollout variant on the same inputs.
+    Returns {variant: worst error of the bf16 case at N=197 in the
+    tensor-core design}."""
     from vision_transformer_cam_tpu_torch.scripts import attn_variants as av
     failures, errs = [], {}
     for (b, n) in ((8, 197), (3, 37)):
@@ -2635,34 +2682,57 @@ def check_attn_variants():
             qkv, bg, joint = variant_inputs(b, n, 12, dtype, seed=70 + n)
             step = float(qkv[:, :, 2 * 768:].float().abs().max()) / 127.0
             for variant in av._VARIANTS:
-                got = av.run(qkv, bg, joint, variant)
                 want = av.run_ref(qkv, bg, joint, variant)
-                torch.cuda.synchronize()
                 atol, rtol = TOL[(dtype, "out")]
                 if variant == "noexp":
                     rtol = max(rtol, VARIANT_RTOL_NOEXP)
                 tols = [(atol, rtol), (TOL[(dtype, "prob")][0], rtol),
                         (TOL_JOINT[0], max(TOL_JOINT[1], rtol))]
-                case = f"attn_variants {variant:11s} {name:8s} B={b} N={n}"
-                if variant in ("int8pv", "int8both"):
-                    # out: within the tolerance but for the share that a
-                    # rounding flip of P moved by at most a step of V
-                    err = (got[0].float() - want[0].float()).abs()
-                    over = err > atol + rtol * want[0].float().abs()
-                    share, worst = float(over.float().mean()), float(err.max())
-                    say(f"check {case}: out max abs err {worst:.2e}, "
-                        f"{share:.2e} of the elements past the tolerance "
-                        f"(a step of V is {step:.2e})")
-                    if share > I8_FRAC or worst > 2 * step + atol or \
-                            not torch.isfinite(got[0].float()).all():
-                        failures.append(f"{case} out: {worst:.3e} on "
-                                        f"{share:.2e}")
-                    e = _compare(case, got[1:], want[1:], tols[1:], failures)
-                    e = max(e, worst)
-                else:
-                    e = _compare(case, got, want, tols, failures)
-                if n == 197 and dtype == torch.bfloat16:
-                    errs[variant] = e
+                for design in fwd_designs(dtype):
+                    got = _switched(av, "_variants_bf16_design", design,
+                                    av.run, qkv, bg, joint, variant)
+                    torch.cuda.synchronize()
+                    case = (f"attn_variants {variant:11s} {design:11s} "
+                            f"{name:8s} B={b} N={n}")
+                    if variant in ("int8pv", "int8both"):
+                        # out: within the tolerance but for the share that a
+                        # rounding flip of P moved by at most a step of V
+                        err = (got[0].float() - want[0].float()).abs()
+                        over = err > atol + rtol * want[0].float().abs()
+                        share, worst = float(over.float().mean()), \
+                            float(err.max())
+                        say(f"check {case}: out max abs err {worst:.2e}, "
+                            f"{share:.2e} of the elements past the tolerance "
+                            f"(a step of V is {step:.2e})")
+                        if share > I8_FRAC or worst > 2 * step + atol or \
+                                not torch.isfinite(got[0].float()).all():
+                            failures.append(f"{case} out: {worst:.3e} on "
+                                            f"{share:.2e}")
+                        e = _compare(case, got[1:], want[1:], tols[1:],
+                                     failures)
+                        e = max(e, worst)
+                    else:
+                        e = _compare(case, got, want, tols, failures)
+                    if design == "tensor-core":
+                        again = av.run(qkv, bg, joint, variant)
+                        if not all(torch.equal(x, y)
+                                   for x, y in zip(got, again)):
+                            failures.append(f"{case}: a second launch gave "
+                                            "other bits")
+                    if n == 197 and design == fwd_designs(dtype)[0] \
+                            and dtype == torch.bfloat16:
+                        errs[variant] = e
+            if dtype == torch.bfloat16:
+                full = av.run(qkv, bg, joint, "full")
+                k1 = _kernel1_rollout(qkv, bg, joint)
+                torch.cuda.synchronize()
+                same = [torch.equal(x, y) for x, y in zip(full, k1)]
+                say(f"check attn_variants full (tensor-core) vs kernel 1's "
+                    f"bf16 rollout variant B={b} N={n}: bit for bit out "
+                    f"{same[0]}, cls {same[1]}, joint {same[2]}")
+                if not all(same):
+                    failures.append(f"full != kernel 1 rollout B={b} N={n}: "
+                                    f"{same}")
     if failures:
         raise AssertionError("ablation kernel != plain version:\n"
                              + "\n".join(failures))
@@ -2670,11 +2740,13 @@ def check_attn_variants():
 
 
 def time_attn_variants(b=512):
-    """``attn_variants --all`` at the script's batch (eight ms/layer lines
-    and the differences, through its own ``main``; the launch counts are set
-    to 0 before and read after), then each variant in turns with its plain
-    version at the same shape.  Returns ({variant: (kernel ms, plain ms)},
-    {row name: launches})."""
+    """``attn_variants --all`` at the script's batch on the tensor-core design
+    (eight ms/layer lines and the differences, through its own ``main``; the
+    launch counts are set to 0 before and read after), then each variant in
+    turns: the tensor-core design, the FMA design it replaced and the plain
+    version, and with ``full`` kernel 1's bf16 rollout variant on the same
+    inputs.  Returns ({variant: (kernel ms, plain ms)}, {row name:
+    launches}, {variant: earlier ms}, kernel 1's ms)."""
     from vision_transformer_cam_tpu_torch.scripts import attn_variants as av
     reset_counts()
     ms = av.main(["--all", "--batch", str(b)])
@@ -2684,15 +2756,21 @@ def time_attn_variants(b=512):
     if set(ms) != set(av._VARIANTS) or any(v != 62 for v in counts.values()):
         raise AssertionError(f"attn_variants --all: {ms}, launches {counts}")
     qkv, bg, joint = av.inputs(b, "cuda")
-    times = {}
+    times, earlier, k1 = {}, {}, None
     with torch.inference_mode():
         for variant in av._VARIANTS:
-            times[variant] = in_turns(
-                lambda: av.run(qkv, bg, joint, variant),
-                lambda: av.run_ref(qkv, bg, joint, variant), iters=3)
-            say(f"time attn_variants {variant:11s} bf16 B={b} N=197: kernel "
-                f"{times[variant][0]:.4f} ms, plain {times[variant][1]:.4f} "
-                f"ms")
+            fns = {d: (lambda d=d: _switched(av, "_variants_bf16_design", d,
+                                             av.run, qkv, bg, joint, variant))
+                   for d in fwd_designs(torch.bfloat16)}
+            fns["plain"] = lambda: av.run_ref(qkv, bg, joint, variant)
+            if variant == "full":
+                fns["kernel 1"] = lambda: _kernel1_rollout(qkv, bg, joint)
+            got = round_robin(fns, iters=3)
+            times[variant] = (got["tensor-core"], got["plain"])
+            earlier[variant] = got["fma"]
+            k1 = got.get("kernel 1", k1)
+            say(f"time attn_variants {variant:11s} bf16 B={b} N=197, in turns: "
+                + ", ".join(f"{k} {v:.4f} ms" for k, v in got.items()))
         # is the mask's cost its own arithmetic, or what masked logits do to exp
         # and the division (exp(-100) is a float32 denormal)?  The same
         # kernels on the same qkv without any background token, in turns
@@ -2704,7 +2782,7 @@ def time_attn_variants(b=512):
             say(f"time attn_variants {variant:11s} bf16 B={b} N=197, 30 % "
                 f"background {with_bg:.4f} ms, no background {without:.4f} "
                 f"ms")
-    return times, counts
+    return times, counts, earlier, k1
 
 
 def _capture(fn, *args, **kw):
@@ -2831,7 +2909,7 @@ def main() -> int:
     check_q_block()
     variant_errs = check_attn_variants()
     seq_ms = time_attention_seq()
-    v1_ms, v1_sdpa = time_attention_v1()
+    v1_ms, v1_sdpa, _ = time_attention_v1()
     times = time_kernels()
     fused_ms = time_fused()
     bwd_ms = time_attention_bwd()
@@ -2847,7 +2925,7 @@ def main() -> int:
     validate_path()
     # the measurement entry points: the launch counts of every run are set to
     # 0 before it and read after it
-    variant_ms, variant_launches = time_attn_variants()
+    variant_ms, variant_launches, _, _ = time_attn_variants()
     launches.update(variant_launches)
     for name, count in bench_path().items():
         launches[name] = launches.get(name, 0) + count

@@ -134,6 +134,36 @@ def test_every_variant_differs_from_full(variant):
     assert float((got[0] - full[0]).abs().max()) > 1e-4
 
 
+def test_pv8_key_order_is_the_accumulator_layout_and_keeps_the_product():
+    """The key order of the tensor-core int8pv kernel's P V, derived here from
+    the mma.sync fragment layouts: lane 4g + t holds S accumulator keys
+    8j + 2t and 8j + 2t + 1 of n8 tile j (columns 2t, 2t + 1 of a C
+    fragment), and the s8 A fragment of m16n8k32 wants k positions 4t..4t+3
+    (register a0) and 16+4t..16+4t+3 (a2), lowest byte first.  Packing the
+    thread's own P values in register order puts key 2t, 2t+1 (tile 0),
+    8+2t, 9+2t (tile 1) at positions 4t..4t+3 and tiles 2, 3 likewise at
+    16+4t..  The map is a permutation of each 32-key chunk, so staging V's
+    keys in that order gives the int32 product of P and V exactly."""
+    order = tav.pv8_key_order()
+    want = [None] * 32
+    for t in range(4):
+        held = [8 * j + 2 * t + e for j in range(4) for e in range(2)]
+        for i, key in enumerate(held[:4]):
+            want[4 * t + i] = key
+        for i, key in enumerate(held[4:]):
+            want[16 + 4 * t + i] = key
+    assert order == want
+    assert sorted(order) == list(range(32))
+    rng = np.random.default_rng(18)
+    n = 3 * 32   # three chunks
+    p = torch.from_numpy(rng.integers(-127, 128, (16, n))).to(torch.int32)
+    v = torch.from_numpy(rng.integers(-127, 128, (n, 64))).to(torch.int32)
+    perm = torch.tensor([32 * (pos // 32) + order[pos % 32]
+                         for pos in range(n)])
+    assert torch.equal(p[:, perm] @ v[perm], p @ v)
+    assert not torch.equal(perm, torch.arange(n))
+
+
 def test_unknown_variant_is_a_system_exit():
     qkv, bg, joint = (torch.from_numpy(a) for a in _inputs(16))
     with pytest.raises(SystemExit, match="unknown variant"):

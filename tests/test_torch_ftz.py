@@ -34,6 +34,7 @@ from vision_transformer_cam_tpu.kernels import attention as jattn
 from vision_transformer_cam_tpu_torch import configs
 from vision_transformer_cam_tpu_torch.kernels import attention as tattn
 from vision_transformer_cam_tpu_torch.kernels import gemm as tgemm
+from vision_transformer_cam_tpu_torch.scripts import attn_variants as tav
 
 TINY_F32 = 2.0 ** -126     # the smallest normal float32
 SCALE8, SCALE64 = 8 ** -0.5, 64 ** -0.5
@@ -323,9 +324,63 @@ def test_no_config_field_reaches_the_design_switches():
     fields = {f.name for f in dataclasses.fields(configs.ViTCAMConfig)}
     assert not any("design" in f for f in fields), fields
     pkg = pathlib.Path(tattn.__file__).resolve().parents[1]
-    switch = re.compile(r"_(fwd|seq|bwd|block)_bf16_design\s*=|"
+    switch = re.compile(r"_(fwd|seq|bwd|block|v1|variants)_bf16_design\s*=|"
                         r"_int8_gemm_design\s*=|"
                         r"_mlp_(bf16|int8)_design\s*=")
     setters = sorted(str(p.relative_to(pkg)) for p in pkg.rglob("*.py")
                      if switch.search(p.read_text()))
-    assert setters == ["kernels/attention.py", "kernels/gemm.py"], setters
+    assert setters == ["kernels/attention.py", "kernels/gemm.py",
+                       "scripts/attn_variants.py"], setters
+
+
+@pytest.mark.parametrize("dtype,n,design", [
+    (torch.bfloat16, 17, "tensor-core"),
+    (torch.bfloat16, 197, "tensor-core"),
+    (torch.bfloat16, 781, "tensor-core"),
+    (torch.bfloat16, 1536, "tensor-core"),
+    (torch.float32, 197, "fma"),
+    (torch.float32, 1536, "fma"),
+])
+def test_v1_design_rule(dtype, n, design):
+    """The split-tensor kernel: bf16 takes its tensor-core design at every
+    N <= V1_MAX_N (the FMA design's range, head mean or not), float32 its
+    FMA design; past V1_MAX_N and for other dtypes the rule raises."""
+    assert tattn.V1_MAX_N == 1536
+    assert tattn.v1_design(dtype, n) == design
+    assert set(tattn.V1_DESIGNS) == {"tensor-core", "fma"}
+    assert tattn._v1_bf16_design == "tensor-core"
+    with pytest.raises(ValueError, match="N <= 1536"):
+        tattn.v1_design(dtype, tattn.V1_MAX_N + 1)
+    with pytest.raises(TypeError, match="bfloat16 or all float32"):
+        tattn.v1_design(torch.float16, n)
+
+
+@pytest.mark.parametrize("variant", list(tav._VARIANTS))
+@pytest.mark.parametrize("dtype,n", [
+    (torch.bfloat16, 37), (torch.bfloat16, 197), (torch.bfloat16, 736),
+    (torch.bfloat16, 780), (torch.float32, 197), (torch.float32, 900),
+])
+def test_variants_design_rule(dtype, n, variant):
+    """The ablation kernels: bf16 takes the tensor-core design up to
+    VARIANTS_TC_MAX_N (headbatch HEADBATCH_TC_MAX_N) and raises past it, no
+    design taken in its place; float32 always takes the FMA design, whose
+    launch checks its own shared memory."""
+    assert (tav.VARIANTS_TC_MAX_N, tav.HEADBATCH_TC_MAX_N) == (780, 736)
+    assert set(tav.VARIANT_DESIGNS) == {"tensor-core", "fma"}
+    assert tav._variants_bf16_design == "tensor-core"
+    limit = tav.HEADBATCH_TC_MAX_N if variant == "headbatch" \
+        else tav.VARIANTS_TC_MAX_N
+    if dtype == torch.float32:
+        assert tav.variants_design(dtype, variant, n) == "fma"
+    elif n <= limit:
+        assert tav.variants_design(dtype, variant, n) == "tensor-core"
+    else:
+        with pytest.raises(ValueError, match=f"N <= {limit}"):
+            tav.variants_design(dtype, variant, n)
+    if dtype == torch.bfloat16:
+        with pytest.raises(ValueError, match=f"N <= {limit}"):
+            tav.variants_design(dtype, variant, limit + 1)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        tav.variants_design(torch.float16, variant, n)
+    with pytest.raises(SystemExit, match="unknown variant"):
+        tav.variants_design(dtype, "ful", n)

@@ -1,16 +1,19 @@
 """The tensor-core designs of the int8 GEMM, of the fused attention forward,
-of the attention block kernel's core and of the fused MLP kernels, on the
-card.
+of the attention block kernel's core, of the fused MLP kernels, of the
+split-tensor attention kernel and of the ablation kernels, on the card.
 
 ``linear_int8`` runs mma.sync.m16n8k32 (s8) for every route; the fused
 attention forward runs its tensor-core design for bf16 and int8 qkv, the
 attention block kernel its tensor-core core for bf16, the fused MLP kernels
 their wgmma design for bf16 and int8.  Each is held against its plain
 version and against the design it replaced (the ``__dp4a`` GEMM, the FMA
-attention, the FMA block core, the mma.sync MLP), which stay compiled behind
-the private switches ``kernels.gemm._int8_gemm_design``,
-``kernels.attention._fwd_bf16_design``, ``_block_bf16_design`` and
-``kernels.gemm._mlp_bf16_design`` / ``_mlp_int8_design``.  The
+attention, the FMA block core, the mma.sync MLP, the FMA split-tensor and
+ablation kernels), which stay compiled behind the private switches
+``kernels.gemm._int8_gemm_design``, ``kernels.attention._fwd_bf16_design``,
+``_block_bf16_design``, ``_v1_bf16_design``, ``kernels.gemm._mlp_bf16_design``
+/ ``_mlp_int8_design`` and ``scripts.attn_variants._variants_bf16_design``;
+the ablation kernels' ``full`` is kernel 1's bf16 rollout variant bit for
+bit.  The
 tests need a CUDA GPU (the kernels have no CPU mode) and skip here; on the
 card:
 
@@ -27,6 +30,7 @@ import torch
 
 from vision_transformer_cam_tpu_torch.kernels import attention as tka
 from vision_transformer_cam_tpu_torch.kernels import gemm as tgemm
+from vision_transformer_cam_tpu_torch.scripts import attn_variants as tav
 
 GEMM_SHAPES = {"patch": (768, 768), "qkv": (768, 2304), "proj": (768, 768),
                "fc1": (768, 3072), "fc2": (3072, 768), "ragged": (200, 72)}
@@ -386,3 +390,120 @@ def test_cuda_mlp_wgmma_matches_plain_and_mma(m):
             assert torch.equal(got, chain)
             _close(got, want, (0.0, 1e-6 if out_dtype == torch.float32
                                else 2 ** -8))
+
+
+def _v1_inputs(b, n, seed, bg_share):
+    """bf16 split q, k, v [B, 12, N, 64] with hot query rows 1-3 (logits of
+    order 1e2) and a background share (1.1: every token)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn((b, 12, n, 64), generator=g, device="cuda")
+               for _ in range(3))
+    q[:, :, 1:4] *= 40.0
+    bg = (torch.rand((b, n), generator=g, device="cuda") < bg_share).float()
+    return tuple(x.to(torch.bfloat16).contiguous() for x in (q, k, v)), bg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [37, 197, 577, 1536])
+def test_cuda_v1_tensor_core_matches_plain_and_fma(n):
+    """The split-tensor kernel's tensor-core design (bf16, every N <= 1536),
+    B=2, 12 heads of 64, with and without the head mean, 30 % background and
+    all: one launch each, a second launch gives the same bits; against the
+    plain version at chip_smoke.py's bf16 tolerances, and against the FMA
+    design it replaced at twice them."""
+    _card()
+    assert tka.v1_design(torch.bfloat16, n) == "tensor-core"
+    for share in (0.3, 1.1):
+        (q, k, v), bg = _v1_inputs(2, n, seed=n, bg_share=share)
+        for hm in (False, True):
+            kw = dict(scale=0.125, with_headmean=hm)
+            before = tka.v1_launches
+            got = tka.masked_attention(q, k, v, bg, **kw)
+            assert tka.v1_launches == before + 1
+            again = tka.masked_attention(q, k, v, bg, **kw)
+            want = tka.masked_attention_ref(q, k, v, bg, **kw)
+            old = _with(tka, "_v1_bf16_design", "fma", tka.masked_attention,
+                        q, k, v, bg, **kw)
+            torch.cuda.synchronize()
+            assert len(got) == len(want) == len(old) == 2 + hm
+            assert all(torch.equal(a, b) for a, b in zip(got, again))
+            for a, w, o, tol in zip(got, want, old,
+                                    (TOL_OUT, TOL_PROB, TOL_PROB)):
+                _close(a, w, tol)
+                _close(a, o, (2 * tol[0], 2 * tol[1]))
+
+
+def _variant_inputs(b, n, seed):
+    """bf16 packed qkv with q and k of mean 0.5 (noexp's row sums away from
+    0), 30 % background (cls column never) and a row-stochastic joint."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn((b, n, 3 * 768), generator=g, device="cuda")
+    qkv[:, :, :2 * 768] += 0.5
+    bg = (torch.rand((b, n), generator=g, device="cuda") < 0.3).float()
+    bg[:, 0] = 0.0
+    joint = torch.softmax(torch.randn((b, n, n), generator=g, device="cuda"),
+                          dim=-1)
+    return qkv.to(torch.bfloat16).contiguous(), bg, joint
+
+
+def _hold_variant(got, want, variant, k=1):
+    """chip_smoke.py's gates for the ablation kernels at k times the
+    tolerances: an int8 P V out past the tolerance on at most 0.1 % of its
+    elements (a rounding flip of P moves a term by a step of V)."""
+    rtol = max(2 ** -6, 1e-3) if variant == "noexp" else 2 ** -6
+    tols = ((1e-2, rtol), (1e-5, rtol), (1e-6, max(1e-4, rtol)))
+    for i, (a, w, tol) in enumerate(zip(got, want, tols)):
+        tol = (k * tol[0], k * tol[1])
+        if i == 0 and variant in ("int8pv", "int8both"):
+            a, w = a.float(), w.float()
+            assert torch.isfinite(a).all()
+            over = (a - w).abs() > tol[0] + tol[1] * w.abs()
+            assert float(over.float().mean()) <= k * 1e-3
+            continue
+        _close(a, w, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(tav._VARIANTS))
+def test_cuda_variants_tensor_core_matches_plain_and_fma(variant):
+    """Each ablation kernel's tensor-core design, 12 heads of 64, B=2 at
+    N = 197, 37, 577 and the design's limit (780, headbatch 736): one launch
+    each, a second launch gives the same bits; against run_ref at
+    chip_smoke.py's gates, and against the FMA design it replaced (N = 197
+    and 37, where that takes the shape) at twice them."""
+    _card()
+    limit = tav.HEADBATCH_TC_MAX_N if variant == "headbatch" \
+        else tav.VARIANTS_TC_MAX_N
+    for n in (197, 37, 577, limit):
+        qkv, bg, joint = _variant_inputs(2, n, seed=n)
+        assert tav.variants_design(torch.bfloat16, variant, n) == "tensor-core"
+        before = tav.launches[variant]
+        got = tav.run(qkv, bg, joint, variant)
+        assert tav.launches[variant] == before + 1
+        again = tav.run(qkv, bg, joint, variant)
+        want = tav.run_ref(qkv, bg, joint, variant)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        _hold_variant(got, want, variant)
+        if n < 577:
+            old = _with(tav, "_variants_bf16_design", "fma", tav.run, qkv, bg,
+                        joint, variant)
+            torch.cuda.synchronize()
+            _hold_variant(got, old, variant, k=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [17, 37, 197, 577])
+def test_cuda_variants_full_is_kernel1_rollout_bit_for_bit(n):
+    """The tensor-core ``full`` is kernel 1's bf16 rollout variant (clamp on,
+    mask -100, one m16 tile a block) stage for stage: out, cls row and the
+    rollout update equal bit for bit on the same inputs, B=3, 12 heads."""
+    _card()
+    qkv, bg, joint = _variant_inputs(3, n, seed=100 + n)
+    full = tav.run(qkv, bg, joint, "full")
+    k1 = tka.masked_attention_fused(qkv, bg, joint, num_heads=12,
+                                    scale=tav.SCALE, clamp_softmax=True)
+    torch.cuda.synchronize()
+    assert len(full) == len(k1) == 3
+    for a, b in zip(full, k1):
+        assert a.dtype == b.dtype and torch.equal(a, b)

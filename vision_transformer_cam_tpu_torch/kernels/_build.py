@@ -104,11 +104,11 @@ def load():
                        i, i, p]
         fn.restype = i
         fn = lib.vitcam_masked_attention_v1
-        fn.argtypes = [p] * 7 + [i, i, i, i, f, f, i, i, p]
+        fn.argtypes = [p] * 7 + [i, i, i, i, f, f, i, i, i, p]
         fn.restype = i
         for variant in ATTN_VARIANT_ENTRIES:
             fn = getattr(lib, "vitcam_attn_variant_" + variant)
-            fn.argtypes = [p] * 6 + [i, i, i, i, f, i, p]
+            fn.argtypes = [p] * 6 + [i, i, i, i, f, i, i, p]
             fn.restype = i
         fn = lib.vitcam_linear_int8
         fn.argtypes = [p, i, p, i, i, i, p, p, p, i, i, p, i, i, p, i, i, p]
@@ -153,9 +153,9 @@ def load():
         lib.vitcam_masked_attention_bwd_smem_bytes.restype = ctypes.c_size_t
         lib.vitcam_masked_attention_smem_bytes.argtypes = [i, i, i]
         lib.vitcam_masked_attention_smem_bytes.restype = ctypes.c_size_t
-        lib.vitcam_masked_attention_v1_smem_bytes.argtypes = [i, i]
+        lib.vitcam_masked_attention_v1_smem_bytes.argtypes = [i, i, i]
         lib.vitcam_masked_attention_v1_smem_bytes.restype = ctypes.c_size_t
-        lib.vitcam_attn_variant_smem_bytes.argtypes = [i, i, i]
+        lib.vitcam_attn_variant_smem_bytes.argtypes = [i, i, i, i]
         lib.vitcam_attn_variant_smem_bytes.restype = ctypes.c_size_t
         lib.vitcam_cuda_error_string.argtypes = [i]
         lib.vitcam_cuda_error_string.restype = ctypes.c_char_p

@@ -37,7 +37,8 @@ sequence group, the local kernel call, the cls row from sequence-rank 0.
 ``masked_attention`` is the port of the TPU package's first attention kernel
 (same file: masked_attention), on split q, k, v [B, H, N, dh] with the
 reference's symmetric pair mask and the row-max softmax,
-``csrc/masked_attention_v1.cu`` on a CUDA tensor and ``masked_attention_ref``
+``csrc/masked_attention_v1.cu`` on a CUDA tensor (bf16 its tensor-core
+design, float32 its FMA design: ``v1_design``) and ``masked_attention_ref``
 on a CPU tensor.  No model path runs it; ``scripts.microbench`` drives it.
 
 ``launches``, ``bwd_launches``, ``block_launches``, ``seq_launches`` and
@@ -124,7 +125,16 @@ FWD_DESIGNS = {"fma": 0, "tensor-core": 1}
 # The design bf16 and int8 qkv run; only chip_smoke.py sets "fma", to time
 # the earlier one beside it.  No config field or flag reaches it.
 _fwd_bf16_design = "tensor-core"
+# The split-tensor kernel takes N <= V1_MAX_N.  bf16 runs its tensor-core
+# design (kernel 1's: 16 query rows a block of 8 warps, S in registers, the
+# [16, N] float32 head mean in shared memory, which fits for every such N);
+# float32 runs the FMA design (a [q_block, N] float32 tile of S in shared
+# memory, 32 query rows, or 16 past N = 780 with the head mean).
 V1_MAX_N = 1536
+V1_DESIGNS = {"fma": 0, "tensor-core": 1}
+# The design bf16 runs; only chip_smoke.py sets "fma", to time the earlier
+# one beside it.  No config field or flag reaches it.
+_v1_bf16_design = "tensor-core"
 
 
 def _scales_kind(qkv, scales, num_heads):
@@ -911,6 +921,20 @@ def _check_v1(q, k, v, bg):
                          f"got {tuple(bg.shape)}")
 
 
+def v1_design(dtype, n: int) -> str:
+    """The CUDA split-tensor design for q of ``dtype`` at sequence length
+    ``n``: "tensor-core" for bfloat16, "fma" for float32 (its gates need full
+    float32 products), both for every N <= ``V1_MAX_N``.  Raises past it and
+    for any other dtype."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the CUDA split-tensor attention kernel takes q, k "
+                        f"and v all bfloat16 or all float32, got {dtype}")
+    if n > V1_MAX_N:
+        raise ValueError(f"the CUDA split-tensor attention kernel takes N <= "
+                         f"{V1_MAX_N} (its shared memory), got {n}")
+    return _v1_bf16_design if dtype == torch.bfloat16 else "fma"
+
+
 def masked_attention_ref(q, k, v, bg, *, scale: float,
                          mask_value: float = -100.0,
                          with_headmean: bool = False):
@@ -950,7 +974,9 @@ def masked_attention(q, k, v, bg, *, scale: float, mask_value: float = -100.0,
     """Same contract as ``masked_attention_ref``.  CPU tensors run the plain
     version; CUDA tensors launch the kernel (q, k, v all float32 or all
     bfloat16, contiguous, head width 64, N <= ``V1_MAX_N``, bg float32 or
-    bf16) or raise.  It has no backward, as the TPU kernel has none."""
+    bf16) or raise: bf16 its tensor-core design (q, k, v 16-byte aligned),
+    float32 its FMA design (``v1_design``).  It has no backward, as the TPU
+    kernel has none."""
     global v1_launches
     kw = dict(scale=scale, mask_value=mask_value, with_headmean=with_headmean)
     if q.device.type == "cpu":
@@ -977,9 +1003,10 @@ def masked_attention(q, k, v, bg, *, scale: float, mask_value: float = -100.0,
     if dh != HEAD_DIM:
         raise ValueError(f"the CUDA split-tensor attention kernel takes head "
                          f"width {HEAD_DIM}, got {dh}")
-    if n > V1_MAX_N:
-        raise ValueError(f"the CUDA split-tensor attention kernel takes N <= "
-                         f"{V1_MAX_N} (its shared memory), got {n}")
+    design = v1_design(q.dtype, n)
+    if design == "tensor-core" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the tensor-core split-tensor attention kernel needs "
+                         "q, k and v 16-byte aligned")
 
     from vision_transformer_cam_tpu_torch.kernels import _build
     lib = _build.load()
@@ -995,14 +1022,14 @@ def masked_attention(q, k, v, bg, *, scale: float, mask_value: float = -100.0,
             out.data_ptr(), cls_row.data_ptr(),
             hm.data_ptr() if with_headmean else None, b, n, h, dh,
             float(scale), float(mask_value), _DTYPE_CODES[q.dtype],
-            int(with_headmean), stream)
+            int(with_headmean), V1_DESIGNS[design], stream)
     if err:
         msg = lib.vitcam_cuda_error_string(err).decode()
-        need = lib.vitcam_masked_attention_v1_smem_bytes(n,
-                                                         int(with_headmean))
+        need = lib.vitcam_masked_attention_v1_smem_bytes(
+            n, int(with_headmean), V1_DESIGNS[design])
         raise RuntimeError(
-            f"masked_attention kernel launch failed: cudaError {err} "
-            f"({msg}); shared memory needed {need} bytes")
+            f"masked_attention kernel launch failed ({design} design): "
+            f"cudaError {err} ({msg}); shared memory needed {need} bytes")
     v1_launches += 1
     if with_headmean:
         return out, cls_row, hm

@@ -20,26 +20,41 @@
 //
 // What bounds it on this card.  At B=64, H=12, N=197 in bf16 it reads q, k, v
 // and writes out once (77.5 MB; 82.5 MB with the bf16 head mean), 0.023 ms at
-// 3.35 TB/s, and its two products are 7.6 GFLOP.  This design runs them as
-// float32 FMAs on the CUDA cores out of shared memory, so it is bound by the
-// FMA pipes and shared-memory bandwidth, far above the bytes bound.
+// 3.35 TB/s, and its two products are 7.6 GFLOP (0.008 ms at the bf16
+// tensor-core peak): bound by bytes.
 //
-// Design: that of masked_attention.cu on the split layout.  A block owns QB
-// query rows of one image and loops over the heads, so the cls row and the
-// head mean are summed in a fixed order without atomics; a whole float32 key
-// row of S ([QB, N]) stays in shared memory, so the softmax is exact in one
-// pass.  QB is 32 where the tiles fit the 227 KB a block may use and 16 past
-// that (N <= 1536 with the head mean).  Each head's K and V are one contiguous
-// [N, 64] slab, staged in 64-key chunks.
+// Two designs, one block per (16 or 32 query rows, image) looping over the
+// heads, so the cls row and the head mean are summed in a fixed order
+// without atomics.
+//
+// The tensor-core design (bf16, every N <= 1536 with and without the head
+// mean): kernel 1's (masked_attention.cu, attention_tc.cuh) on the split
+// layout.  A block of 8 warps owns 16 query rows; the warps take the 16-key
+// chunks of a head's [N, 64] K and V slabs in turn, each staging its chunks by
+// cp.async into a private two-stage ring of swizzled tiles; QK^T and P V on
+// mma.sync.m16n8k16, S in registers; per head two passes over the keys (the
+// row maximum and the sum of exponentials, then P = E / den, added into the
+// head mean and the cls row and rounded to bf16 in registers as the A
+// fragment of P V); the [16, N] float32 head mean in shared memory, each
+// element owned by one thread; exponentials and probabilities below 2^-126
+// flushed to zero.
+//
+// The FMA design (float32, and bf16 where it is asked for): a whole float32
+// key row of S ([QB, N]) stays in shared memory, so the softmax is exact in
+// one pass; QB is 32 where the tiles fit the 227 KB a block may use and 16
+// past that (N <= 1536 with the head mean); K and V are staged in 64-key
+// chunks and both products are float32 FMAs on the CUDA cores.
 //
 // Numerics follow the TPU kernel: S, the softmax and the means are float32;
 // the normalised P is rounded to v's element type before P V.  The scale and
 // the mask term are rounded one by one (__fmul_rn / __fadd_rn), so no FMA
-// contraction moves them away from the plain version.
+// contraction moves them away from the plain version.  The tensor-core design
+// multiplies by 1 / den where the plain version divides, and sums P V in
+// another order: an ulp apart.
 
 #include <cmath>
 
-#include "attention_common.cuh"
+#include "attention_tc.cuh"
 
 namespace {
 
@@ -208,6 +223,234 @@ masked_attention_v1_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core design (bf16)
+// ---------------------------------------------------------------------------
+
+constexpr int kTcRing = tc_ring_bytes(2, 1);
+
+size_t tc_smem_bytes(int n, int with_hm) {
+  size_t floats = size_t(2) * tc_keys(n)            // bg of the keys, cls sums
+                  + size_t(kTcWarps) * 16 * 2       // row statistics of each warp
+                  + 16;                             // bg of the query rows
+  if (with_hm) floats += size_t(16) * tc_hm_stride(n);
+  return size_t(kTcWarps) * kTcRing + floats * sizeof(float);
+}
+
+// A block owns 16 query rows of one image; its 8 warps take the 16-key
+// chunks in turn (warp w: chunks w, w + 8, ...), each staging its own chunks
+// of K and V in a private two-stage ring.  Per head: pass 1 forms each row's
+// maximum and sum of exponentials, the warps' partials meet in shared memory;
+// pass 2 forms P, adds it into the head mean and the cls row (each element
+// owned by one thread) and feeds it, rounded to bf16, to P V; the warps'
+// partial O tiles are summed in shared memory in one order.
+template <bool HM>
+__global__ void __launch_bounds__(kTcThreads, 2)
+masked_attention_v1_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                              const bf16* __restrict__ v, const float* __restrict__ bg,
+                              bf16* __restrict__ out, bf16* __restrict__ cls,
+                              bf16* __restrict__ hm_out, int n, int heads, float scale,
+                              float mask_value) {
+  using TC = Tc<bf16>;
+  constexpr int kStage = 2 * TC::kChunk;             // elements of one (K, V) stage
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nk = tc_keys(n), hs = tc_hm_stride(n);
+  unsigned char* rings = smem_raw;                                     // [warps][kTcRing]
+  float* bgk_s = reinterpret_cast<float*>(rings + kTcWarps * kTcRing);  // [nk]
+  float* cls_s = bgk_s + nk;                                           // [nk]
+  float* st_s = cls_s + nk;                          // [warps][16][2]: max, sum
+  float* bgq_s = st_s + kTcWarps * 16 * 2;           // [16]
+  float* hm_s = bgq_s + 16;                          // [16][hs], with HM only
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tg = lane & 3;
+  const int b = blockIdx.y, q0 = blockIdx.x * 16;
+  const bool has_cls = q0 == 0;
+  bf16* ring = reinterpret_cast<bf16*>(rings + warp * kTcRing);
+  const int n_chunks = nk / kTcChunk;
+  const int mine = warp < n_chunks ? (n_chunks - warp + kTcWarps - 1) / kTcWarps : 0;
+
+  for (int j = tid; j < nk; j += kTcThreads) {
+    bgk_s[j] = j < n ? bg[size_t(b) * n + j] : 0.f;
+    cls_s[j] = 0.f;
+  }
+  for (int r = tid; r < 16; r += kTcThreads) bgq_s[r] = q0 + r < n ? bg[size_t(b) * n + q0 + r] : 0.f;
+  if (HM)
+    for (int i = tid; i < 16 * hs; i += kTcThreads) hm_s[i] = 0.f;
+  __syncthreads();
+  const float bgq[2] = {bgq_s[g], bgq_s[g + 8]};
+  const bool row_ok[2] = {q0 + g < n, q0 + g + 8 < n};
+
+  // this image's [N, 64] slab of head h
+  auto slab = [&](const bf16* t, int h) { return t + (size_t(b) * heads + h) * n * kDH; };
+  // stage chunk i of this warp (K, and V with with_v) into stage i % 2
+  auto stage = [&](int h, int i, bool with_v) {
+    const int k0 = (warp + i * kTcWarps) * kTcChunk;
+    bf16* dst = ring + (i & 1) * kStage;
+    TC::stage(dst, slab(k, h) + size_t(k0) * kDH, kDH, n - k0, lane);
+    if (with_v) TC::stage(dst + TC::kChunk, slab(v, h) + size_t(k0) * kDH, kDH, n - k0, lane);
+    cp_async_commit();
+  };
+  // S of one chunk: scaled and pair-masked; -inf on keys >= n
+  auto logits = [&](float (&s)[1][2][4], const TC::QFrag (&qa)[1], const bf16* k_s, int k0) {
+    TC::dots<1>(s, qa, k_s, lane);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + nt * 8 + 2 * tg + (e & 1);
+        float x = -INFINITY;
+        if (key < n) {
+          const float pair = __fmul_rn(fminf(__fadd_rn(bgq[e >> 1], bgk_s[key]), 1.f), mask_value);
+          x = __fadd_rn(__fmul_rn(s[0][nt][e], scale), pair);
+        }
+        s[0][nt][e] = x;
+      }
+  };
+
+  if (mine) stage(0, 0, false);
+  for (int h = 0; h < heads; ++h) {
+    TC::QFrag qa[1];
+    TC::q_frags(qa[0], slab(q, h), kDH, q0, n, lane);
+
+    // pass 1: per row the maximum and the sum of exp
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    for (int i = 0; i < mine; ++i) {
+      if (i + 1 < mine) {
+        stage(h, i + 1, false);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncwarp();
+      float s[1][2][4];
+      logits(s, qa, ring + (i & 1) * kStage, (warp + i * kTcWarps) * kTcChunk);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const float nm = fmaxf(m[hf], quad_max(fmaxf(fmaxf(s[0][0][2 * hf], s[0][0][2 * hf + 1]),
+                                                     fmaxf(s[0][1][2 * hf], s[0][1][2 * hf + 1]))));
+        l[hf] = nm == m[hf] ? l[hf] : l[hf] * exp_ftz(m[hf] - nm);
+        m[hf] = nm;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+          l[hf] += exp_ftz(s[0][nt][2 * hf] - m[hf]) + exp_ftz(s[0][nt][2 * hf + 1] - m[hf]);
+      }
+      __syncwarp();   // this stage is read before the chunk after next lands in it
+    }
+    if (mine) stage(h, 0, true);   // pass 2's first chunk loads across the barrier
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const float lsum = quad_sum(l[hf]);
+      if (tg == 0) {
+        float* st = st_s + (warp * 16 + g + 8 * hf) * 2;
+        st[0] = m[hf];
+        st[1] = lsum;
+      }
+    }
+    __syncthreads();
+    // every thread combines the warps' partials of its rows, in one order
+    float mx[2], inv[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = g + 8 * hf;
+      float mr = -INFINITY, den = 0.f;
+      for (int w = 0; w < kTcWarps; ++w) mr = fmaxf(mr, st_s[(w * 16 + r) * 2]);
+      for (int w = 0; w < kTcWarps; ++w) {
+        const float* st = st_s + (w * 16 + r) * 2;
+        den += st[0] == mr ? st[1] : st[1] * exp_ftz(st[0] - mr);
+      }
+      mx[hf] = mr;
+      inv[hf] = 1.f / den;
+    }
+
+    // pass 2: P, the head mean and the cls row, O = P V
+    float o[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+    for (int i = 0; i < mine; ++i) {
+      if (i + 1 < mine) {
+        stage(h, i + 1, true);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncwarp();
+      const bf16* k_s = ring + (i & 1) * kStage;
+      const int k0 = (warp + i * kTcWarps) * kTcChunk;
+      float s[1][2][4];
+      logits(s, qa, k_s, k0);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int key = k0 + nt * 8 + 2 * tg;
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[e] = ftz(exp_ftz(s[0][nt][e] - mx[e >> 1]) * inv[e >> 1]);
+          s[0][nt][e] = p[e];
+        }
+        if (HM) {
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf)
+            if (row_ok[hf]) {
+              float2* h2 = reinterpret_cast<float2*>(hm_s + (g + 8 * hf) * hs + key);
+              *h2 = make_float2(h2->x + p[2 * hf], h2->y + p[2 * hf + 1]);
+            }
+        }
+        if (has_cls && g == 0) {
+          cls_s[key] += p[0];
+          cls_s[key + 1] += p[1];
+        }
+      }
+      unsigned pa[4];
+      a_from_c(pa, s[0][0], s[0][1]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        unsigned vb[4];
+        TC::v_frags(vb, k_s + TC::kChunk, j, 1.f, lane);
+        mma16816(o[2 * j], pa, vb[0], vb[1]);
+        mma16816(o[2 * j + 1], pa, vb[2], vb[3]);
+      }
+      __syncwarp();
+    }
+
+    // the warps' partial O tiles meet in their own rings, summed in one order
+    float* ox = reinterpret_cast<float*>(ring);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      *reinterpret_cast<float2*>(ox + g * kTcOStride + j * 8 + 2 * tg) = make_float2(o[j][0], o[j][1]);
+      *reinterpret_cast<float2*>(ox + (g + 8) * kTcOStride + j * 8 + 2 * tg) =
+          make_float2(o[j][2], o[j][3]);
+    }
+    __syncthreads();
+    bf16* out_h = out + (size_t(b) * heads + h) * n * kDH;
+    for (int idx = tid; idx < 16 * (kDH / 4); idx += kTcThreads) {
+      const int r = idx / (kDH / 4), d = (idx % (kDH / 4)) * 4;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int w = 0; w < kTcWarps; ++w) {
+        const float4 x = *reinterpret_cast<const float4*>(
+            reinterpret_cast<const float*>(rings + w * kTcRing) + r * kTcOStride + d);
+        acc.x += x.x, acc.y += x.y, acc.z += x.z, acc.w += x.w;
+      }
+      if (q0 + r >= n) continue;
+      *reinterpret_cast<uint2*>(out_h + size_t(q0 + r) * kDH + d) =
+          make_uint2(pack_bf16(acc.x, acc.y), pack_bf16(acc.z, acc.w));
+    }
+    __syncthreads();   // the rings are free again
+    if (mine && h + 1 < heads) stage(h + 1, 0, false);
+  }
+
+  if (has_cls)
+    for (int j = tid; j < n; j += kTcThreads)
+      cls[size_t(b) * n + j] = __float2bfloat16(cls_s[j] / heads);
+  if constexpr (HM) {
+    for (int i = tid; i < 16 * n; i += kTcThreads) {
+      const int r = i / n, j = i % n;
+      if (q0 + r >= n) break;
+      hm_out[(size_t(b) * n + q0 + r) * n + j] = __float2bfloat16(hm_s[r * hs + j] / heads);
+    }
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *bg;
   void *out, *cls, *hm;
@@ -247,22 +490,42 @@ cudaError_t launch_qb(int with_hm, const Args& a, cudaStream_t stream) {
   }
 }
 
+template <bool HM>
+cudaError_t launch_tc(const Args& a, cudaStream_t stream) {
+  auto kernel = masked_attention_v1_tc_kernel<HM>;
+  const size_t smem = tc_smem_bytes(a.n, HM);
+  if (smem > kMaxSmem) return cudaErrorInvalidConfiguration;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         int(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.n + 15) / 16, a.batch);
+  kernel<<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+      static_cast<const float*>(a.bg), static_cast<bf16*>(a.out), static_cast<bf16*>(a.cls),
+      static_cast<bf16*>(a.hm), a.n, a.heads, a.scale, a.mask_value);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // q, k, v [batch, heads, n, 64] of dtype 0 = float32 or 1 = bfloat16; bg
 // [batch, n] float32; out like q, cls [batch, n] and hm (with_hm) [batch, n, n]
-// in q's type.  Returns a cudaError_t; 0 means the kernel was launched.
+// in q's type.  design: 0 = the FMA design (either dtype), 1 = the
+// tensor-core design (bfloat16, q, k and v 16-byte aligned).  Returns a
+// cudaError_t; 0 means the kernel was launched.
 int vitcam_masked_attention_v1(const void* q, const void* k, const void* v, const void* bg,
                                void* out, void* cls, void* hm, int batch, int n, int heads,
                                int head_dim, float scale, float mask_value, int dtype,
-                               int with_hm, void* stream) {
+                               int with_hm, int design, void* stream) {
   if (head_dim != kDH || batch < 1 || batch > 65535 || n < 1 || heads < 1 ||
-      (with_hm != 0) != (hm != nullptr))
+      (with_hm != 0) != (hm != nullptr) || design < 0 || design > 1 ||
+      (design == 1 && dtype != 1))
     return cudaErrorInvalidValue;
   const Args a{q, k, v, bg, out, cls, hm, batch, n, heads, scale, mask_value};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (design == 1) return with_hm ? launch_tc<true>(a, s) : launch_tc<false>(a, s);
   switch (dtype) {
     case 0:
       return launch_qb<float>(with_hm, a, s);
@@ -273,7 +536,8 @@ int vitcam_masked_attention_v1(const void* q, const void* k, const void* v, cons
   }
 }
 
-size_t vitcam_masked_attention_v1_smem_bytes(int n, int with_hm) {
+size_t vitcam_masked_attention_v1_smem_bytes(int n, int with_hm, int design) {
+  if (design == 1) return tc_smem_bytes(n, with_hm);
   const int qb = pick_qb(n, with_hm);
   return smem_bytes(n, with_hm, qb ? qb : 16);
 }

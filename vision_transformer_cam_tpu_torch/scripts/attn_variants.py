@@ -17,7 +17,10 @@ card; ``cpu`` runs the plain versions and says so).
 
 ``run`` launches the hand-written kernels of ``kernels/csrc/attn_variants.cu``
 on CUDA tensors and runs ``run_ref``, the plain PyTorch version, on CPU
-tensors; ``launches`` counts the launches by variant.
+tensors; ``launches`` counts the launches by variant.  bf16 runs the
+tensor-core design, kernel 1's with one stage stripped or swapped (``full``
+is kernel 1's bf16 rollout variant, bit for bit), so that the differences say
+where kernel 1's time goes; float32 runs the FMA design (``variants_design``).
 """
 
 from __future__ import annotations
@@ -39,6 +42,18 @@ DEPTH = 12
 _VARIANTS = ("full", "noexp", "matmul-only", "nomask", "int8qk", "int8pv",
              "int8both", "headbatch")
 launches = {v: 0 for v in _VARIANTS}
+# The tensor-core design takes bf16 at N <= VARIANTS_TC_MAX_N (the serial
+# variants: the [16, N] float32 head mean, and int8pv's int8 V of the whole
+# head, in shared memory beside the warps' rings) and N <= HEADBATCH_TC_MAX_N
+# (headbatch: a [16, N] float32 tile for each of its 4 warps).  The FMA design
+# takes float32 (its [32, N] float32 tiles of S and the head mean; headbatch
+# a [H, 16, N] tile, N <= 205 at 12 heads).
+VARIANTS_TC_MAX_N = 780
+HEADBATCH_TC_MAX_N = 736
+VARIANT_DESIGNS = {"fma": 0, "tensor-core": 1}
+# The design bf16 runs; only chip_smoke.py sets "fma", to time the earlier
+# one beside it.  No flag reaches it.
+_variants_bf16_design = "tensor-core"
 # what --all reads off the times: (label, variant, the variant it is held to)
 _DIFFS = (("exp", "full", "noexp"), ("mask", "full", "nomask"),
           ("softmax (exp, sum, divide)", "full", "matmul-only"),
@@ -53,6 +68,34 @@ def _check_variant(variant):
         # an unknown name must not fall through to the full kernel and print
         # a plausible mislabeled number
         raise SystemExit(f"unknown variant {variant!r}; one of {_VARIANTS}")
+
+
+def variants_design(dtype, variant, n: int) -> str:
+    """The CUDA design of ``variant`` for qkv of ``dtype`` at sequence length
+    ``n``: "tensor-core" for bfloat16 up to ``VARIANTS_TC_MAX_N`` (headbatch
+    ``HEADBATCH_TC_MAX_N``), past which it raises: no design is taken in its
+    place.  "fma" for float32, whose launch checks its own shared memory."""
+    _check_variant(variant)
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the variant kernels take bfloat16 or float32 qkv, "
+                        f"got {dtype}")
+    if dtype == torch.float32:
+        return "fma"
+    limit = HEADBATCH_TC_MAX_N if variant == "headbatch" else VARIANTS_TC_MAX_N
+    if _variants_bf16_design == "tensor-core" and n > limit:
+        raise ValueError(f"the tensor-core {variant} kernel takes N <= {limit} "
+                         f"(its shared memory), got {n}")
+    return _variants_bf16_design
+
+
+def pv8_key_order():
+    """The key order in which the tensor-core int8pv kernel stages V (and so
+    forms the k dimension of P V), within each chunk of 32 keys: position
+    4t + i of a k32 step is key 2t + (i & 1) + 8 (i >> 1), plus 16 in the
+    upper half, the keys the S accumulators of lane 4g + t already hold in
+    that order.  ``pv8_key`` of the kernel source, as a list."""
+    return [(p & 16) + 2 * ((p & 15) >> 2) + (p & 1) + 8 * ((p >> 1) & 1)
+            for p in range(32)]
 
 
 def _int_matmul(a, b):
@@ -130,9 +173,12 @@ def run_ref(qkv, bg, joint, variant, *, num_heads: int = H,
 def run(qkv, bg, joint, variant, *, num_heads: int = H, scale: float = SCALE):
     """Same contract as ``run_ref``.  CPU tensors run the plain version; CUDA
     tensors launch the variant's kernel (qkv bfloat16 or float32, contiguous,
-    head width 64; bg float32 or bf16; joint float32; N as far as the
-    variant's tiles fit shared memory: 780 for the serial variants, and
-    [heads, 16, N] float32 for headbatch, N <= 205 at 12 heads) or raise."""
+    16-byte aligned, head width 64; bg float32 or bf16; joint float32) in
+    the design ``variants_design`` picks, or raise: bf16 the tensor-core
+    design (N <= ``VARIANTS_TC_MAX_N``, headbatch ``HEADBATCH_TC_MAX_N``),
+    float32 the FMA design (N as far as its tiles fit shared memory: about
+    780 for the serial variants, and [heads, 16, N] float32 for headbatch,
+    N <= 205 at 12 heads)."""
     _check_variant(variant)
     if qkv.device.type == "cpu":
         return run_ref(qkv, bg, joint, variant, num_heads=num_heads,
@@ -149,9 +195,6 @@ def run(qkv, bg, joint, variant, *, num_heads: int = H, scale: float = SCALE):
                                        for t in (qkv, bg, joint)):
         raise ValueError("attn_variants.run is not differentiable; call it "
                          "without gradient tracking")
-    if qkv.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"the variant kernels take bfloat16 or float32 qkv, "
-                        f"got {qkv.dtype}")
     if not bg.is_floating_point() or bg.dtype == torch.float64:
         raise TypeError(f"bg must be a float32/bfloat16 tensor, got {bg.dtype}")
     if joint.dtype != torch.float32 or not joint.is_contiguous():
@@ -163,10 +206,12 @@ def run(qkv, bg, joint, variant, *, num_heads: int = H, scale: float = SCALE):
     if c // num_heads != HEAD_DIM:
         raise ValueError(f"the variant kernels take head width {HEAD_DIM}, "
                          f"got {c // num_heads}")
+    design = variants_design(qkv.dtype, variant, n)
 
     from vision_transformer_cam_tpu_torch.kernels import _build
     lib = _build.load()
-    entry = getattr(lib, "vitcam_attn_variant_" + variant.replace("-", "_"))
+    name = variant.replace("-", "_")
+    entry = getattr(lib, "vitcam_attn_variant_" + name)
     bg32 = bg.to(torch.float32).contiguous()
     out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
     cls_row = torch.empty((b, n), dtype=qkv.dtype, device=qkv.device)
@@ -176,15 +221,15 @@ def run(qkv, bg, joint, variant, *, num_heads: int = H, scale: float = SCALE):
         err = entry(qkv.data_ptr(), bg32.data_ptr(), joint.data_ptr(),
                     out.data_ptr(), cls_row.data_ptr(), newj.data_ptr(), b, n,
                     num_heads, c // num_heads, float(scale),
-                    _DTYPE_CODES[qkv.dtype], stream)
+                    _DTYPE_CODES[qkv.dtype], VARIANT_DESIGNS[design], stream)
     if err:
         msg = lib.vitcam_cuda_error_string(err).decode()
         need = lib.vitcam_attn_variant_smem_bytes(
-            n, int(variant in ("int8pv", "int8both")),
-            num_heads if variant == "headbatch" else 0)
+            n, _build.ATTN_VARIANT_ENTRIES.index(name), num_heads,
+            VARIANT_DESIGNS[design])
         raise RuntimeError(
-            f"attn_variants {variant} kernel launch failed: cudaError {err} "
-            f"({msg}); shared memory needed {need} bytes")
+            f"attn_variants {variant} kernel launch failed ({design} design): "
+            f"cudaError {err} ({msg}); shared memory needed {need} bytes")
     launches[variant] += 1
     return out, cls_row, newj
 
@@ -234,7 +279,8 @@ def main(argv=None, *, n=N, c=C, num_heads=H, chunk=20, iters=3):
     if "--all" in argv:
         for label, a, b_ in _DIFFS:
             print(f"difference {label}: {a} - {b_} = {ms[a] - ms[b_]:+.3f} "
-                  f"ms/layer{where}", flush=True)
+                  f"ms/layer ({100 * (ms[a] - ms[b_]) / ms['full']:+.1f} % of "
+                  f"full){where}", flush=True)
     return ms
 
 
