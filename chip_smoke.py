@@ -133,6 +133,21 @@ Phases (any failure raises, and the exit code is non-zero):
      GEMM launches per int8 forward, ...);
  15. microbench (attn-v1, attn-v1-headmean, attn-rollout, model) at its
      default batch and qblock_sweep --batch 16 --seq 577 --bf16 --post.
+ 16. the quality protocol on trained weights (run after phase 7): through
+     ``scripts.quality_eval.main``, ViT-B/16 fine-tuned afresh on the card
+     for 600 steps at batch 64 with blocks 0-3 frozen (kernel 1's plain
+     variant 24 times and the backward kernel 12 times a step), then scored
+     on 256 held-out synthetic images against the float32 truth: the
+     sabotaged background gate, bf16, int8_hifi, int8 and the per-tensor r2
+     int8 scales; every launch count held.  Gates: the printed losses finite
+     and falling, blocks 0-3 bit for bit their init and blocks 4-11 moved,
+     truth mAP >= 0.95 and mIoU >= 50, the sabotage at least 5 points
+     below, each serving row within 0.02 mAP and 3 mIoU of the truth, with
+     a top-16 overlap >= 0.95.  Then "bf16 fused", "int8 fused" and "f32 high"
+     on the same weights (recorded: finite, mAP within 0.02), seg_diagnose
+     on the saved weights (the mask must engage in a block >= 4), and the
+     precision ladder against float32 and float64 CPU references (the
+     highest rungs within 1e-5 of the float32 one).
 Nothing of the earlier phases was reduced.  It prints one JSON line
 describing the kernels (with each one's bound from the shapes it was timed
 at, and the library call's time where one PyTorch call computes the same
@@ -142,6 +157,7 @@ function), the card line, and as its last line {"ok": true, "device":
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -2243,6 +2259,248 @@ def train_throughput(batch=64, steps=20):
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB so far")
 
 
+# the quality protocol on trained weights (scripts.quality_eval): the TPU
+# record's run, ViT-B/16 fine-tuned 600 steps at batch 64 with blocks 0-3
+# frozen, scored on 256 held-out images.  The gates catch a broken path, not
+# a tuned one: the TPU record reads truth mAP 1.0000, truth mIoU 74.03,
+# sabotaged 59.33 (-14.7), every serving mode within 0.22 mIoU of the truth
+# and a top-16 overlap of 0.992-0.996.
+QUALITY_PARAMS = "build/quality/vit_base_s0_f4_600.pt"
+QUALITY_STEPS, QUALITY_FREEZE = 600, 4
+QUALITY_GATES = {"truth_map": 0.95, "truth_miou": 50.0, "sabotage_drop": 5.0,
+                 "map": 0.02, "miou": 3.0, "top16": 0.95,
+                 # the ladder's highest rungs against the float32 CPU
+                 # reference: the BASELINE parity class, and the JAX package's
+                 # Pallas-vs-XLA tolerance
+                 "ladder_cam": 1e-5}
+
+
+@contextlib.contextmanager
+def counted_calls(module, name, log):
+    """Within the block, each call of ``module.name`` appends (its first
+    argument where that is a string, else ``name``; the launches the call
+    made) to ``log``."""
+    orig = getattr(module, name)
+
+    def counted(*args, **kw):
+        before = read_counts()
+        out = orig(*args, **kw)
+        after = read_counts()
+        label = args[0] if args and isinstance(args[0], str) else name
+        log.append((label, {k: after[k] - before[k] for k in after}))
+        return out
+
+    setattr(module, name, counted)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def _expect(label, want, counts=None):
+    """The launch counts since the last reset (or ``counts``) must be
+    ``want`` (a kernel it does not name: 0); returns them."""
+    counts = read_counts() if counts is None else counts
+    full = {k: want.get(k, 0) for k in counts}
+    say(f"quality path {label}: launches {counts} (expected {full})")
+    if counts != full:
+        raise AssertionError(f"{label}: launch counts {counts}, expected "
+                             f"{full}")
+    return counts
+
+
+def quality_path():
+    """The quality protocol on weights fine-tuned on the card: quality_eval
+    (fine-tune, truth, sabotage and the four serving rows), three more rows
+    on the same weights and eval set, seg_diagnose on the saved weights, and
+    the precision ladder.  Returns the launch counts to add to the kernels
+    line, by row name."""
+    import math
+    from vision_transformer_cam_tpu_torch.models.vit import ViTCAM
+    from vision_transformer_cam_tpu_torch.scripts import precision_ladder
+    from vision_transformer_cam_tpu_torch.scripts import quality_eval as qe
+    from vision_transformer_cam_tpu_torch.scripts import seg_diagnose
+    g = QUALITY_GATES
+    path = os.path.join(REPO, QUALITY_PARAMS)
+    # fine-tune afresh, so that every run trains; compute the ladder's CPU
+    # references afresh too
+    for f in [path] + [os.path.join(precision_ladder.BUILD, f) for f in (
+            os.listdir(precision_ladder.BUILD)
+            if os.path.isdir(precision_ladder.BUILD) else ())
+            if f.startswith("ladder_ref_")]:
+        if os.path.exists(f):
+            os.remove(f)
+    t = time.perf_counter()
+    qe.make_batch(1000, 64)
+    say(f"quality path: one batch of 64 drawn on the host in "
+        f"{time.perf_counter() - t:.3f} s (quality_eval draws "
+        f"{qe.PREFETCH} ahead in threads)")
+    t_phase = time.perf_counter()
+    # the launches of the fine-tune and of each row, each read around its
+    # own call
+    calls = []
+    reset_counts()
+    with counted_calls(qe, "finetune", calls), \
+            counted_calls(qe, "eval_mode", calls):
+        res = qe.main(["--sabotage", "--steps", str(QUALITY_STEPS),
+                       "--freeze", str(QUALITY_FREEZE), "--params", path])
+    torch.cuda.synchronize()
+    total = read_counts()
+    depth = qe.base_config(res["model"]).depth
+    fwd_int8 = {"masked_attention_fused": depth,    # 49 int8 GEMMs a forward
+                "linear_int8_fused": 1 + 4 * depth}
+    want = {"finetune": {"masked_attention_fused": QUALITY_STEPS * 2 * depth,
+                         "masked_attention_bwd": QUALITY_STEPS * depth},
+            "f32 exact (truth)": {}, "f32 + SABOTAGED bg gate": {},
+            "bf16+kernel+tanh+clamp (serving)": {
+                "masked_attention_fused": depth},
+            "int8_hifi (W8A8, float attn, int8-OUT)": fwd_int8,
+            "int8 + attn I/O per-head (default)": fwd_int8,
+            "int8 + attn I/O per-tensor (r2)": fwd_int8}
+    if [label for label, _ in calls] != list(want):
+        raise AssertionError(f"quality_eval calls {[c for c, _ in calls]}")
+    for label, counts in calls:
+        _expect(label, want[label], counts)
+    # nothing launched outside those calls
+    _expect("quality_eval", {k: sum(c[k] for _, c in calls) for k in total},
+            total)
+    parts = dict(calls)
+    rows = [c for label, c in calls if label != "finetune"]
+    fine = parts["finetune"]
+    add = {"masked_attention_fused[bf16 plain, training]":
+           fine["masked_attention_fused"],
+           "masked_attention_fused[bf16 rollout, serving]":
+           parts["bf16+kernel+tanh+clamp (serving)"]["masked_attention_fused"],
+           "masked_attention_bwd": fine["masked_attention_bwd"],
+           "masked_attention_fused":
+           sum(c["masked_attention_fused"] for c in rows),
+           "linear_int8_fused": sum(c["linear_int8_fused"] for c in rows)}
+    rate = QUALITY_STEPS * 64 / res["finetune_s"]
+    say(f"quality path: fine-tune {QUALITY_STEPS} steps x 64 images in "
+        f"{res['finetune_s']:.1f} s, {rate:.1f} img/s; quality_eval "
+        f"{time.perf_counter() - t_phase:.1f} s in all")
+
+    # b. gates
+    losses = [h[1] for h in res["history"]]
+    say(f"quality path: printed losses {[round(v, 4) for v in losses]}")
+    if len(losses) < 10 or not all(math.isfinite(v) for v in losses) or \
+            not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        raise AssertionError(f"fine-tune losses: {losses}")
+    init = ViTCAM(qe.train_config(res["model"]), device="cpu",
+                  generator=torch.Generator().manual_seed(0)).state_dict()
+    trained = torch.load(path, map_location="cpu", weights_only=True)
+
+    def block(k):
+        return int(k.split(".")[1]) if k.startswith("blocks.") else None
+    frozen_moved = [k for k, v in trained.items()
+                    if block(k) is not None and block(k) < QUALITY_FREEZE
+                    and not torch.equal(v, init[k])]
+    stuck = [k for k, v in trained.items()
+             if block(k) is not None and block(k) >= QUALITY_FREEZE
+             and torch.equal(v, init[k])]
+    say(f"quality path: blocks 0-{QUALITY_FREEZE - 1} moved: "
+        f"{frozen_moved or 'none'}; blocks {QUALITY_FREEZE}-{depth - 1} "
+        f"stuck: {stuck or 'none'}")
+    if frozen_moved or stuck:
+        raise AssertionError("the freeze mask: frozen parameters moved or "
+                             "trained ones stayed")
+    truth, bad = res["truth"], res["sabotaged"]
+    say(f"quality path: truth mAP_196 {truth['mAP_196patch']:.4f} (gate "
+        f">= {g['truth_map']}), mIoU {truth['miou']:.2f} (gate >= "
+        f"{g['truth_miou']}); sabotaged mIoU {bad['miou']:.2f} (gate <= "
+        f"truth - {g['sabotage_drop']})")
+    if not (truth["mAP_196patch"] >= g["truth_map"]
+            and truth["miou"] >= g["truth_miou"]
+            and bad["miou"] <= truth["miou"] - g["sabotage_drop"]):
+        raise AssertionError("the truth row or the sabotage failed its gate")
+    failed = []
+    for r in res["rows"][1:]:
+        ok = (abs(r["mAP_196patch"] - truth["mAP_196patch"]) <= g["map"]
+              and abs(r["mAP_16patch"] - truth["mAP_16patch"]) <= g["map"]
+              and abs(r["miou"] - truth["miou"]) <= g["miou"]
+              and r["top16_overlap"] >= g["top16"])
+        if not ok:
+            failed.append(r["mode"])
+    say(f"quality path: serving rows within mAP {g['map']}, mIoU "
+        f"{g['miou']} and a top-16 overlap >= {g['top16']} of the truth; "
+        f"failed: {failed or 'none'}")
+    if failed:
+        for r in res["rows"][1:]:
+            say(qe.format_row(r))
+        raise AssertionError(f"serving rows off the truth: {failed}")
+
+    # c. more rows on the same weights and eval set (recorded; finite, mAP
+    # within the gate)
+    m32, images, labels, seg = (res["model_f32"], res["images"], res["labels"],
+                                res["seg_gt"])
+    base = qe.base_config(res["model"])
+    bf = qe.bf16_config(base)
+    fused = dict(mlp_fusion=True, attn_block_fusion=True)
+    extra = []
+    reset_counts()
+    extra.append(qe.eval_mode("bf16 fused", qe.with_config(
+        m32, bf.replace(**fused)), images, labels, truth, seg))
+    for k, v in _expect("bf16 fused", {"attention_block_fused": depth,
+                                       "mlp_fused": depth}).items():
+        add[k] = add.get(k, 0) + v
+    calib, _ = qe.make_batch(777, 16, img=base.img_size)
+    _, int8, _ = qe.int8_models(qe.with_config(m32, bf), bf, calib.cuda())
+    int8.cfg = int8.cfg.replace(ln_quant_fusion=True, int8_fused_gemm=True,
+                                **fused)
+    reset_counts()
+    extra.append(qe.eval_mode("int8 fused", int8, images, labels, truth, seg))
+    for k, v in _expect("int8 fused", {
+            "masked_attention_fused": depth,
+            "linear_int8_fused": 1 + 2 * depth, "ln_quant": depth,
+            "mlp_fused_int8": depth}).items():
+        add[k] = add.get(k, 0) + v
+    reset_counts()
+    extra.append(qe.eval_mode("f32 high (TF32 GEMMs)", qe.with_config(
+        m32, qe.truth_config(base).replace(matmul_precision="high")), images,
+        labels, truth, seg))
+    _expect("f32 high", {})
+    say(qe.HEADER)
+    for r in [truth, bad] + res["rows"][1:] + extra:
+        say(qe.format_row(r))
+    bad_extra = [r["mode"] for r in extra if not (
+        np.isfinite(r["cam"]).all()
+        and abs(r["mAP_196patch"] - truth["mAP_196patch"]) <= g["map"]
+        and abs(r["mAP_16patch"] - truth["mAP_16patch"]) <= g["map"])]
+    if bad_extra:
+        raise AssertionError(f"recorded rows not finite or off the truth's "
+                             f"mAP: {bad_extra}")
+    del int8, res, m32
+
+    # d. the pseudo-seg chain stage by stage on the saved weights
+    diag = seg_diagnose.main(["--load_state", path, "--eval", "64"])
+    late = [m[0] for m in diag["masked_frac"][QUALITY_FREEZE:]]
+    say(f"quality path: seg_diagnose masked fractions (mean) by block "
+        f"{[round(m[0], 3) for m in diag['masked_frac']]}; mIoU "
+        f"{diag['miou']:.2f}")
+    if not max(late) > 0:
+        raise AssertionError("the background mask never engages in blocks "
+                             f"{QUALITY_FREEZE}-{depth - 1}")
+
+    # e. the precision ladder (seeded random weights, as the TPU script)
+    ladder = {}
+    for ref, extra_argv in (("f32", ["--batch", "256"]),
+                            ("f64", ["--no-throughput"])):
+        reset_counts()
+        ladder[ref] = precision_ladder.main(
+            ["--dev-batch", "4", "--hybrid", "--ref", ref] + extra_argv)
+        for k, v in read_counts().items():
+            add[k] = add.get(k, 0) + v
+    highest = [r for r in ladder["f32"]
+               if r["precision"] == "highest" and "int8" not in r["impl"]]
+    worst = max(r["cam_max_dev_vs_f32"] for r in highest)
+    say(f"quality path: ladder highest rungs against the float32 CPU "
+        f"reference, CAM max dev {worst:.3e} (gate {g['ladder_cam']})")
+    if len(highest) != 2 or not worst <= g["ladder_cam"]:
+        raise AssertionError(f"ladder highest rungs: {highest}")
+    say(f"quality path: {time.perf_counter() - t_phase:.1f} s in all")
+    return add
+
+
 SEQ_GATES = {"cam": 5e-2, "logits": 5e-2}
 
 
@@ -2920,6 +3178,8 @@ def main() -> int:
     launches["masked_attention_bwd"] += train_launches["masked_attention_bwd"]
     train_kernel_vs_eager()
     train_throughput()
+    for name, count in quality_path().items():
+        launches[name] = launches.get(name, 0) + count
     launches["masked_attention_seq_local"] = \
         seq_path()["masked_attention_seq_local"]
     validate_path()

@@ -328,7 +328,8 @@ def test_port_imports_no_jax():
                  "io.native_loader", "data.palette", "ops.interpolate",
                  "bench", "utils.profiling", "scripts", "scripts.microbench",
                  "scripts.attn_variants", "scripts.qblock_sweep",
-                 "profile_serving"):
+                 "scripts.quality_eval", "scripts.seg_diagnose",
+                 "scripts.precision_ladder", "profile_serving"):
         assert "vision_transformer_cam_tpu_torch." + name in mods
     for root, _, files in os.walk(pkg):
         for f in files:

@@ -257,6 +257,23 @@ def _drop_path(x, rate: float, seed: Optional[int]):
     return x / keep * mask
 
 
+def _ftz(t):
+    """Probabilities ``t`` with values below the dtype's smallest normal
+    flushed to zero, as XLA computes them on the TPU and on the CPU, and as
+    the kernels do: a patch the feedback masked has the logit s - 100, and
+    exp(-100) is a float32 denormal, so its cls-row weight is exactly 0 and
+    it ties with the other masked patches in the top-16 selection.  Applied
+    to the statistics the attention returns; the P V product keeps the
+    denormals, which move its output by less than 1e-38 |v|."""
+    return t.masked_fill(t < torch.finfo(t.dtype).tiny, 0.0)
+
+
+def _top_k(x, k):
+    """Indices of the k largest values over the last axis, the lower index
+    first among equal values (``jax.lax.top_k``'s order)."""
+    return torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
+
+
 def _attention_eager(ap, x, bg, cfg: ViTCAMConfig, need_probs, joint=None,
                      hm_dtype=None, train=False, rngs=None):
     """Reference-shaped attention with the symmetric pair mask
@@ -275,15 +292,15 @@ def _attention_eager(ap, x, bg, cfg: ViTCAMConfig, need_probs, joint=None,
     if cfg.softmax_clamp:
         attn = torch.clamp_max(attn, 80.0)
     probs = torch.softmax(attn, dim=-1)
-    cls_row = probs[:, :, 0, :].mean(dim=1)
-    hm = probs.mean(dim=1) if need_probs else None
+    cls_row = _ftz(probs[:, :, 0, :].mean(dim=1))
+    hm = _ftz(probs.mean(dim=1)) if need_probs else None
     used = _dropout(probs, cfg.attn_drop_ratio, rngs["attn"]) if rngs \
         else probs
     out = torch.matmul(used, v).transpose(1, 2).reshape(b, n, c)
     out = _linear(out, ap.proj, cfg)
     if rngs:
         out = _dropout(out, cfg.drop_ratio, rngs["proj"])
-    ph = probs if need_probs == "perhead" else None
+    ph = _ftz(probs) if need_probs == "perhead" else None
     if hm is not None and hm_dtype is not None:
         hm = hm.to(hm_dtype)
     return out, cls_row, hm, ph, None
@@ -399,13 +416,13 @@ def _attention_seq(ap, x, bg, cfg: ViTCAMConfig, need_probs, mesh,
         attn = torch.clamp_max(attn, 80.0)
     probs = torch.softmax(attn, dim=-1)
     cls_row = mesh.broadcast_from_seq0(
-        probs[:, :, 0, :].mean(dim=1).contiguous())
-    hm = probs.mean(dim=1) if need_probs else None
+        _ftz(probs[:, :, 0, :].mean(dim=1)).contiguous())
+    hm = _ftz(probs.mean(dim=1)) if need_probs else None
     out = torch.matmul(probs, v).transpose(1, 2).reshape(b, nq, c)
     out = _linear(out, ap.proj, cfg)
     if hm is not None and hm_dtype is not None:
         hm = hm.to(hm_dtype)
-    return out, cls_row, hm, probs if need_probs == "perhead" else None
+    return out, cls_row, hm, _ftz(probs) if need_probs == "perhead" else None
 
 
 def _mask_from_cls_row(cls_row, cfg: ViTCAMConfig):
@@ -795,7 +812,7 @@ class ViTCAM(nn.Module):
         rows [depth, B, N]."""
         # top-K high-weight patch head, over the patch tokens
         mask14, _ = _mask_from_cls_row(cls_rows[-1], cfg)
-        top_idx = torch.topk(mask14, cfg.top_k_patches, dim=-1).indices
+        top_idx = _top_k(mask14, cfg.top_k_patches)
         patch_tokens = tokens[:, cfg.num_tokens:, :]
         top_embeds = torch.gather(
             patch_tokens, 1,
