@@ -148,6 +148,22 @@ Phases (any failure raises, and the exit code is non-zero):
      on the saved weights (the mask must engage in a block >= 4), and the
      precision ladder against float32 and float64 CPU references (the
      highest rungs within 1e-5 of the float32 one).
+ 17. the user path on the weights phase 16 leaves (run right after it):
+     ``cli.tools convert`` takes the fine-tuned .pt to the JAX package's .npz
+     and on to a reference .pth (the three state dicts bit for bit);
+     ``cli.predict`` on one seeded 224 PNG of quality_eval's kind, ViT-B/16
+     at full width, on the kernel path from the .npz and from the .pth (12
+     launches of kernel 1's float32 rollout variant each; every array but
+     the .pth's re-initialised head's logits bit for bit) and on the eager
+     path (none), kernel vs eager within the float32 gates (CAMs 1e-5,
+     head1 probabilities and logits 2e-4, token_sim 1e-4; the grid only
+     where matplotlib is installed); ``scripts.e2e_bench`` at BASELINE
+     config #3 (--n 128 --batch 64 --serving int8 --img 500x375: 24
+     attention and 98 int8 GEMM launches, 128 PNGs and 128 overlays, finite
+     mAP / mIoU, warm img/s printed); and ``examples.quickstart`` at its
+     defaults (head width 64: kernel 1 and the backward kernel in the
+     fine-tune, kernel 1 in both validate runs and predict, the int8 GEMM in
+     the int8 validate), every launch count held per CLI call.
 Nothing of the earlier phases was reduced.  It prints one JSON line
 describing the kernels (with each one's bound from the shapes it was timed
 at, and the library call's time where one PyTorch call computes the same
@@ -2276,18 +2292,19 @@ QUALITY_GATES = {"truth_map": 0.95, "truth_miou": 50.0, "sabotage_drop": 5.0,
 
 
 @contextlib.contextmanager
-def counted_calls(module, name, log):
-    """Within the block, each call of ``module.name`` appends (its first
-    argument where that is a string, else ``name``; the launches the call
-    made) to ``log``."""
+def counted_calls(module, name, log, label=None):
+    """Within the block, each call of ``module.name`` appends (``label``, or
+    its first argument where that is a string, else ``name``; the launches
+    the call made) to ``log``."""
     orig = getattr(module, name)
 
     def counted(*args, **kw):
         before = read_counts()
         out = orig(*args, **kw)
         after = read_counts()
-        label = args[0] if args and isinstance(args[0], str) else name
-        log.append((label, {k: after[k] - before[k] for k in after}))
+        tag = label or (args[0] if args and isinstance(args[0], str)
+                        else name)
+        log.append((tag, {k: after[k] - before[k] for k in after}))
         return out
 
     setattr(module, name, counted)
@@ -2297,12 +2314,12 @@ def counted_calls(module, name, log):
         setattr(module, name, orig)
 
 
-def _expect(label, want, counts=None):
+def _expect(label, want, counts=None, phase="quality path"):
     """The launch counts since the last reset (or ``counts``) must be
     ``want`` (a kernel it does not name: 0); returns them."""
     counts = read_counts() if counts is None else counts
     full = {k: want.get(k, 0) for k in counts}
-    say(f"quality path {label}: launches {counts} (expected {full})")
+    say(f"{phase} {label}: launches {counts} (expected {full})")
     if counts != full:
         raise AssertionError(f"{label}: launch counts {counts}, expected "
                              f"{full}")
@@ -2499,6 +2516,211 @@ def quality_path():
         raise AssertionError(f"ladder highest rungs: {highest}")
     say(f"quality path: {time.perf_counter() - t_phase:.1f} s in all")
     return add
+
+
+# phase 17, the user path on the fine-tuned ViT-B/16 of phase 16.  Predict,
+# kernel path against eager: the port's float32 kernel-vs-eager gates (the
+# JAX package's Pallas-vs-XLA tolerances) on the CAMs and head1's
+# probabilities (logits 2e-4 as on the main path); token_sim is the cosine
+# similarity of unit-normalized token vectors (a sum over C = 768 products
+# of the block outputs, which carry the two paths' float32 rounding), held
+# to 1e-4
+USER_GATES = {"per_block_cams": 1e-5, "rollout_cam": 1e-5,
+              "probs_head1": 2e-4, "logits": 2e-4, "token_sim": 1e-4}
+PREDICT_ARRAYS = ("per_block_cams", "rollout_cam", "token_sim", "probs_head1")
+
+
+def synthetic_png(path, seed=4242, img=224):
+    """One quality_eval image (a textured square over noise) as the uint8
+    RGB PNG whose decode and normalization give it back to a quantum."""
+    import PIL.Image
+    from vision_transformer_cam_tpu_torch.scripts import quality_eval as qe
+    images, labels = qe.make_batch(seed, 1, img=img)
+    mean = np.asarray((0.485, 0.456, 0.406), np.float32)
+    std = np.asarray((0.229, 0.224, 0.225), np.float32)
+    u8 = np.clip(np.rint((images[0].numpy() * std + mean) * 255), 0, 255)
+    PIL.Image.fromarray(u8.astype(np.uint8)).save(path)
+    return int(np.flatnonzero(labels[0].numpy())[0])
+
+
+def user_path():
+    """Phase 17: tools convert (.pt -> .npz -> .pth, bit for bit), predict
+    on the kernel and the eager path, e2e_bench at BASELINE config #3 and
+    the quickstart at its defaults, each through the entry point a user
+    calls, with its launch counts held.  Returns the launch counts to add
+    to the kernels line."""
+    import importlib.util
+    import tempfile
+
+    from vision_transformer_cam_tpu_torch import configs
+    from vision_transformer_cam_tpu_torch.cli import predict as pcli
+    from vision_transformer_cam_tpu_torch.cli import tools
+    from vision_transformer_cam_tpu_torch.cli import train as tcli
+    from vision_transformer_cam_tpu_torch.cli import validate as vcli
+    from vision_transformer_cam_tpu_torch.examples import quickstart
+    from vision_transformer_cam_tpu_torch.io import weights as wio
+    from vision_transformer_cam_tpu_torch.scripts import e2e_bench
+    phase = "user path"
+    t_phase = time.perf_counter()
+    src = os.path.join(REPO, QUALITY_PARAMS)
+    depth = 12
+    total = {}
+
+    def added(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as work:
+        os.chdir(work)          # the CLIs write their logs here
+        try:
+            # a. convert: the fine-tuned .pt -> .npz -> .pth
+            npz, pth = (os.path.join(work, f"vit_b16_ft.{e}")
+                        for e in ("npz", "pth"))
+            t0 = time.perf_counter()
+            reset_counts()
+            tools.main(["convert", "--weights", src, "--out", npz])
+            tools.main(["convert", "--weights", npz, "--out", pth])
+            _expect("convert", {}, phase=phase)
+            cfg = configs.resolve_model("vit_base_patch16_224_in21k")(
+                num_classes=20).replace(representation_size=None)
+            sds = {"pt": torch.load(src, map_location="cpu",
+                                    weights_only=True),
+                   "npz": wio.state_dict_from_jax_params(
+                       wio.load_npz(npz), cfg),
+                   "pth": torch.load(pth, map_location="cpu",
+                                     weights_only=True)}
+            ref = sds["pt"]
+            for kind, sd in sds.items():
+                if set(sd) != set(ref) or not all(
+                        sd[k].dtype == ref[k].dtype and torch.equal(sd[k],
+                                                                    ref[k])
+                        for k in ref):
+                    raise AssertionError(f"convert: the {kind} state dict "
+                                         "is not the .pt's bit for bit")
+            say(f"{phase}: convert .pt -> .npz -> .pth in "
+                f"{time.perf_counter() - t0:.1f} s, {len(ref)} tensors bit "
+                f"for bit in all three")
+
+            # b. predict on one synthetic image of the fine-tune's kind
+            img = os.path.join(work, "synthetic_0.png")
+            cls = synthetic_png(img)
+            figure = importlib.util.find_spec("matplotlib") is not None
+            if not figure:
+                say(f"{phase}: matplotlib is not installed on this machine: "
+                    "the predict grid is not rendered (--no_figure); the "
+                    "arrays and their gates run")
+            arts, walls = {}, {}
+            for run, weights, impl, want in (
+                    ("kernel npz", npz, "kernel",
+                     {"masked_attention_fused": depth}),
+                    ("kernel pth", pth, "kernel",
+                     {"masked_attention_fused": depth}),
+                    ("eager npz", npz, "eager", {})):
+                reset_counts()
+                t0 = time.perf_counter()
+                arts[run] = pcli.main(
+                    ["--img_name", img, "--dataset_path", work, "--weights",
+                     weights, "--attn_impl", impl, "--model_name",
+                     "vit_base_patch16_224_in21k", "--out",
+                     os.path.join(work, "predict_" + impl)]
+                    + ([] if figure else ["--no_figure"]))
+                torch.cuda.synchronize()
+                walls[run] = time.perf_counter() - t0
+                added(_expect(f"predict {run}", want, phase=phase))
+                if not all(np.isfinite(v).all() for v in arts[run].values()):
+                    raise AssertionError(f"predict {run}: not finite")
+            k, p, e = arts["kernel npz"], arts["kernel pth"], \
+                arts["eager npz"]
+            if k["per_block_cams"].shape != (depth, 14, 14) or \
+                    k["token_sim"].shape != (depth, 197, 197) or \
+                    k["rollout_cam"].shape != (14, 14):
+                raise AssertionError("predict: wrong shapes")
+            # a .pth drops head.*, which keeps its seeded init: every array
+            # but logits (head's) is the .npz run's bit for bit
+            same = [n for n in PREDICT_ARRAYS if not np.array_equal(k[n],
+                                                                    p[n])]
+            if same:
+                raise AssertionError(f"predict .npz vs .pth differ: {same}")
+            devs = {n: float(np.abs(k[n] - e[n]).max()) for n in USER_GATES}
+            say(f"{phase}: predict kernel vs eager, max abs dev "
+                f"{ {n: f'{v:.3e}' for n, v in devs.items()} } (gates "
+                f"{USER_GATES}); wall per image {walls}; top class "
+                f"{int(np.argmax(k['probs_head1']))} (drawn {cls}); "
+                f"per-block CAM cells at 0 in the last block "
+                f"{int((k['per_block_cams'][-1] == 0).sum())} of 196")
+            over = [n for n, v in devs.items() if not v <= USER_GATES[n]]
+            if over:
+                raise AssertionError(f"predict kernel vs eager: {over}")
+            if figure and not os.listdir(os.path.join(work,
+                                                      "predict_kernel")):
+                raise AssertionError("predict: no grid written")
+
+            # c. e2e_bench, BASELINE config #3: 128 images of 500x375, int8
+            reset_counts()
+            line, _ = _capture(e2e_bench.main, [
+                "--n", "128", "--batch", "64", "--serving", "int8",
+                "--img", "500x375"])
+            torch.cuda.synchronize()
+            # two int8 forwards of 64; the calibration forward launches none
+            added(_expect("e2e_bench", {"masked_attention_fused": 2 * depth,
+                                        "linear_int8_fused": 2 * 49},
+                          phase=phase))
+            if line["seg_pngs"] != 128 or line["cam_files"] != 128 or \
+                    not all(np.isfinite(line[k]) for k in ("value", "mAP",
+                                                           "mIoU")):
+                raise AssertionError(f"e2e_bench: {line}")
+            say(f"{phase}: e2e_bench warm {line['value']} img/s, "
+                f"{line['img_per_s_incl_compile']} img/s with the first "
+                f"batch, wall {line['wall_s_total']} s")
+
+            # d. the quickstart at its defaults
+            qa = quickstart.parse_args([])
+            q_depth, bs = 6, max(qa.n_train // 4, 1)
+            steps = qa.epochs * (qa.n_train // bs)
+            val_batches = qa.epochs * -(-qa.n_val // bs)
+            want = {"tools": {},
+                    # remat: the forward kernel in the forward and in the
+                    # recompute; one evaluation a epoch
+                    "train": {"masked_attention_fused":
+                              (2 * steps + val_batches) * q_depth,
+                              "masked_attention_bwd": steps * q_depth},
+                    "validate": {"masked_attention_fused": q_depth},
+                    "validate int8": {"masked_attention_fused": q_depth,
+                                      "linear_int8_fused": 1 + 4 * q_depth},
+                    "predict": {"masked_attention_fused": q_depth}}
+            calls = []
+            reset_counts()
+            t0 = time.perf_counter()
+            with counted_calls(tools, "main", calls, "tools"), \
+                    counted_calls(tcli, "main", calls, "train"), \
+                    counted_calls(vcli, "main", calls, "validate"), \
+                    counted_calls(pcli, "main", calls, "predict"):
+                rc, text = _capture(quickstart.main, [
+                    "--workdir", os.path.join(work, "quickstart")])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            labels = [c for c, _ in calls]
+            if rc != 0 or labels != ["tools", "train", "validate",
+                                     "validate", "predict"]:
+                raise AssertionError(f"quickstart: rc {rc}, calls {labels}")
+            calls[3] = ("validate int8", calls[3][1])
+            for label, counts in calls:
+                added(_expect(f"quickstart {label}", want[label], counts,
+                              phase=phase))
+            _expect("quickstart", {k: sum(c.get(k, 0) for _, c in calls)
+                                   for k in read_counts()}, phase=phase)
+            seg = [os.listdir(os.path.join(work, "quickstart", d))
+                   for d in ("seg_parity", "seg_int8")]
+            if any(len(s) != qa.n_val for s in seg):
+                raise AssertionError(f"quickstart: PNGs {seg}")
+            say(f"{phase}: quickstart (--epochs {qa.epochs} --n_train "
+                f"{qa.n_train} --n_val {qa.n_val}) in {wall:.1f} s")
+        finally:
+            os.chdir(cwd)
+    say(f"{phase}: {time.perf_counter() - t_phase:.1f} s in all; launches "
+        f"{total}")
+    return total
 
 
 SEQ_GATES = {"cam": 5e-2, "logits": 5e-2}
@@ -3179,6 +3401,9 @@ def main() -> int:
     train_kernel_vs_eager()
     train_throughput()
     for name, count in quality_path().items():
+        launches[name] = launches.get(name, 0) + count
+    # the user path on the weights phase 16 leaves
+    for name, count in user_path().items():
         launches[name] = launches.get(name, 0) + count
     launches["masked_attention_seq_local"] = \
         seq_path()["masked_attention_seq_local"]

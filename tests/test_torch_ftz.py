@@ -384,3 +384,34 @@ def test_variants_design_rule(dtype, n, variant):
         tav.variants_design(torch.float16, variant, n)
     with pytest.raises(SystemExit, match="unknown variant"):
         tav.variants_design(dtype, "ful", n)
+
+
+@pytest.mark.parametrize("fuse_rollout", [False, True])
+def test_kernel_path_flushes_the_cls_rows(fuse_rollout):
+    """The forward flushes the cls rows the kernel path returns, as the eager
+    path and JAX do: the float32 plain version (and the float32 FMA design
+    on the card) keeps the denormal weights of masked keys, which ranked the
+    masked patches in the top-16 on trained weights where the eager path
+    ties them at 0 (the float32 predict gate of chip_smoke.user_path)."""
+    from vision_transformer_cam_tpu_torch.models.vit import ViTCAM
+    cfg = configs.ViTCAMConfig(img_size=32, patch_size=8, embed_dim=64,
+                               depth=4, num_heads=4, mask_from=1,
+                               top_k_patches=8, per_sample_mask_norm=True)
+    model = ViTCAM(cfg, device="cpu")
+    with torch.no_grad():
+        for blk in model.blocks:
+            blk.attn.qkv.weight.mul_(20.0)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (3, 32, 32, 3)).astype(np.float32))
+    outs = {}
+    for impl in ("eager", "kernel"):
+        model.cfg = cfg.replace(attn_impl=impl)
+        outs[impl] = model(x, need_rollout=fuse_rollout)
+    rows = outs["kernel"].attn_cls_rows
+    assert (rows == 0).any()                   # the mask engaged
+    assert not ((rows > 0) & (rows < TINY_F32)).any()
+    np.testing.assert_allclose(rows.numpy(),
+                               outs["eager"].attn_cls_rows.numpy(),
+                               rtol=0, atol=1e-6)
+    assert torch.equal(outs["kernel"].top_patch_idx,
+                       outs["eager"].top_patch_idx)

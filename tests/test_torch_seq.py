@@ -394,7 +394,8 @@ def test_seq_forward_in_processes_matches_jax_and_unsharded(world, n_seq, impl,
     x = _images(b=2, dtype=np.float64 if f64 else np.float32)
     over = dict(attn_impl=impl, rollout_post=post)
     outs = run_forward(model.cfg, sd, torch.from_numpy(x), world=world,
-                       n_seq=n_seq, serving_mode=mode, overrides=over,
+                       n_seq=n_seq, device="cpu", serving_mode=mode,
+                       overrides=over,
                        fwd_kw=dict(need_rollout=True), timeout=150)
     assert len(outs) == world
     names = ("logits", "rollout_row", "attn_cls_rows", "tokens_prenorm")
@@ -433,7 +434,7 @@ def test_run_forward_enforces_its_time_limit():
     _, _, model, sd = _pair(torch.float32)
     with pytest.raises(TimeoutError):
         run_forward(model.cfg, sd, torch.zeros(1, 32, 32, 3), world=2,
-                    n_seq=2, timeout=0.0)
+                    n_seq=2, device="cpu", timeout=0.0)
 
 
 # ---------------------------------------------------------------------------

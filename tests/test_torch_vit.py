@@ -329,7 +329,9 @@ def test_port_imports_no_jax():
                  "bench", "utils.profiling", "scripts", "scripts.microbench",
                  "scripts.attn_variants", "scripts.qblock_sweep",
                  "scripts.quality_eval", "scripts.seg_diagnose",
-                 "scripts.precision_ladder", "profile_serving"):
+                 "scripts.precision_ladder", "profile_serving",
+                 "cli.predict", "cli.tools", "data.generic",
+                 "scripts.e2e_bench", "examples", "examples.quickstart"):
         assert "vision_transformer_cam_tpu_torch." + name in mods
     for root, _, files in os.walk(pkg):
         for f in files:

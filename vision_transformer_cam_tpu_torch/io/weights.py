@@ -14,14 +14,21 @@ in], ``weight_scale``, ``act_scale``, ``out_scales``, ``bias`` in float32),
 and ``load_state_dict`` installs ``QLinear`` modules where a state dict
 holds them, so both packages can serve the same int8 weights and scales.
 
-``load_weights`` reads the containers the trainer meets: a reference ``.pth``
-state dict (with the head-key surgery) or a checkpoint of the port's own
-trainer.  ``optimizer_state_from_jax`` carries optax AdamW moments across, so
-both packages can take the same step from the same state.
+``jax_params_from_state_dict`` is the inverse mapping, and ``save_npz`` /
+``load_npz`` read and write the JAX package's flat ``.npz`` container (the
+pytree's paths joined by "/"), so float weights cross between the packages
+both ways.  ``load_weights`` reads every container the port meets: a
+reference ``.pth`` state dict (``load_pth``, with the head-key surgery), a
+checkpoint of the port's own trainer, or a ``.npz`` of either package.  The
+JAX trainer's orbax checkpoint directories need orbax, which the card's
+machine lacks: they go through the JAX package's ``tools convert`` to a
+``.npz`` first.  ``optimizer_state_from_jax`` carries optax AdamW moments
+across, so both packages can take the same step from the same state.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Mapping, Sequence
 
 import numpy as np
@@ -175,20 +182,141 @@ def load_state_dict(model: torch.nn.Module, sd: Mapping,
     return model
 
 
-def load_weights(path: str, model: torch.nn.Module,
-                 del_keys: Sequence[str] = ()) -> torch.nn.Module:
-    """Load model weights from a file into ``model``: a checkpoint of the
-    port's trainer (``train.checkpoint.save``: the ``model`` entry is loaded
-    verbatim, optimizer moments and step are dropped) or a reference-format
-    ``.pth`` state dict, where ``del_keys`` (the reference's head-key
-    surgery) are dropped and keep the model's current values."""
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(sd.get("model"), Mapping) and "optimizer" in sd:
-        return load_state_dict(model, sd["model"])
+def _load_reference(model, sd, del_keys):
     # a pretrained checkpoint may carry a pre_logits layer the model lacks
     own = model.state_dict()
     sd = {k: v for k, v in sd.items() if k in own or k not in del_keys}
     return load_state_dict(model, sd, del_keys=del_keys)
+
+
+def load_pth(path: str, model: torch.nn.Module,
+             del_keys: Sequence[str] = DEFAULT_DEL_KEYS) -> torch.nn.Module:
+    """Load a reference-format ``.pth`` state dict (pretrained or fine-tuned)
+    into ``model`` with the reference's head-key surgery: the keys in
+    ``del_keys`` are dropped and keep the model's current values."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return _load_reference(model, sd, del_keys)
+
+
+def load_weights(path: str, model: torch.nn.Module,
+                 del_keys: Sequence[str] = ()) -> torch.nn.Module:
+    """Load model weights from a file into ``model``: a ``.npz`` of either
+    package (``save_npz``; loaded verbatim), a checkpoint of the port's
+    trainer (``train.checkpoint.save``: the ``model`` entry is loaded
+    verbatim, optimizer moments and step are dropped) or a reference-format
+    ``.pth`` state dict (``load_pth``), where ``del_keys`` (the reference's
+    head-key surgery) are dropped and keep the model's current values.  A
+    directory (an orbax checkpoint of the JAX trainer) raises."""
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is a directory, an orbax checkpoint of the JAX trainer; "
+            "the port reads no orbax (the card's machine has none).  Convert "
+            "it to .npz first, where orbax is installed, with the JAX "
+            "package's cli/tools.py: convert --weights DIR --out FILE.npz")
+    if path.endswith(".npz"):
+        return load_state_dict(model, state_dict_from_jax_params(
+            load_npz(path), model.cfg))
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd.get("model"), Mapping) and "optimizer" in sd:
+        return load_state_dict(model, sd["model"])
+    return _load_reference(model, sd, del_keys)
+
+
+def _np(v) -> np.ndarray:
+    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) \
+        else np.asarray(v)
+
+
+def jax_params_from_state_dict(sd: Mapping, cfg) -> dict:
+    """The inverse of ``state_dict_from_jax_params`` on float weights: a
+    reference-named state dict (tensors or numpy arrays) -> the JAX
+    package's parameter pytree as numpy arrays ([in, out] kernels, the
+    blocks stacked on a leading depth axis), its keys in the order of the
+    JAX ``vit.init`` tree, so that ``save_npz`` writes the archive the JAX
+    package writes."""
+    if any(k.endswith(".weight_q") for k in sd):
+        raise ValueError("an int8 state dict (QLinear buffers) has no float "
+                         "JAX parameter tree; convert the float weights")
+    p, c, d = cfg.patch_size, cfg.in_chans, cfg.embed_dim
+    g = {k: _np(v) for k, v in sd.items()}
+
+    def lin(name):
+        out = {"kernel": _t(g[name + ".weight"])}
+        if name + ".bias" in g:
+            out["bias"] = g[name + ".bias"]
+        return out
+
+    params = {
+        "patch_embed": {"kernel": np.ascontiguousarray(
+            g["patch_embed.proj.weight"].transpose(2, 3, 1, 0)
+            .reshape(p * p * c, d)),
+            "bias": g["patch_embed.proj.bias"]},
+        "cls_token": g["cls_token"],
+        "pos_embed": g["pos_embed"],
+        "norm": {"scale": g["norm.weight"], "bias": g["norm.bias"]},
+        "head1": lin("head1"),
+    }
+    if cfg.distilled:
+        params["dist_token"] = g["dist_token"]
+        params["head_dist"] = lin("head_dist")
+    if cfg.has_logits:
+        params["pre_logits"] = lin("pre_logits.fc")
+    params["head"] = lin("head")
+
+    def stack(name, convert):
+        return np.stack([convert(g[f"blocks.{i}.{name}"])
+                         for i in range(cfg.depth)])
+
+    def blin(name):
+        out = {"kernel": stack(name + ".weight", _t)}
+        if f"blocks.0.{name}.bias" in g:
+            out = {"bias": stack(name + ".bias", np.asarray), **out}
+        return out
+
+    def ln(name):
+        return {"bias": stack(name + ".bias", np.asarray),
+                "scale": stack(name + ".weight", np.asarray)}
+
+    # the JAX tree stacks its blocks with jax.tree.map, which sorts the keys
+    params["blocks"] = {
+        "attn": {"proj": blin("attn.proj"), "qkv": blin("attn.qkv")},
+        "ln1": ln("norm1"), "ln2": ln("norm2"),
+        "mlp": {"fc1": blin("mlp.fc1"), "fc2": blin("mlp.fc2")}}
+    return params
+
+
+def save_npz(path: str, model_or_state_dict, cfg) -> None:
+    """The JAX package's flat ``.npz`` of the weights of a ``ViTCAM`` or of
+    a reference-named state dict: one array per pytree leaf, named by its
+    path joined with "/"."""
+    sd = model_or_state_dict.state_dict() \
+        if isinstance(model_or_state_dict, torch.nn.Module) \
+        else model_or_state_dict
+    flat = {}
+
+    def rec(node, prefix):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                rec(v, prefix + (k,))
+        else:
+            flat["/".join(prefix)] = np.asarray(node)
+
+    rec(jax_params_from_state_dict(sd, cfg), ())
+    np.savez(path, **flat)
+
+
+def load_npz(path: str) -> dict:
+    """A ``save_npz`` archive (of either package) as the nested pytree of
+    numpy arrays."""
+    out: dict = {}
+    with np.load(path) as data:
+        for k in data.files:
+            node = out
+            parts = [p for p in k.split("/") if p]
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = data[k]
+    return out
 
 
 def optimizer_state_from_jax(mu: Mapping, nu: Mapping, count: int,

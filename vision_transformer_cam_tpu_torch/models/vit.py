@@ -263,8 +263,9 @@ def _ftz(t):
     the kernels do: a patch the feedback masked has the logit s - 100, and
     exp(-100) is a float32 denormal, so its cls-row weight is exactly 0 and
     it ties with the other masked patches in the top-16 selection.  Applied
-    to the statistics the attention returns; the P V product keeps the
-    denormals, which move its output by less than 1e-38 |v|."""
+    to every path's cls row in the block loop and to the head-mean and
+    per-head statistics the eager attention returns; the P V product keeps
+    the denormals, which move its output by less than 1e-38 |v|."""
     return t.masked_fill(t < torch.finfo(t.dtype).tiny, 0.0)
 
 
@@ -292,7 +293,7 @@ def _attention_eager(ap, x, bg, cfg: ViTCAMConfig, need_probs, joint=None,
     if cfg.softmax_clamp:
         attn = torch.clamp_max(attn, 80.0)
     probs = torch.softmax(attn, dim=-1)
-    cls_row = _ftz(probs[:, :, 0, :].mean(dim=1))
+    cls_row = probs[:, :, 0, :].mean(dim=1)     # flushed by the caller
     hm = _ftz(probs.mean(dim=1)) if need_probs else None
     used = _dropout(probs, cfg.attn_drop_ratio, rngs["attn"]) if rngs \
         else probs
@@ -403,7 +404,7 @@ def _attention_seq(ap, x, bg, cfg: ViTCAMConfig, need_probs, mesh,
             scale=cfg.scale, mask_value=cfg.mask_value,
             with_headmean=need_probs == "headmean",
             clamp_softmax=cfg.softmax_clamp, hm_dtype=hm_dtype)
-        out, cls_row = res[0], res[1].to(cfg.dtype)
+        out, cls_row = res[0], _ftz(res[1].to(cfg.dtype))
         hm = res[2] if need_probs == "headmean" else None
         return _linear(out, ap.proj, cfg), cls_row, hm, None
     q, k, v = qkv.reshape(b, nq, 3, h, dh).permute(2, 0, 3, 1, 4)
@@ -752,8 +753,12 @@ class ViTCAM(nn.Module):
                 if cfg.drop_path_ratio > 0:
                     ymlp = _drop_path(ymlp, dpr[i], rngs["dp2"])
             tokens = tokens + ymlp
-            # the cls row feeds thresholds and top-k indices only: no gradient
-            cls_row = cls_row.detach()
+            # the cls row feeds thresholds and top-k indices only: no
+            # gradient.  Flushed on every path: the eager softmax, the
+            # kernels' float32 designs and the plain versions on the CPU keep
+            # the denormal weights of masked keys, which would rank the
+            # masked patches in the top-16 where JAX ties them at 0
+            cls_row = _ftz(cls_row.detach())
             # this block's attention sets the mask of the next block
             if i >= cfg.mask_from:
                 _, bg = _mask_from_cls_row(cls_row, cfg)

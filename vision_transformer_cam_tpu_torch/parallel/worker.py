@@ -24,6 +24,8 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from vision_transformer_cam_tpu_torch.utils import resolve_device
+
 _FIELDS = ("logits", "head1_logits", "attn_cls_rows", "top_patch_embeds",
            "top_patch_idx", "attn_headmean", "block_outputs", "rollout_row",
            "tokens_prenorm")
@@ -69,7 +71,7 @@ def _rank_main(rank, world, n_seq, port, backend, device, cfg, workdir,
 
 
 def run_forward(cfg, state_dict, images, *, world: int, n_seq: int,
-                device="cpu", backend="gloo", serving_mode="off",
+                device=None, backend="gloo", serving_mode="off",
                 overrides=None, fwd_kw=None, timeout: float = 120.0,
                 threads: int = 1):
     """Outputs of every rank, [rank] -> {field: CPU tensor}, of ``world``
@@ -81,7 +83,10 @@ def run_forward(cfg, state_dict, images, *, world: int, n_seq: int,
     still gets this batch); serving_mode: as ``serving.apply_serving_mode``
     (the int8 modes calibrate on ``images``); overrides: config fields set
     after the serving mode (``attn_impl``, ``rollout_post``, ...); fwd_kw:
-    the forward's keyword arguments."""
+    the forward's keyword arguments; device: where every rank runs, the card
+    unless the caller asks for the CPU (``utils.resolve_device``, checked
+    here before any rank is spawned)."""
+    device = resolve_device(device)
     with tempfile.TemporaryDirectory() as workdir:
         torch.save({k: v.detach().cpu() for k, v in state_dict.items()},
                    os.path.join(workdir, "state.pt"))
