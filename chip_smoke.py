@@ -163,7 +163,21 @@ Phases (any failure raises, and the exit code is non-zero):
      mAP / mIoU, warm img/s printed); and ``examples.quickstart`` at its
      defaults (head width 64: kernel 1 and the backward kernel in the
      fine-tune, kernel 1 in both validate runs and predict, the int8 GEMM in
-     the int8 validate), every launch count held per CLI call.
+     the int8 validate), every launch count held per CLI call; since phase
+     18 its step 6 too (``cli.export --check`` of the int8 tiny model and
+     ``examples.serve_artifact`` over its val images).
+ 18. the serving artifact on the same weights: ``cli.export`` in int8 and
+     bf16 at batch 64 through ``main`` (``--calib_npy``: quality_eval's 16
+     calibration images), and int8 with ``ln_quant_fusion``,
+     ``int8_fused_gemm`` and ``mlp_fusion`` and bf16 with ``mlp_fusion`` and
+     ``attn_block_fusion`` through ``build_fn``'s overrides, each with
+     ``--check`` (the loaded artifact bit for bit the live function); the
+     launches of one artifact call and of one live call held to the
+     forward's (kernels 1, 4, 6, 7, 8 and 9 as ``vitcam`` custom ops);
+     export time, ``.pt2`` size and img/s of artifact and live function in
+     turns recorded; ``examples.serve_artifact`` over 70 generated JPEGs
+     from the int8 artifact (two calls, the tail padded): 70 overlays and
+     the live model's printed classes.
 Nothing of the earlier phases was reduced.  It prints one JSON line
 describing the kernels (with each one's bound from the shapes it was timed
 at, and the library call's time where one PyTorch call computes the same
@@ -2553,11 +2567,13 @@ def user_path():
     import tempfile
 
     from vision_transformer_cam_tpu_torch import configs
+    from vision_transformer_cam_tpu_torch.cli import export as ecli
     from vision_transformer_cam_tpu_torch.cli import predict as pcli
     from vision_transformer_cam_tpu_torch.cli import tools
     from vision_transformer_cam_tpu_torch.cli import train as tcli
     from vision_transformer_cam_tpu_torch.cli import validate as vcli
-    from vision_transformer_cam_tpu_torch.examples import quickstart
+    from vision_transformer_cam_tpu_torch.examples import (quickstart,
+                                                           serve_artifact)
     from vision_transformer_cam_tpu_torch.io import weights as wio
     from vision_transformer_cam_tpu_torch.scripts import e2e_bench
     phase = "user path"
@@ -2688,21 +2704,29 @@ def user_path():
                     "validate": {"masked_attention_fused": q_depth},
                     "validate int8": {"masked_attention_fused": q_depth,
                                       "linear_int8_fused": 1 + 4 * q_depth},
-                    "predict": {"masked_attention_fused": q_depth}}
+                    "predict": {"masked_attention_fused": q_depth},
+                    # --check runs the artifact and the live function
+                    "export": {"masked_attention_fused": 2 * q_depth,
+                               "linear_int8_fused": 2 * (1 + 4 * q_depth)},
+                    "serve": {"masked_attention_fused": q_depth,
+                              "linear_int8_fused": 1 + 4 * q_depth}}
             calls = []
             reset_counts()
             t0 = time.perf_counter()
             with counted_calls(tools, "main", calls, "tools"), \
                     counted_calls(tcli, "main", calls, "train"), \
                     counted_calls(vcli, "main", calls, "validate"), \
-                    counted_calls(pcli, "main", calls, "predict"):
+                    counted_calls(pcli, "main", calls, "predict"), \
+                    counted_calls(ecli, "main", calls, "export"), \
+                    counted_calls(serve_artifact, "main", calls, "serve"):
                 rc, text = _capture(quickstart.main, [
                     "--workdir", os.path.join(work, "quickstart")])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             labels = [c for c, _ in calls]
             if rc != 0 or labels != ["tools", "train", "validate",
-                                     "validate", "predict"]:
+                                     "validate", "predict", "export",
+                                     "serve"]:
                 raise AssertionError(f"quickstart: rc {rc}, calls {labels}")
             calls[3] = ("validate int8", calls[3][1])
             for label, counts in calls:
@@ -2711,13 +2735,259 @@ def user_path():
             _expect("quickstart", {k: sum(c.get(k, 0) for _, c in calls)
                                    for k in read_counts()}, phase=phase)
             seg = [os.listdir(os.path.join(work, "quickstart", d))
-                   for d in ("seg_parity", "seg_int8")]
+                   for d in ("seg_parity", "seg_int8", "served_cams")]
             if any(len(s) != qa.n_val for s in seg):
                 raise AssertionError(f"quickstart: PNGs {seg}")
             say(f"{phase}: quickstart (--epochs {qa.epochs} --n_train "
                 f"{qa.n_train} --n_val {qa.n_val}) in {wall:.1f} s")
         finally:
             os.chdir(cwd)
+    say(f"{phase}: {time.perf_counter() - t_phase:.1f} s in all; launches "
+        f"{total}")
+    return total
+
+
+# phase 18, the serving artifact on the fine-tuned ViT-B/16 of phase 16: the
+# four exports (cli.export through main, the fused configurations through
+# build_fn's overrides), each with its launches per forward
+EXPORT_BATCH, SERVE_IMAGES = 64, 70
+EXPORT_RUNS = (   # label, serving mode, build_fn overrides, launches per fwd
+    ("int8", "int8", None, {"masked_attention_fused": 12,
+                            "linear_int8_fused": 49}),
+    ("bf16", "bf16", None, {"masked_attention_fused": 12}),
+    ("int8 fused", "int8", dict(ln_quant_fusion=True, int8_fused_gemm=True,
+                                mlp_fusion=True),
+     {"masked_attention_fused": 12, "linear_int8_fused": 25, "ln_quant": 12,
+      "mlp_fused_int8": 12}),
+    ("bf16 fused", "bf16", dict(mlp_fusion=True, attn_block_fusion=True),
+     {"attention_block_fused": 12, "mlp_fused": 12}),
+)
+
+
+def served_lines(probs, names, threshold=0.9):
+    """``serve_artifact``'s printed class lines for sigmoid probabilities
+    [n, classes] (float64) of the images ``names``."""
+    lines = []
+    for name, p in zip(names, probs):
+        pred = np.nonzero(p >= threshold)[0]
+        top = ", ".join(f"{c}:{p[c]:.2f}" for c in pred) or \
+            f"(none >= {threshold}; max {p.argmax()}:{p.max():.2f})"
+        lines.append(f"  {name}: {top}")
+    return lines
+
+
+def export_path(weights=QUALITY_PARAMS):
+    """Phase 18: ``cli.export`` of the fine-tuned ViT-B/16 in int8 and bf16
+    at batch 64 with ``--check`` (bit for bit), and of the two fused
+    configurations through ``build_fn``'s overrides; the launches of one
+    artifact call held to the live forward's; artifact and live img/s in
+    turns; ``serve_artifact`` over 70 generated JPEGs (a padded tail) with
+    the live model's classes.  ``weights`` None: the seeded random init.
+    Returns the launch counts to add to the kernels line."""
+    import tempfile
+
+    import PIL.Image
+    from vision_transformer_cam_tpu_torch.cli import export as ecli
+    from vision_transformer_cam_tpu_torch.data.transforms import (
+        load_and_preprocess)
+    from vision_transformer_cam_tpu_torch.examples import serve_artifact
+    from vision_transformer_cam_tpu_torch.models.vit import matmul_precision
+    from vision_transformer_cam_tpu_torch.scripts import quality_eval as qe
+    phase = "export path"
+    t_phase = time.perf_counter()
+    total = {}
+
+    def added(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    built = {}
+
+    def capture(args, **kw):
+        built["fn"] = orig(args, **kw)
+        return built["fn"]
+
+    orig = ecli.build_fn
+    mean = np.asarray((0.485, 0.456, 0.406), np.float32)
+    std = np.asarray((0.229, 0.224, 0.225), np.float32)
+    with tempfile.TemporaryDirectory() as work:
+        calib = os.path.join(work, "calib.npy")
+        # the quality phase's calibration batch (held out of the fine-tune)
+        np.save(calib, qe.make_batch(777, 16)[0].numpy())
+        x = torch.from_numpy(np.random.default_rng(21).standard_normal(
+            (EXPORT_BATCH, 224, 224, 3), dtype=np.float32)).cuda()
+        fns = {}
+        for label, mode, knobs, per_fwd in EXPORT_RUNS:
+            out = os.path.join(work, label.replace(" ", "_") + ".pt2")
+            argv = ["--serving", mode, "--batch", str(EXPORT_BATCH),
+                    "--calib_npy", calib, "--out", out, "--check"] + (
+                ["--weights", os.path.join(REPO, weights)] if weights
+                else [])
+            reset_counts()
+            t0 = time.perf_counter()
+            if knobs is None:
+                ecli.build_fn = capture
+                try:
+                    _, text = _capture(ecli.main, argv)
+                finally:
+                    ecli.build_fn = orig
+                fn, cfg, _ = built["fn"]
+            else:
+                args = ecli.build_parser().parse_args(argv)
+                fn, cfg, prov = ecli.build_fn(args, **knobs)
+                _, text = _capture(ecli.write_artifact, args, fn, cfg, prov)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            # the check runs the artifact and the live function once each
+            added(_expect(f"{label} export --check",
+                          {k: 2 * v for k, v in per_fwd.items()},
+                          phase=phase))
+            if "bit-identical" not in text:
+                raise AssertionError(f"{label}: no --check line")
+            exported = torch.export.load(out)
+            program = exported.module()
+            calls = [str(n.target) for n in exported.graph.nodes
+                     if n.op == "call_function"]
+            nodes = sorted({t for t in calls if "vitcam" in t})
+            with matmul_precision(cfg), torch.no_grad():
+                for name, f in (("artifact", program), ("live", fn)):
+                    reset_counts()
+                    res = f(x)
+                    torch.cuda.synchronize()
+                    added(_expect(f"{label} one {name} call", per_fwd,
+                                  phase=phase))
+                    if tuple(res[2].shape) != (EXPORT_BATCH, 14, 14) or \
+                            not all(torch.isfinite(r.float()).all()
+                                    for r in res):
+                        raise AssertionError(f"{label} {name}: outputs")
+            export_s = re.search(r"([0-9.]+) s\)", text).group(1)
+            say(f"{phase}: {label}: export + save {export_s} s, "
+                f"{os.path.getsize(out) / 1e6:.1f} MB, with --check "
+                f"{wall:.1f} s in all; ops {nodes}; {len(calls)} calls in "
+                f"the graph, {calls.count('aten.to.dtype')} aten.to.dtype "
+                f"and {calls.count('aten._assert_tensor_metadata.default')} "
+                "aten._assert_tensor_metadata")
+            fns[label] = (program, fn, cfg)
+            if label == "int8":
+                int8_out, int8_fn = out, fn
+
+        # img/s at batch 64, artifact and live in turns
+        def rate(f, cfg, iters=10):
+            with matmul_precision(cfg), torch.no_grad():
+                for _ in range(2):
+                    f(x)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(iters):
+                    f(x)
+                torch.cuda.synchronize()
+            return EXPORT_BATCH * iters / (time.perf_counter() - t)
+        # the host's part: the time one call takes to return after a
+        # synchronise (every launch enqueued, none waited for), the median of
+        # 5, which is what the call costs the host
+        def host_ms(f, cfg, iters=5):
+            ts = []
+            with matmul_precision(cfg), torch.no_grad():
+                for _ in range(iters):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    f(x)
+                    ts.append(time.perf_counter() - t)
+                torch.cuda.synchronize()
+            return 1e3 * float(np.median(ts))
+        for label, (program, fn, cfg) in fns.items():
+            reset_counts()
+            r = [rate(program, cfg), rate(fn, cfg), rate(fn, cfg),
+                 rate(program, cfg)]
+            h = [host_ms(program, cfg), host_ms(fn, cfg), host_ms(fn, cfg),
+                 host_ms(program, cfg)]
+            added(read_counts())
+            say(f"{phase}: {label} img/s at batch {EXPORT_BATCH}, in turns: "
+                f"artifact {(r[0] + r[3]) / 2:.1f} ({r[0]:.1f}, {r[3]:.1f}), "
+                f"live {(r[1] + r[2]) / 2:.1f} ({r[1]:.1f}, {r[2]:.1f}), "
+                f"artifact / live {(r[0] + r[3]) / (r[1] + r[2]):.4f}; host "
+                f"ms a call: artifact {(h[0] + h[3]) / 2:.3f} ({h[0]:.3f}, "
+                f"{h[3]:.3f}), live {(h[1] + h[2]) / 2:.3f} ({h[1]:.3f}, "
+                f"{h[2]:.3f})")
+        fns.clear()
+
+        # the host time of one op call against the wrapper called directly:
+        # linear_int8 at batch 1's qkv GEMM, where the host work is most of
+        # the call; timing launches, not added to the kernels line
+        from vision_transformer_cam_tpu_torch.kernels import gemm, ops
+        g = torch.Generator().manual_seed(5)
+        xg = torch.randn((197, 768), generator=g).to("cuda", torch.bfloat16)
+        wq = torch.randint(-127, 128, (2304, 768), generator=g,
+                           dtype=torch.int8).cuda()
+        cs = torch.full((2304,), 1e-3, device="cuda")
+        bias = torch.zeros(2304, device="cuda")
+        inv_a = torch.tensor(40.0, device="cuda")
+
+        def per_call(f, n=3000):
+            with torch.inference_mode():
+                for _ in range(200):
+                    f(xg, wq, cs, bias, inv_a, route="fused",
+                      out_dtype=torch.bfloat16)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(n):
+                    f(xg, wq, cs, bias, inv_a, route="fused",
+                      out_dtype=torch.bfloat16)
+                torch.cuda.synchronize()
+            return (time.perf_counter() - t) / n * 1e6
+        us = [per_call(f) for f in (gemm.linear_int8, ops.linear_int8,
+                                    ops.linear_int8, gemm.linear_int8)]
+        reset_counts()
+        say(f"{phase}: host time of one linear_int8 call [197, 768] x "
+            f"[2304, 768]^T (inference mode, kernel included), in turns: "
+            f"the wrapper {(us[0] + us[3]) / 2:.2f} us ({us[0]:.2f}, "
+            f"{us[3]:.2f}), through vitcam::linear_int8 "
+            f"{(us[1] + us[2]) / 2:.2f} us ({us[1]:.2f}, {us[2]:.2f})")
+
+        # serve 70 generated JPEGs from the int8 artifact
+        jpegs = os.path.join(work, "jpegs")
+        os.makedirs(jpegs)
+        images, _ = qe.make_batch(9999, SERVE_IMAGES)
+        names = [f"img_{i:03d}" for i in range(SERVE_IMAGES)]
+        for name, img in zip(names, images.numpy()):
+            u8 = np.clip(np.rint((img * std + mean) * 255), 0, 255)
+            PIL.Image.fromarray(u8.astype(np.uint8)).save(
+                os.path.join(jpegs, name + ".jpg"), quality=95)
+        served = os.path.join(work, "served")
+        reset_counts()
+        t0 = time.perf_counter()
+        rc, text = _capture(serve_artifact.main, [
+            "--artifact", int8_out, "--images", jpegs, "--out", served])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_calls = -(-SERVE_IMAGES // EXPORT_BATCH)
+        added(_expect("serve_artifact", {"masked_attention_fused":
+                                         12 * n_calls,
+                                         "linear_int8_fused": 49 * n_calls},
+                      phase=phase))
+        # the live int8 function on the same batches, zero-padded alike
+        xs = np.zeros((n_calls * EXPORT_BATCH, 224, 224, 3), np.float32)
+        for i, name in enumerate(names):
+            xs[i] = load_and_preprocess(os.path.join(jpegs, name + ".jpg"),
+                                        224, mean, std)
+        probs = []
+        with torch.no_grad():
+            for lo in range(0, len(xs), EXPORT_BATCH):
+                h1 = int8_fn(torch.from_numpy(xs[lo:lo + EXPORT_BATCH])
+                             .cuda())[1]
+                probs.append(1.0 / (1.0 + np.exp(
+                    -h1.float().cpu().numpy().astype(np.float64))))
+        want = served_lines(np.concatenate(probs)[:SERVE_IMAGES], names)
+        got = [line for line in text.splitlines()
+               if line.startswith("  img_")]
+        overlays = sorted(os.listdir(served))
+        say(f"{phase}: serve_artifact {SERVE_IMAGES} JPEGs in {wall:.1f} s "
+            f"({n_calls} calls of {EXPORT_BATCH}), {len(overlays)} overlays, "
+            f"classes printed for {len(got)}; e.g. {got[:2]}")
+        if rc != 0 or len(overlays) != SERVE_IMAGES or got != want:
+            raise AssertionError(f"serve_artifact: rc {rc}, {len(overlays)} "
+                                 f"overlays, printed classes equal the live "
+                                 f"model's: {got == want}")
     say(f"{phase}: {time.perf_counter() - t_phase:.1f} s in all; launches "
         f"{total}")
     return total
@@ -3404,6 +3674,9 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + count
     # the user path on the weights phase 16 leaves
     for name, count in user_path().items():
+        launches[name] = launches.get(name, 0) + count
+    # the serving artifact on the same weights
+    for name, count in export_path().items():
         launches[name] = launches.get(name, 0) + count
     launches["masked_attention_seq_local"] = \
         seq_path()["masked_attention_seq_local"]

@@ -7,6 +7,7 @@ device rule.  The tests marked ``cuda`` run on a GPU machine without jax as
 """
 
 import importlib.util
+import json
 import os
 import pathlib
 
@@ -135,11 +136,18 @@ def test_quickstart_end_to_end_on_the_cpu(tmp_path, monkeypatch, capsys):
     out = capsys.readouterr().out
     for step in range(1, 7):
         assert f"[{step}/6]" in out
-    assert "waits for the export slice" in out
+    # step 6: the int8 artifact, its --check, and the val images served
+    assert "check OK: artifact == live fn" in out
+    assert "wrote 2 CAM overlays" in out
     qs = tmp_path / "qs"
     assert sorted(os.listdir(qs / "seg_parity")) == \
         sorted(os.listdir(qs / "seg_int8")) == \
         ["2008_000000.png", "2008_000001.png"]
+    assert sorted(os.listdir(qs / "served_cams")) == \
+        ["2008_000000_cam.jpg", "2008_000001_cam.jpg"]
+    meta = json.loads((qs / "tiny_demo_int8.pt2.json").read_text())
+    assert (meta["serving"], meta["batch"], meta["platforms"]) == \
+        ("int8", 2, ["cpu"])
     assert os.listdir(qs / "predict_cam") == ["2008_000000_cam_grid.jpg"]
     assert any("final" in f for f in os.listdir(qs / "weights"))
     assert tqs.tiny_demo().head_dim == 64

@@ -7,6 +7,8 @@
                                                             rollout overlays)
   python -m vision_transformer_cam_tpu_torch.cli.predict   (one image's CAM
                                                             grid)
+  python -m vision_transformer_cam_tpu_torch.cli.export    (the serving
+                                                            artifact, .pt2)
   python -m vision_transformer_cam_tpu_torch.cli.tools     (make_cls_labels /
                                                             make_splits /
                                                             make_class_indices
@@ -15,6 +17,6 @@
                                                             convert_sbd; host
                                                             only, no --device)
 
-The JAX package's ``cli.export`` (a serving artifact) and ``cli.cnn_cam_demo``
-are not ported yet (ROADMAP Queue 1 items 9 and 11).
+The JAX package's ``cli.cnn_cam_demo`` is not ported yet (ROADMAP Queue 1
+item 11).
 """

@@ -12,15 +12,17 @@ Walks the full user path in one run, the way the reference repo is used
      (``cli.validate``), once in parity mode and once through the int8
      serving tier;
   5. single-image CAM visualization grid (``cli.predict``);
-  6. the serving artifact: the port has no export yet (ROADMAP Queue 1 item
-     9, the export half), and this step says so.
+  6. export the int8 serving artifact with a roundtrip check
+     (``cli.export --check``) and serve the val images from it
+     (``examples.serve_artifact``).
 
 Run:  python -m vision_transformer_cam_tpu_torch.examples.quickstart
           [--workdir DIR] [--epochs N] [--device cuda|cpu]
 
 On the card by default (the kernel paths: the attention kernel and its
 backward in training, the attention and int8 GEMM kernels in the int8
-validate); ``--device cpu`` runs the same steps on the CPU.
+validate, the export check and the served artifact); ``--device cpu`` runs
+the same steps on the CPU.
 
 The tiny model has head width 64 (``embed_dim=128, num_heads=2``), where the
 JAX quickstart's has 16 (64 and 4): every CUDA kernel of the port takes head
@@ -113,10 +115,12 @@ def tiny_demo(num_classes=20, has_logits=False, attn_impl="eager"):
 def main(argv=None):
     args = parse_args(argv)
     from vision_transformer_cam_tpu_torch import configs
-    from vision_transformer_cam_tpu_torch.cli import (predict as pcli,
+    from vision_transformer_cam_tpu_torch.cli import (export as ecli,
+                                                      predict as pcli,
                                                       tools as tools_cli,
                                                       train as tcli,
                                                       validate as vcli)
+    from vision_transformer_cam_tpu_torch.examples import serve_artifact
     from vision_transformer_cam_tpu_torch.utils import resolve_device
     dev = ["--device", str(resolve_device(args.device))]
 
@@ -185,15 +189,27 @@ def main(argv=None):
                "--img_name", names_val[0], "--weights", ckpt,
                "--out", os.path.join(work, "predict_cam")] + dev + figure)
 
-    print("[6/6] the serving artifact: not in the port yet; it waits for "
-          "the export slice (ROADMAP Queue 1 item 9, the export half)")
+    print("[6/6] exporting the serving artifact + roundtrip check, then "
+          "serving the val images from it")
+    artifact = os.path.join(work, "tiny_demo_int8.pt2")
+    ecli.main(["--model_name", "tiny_demo", "--weights", ckpt,
+               "--serving", "int8", "--batch", str(args.n_val),
+               "--calib_npy", "",  # toy model: random-calib warning is fine
+               "--out", artifact, "--check"] + dev)
+    serve_artifact.main(["--artifact", artifact,
+                         "--images", os.path.join(data, "JPEGImages",
+                                                  "2008_*.jpg"),
+                         "--out", os.path.join(work, "served_cams")])
 
     print(f"\nDone. Everything is under {work}:")
     print("  seg_parity/ seg_int8/   pseudo-segmentation palette PNGs")
     print("  predict_cam/            the CAM visualization grid")
     print("  weights/                checkpoints of cli.train (validate / "
-          "predict --weights accept them; cli.tools convert makes a .npz "
-          "or .pth)")
+          "predict / export --weights accept them; cli.tools convert makes "
+          "a .npz or .pth)")
+    print(f"  {os.path.basename(artifact)}      deployable torch.export "
+          "artifact (weights baked in)")
+    print("  served_cams/            CAM overlays served from it")
     return 0
 
 

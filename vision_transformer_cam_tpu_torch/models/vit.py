@@ -34,6 +34,12 @@ consumers are all int8 GEMMs with the fused LayerNorm -> int8 kernel.  The
 eager path keeps the JAX XLA path's meaning: int8 GEMMs, float attention,
 the int8 attention flags ignored.
 
+The eval forward reaches the serving kernels through their custom ops
+(``kernels.ops``: kernel 1, ``linear_int8``, ``ln_quant``, the fused MLP
+kernels and the block kernel), the same calls on the live path and under
+``torch.export``; ``ServingFn`` is the traceable function ``cli.export``
+exports.
+
 The serving fusions follow the JAX routing too, in the eval forward only
 (the kernels have no backward): ``cfg.attn_block_fusion`` on the kernel path
 replaces the qkv GEMM, the attention, the proj GEMM and the residual add of
@@ -69,17 +75,17 @@ from torch.utils.checkpoint import checkpoint
 
 from vision_transformer_cam_tpu_torch.configs import ViTCAMConfig
 from vision_transformer_cam_tpu_torch.kernels.attention import (
-    attention_block_fused, fused_attention_diff, masked_attention_fused,
-    masked_attention_seq)
-from vision_transformer_cam_tpu_torch.kernels.gemm import ln_quant, mlp_fused
+    fused_attention_diff, masked_attention_seq)
+from vision_transformer_cam_tpu_torch.kernels.ops import (
+    attention_block_fused, ln_quant, masked_attention_fused, mlp_fused)
 from vision_transformer_cam_tpu_torch.ops.quant import (QLinear,
                                                         linear_int8_fused,
                                                         mlp_fused_int8,
                                                         qlinear,
                                                         qlinear_gelu_requant,
                                                         qlinear_requant)
-from vision_transformer_cam_tpu_torch.ops.rollout import (aug_cls_row,
-                                                          aug_normalize)
+from vision_transformer_cam_tpu_torch.ops.rollout import (
+    aug_cls_row, aug_normalize, cam_from_rollout_row)
 from vision_transformer_cam_tpu_torch.utils import resolve_device
 
 
@@ -513,6 +519,30 @@ class PreLogits(nn.Module):
         self.fc = nn.Linear(dim, rep, **fk)
 
 
+class ServingFn(nn.Module):
+    """The serving function that ``cli.export`` exports (the JAX
+    ``cli/export.py: build_fn``'s ``fn``): images [B, H, W, 3] float32 ->
+    (logits, head1_logits, cam [B, g, g]), or the first two when
+    ``with_cam`` is false.  The eval forward of ``model`` without
+    ``torch.inference_mode`` (an inference-mode trace is not exportable) and
+    without ``matmul_precision``, a process global no graph records: the
+    caller sets it around the call."""
+
+    def __init__(self, model: "ViTCAM", with_cam: bool = True):
+        super().__init__()
+        self.model = model
+        self.with_cam = with_cam
+
+    def forward(self, images):
+        cfg = self.model.cfg
+        out = self.model._forward(images, False, None, False, False, False,
+                                  self.with_cam)
+        if not self.with_cam:
+            return out.logits, out.head1_logits
+        cam = cam_from_rollout_row(out.rollout_row, cfg.grid_size)
+        return out.logits, out.head1_logits, cam
+
+
 class ViTCAM(nn.Module):
     """ViT-CAM model.  ``cfg`` may be replaced after construction (for
     example by ``serving.apply_serving_mode`` or to switch ``attn_impl``); the
@@ -647,7 +677,10 @@ class ViTCAM(nn.Module):
         use_rng = train and rng is not None
         if use_rng:
             tokens = _dropout(tokens, cfg.drop_ratio, _fold(rng, _EMBED_SITE))
-        dpr = torch.linspace(0.0, cfg.drop_path_ratio, cfg.depth).tolist()
+        # read only with dropout on: an export trace would read the tensor
+        # on the host
+        dpr = torch.linspace(0.0, cfg.drop_path_ratio, cfg.depth).tolist() \
+            if use_rng else None
         b, n, dev = tokens.shape[0], cfg.seq_len, tokens.device
         bg = torch.zeros((b, n), dtype=cfg.dtype, device=dev)
         need_probs = "perhead" if need_perhead else (

@@ -13,11 +13,12 @@ torch-layout buffers:
   out_scales    float32 [3, H] per-head (q, k, v) output scales on qkv (int8
                 attention I/O), or None
 
-Every int8 GEMM goes through ``kernels.gemm.linear_int8``: the CUDA kernel
-on CUDA tensors, its plain PyTorch version on CPU tensors.  Each function
-below follows the op order of the JAX function it ports (divide against
-multiply-by-inverse, ``(acc * sx) * scale`` against ``acc * cs``), so the CPU
-tests can hold the int8 tensors bit for bit.  Rounding is round half to even
+Every int8 GEMM goes through ``kernels.gemm.linear_int8`` by its custom op
+(``kernels.ops``): the CUDA kernel on CUDA tensors, its plain PyTorch
+version on CPU tensors.  Each function below follows the op order of the
+JAX function it ports (divide against multiply-by-inverse, ``(acc * sx) *
+scale`` against ``acc * cs``), so the CPU tests can hold the int8 tensors
+bit for bit.  Rounding is round half to even
 (``torch.round``, as ``jnp.round``), clipped to +-127.
 """
 
@@ -28,7 +29,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from vision_transformer_cam_tpu_torch.kernels import gemm
+from vision_transformer_cam_tpu_torch.kernels import ops as kops
 
 
 def quantize_weight(w: torch.Tensor):
@@ -112,7 +113,7 @@ def _qlinear_call(x, ql: QLinear, **kw):
         sx = ql.act_scale
     else:
         sx = _dynamic_scale(x)
-    return gemm.linear_int8(x, ql.weight_q, ql.weight_scale, ql.bias, sx,
+    return kops.linear_int8(x, ql.weight_q, ql.weight_scale, ql.bias, sx,
                             route="qlinear", **kw)
 
 
@@ -151,7 +152,7 @@ def linear_int8_fused(x, ql: QLinear, out_dtype=torch.bfloat16):
     """The JAX ``int8_fused_gemm`` route (kernels/gemm.py:
     linear_int8_fused): quant(x * inv_a) @ w_q, dequantized by the combined
     scale, plus bias.  Needs a static act_scale and a float ``x``."""
-    return gemm.linear_int8(x, ql.weight_q, ql.comb_scale, ql.bias,
+    return kops.linear_int8(x, ql.weight_q, ql.comb_scale, ql.bias,
                             ql.inv_act, route="fused", epilogue="float",
                             out_dtype=out_dtype)
 
@@ -161,7 +162,7 @@ def mlp_fused_int8(x, fc1: QLinear, fc2: QLinear, gelu_approx=True,
     """The JAX ``mlp_fusion`` route for two static int8 layers
     (kernels/gemm.py: mlp_fused_int8): fc1 -> GELU -> fc2 in one launch, the
     float ``x`` quantized in the kernel by ``x * inv_act``."""
-    return gemm.mlp_fused_int8(
+    return kops.mlp_fused_int8(
         x, fc1.weight_q, fc1.comb_scale, fc1.bias, fc2.weight_q,
         fc2.comb_scale, fc2.bias, fc1.inv_act, fc2.inv_act,
         gelu_approx=gelu_approx, out_dtype=out_dtype)
