@@ -178,6 +178,26 @@ Phases (any failure raises, and the exit code is non-zero):
      turns recorded; ``examples.serve_artifact`` over 70 generated JPEGs
      from the int8 artifact (two calls, the tail padded): 70 overlays and
      the live model's printed classes.
+ 19. the zoo's widest and longest models (run right after phase 4): kernel
+     1 at head width 80 (ViT-H/14's) against its plain version in every
+     design and variant (float32 FMA; bf16 tensor-core, twice for identical
+     bits, q_block 32 bit for bit 16, and FMA; int8_io per head and per
+     tensor; int8_out; clamp on and off; B=8 N=257 H=16, B=3 N=37, B=2
+     N=577; N=1025 at q_block 16, a forced 32 refused; head width 48
+     refused), timed at B=64 N=257 H=16 (bf16 and int8_io rollout,
+     tensor-core / FMA / plain in turns) beside its bound, with the
+     occupancy of every kernel-1 instance at N=197 (dh 64) and N=257 (dh
+     80) and the ptxas spills; ViT-H/14 at full width and depth (32 layers,
+     C=1280, N=257, pre-logits 1280) and ViT-L/16@512 (24 layers, N=1025,
+     the 224 model's seeded weights through the pos-embed interpolation)
+     served in bf16 (held to the eager path), int8 and int8_hifi (ln_quant
+     and the fused GEMM on; held to the same quantized model on the CPU on
+     one seeded batch): 3 requests of 32 / 2 of 16 with their launch counts
+     (32 / 24 kernel-1 launches a forward, 129 / 97 int8 GEMM launches an
+     int8 forward), img/s at batch 64 / 32 in turns; kernel 1's int8_io
+     against int8_out head-mean variant at B=32 N=1025 H=16; bench.main at
+     ViT-H/14 (int8 and --bf16, batch 64) and ViT-L/16@512 (batch 32), and
+     cli.predict at ViT-H/14 (--no_figure), their launch counts held.
 Nothing of the earlier phases was reduced.  It prints one JSON line
 describing the kernels (with each one's bound from the shapes it was timed
 at, and the library call's time where one PyTorch call computes the same
@@ -201,6 +221,8 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CSRC = "vision_transformer_cam_tpu_torch/kernels/csrc/"
+# kernel 1's launches at head width 80 (ViT-H/14), a row of their own
+W80 = "masked_attention_fused[head width 80]"
 KERNELS = {   # name: (route, source, TPU kernel replaced)
     "masked_attention_fused": (
         "cuda", CSRC + "masked_attention.cu",
@@ -209,6 +231,12 @@ KERNELS = {   # name: (route, source, TPU kernel replaced)
     # no clamp (the forward of fused_attention_diff)
     "masked_attention_fused[bf16 plain, training]": (
         "cuda", CSRC + "masked_attention.cu",
+        "vision_transformer_cam_tpu/kernels/attention.py:133"),
+    # the same kernel's instances at head width 80 (csrc/masked_attention.cuh
+    # instantiated by masked_attention_w80.cu), bf16 rollout as ViT-H/14's
+    # bf16 serving path launches them
+    W80: (
+        "cuda", CSRC + "masked_attention_w80.cu",
         "vision_transformer_cam_tpu/kernels/attention.py:133"),
     "linear_int8_fused": (
         "cuda", CSRC + "int8_gemm.cu",
@@ -347,13 +375,13 @@ def build_kernels():
     say(f"build ln_quant (Triton JIT): {time.perf_counter() - t0:.1f} s")
 
 
-def attention_inputs(b, n, heads, dtype, seed):
-    """Packed qkv with random bg (cls column 0), hot query rows 1-3 whose
-    logits pass the clamp at 80, and a row-stochastic float32 joint.  For
-    int8 qkv: integers in [-127, 127] and per-head scales, head 0's q scale
-    large enough for the clamp."""
+def attention_inputs(b, n, heads, dtype, seed, dh=64):
+    """Packed qkv (heads of width ``dh``) with random bg (cls column 0), hot
+    query rows 1-3 whose logits pass the clamp at 80, and a row-stochastic
+    float32 joint.  For int8 qkv: integers in [-127, 127] and per-head
+    scales, head 0's q scale large enough for the clamp."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    c = heads * 64
+    c = heads * dh
     bg = (torch.rand((b, n), generator=g, device="cuda") < 0.3).float()
     bg[:, 0] = 0.0
     joint = torch.softmax(torch.randn((b, n, n), generator=g, device="cuda"),
@@ -371,9 +399,12 @@ def attention_inputs(b, n, heads, dtype, seed):
 
 
 def _call(fn, variant, qkv, bg, joint, heads, clamp, scales=None,
-          float_dtype=torch.bfloat16):
-    kw = dict(num_heads=heads, scale=64 ** -0.5, clamp_softmax=clamp,
-              float_dtype=float_dtype)
+          float_dtype=torch.bfloat16, **extra):
+    """Kernel 1 (or its plain version) at 1 / sqrt(head width) on the
+    variant's inputs; ``extra``: q_block."""
+    dh = qkv.shape[-1] // (3 * heads)
+    kw = dict(num_heads=heads, scale=dh ** -0.5, clamp_softmax=clamp,
+              float_dtype=float_dtype, **extra)
     j = joint if variant == "rollout" else None
     return fn(qkv, bg, j, scales, with_headmean=variant == "headmean", **kw)
 
@@ -1627,6 +1658,7 @@ def reset_counts():
     from vision_transformer_cam_tpu_torch.kernels import gemm
     from vision_transformer_cam_tpu_torch.scripts import attn_variants as av
     ka.launches = 0
+    ka.width_launches = {dh: 0 for dh in ka.FWD_HEAD_DIMS}
     ka.bwd_launches = 0
     ka.block_launches = 0
     ka.seq_launches = 0
@@ -1649,7 +1681,8 @@ def read_counts():
             "mlp_fused": gemm.mlp_fused_launches,
             "mlp_fused_int8": gemm.mlp_fused_int8_launches,
             "attention_block_fused": ka.block_launches,
-            "masked_attention_seq_local": ka.seq_launches}
+            "masked_attention_seq_local": ka.seq_launches,
+            W80: ka.width_launches[80]}
 
 
 def read_new_counts():
@@ -1710,16 +1743,16 @@ def deviation(outs, refs):
     return d_cam, d_logit, float(np.mean(overlap))
 
 
-def whole_path_check(qm, mode, g):
+def whole_path_check(qm, mode, g, cases=WHOLE_CASES):
     """The quantized model on the card (kernels) against the same model
-    on the CPU (plain versions), on WHOLE_CASES; every case is printed
-    before any failure raises."""
+    on the CPU (plain versions), on ``cases`` ((batch, numpy seed of the
+    images)); every case is printed before any failure raises."""
     from vision_transformer_cam_tpu_torch.ops.rollout import (
         cam_from_rollout_row)
     cpu = copy.deepcopy(qm).cpu()
     size = qm.cfg.img_size
     bad = []
-    for b, seed in WHOLE_CASES:
+    for b, seed in cases:
         xs = np.random.default_rng(seed).standard_normal(
             (b, size, size, 3), dtype=np.float32)
         got = qm(torch.from_numpy(xs).cuda(), need_rollout=True)
@@ -1997,6 +2030,9 @@ def kernel_bounds(b=64, n=197, heads=12):
         "masked_attention_fused int8_out rollout B=16 N=577 H=16",
         lm * 3 * lc * 2 + lm * 2 + 4 + 2 * lb * ln * ln * 4 + lm * lc
         + lm * 2, {"bf16": 2 * lqk, "f32": 2 * lb * ln ** 3})
+    # kernel 1 at head width 80 as time_attention_w80 times it (ViT-H/14's
+    # bf16 serving launch: B=64, N=257, 16 heads of 80)
+    bounds[W80] = attention_bound(64, 257, 16, 80, "bf16")
     hid = 4 * c
     bounds.update({
         # the bf16 serving path's launch: bf16 qkv and bg and the f32 joint
@@ -3333,6 +3369,489 @@ def time_attention_v1(b=64, n=197, heads=12):
     return times, sdpa, earlier
 
 
+# Kernel 1 at head width 80 (ViT-H/14: 16 heads of 80), the shapes its
+# phase holds it at: ViT-H's N = 257, a ragged N = 37, and N = 577
+W80_SHAPES = ((8, 257), (3, 37), (2, 577))
+
+
+def _w80_scales(opt, sc):
+    """The scales vector of an int8 option at 16 heads."""
+    if opt == "per_head":
+        return torch.cat([sc, torch.tensor([20.0], device="cuda")])
+    if opt == "per_tensor":
+        return torch.tensor([0.3, 0.02, 0.02, 20.0], device="cuda")
+    if opt == "int8_out":
+        return torch.tensor([20.0], device="cuda")
+    return None
+
+
+def check_attention_w80(heads=16):
+    """Kernel 1 at head width 80 against its plain version, as
+    check_attention holds it at 64: float32 (the FMA design), bf16 (the
+    tensor-core design, launched twice for identical bits, and the FMA
+    design behind ``_fwd_bf16_design``), int8_io with per-head and per-tensor
+    scales and int8_out, each variant, clamp on and off, at W80_SHAPES; the
+    tensor-core design's q_block 32 (two m16 tiles) bit for bit its 16 at N
+    = 257; at N = 1025 q_block 16 against the plain version and a forced 32
+    refused with the bytes it needs; head width 48 refused naming the
+    compiled widths.  Returns {(kind, variant, clamp, n): worst error} of
+    the path's design."""
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    errs, failures = {}, []
+    kinds = [(torch.bfloat16, None), (torch.float32, None),
+             (torch.int8, "per_head"), (torch.int8, "per_tensor"),
+             (torch.bfloat16, "int8_out")]
+    for (b, n) in W80_SHAPES:
+        for dtype, opt in kinds:
+            qkv, bg, joint, sc = attention_inputs(b, n, heads, dtype, seed=n,
+                                                  dh=80)
+            scales = _w80_scales(opt, sc)
+            fdt = torch.bfloat16 if dtype == torch.int8 else dtype
+            kind = opt or str(dtype).split(".")[-1]
+            for variant in VARIANTS:
+                for clamp in (False, True):
+                    want = _call(ka.masked_attention_fused_ref, variant, qkv,
+                                 bg, joint, heads, clamp, scales)
+                    tols = [None if scales is not None else TOL[(fdt, "out")],
+                            TOL[(fdt, "prob")],
+                            TOL_JOINT if variant == "rollout"
+                            else TOL[(fdt, "prob")]]
+                    for design in fwd_designs(dtype):
+                        got = _fwd_design(design, _call,
+                                          ka.masked_attention_fused, variant,
+                                          qkv, bg, joint, heads, clamp, scales)
+                        torch.cuda.synchronize()
+                        case = f"attention dh=80 {design:11s} {kind:10s} " \
+                               f"{variant:8s} clamp={clamp!s:5s} B={b} N={n}"
+                        err = _compare(case, got, want, tols, failures)
+                        if design == fwd_designs(dtype)[0]:
+                            errs[(kind, variant, clamp, n)] = err
+                        if design != "tensor-core":
+                            continue
+                        again = _call(ka.masked_attention_fused, variant, qkv,
+                                      bg, joint, heads, clamp, scales)
+                        if not all(torch.equal(x, y)
+                                   for x, y in zip(got, again)):
+                            failures.append(f"{case}: a second launch gave "
+                                            "other bits")
+                        if n != 257 or not clamp:
+                            continue
+                        wide = _call(ka.masked_attention_fused, variant, qkv,
+                                     bg, joint, heads, clamp, scales,
+                                     q_block=32)
+                        torch.cuda.synchronize()
+                        same = [torch.equal(x, y)
+                                for x, y in zip(got, wide)]
+                        d3 = float((got[-1].float() - wide[-1].float())
+                                   .abs().max())
+                        say(f"check {case}: q_block 32 vs 16 bit-identical "
+                            f"{same} (third max abs dev {d3:.2e})")
+                        if not (same[0] and same[1]) or d3 > 1e-6 or (
+                                variant == "headmean" and not same[2]):
+                            failures.append(f"{case}: q_block 32 != 16")
+            del qkv, joint
+    # past the FMA design's [32, N] tiles: q_block 16 holds, 32 is refused
+    refused = ""
+    for dtype in (torch.bfloat16, torch.float32):
+        qkv, bg, joint, _ = attention_inputs(1, 1025, heads, dtype, seed=63,
+                                             dh=80)
+        name = str(dtype).split(".")[-1]
+        want = _call(ka.masked_attention_fused_ref, "rollout", qkv, bg, joint,
+                     heads, True)
+        got = _call(ka.masked_attention_fused, "rollout", qkv, bg, joint,
+                    heads, True, q_block=16)
+        torch.cuda.synchronize()
+        _compare(f"attention dh=80 q_block=16 {name:8s} rollout B=1 N=1025",
+                 got, want, [TOL[(dtype, "out")], TOL[(dtype, "prob")],
+                             TOL_JOINT], failures)
+        try:
+            _call(ka.masked_attention_fused, "rollout", qkv, bg, joint, heads,
+                  True, q_block=32)
+            failures.append(f"q_block=32 at N=1025, head width 80, {name}: "
+                            "not refused")
+        except RuntimeError as e:
+            refused = str(e)
+    say(f"check q_block=32 at N=1025, head width 80 is refused: "
+        f"{refused[:200]}")
+    qkv, bg, _, _ = attention_inputs(2, 37, 4, torch.bfloat16, seed=64, dh=48)
+    try:
+        _call(ka.masked_attention_fused, "plain", qkv, bg, None, 4, True)
+        failures.append("head width 48 was not refused")
+    except ValueError as e:
+        say(f"check head width 48 is refused: {e}")
+        if "64, 80" not in str(e):
+            failures.append(f"head width 48: the message names no widths: {e}")
+    if failures:
+        raise AssertionError("attention kernel at head width 80 != plain "
+                             "version:\n" + "\n".join(failures))
+    return errs
+
+
+def attention_occupancy(cases=((197, 64, 12), (257, 80, 16))):
+    """Kernel 1's occupancy on this card for the rollout instance a launch
+    takes at (N, head width): every design and dtype that runs it (blocks an
+    SM at once, registers and local memory per thread, shared memory per
+    block), with the ptxas spill stores of its translation unit from
+    build.log.  Returns {(design, dtype name, n, dh): info tuple}."""
+    import ctypes
+
+    from vision_transformer_cam_tpu_torch.kernels import _build
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    lib, got = _build.load(), {}
+    log = (_build.lib_path().parent / "build.log").read_text()
+    for part in re.split(r"^== ", log, flags=re.M)[1:]:
+        name, _, body = part.partition("\n")
+        if name.startswith("masked_attention"):
+            spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores",
+                                                 body)]
+            regs = [int(r) for r in re.findall(r"Used (\d+) registers", body)]
+            say(f"occupancy {name}: {len(regs)} entries, registers "
+                f"{min(regs)}-{max(regs)}, {sum(1 for x in spills if x)} "
+                f"entries spill (max {max(spills, default=0)} bytes)")
+    for n, dh, heads in cases:
+        for dtype in (torch.bfloat16, torch.int8, torch.float32):
+            for design in fwd_designs(dtype):
+                info = (ctypes.c_int * 4)()
+                err = lib.vitcam_masked_attention_occupancy(
+                    n, ka._ROLLOUT, ka._DTYPE_CODES[dtype],
+                    ka.FWD_DESIGNS[design], dh, info)
+                if err:
+                    raise RuntimeError(
+                        f"attention occupancy ({design}, {dtype}, N={n}, "
+                        f"dh={dh}): cudaError {err} "
+                        f"({lib.vitcam_cuda_error_string(err).decode()})")
+                name = str(dtype).split(".")[-1]
+                got[(design, name, n, dh)] = tuple(info)
+                say(f"occupancy attention {design:11s} {name:8s} rollout "
+                    f"N={n} dh={dh}: {info[0]} blocks an SM, {info[1]} "
+                    f"registers, {info[2]} bytes of local memory per thread, "
+                    f"{info[3]} bytes of shared memory per block")
+    return got
+
+
+def attention_bound(b, n, heads, dh, kind, variant="rollout"):
+    """Kernel 1's bound at [B, N, H x dh] (each input read once, each output
+    written once): ``kind`` bf16 (bf16 qkv, out and cls row), int8_io (int8
+    qkv and out, per-head scales, bf16 cls row) or int8_out (bf16 qkv, int8
+    out); the rollout variant reads and writes the f32 joint, the head-mean
+    one writes the bf16 head mean.  QK^T at the int8 rate under int8_io,
+    else bf16, P V at bf16, hm @ J at f32."""
+    c, m = heads * dh, b * n
+    qk = 2 * b * heads * n * n * dh
+    nbytes = m * 4 + m * 2 + {"bf16": m * 3 * c * 2 + m * c * 2,
+                              "int8_io": m * 3 * c + (3 * heads + 1) * 4
+                              + m * c,
+                              "int8_out": m * 3 * c * 2 + 4 + m * c}[kind]
+    ops = {"bf16": 2 * qk} if kind != "int8_io" else {"int8": qk, "bf16": qk}
+    if variant == "rollout":
+        nbytes += 2 * b * n * n * 4
+        ops["f32"] = 2 * b * n ** 3
+    elif variant == "headmean":
+        nbytes += b * n * n * 2
+    return bound(f"masked_attention_fused {kind} {variant} B={b} N={n} "
+                 f"H={heads} dh={dh}", nbytes, ops)
+
+
+def time_attention_w80(b=64, n=257, heads=16):
+    """Kernel 1 at ViT-H/14's shape (B=64, N=257, 16 heads of 80): bf16 and
+    int8_io rollout (clamp on, the serving path's), the tensor-core design,
+    the FMA design and the plain version in turns, beside the bound and the
+    occupancy.  Returns {kind: (tensor-core ms, plain ms, FMA ms, bound ms,
+    bound by)}."""
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    got = {}
+    for kind, dtype in (("bf16", torch.bfloat16), ("int8_io", torch.int8)):
+        qkv, bg, joint, sc = attention_inputs(b, n, heads, dtype, seed=5,
+                                              dh=80)
+        scales = _w80_scales("per_head" if kind == "int8_io" else None, sc)
+        fns = {d: (lambda d=d: _fwd_design(
+            d, _call, ka.masked_attention_fused, "rollout", qkv, bg, joint,
+            heads, True, scales)) for d in fwd_designs(dtype)}
+        fns["plain"] = lambda: _call(ka.masked_attention_fused_ref, "rollout",
+                                     qkv, bg, joint, heads, True, scales)
+        ms = round_robin(fns, iters=10)
+        t_bound, by = attention_bound(b, n, heads, 80, kind)
+        got[kind] = (ms["tensor-core"], ms["plain"], ms["fma"], t_bound, by)
+        say(f"time attention dh=80 {kind:8s} rollout B={b} N={n} H={heads}: "
+            + ", ".join(f"{d} {t:.4f} ms" for d, t in ms.items())
+            + f"; bound {t_bound:.4f} ms ({by}), the tensor-core design at "
+              f"{100 * t_bound / ms['tensor-core']:.1f} % of the bound's "
+              "rate")
+        del qkv, joint
+    return got
+
+
+def time_int8_route(b=32, n=1025, heads=16):
+    """The int8 tier's two attention routes at ViT-L/16@512's N = 1025 (16
+    heads of 64), the head-mean variant that the model's rollout_post path
+    launches there: int8_io (int8 qkv, per-head scales) against int8_out
+    (bf16 qkv, int8 out), each held to its plain version, in turns.
+    Recorded, not routed: serving.py keeps int8_out past 640 tokens.
+    Returns {kind: (ms, bound ms)}."""
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    inputs, fns, failures = {}, {}, []
+    for kind, dtype in (("int8_io", torch.int8), ("int8_out", torch.bfloat16)):
+        qkv, bg, _, sc = attention_inputs(b, n, heads, dtype, seed=6)
+        scales = _w80_scales("per_head" if kind == "int8_io" else "int8_out",
+                             sc)
+        inputs[kind] = (qkv, bg, scales)
+        one = [t[:1] for t in (qkv, bg)]
+        _compare(f"attention {kind} headmean clamp B=1 N={n} H={heads}",
+                 _call(ka.masked_attention_fused, "headmean", *one, None,
+                       heads, True, scales),
+                 _call(ka.masked_attention_fused_ref, "headmean", *one, None,
+                       heads, True, scales),
+                 [None, TOL[(torch.bfloat16, "prob")],
+                  TOL[(torch.bfloat16, "prob")]], failures)
+        fns[kind] = (lambda q=qkv, g=bg, s_=scales: _call(
+            ka.masked_attention_fused, "headmean", q, g, None, heads, True,
+            s_))
+    if failures:
+        raise AssertionError("int8 routes at N=1025:\n" + "\n".join(failures))
+    ms = round_robin(fns, iters=10)
+    got = {}
+    for kind in fns:
+        got[kind] = (ms[kind], attention_bound(b, n, heads, 64, kind,
+                                               "headmean")[0])
+    say(f"time int8 routes headmean B={b} N={n} H={heads}: " + ", ".join(
+        f"{k} {t:.4f} ms (bound {bd:.4f} ms)" for k, (t, bd) in got.items()))
+    return got
+
+
+# The zoo's widest and longest models served (phase 19): label, zoo name,
+# requests x batch through serve(), the throughput batch, the batch of the
+# card-vs-CPU whole-path check
+ZOO_MODELS = (("ViT-H/14", "vit_huge_patch14_224_in21k", 3, 32, 64, 2),
+              ("ViT-L/16@512", "vit_large_patch16_512", 2, 16, 32, 1))
+# The bf16 kernel path against the eager path, as main_path holds ViT-B/16
+ZOO_BF16_GATES = {"cam": 5e-2, "logits": 5e-2}
+
+
+def zoo_model(name):
+    """The zoo model at full width and depth with seeded random weights, on
+    the card, float32.  ViT-H/14 keeps its pre-logits layer (1280).
+    ViT-L/16@512 takes the seeded weights of ViT-L/16 (224) through the
+    pos-embed interpolation of ``io.weights.load_state_dict``."""
+    from vision_transformer_cam_tpu_torch import configs
+    from vision_transformer_cam_tpu_torch.io.weights import load_state_dict
+    from vision_transformer_cam_tpu_torch.models.vit import ViTCAM
+    cfg = configs.resolve_model(name)(num_classes=20)
+    if name != "vit_large_patch16_512":
+        return ViTCAM(cfg, device="cuda",
+                      generator=torch.Generator().manual_seed(0))
+    small = ViTCAM(configs.vit_large_patch16_224(num_classes=20),
+                   device="cuda", generator=torch.Generator().manual_seed(0))
+    sd = {k: v.clone() for k, v in small.state_dict().items()}
+    del small
+    model = ViTCAM(cfg, device="cuda",
+                   generator=torch.Generator().manual_seed(1))
+    load_state_dict(model, sd)
+    pe = model.pos_embed
+    if tuple(pe.shape) != (1, 1025, 1024) or not torch.isfinite(pe).all() \
+            or not torch.equal(pe[:, 0], sd["pos_embed"][:, 0]):
+        raise AssertionError("224 -> 512 pos-embed interpolation failed")
+    return model
+
+
+def zoo_serve(label, name, requests, batch, bench_batch, whole_b):
+    """One zoo model at full width served through apply_serving_mode: bf16
+    (held to the eager path), int8 and int8_hifi (ln_quant_fusion and
+    int8_fused_gemm on, as main_path; each held to the same quantized model
+    on the CPU), ``requests`` requests of ``batch`` images with the rollout
+    CAM and their launch counts; then img/s at ``bench_batch`` in turns (bf16,
+    bf16 eager, int8, int8_hifi).  Returns (launch counts, {mode: img/s})."""
+    from vision_transformer_cam_tpu_torch import serving
+    from vision_transformer_cam_tpu_torch.ops.rollout import (
+        cam_from_rollout_row)
+    t_phase = time.perf_counter()
+    base = zoo_model(name)
+    cfg = base.cfg
+    depth, g, size = cfg.depth, cfg.grid_size, cfg.img_size
+    say(f"zoo {label}: depth {depth}, C={cfg.embed_dim}, {cfg.num_heads} "
+        f"heads of {cfg.head_dim}, N={cfg.seq_len}, representation_size "
+        f"{cfg.representation_size}; built in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    rng = np.random.default_rng(0)
+
+    def images(b):
+        return torch.from_numpy(rng.standard_normal(
+            (b, size, size, 3), dtype=np.float32)).cuda()
+
+    reqs = [images(batch) for _ in range(requests)]
+    totals, served = {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    model = serving.apply_serving_mode(copy.deepcopy(base), "bf16")
+    kcfg = model.cfg
+    w80 = depth if cfg.head_dim == 80 else 0
+    outs_bf16, counts = serve(model, reqs, {"masked_attention_fused": depth,
+                                            W80: w80}, f"{label} bf16")
+    add(counts)
+    model.cfg = kcfg.replace(attn_impl="eager")
+    refs = []
+    for x in reqs:
+        ref = model(x, need_rollout=True)
+        refs.append((ref, cam_from_rollout_row(ref.rollout_row, g)))
+    model.cfg = kcfg
+    d_cam, d_logit, ov = deviation(outs_bf16, refs)
+    say(f"{label} bf16 kernel vs eager: CAM max abs dev {d_cam:.3e} (tol "
+        f"{ZOO_BF16_GATES['cam']}), logits max abs dev {d_logit:.3e} (tol "
+        f"{ZOO_BF16_GATES['logits']}), top-{cfg.top_k_patches} overlap "
+        f"{ov:.4f}")
+    if not (d_cam <= ZOO_BF16_GATES["cam"]
+            and d_logit <= ZOO_BF16_GATES["logits"]):
+        raise AssertionError(f"{label}: bf16 kernel path disagrees with the "
+                             "eager path")
+    del refs
+    served["bf16"] = (model, kcfg)
+    served["bf16 eager"] = (model, kcfg.replace(attn_impl="eager"))
+    calib = np.random.default_rng(1).standard_normal(
+        (16, size, size, 3), dtype=np.float32)
+    for mode in ("int8", "int8_hifi"):
+        qm = serving.apply_serving_mode(copy.deepcopy(base), mode,
+                                        calib_images=calib)
+        qm.cfg = qm.cfg.replace(ln_quant_fusion=True, int8_fused_gemm=True)
+        route = "int8_io" if qm.cfg.int8_attn_io else "int8_out"
+        per_fwd = {"masked_attention_fused": depth, W80: w80,
+                   "linear_int8_fused": 1 + 4 * depth,
+                   "ln_quant": (2 if qm.cfg.int8_attn_io else 1) * depth}
+        outs, counts = serve(qm, reqs, per_fwd, f"{label} {mode} ({route})")
+        add(counts)
+        whole_path_check(qm, f"{label} {mode}", g, cases=((whole_b, 21),))
+        d_cam, d_logit, ov = deviation(outs, outs_bf16)
+        say(f"{label} {mode} vs bf16 kernel path (recorded, not gated): CAM "
+            f"max abs dev {d_cam:.3e}, logits max abs dev {d_logit:.3e}, "
+            f"top-{cfg.top_k_patches} overlap {ov:.4f}")
+        served[mode] = (qm, qm.cfg)
+    del base, outs_bf16, outs
+    torch.cuda.empty_cache()
+    xb = images(bench_batch)
+
+    def rate(mode, iters=5):
+        m, mcfg = served[mode]
+        m.cfg = mcfg
+        for _ in range(2):
+            cam_from_rollout_row(m(xb, need_rollout=True).rollout_row, g)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(iters):
+            cam_from_rollout_row(m(xb, need_rollout=True).rollout_row, g)
+        torch.cuda.synchronize()
+        return bench_batch * iters / (time.perf_counter() - t)
+    order = ("bf16", "bf16 eager", "int8", "int8_hifi")
+    rates = {}
+    for mode in order + order[::-1]:
+        rates.setdefault(mode, []).append(rate(mode))
+    model.cfg = kcfg
+    for mode, r in rates.items():
+        say(f"{label} {mode} CAM throughput, batch {bench_batch}: "
+            f"{np.mean(r):.1f} img/s ({r[0]:.1f}, {r[1]:.1f})")
+    say(f"zoo {label}: {time.perf_counter() - t_phase:.1f} s")
+    return totals, {mode: float(np.mean(r)) for mode, r in rates.items()}
+
+
+def zoo_entry_points():
+    """The entry points on the zoo's two models: bench.main at ViT-H/14
+    (int8 and --bf16, batch 64) and ViT-L/16@512 (int8, batch 32), one JSON
+    line each with its launch counts held, and cli.predict at ViT-H/14 on one
+    generated PNG (--no_figure: the card's machine has no matplotlib; 32
+    launches of kernel 1's float32 rollout variant).  Returns the launch
+    counts."""
+    import tempfile
+
+    from vision_transformer_cam_tpu_torch import bench
+    from vision_transformer_cam_tpu_torch.cli import predict as pcli
+    fwd = 2 + 10 * 3                        # forwards of a bench run
+    vith = ["--model", "vit_huge_patch14_224_in21k", "--batch", "64"]
+    runs = [
+        (vith, {"masked_attention_fused": 32, W80: 32,
+                "linear_int8_fused": 129}),
+        (vith + ["--bf16"], {"masked_attention_fused": 32, W80: 32}),
+        (["--model", "vit_large_patch16_512", "--batch", "32"],
+         {"masked_attention_fused": 24, "linear_int8_fused": 97}),
+    ]
+    totals = {}
+    for argv, per in runs:
+        reset_counts()
+        t0 = time.perf_counter()
+        line, text = _capture(bench.main, argv)
+        counts = read_counts()
+        want = {k: per.get(k, 0) * fwd for k in counts}
+        say(f"zoo bench {' '.join(argv)}: {time.perf_counter() - t0:.1f} s, "
+            f"launches { {k: v for k, v in counts.items() if v} }")
+        printed = json.loads(text.strip().splitlines()[-1])
+        if printed != line or not line["metric"].startswith("torch_") \
+                or not np.isfinite(line["value"]) or line["value"] <= 0 \
+                or line["device"] != card_line():
+            raise AssertionError(f"bench {argv}: bad line {text!r}")
+        if counts != want:
+            raise AssertionError(f"bench {argv}: launch counts {counts}, "
+                                 f"expected {want}")
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as work:
+        os.chdir(work)
+        try:
+            img = os.path.join(work, "synthetic_h14.png")
+            synthetic_png(img)
+            reset_counts()
+            t0 = time.perf_counter()
+            arts = pcli.main(["--img_name", img, "--dataset_path", work,
+                              "--model_name", "vit_huge_patch14_224_in21k",
+                              "--no_figure", "--out",
+                              os.path.join(work, "predict")])
+            torch.cuda.synchronize()
+            counts = _expect("predict ViT-H/14", {"masked_attention_fused":
+                                                  32, W80: 32}, phase="zoo")
+        finally:
+            os.chdir(cwd)
+    if arts["per_block_cams"].shape != (32, 16, 16) or \
+            arts["rollout_cam"].shape != (16, 16) or \
+            arts["token_sim"].shape != (32, 257, 257) or \
+            not all(np.isfinite(v).all() for v in arts.values()):
+        raise AssertionError("predict ViT-H/14: wrong shapes or not finite")
+    say(f"zoo predict ViT-H/14: {time.perf_counter() - t0:.1f} s, top class "
+        f"{int(np.argmax(arts['probs_head1']))}")
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+    return totals
+
+
+def zoo_path():
+    """Phase 19: kernel 1 at head width 80 against its plain version, timed,
+    its occupancy read; ViT-H/14 and ViT-L/16@512 served; the int8 tier's
+    two attention routes at N = 1025; the entry points.  Returns (launch
+    counts, worst error of the width-80 bf16 rollout case, times,
+    throughputs)."""
+    t0 = time.perf_counter()
+    w80_errs = check_attention_w80()
+    attention_occupancy()
+    w80_ms = time_attention_w80()
+    launches, rates = {}, {}
+    for label, name, requests, batch, bench_batch, whole_b in ZOO_MODELS:
+        counts, rates[label] = zoo_serve(label, name, requests, batch,
+                                         bench_batch, whole_b)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        gc_cuda()
+    route_ms = time_int8_route()
+    for k, v in zoo_entry_points().items():
+        launches[k] = launches.get(k, 0) + v
+    say(f"zoo path: {time.perf_counter() - t0:.1f} s")
+    return (launches, w80_errs[("bfloat16", "rollout", True, 257)], w80_ms,
+            rates, route_ms)
+
+
+def gc_cuda():
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def check_q_block():
     """The fused attention kernel with q_block 16 against 32 at B=8 N=197
     (head-mean and rollout variants: out, cls row and head mean must be equal
@@ -3664,6 +4183,10 @@ def main() -> int:
     fused_ms = time_fused()
     bwd_ms = time_attention_bwd()
     launches = main_path()
+    # phase 19, the zoo's widest and longest models, right after the main path
+    zoo_launches, w80_err, w80_ms, _, _ = zoo_path()
+    for name, count in zoo_launches.items():
+        launches[name] = launches.get(name, 0) + count
     train_launches = train_path()
     launches["masked_attention_fused[bf16 plain, training]"] = \
         train_launches["masked_attention_fused"]
@@ -3708,6 +4231,8 @@ def main() -> int:
         "masked_attention_fused[bf16 rollout, serving]": (
             attn_errs[("bfloat16", "rollout", True, 197)],
             *times[("attention", "bf16", "rollout")]),
+        # bf16 rollout at ViT-H/14's B=64 N=257, 16 heads of 80
+        W80: (w80_err, *w80_ms["bf16"][:2]),
         "mlp_fused": (mlp_err, *fused_ms["mlp_fused"][:2]),
         "mlp_fused_int8": (mlp8_err, *fused_ms["mlp_fused_int8"][:2]),
         "attention_block_fused": (

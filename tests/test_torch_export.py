@@ -129,7 +129,17 @@ def _attention_cases():
 
 @pytest.mark.parametrize("kind,variant", list(_attention_cases()))
 def test_opcheck_attention(kind, variant):
-    qkv, scales = _qkv(kind)
+    _opcheck_attention(kind, variant, dh=16)
+
+
+@pytest.mark.parametrize("kind,variant", list(_attention_cases()))
+def test_opcheck_attention_head_width_80(kind, variant):
+    """The same at kernel 1's second compiled head width (ViT-H/14's)."""
+    _opcheck_attention(kind, variant, dh=80)
+
+
+def _opcheck_attention(kind, variant, dh):
+    qkv, scales = _qkv(kind, dh=dh)
     b, n = qkv.shape[:2]
     bg = torch.zeros((b, n))
     bg[:, 5:] = 1.0

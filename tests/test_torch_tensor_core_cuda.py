@@ -507,3 +507,87 @@ def test_cuda_variants_full_is_kernel1_rollout_bit_for_bit(n):
     assert len(full) == len(k1) == 3
     for a, b in zip(full, k1):
         assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _w80_inputs(b, n, option, seed, heads=16):
+    """The inputs of _attention_inputs at ViT-H/14's heads (16 of width 80):
+    bf16, int8_io (per-head scales), int8_io_tensor (per-tensor) or
+    int8_out."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c = heads * 80
+    bg = (torch.rand((b, n), generator=g, device="cuda") < 0.3).float()
+    bg[:, 0] = 0.0
+    joint = torch.softmax(torch.randn((b, n, n), generator=g, device="cuda"),
+                          dim=-1)
+    if option.startswith("int8_io"):
+        qkv = torch.randint(-127, 128, (b, n, 3 * c), generator=g,
+                            device="cuda", dtype=torch.int8)
+        if option == "int8_io_tensor":
+            return qkv, bg, joint, torch.tensor([0.3, 0.02, 0.02, 20.0],
+                                                device="cuda")
+        sc = 0.01 + 0.02 * torch.rand((3 * heads,), generator=g,
+                                      device="cuda")
+        sc[0] = 0.3
+        return qkv, bg, joint, torch.cat([sc, torch.tensor([20.0],
+                                                           device="cuda")])
+    qkv = torch.randn((b, n, 3 * c), generator=g, device="cuda")
+    qkv[:, 1:4, :c] *= 40.0
+    scales = torch.tensor([20.0], device="cuda") if option == "int8_out" \
+        else None
+    return qkv.to(torch.bfloat16).contiguous(), bg.to(torch.bfloat16), joint, \
+        scales
+
+
+def _run80(fn, qkv, bg, joint, scales, variant, clamp, **kw):
+    return fn(qkv, bg, joint if variant == "rollout" else None, scales,
+              num_heads=16, scale=80 ** -0.5, clamp_softmax=clamp,
+              with_headmean=variant == "headmean", **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [37, 257])
+def test_cuda_attention_head_width_80_matches_plain_version(n):
+    """Kernel 1 at head width 80 (ViT-H/14) in its tensor-core design, every
+    variant on bf16, int8_io (per-head and per-tensor scales) and int8_out
+    qkv at B=2 and 16 heads: against the plain version, a second launch
+    bit for bit, q_block 32 (two m16 tiles) bit for bit q_block 16 on out
+    and cls row, and the FMA design within twice the tolerances."""
+    _card()
+    for option in ("bf16", "int8_io", "int8_io_tensor", "int8_out"):
+        qkv, bg, joint, scales = _w80_inputs(2, n, option, seed=n)
+        for variant in ("plain", "headmean", "rollout"):
+            for clamp in (False, True):
+                before = tka.launches
+                got = _run80(tka.masked_attention_fused, qkv, bg, joint,
+                             scales, variant, clamp)
+                assert tka.launches == before + 1
+                again = _run80(tka.masked_attention_fused, qkv, bg, joint,
+                               scales, variant, clamp)
+                wide = _run80(tka.masked_attention_fused, qkv, bg, joint,
+                              scales, variant, clamp, q_block=32)
+                old = _with(tka, "_fwd_bf16_design", "fma", _run80,
+                            tka.masked_attention_fused, qkv, bg, joint,
+                            scales, variant, clamp)
+                want = _run80(tka.masked_attention_fused_ref, qkv, bg, joint,
+                              scales, variant, clamp)
+                torch.cuda.synchronize()
+                assert all(torch.equal(a, b) for a, b in zip(got, again))
+                assert torch.equal(got[0], wide[0])
+                assert torch.equal(got[1], wide[1])
+                _hold(got, want, scales is not None, variant)
+                _hold(got, old, scales is not None, variant, k=2)
+
+
+@pytest.mark.cuda
+def test_cuda_attention_refuses_other_head_widths():
+    """Head width 48 is refused by kernel 1 naming its compiled widths, and
+    80 by the backward kernel naming its one."""
+    _card()
+    qkv = torch.zeros((1, 9, 3 * 4 * 48), device="cuda", dtype=torch.bfloat16)
+    bg = torch.zeros((1, 9), device="cuda")
+    with pytest.raises(ValueError, match="head widths 64, 80, got 48"):
+        tka.masked_attention_fused(qkv, bg, num_heads=4, scale=0.1)
+    qkv = torch.zeros((1, 9, 3 * 2 * 80), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head width 64, got 80"):
+        tka.masked_attention_bwd(qkv, bg, qkv[..., :160].contiguous(),
+                                 num_heads=2, scale=0.1)

@@ -332,7 +332,8 @@ def test_port_imports_no_jax():
                  "scripts.precision_ladder", "profile_serving",
                  "cli.predict", "cli.tools", "data.generic",
                  "scripts.e2e_bench", "examples", "examples.quickstart",
-                 "kernels.ops", "cli.export", "examples.serve_artifact"):
+                 "kernels.ops", "cli.export", "examples.serve_artifact",
+                 "scripts.w80_variants"):
         assert "vision_transformer_cam_tpu_torch." + name in mods
     for root, _, files in os.walk(pkg):
         for f in files:

@@ -151,8 +151,11 @@ def load():
         lib.vitcam_attention_block_smem_bytes.restype = ctypes.c_size_t
         lib.vitcam_masked_attention_bwd_smem_bytes.argtypes = [i, i]
         lib.vitcam_masked_attention_bwd_smem_bytes.restype = ctypes.c_size_t
-        lib.vitcam_masked_attention_smem_bytes.argtypes = [i, i, i]
+        lib.vitcam_masked_attention_smem_bytes.argtypes = [i, i, i, i]
         lib.vitcam_masked_attention_smem_bytes.restype = ctypes.c_size_t
+        fn = lib.vitcam_masked_attention_occupancy
+        fn.argtypes = [i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = i
         lib.vitcam_masked_attention_v1_smem_bytes.argtypes = [i, i, i]
         lib.vitcam_masked_attention_v1_smem_bytes.restype = ctypes.c_size_t
         lib.vitcam_attn_variant_smem_bytes.argtypes = [i, i, i, i]

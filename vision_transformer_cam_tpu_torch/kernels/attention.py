@@ -44,7 +44,8 @@ on a CPU tensor.  No model path runs it; ``scripts.microbench`` drives it.
 ``launches``, ``bwd_launches``, ``block_launches``, ``seq_launches`` and
 ``v1_launches`` count the CUDA kernel launches made through the forward, the
 backward, the block, the sequence-parallel and the split-tensor wrapper, so a
-run can show that its main path went through the kernels.
+run can show that its main path went through the kernels;
+``width_launches`` splits the forward's count by head width.
 """
 
 from __future__ import annotations
@@ -52,6 +53,8 @@ from __future__ import annotations
 import torch
 
 launches = 0
+# kernel 1's launches by head width (each also counts in ``launches``)
+width_launches = {64: 0, 80: 0}
 bwd_launches = 0
 block_launches = 0
 seq_launches = 0
@@ -63,7 +66,12 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # scales-vector kinds and flags of the C entry point
 _NO_SCALES, _OUT_ONLY, _PER_TENSOR, _PER_HEAD = 0, 1, 2, 3
 _OUT_I8, _CLS_BF16, _HM_BF16 = 1, 2, 4
-HEAD_DIM = 64   # the CUDA kernels' head width
+# The head widths kernel 1 (masked_attention_fused) is compiled for: 64
+# (ViT-S/B/L) and 80 (ViT-H/14), each its own set of instances
+# (csrc/masked_attention.cu, csrc/masked_attention_w80.cu).  The other CUDA
+# kernels take HEAD_DIM only.
+FWD_HEAD_DIMS = (64, 80)
+HEAD_DIM = 64
 # The CUDA backward has three designs.  bf16 runs the tensor-core design for
 # every N <= BWD_MAX_N: a dQ kernel per 64 query rows and a dK / dV kernel per
 # 64 keys, products on mma.sync, a [B, H, N, 3] float32 scratch of row
@@ -110,10 +118,13 @@ SEQ_DESIGNS = {"fma": 0, "tensor-core": 1}
 _seq_bf16_design = "tensor-core"
 # The forward kernel's query tile (``q_block``) is 32 rows or 16.  With the
 # head mean or the rollout its FMA design keeps two [q_block, N] float32
-# tiles in shared memory: N <= 780 at 32 rows, N <= 1536 at 16; the plain
-# variant's one tile fits both past that.  The tensor-core design takes the
-# same (q_block, N) pairs as one or two m16 tiles (16 rows by default).  The
-# split-tensor kernel tiles the same way.
+# tiles in shared memory (csrc/masked_attention.cuh: smem_bytes): N <= 780
+# at 32 rows and N <= 1548 at 16 at head width 64, N <= 756 and N <= 1512 at
+# 80; the plain variant's one tile fits both past that (2928 and 1516 at 64,
+# 2856 and 1472 at 80).  The tensor-core design takes the same (q_block, N)
+# pairs as one or two m16 tiles (16 rows by default, which fit its own
+# tiles to N = 2272 in bf16 and 2688 in int8 at 64, 1888 and 2560 at 80).
+# The split-tensor kernel tiles the same way.
 Q_BLOCKS = (16, 32)
 # The forward kernel has two designs.  bf16 and int8 qkv run the tensor-core
 # design: 16 query rows a block of 8 warps, QK^T on mma.sync (bf16, or s8
@@ -168,6 +179,28 @@ def fwd_design(dtype) -> str:
         raise TypeError(f"the CUDA attention kernel takes bfloat16, float32 "
                         f"or int8 qkv, got {dtype}")
     return "fma" if dtype == torch.float32 else _fwd_bf16_design
+
+
+_WIDTH_NAMES = {"fused": "kernel 1 (masked_attention_fused)",
+                "backward": "the attention backward kernel",
+                "block": "the attention block kernel",
+                "seq": "the sequence-parallel attention kernel",
+                "v1": "the split-tensor attention kernel (v1)",
+                "variants": "the attn_variants ablation kernels"}
+
+
+def check_head_width(kernel: str, dh: int) -> int:
+    """``dh`` if the CUDA kernel ``kernel`` (a key of ``_WIDTH_NAMES``) is
+    compiled for that head width, else ValueError naming the widths it
+    takes: ``FWD_HEAD_DIMS`` for kernel 1, ``HEAD_DIM`` for the others.
+    Needs no CUDA."""
+    widths = FWD_HEAD_DIMS if kernel == "fused" else (HEAD_DIM,)
+    if dh not in widths:
+        which = ", ".join(map(str, widths))
+        raise ValueError(f"{_WIDTH_NAMES[kernel]} is compiled for head "
+                         f"width{'s' if len(widths) > 1 else ''} {which}, "
+                         f"got {dh}")
+    return dh
 
 
 def _check_shapes(qkv, bg, joint, num_heads):
@@ -279,15 +312,16 @@ def masked_attention_fused(qkv, bg, joint=None, scales=None, *,
                            float_dtype=torch.bfloat16, q_block: int = 0):
     """Same contract as ``masked_attention_fused_ref``.  CPU tensors run the
     plain version; CUDA tensors launch the kernel (bf16, float32 or int8
-    qkv, head width 64, bg float32 or bf16, joint float32, scales float32)
-    or raise.
+    qkv, head width 64 or 80 (``FWD_HEAD_DIMS``), bg float32 or bf16, joint
+    float32, scales float32) or raise.
 
     ``q_block`` is the number of query rows a thread block owns: 16 or 32
-    forces it, and a forced 32 past N = 780 with the head mean or the
-    rollout (where the FMA design's two [32, N] float32 tiles do not fit)
-    raises with the bytes it needs, in either design.  0 picks 32 where the
-    tiles fit and 16 past that in the FMA design, and 16 (one m16 tile, two
-    blocks an SM) in the tensor-core design.  The results do not depend on
+    forces it, and a forced 32 past N = 780 (head width 64) or N = 756 (80)
+    with the head mean or the rollout (where the FMA design's two [32, N]
+    float32 tiles do not fit) raises with the bytes it needs, in either
+    design.  0 picks 32 where the tiles fit and 16 past that in the FMA
+    design, and 16 (one m16 tile, two blocks an SM) in the tensor-core
+    design.  The results do not depend on
     it beyond the order of float sums in the FMA design, and not at all in
     the tensor-core design (bit for bit; the rollout update to 1e-6)."""
     global launches
@@ -324,9 +358,7 @@ def masked_attention_fused(qkv, bg, joint=None, scales=None, *,
                          "aligned")
     b, n, c3 = qkv.shape
     c = c3 // 3
-    if c // num_heads != HEAD_DIM:
-        raise ValueError(f"the CUDA attention kernel takes head width "
-                         f"{HEAD_DIM}, got {c // num_heads}")
+    dh = check_head_width("fused", c // num_heads)
     if joint is not None:
         if joint.dtype != torch.float32 or not joint.is_contiguous():
             raise TypeError("joint must be a contiguous float32 tensor")
@@ -364,18 +396,19 @@ def masked_attention_fused(qkv, bg, joint=None, scales=None, *,
             third.data_ptr() if mode == _HEADMEAN else None,
             third.data_ptr() if mode == _ROLLOUT else None,
             scales.data_ptr() if scales is not None else None, kind,
-            b, n, num_heads, c // num_heads, float(scale), float(mask_value),
+            b, n, num_heads, dh, float(scale), float(mask_value),
             _DTYPE_CODES[qkv.dtype], mode, int(clamp_softmax), flags, q_block,
             FWD_DESIGNS[design], stream)
     if err:
         msg = lib.vitcam_cuda_error_string(err).decode()
-        need = lib.vitcam_masked_attention_smem_bytes(n, mode, q_block)
+        need = lib.vitcam_masked_attention_smem_bytes(n, mode, q_block, dh)
         raise RuntimeError(
             f"masked_attention_fused kernel launch failed ({design} design): "
-            f"cudaError {err} ({msg}); q_block={q_block} at N={n} needs "
-            f"{need} bytes of shared memory (the FMA design's tiles, which "
-            f"set the q_block contract of both designs)")
+            f"cudaError {err} ({msg}); q_block={q_block} at N={n}, head width "
+            f"{dh} needs {need} bytes of shared memory (the FMA design's "
+            f"tiles, which set the q_block contract of both designs)")
     launches += 1
+    width_launches[dh] += 1
     if third is None:
         return out, cls_row
     return out, cls_row, third
@@ -486,9 +519,7 @@ def masked_attention_bwd(qkv, bg, d_out, *, num_heads: int, scale: float,
         raise ValueError("qkv and d_out must be contiguous")
     b, n, c3 = qkv.shape
     dh = c3 // 3 // num_heads
-    if dh != HEAD_DIM:
-        raise ValueError(f"the CUDA attention backward takes head width "
-                         f"{HEAD_DIM}, got {dh}")
+    check_head_width("backward", dh)
     design = bwd_design(qkv.dtype, n)
     if design == "tensor-core" and (qkv.data_ptr() % 16
                                     or d_out.data_ptr() % 16):
@@ -663,9 +694,7 @@ def attention_block_fused(xn, tokens, wqkv, bqkv, wproj, bproj, bg,
         raise ValueError("attention_block_fused: operands must be contiguous "
                          "and 16-byte aligned")
     b, n, c = xn.shape
-    if c // num_heads != HEAD_DIM:
-        raise ValueError(f"the CUDA block kernel takes head width "
-                         f"{HEAD_DIM}, got {c // num_heads}")
+    check_head_width("block", c // num_heads)
     if n > BLOCK_MAX_N:
         raise ValueError(f"the CUDA block kernel takes N <= {BLOCK_MAX_N}, "
                          f"got {n}; serve this shape without "
@@ -824,9 +853,7 @@ def masked_attention_seq_local(q, kv, bg_q, bg_k, *, num_heads: int,
         raise ValueError("q and kv must be contiguous")
     b, nq, c = q.shape
     np_ = kv.shape[1]
-    if c // num_heads != HEAD_DIM:
-        raise ValueError(f"the CUDA sequence-parallel kernel takes head "
-                         f"width {HEAD_DIM}, got {c // num_heads}")
+    check_head_width("seq", c // num_heads)
     if np_ > SEQ_MAX_NP:
         raise ValueError(f"the CUDA sequence-parallel kernel takes Np <= "
                          f"{SEQ_MAX_NP} (its shared memory), got {np_}")
@@ -1000,9 +1027,7 @@ def masked_attention(q, k, v, bg, *, scale: float, mask_value: float = -100.0,
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
     b, h, n, dh = q.shape
-    if dh != HEAD_DIM:
-        raise ValueError(f"the CUDA split-tensor attention kernel takes head "
-                         f"width {HEAD_DIM}, got {dh}")
+    check_head_width("v1", dh)
     design = v1_design(q.dtype, n)
     if design == "tensor-core" and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("the tensor-core split-tensor attention kernel needs "

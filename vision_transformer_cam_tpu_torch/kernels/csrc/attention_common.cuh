@@ -15,8 +15,12 @@
 namespace {
 
 constexpr int kKC = 64;              // keys per staged K / V chunk
-constexpr int kDH = 64;              // head dim
-constexpr int kKVStride = kDH + 4;   // float4-aligned, bank-conflict-free rows
+constexpr int kDH = 64;              // head dim (kernel 1 also takes 80: its DH)
+// float row pitch of a staged chunk of DH columns: float4-aligned, and
+// bank-conflict-free for the float4 reads of 8 neighbouring rows (DH + 4 is
+// 4 mod 32 at 64 and 20 mod 32 at 80)
+template <int DH> constexpr int kKVStrideOf = DH + 4;
+constexpr int kKVStride = kKVStrideOf<kDH>;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -45,18 +49,19 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 __host__ __device__ inline int padded(int n) { return (n + 3) & ~3; }
 
-// Stage rows [k0, k0 + kKC) of one head's K or V (column offset col) as f32,
-// by a block of THREADS threads; rows past n are zero.  With v_scale (int8 V)
-// each value is dequantized and rounded to bf16.
-template <int THREADS, typename T>
+// Stage rows [k0, k0 + kKC) of one head's K or V (DH columns from column
+// offset col) as f32 rows of pitch kKVStrideOf<DH>, by a block of THREADS
+// threads; rows past n are zero.  With v_scale (int8 V) each value is
+// dequantized and rounded to bf16.
+template <int THREADS, typename T, int DH = kDH>
 __device__ __forceinline__ void stage_chunk(float* kv_s, const T* __restrict__ qkv_b,
                                             int k0, int n, int c3, int col,
                                             const float* v_scale = nullptr) {
-  for (int i = threadIdx.x; i < kKC * kDH; i += THREADS) {
-    const int r = i / kDH, d = i % kDH;
+  for (int i = threadIdx.x; i < kKC * DH; i += THREADS) {
+    const int r = i / DH, d = i % DH;
     float v = (k0 + r < n) ? to_f(qkv_b[size_t(k0 + r) * c3 + col + d]) : 0.f;
     if (v_scale != nullptr) v = round_to<__nv_bfloat16>(__fmul_rn(v, *v_scale));
-    kv_s[r * kKVStride + d] = v;
+    kv_s[r * kKVStrideOf<DH> + d] = v;
   }
 }
 

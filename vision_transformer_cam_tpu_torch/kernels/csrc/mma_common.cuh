@@ -18,7 +18,10 @@
 // Tiles staged for ldmatrix are [rows][64] bf16 (128 bytes a row, eight
 // 16-byte segments), with segment s of row r stored at s ^ (r % 8): the eight
 // rows an ldmatrix reads for one 8 x 8 matrix then lie in eight different
-// bank groups.
+// bank groups.  A tile of another width (kernel 1's head width 80: 160 bytes,
+// ten segments) is not swizzled but padded to an odd number of segments a
+// row (BfTile: 176 bytes, eleven), which puts the eight rows in eight bank
+// groups too.
 
 #pragma once
 
@@ -62,6 +65,39 @@ __device__ __forceinline__ void stage_rows64(bf16* dst, const bf16* __restrict__
   }
 }
 
+// A bf16 tile of DH columns staged for ldmatrix: the swizzled [rows][64]
+// tile at DH = 64, else rows of kPitch elements, an odd number of 16-byte
+// segments, unswizzled.
+template <int DH> struct BfTile {
+  static_assert(DH % 16 == 0, "whole k16 steps");
+  static constexpr bool kSwizzled = DH == 64;
+  static constexpr int kPitch = kSwizzled ? 64 : (DH / 8) % 2 ? DH : DH + 8;
+  static __device__ __forceinline__ int at(int row, int col) {
+    if constexpr (kSwizzled) return swz(row, col);
+    else return row * kPitch + col;
+  }
+};
+
+// Stage ROWS rows of DH bf16 into a BfTile<DH> as stage_rows64 does (which
+// it is at DH = 64).
+template <int ROWS, int THREADS, int DH>
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* __restrict__ src,
+                                           size_t pitch, int valid, int id) {
+  if constexpr (DH == 64) {
+    stage_rows64<ROWS, THREADS>(dst, src, pitch, valid, id);
+  } else {
+    constexpr int kSegs = DH / 8, kTotal = ROWS * kSegs;
+#pragma unroll
+    for (int j = 0; j < (kTotal + THREADS - 1) / THREADS; ++j) {
+      const int seg = id + j * THREADS, r = seg / kSegs, s = seg % kSegs;
+      if (kTotal % THREADS != 0 && seg >= kTotal) break;
+      const bool ok = r < valid;
+      cp_async16(dst + BfTile<DH>::at(r, s * 8), src + (ok ? size_t(r) * pitch + s * 8 : 0),
+                 ok ? 16 : 0);
+    }
+  }
+}
+
 // four 8 x 8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
 __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -92,6 +128,28 @@ __device__ __forceinline__ void b_cols(unsigned (&r)[4], const bf16* x, int kt, 
   ldmatrix_x4_trans(r, x + swz(row, np * 16 + (i >> 1) * 8));
 }
 
+// b_rows and b_cols on a BfTile<DH> (b_rows and b_cols themselves at 64)
+template <int DH>
+__device__ __forceinline__ void b_rows_w(unsigned (&r)[4], const bf16* x, int nt, int kp,
+                                         int lane) {
+  const int i = lane >> 3, row = nt * 8 + (lane & 7);
+  ldmatrix_x4(r, x + BfTile<DH>::at(row, kp * 32 + i * 8));
+}
+template <int DH>
+__device__ __forceinline__ void b_cols_w(unsigned (&r)[4], const bf16* x, int kt, int np,
+                                         int lane) {
+  const int i = lane >> 3, row = kt * 16 + (i & 1) * 8 + (lane & 7);
+  ldmatrix_x4_trans(r, x + BfTile<DH>::at(row, np * 16 + (i >> 1) * 8));
+}
+// The B fragments of the last k16 step of a width DH = 32 j + 16 (columns
+// DH - 16..DH - 1), rows of both n8 tiles: r[0..1] for rows 0-7, r[2..3]
+// for rows 8-15.
+template <int DH>
+__device__ __forceinline__ void b_rows_tail(unsigned (&r)[4], const bf16* x, int lane) {
+  const int i = lane >> 3, row = (i >> 1) * 8 + (lane & 7);
+  ldmatrix_x4(r, x + BfTile<DH>::at(row, DH - 16 + (i & 1) * 8));
+}
+
 // four 8 x 16-byte matrices of any element type (int8 tiles): lane l gets
 // the 32-bit word l % 4 of row l / 4 of each
 __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
@@ -99,6 +157,25 @@ __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(a));
+}
+
+// two of them: lanes 0-7 and 8-15 give the row addresses
+__device__ __forceinline__ void ldsm_x2(unsigned (&r)[2], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(a));
+}
+
+// c += a b on the int8 tensor cores over 16 columns, exact int32 sums
+// (m16n8k16: a0 = A[g][4t..4t+3], a1 = A[g+8][4t..4t+3]; B 16 x 8 held as
+// [n][k], b0 = B[n=g][4t..4t+3]; C as for m16n8k16 bf16)
+__device__ __forceinline__ void mma16816_s8(int (&c)[4], unsigned a0, unsigned a1, unsigned b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(b0));
 }
 
 // c += a b on the int8 tensor cores, exact int32 sums (m16n8k32: A 16 x 32
@@ -139,22 +216,27 @@ __device__ __forceinline__ void a_from_c(unsigned (&a)[4], const float (&c0)[4],
   a[3] = pack_bf16(c1[2], c1[3]);
 }
 
-// The A fragments (four k16 steps) of rows r0 + g and r0 + g + 8 of a
-// [rows][64] bf16 slab in device memory, row pitch `pitch`; rows >= `valid`
-// are zero.
-__device__ __forceinline__ void a_rows64(unsigned (&a)[4][4], const bf16* __restrict__ src,
-                                         size_t pitch, int r0, int valid, int lane) {
+// The A fragments (KS k16 steps) of rows r0 + g and r0 + g + 8 of a
+// [rows][16 KS] bf16 slab in device memory, row pitch `pitch`; rows >=
+// `valid` are zero.  a_rows64: the four of a head of width 64.
+template <int KS>
+__device__ __forceinline__ void a_rows(unsigned (&a)[KS][4], const bf16* __restrict__ src,
+                                       size_t pitch, int r0, int valid, int lane) {
   const int g = lane >> 2, t = lane & 3;
   const bool lo = r0 + g < valid, hi = r0 + g + 8 < valid;
   const unsigned* plo = reinterpret_cast<const unsigned*>(src + size_t(r0 + g) * pitch);
   const unsigned* phi = reinterpret_cast<const unsigned*>(src + size_t(r0 + g + 8) * pitch);
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < KS; ++kk) {
     a[kk][0] = lo ? __ldg(plo + kk * 8 + t) : 0u;
     a[kk][1] = hi ? __ldg(phi + kk * 8 + t) : 0u;
     a[kk][2] = lo ? __ldg(plo + kk * 8 + 4 + t) : 0u;
     a[kk][3] = hi ? __ldg(phi + kk * 8 + 4 + t) : 0u;
   }
+}
+__device__ __forceinline__ void a_rows64(unsigned (&a)[4][4], const bf16* __restrict__ src,
+                                         size_t pitch, int r0, int valid, int lane) {
+  a_rows<4>(a, src, pitch, r0, valid, lane);
 }
 
 // max and sum over the four lanes that hold one row of a C fragment

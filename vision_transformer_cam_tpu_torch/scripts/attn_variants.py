@@ -30,7 +30,7 @@ import sys
 import torch
 
 from vision_transformer_cam_tpu_torch.kernels.attention import (
-    HEAD_DIM, _DTYPE_CODES, _check_shapes)
+    _DTYPE_CODES, _check_shapes, check_head_width)
 from vision_transformer_cam_tpu_torch.utils import (check_cli_flags,
                                                     resolve_device)
 from vision_transformer_cam_tpu_torch.utils.profiling import timeit
@@ -203,9 +203,7 @@ def run(qkv, bg, joint, variant, *, num_heads: int = H, scale: float = SCALE):
         raise ValueError("qkv must be contiguous and 16-byte aligned")
     b, n, c3 = qkv.shape
     c = c3 // 3
-    if c // num_heads != HEAD_DIM:
-        raise ValueError(f"the variant kernels take head width {HEAD_DIM}, "
-                         f"got {c // num_heads}")
+    check_head_width("variants", c // num_heads)
     design = variants_design(qkv.dtype, variant, n)
 
     from vision_transformer_cam_tpu_torch.kernels import _build
