@@ -60,11 +60,19 @@ Phases (any failure raises, and the exit code is non-zero):
      against torch.autograd through the plain forward) in every design that
      takes the shape: at bf16 the tensor-core design (the training path's;
      launched twice for identical bits) and the FMA designs bf16 ran before
-     (one block per head up to N=256, two kernels), at float32 the two FMA
-     designs; B=8 N=197, a ragged B=3 N=37, B=2 N=577 and B=1 N=760 (the
-     limit); then at bf16, B=64 N=197 and B=16 N=577, each design, the plain
+     (one block per head where its tiles fit, two kernels), at float32 the
+     two FMA designs; at head width 64 B=8 N=197, a ragged B=3 N=37, B=2
+     N=577 and B=1 N=760 (12 heads), at head width 80 (16 heads) B=8 N=257,
+     B=3 N=37 and B=2 N=577, B=1 N=1025 at both widths and each width's
+     limit (BWD_MAX_N: 1564, 1520), one past it refused by both wrappers and
+     head width 48 refused; the occupancy of every backward kernel at N =
+     197, 257 and 1025 with the ptxas spills of both translation units; then
+     at bf16, B=64 N=197, B=16 N=577, ViT-H/14's B=64 N=257 (16 heads of 80)
+     and ViT-L/16@512's B=16 N=1025 (16 heads), each design, the plain
      version and the backward of F.scaled_dot_product_attention with the
-     same mask (the library call: timed only, never on a path) in turns;
+     same mask (the library call: timed only, never on a path) in turns,
+     beside the bound; kernel 1's training variant (bf16, plain, no clamp)
+     at the last two shapes against its plain version, timed in turns;
   6. the training path: ViT-B/16 at full depth, float32 masters with bf16
      compute, attn_impl="kernel", remat on, batch 64, seeded weights and
      batches, through make_optimizer, create_train_state and
@@ -198,6 +206,19 @@ Phases (any failure raises, and the exit code is non-zero):
      against int8_out head-mean variant at B=32 N=1025 H=16; bench.main at
      ViT-H/14 (int8 and --bf16, batch 64) and ViT-L/16@512 (batch 32), and
      cli.predict at ViT-H/14 (--no_figure), their launch counts held.
+ 20. the zoo trained (run right after phase 19): ViT-H/14 (32 layers,
+     C=1280, 16 heads of 80, N=257) at batch 64 and ViT-L/16@512 (24 layers,
+     N=1025, the 224 model's seeded weights through the pos-embed
+     interpolation) at batch 16, at full width and depth as cli.train builds
+     them (no pre-logits layer), float32 masters with bf16 compute,
+     attn_impl="kernel", remat on: train_one_epoch over 3 in-memory batches,
+     then 5 train_step calls on one fixed batch (losses finite and falling,
+     every parameter moved), each held to its launch counts (per step and
+     layer kernel 1 twice and the backward once, at the model's head
+     width); one float32 step at batch 4 / 2 on the kernel path against the
+     eager path (loss and every gradient, TRAIN_TOL); training img/s of
+     both paths in turns with a step's peak memory; bench.main --train
+     --mixed --model at batch 64 / 16, its launch counts held.
 Nothing of the earlier phases was reduced.  It prints one JSON line
 describing the kernels (with each one's bound from the shapes it was timed
 at, and the library call's time where one PyTorch call computes the same
@@ -223,6 +244,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 CSRC = "vision_transformer_cam_tpu_torch/kernels/csrc/"
 # kernel 1's launches at head width 80 (ViT-H/14), a row of their own
 W80 = "masked_attention_fused[head width 80]"
+# the backward's calls at head width 80 (ViT-H/14's training path) and at
+# N = 1025 (ViT-L/16@512's), rows of their own
+BWD80 = "masked_attention_bwd[head width 80]"
+BWD1025 = "masked_attention_bwd[N=1025]"
 KERNELS = {   # name: (route, source, TPU kernel replaced)
     "masked_attention_fused": (
         "cuda", CSRC + "masked_attention.cu",
@@ -245,6 +270,17 @@ KERNELS = {   # name: (route, source, TPU kernel replaced)
         "triton", "vision_transformer_cam_tpu_torch/kernels/gemm.py",
         "vision_transformer_cam_tpu/kernels/gemm.py:167"),
     "masked_attention_bwd": (
+        "cuda", CSRC + "masked_attention_bwd.cu",
+        "vision_transformer_cam_tpu/kernels/attention.py:803"),
+    # the backward's instances at head width 80 (csrc/masked_attention_bwd.cuh
+    # instantiated by masked_attention_bwd_w80.cu), bf16 as ViT-H/14's
+    # training path launches them
+    BWD80: (
+        "cuda", CSRC + "masked_attention_bwd_w80.cu",
+        "vision_transformer_cam_tpu/kernels/attention.py:803"),
+    # the same kernel's width-64 instances at ViT-L/16@512's N = 1025, bf16,
+    # as its training path launches them
+    BWD1025: (
         "cuda", CSRC + "masked_attention_bwd.cu",
         "vision_transformer_cam_tpu/kernels/attention.py:803"),
     # the same forward kernel as the bf16 serving path launches it: bf16 qkv,
@@ -311,7 +347,8 @@ TOL_MLP = {torch.float32: (5e-5, 1e-4), torch.bfloat16: (1e-2, 2 ** -6)}
 # apart, and an ulp of Pb or dSb moves a sum of up to 197 terms: rtol 2^-6
 # (2 ulps of the result) plus an atol for results that cancel to near 0.  On
 # an NVIDIA H100 80GB HBM3 the largest error beyond the rtol read 1.0e-3 over
-# every bf16 case (B=64 N=197), so the atol is 5e-3.
+# every bf16 case (B=64 N=197), so the atol is 5e-3.  float32 is held to the
+# plain version evaluated in float64 (chip_smoke._bwd_ref_inputs).
 TOL_BWD = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (5e-3, 2 ** -6)}
 # int8 outputs: the two round the same float value after sums in another
 # order, so a value next to a .5 boundary may round the other way: at most
@@ -528,7 +565,8 @@ def _gemm_design(design, *args, **kw):
 
 
 def _bwd_call(fn, qkv, bg, d_out, heads, clamp):
-    return fn(qkv, bg, d_out, num_heads=heads, scale=64 ** -0.5,
+    dh = qkv.shape[-1] // (3 * heads)
+    return fn(qkv, bg, d_out, num_heads=heads, scale=dh ** -0.5,
               clamp_softmax=clamp)
 
 
@@ -536,14 +574,16 @@ def _bwd_design(design, qkv, bg, d_out, heads, clamp):
     """The backward wrapper made to take ``design`` ("tensor-core",
     "one-block" or "two-kernel") whatever its rule picks at this dtype and N
     (bf16 through the wrapper's private switch of the bf16 design, float32
-    through the one-block limit), so that the designs can be checked and
+    through the one-block limits), so that the designs can be checked and
     timed at one shape."""
     from vision_transformer_cam_tpu_torch.kernels import attention as ka
     saved = ka._bwd_bf16_design, ka.BWD_ONE_BLOCK_MAX_N
     if qkv.dtype == torch.bfloat16:
         ka._bwd_bf16_design = design
     else:
-        ka.BWD_ONE_BLOCK_MAX_N = ka.BWD_MAX_N if design == "one-block" else 0
+        ka.BWD_ONE_BLOCK_MAX_N = {
+            dh: ka.BWD_MAX_N[dh] if design == "one-block" else 0
+            for dh in ka.BWD_HEAD_DIMS}
     try:
         return _bwd_call(ka.masked_attention_bwd, qkv, bg, d_out, heads,
                          clamp)
@@ -551,11 +591,92 @@ def _bwd_design(design, qkv, bg, d_out, heads, clamp):
         ka._bwd_bf16_design, ka.BWD_ONE_BLOCK_MAX_N = saved
 
 
-def bwd_designs(dtype, n):
-    """The backward designs that take (dtype, N), the path's first: bf16
-    the tensor-core design, then the FMA designs it ran before."""
-    fma = (("one-block",) if n <= 256 else ()) + ("two-kernel",)
+def bwd_designs(dtype, n, dh=64):
+    """The backward designs that take (dtype, N, head width), the path's
+    first: bf16 the tensor-core design, then the FMA designs it ran before
+    (one block per head where its tiles fit, two kernels)."""
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    fma = (("one-block",) if n <= ka.BWD_ONE_BLOCK_MAX_N[dh] else ()) + \
+        ("two-kernel",)
     return (("tensor-core",) if dtype == torch.bfloat16 else ()) + fma
+
+
+# The width-64 backward's cases whose bits must not move when its source
+# changes (B, N, heads): the shapes of check_attention_bwd that every
+# version of the kernel takes (N <= 760)
+BITS_CASES = ((8, 197, 12), (3, 37, 12), (2, 577, 12), (1, 760, 12))
+
+
+def bwd_bits(root, out):
+    """SHA-256 of the backward's d_qkv bytes, at head width 64, for every
+    design, dtype, clamp and background at BITS_CASES, from the port of the
+    checkout at ``root`` (imported from there, so that its kernels are
+    built and run; call this in a process that has imported no module of
+    the port), written to ``out`` as JSON:
+
+        python3 -c "import chip_smoke as c; c.bwd_bits('build/parent', 'a.json')"
+        python3 -c "import chip_smoke as c; c.bwd_bits('.', 'b.json')"
+        python3 -c "import chip_smoke as c; c.compare_bits('a.json', 'b.json')"
+    """
+    import hashlib
+    sys.path.insert(0, os.path.abspath(root))
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    designs = {torch.bfloat16: ("tensor-core", "one-block", "two-kernel"),
+               torch.float32: ("one-block", "two-kernel")}
+    got = {}
+    for b, n, heads in BITS_CASES:
+        for dtype, names in designs.items():
+            g = torch.Generator(device="cuda").manual_seed(n)
+            qkv = torch.randn((b, n, 3 * heads * 64), generator=g,
+                              device="cuda")
+            qkv[:, 1:4, :heads * 64] *= 40.0
+            qkv = qkv.to(dtype).contiguous()
+            d_out = torch.randn((b, n, heads * 64), generator=g,
+                                device="cuda").to(dtype)
+            bg = (torch.rand((b, n), generator=g, device="cuda") < 0.3).float()
+            bg[:, 0] = 0.0
+            for design in names:
+                if design == "one-block" and n > 256:
+                    continue
+                # the design forced as _bwd_design does; the one-block
+                # limit is a number in versions before head width 80
+                saved = ka._bwd_bf16_design, ka.BWD_ONE_BLOCK_MAX_N
+                big = 10 ** 6 if design == "one-block" else 0
+                if dtype == torch.bfloat16:
+                    ka._bwd_bf16_design = design
+                else:
+                    ka.BWD_ONE_BLOCK_MAX_N = (
+                        {dh: big for dh in saved[1]}
+                        if isinstance(saved[1], dict) else big)
+                try:
+                    for bg_kind, bg_ in (("30%", bg),
+                                         ("none", torch.zeros_like(bg))):
+                        for clamp in (False, True):
+                            res = ka.masked_attention_bwd(
+                                qkv, bg_, d_out, num_heads=heads, scale=0.125,
+                                clamp_softmax=clamp)
+                            raw = res.view(torch.int16 if dtype ==
+                                           torch.bfloat16 else torch.int32)
+                            got[f"{design} {dtype} B={b} N={n} bg={bg_kind} "
+                                f"clamp={clamp}"] = hashlib.sha256(
+                                raw.cpu().numpy().tobytes()).hexdigest()
+                finally:
+                    ka._bwd_bf16_design, ka.BWD_ONE_BLOCK_MAX_N = saved
+    with open(out, "w") as f:
+        json.dump(got, f, indent=1, sort_keys=True)
+    say(f"bwd_bits: {len(got)} cases from {ka.__file__} -> {out}")
+    return got
+
+
+def compare_bits(a, b):
+    """Two bwd_bits files: raises where a case differs or is missing."""
+    fa, fb = (json.load(open(f)) for f in (a, b))
+    diff = sorted(k for k in set(fa) | set(fb) if fa.get(k) != fb.get(k))
+    say(f"bwd_bits: {len(fa)} and {len(fb)} cases, {len(diff)} differ"
+        + "".join(f"\n  {k}" for k in diff))
+    if diff or not fa:
+        raise AssertionError(f"the backward's bits moved in {len(diff)} "
+                             "cases")
 
 
 def round_robin(fns, iters=20, timer=None):
@@ -600,109 +721,286 @@ def graph_ms(fn, iters=20, warmup=3):
     return ms
 
 
-def bwd_inputs(b, n, heads, dtype, seed):
-    qkv, bg, _, _ = attention_inputs(b, n, heads, dtype, seed=100 + seed)
+def bwd_inputs(b, n, heads, dtype, seed, dh=64):
+    qkv, bg, _, _ = attention_inputs(b, n, heads, dtype, seed=100 + seed,
+                                     dh=dh)
     g = torch.Generator(device="cuda").manual_seed(seed)
-    d_out = torch.randn((b, n, heads * 64), generator=g,
+    d_out = torch.randn((b, n, heads * dh), generator=g,
                         device="cuda").to(dtype)
     return qkv, bg, d_out
+
+
+def _bwd_ref_inputs(qkv, bg, d_out):
+    """The inputs the backward's plain version is held at: bf16 as they are
+    (it rounds Pb, dSb and d_qkv to bf16 as the kernel does); float32 widened
+    to float64, the same values, so that the plain version's own float32
+    products, which on this card's cuBLAS round further from the exact
+    result than the kernel's FMA sums do at head width 80 (8.3e-4 against
+    2.9e-4 at B=8 N=257), are not what the kernel is held to."""
+    if qkv.dtype != torch.float32:
+        return qkv, bg, d_out
+    return qkv.double(), bg.double(), d_out.double()
+
+
+# The backward's cases (B, N, heads, head width): ViT-B/16's N = 197, a
+# ragged N = 37, ViT/16 at 384 pixels (N = 577) and N = 760 (the earlier limit)
+# at width 64; at width 80 (ViT-H/14: 16 heads) its N = 257, 37 and 577;
+# ViT-L/16@512's N = 1025 at both widths, and each width's limit
+BWD_CASES = ((8, 197, 12, 64), (3, 37, 12, 64), (2, 577, 12, 64),
+             (1, 760, 12, 64), (8, 257, 16, 80), (3, 37, 16, 80),
+             (2, 577, 16, 80), (1, 1025, 16, 64), (1, 1025, 16, 80))
 
 
 def check_attention_bwd():
     """Backward kernel vs its plain version on the card, in every design that
     takes the shape: bf16 the tensor-core design (the training path's) and
-    the FMA designs it ran before, float32 the one-block design (N <= 256)
-    and the two-kernel design; B=8 N=197, a ragged B=3 N=37, B=2 N=577
-    (ViT/16 at 384 pixels) and B=1 N=760, the limit.  At float32 without the
-    clamp also vs torch.autograd through the plain forward (an independent
-    check of the formula).  The tensor-core design runs twice on the same
-    inputs and must give identical bits.  Returns {(dtype name, clamp, n, bg
-    kind, design): worst error}."""
+    the FMA designs it ran before, float32 the one-block design (where its
+    tiles fit: N <= 256 at head width 64, 208 at 80) and the two-kernel
+    design (its dQ tile of 32 query rows, or 16 past N = 760 / 732); at
+    BWD_CASES and at each width's limit, BWD_MAX_N, with one past it
+    refused; 30 % background and none, clamp off and on.  At float32 without
+    the clamp also vs torch.autograd through the plain forward (an
+    independent check of the formula).  float32 is held to the plain version
+    evaluated in float64 on the same values (``_bwd_ref_inputs``).  The
+    tensor-core design runs twice on the same inputs and must give identical
+    bits.  Returns {(dtype name, clamp, n, bg kind, design, head width):
+    worst error}."""
     from vision_transformer_cam_tpu_torch.kernels import attention as ka
     errs, failures = {}, []
-    for (b, n) in ((8, 197), (3, 37), (2, 577), (1, 760)):
+    cases = BWD_CASES + tuple((1, ka.BWD_MAX_N[dh], 16, dh)
+                              for dh in ka.BWD_HEAD_DIMS)
+    for (b, n, heads, dh) in cases:
         for dtype in (torch.bfloat16, torch.float32):
-            qkv, bg, d_out = bwd_inputs(b, n, 12, dtype, seed=n)
+            qkv, bg, d_out = bwd_inputs(b, n, heads, dtype, seed=n, dh=dh)
             name = str(dtype).split(".")[-1]
             for bg_kind, bg_ in (("30% bg", bg), ("no bg",
                                                   torch.zeros_like(bg))):
                 for clamp in (False, True):
-                    want = _bwd_call(ka.masked_attention_bwd_ref, qkv, bg_,
-                                     d_out, 12, clamp)
+                    want = _bwd_call(ka.masked_attention_bwd_ref,
+                                     *_bwd_ref_inputs(qkv, bg_, d_out),
+                                     heads, clamp)
                     auto = None
                     if dtype == torch.float32 and not clamp:
-                        leaf = qkv.clone().requires_grad_(True)
+                        q64, bg64, do64 = _bwd_ref_inputs(qkv, bg_, d_out)
+                        leaf = q64.clone().requires_grad_(True)
                         out, _ = ka.masked_attention_fused_ref(
-                            leaf, bg_, num_heads=12, scale=64 ** -0.5)
-                        auto, = torch.autograd.grad(out, leaf, d_out)
-                    for design in bwd_designs(dtype, n):
-                        got = _bwd_design(design, qkv, bg_, d_out, 12, clamp)
+                            leaf, bg64, num_heads=heads, scale=dh ** -0.5)
+                        auto, = torch.autograd.grad(out, leaf, do64)
+                        del leaf, out, q64, bg64, do64
+                    for design in bwd_designs(dtype, n, dh):
+                        got = _bwd_design(design, qkv, bg_, d_out, heads,
+                                          clamp)
                         torch.cuda.synchronize()
                         case = f"attention bwd {design:11s} {name:8s} " \
-                               f"clamp={clamp!s:5s} {bg_kind:6s} B={b} N={n}"
-                        errs[(name, clamp, n, bg_kind, design)] = _compare(
-                            case, (got,), (want,), (TOL_BWD[dtype],),
-                            failures)
+                               f"clamp={clamp!s:5s} {bg_kind:6s} B={b} " \
+                               f"N={n} dh={dh}"
+                        errs[(name, clamp, n, bg_kind, design, dh)] = \
+                            _compare(case, (got,), (want,),
+                                     (TOL_BWD[dtype],), failures)
                         if auto is not None:
                             _compare(case + " vs autograd", (got,), (auto,),
                                      (TOL_BWD[dtype],), failures)
                         if design == "tensor-core" and not torch.equal(
-                                got, _bwd_design(design, qkv, bg_, d_out, 12,
-                                                 clamp)):
+                                got, _bwd_design(design, qkv, bg_, d_out,
+                                                 heads, clamp)):
                             failures.append(f"{case}: a second launch gave "
                                             "other bits")
+                    del want, auto
+            del qkv, bg, d_out
+    # one past each width's limit: refused by both wrappers, in both dtypes
+    for dh in ka.BWD_HEAD_DIMS:
+        n = ka.BWD_MAX_N[dh] + 1
+        for dtype in (torch.bfloat16, torch.float32):
+            qkv, bg, d_out = bwd_inputs(1, n, 2, dtype, seed=1, dh=dh)
+            for label, call in (
+                    ("masked_attention_bwd", lambda: _bwd_call(
+                        ka.masked_attention_bwd, qkv, bg, d_out, 2, False)),
+                    ("fused_attention_diff", lambda: ka.fused_attention_diff(
+                        qkv.requires_grad_(True), bg, num_heads=2,
+                        scale=dh ** -0.5))):
+                try:
+                    call()
+                    failures.append(f"{label} at N={n} dh={dh} {dtype}: not "
+                                    "refused")
+                except ValueError as e:
+                    say(f"check {label} N={n} dh={dh} "
+                        f"{str(dtype).split('.')[-1]} is refused: {e}")
+                    if "N <=" not in str(e) or (
+                            label == "fused_attention_diff"
+                            and "attn_impl='eager'" not in str(e)):
+                        failures.append(f"{label} N={n}: message {e}")
+    # a width the backward is not compiled for
+    qkv, bg, d_out = bwd_inputs(1, 37, 4, torch.bfloat16, seed=2, dh=48)
+    try:
+        _bwd_call(ka.masked_attention_bwd, qkv, bg, d_out, 4, False)
+        failures.append("backward at head width 48: not refused")
+    except ValueError as e:
+        say(f"check backward at head width 48 is refused: {e}")
+        if "64, 80" not in str(e):
+            failures.append(f"head width 48: the message names no widths: {e}")
     if failures:
         raise AssertionError("attention backward kernel != plain version:\n"
                              + "\n".join(failures))
     return errs
 
 
-def time_attention_bwd(b=64, n=197, heads=12):
-    """bf16, no clamp (the training path's call): at the training path's
-    shape the tensor-core design (the path's) held against its plain
-    version, then in turns with the FMA designs bf16 ran before (one block
-    per head, two kernels), the plain version and the backward of
-    F.scaled_dot_product_attention with the same additive mask (the library
-    call, timed only); then the same at B=16 N=577 (the two-kernel FMA
-    design).  Returns (kernel, plain, library, worst error at the path's
-    shape) ms."""
+def bwd_occupancy(cases=((197, 64), (1025, 64), (257, 80), (1025, 80))):
+    """The backward's occupancy on this card for each kernel of every design
+    that takes (N, head width) (blocks an SM at once, registers and local
+    memory per thread, shared memory per block; the training path's instance,
+    no clamp), with the ptxas spill stores of both translation units from
+    build.log.  Returns {(design, dtype name, part, n, dh): info tuple}."""
+    import ctypes
+
+    from vision_transformer_cam_tpu_torch.kernels import _build
     from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    lib, got = _build.load(), {}
+    log = (_build.lib_path().parent / "build.log").read_text()
+    for part in re.split(r"^== ", log, flags=re.M)[1:]:
+        name, _, body = part.partition("\n")
+        if name.startswith("masked_attention_bwd"):
+            spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores",
+                                                 body)]
+            regs = [int(r) for r in re.findall(r"Used (\d+) registers", body)]
+            say(f"occupancy {name}: {len(regs)} entries, registers "
+                f"{min(regs)}-{max(regs)}, {sum(1 for x in spills if x)} "
+                f"entries spill (max {max(spills, default=0)} bytes)")
+    for n, dh in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            for design in bwd_designs(dtype, n, dh):
+                for part in ((0,) if design == "one-block" else (0, 1)):
+                    info = (ctypes.c_int * 4)()
+                    err = lib.vitcam_masked_attention_bwd_occupancy(
+                        n, ka._DTYPE_CODES[dtype], ka.BWD_DESIGNS[design],
+                        dh, part, info)
+                    if err:
+                        raise RuntimeError(
+                            f"backward occupancy ({design}, {dtype}, N={n}, "
+                            f"dh={dh}, part {part}): cudaError {err} "
+                            f"({lib.vitcam_cuda_error_string(err).decode()})")
+                    name = str(dtype).split(".")[-1]
+                    got[(design, name, part, n, dh)] = tuple(info)
+                    kernel = ("one block" if design == "one-block" else
+                              ("dQ", "dK/dV")[part])
+                    say(f"occupancy attention bwd {design:11s} {name:8s} "
+                        f"{kernel:9s} N={n} dh={dh}: {info[0]} blocks an SM, "
+                        f"{info[1]} registers, {info[2]} bytes of local "
+                        f"memory per thread, {info[3]} bytes of shared "
+                        f"memory per block")
+    return got
+
+
+def sdpa_backward(qkv, bg, heads):
+    """(leaf, out) of F.scaled_dot_product_attention on the packed qkv with
+    the kernel's additive rank-1 mask, for timing its backward (the library
+    call beside the backward kernel: timed only, never on a path)."""
     import torch.nn.functional as F
-    res = None
-    for (bb, nn) in ((b, n), (16, 577)):
+    b, n, c3 = qkv.shape
+    dh = c3 // 3 // heads
+    leaf = qkv.clone().requires_grad_(True)
+    q, k, v = leaf.reshape(b, n, 3, heads, dh).permute(2, 0, 3, 1, 4)
+    bgf = bg.float()
+    mask = ((1.0 - bgf)[:, :, None] * (bgf * -100.0)[:, None, :]
+            )[:, None].to(qkv.dtype)
+    out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                         scale=dh ** -0.5)
+    return leaf, out.transpose(1, 2).reshape(b, n, heads * dh)
+
+
+# the backward's timed shapes (B, N, heads, head width): the training path's
+# (ViT-B/16), ViT/16 at 384 pixels, ViT-H/14's and ViT-L/16@512's
+BWD_TIMED = ((64, 197, 12, 64), (16, 577, 12, 64), (64, 257, 16, 80),
+             (16, 1025, 16, 64))
+
+
+def time_attention_bwd():
+    """bf16, no clamp (the training path's call), at each BWD_TIMED shape:
+    the tensor-core design (the path's) held against its plain version, then
+    in turns with the FMA designs bf16 ran before, the plain version and the
+    backward of F.scaled_dot_product_attention with the same additive mask
+    (the library call, timed only).  Returns {(B, N, heads, dh): (kernel,
+    plain, library, worst error) ms}."""
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    res = {}
+    for shape in BWD_TIMED:
+        bb, nn, heads, dh = shape
         qkv, bg, d_out = bwd_inputs(bb, nn, heads, torch.bfloat16,
-                                    seed=3 if nn == n else 4)
-        leaf = qkv.clone().requires_grad_(True)
-        q, k, v = leaf.reshape(bb, nn, 3, heads, 64).permute(2, 0, 3, 1, 4)
-        bgf = bg.float()
-        mask = ((1.0 - bgf)[:, :, None] * (bgf * -100.0)[:, None, :]
-                )[:, None].to(torch.bfloat16)
-        out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                             scale=64 ** -0.5)
-        out = out.transpose(1, 2).reshape(bb, nn, heads * 64)
+                                    seed=3 if nn == 197 else 4, dh=dh)
+        leaf, out = sdpa_backward(qkv, bg, heads)
+        designs = bwd_designs(torch.bfloat16, nn, dh)
         fns = {d: (lambda d=d: _bwd_design(d, qkv, bg, d_out, heads, False))
-               for d in bwd_designs(torch.bfloat16, nn)}
+               for d in designs}
         fns["plain"] = lambda: _bwd_call(ka.masked_attention_bwd_ref, qkv,
                                          bg, d_out, heads, False)
         fns["SDPA backward"] = lambda: torch.autograd.grad(
             out, leaf, d_out, retain_graph=True)[0]
         want, failures = fns["plain"](), []
-        errs = {d: _compare(f"attention bwd {d} bfloat16 B={bb} N={nn}",
-                            (fns[d](),), (want,), (TOL_BWD[torch.bfloat16],),
-                            failures) for d in bwd_designs(torch.bfloat16, nn)}
+        errs = {d: _compare(f"attention bwd {d} bfloat16 B={bb} N={nn} "
+                            f"H={heads} dh={dh}", (fns[d](),), (want,),
+                            (TOL_BWD[torch.bfloat16],), failures)
+                for d in designs}
         if failures:
             raise AssertionError("attention backward kernel != plain "
                                  "version:\n" + "\n".join(failures))
-        say(f"attention bwd kernel vs SDPA backward B={bb} N={nn} (recorded, "
-            f"not gated): max abs dev "
+        say(f"attention bwd kernel vs SDPA backward B={bb} N={nn} dh={dh} "
+            f"(recorded, not gated): max abs dev "
             f"{float((fns['tensor-core']().float() - fns['SDPA backward']().float()).abs().max()):.3e}")
-        ms = round_robin(fns, iters=20 if nn == n else 5)
-        say(f"time attention bwd bf16 B={bb} N={nn}: " + ", ".join(
-            f"{name} {t:.4f} ms" for name, t in ms.items()))
-        if res is None:
-            res = (ms["tensor-core"], ms["plain"], ms["SDPA backward"],
-                   errs["tensor-core"])
-        del leaf, out, want, fns
+        del want
+        ms = round_robin(fns, iters=20 if nn < 500 else 5)
+        t_bound, by = bwd_bound(bb, nn, heads, dh)
+        say(f"time attention bwd bf16 B={bb} N={nn} H={heads} dh={dh}: "
+            + ", ".join(f"{name} {t:.4f} ms" for name, t in ms.items())
+            + f"; bound {t_bound:.4f} ms ({by})")
+        res[shape] = (ms["tensor-core"], ms["plain"], ms["SDPA backward"],
+                      errs["tensor-core"])
+        del leaf, out, fns, qkv, d_out
+        gc_cuda()
+    return res
+
+
+def bwd_bound(b, n, heads, dh):
+    """The bf16 backward's bound at [B, N, H x dh]: qkv, dO and the f32 bg
+    in, d_qkv out (each once); five products at the bf16 rate."""
+    m, c = b * n, heads * dh
+    return bound(f"masked_attention_bwd bf16 B={b} N={n} H={heads} dh={dh}",
+                 7 * m * c * 2 + m * 4,
+                 {"bf16": 5 * 2 * b * heads * n * n * dh})
+
+
+# kernel 1's training variant (bf16, plain, no clamp: the forward of
+# fused_attention_diff) at the zoo's training shapes
+TRAIN_FWD_SHAPES = ((64, 257, 16, 80), (16, 1025, 16, 64))
+
+
+def time_training_forward():
+    """Kernel 1's training variant at TRAIN_FWD_SHAPES, held against its
+    plain version and timed in turns with it beside its bound.  Returns
+    {shape: (kernel ms, plain ms, bound ms, bound by, worst error)}."""
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    res, failures = {}, []
+    for shape in TRAIN_FWD_SHAPES:
+        b, n, heads, dh = shape
+        qkv, bg, _, _ = attention_inputs(b, n, heads, torch.bfloat16, seed=8,
+                                         dh=dh)
+        fns = {"kernel": lambda: _call(ka.masked_attention_fused, "plain",
+                                       qkv, bg, None, heads, False),
+               "plain": lambda: _call(ka.masked_attention_fused_ref, "plain",
+                                      qkv, bg, None, heads, False)}
+        err = _compare(f"attention training variant bf16 plain clamp=False "
+                       f"B={b} N={n} H={heads} dh={dh}", fns["kernel"](),
+                       fns["plain"](), [TOL[(torch.bfloat16, "out")],
+                                        TOL[(torch.bfloat16, "prob")]],
+                       failures)
+        ms = round_robin(fns, iters=10)
+        t_bound, by = attention_bound(b, n, heads, dh, "bf16", "plain")
+        say(f"time attention training variant B={b} N={n} H={heads} dh={dh}"
+            f": kernel {ms['kernel']:.4f} ms, plain {ms['plain']:.4f} ms; "
+            f"bound {t_bound:.4f} ms ({by})")
+        res[shape] = (ms["kernel"], ms["plain"], t_bound, by, err)
+        del qkv, fns
+    if failures:
+        raise AssertionError("kernel 1's training variant != plain "
+                             "version:\n" + "\n".join(failures))
     return res
 
 
@@ -1660,6 +1958,7 @@ def reset_counts():
     ka.launches = 0
     ka.width_launches = {dh: 0 for dh in ka.FWD_HEAD_DIMS}
     ka.bwd_launches = 0
+    ka.bwd_width_launches = {dh: 0 for dh in ka.BWD_HEAD_DIMS}
     ka.block_launches = 0
     ka.seq_launches = 0
     ka.v1_launches = 0
@@ -1682,7 +1981,8 @@ def read_counts():
             "mlp_fused_int8": gemm.mlp_fused_int8_launches,
             "attention_block_fused": ka.block_launches,
             "masked_attention_seq_local": ka.seq_launches,
-            W80: ka.width_launches[80]}
+            W80: ka.width_launches[80],
+            BWD80: ka.bwd_width_launches[80]}
 
 
 def read_new_counts():
@@ -2000,6 +2300,10 @@ def kernel_bounds(b=64, n=197, heads=12):
         "masked_attention_bwd": bound("masked_attention_bwd bf16",
                                       7 * m * c * 2 + m * 4,
                                       {"bf16": 5 * qk}),
+        # the backward at ViT-H/14's and ViT-L/16@512's training shapes, as
+        # time_attention_bwd times it
+        BWD80: bwd_bound(*BWD_TIMED[2]),
+        BWD1025: bwd_bound(*BWD_TIMED[3]),
     }
     # the other variants time_kernels times (row 1 of the kernel table):
     # bf16 head mean (bf16 hm out), the float32 variants (float32 in and out,
@@ -2264,17 +2568,26 @@ TRAIN_TOL = {"loss": 1e-5, "grad": (2e-5, 1e-3)}
 
 
 def train_kernel_vs_eager(batch=8):
-    from vision_transformer_cam_tpu_torch.train import step as steplib
     x, y = _cuda(seeded_batch(batch, 9))
+    kernel_vs_eager_step(lambda impl: train_model(impl, dtype=torch.float32),
+                         x, y, "ViT-B/16")
+
+
+def kernel_vs_eager_step(build, x, y, label, tol=TRAIN_TOL):
+    """One float32 step's loss and every gradient from ``build("kernel")``
+    against ``build("eager")`` (the same seeded weights), held to ``tol``.
+    Returns (loss difference, worst gradient error)."""
+    from vision_transformer_cam_tpu_torch.train import step as steplib
     got = {}
     for impl in ("kernel", "eager"):
-        model = train_model(impl, dtype=torch.float32)
+        model = build(impl)
         loss, _ = steplib.loss_fn(model, x, y, None)
         grads = torch.autograd.grad(loss, list(model.parameters()))
         got[impl] = (float(loss.detach()), dict(zip(
             (n for n, _ in model.named_parameters()), grads)))
+        del model, loss, grads
     d_loss = abs(got["kernel"][0] - got["eager"][0])
-    atol, rtol = TRAIN_TOL["grad"]
+    atol, rtol = tol["grad"]
     worst, bad = 0.0, []
     for name, g in got["kernel"][1].items():
         ref = got["eager"][1][name]
@@ -2283,25 +2596,31 @@ def train_kernel_vs_eager(batch=8):
         if float((err - atol - rtol * ref.abs()).max()) > 0 \
                 or not torch.isfinite(g).all():
             bad.append(name)
-    say(f"f32 train step, kernel vs eager (B={batch}): loss "
+    say(f"f32 train step {label}, kernel vs eager (B={x.shape[0]}): loss "
         f"{got['kernel'][0]:.6f} vs {got['eager'][0]:.6f} (diff {d_loss:.3e}"
-        f", tol {TRAIN_TOL['loss']}), gradients max abs err {worst:.3e} "
+        f", tol {tol['loss']}), gradients max abs err {worst:.3e} "
         f"(atol {atol}, rtol {rtol})")
-    if d_loss > TRAIN_TOL["loss"] or bad:
-        raise AssertionError(f"kernel and eager train steps disagree: loss "
-                             f"diff {d_loss:.3e}, gradients of {bad}")
+    if d_loss > tol["loss"] or bad:
+        raise AssertionError(f"{label}: kernel and eager train steps "
+                             f"disagree: loss diff {d_loss:.3e}, gradients "
+                             f"of {bad}")
+    return d_loss, worst
 
 
-def train_throughput(batch=64, steps=20):
+def train_throughput(batch=64, steps=20, build=train_model, label="ViT-B/16",
+                     size=224):
     """img/s of the training step, kernel and eager attention path, mixed
-    precision, remat on, in turns; host clock around synchronised steps."""
+    precision, remat on, in turns; host clock around synchronised steps.
+    Each reading also records the device memory a step takes above the two
+    resident train states (peak less the allocation before it).  Returns
+    {path: (mean img/s, peak GiB of a step)}."""
     from vision_transformer_cam_tpu_torch import configs
     from vision_transformer_cam_tpu_torch.train import state as statelib
     from vision_transformer_cam_tpu_torch.train import step as steplib
-    x, y = _cuda(seeded_batch(batch, 11))
+    x, y = _cuda(seeded_batch(batch, 11, size=size))
     states = {}
     for impl in ("kernel", "eager"):
-        model = train_model(impl)
+        model = build(impl)
         opt, _ = statelib.make_optimizer(model, configs.OptimConfig(), batch,
                                          100)
         states[impl] = statelib.create_train_state(model, opt)
@@ -2309,20 +2628,30 @@ def train_throughput(batch=64, steps=20):
     def rate(impl):
         states[impl], _ = steplib.train_step(states[impl], x, y, 0)
         torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
         for _ in range(steps):
             states[impl], _ = steplib.train_step(states[impl], x, y, 0)
         torch.cuda.synchronize()
-        return batch * steps / (time.perf_counter() - t)
-    rates = {}
+        r = batch * steps / (time.perf_counter() - t)
+        return r, (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    rates, peaks = {}, {}
     for impl in ("kernel", "eager", "eager", "kernel"):
-        rates.setdefault(impl, []).append(rate(impl))
+        r, peak = rate(impl)
+        rates.setdefault(impl, []).append(r)
+        peaks[impl] = max(peaks.get(impl, 0.0), peak)
+    resident = torch.cuda.memory_allocated() / 2 ** 30
     for impl, r in rates.items():
-        say(f"train throughput, {impl} attention path, batch {batch}, mixed "
-            f"precision, remat, {steps} steps per reading: {np.mean(r):.1f} "
-            f"img/s ({r[0]:.1f}, {r[1]:.1f}; spread "
-            f"{100 * abs(r[0] - r[1]) / np.mean(r):.1f} %); peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB so far")
+        say(f"train throughput {label}, {impl} attention path, batch {batch}"
+            f", mixed precision, remat, {steps} steps per reading: "
+            f"{np.mean(r):.1f} img/s ({r[0]:.1f}, {r[1]:.1f}; spread "
+            f"{100 * abs(r[0] - r[1]) / np.mean(r):.1f} %); a step's peak "
+            f"{peaks[impl]:.2f} GiB above the {resident:.2f} GiB of the two "
+            f"resident train states")
+    del states
+    return {impl: (float(np.mean(r)), peaks[impl])
+            for impl, r in rates.items()}
 
 
 # the quality protocol on trained weights (scripts.quality_eval): the TPU
@@ -3762,7 +4091,6 @@ def zoo_entry_points():
     counts."""
     import tempfile
 
-    from vision_transformer_cam_tpu_torch import bench
     from vision_transformer_cam_tpu_torch.cli import predict as pcli
     fwd = 2 + 10 * 3                        # forwards of a bench run
     vith = ["--model", "vit_huge_patch14_224_in21k", "--batch", "64"]
@@ -3775,21 +4103,7 @@ def zoo_entry_points():
     ]
     totals = {}
     for argv, per in runs:
-        reset_counts()
-        t0 = time.perf_counter()
-        line, text = _capture(bench.main, argv)
-        counts = read_counts()
-        want = {k: per.get(k, 0) * fwd for k in counts}
-        say(f"zoo bench {' '.join(argv)}: {time.perf_counter() - t0:.1f} s, "
-            f"launches { {k: v for k, v in counts.items() if v} }")
-        printed = json.loads(text.strip().splitlines()[-1])
-        if printed != line or not line["metric"].startswith("torch_") \
-                or not np.isfinite(line["value"]) or line["value"] <= 0 \
-                or line["device"] != card_line():
-            raise AssertionError(f"bench {argv}: bad line {text!r}")
-        if counts != want:
-            raise AssertionError(f"bench {argv}: launch counts {counts}, "
-                                 f"expected {want}")
+        counts = bench_run(argv, {k: v * fwd for k, v in per.items()})
         for k, v in counts.items():
             totals[k] = totals.get(k, 0) + v
     cwd = os.getcwd()
@@ -3844,6 +4158,171 @@ def zoo_path():
     say(f"zoo path: {time.perf_counter() - t0:.1f} s")
     return (launches, w80_errs[("bfloat16", "rollout", True, 257)], w80_ms,
             rates, route_ms)
+
+
+# The zoo trained (phase 20): label, zoo name, the training batch, the batch
+# of the float32 kernel-vs-eager step
+ZOO_TRAIN = (("ViT-H/14", "vit_huge_patch14_224_in21k", 64, 4),
+             ("ViT-L/16@512", "vit_large_patch16_512", 16, 2))
+
+
+def zoo_train_model(name, impl, dtype=torch.bfloat16):
+    """A zoo model as cli.train and bench --train build it (no pre-logits
+    layer), float32 masters with ``dtype`` compute, remat on, on the card,
+    seeded weights; ViT-L/16@512 takes ViT-L/16 (224)'s through the pos-embed
+    interpolation, as ``zoo_model``."""
+    from vision_transformer_cam_tpu_torch import configs
+    from vision_transformer_cam_tpu_torch.io.weights import load_state_dict
+    from vision_transformer_cam_tpu_torch.models.vit import ViTCAM
+    cfg = configs.resolve_model(name)(num_classes=20)
+    if cfg.has_logits:
+        cfg = cfg.replace(representation_size=None)
+    cfg = cfg.replace(dtype=dtype, attn_impl=impl, remat=True)
+    if name != "vit_large_patch16_512":
+        return ViTCAM(cfg, device="cuda",
+                      generator=torch.Generator().manual_seed(0))
+    small = ViTCAM(configs.vit_large_patch16_224(num_classes=20),
+                   device="cuda", generator=torch.Generator().manual_seed(0))
+    sd = {k: v.clone() for k, v in small.state_dict().items()}
+    del small
+    model = ViTCAM(cfg, device="cuda",
+                   generator=torch.Generator().manual_seed(1))
+    load_state_dict(model, sd)
+    return model
+
+
+def zoo_train_launches(steps_fwd, steps_bwd, depth, dh):
+    """What a zoo model's training launches: per step and layer kernel 1
+    twice (forward and remat recompute) and the backward once, all at the
+    model's head width; nothing else."""
+    want = {"masked_attention_fused": steps_fwd * depth,
+            "masked_attention_bwd": steps_bwd * depth}
+    if dh == 80:
+        want.update({W80: steps_fwd * depth, BWD80: steps_bwd * depth})
+    return want
+
+
+def zoo_train(label, name, batch, f32_batch):
+    """One zoo model trained at full width and depth on the kernel path:
+    ``train_one_epoch`` over 3 in-memory batches, then 5 ``train_step`` calls
+    on one fixed batch (finite, falling losses; every parameter moved), the
+    launch counts held after each; one float32 step against the eager path;
+    training img/s of both paths in turns.  Returns (launch counts, {path:
+    (img/s, peak GiB)}, (loss diff, worst gradient error))."""
+    import math
+
+    from vision_transformer_cam_tpu_torch import configs
+    from vision_transformer_cam_tpu_torch.train import loop
+    from vision_transformer_cam_tpu_torch.train import state as statelib
+    from vision_transformer_cam_tpu_torch.train import step as steplib
+    t_phase = time.perf_counter()
+    ocfg = configs.OptimConfig(lr=1e-4, warmup_epochs=0, epochs=10,
+                               linear_lr_scaling=False, clip_grad=1.0)
+    spe = 3
+    model = zoo_train_model(name, "kernel")
+    cfg = model.cfg
+    depth, dh, size = cfg.depth, cfg.head_dim, cfg.img_size
+    say(f"zoo train {label}: depth {depth}, C={cfg.embed_dim}, "
+        f"{cfg.num_heads} heads of {dh}, N={cfg.seq_len}, batch {batch}, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M "
+        f"parameters; built in {time.perf_counter() - t_phase:.1f} s")
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    opt, _ = statelib.make_optimizer(model, ocfg, batch, spe)
+    state = statelib.create_train_state(model, opt)
+    loader = MemoryLoader([seeded_batch(batch, 300 + i, size=size)
+                           for i in range(spe)])
+    totals = {}
+
+    def held(part, steps_fwd, steps_bwd):
+        counts = _expect(f"{label} {part}", zoo_train_launches(
+            steps_fwd, steps_bwd, depth, dh), phase="zoo train")
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        reset_counts()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    state, means = loop.train_one_epoch(state, loader, 0, 0, log_every=1)
+    torch.cuda.synchronize()
+    say(f"zoo train {label}: one epoch of {spe} steps x {batch} images in "
+        f"{time.perf_counter() - t0:.2f} s (first includes warm-up); mean "
+        f"loss {means['loss']:.4f}")
+    held("train_one_epoch", 2 * spe, spe)
+    if state.step != spe or not math.isfinite(means["loss"]):
+        raise AssertionError(f"{label} epoch: step {state.step}, {means}")
+    x, y = _cuda(seeded_batch(batch, 17, size=size))
+    losses = []
+    for _ in range(5):
+        state, metrics = steplib.train_step(state, x, y, 0)
+        losses.append(float(metrics["loss"]))
+    say(f"zoo train {label}: 5 steps on one fixed batch, losses "
+        + ", ".join(f"{v:.4f}" for v in losses))
+    held("5 x train_step", 10, 5)
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: the loss did not fall: {losses}")
+    stuck = [k for k, v in model.state_dict().items()
+             if torch.equal(v, before[k])]
+    if stuck:
+        raise AssertionError(f"{label}: parameters that did not move: "
+                             f"{stuck}")
+    say(f"zoo train {label}: every one of {len(before)} parameter tensors "
+        f"moved; peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+        f" GiB")
+    del state, opt, model, before, loader, x, y
+    gc_cuda()
+    fx, fy = _cuda(seeded_batch(f32_batch, 19, size=size))
+    f32 = kernel_vs_eager_step(
+        lambda impl: zoo_train_model(name, impl, dtype=torch.float32), fx, fy,
+        label)
+    reset_counts()
+    del fx, fy
+    gc_cuda()
+    rates = train_throughput(batch, steps=5, build=lambda impl:
+                             zoo_train_model(name, impl), label=label,
+                             size=size)
+    reset_counts()
+    gc_cuda()
+    say(f"zoo train {label}: {time.perf_counter() - t_phase:.1f} s")
+    return totals, rates, f32
+
+
+def zoo_train_entry_points():
+    """bench.main --train --mixed at ViT-H/14 (batch 64) and ViT-L/16@512
+    (batch 16), one JSON line each, their launch counts held.  Returns
+    {label: launch counts}."""
+    steps = 2 + 5 * 3                       # training steps of a run
+    got = {}
+    for label, name, batch, _ in ZOO_TRAIN:
+        depth, dh = (32, 80) if label == "ViT-H/14" else (24, 64)
+        got[label] = bench_run(
+            ["--train", "--mixed", "--model", name, "--batch", str(batch)],
+            zoo_train_launches(2 * steps, steps, depth, dh))
+        gc_cuda()
+    return got
+
+
+def zoo_train_path():
+    """Phase 20: ViT-H/14 and ViT-L/16@512 trained at full width and depth
+    on the kernel path, then their bench --train runs.  Returns (launch
+    counts, the launches of the backward at N = 1025, {label: (rates, f32
+    step)})."""
+    t0 = time.perf_counter()
+    launches, info = {}, {}
+    long_calls = 0
+    for label, name, batch, f32_batch in ZOO_TRAIN:
+        counts, rates, f32 = zoo_train(label, name, batch, f32_batch)
+        info[label] = (rates, f32)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        if label == "ViT-L/16@512":
+            long_calls += counts["masked_attention_bwd"]
+    for label, counts in zoo_train_entry_points().items():
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        if label == "ViT-L/16@512":
+            long_calls += counts["masked_attention_bwd"]
+    say(f"zoo train path: {time.perf_counter() - t0:.1f} s")
+    return launches, long_calls, info
 
 
 def gc_cuda():
@@ -4067,11 +4546,36 @@ def _capture(fn, *args, **kw):
     return res, text
 
 
+def bench_run(argv, want):
+    """``bench.main(argv)`` with the launch counts set to 0 before and read
+    after: its one JSON line must be well formed and name this card, and the
+    counts must be ``want`` (a kernel it does not name: 0).  Returns the
+    counts."""
+    from vision_transformer_cam_tpu_torch import bench
+    reset_counts()
+    t0 = time.perf_counter()
+    line, text = _capture(bench.main, argv)
+    counts = read_counts()
+    full = {k: want.get(k, 0) for k in counts}
+    say(f"bench {' '.join(argv) or '(default, int8)'}: "
+        f"{time.perf_counter() - t0:.1f} s, launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    printed = json.loads(text.strip().splitlines()[-1])
+    if printed != line or set(line) != {"metric", "value", "unit", "device"} \
+            or not line["metric"].startswith("torch_") \
+            or not np.isfinite(line["value"]) or line["value"] <= 0 \
+            or line["device"] != card_line():
+        raise AssertionError(f"bench {argv}: bad line {text!r}")
+    if counts != full:
+        raise AssertionError(f"bench {argv}: launch counts {counts}, "
+                             f"expected {full}")
+    return counts
+
+
 def bench_path():
     """The bench entry point, one JSON line per run through ``bench.main``,
     with the launch counts set to 0 before each and read after it.  Returns
     the summed launch counts."""
-    from vision_transformer_cam_tpu_torch import bench
     fwd, lat = 2 + 10 * 3, 2 + 10 * 15      # forwards of a run
     steps = 2 + 5 * 3                       # training steps of a run
     int8 = {"masked_attention_fused": 12, "linear_int8_fused": 49}
@@ -4096,24 +4600,7 @@ def bench_path():
     ]
     totals = {}
     for argv, per, times in runs:
-        reset_counts()
-        t0 = time.perf_counter()
-        line, text = _capture(bench.main, argv)
-        counts = read_counts()
-        want = {k: per.get(k, 0) * times for k in counts}
-        say(f"bench {' '.join(argv) or '(default, int8)'}: "
-            f"{time.perf_counter() - t0:.1f} s, launches "
-            f"{ {k: v for k, v in counts.items() if v} }")
-        printed = json.loads(text.strip().splitlines()[-1])
-        if printed != line or set(line) != {"metric", "value", "unit",
-                                            "device"} \
-                or not line["metric"].startswith("torch_") \
-                or not np.isfinite(line["value"]) or line["value"] <= 0 \
-                or line["device"] != card_line():
-            raise AssertionError(f"bench {argv}: bad line {text!r}")
-        if counts != want:
-            raise AssertionError(f"bench {argv}: launch counts {counts}, "
-                                 f"expected {want}")
+        counts = bench_run(argv, {k: v * times for k, v in per.items()})
         for k, v in counts.items():
             totals[k] = totals.get(k, 0) + v
     if torch.get_float32_matmul_precision() != "highest":
@@ -4166,6 +4653,7 @@ def main() -> int:
     build_kernels()
     attn_errs = check_attention()
     check_attention_bwd()
+    bwd_occupancy()
     gemm_err = check_gemm()
     ln_err = check_ln_quant()
     mlp_err = check_mlp()
@@ -4182,10 +4670,15 @@ def main() -> int:
     times = time_kernels()
     fused_ms = time_fused()
     bwd_ms = time_attention_bwd()
+    time_training_forward()
     launches = main_path()
     # phase 19, the zoo's widest and longest models, right after the main path
     zoo_launches, w80_err, w80_ms, _, _ = zoo_path()
     for name, count in zoo_launches.items():
+        launches[name] = launches.get(name, 0) + count
+    # phase 20, the zoo trained, right after it
+    zoo_train_counts, launches[BWD1025], _ = zoo_train_path()
+    for name, count in zoo_train_counts.items():
         launches[name] = launches.get(name, 0) + count
     train_launches = train_path()
     launches["masked_attention_fused[bf16 plain, training]"] = \
@@ -4227,7 +4720,12 @@ def main() -> int:
         "ln_quant": (float(ln_err), times[("ln_quant_graph", 64 * 197)],
                      times[("ln_quant", 64 * 197)][1]),
         # the error at the training path's shape (B=64, N=197, bf16)
-        "masked_attention_bwd": (bwd_ms[3], *bwd_ms[:2]),
+        "masked_attention_bwd": (bwd_ms[BWD_TIMED[0]][3],
+                                 *bwd_ms[BWD_TIMED[0]][:2]),
+        # ViT-H/14's shape (B=64, N=257, 16 heads of 80) and ViT-L/16@512's
+        # (B=16, N=1025, 16 heads of 64)
+        BWD80: (bwd_ms[BWD_TIMED[2]][3], *bwd_ms[BWD_TIMED[2]][:2]),
+        BWD1025: (bwd_ms[BWD_TIMED[3]][3], *bwd_ms[BWD_TIMED[3]][:2]),
         "masked_attention_fused[bf16 rollout, serving]": (
             attn_errs[("bfloat16", "rollout", True, 197)],
             *times[("attention", "bf16", "rollout")]),
@@ -4261,7 +4759,9 @@ def main() -> int:
     # Likewise for the split-tensor kernel (SDPA with the additive pair mask
     # gives out, neither the cls row nor the head mean).  No call computes an
     # ablation variant.
-    library = {"masked_attention_bwd": bwd_ms[2],
+    library = {"masked_attention_bwd": bwd_ms[BWD_TIMED[0]][2],
+               BWD80: bwd_ms[BWD_TIMED[2]][2],
+               BWD1025: bwd_ms[BWD_TIMED[3]][2],
                "masked_attention_seq_local": seq_ms[1][2],
                "masked_attention": v1_sdpa}
     bounds = kernel_bounds()

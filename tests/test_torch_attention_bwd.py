@@ -233,7 +233,7 @@ def test_cuda_bwd_kernel_matches_plain_version():
             with pytest.raises(ValueError):
                 tka.masked_attention_fused(leaf, bg, **kw)
     # past the limit the wrappers raise: no other route on the card
-    n = tka.BWD_MAX_N + 1
+    n = tka.BWD_MAX_N[64] + 1
     qkv = torch.zeros((1, n, 3 * 768), device="cuda", requires_grad=True)
     bg = torch.zeros((1, n), device="cuda")
     with pytest.raises(ValueError, match="N <="):

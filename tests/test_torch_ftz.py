@@ -258,27 +258,39 @@ def test_block_design_rule(dtype, design):
         tattn.block_design(torch.float16)
 
 
-@pytest.mark.parametrize("dtype,n,design", [
-    (torch.bfloat16, 37, "tensor-core"),
-    (torch.bfloat16, 197, "tensor-core"),
-    (torch.bfloat16, 577, "tensor-core"),
-    (torch.bfloat16, 760, "tensor-core"),
-    (torch.float32, 37, "one-block"),
-    (torch.float32, 256, "one-block"),
-    (torch.float32, 257, "two-kernel"),
-    (torch.float32, 760, "two-kernel"),
+@pytest.mark.parametrize("dtype,n,dh,design", [
+    (torch.bfloat16, 37, 64, "tensor-core"),
+    (torch.bfloat16, 197, 64, "tensor-core"),
+    (torch.bfloat16, 577, 64, "tensor-core"),
+    (torch.bfloat16, 760, 64, "tensor-core"),
+    (torch.bfloat16, 1025, 64, "tensor-core"),
+    (torch.float32, 37, 64, "one-block"),
+    (torch.float32, 256, 64, "one-block"),
+    (torch.float32, 257, 64, "two-kernel"),
+    (torch.float32, 760, 64, "two-kernel"),
+    (torch.float32, 1025, 64, "two-kernel"),
+    (torch.bfloat16, 257, 80, "tensor-core"),
+    (torch.bfloat16, 1025, 80, "tensor-core"),
+    (torch.float32, 208, 80, "one-block"),
+    (torch.float32, 209, 80, "two-kernel"),
+    (torch.float32, 257, 80, "two-kernel"),
+    (torch.float32, 1025, 80, "two-kernel"),
 ])
-def test_bwd_design_rule(dtype, n, design):
-    """bf16 takes the tensor-core design at every N <= 760; float32 keeps
-    the one-block design up to 256 and the two-kernel design past it.  Every
-    design but the one-block one passes a [B, H, N, 3] float32 scratch of row
-    statistics from its first kernel to its second."""
-    assert tattn.BWD_ONE_BLOCK_MAX_N == 256 and tattn.BWD_MAX_N == 760
-    assert tattn.bwd_design(dtype, n) == design
+def test_bwd_design_rule(dtype, n, dh, design):
+    """bf16 takes the tensor-core design at every N <= BWD_MAX_N (1564 at
+    head width 64, 1520 at 80); float32 keeps the one-block design up to 256
+    (208 at 80) and the two-kernel design past it.  Every design but the
+    one-block one passes a [B, H, N, 3] float32 scratch of row statistics
+    from its first kernel to its second.  Other widths raise."""
+    assert tattn.BWD_ONE_BLOCK_MAX_N == {64: 256, 80: 208}
+    assert tattn.BWD_MAX_N == {64: 1564, 80: 1520}
+    assert tattn.bwd_design(dtype, n, dh) == design
     shape = tattn.bwd_scratch_shape(design, 4, 12, n)
     assert shape == (None if design == "one-block" else (4, 12, n, 3))
     with pytest.raises(ValueError, match="N <="):
-        tattn.bwd_design(dtype, tattn.BWD_MAX_N + 1)
+        tattn.bwd_design(dtype, tattn.BWD_MAX_N[dh] + 1, dh)
+    with pytest.raises(ValueError, match="head widths 64, 80, got 48"):
+        tattn.bwd_design(dtype, n, 48)
 
 
 def test_seq_design_rule():

@@ -170,6 +170,14 @@ def test_kernel1_refuses_other_widths_naming_its_set(dh):
                                     "variants"])
 def test_other_kernels_refuse_head_width_80(kernel):
     assert tka.check_head_width(kernel, 64) == 64
+    if kernel == "backward":
+        # compiled for 64 and 80 (BWD_HEAD_DIMS) since ViT-H/14 trains on
+        # the kernel path; other widths are still refused
+        assert tka.BWD_HEAD_DIMS == (64, 80)
+        assert tka.check_head_width(kernel, 80) == 80
+        with pytest.raises(ValueError, match=r"head widths 64, 80, got 48$"):
+            tka.check_head_width(kernel, 48)
+        return
     with pytest.raises(ValueError, match=r"head width 64, got 80$"):
         tka.check_head_width(kernel, 80)
 

@@ -580,14 +580,14 @@ def test_cuda_attention_head_width_80_matches_plain_version(n):
 
 @pytest.mark.cuda
 def test_cuda_attention_refuses_other_head_widths():
-    """Head width 48 is refused by kernel 1 naming its compiled widths, and
-    80 by the backward kernel naming its one."""
+    """Head width 48 is refused by kernel 1 and by the backward kernel, each
+    naming its compiled widths (64 and 80 for both since the backward took
+    ViT-H/14's width)."""
     _card()
     qkv = torch.zeros((1, 9, 3 * 4 * 48), device="cuda", dtype=torch.bfloat16)
     bg = torch.zeros((1, 9), device="cuda")
     with pytest.raises(ValueError, match="head widths 64, 80, got 48"):
         tka.masked_attention_fused(qkv, bg, num_heads=4, scale=0.1)
-    qkv = torch.zeros((1, 9, 3 * 2 * 80), device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head width 64, got 80"):
-        tka.masked_attention_bwd(qkv, bg, qkv[..., :160].contiguous(),
-                                 num_heads=2, scale=0.1)
+    with pytest.raises(ValueError, match="head widths 64, 80, got 48"):
+        tka.masked_attention_bwd(qkv, bg, qkv[..., :192].contiguous(),
+                                 num_heads=4, scale=0.1)

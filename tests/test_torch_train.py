@@ -697,11 +697,31 @@ def test_only_adamw_is_implemented():
 
 
 def test_kernel_bwd_limit_is_stated():
-    """The CUDA backward's N limits follow from the shared memory of its two
-    designs (one block per head; a dQ kernel and a dK / dV kernel)."""
+    """The CUDA backward's N limits follow from the shared memory of its
+    float32 designs, per head width dh (floats of the 227 KB a block may
+    use): one block per head keeps dK and dV beside two [32, N] tiles; the
+    two-kernel design's dQ kernel keeps two [QB, N] tiles of 32 query rows,
+    or 16 past them.  The bf16 tensor-core design's dQ kernel grows by one
+    float a key (two stages of K and V slabs beside the key mask), so it
+    takes every N that the float32 designs take."""
     pad = lambda n: (n + 3) // 4 * 4                          # noqa: E731
-    one = lambda n: 192 * pad(n) + n + 8480                   # noqa: E731
-    two = lambda n: 64 * pad(n) + n + 8480                    # noqa: E731
-    for floats, n in ((one, tka.BWD_ONE_BLOCK_MAX_N), (two, tka.BWD_MAX_N)):
-        assert floats(n) * 4 <= 232448 < floats(n + 1) * 4
-    assert tka.BWD_MAX_N >= 640     # the TPU kernel's longest sequence
+    ceil64 = lambda n: (n + 63) // 64 * 64                    # noqa: E731
+    one = lambda n, dh: ((2 * dh + 64) * pad(n) + n + 64 * dh  # noqa: E731
+                         + 64 * (dh + 4) + 32)
+    two = lambda n, dh, qb: (2 * qb * pad(n) + n + 2 * qb * dh  # noqa: E731
+                             + 64 * (dh + 4) + qb)
+    assert all(one(n, 64) == 192 * pad(n) + n + 8480 for n in (37, 256))
+    assert all(two(n, 64, 32) == 64 * pad(n) + n + 8480 for n in (37, 760))
+    assert tka.BWD_HEAD_DIMS == (64, 80)
+    rows32 = {64: 760, 80: 732}
+    for dh in tka.BWD_HEAD_DIMS:
+        for floats, n in ((lambda n: one(n, dh), tka.BWD_ONE_BLOCK_MAX_N[dh]),
+                          (lambda n: two(n, dh, 32), rows32[dh]),
+                          (lambda n: two(n, dh, 16), tka.BWD_MAX_N[dh])):
+            assert floats(n) * 4 <= 232448 < floats(n + 1) * 4
+        pitch = 64 if dh == 64 else dh + 8      # bf16 elements a staged row
+        tc = 4 * 64 * pitch * 2 + 4 * ceil64(tka.BWD_MAX_N[dh])
+        assert tc <= 232448
+    assert tka.BWD_ONE_BLOCK_MAX_N == {64: 256, 80: 208}
+    assert min(tka.BWD_MAX_N.values()) >= 1025  # ViT-L/16@512's N
+    assert tka.BWD_MAX_N[64] >= 640     # the TPU kernel's longest sequence

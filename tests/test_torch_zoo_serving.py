@@ -225,17 +225,18 @@ def test_serving_bf16_matches_jax_pallas_first_block(kind, mode):
 
 def test_zoo_configs_take_kernel1():
     """The full-size zoo models this slice serves: ViT-H/14 has heads of
-    width 80 (kernel 1's second compiled width; the other kernels refuse
-    it), ViT-L/16@512 has N = 1025 and its int8 tier the output-only
-    route."""
+    width 80 (kernel 1's second compiled width, and the backward's since
+    the zoo trains on the kernel path; the other kernels refuse it),
+    ViT-L/16@512 has N = 1025 and its int8 tier the output-only route."""
     h = tserving.serving_config(
         tcfgs.vit_huge_patch14_224_in21k(num_classes=20), "int8")
     assert (h.depth, h.embed_dim, h.num_heads, h.head_dim, h.seq_len) == \
         (32, 1280, 16, 80, 257)
     assert h.representation_size == 1280 and h.int8_attn_io
     assert tka.check_head_width("fused", h.head_dim) == 80
+    assert tka.check_head_width("backward", h.head_dim) == 80
     with pytest.raises(ValueError, match="head width 64, got 80"):
-        tka.check_head_width("backward", h.head_dim)
+        tka.check_head_width("block", h.head_dim)
     lg = tserving.serving_config(tcfgs.vit_large_patch16_512(num_classes=20),
                                  "int8")
     assert (lg.depth, lg.embed_dim, lg.head_dim, lg.seq_len) == \

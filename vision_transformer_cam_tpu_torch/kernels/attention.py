@@ -45,7 +45,8 @@ on a CPU tensor.  No model path runs it; ``scripts.microbench`` drives it.
 ``v1_launches`` count the CUDA kernel launches made through the forward, the
 backward, the block, the sequence-parallel and the split-tensor wrapper, so a
 run can show that its main path went through the kernels;
-``width_launches`` splits the forward's count by head width.
+``width_launches`` and ``bwd_width_launches`` split the forward's and the
+backward's counts by head width.
 """
 
 from __future__ import annotations
@@ -56,6 +57,8 @@ launches = 0
 # kernel 1's launches by head width (each also counts in ``launches``)
 width_launches = {64: 0, 80: 0}
 bwd_launches = 0
+# the backward's calls by head width (each also counts in ``bwd_launches``)
+bwd_width_launches = {64: 0, 80: 0}
 block_launches = 0
 seq_launches = 0
 v1_launches = 0
@@ -66,24 +69,31 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # scales-vector kinds and flags of the C entry point
 _NO_SCALES, _OUT_ONLY, _PER_TENSOR, _PER_HEAD = 0, 1, 2, 3
 _OUT_I8, _CLS_BF16, _HM_BF16 = 1, 2, 4
-# The head widths kernel 1 (masked_attention_fused) is compiled for: 64
-# (ViT-S/B/L) and 80 (ViT-H/14), each its own set of instances
-# (csrc/masked_attention.cu, csrc/masked_attention_w80.cu).  The other CUDA
-# kernels take HEAD_DIM only.
+# The head widths kernel 1 (masked_attention_fused) and the backward
+# (masked_attention_bwd) are compiled for: 64 (ViT-S/B/L) and 80 (ViT-H/14),
+# each its own set of instances (csrc/masked_attention.cu and
+# masked_attention_w80.cu; csrc/masked_attention_bwd.cu and
+# masked_attention_bwd_w80.cu).  The other CUDA kernels take HEAD_DIM only.
 FWD_HEAD_DIMS = (64, 80)
+BWD_HEAD_DIMS = (64, 80)
 HEAD_DIM = 64
-# The CUDA backward has three designs.  bf16 runs the tensor-core design for
-# every N <= BWD_MAX_N: a dQ kernel per 64 query rows and a dK / dV kernel per
-# 64 keys, products on mma.sync, a [B, H, N, 3] float32 scratch of row
-# statistics between them.  float32 keeps the FMA designs: up to
-# BWD_ONE_BLOCK_MAX_N one block per (image, head) keeps dK and dV [N, 64] in
-# float32 in shared memory beside two [32, N] tiles: (192 * ceil4(N) + N +
-# 8480) floats, which fit the 227 KB a block may use on sm_90 for N <= 256.
-# Past it two kernels run, one per query tile (dQ and the rows' softmax
-# statistics) and one per key tile (dK, dV), and the first one's (64 *
-# ceil4(N) + N + 8480) floats allow N <= BWD_MAX_N.
-BWD_ONE_BLOCK_MAX_N = 256
-BWD_MAX_N = 760
+# The CUDA backward has three designs.  bf16 runs the tensor-core design: a
+# dQ kernel per 64 query rows and a dK / dV kernel per 64 keys, products on
+# mma.sync, a [B, H, N, 3] float32 scratch of row statistics between them;
+# its shared memory grows by one float a key only.  float32 keeps the FMA
+# designs, whose [rows, N] float32 tiles set the limits, per head width dh
+# (floats of the 227 KB a block may use on sm_90):
+#   one block per (image, head), dK and dV [N, dh] beside two [32, N] tiles:
+#     (2 dh + 64) * ceil4(N) + N + 64 dh + 64 (dh + 4) + 32 floats, N <=
+#     BWD_ONE_BLOCK_MAX_N (256 at 64, 208 at 80);
+#   past it two kernels, one per query tile of 32 rows (dQ and the rows'
+#     softmax statistics; N <= 760 at 64, 732 at 80), or of 16 past that:
+#     32 * ceil4(N) + N + 32 dh + 64 (dh + 4) + 16 floats, N <= BWD_MAX_N
+#     (1564 at 64, 1520 at 80), and one per 64 keys (dK, dV) whatever N is.
+# Both dtypes take the same N <= BWD_MAX_N, so that a model trains the same
+# shapes in float32 and in bf16.
+BWD_ONE_BLOCK_MAX_N = {64: 256, 80: 208}
+BWD_MAX_N = {64: 1564, 80: 1520}
 BWD_DESIGNS = {"one-block": 0, "two-kernel": 1, "tensor-core": 2}
 # The design bf16 runs.  Only chip_smoke.py sets another ("one-block" or
 # "two-kernel", the FMA designs bf16 ran before), to time the designs side by
@@ -192,9 +202,10 @@ _WIDTH_NAMES = {"fused": "kernel 1 (masked_attention_fused)",
 def check_head_width(kernel: str, dh: int) -> int:
     """``dh`` if the CUDA kernel ``kernel`` (a key of ``_WIDTH_NAMES``) is
     compiled for that head width, else ValueError naming the widths it
-    takes: ``FWD_HEAD_DIMS`` for kernel 1, ``HEAD_DIM`` for the others.
-    Needs no CUDA."""
-    widths = FWD_HEAD_DIMS if kernel == "fused" else (HEAD_DIM,)
+    takes: ``FWD_HEAD_DIMS`` for kernel 1, ``BWD_HEAD_DIMS`` for the
+    backward, ``HEAD_DIM`` for the others.  Needs no CUDA."""
+    widths = {"fused": FWD_HEAD_DIMS, "backward": BWD_HEAD_DIMS}.get(
+        kernel, (HEAD_DIM,))
     if dh not in widths:
         which = ", ".join(map(str, widths))
         raise ValueError(f"{_WIDTH_NAMES[kernel]} is compiled for head "
@@ -465,17 +476,20 @@ def masked_attention_bwd_ref(qkv, bg, d_out, *, num_heads: int, scale: float,
         b, n, c3).to(dt)
 
 
-def bwd_design(dtype, n: int) -> str:
+def bwd_design(dtype, n: int, dh: int) -> str:
     """The CUDA backward design for qkv of ``dtype`` at sequence length
-    ``n``: "tensor-core" for bf16 (every N <= ``BWD_MAX_N``); for float32
-    "one-block" up to ``BWD_ONE_BLOCK_MAX_N`` and "two-kernel" past it.
-    Raises past ``BWD_MAX_N``."""
-    if n > BWD_MAX_N:
+    ``n`` and head width ``dh``: "tensor-core" for bf16; for float32
+    "one-block" up to ``BWD_ONE_BLOCK_MAX_N[dh]`` and "two-kernel" past it.
+    Raises past ``BWD_MAX_N[dh]`` or at a width the backward is not compiled
+    for."""
+    check_head_width("backward", dh)
+    if n > BWD_MAX_N[dh]:
         raise ValueError(f"the CUDA attention backward takes N <= "
-                         f"{BWD_MAX_N} (its shared memory), got {n}")
+                         f"{BWD_MAX_N[dh]} at head width {dh} (its shared "
+                         f"memory), got {n}")
     if dtype == torch.bfloat16:
         return _bwd_bf16_design
-    return "one-block" if n <= BWD_ONE_BLOCK_MAX_N else "two-kernel"
+    return "one-block" if n <= BWD_ONE_BLOCK_MAX_N[dh] else "two-kernel"
 
 
 def bwd_scratch_shape(design: str, b: int, heads: int, n: int):
@@ -489,12 +503,13 @@ def masked_attention_bwd(qkv, bg, d_out, *, num_heads: int, scale: float,
                          clamp_softmax: bool = False):
     """Same contract as ``masked_attention_bwd_ref``.  CPU tensors run the
     plain version; CUDA tensors launch the kernel (bf16 or float32 qkv and
-    d_out of one dtype, head width 64, N <= ``BWD_MAX_N``, bg float32 or
-    bf16) or raise.
+    d_out of one dtype, head width 64 or 80 (``BWD_HEAD_DIMS``), N <=
+    ``BWD_MAX_N[dh]``, bg float32 or bf16) or raise.
 
     The design follows ``bwd_design``: the tensor-core design for bf16; for
-    float32 the one-block design up to ``BWD_ONE_BLOCK_MAX_N`` and the
-    two-kernel design past it.  The tensor-core design needs qkv and d_out
+    float32 the one-block design up to ``BWD_ONE_BLOCK_MAX_N[dh]`` and the
+    two-kernel design past it (its dQ kernel on 32-row query tiles, or 16
+    where those do not fit).  The tensor-core design needs qkv and d_out
     16-byte aligned."""
     global bwd_launches
     kw = dict(num_heads=num_heads, scale=scale, mask_value=mask_value,
@@ -519,8 +534,7 @@ def masked_attention_bwd(qkv, bg, d_out, *, num_heads: int, scale: float,
         raise ValueError("qkv and d_out must be contiguous")
     b, n, c3 = qkv.shape
     dh = c3 // 3 // num_heads
-    check_head_width("backward", dh)
-    design = bwd_design(qkv.dtype, n)
+    design = bwd_design(qkv.dtype, n, dh)
     if design == "tensor-core" and (qkv.data_ptr() % 16
                                     or d_out.data_ptr() % 16):
         raise ValueError("the tensor-core attention backward needs qkv and "
@@ -545,11 +559,13 @@ def masked_attention_bwd(qkv, bg, d_out, *, num_heads: int, scale: float,
     if err:
         msg = lib.vitcam_cuda_error_string(err).decode()
         need = lib.vitcam_masked_attention_bwd_smem_bytes(
-            n, BWD_DESIGNS[design])
+            n, BWD_DESIGNS[design], dh)
         raise RuntimeError(
-            f"masked_attention_bwd kernel launch failed ({design} design): "
-            f"cudaError {err} ({msg}); shared memory needed {need} bytes")
+            f"masked_attention_bwd kernel launch failed ({design} design, "
+            f"head width {dh}): cudaError {err} ({msg}); shared memory "
+            f"needed {need} bytes")
     bwd_launches += 1
+    bwd_width_launches[dh] += 1
     return d_qkv
 
 
@@ -586,14 +602,18 @@ def fused_attention_diff(qkv, bg, *, num_heads: int, scale: float,
     thresholds and top-k indices alone.  On CUDA tensors both directions
     launch their kernels, on CPU tensors both run their plain versions.
 
-    On a CUDA tensor the backward kernel takes N <= ``BWD_MAX_N`` (the TPU
-    kernel: 640) and raises past it: nothing here leaves the kernels for
-    autograd through the plain version."""
-    if qkv.device.type == "cuda" and qkv.shape[1] > BWD_MAX_N:
-        raise ValueError(
-            f"fused_attention_diff: the CUDA backward kernel takes N <= "
-            f"{BWD_MAX_N}, got {qkv.shape[1]}; train this shape with "
-            f"attn_impl='eager'")
+    On a CUDA tensor the backward kernel takes head widths
+    ``BWD_HEAD_DIMS`` and N <= ``BWD_MAX_N[dh]`` (1564 at 64, 1520 at 80;
+    the TPU kernel: 640, past which the JAX package trains through XLA) and
+    raises past them before the forward runs: nothing here leaves the
+    kernels for autograd through the plain version."""
+    if qkv.device.type == "cuda":
+        dh = qkv.shape[-1] // 3 // num_heads
+        try:
+            bwd_design(qkv.dtype, qkv.shape[1], dh)
+        except ValueError as e:
+            raise ValueError(f"fused_attention_diff: {e}; train this shape "
+                             f"with attn_impl='eager'") from None
     return _FusedAttentionDiff.apply(qkv, bg, num_heads, scale, mask_value,
                                      clamp_softmax)
 

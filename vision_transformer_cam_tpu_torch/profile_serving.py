@@ -18,9 +18,9 @@ through).  ``--seq-parallel 1`` serves through the sequence-parallel
 forward on a mesh of this one rank (``parallel.apply_seq_parallel``: the
 "seq" attention kernel, no fusions, no int8 attention I/O).  The modes
 "train" and
-"train_eager" profile one training step instead (``--train_batch`` images,
-float32 masters with bf16 compute, remat on) on the kernel and the eager
-attention path.  It prints the card's name
+"train_eager" profile one training step of ``--model`` instead
+(``--train_batch`` images, float32 masters with bf16 compute, remat on) on
+the kernel and the eager attention path.  It prints the card's name
 and power limit (nvidia-smi), then for each mode the
 wall time per forward (host clock around synchronised forwards, after two
 warm-up forwards), then the device time per forward of each kernel group
@@ -120,10 +120,11 @@ def forward_fn(model, mode, x, mlp_fusion=False, attn_block_fusion=False,
     return step
 
 
-def train_step_fn(batch: int, impl: str, device=None):
-    """One training step (mixed precision: float32 masters, bf16 compute;
-    remat on; seeded batch) on the ``impl`` attention path, for
-    ``profile_mode``."""
+def train_step_fn(batch: int, impl: str, device=None, model_name="vit_base"):
+    """One training step of ``model_name`` (mixed precision: float32
+    masters, bf16 compute; remat on; the VOC head, no representation layer;
+    weights from seed 0 and a seeded batch) on the ``impl`` attention path,
+    for ``profile_mode``."""
     from vision_transformer_cam_tpu_torch import configs
     from vision_transformer_cam_tpu_torch.models.vit import ViTCAM
     from vision_transformer_cam_tpu_torch.train import state as statelib
@@ -131,7 +132,7 @@ def train_step_fn(batch: int, impl: str, device=None):
     from vision_transformer_cam_tpu_torch.utils import resolve_device
 
     device = resolve_device(device)
-    cfg = configs.vit_base_patch16_224_in21k(num_classes=20).replace(
+    cfg = configs.resolve_model(model_name)(num_classes=20).replace(
         representation_size=None, dtype=torch.bfloat16, attn_impl=impl)
     model = ViTCAM(cfg, device=device,
                    generator=torch.Generator().manual_seed(0))
@@ -199,7 +200,8 @@ def main(argv=None) -> int:
                     help="serve with cfg.attn_block_fusion (the "
                          "whole-sub-block attention kernel)")
     ap.add_argument("--model", default="vit_base",
-                    help="zoo name of the served model (serving modes)")
+                    help="zoo name of the served (or, train modes, "
+                         "trained) model")
     ap.add_argument("--seq-parallel", type=int, default=0, choices=[0, 1],
                     help="1: serve through the sequence-parallel forward on "
                          "a mesh of this one rank")
@@ -221,7 +223,8 @@ def main(argv=None) -> int:
     result, tables = {}, []
     for mode in args.modes:
         step = train_step_fn(
-            args.train_batch, "eager" if mode == "train_eager" else "kernel") \
+            args.train_batch, "eager" if mode == "train_eager" else "kernel",
+            model_name=args.model) \
             if mode.startswith("train") else forward_fn(
                 models[mode], mode, x, args.mlp_fusion,
                 args.attn_block_fusion, args.seq_parallel)
