@@ -219,6 +219,23 @@ Phases (any failure raises, and the exit code is non-zero):
      eager path (loss and every gradient, TRAIN_TOL); training img/s of
      both paths in turns with a step's peak memory; bench.main --train
      --mixed --model at batch 64 / 16, its launch counts held.
+ 21. data parallelism on one card (run after phase 10): two gloo ranks
+     share the card through ``parallel.worker`` (NCCL refuses two ranks on
+     one device; CUDA tensors are staged through host memory), ViT-B/16 at
+     full width on the kernel path.  A float32 DP step at global batch 8 (4
+     a rank) against the one-rank step in this process, loss and every
+     parameter's change within TRAIN_TOL (AdamW with eps 1, lr 1 and no
+     decay, so that a first step's change is -g / (|g| + 1) and the
+     gradient tolerance holds); a ZeRO-1 step and two accumulation steps
+     under DP against the DP step, each rank's moment bytes against the
+     unsharded ones; five mixed-precision DP steps at global batch 64
+     (float32 masters, bf16 compute, remat) with the parameters' digests
+     bit-equal on both ranks after every step and each rank's launches a
+     step held (24 kernel-1, 12 backward); the img/s of the two ranks
+     sharing the card beside one rank alone, in turns (no scaling
+     figure); ``cli.validate --data_parallel`` on two ranks (ViT-B/16, a
+     faked VOC tree of 11 images, batch 4, bf16 and int8) against the
+     one-rank run: the PNGs byte for byte, mAP and mIoU equal.
 Nothing of the earlier phases was reduced.  It prints one JSON line
 describing the kernels (with each one's bound from the shapes it was timed
 at, and the library call's time where one PyTorch call computes the same
@@ -3593,6 +3610,276 @@ def validate_path(n_images=12, batch=4):
     return counts
 
 
+DP_WORLD = 2
+DP_STEPS, DP_TIMED = 5, 3
+
+
+def _dp_validate_rank(argv):
+    """One rank of ``cli.validate --data_parallel`` (spawned by
+    ``parallel.worker.launch``): its scores and its kernel launches."""
+    from vision_transformer_cam_tpu_torch.cli import validate as vcli
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    reset_counts()
+    res = vcli.main(argv)
+    torch.cuda.synchronize()
+    return res, read_counts()
+
+
+def _dp_time_in_turns(state, mesh, local, full, iters):
+    """img/s of the data-parallel step (every rank, its rows ``local``) and
+    of one rank alone on the whole global batch ``full`` (data rank 0, no
+    mesh, the other waiting), in turns: dp, one, one, dp; and the gradient
+    all-reduce of one step alone, on gradient-sized tensors."""
+    import torch.distributed as dist
+    from vision_transformer_cam_tpu_torch.parallel import mesh as meshlib
+    from vision_transformer_cam_tpu_torch.train.step import (average_grads,
+                                                             train_step)
+    rates = {"dp": [], "one": []}
+
+    def sync():
+        torch.cuda.synchronize()
+        dist.barrier()
+
+    def steps(kind, n):
+        nonlocal state
+        if kind == "dp":
+            with meshlib.set_mesh(mesh):
+                for _ in range(n):
+                    state, _ = train_step(state, *local)
+        elif mesh.data_rank == 0:
+            for _ in range(n):
+                state, _ = train_step(state, *full)
+    steps("dp", 1)      # one warm step of each kind first
+    steps("one", 1)
+    for kind in ("dp", "one", "one", "dp"):
+        sync()
+        t0 = time.perf_counter()
+        steps(kind, iters)
+        sync()
+        rates[kind].append(full[0].shape[0] * iters
+                           / (time.perf_counter() - t0))
+    grads = [torch.zeros_like(p) for p in state.model.parameters()]
+    average_grads(grads, mesh)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        average_grads(grads, mesh)
+    sync()
+    rates["allreduce_ms"] = 1e3 * (time.perf_counter() - t0) / iters
+    return rates
+
+
+def _dp_train_rank(workdir, batch32, batch):
+    """One training rank of phase 21 (spawned by ``parallel.worker.launch``),
+    every run from the weights in ``workdir``: the float32 DP step, the
+    ZeRO-1 step and accumulation 2 on the float32 batch, then DP_STEPS
+    mixed-precision steps and their img/s in turns.  Returns each run's
+    result (``scripts.dryrun_multichip.train_steps``), with the final
+    parameters of the float32 runs on data rank 0."""
+    from vision_transformer_cam_tpu_torch.parallel import mesh as meshlib
+    from vision_transformer_cam_tpu_torch.scripts.dryrun_multichip import (
+        train_steps)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    meshlib.distributed_init("cuda")
+    mesh = meshlib.make_mesh((-1,), ("data",))
+    d = torch.load(os.path.join(workdir, "dp_inputs.pt"), weights_only=False)
+    out = {"transport": mesh.transport("cuda")}
+    for name, kw in (("f32", {}), ("zero1", dict(zero1=True)),
+                     ("accum2", dict(accum_steps=2))):
+        state, res = train_steps(d["cfg"], d["before"], d["f32"], mesh,
+                                 optim=d["optim"], global_batch=batch32,
+                                 device="cuda", **kw)
+        if mesh.data_rank == 0:
+            res["state"] = {k: v.detach().cpu()
+                            for k, v in state.model.state_dict().items()}
+        out[name] = res
+        del state
+        gc_cuda()
+    state, res = train_steps(
+        d["cfg"].replace(dtype=torch.bfloat16, remat=True), d["before"],
+        d["mixed"], mesh, optim=d["mixed_optim"], global_batch=batch,
+        device="cuda")
+    full = tuple(t.cuda() for t in d["mixed"][0])
+    res["img_per_s"] = _dp_time_in_turns(
+        state, mesh, tuple(meshlib.shard_batch(mesh, t) for t in full),
+        full, DP_TIMED)
+    out["mixed"] = res
+    return out
+
+
+def dp_path(batch32=8, batch=64, n_images=11, val_batch=4):
+    """Phase 21, data parallelism on one card: two gloo ranks share the card
+    (NCCL refuses two ranks on one device; CUDA tensors are staged through
+    host memory), ViT-B/16 at full width on the kernel path.  For
+    correctness: the img/s of two ranks sharing one card is no scaling
+    figure.  Returns the ranks' launch counts."""
+    import tempfile
+
+    from vision_transformer_cam_tpu_torch import configs
+    from vision_transformer_cam_tpu_torch.parallel.worker import launch
+    from vision_transformer_cam_tpu_torch.scripts.dryrun_multichip import (
+        OPTIM, delta_excess)
+    from vision_transformer_cam_tpu_torch.train import state as statelib
+    from vision_transformer_cam_tpu_torch.train import step as steplib
+    t_phase = time.perf_counter()
+    gc_cuda()
+    # the float32 reference: one rank on the card, in this process.  AdamW
+    # with eps 1, lr 1 and no decay makes the first step's change -g / (|g|
+    # + 1), so TRAIN_TOL on the changes holds the gradients to it
+    optim = configs.OptimConfig(**OPTIM)
+    model = train_model("kernel", dtype=torch.float32, remat=False)
+    cfg32 = model.cfg
+    before = {k: v.detach().cpu().clone()
+              for k, v in model.state_dict().items()}
+    b32 = seeded_batch(batch32, 31)
+    x32, y32 = torch.from_numpy(b32["image"]), torch.from_numpy(b32["label"])
+    opt, _ = statelib.make_optimizer(model, optim, batch32, 100)
+    state = statelib.create_train_state(model, opt)
+    state, m = steplib.train_step(state, x32.cuda(), y32.cuda())
+    one = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    one_loss = float(m["loss"])
+    del model, opt, state
+    gc_cuda()
+
+    # the ranks' inputs; the mixed-precision steps take train_path's
+    # optimizer
+    inputs = dict(
+        cfg=cfg32, before=before, optim=optim, f32=[(x32, y32)],
+        mixed=[tuple(torch.from_numpy(b[k]) for k in ("image", "label"))
+               for b in (seeded_batch(batch, 40 + i)
+                         for i in range(DP_STEPS))],
+        mixed_optim=configs.OptimConfig(lr=1e-4, warmup_epochs=0, epochs=10,
+                                        linear_lr_scaling=False,
+                                        clip_grad=1.0))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        torch.save(inputs, os.path.join(workdir, "dp_inputs.pt"))
+        del inputs
+        ranks = launch(_dp_train_rank, (workdir, batch32, batch),
+                       world=DP_WORLD, timeout=600)
+    say(f"dp path: {DP_WORLD} training ranks on one card, transport "
+        f"{ranks[0]['transport']}, {time.perf_counter() - t0:.1f} s with the "
+        "processes' start")
+    fails = []
+    for name in ("f32", "zero1", "accum2", "mixed"):
+        same = all(r[name]["digests"] == ranks[0][name]["digests"]
+                   and [x["loss"] for x in r[name]["metrics"]]
+                   == [x["loss"] for x in ranks[0][name]["metrics"]]
+                   for r in ranks)
+        say(f"dp path {name}: parameters bit for bit equal on every rank "
+            f"after each of {len(ranks[0][name]['digests'])} step(s): "
+            f"{same}; losses "
+            + ", ".join(f"{x['loss']:.6f}" for x in ranks[0][name]["metrics"]))
+        if not same:
+            fails.append(f"{name}: the ranks differ")
+
+    # float32: the two ranks' step against the one-rank step
+    atol, rtol = TRAIN_TOL["grad"]
+    d_loss = abs(ranks[0]["f32"]["metrics"][0]["loss"] - one_loss)
+    worst, bad = delta_excess(ranks[0]["f32"]["state"], one, before,
+                              (atol, rtol))
+    say(f"dp path f32 (B={batch32}, {batch32 // DP_WORLD} a rank) vs one "
+        f"rank: loss {d_loss:.3e} (tol {TRAIN_TOL['loss']}), parameter "
+        f"changes max abs dev {worst:.3e} (atol {atol}, rtol {rtol})")
+    if d_loss > TRAIN_TOL["loss"] or bad:
+        fails.append(f"f32 dp step vs one rank: loss {d_loss}, {bad}")
+    for name in ("zero1", "accum2"):
+        worst, bad = delta_excess(ranks[0][name]["state"],
+                                  ranks[0]["f32"]["state"], before,
+                                  (atol, rtol))
+        d = abs(ranks[0][name]["metrics"][0]["loss"]
+                - ranks[0]["f32"]["metrics"][0]["loss"])
+        say(f"dp path {name} vs the dp step: parameter changes max abs dev "
+            f"{worst:.3e}, loss {d:.3e}")
+        if bad or d > TRAIN_TOL["loss"]:
+            fails.append(f"{name} vs the dp step: loss {d}, {bad}")
+    full = ranks[0]["f32"]["moment_bytes"]
+    say("dp path zero1: moment bytes a rank "
+        + ", ".join(str(r["zero1"]["moment_bytes"]) for r in ranks)
+        + f" against {full} unsharded")
+    if sum(r["zero1"]["moment_bytes"] for r in ranks) != full:
+        fails.append("zero1 moments are not a partition")
+
+    # mixed precision: launches, losses, img/s in turns
+    depth = cfg32.depth
+    train_row = "masked_attention_fused[bf16 plain, training]"
+    counts = {train_row: 0, "masked_attention_bwd": 0}
+    for rank, r in enumerate(ranks):
+        steps = r["mixed"]["launches"]
+        say(f"dp path mixed, rank {rank}: launches in one step: kernel 1 "
+            f"{steps[0]['masked_attention_fused']} (expected {2 * depth}), "
+            f"backward {steps[0]['masked_attention_bwd']} (expected {depth})")
+        for st in steps:
+            counts[train_row] += st["masked_attention_fused"]
+            counts["masked_attention_bwd"] += st["masked_attention_bwd"]
+            if (st["masked_attention_fused"], st["masked_attention_bwd"]) \
+                    != (2 * depth, depth):
+                fails.append(f"mixed rank {rank}: launches {st}")
+        if not all(np.isfinite(x["loss"]) for x in r["mixed"]["metrics"]):
+            fails.append(f"mixed rank {rank}: loss not finite")
+    rates = ranks[0]["mixed"]["img_per_s"]
+    say(f"dp path img/s, ViT-B/16 mixed precision, remat, global batch "
+        f"{batch}, {DP_TIMED} steps a reading, in turns (dp, one, one, "
+        f"dp): two ranks sharing one card {np.mean(rates['dp']):.1f} "
+        f"({rates['dp'][0]:.1f}, {rates['dp'][1]:.1f}); one rank alone on "
+        f"the whole batch {np.mean(rates['one']):.1f} ({rates['one'][0]:.1f}"
+        f", {rates['one'][1]:.1f}); the gradient all-reduce alone "
+        f"{rates['allreduce_ms']:.1f} ms a step; NOT a scaling figure: both "
+        f"ranks share the card, and gloo stages every all-reduce through "
+        f"host memory")
+
+    # cli.validate --data_parallel against the one-rank run
+    with tempfile.TemporaryDirectory() as root:
+        split, names = fake_voc_tree(root, n_images)
+        for mode in ("bf16", "int8"):
+            argv = ["--model_name", "vit_base_patch16_224_in21k",
+                    "--dataset_path", root, "--val_img_name_path", split,
+                    "--batch_size", str(val_batch), "--serving", mode]
+            dirs = {k: os.path.join(root, f"{mode}_{k}")
+                    for k in ("one", "dp")}
+            cwd = os.getcwd()
+            os.chdir(root)
+            try:
+                want, one_counts = _dp_validate_rank(
+                    argv + ["--seg_pred_dir", dirs["one"]])
+            finally:
+                os.chdir(cwd)
+            t0 = time.perf_counter()
+            got = launch(_dp_validate_rank,
+                         (argv + ["--seg_pred_dir", dirs["dp"],
+                                  "--data_parallel"],),
+                         world=DP_WORLD, timeout=400, cwd=root)
+            png = {k: [open(os.path.join(d, f"{n}.png"), "rb").read()
+                       for n in names] for k, d in dirs.items()}
+            same = png["one"] == png["dp"]
+            scores = all(r[k] == want[k] for r, _ in got
+                         for k in ("mAP", "mIoU", "n_images"))
+            for rank, (_, c) in enumerate(got):
+                for k, v in c.items():
+                    counts[k] = counts.get(k, 0) + v
+                say(f"dp path validate {mode}, rank {rank}: launches "
+                    f"{ {k: v for k, v in c.items() if v} }")
+            say(f"dp path validate {mode}, {DP_WORLD} ranks "
+                f"({time.perf_counter() - t0:.1f} s) vs one rank: "
+                f"{n_images} PNGs byte for byte equal: {same}; mAP "
+                f"{got[0][0]['mAP']:.6f} vs {want['mAP']:.6f}, mIoU "
+                f"{got[0][0]['mIoU']:.4f} vs {want['mIoU']:.4f}; one-rank "
+                f"launches { {k: v for k, v in one_counts.items() if v} }")
+            if not (same and scores):
+                fails.append(f"validate {mode}: PNGs equal {same}, scores "
+                             f"equal {scores}")
+            if not got[0][1]["masked_attention_fused"] or (
+                    mode == "int8" and not got[0][1]["linear_int8_fused"]):
+                fails.append(f"validate {mode}: the ranks launched no "
+                             "kernel")
+    say(f"dp path: {time.perf_counter() - t_phase:.1f} s")
+    if fails:
+        raise AssertionError("dp path: " + "; ".join(fails))
+    return counts
+
+
 def v1_inputs(b, n, heads, dtype, seed, bg_kind="30%"):
     """Split q, k, v [B, H, N, 64] with hot query rows 1-3 (logits of order
     1e2) and a background of the given kind; the cls column may be
@@ -4697,6 +4984,9 @@ def main() -> int:
     launches["masked_attention_seq_local"] = \
         seq_path()["masked_attention_seq_local"]
     validate_path()
+    # phase 21, data parallelism: two ranks sharing the card; their launches
+    for name, count in dp_path().items():
+        launches[name] = launches.get(name, 0) + count
     # the measurement entry points: the launch counts of every run are set to
     # 0 before it and read after it
     variant_ms, variant_launches, _, _ = time_attn_variants()

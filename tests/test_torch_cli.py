@@ -97,23 +97,35 @@ def test_dataset_copy_matches_jax_package(voc_tree, seg):
 
 @pytest.mark.parametrize("procs", [1, 3])
 def test_loader_copy_matches_jax_package(voc_tree, procs):
-    """Same batches, shuffling, striping and pad marks as the JAX package's
-    loader."""
+    """Same batches and shuffling as the JAX package's loader.  Over several
+    processes each takes its rows of every batch of the JAX loader at the
+    global batch (the port's ranks stand for the devices of JAX's one-host
+    data mesh, which split each global batch), a partial last batch padded
+    with its own last sample and marked is_pad."""
     split = str(voc_tree / "split.txt")
     ds = tvoc.VOC12Dataset(split, str(voc_tree), img_size=32)
+    kw = dict(shuffle=True, drop_last=False, seed=3, num_threads=2)
+    want = jloader.BatchLoader(ds, 2 * procs, **kw)
+    want.set_epoch(1)
+    want = list(want)
+    ranks = []
     for index in range(procs):
-        kw = dict(shuffle=True, drop_last=False, seed=3, num_threads=2,
-                  process_index=index, process_count=procs)
-        got, want = tloader.BatchLoader(ds, 2, **kw), \
-            jloader.BatchLoader(ds, 2, **kw)
+        got = tloader.BatchLoader(ds, 2, process_index=index,
+                                  process_count=procs, **kw)
         got.set_epoch(1)
-        want.set_epoch(1)
         assert len(got) == len(want)
-        for a, b in zip(got, want, strict=True):
-            assert a["name"] == b["name"]
-            assert set(a) == set(b) and ("is_pad" in a) == (procs > 1)
-            for k in set(a) - {"name"}:
-                np.testing.assert_array_equal(a[k], b[k])
+        ranks.append(list(got))
+    for b, w in enumerate(want):
+        parts = [r[b] for r in ranks]
+        assert all(("is_pad" in p) == (procs > 1) for p in parts)
+        names = [n for p in parts for n in p["name"]]
+        pad = np.concatenate([p["is_pad"] for p in parts]) if procs > 1 \
+            else np.zeros(len(names), bool)
+        assert [n for n, x in zip(names, pad) if not x] == w["name"]
+        assert all(n == w["name"][-1] for n, x in zip(names, pad) if x)
+        for k in set(w) - {"name"}:
+            np.testing.assert_array_equal(
+                np.concatenate([p[k] for p in parts])[~pad], w[k])
 
 
 def test_device_prefetch_moves_image_and_label(voc_tree):
@@ -187,13 +199,18 @@ def test_train_cli_runs_on_the_card_by_default(voc_tree, tiny_zoo):
         tcli.main(_cli_args(voc_tree, tiny_zoo))
 
 
-@pytest.mark.parametrize("flags", [("--zero1",), ("--pipeline", "2"),
+@pytest.mark.parametrize("flags", [("--mesh_shape", "1,2"),
+                                   ("--pipeline", "2"),
                                    ("--seq_parallel", "2"),
-                                   ("--mesh_shape", "2"),
+                                   ("--mesh_shape", "2,1"),
                                    ("--mesh_shape", "2,2"),
                                    ("--pp_microbatches", "2")])
 def test_train_cli_refuses_unported_options(voc_tree, tiny_zoo, flags):
-    with pytest.raises(NotImplementedError):
+    """Tensor parallelism (a second mesh axis), the pipeline and
+    sequence-parallel training stay refused (ROADMAP Queue 1 item 10, its
+    second half); --mesh_shape N and --zero1 are ported
+    (tests/test_torch_data_parallel_cli.py)."""
+    with pytest.raises(NotImplementedError, match="item 10"):
         tcli.main(_cli_args(voc_tree, tiny_zoo, "--device", "cpu", *flags))
 
 
@@ -358,11 +375,17 @@ def test_validate_cli_native_decode_and_palette_json(voc_tree, tmp_path,
 
 
 def test_validate_cli_device_and_unported_options(voc_tree, tmp_path,
-                                                  val_zoo):
+                                                  val_zoo, monkeypatch):
     zoo, weights = val_zoo
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tvcli.main(_val_args(voc_tree, zoo, weights, tmp_path / "t",
-                             "--device", "cpu", "--data_parallel"))
+    # --data_parallel on one process: the one-rank data mesh, the same run
+    monkeypatch.chdir(tmp_path)
+    dp = tvcli.main(_val_args(voc_tree, zoo, weights, tmp_path / "d",
+                              "--device", "cpu", "--data_parallel"))
+    one = tvcli.main(_val_args(voc_tree, zoo, weights, tmp_path / "o",
+                               "--device", "cpu"))
+    assert {k: dp[k] for k in ("mAP", "mIoU", "n_images")} == \
+        {k: one[k] for k in ("mAP", "mIoU", "n_images")}
+    assert _png_bytes(tmp_path / "d") == _png_bytes(tmp_path / "o")
     with pytest.raises(ValueError, match="does not divide"):
         tvcli.main(_val_args(voc_tree, zoo, weights, tmp_path / "t",
                              "--device", "cpu", "--seq_parallel", "2"))

@@ -459,9 +459,12 @@ def test_fusion_knobs_raise_under_seq_axis(knob):
 
 
 def test_data_axis_alone_and_training_still_raise():
-    with pytest.raises(NotImplementedError, match="data_axis"):
-        tvit.ViTCAM(tcfgs.ViTCAMConfig(**TINY, data_axis="data"),
-                    device="cpu")
+    """cfg.data_axis alone (data parallelism) needs an ambient mesh, as
+    seq_axis does; sequence-parallel training stays refused."""
+    alone = tvit.ViTCAM(tcfgs.ViTCAMConfig(**TINY, data_axis="data"),
+                        device="cpu")
+    with pytest.raises(ValueError, match="data_axis"):
+        alone(torch.zeros(1, 32, 32, 3))
     model = tvit.ViTCAM(tcfgs.ViTCAMConfig(**TINY, data_axis="data",
                                            seq_axis="seq"), device="cpu")
     x = torch.zeros(1, 32, 32, 3)

@@ -658,18 +658,24 @@ def test_load_weights_pretrain_head_surgery(tmp_path):
                    fromlist=["x"]).PRETRAIN_DEL_KEYS
 
 
-@pytest.mark.parametrize("knob", [dict(zero1=True), dict(pipeline=2),
+@pytest.mark.parametrize("knob", [dict(mesh_shape=(-1, 2),
+                                       mesh_axes=("data", "seq")),
+                                  dict(pipeline=2),
                                   dict(pp_microbatches=4),
-                                  dict(mesh_shape=(2,)),
+                                  dict(mesh_shape=(1, 2),
+                                       mesh_axes=("data", "model")),
                                   dict(mesh_shape=(-1, 2),
                                        mesh_axes=("data", "model"))])
 def test_unported_train_knobs_raise(knob):
+    """Tensor-parallel, pipeline and sequence-parallel training stay
+    refused; the ('data',) mesh and ZeRO-1 are ported."""
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         tloop.check_supported(tcfgs.TrainConfig(**knob))
     with pytest.raises(NotImplementedError):
         tloop.fit(tcfgs.ViTCAMConfig(**TINY), tcfgs.TrainConfig(**knob),
                   tcfgs.DataConfig(), tcfgs.DataConfig(), device="cpu")
     tloop.check_supported(tcfgs.TrainConfig(mesh_shape=(1,)))
+    tloop.check_supported(tcfgs.TrainConfig(mesh_shape=(2,), zero1=True))
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "ViTCAM", "fit"])

@@ -200,11 +200,12 @@ def test_config_mirrors_jax_config():
         tcfgs.resolve_model("vit_typo")
 
 
-@pytest.mark.parametrize("knob", [dict(data_axis="data"),
+@pytest.mark.parametrize("knob", [dict(attn_q_block=64),
                                   dict(matmul_precision="bfloat16")])
 def test_unported_knobs_raise(knob):
-    """Data parallelism is not ported; a matmul precision the card has no
-    mode for is refused by name.  No tuning knob is left unported."""
+    """A query tile or a matmul precision the card has no mode for is
+    refused by name.  No tuning knob is left unported (``data_axis`` is
+    data parallelism, ported: tests/test_torch_data_parallel_cli.py)."""
     with pytest.raises((NotImplementedError, ValueError)) as err:
         tvit.ViTCAM(tcfgs.ViTCAMConfig(**TINY, **knob), device="cpu")
     assert list(knob)[0] in str(err.value)
@@ -333,7 +334,7 @@ def test_port_imports_no_jax():
                  "cli.predict", "cli.tools", "data.generic",
                  "scripts.e2e_bench", "examples", "examples.quickstart",
                  "kernels.ops", "cli.export", "examples.serve_artifact",
-                 "scripts.w80_variants"):
+                 "scripts.w80_variants", "scripts.dryrun_multichip"):
         assert "vision_transformer_cam_tpu_torch." + name in mods
     for root, _, files in os.walk(pkg):
         for f in files:

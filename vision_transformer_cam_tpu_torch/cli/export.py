@@ -23,9 +23,10 @@ under, a process global no graph records, which the server sets before it
 calls the program.  The batch is static.  The program's tensors live on
 the device it was exported on (``--device``; ``--platform`` must name the
 same), so export on the platform you deploy to.  ``--data_parallel`` and
-``--seq_parallel`` are refused: the port has no data parallelism yet
-(ROADMAP Queue 1 item 10), and its sequence-parallel forward runs
-``torch.distributed`` collectives that an exported program cannot hold.
+``--seq_parallel`` are refused: a batch-sharded exported program is not
+ported yet (ROADMAP Queue 1 item 10, its second half; the port's data and
+sequence parallelism run ``torch.distributed`` collectives that an exported
+program cannot hold).
 """
 
 from __future__ import annotations
@@ -69,7 +70,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(auto = the fused CUDA kernel on the card, eager "
                         "on the CPU)")
     p.add_argument("--data_parallel", action="store_true",
-                   help="not ported: refused (ROADMAP Queue 1 item 10)")
+                   help="not ported: refused (ROADMAP Queue 1 item 10, "
+                        "its second half)")
     p.add_argument("--seq_parallel", type=int, default=0, metavar="N",
                    help="not exportable: refused (the sequence-parallel "
                         "forward's collectives cannot be held by an "
@@ -93,8 +95,9 @@ def build_fn(args, **overrides):
     ``overrides`` are config fields set last (the serving fusions, for
     example); they are no flag of the JAX CLI."""
     if args.data_parallel:
-        raise SystemExit("--data_parallel: data parallelism is not ported "
-                         "yet (ROADMAP Queue 1 item 10)")
+        raise SystemExit("--data_parallel: a batch-sharded exported "
+                         "program is not ported yet (ROADMAP Queue 1 item "
+                         "10, its second half)")
     if args.seq_parallel:
         raise SystemExit(
             f"--seq_parallel {args.seq_parallel}: the sequence-parallel "

@@ -1,17 +1,29 @@
-"""Fine-tune entry on one device (the port of
-vision_transformer_cam_tpu/cli/train.py).
+"""Fine-tune entry (the port of vision_transformer_cam_tpu/cli/train.py).
 
 The same hyperparameter surface as the reference argparse (timm-style names),
 driving the loop in train/loop.py.  ``--freeze_layers`` and the lr scaling
 lr * batch / 512 behave as the reference's; ``--syncBN`` is accepted and
 ignored (the model has no BN).  ``--device`` is honoured: the card by
-default, the CPU on request.  The sharding options of the JAX CLI are parsed
-and refused as unported.
+default, the CPU on request.
+
+Data parallelism, the reference's DDP: one process per card under a launcher
+that sets the ``torch.distributed`` environment, e.g.
+
+    torchrun --nproc_per_node N -m vision_transformer_cam_tpu_torch.cli.train \
+        --mesh_shape N [--zero1] ...
+
+``--batch_size`` is the global batch (each rank loads batch / N of it) and
+scales the lr as in JAX; ``--zero1`` shards the AdamW moments over the
+ranks.  NCCL carries the collectives when each rank has a card of its own,
+gloo otherwise (ranks that share one card, for correctness runs only).
+Tensor-parallel meshes (``--mesh_shape d,m``), ``--seq_parallel``,
+``--pipeline`` and ``--pp_microbatches`` are refused as unported.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 import torch
 
@@ -57,8 +69,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log_dir", type=str, default=".")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--mesh_shape", type=str, default="-1",
-                   help="'-1' or '1': one device (sharded meshes are not "
-                        "ported yet)")
+                   help="the ('data',) mesh over the launched ranks: '-1' "
+                        "(all of them) or their count; a second axis "
+                        "(tensor parallelism) is not ported yet")
     p.add_argument("--native_decode", action="store_true",
                    help="the C++ batched JPEG pipeline (PIL where the "
                         "library is unavailable)")
@@ -68,9 +81,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="microbatches per optimizer step (use when the "
                         "effective batch exceeds the card's memory)")
     p.add_argument("--zero1", action="store_true",
-                   help="ZeRO-1 optimizer-state sharding (not ported yet)")
+                   help="ZeRO-1: shard the AdamW moments over the data "
+                        "ranks")
     p.add_argument("--seq_parallel", type=int, default=0,
-                   help="token-axis sharding (not ported yet)")
+                   help="token-axis sharding in training (not ported yet)")
     p.add_argument("--pipeline", type=int, default=0,
                    help="pipeline parallelism (not ported yet)")
     p.add_argument("--pp_microbatches", type=int, default=0,
@@ -78,12 +92,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="'cuda' (default) or 'cpu'")
     p.add_argument("--local_rank", type=int, default=0,
-                   help="accepted for parity; one process runs one device")
+                   help="this process's card on its host, as the legacy "
+                        "torch.distributed.launch passes it (torchrun sets "
+                        "LOCAL_RANK instead)")
     return p
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.local_rank and "LOCAL_RANK" not in os.environ:
+        os.environ["LOCAL_RANK"] = str(args.local_rank)
     device = resolve_device(args.device)
     model_cfg = configs.resolve_model(args.model_name)(
         num_classes=args.num_classes)
@@ -91,8 +109,9 @@ def main(argv=None):
         model_cfg = model_cfg.replace(representation_size=None)
 
     if args.seq_parallel:
-        raise NotImplementedError("--seq_parallel is not ported yet (ROADMAP "
-                                  "Queue 1 item 10)")
+        raise NotImplementedError(
+            "--seq_parallel (sequence-parallel training) is not ported yet "
+            "(ROADMAP Queue 1 item 10, its second half)")
     optim = configs.OptimConfig(
         opt=args.opt, lr=args.lr, opt_eps=args.opt_eps,
         weight_decay=args.weight_decay, sched=args.sched,
@@ -101,10 +120,15 @@ def main(argv=None):
         decay_epochs=args.decay_epochs, decay_rate=args.decay_rate,
         cooldown_epochs=args.cooldown_epochs, clip_grad=args.clip_grad)
     mesh_shape = tuple(int(s) for s in args.mesh_shape.split(","))
+    # the JAX CLI's axes: ('data',), ('data', 'model'), or ax0, ax1, ...
+    mesh_axes = ("data", "model")[:len(mesh_shape)] \
+        if len(mesh_shape) <= 2 \
+        else tuple(f"ax{i}" for i in range(len(mesh_shape)))
     train_cfg = configs.TrainConfig(
         optim=optim, batch_size=args.batch_size, seed=args.seed,
         freeze_backbone=args.freeze_layers, ckpt_dir=args.ckpt_dir,
-        mesh_shape=mesh_shape, grad_accum=args.grad_accum, zero1=args.zero1,
+        mesh_shape=mesh_shape, mesh_axes=mesh_axes,
+        grad_accum=args.grad_accum, zero1=args.zero1,
         pipeline=args.pipeline, pp_microbatches=args.pp_microbatches)
     looplib.check_supported(train_cfg)
     dc = dict(voc12_root=args.dataset_path,

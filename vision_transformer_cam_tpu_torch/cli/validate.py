@@ -11,9 +11,17 @@ defaults.  ``--device`` is honoured: the card by default, the CPU on request.
 ``--seq_parallel N`` shards the token axis over N ranks of the process group
 that the standard ``torch.distributed`` environment describes (``RANK``,
 ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``, as ``torchrun`` sets them);
-without that environment the group is this one rank.  The world / N sequence
-groups take stripes of the split; rank 0 of each group writes its PNGs and
-scores its images, and the scores are merged over the groups at the end.
+without that environment the group is this one rank; rank 0 of each
+sequence group writes its PNGs.  ``--data_parallel`` alone runs the
+('data',) mesh over the ranks of that group, each rank a writer.
+
+On either mesh ``--batch_size`` is the global batch: the world / N data
+groups (N = 1 under ``--data_parallel``) each run their rows of every batch
+of the one-rank run, the labels and head probabilities of each batch are
+gathered over the data group for the mAP, and the writers' confusion
+matrices are summed at the end, so the scores and the PNGs are those of a
+one-rank run (with ``--batch_global_mask_norm`` too: the mask max is taken
+over the data group, as JAX's over the batch sharded on 'data').
 """
 
 from __future__ import annotations
@@ -70,7 +78,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="auto = fused CUDA kernel on the card, eager on the "
                         "CPU")
     p.add_argument("--data_parallel", action="store_true",
-                   help="shard each batch over all devices (not ported yet)")
+                   help="shard each batch over the ranks of the "
+                        "torch.distributed process group (one rank per "
+                        "card; --batch_size is the global batch)")
     p.add_argument("--seq_parallel", type=int, default=0, metavar="N",
                    help="shard the TOKEN axis over N ranks of the "
                         "torch.distributed process group (sequence "
@@ -106,10 +116,6 @@ def build_parser() -> argparse.ArgumentParser:
 def val(args) -> dict:
     from vision_transformer_cam_tpu_torch.parallel import mesh as pmesh
     device = resolve_device(args.device)
-    if args.data_parallel and not args.seq_parallel:
-        raise NotImplementedError(
-            "--data_parallel (batch sharding over several cards) is not "
-            "ported yet (ROADMAP Queue 1 item 10)")
     os.makedirs(args.seg_pred_dir, exist_ok=True)
     palette = load_palette_json(args.palette_json) if args.palette_json \
         else None
@@ -141,9 +147,18 @@ def val(args) -> dict:
         print(f"sequence parallelism: mesh {mesh.shape}, this rank at "
               f"(data {mesh.data_rank}, seq {mesh.seq_rank}); collectives: "
               f"{mesh.transport(device)}", flush=True)
+    elif args.data_parallel:
+        pmesh.distributed_init(device)
+        mesh = pmesh.make_mesh((-1,), ("data",))
+        print(f"data parallelism: {mesh.data_size} rank(s), this rank "
+              f"{mesh.data_rank}; collectives: {mesh.transport(device)}",
+              flush=True)
     n_groups = mesh.data_size if mesh else 1
     group_idx = mesh.data_rank if mesh else 0
     writer = mesh is None or mesh.seq_rank == 0
+    if args.batch_size % n_groups:
+        raise ValueError(f"--batch_size {args.batch_size} (the global batch) "
+                         f"is not divisible by the {n_groups} data group(s)")
 
     ds = VOC12Dataset(args.val_img_name_path, args.dataset_path,
                       cls_labels_path=args.cls_labels_path or None,
@@ -152,8 +167,8 @@ def val(args) -> dict:
     # reference-parity pixel pipeline the uint8-identical pseudo-seg claim
     # rests on; the C++ batched decode is pinned to it only within ~2 uint8
     # quanta, which can flip argmax ties in the exported PNGs.
-    loader = BatchLoader(ds, args.batch_size, shuffle=False, drop_last=False,
-                         native_decode=args.native_decode,
+    loader = BatchLoader(ds, args.batch_size // n_groups, shuffle=False,
+                         drop_last=False, native_decode=args.native_decode,
                          process_index=group_idx, process_count=n_groups)
 
     if args.serving != "off":
@@ -168,7 +183,7 @@ def val(args) -> dict:
         # the mode's attention path resolves like --attn_impl auto; an
         # explicit --attn_impl wins
         model.cfg = model.cfg.replace(attn_impl=impl)
-    if mesh is not None:
+    if args.seq_parallel:
         model.cfg = pmesh.apply_seq_parallel(model.cfg)
 
     if args.ori_cam_path and writer:
@@ -196,15 +211,21 @@ def _val_loop(args, loader_iter, model, pcfg, mesh, palette, ds, writer):
     for batch in loader_iter:
         images = torch.from_numpy(batch["image"]).to(device)
         out = model(images, need_rollout=bool(args.ori_cam_path))
-        # wrapped duplicates that fill the last stripe are computed (every
+        # duplicates that fill the last global batch are computed (every
         # group runs the same number of steps) but neither written nor scored
         keep = [i for i in range(len(batch["name"]))
                 if not ("is_pad" in batch and batch["is_pad"][i])]
         names = [batch["name"][i] for i in keep]
-        n_done += len(names)
+        # the global batch's images, so that every rank stops at the same
+        # batch under --limit
+        n_done += len(names) if mesh is None else int(mesh.data_sum(
+            torch.tensor(float(len(names)), device=device)))
         if writer and keep:
             _write_and_score(args, batch, keep, names, out, cfg, pcfg,
-                             palette, confmat, all_ap)
+                             palette, confmat, all_ap if mesh is None
+                             else None)
+        if mesh is not None and "label" in batch:
+            all_ap += _gathered_ap(mesh, batch, out)
         if t_warm is None:
             t_warm, n_warm = time.time(), n_done
         desc = (f"[val] {n_done}/{len(ds)} "
@@ -212,16 +233,15 @@ def _val_loop(args, loader_iter, model, pcfg, mesh, palette, ds, writer):
                 f"({(time.time() - t0) / max(n_done, 1):.3f}s/img)")
         if hasattr(loader_iter, "set_description"):
             loader_iter.set_description(desc)
-        elif writer:
+        elif writer and (mesh is None or mesh.data_rank == 0):
             print(desc, flush=True)
         if args.limit and n_done >= args.limit:
             break
 
-    if mesh is not None and mesh.data_size > 1:
-        confmat, all_ap, n_done = _merge_groups(mesh, writer, confmat,
-                                                all_ap, n_done)
     if not writer:
         return {}
+    if mesh is not None and mesh.data_size > 1:
+        confmat = _summed_confmat(mesh, confmat)
     acc_global, acc, iou = confmat.compute()
     results = {
         "mAP": float(np.mean(all_ap)) if all_ap else float("nan"),
@@ -277,25 +297,36 @@ def _write_and_score(args, batch, keep, names, out, cfg, pcfg, palette,
         scored = preds[i].reshape(-1).astype(np.int64)
         scored[scored > args.num_classes] = 0
         confmat.update(segs[i].reshape(-1), scored)
-    if "label" in batch:
+    if "label" in batch and all_ap is not None:
         all_ap += compute_mAP(batch["label"][keep], probs[keep])
 
 
-def _merge_groups(mesh, writer, confmat, all_ap, n_done):
-    """The writers' confusion matrices and APs, merged over the sequence
-    groups (the data group of sequence-rank 0 holds exactly the writers)."""
+def _gathered_ap(mesh, batch, out):
+    """Per-sample APs of one global batch, in the one-rank order: the data
+    ranks' labels, head probabilities and pad marks gathered (the same list
+    on every rank)."""
+    dev = out.head1_logits.device
+    pad = np.asarray(batch.get("is_pad", np.zeros(len(batch["name"]), bool)))
+    rows = [torch.from_numpy(np.asarray(batch["label"], np.float32)).to(dev),
+            torch.sigmoid(out.head1_logits).float(),
+            torch.from_numpy((~pad).astype(np.uint8)).to(dev)]
+    labels, probs, keep = (mesh.data_all_gather(r).cpu().numpy()
+                           for r in rows)
+    keep = keep.astype(bool)
+    return compute_mAP(labels[keep], probs[keep])
+
+
+def _summed_confmat(mesh, confmat):
+    """The writers' confusion matrices summed over the data group (the data
+    group of sequence-rank 0 holds exactly the writers)."""
     import torch.distributed as dist
-    if not writer:
-        return confmat, all_ap, n_done
     parts = [None] * mesh.data_size
-    dist.all_gather_object(parts, (confmat.mat, all_ap, n_done),
-                           group=mesh.data_group)
+    dist.all_gather_object(parts, confmat.mat, group=mesh.data_group)
     merged = ConfusionMatrix(confmat.num_classes)
-    mats = [m for m, _, _ in parts if m is not None]
+    mats = [m for m in parts if m is not None]
     if mats:
         merged.mat = sum(mats)
-    return merged, [ap for _, aps, _ in parts for ap in aps], \
-        sum(n for _, _, n in parts)
+    return merged
 
 
 def main(argv=None):

@@ -4,10 +4,12 @@ Replaces the reference's torch DataLoader + DistributedSampler.  Decode and
 resize run on a thread pool (PIL releases the GIL in both), batches are
 assembled as contiguous NHWC numpy arrays, and a bounded queue keeps
 ``prefetch`` batches ready ahead of the consumer.  Per-process sharding for
-multi-GPU training takes the process_index / process_count stripe of the
-epoch permutation, as DistributedSampler does.  The port's own copy of the
-JAX package's data/loader.py; ``device_prefetch`` moves each batch to the
-trainer's device.
+data-parallel training and validation gives each process its rows of every
+global batch of the one-process order (where the JAX package's loader takes
+DistributedSampler's stripe of the epoch permutation: the port's ranks are
+the devices of JAX's one-host data mesh, which split each global batch).
+The port's own copy of the JAX package's data/loader.py; ``device_prefetch``
+moves each batch to the trainer's device.
 """
 
 from __future__ import annotations
@@ -24,7 +26,17 @@ class BatchLoader:
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = True,
                  drop_last: bool = True, seed: int = 0, num_threads: int = 4,
                  prefetch: int = 2, process_index: int = 0,
-                 process_count: int = 1, native_decode: bool = False):
+                 process_count: int = 1, native_decode: bool = False,
+                 microbatches: int = 1):
+        """With process_count > 1, batch b of every process holds its rows
+        (``parallel.mesh.local_batch_rows`` with ``microbatches``) of batch
+        b of a one-process loader of batch ``batch_size * process_count``,
+        so that the data-parallel ranks together run the one-process
+        batches, and a train step with ``microbatches`` accumulation steps
+        sees JAX's microbatches.  A partial last batch (drop_last False) is
+        padded by repeating its own last sample, marked ``is_pad``: a
+        duplicate of a row of the same batch moves no batch-global
+        statistic, and the scores count each sample once."""
         self.dataset = dataset
         self.batch_size = batch_size
         # native batched JPEG decode (io/native_loader) replaces PIL per-item
@@ -41,6 +53,7 @@ class BatchLoader:
         self.prefetch = max(1, prefetch)
         self.process_index = process_index
         self.process_count = process_count
+        self.microbatches = microbatches
         self.epoch = 0
 
     def set_epoch(self, epoch: int):
@@ -51,32 +64,41 @@ class BatchLoader:
         return self._epoch_indices_with_pad()[0]
 
     def _epoch_indices_with_pad(self):
-        """(indices, is_pad): per-host stripe of the epoch permutation.
-
-        The stripe pads to a multiple of process_count by wrapping (the
-        DistributedSampler recipe) so every host runs the same number of
-        steps — required for the collective train step.  `is_pad` marks the
-        wrapped duplicates so metric code can count each sample exactly
-        ONCE (DistributedSampler itself double-counts up to
-        process_count-1 val samples in eval; fixed here by construction)."""
+        """(indices, is_pad): this process's rows of the epoch permutation,
+        global batch after global batch, so that every process runs the
+        same number of steps (required for the collective train step)."""
         n = len(self.dataset)
         if self.shuffle:
             rng = np.random.default_rng(self.seed + self.epoch)
             idx = rng.permutation(n)
         else:
             idx = np.arange(n)
-        is_pad = np.zeros(n, bool)
         if self.process_count > 1:
-            total = -(-n // self.process_count) * self.process_count
-            # np.resize cycles the permutation, so datasets SMALLER than
-            # process_count still fill the stripe (idx[:total-n] would
-            # under-fill there — unequal per-host step counts deadlock the
-            # collective train step)
-            idx = np.concatenate([idx, np.resize(idx, total - n)])
-            is_pad = np.concatenate([is_pad, np.ones(total - n, bool)])
-            idx = idx[self.process_index::self.process_count]
-            is_pad = is_pad[self.process_index::self.process_count]
-        return idx, is_pad
+            return self._global_stripe(idx)
+        return idx, np.zeros(n, bool)
+
+    def _global_stripe(self, idx):
+        from vision_transformer_cam_tpu_torch.parallel.mesh import (
+            local_batch_rows)
+        pc, mbs = self.process_count, self.microbatches
+        g = self.batch_size * pc
+        parts, pads = [], []
+        for lo in range(0, len(idx), g):
+            rows = idx[lo:lo + g]
+            pad = np.zeros(len(rows), bool)
+            if len(rows) < g:
+                if self.drop_last:
+                    break
+                full = -(-len(rows) // (pc * mbs)) * pc * mbs
+                pad = np.arange(full) >= len(rows)
+                rows = np.concatenate(
+                    [rows, np.full(full - len(rows), rows[-1])])
+            take = local_batch_rows(len(rows), pc, self.process_index, mbs)
+            parts.append(rows[take])
+            pads.append(pad[take])
+        if not parts:
+            return idx[:0], np.zeros(0, bool)
+        return np.concatenate(parts), np.concatenate(pads)
 
     def __len__(self):
         n = len(self._epoch_indices())

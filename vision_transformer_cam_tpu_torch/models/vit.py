@@ -60,6 +60,12 @@ other ranks in the attention (``masked_attention_seq``: K | V gathered, the
 cls row from sequence-rank 0), in the rollout and at the end, where the
 tokens are gathered and the heads run alike on every rank.  The model must
 be called under ``parallel.set_mesh``.
+
+Data parallelism (an ambient mesh whose data axis spans several ranks, and
+``cfg.data_axis``, which then requires one) changes one line of the forward:
+each rank runs its rows of the global batch, and the batch-global mask norm
+takes its max over the data group (``_mask_from_cls_row``).  Nothing else in
+the forward couples samples.
 """
 
 from __future__ import annotations
@@ -86,6 +92,8 @@ from vision_transformer_cam_tpu_torch.ops.quant import (QLinear,
                                                         qlinear_requant)
 from vision_transformer_cam_tpu_torch.ops.rollout import (
     aug_cls_row, aug_normalize, cam_from_rollout_row)
+from vision_transformer_cam_tpu_torch.parallel.mesh import (ambient_mesh,
+                                                            current_mesh)
 from vision_transformer_cam_tpu_torch.utils import resolve_device
 
 
@@ -155,12 +163,6 @@ def check_supported(cfg: ViTCAMConfig) -> None:
             raise NotImplementedError(
                 f"cfg.{name}={getattr(cfg, name)!r} is not ported yet "
                 f"(ROADMAP {item})")
-    if cfg.data_axis and not cfg.seq_axis:
-        # beside seq_axis it names the batch groups of the (data, seq) grid;
-        # alone it asks for batch-sharded kernels over several cards
-        raise NotImplementedError(
-            f"cfg.data_axis={cfg.data_axis!r} without seq_axis (data "
-            "parallelism) is not ported yet (ROADMAP Queue 1 item 10)")
     if cfg.seq_axis:
         bad = [name for name in
                ("attn_block_fusion", "mlp_fusion", "ln_quant_fusion",
@@ -435,12 +437,25 @@ def _attention_seq(ap, x, bg, cfg: ViTCAMConfig, need_probs, mesh,
 def _mask_from_cls_row(cls_row, cfg: ViTCAMConfig):
     """One rollout step on the cls row -> normalized patch weights mask14
     [B, num_patches] and the bg indicator [B, N].  Prefix tokens are never
-    background."""
+    background.
+
+    The batch-global norm divides by the max over the whole global batch:
+    under an ambient mesh whose data axis spans several ranks (data
+    parallelism, or the data groups of the sequence-parallel grid) the
+    rank's max of the detached cls row is all-reduced (MAX) over the data
+    group, as JAX's ``jnp.max(mask_i)`` spans the GSPMD-sharded batch
+    (vision_transformer_cam_tpu/models/vit.py:307-310).  It is the only
+    place where the forward couples samples; the per-sample norm needs no
+    collective."""
     mask_i = aug_cls_row(cls_row)[:, cfg.num_tokens:]
     if cfg.per_sample_mask_norm:
         mask14 = mask_i / mask_i.amax(dim=-1, keepdim=True)
     else:
-        mask14 = mask_i / mask_i.amax()          # batch-global, as reference
+        top = mask_i.amax()                      # batch-global, as reference
+        mesh = ambient_mesh()
+        if mesh is not None:
+            top = mesh.data_max(top)
+        mask14 = mask_i / top
     bg_patches = (mask14 < cfg.mask_threshold).to(cls_row.dtype)
     prefix = torch.zeros((cls_row.shape[0], cfg.num_tokens),
                          dtype=cls_row.dtype, device=cls_row.device)
@@ -662,11 +677,16 @@ class ViTCAM(nn.Module):
                  need_perhead, need_rollout) -> ViTCAMOutput:
         cfg = self.cfg
         check_supported(cfg)
+        if cfg.data_axis and not cfg.seq_axis:
+            # data parallelism: the rows are this rank's share of the global
+            # batch, and the batch-global mask norm reads the mesh
+            current_mesh(cfg.data_axis, "data_axis")
         if cfg.seq_axis:
             if train:
                 raise NotImplementedError(
                     "forward_train under cfg.seq_axis (sequence-parallel "
-                    "training) is not ported yet (ROADMAP Queue 1 item 10)")
+                    "training) is not ported yet (ROADMAP Queue 1 item 10, "
+                    "its second half)")
             return self._forward_seq(x, need_headmean, need_blocks,
                                      need_perhead, need_rollout)
         if train and cfg.softmax_clamp:
@@ -890,7 +910,6 @@ class ViTCAM(nn.Module):
         docstring).  Every rank of the group passes the same ``x``; every
         output is complete and the same on every rank, as the unsharded
         forward's."""
-        from vision_transformer_cam_tpu_torch.parallel.mesh import current_mesh
         cfg = self.cfg
         mesh = current_mesh(cfg.seq_axis)
         if mesh.seq_size > 1 and any(

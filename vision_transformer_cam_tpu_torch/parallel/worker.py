@@ -1,16 +1,26 @@
-"""Run the sequence-parallel forward in several processes on one host.
+"""Run the port's multi-process paths in several processes on one host.
 
 ``run_forward`` spawns ``world`` processes that join one process group
 (``tcp://localhost:<free port>``), build the same model from the same state
-dict, put it into a serving mode, apply ``apply_seq_parallel`` and call it on
-the same images under the (world / n_seq, n_seq) mesh; every rank saves its
-outputs, and the caller gets them back as a list by rank.  It is what the
-multi-process tests and the smoke run's two-ranks-on-one-card phase use; a
-launcher such as ``torchrun`` with ``cli.validate --seq_parallel N`` is the
-user's way to the same path.
+dict, put it into a serving mode and call it on the sequence-parallel
+(world / n_seq, n_seq) grid (``apply_seq_parallel``); every rank saves its
+outputs and the caller gets them back as a list by rank.
 
-The whole run has a time limit of its own: ranks that are still alive when
-it ends are killed and the call raises.
+``launch`` is a stand-in for ``torchrun`` on one host: it spawns ranks with
+the ``torch.distributed`` environment set (``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``MASTER_ADDR``, ...), each calls a function such as
+``cli.validate.main`` or a data-parallel training run of
+``scripts.dryrun_multichip`` with the same arguments, and it returns what
+each returned.  They are what the multi-process tests,
+``scripts.dryrun_multichip`` and the smoke run's two-ranks-on-one-card
+phases use; a launcher such as ``torchrun`` with ``cli.validate
+--seq_parallel N`` / ``--data_parallel`` or ``cli.train --mesh_shape N`` is
+the user's way to the same paths.
+
+Each call has a time limit of its own: ranks that are still alive when it
+ends are killed and the call raises.  A script that calls them must guard
+its entry with ``if __name__ == "__main__":`` (the ranks are spawned, and
+import the caller's main module).
 """
 
 from __future__ import annotations
@@ -70,6 +80,21 @@ def _rank_main(rank, world, n_seq, port, backend, device, cfg, workdir,
         dist.destroy_process_group()
 
 
+def _spawn(fn, args, world, timeout, what):
+    ctx = mp.spawn(fn, args=args, nprocs=world, join=False)
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"{world} {what} ranks did not finish in {timeout:.0f} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
+
+
 def run_forward(cfg, state_dict, images, *, world: int, n_seq: int,
                 device=None, backend="gloo", serving_mode="off",
                 overrides=None, fwd_kw=None, timeout: float = 120.0,
@@ -91,22 +116,43 @@ def run_forward(cfg, state_dict, images, *, world: int, n_seq: int,
         torch.save({k: v.detach().cpu() for k, v in state_dict.items()},
                    os.path.join(workdir, "state.pt"))
         torch.save(images.cpu(), os.path.join(workdir, "images.pt"))
-        ctx = mp.spawn(_rank_main,
-                       args=(world, n_seq, _free_port(), backend, str(device),
-                             cfg, workdir, serving_mode, overrides or {},
-                             fwd_kw or {}, threads),
-                       nprocs=world, join=False)
-        deadline = time.monotonic() + timeout
-        try:
-            while not ctx.join(timeout=1.0):
-                if time.monotonic() > deadline:
-                    raise TimeoutError(
-                        f"{world} sequence-parallel ranks did not finish in "
-                        f"{timeout:.0f} s")
-        finally:
-            for proc in ctx.processes:
-                if proc.is_alive():
-                    proc.kill()
-                proc.join()
+        _spawn(_rank_main,
+               (world, n_seq, _free_port(), backend, str(device), cfg,
+                workdir, serving_mode, overrides or {}, fwd_kw or {},
+                threads),
+               world, timeout, "sequence-parallel")
         return [torch.load(os.path.join(workdir, f"out.{rank}.pt"))
+                for rank in range(world)]
+
+
+def _launch_rank(rank, world, port, fn, args, workdir, threads, cwd):
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    if threads:
+        torch.set_num_threads(threads)
+    if cwd:
+        os.chdir(cwd)
+    try:
+        res = fn(*args)
+        torch.save(res, os.path.join(workdir, f"ret.{rank}.pt"))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def launch(fn, args=(), *, world: int, timeout: float = 120.0,
+           threads: int = 1, cwd=None):
+    """What ``fn(*args)`` returned on each of ``world`` ranks, by rank: a
+    ``torchrun --nproc_per_node world`` stand-in on this host.  ``fn`` must
+    be importable by the spawned processes (a module-level function, e.g.
+    ``cli.validate.main``), join the group through
+    ``parallel.distributed_init`` and return something ``torch.save``
+    takes; ``cwd``: the ranks' working directory."""
+    with tempfile.TemporaryDirectory() as workdir:
+        _spawn(_launch_rank,
+               (world, _free_port(), fn, tuple(args), workdir, threads, cwd),
+               world, timeout, "launched")
+        return [torch.load(os.path.join(workdir, f"ret.{rank}.pt"),
+                           weights_only=False)
                 for rank in range(world)]

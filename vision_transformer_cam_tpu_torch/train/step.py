@@ -4,6 +4,19 @@ One step is: the training forward, the top-k-by-label-count multi-hot F1, the
 dual multilabel-soft-margin loss, the backward (through the attention
 backward kernel on the kernel path) and one AdamW update.  The steps make no
 host sync: metrics come back as device tensors and the loop reads them.
+
+Under an ambient mesh whose data axis spans several ranks (data parallelism,
+``parallel.set_mesh(parallel.make_mesh(...))``) each rank passes its rows of
+the global batch (``parallel.shard_batch``; ``data.loader.BatchLoader`` with
+``process_count``).  The step is then JAX's GSPMD step written out: the
+forward's batch-global mask max is all-reduced over the data group
+(``models.vit._mask_from_cls_row``), the gradients are averaged over it in
+float32 (at least) buckets before the optimizer (so that the clip sees the
+global gradient's norm), and the loss, its parts and the F1 counts are
+reduced, so every rank returns the global batch's metrics.  Equal local
+batches make the mean of the local mean-losses' gradients the full-batch
+gradient: the dual loss is a sample mean.  Dropout draws per rank (the data
+rank is folded into the step's seed).
 """
 
 from __future__ import annotations
@@ -14,7 +27,11 @@ from vision_transformer_cam_tpu_torch.models.vit import (_fold,
                                                         matmul_precision)
 from vision_transformer_cam_tpu_torch.ops.losses import (
     dual_head_loss, multilabel_soft_margin_loss)
+from vision_transformer_cam_tpu_torch.parallel.mesh import ambient_mesh
 from vision_transformer_cam_tpu_torch.train.state import TrainState
+
+# elements per gradient all-reduce (64 MiB of float32)
+GRAD_BUCKET = 1 << 24
 
 
 def topk_by_label_count(logits, labels):
@@ -29,10 +46,21 @@ def topk_by_label_count(logits, labels):
     return (ranks < k).to(logits.dtype)
 
 
+def _f1_sums(pred_multihot, labels):
+    """(true positives, predicted positives, positive labels): the micro
+    F1's three sums, which add over ranks."""
+    return torch.stack([(pred_multihot * labels).sum(), pred_multihot.sum(),
+                        labels.sum()])
+
+
+def _f1_of(sums):
+    tp, pred, true = sums
+    return 2.0 * tp / torch.clamp_min(pred + true, 1.0)
+
+
 def f1_micro(pred_multihot, labels):
     """Micro-averaged multi-label F1 over the batch."""
-    tp = (pred_multihot * labels).sum()
-    return 2.0 * tp / torch.clamp_min(pred_multihot.sum() + labels.sum(), 1.0)
+    return _f1_of(_f1_sums(pred_multihot, labels))
 
 
 def loss_fn(model, images, labels, rng):
@@ -55,26 +83,84 @@ def _grads(model, images, labels, rng):
         logits.detach(), grads
 
 
-def _f1(logits, labels):
-    # the metric in at least float32, whatever the compute dtype
+def _f1_counts(logits, labels):
+    """``_f1_sums`` of the top-k multi-hot prediction, in at least float32
+    whatever the compute dtype."""
     logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
     labels = labels.to(logits.dtype)
-    return f1_micro(topk_by_label_count(logits, labels), labels)
+    return _f1_sums(topk_by_label_count(logits, labels), labels)
 
 
 def _step_rng(rng, step):
-    return None if rng is None else _fold(rng, step)
+    if rng is None:
+        return None
+    mesh = ambient_mesh()
+    seed = _fold(rng, step)
+    return seed if mesh is None else _fold(seed, mesh.data_rank)
+
+
+def average_grads(grads, mesh):
+    """Every gradient's mean over the data group of ``mesh``: flattened into
+    buckets of at most ``GRAD_BUCKET`` elements in the gradient's dtype
+    promoted to float32 at least (float64 stays float64), one all-reduce a
+    bucket, then cast back.  Every rank gets the same bits."""
+    out = list(grads)
+    by_dtype = {}
+    for i, g in enumerate(grads):
+        wide = torch.promote_types(g.dtype, torch.float32)
+        by_dtype.setdefault(wide, []).append(i)
+    for wide, idx in by_dtype.items():
+        buckets, cur, size = [], [], 0
+        for i in idx:
+            if cur and size + grads[i].numel() > GRAD_BUCKET:
+                buckets.append(cur)
+                cur, size = [], 0
+            cur.append(i)
+            size += grads[i].numel()
+        buckets.append(cur)
+        for bucket in buckets:
+            flat = torch.cat([grads[i].reshape(-1).to(wide) for i in bucket])
+            flat = mesh.data_sum(flat) / mesh.data_size
+            off = 0
+            for i in bucket:
+                n = grads[i].numel()
+                out[i] = flat[off:off + n].view(grads[i].shape) \
+                    .to(grads[i].dtype)
+                off += n
+    return out
+
+
+def _group_metrics(mesh, loss, parts, counts):
+    """The global batch's metrics from each rank's local loss, parts (local
+    means over equal batches) and F1 counts, in one all-reduce."""
+    names = list(parts)
+    wide = torch.promote_types(counts.dtype, torch.float64 if
+                               loss.dtype == torch.float64 else torch.float32)
+    vec = torch.cat([torch.stack([loss.to(wide)]
+                                 + [parts[k].to(wide) for k in names]),
+                     counts.to(wide)])
+    vec = mesh.data_sum(vec)
+    k = 1 + len(names)
+    means = vec[:k] / mesh.data_size
+    return {"loss": means[0], "f1": _f1_of(vec[k:]),
+            **{name: means[1 + j] for j, name in enumerate(names)}}
 
 
 def train_step(state: TrainState, images, labels, rng=None):
     """One optimizer step on ``state.model`` (updated in place).  ``rng``: an
     integer seed for dropout, folded with the step; None leaves dropout off.
     Returns (new_state, metrics) with the metrics as device tensors."""
+    mesh = ambient_mesh()
     loss, parts, logits, grads = _grads(state.model, images, labels,
                                         _step_rng(rng, state.step))
-    state.optimizer.update(grads)
+    if mesh is None:
+        state.optimizer.update(grads)
+        return state._replace(step=state.step + 1), \
+            {"loss": loss, "f1": _f1_of(_f1_counts(logits, labels)),
+             **parts}
+    state.optimizer.update(average_grads(grads, mesh))
     return state._replace(step=state.step + 1), \
-        {"loss": loss, "f1": _f1(logits, labels), **parts}
+        _group_metrics(mesh, loss, parts, _f1_counts(logits, labels))
 
 
 def train_step_accum(state: TrainState, images, labels, rng=None, *,
@@ -85,7 +171,16 @@ def train_step_accum(state: TrainState, images, labels, rng=None, *,
     after the mean, then one optimizer update.  With zero dropout ratios
     this is the full-batch step exactly where samples do not couple (the
     dual loss is a sample mean); the batch-global mask norm is taken per
-    microbatch."""
+    microbatch.
+
+    Under data parallelism microbatch k is rows [k mb, (k+1) mb) of the
+    global batch split over the ranks, as JAX's reshape to [accum, B /
+    accum] with the constraint P(None, 'data') makes it: each rank must pass
+    its stripe of every microbatch, microbatch after microbatch
+    (``parallel.shard_batch(mesh, batch, accum_steps)``, or the loader with
+    ``process_count`` and ``microbatches=accum_steps``, which is what
+    ``train.loop.fit`` uses).  The step then cuts the local batch into
+    consecutive microbatches; the summed gradients are all-reduced once."""
     b = images.shape[0]
     if b % accum_steps:
         raise ValueError(f"batch {b} not divisible by accum_steps "
@@ -108,10 +203,17 @@ def train_step_accum(state: TrainState, images, labels, rng=None, *,
             parts_sum[k] = parts_sum.get(k, 0.0) + v
         all_logits.append(logits)
     inv = 1.0 / accum_steps
+    mesh = ambient_mesh()
+    if mesh is not None:
+        acc = average_grads(acc, mesh)
     state.optimizer.update([(a * inv).to(p.dtype)
                             for a, p in zip(acc, params)])
+    if mesh is not None:
+        return state._replace(step=state.step + 1), _group_metrics(
+            mesh, loss_sum * inv, {k: v * inv for k, v in parts_sum.items()},
+            _f1_counts(torch.cat(all_logits), labels))
     metrics = {"loss": loss_sum * inv,
-               "f1": _f1(torch.cat(all_logits), labels),
+               "f1": _f1_of(_f1_counts(torch.cat(all_logits), labels)),
                **{k: v * inv for k, v in parts_sum.items()}}
     return state._replace(step=state.step + 1), metrics
 
