@@ -10,8 +10,9 @@ Phases (any failure raises, and the exit code is non-zero):
   3. holds every kernel against its plain PyTorch version on the card:
      the attention kernel (bf16 and float32; int8_io with per-head and
      per-tensor scales; int8_out; plain, head-mean and rollout variants;
-     clamp on and off; ViT-B B=8 N=197 and a ragged B=3 N=37; bf16 and int8
-     in the tensor-core design, launched twice for identical bits, and in the
+     clamp on and off; ViT-B B=8 N=197 and a ragged B=3 N=37; bf16 and
+     float32 also at B=16 N=197 with 6 heads, a tensor-parallel rank's
+     share; bf16 and int8 in the tensor-core design, launched twice for identical bits, and in the
      FMA design they ran before), the int8 GEMM
      (each prologue and epilogue at the five ViT-B GEMM shapes, M = 8*197,
      and a ragged M=111 K=200 N=72; the tensor-core design bit for bit the
@@ -63,8 +64,9 @@ Phases (any failure raises, and the exit code is non-zero):
      (one block per head where its tiles fit, two kernels), at float32 the
      two FMA designs; at head width 64 B=8 N=197, a ragged B=3 N=37, B=2
      N=577 and B=1 N=760 (12 heads), at head width 80 (16 heads) B=8 N=257,
-     B=3 N=37 and B=2 N=577, B=1 N=1025 at both widths and each width's
-     limit (BWD_MAX_N: 1564, 1520), one past it refused by both wrappers and
+     B=3 N=37 and B=2 N=577, B=1 N=1025 at both widths, a tensor-parallel
+     rank's share (B=16 N=197 at 6 heads of 64, B=8 N=257 at 8 of 80), and
+     each width's limit (BWD_MAX_N: 1564, 1520), one past it refused by both wrappers and
      head width 48 refused; the occupancy of every backward kernel at N =
      197, 257 and 1025 with the ptxas spills of both translation units; then
      at bf16, B=64 N=197, B=16 N=577, ViT-H/14's B=64 N=257 (16 heads of 80)
@@ -191,7 +193,8 @@ Phases (any failure raises, and the exit code is non-zero):
      design and variant (float32 FMA; bf16 tensor-core, twice for identical
      bits, q_block 32 bit for bit 16, and FMA; int8_io per head and per
      tensor; int8_out; clamp on and off; B=8 N=257 H=16, B=3 N=37, B=2
-     N=577; N=1025 at q_block 16, a forced 32 refused; head width 48
+     N=577; bf16 and float32 at B=8 N=257 H=8, a tensor-parallel rank's
+     share; N=1025 at q_block 16, a forced 32 refused; head width 48
      refused), timed at B=64 N=257 H=16 (bf16 and int8_io rollout,
      tensor-core / FMA / plain in turns) beside its bound, with the
      occupancy of every kernel-1 instance at N=197 (dh 64) and N=257 (dh
@@ -236,6 +239,22 @@ Phases (any failure raises, and the exit code is non-zero):
      figure); ``cli.validate --data_parallel`` on two ranks (ViT-B/16, a
      faked VOC tree of 11 images, batch 4, bf16 and int8) against the
      one-rank run: the PNGs byte for byte, mAP and mIoU equal.
+ 22. tensor parallelism and the pipeline on one card (run after phase 21):
+     two gloo ranks share the card as in phase 21.  ViT-B/16 on a (1, 2)
+     ('data', 'model') mesh on the kernel path (kernel 1 and the backward
+     at 6 heads of 64 a rank): a float32 step at batch 8 against the
+     one-rank step (TRAIN_TOL); five mixed-precision steps at batch 16 with
+     the leaves both ranks hold whole bit-equal after each and the launches
+     a step held (24 kernel-1, 12 backward); bf16 CAMs at batch 32 and
+     float32 at batch 4 against one rank's kernel path (TP_GATES), 12
+     head-mean launches a forward.  ViT-H/14 (8 heads of 80 a rank): a
+     float32 step at batch 4 against the one-rank step (TRAIN_TOL) and a
+     mixed step at batch 8 (loss finite, each rank's peak memory beside
+     one rank alone), the launches held.  ViT-B/16 as a (1, 2) ('data',
+     'stage') pipeline on the eager path: pipeline_forward at M = 2 and 4
+     and one pipeline_train_step against one rank with the per-sample mask
+     norm, 6 blocks a stage, no launch.  img/s of the two tensor-parallel
+     ranks beside one rank alone, in turns (no scaling figure).
 Nothing of the earlier phases was reduced.  It prints one JSON line
 describing the kernels (with each one's bound from the shapes it was timed
 at, and the library call's time where one PyTorch call computes the same
@@ -497,20 +516,27 @@ def _compare(case, got, want, tols, failures):
     return worst
 
 
+# kernel 1's cases (B, N, heads): ViT-B/16's N = 197 and a ragged N = 37 at
+# its 12 heads, in every dtype and int8 option; 6 heads, a tensor-parallel
+# rank's share at m = 2, in the float dtypes its training and CAMs run
+ATTN_CASES = ((8, 197, 12), (3, 37, 12), (16, 197, 6))
+
+
 def check_attention():
     """Attention kernel vs plain version on the card, in every design that
     takes the dtype (bf16 and int8: the tensor-core design, launched twice
     for identical bits, and the FMA design they ran before; float32: the FMA
-    design); returns {(kind, variant, clamp, n): worst error} of the path's
-    design (int8 outputs count in steps)."""
+    design) at ATTN_CASES; returns {(kind, variant, clamp, n): worst error}
+    of the path's design at 12 heads (int8 outputs count in steps)."""
     from vision_transformer_cam_tpu_torch.kernels import attention as ka
     errs, failures = {}, []
-    for (b, n) in ((8, 197), (3, 37)):
-        kinds = [(dt, None) for dt in (torch.bfloat16, torch.float32)] + \
-            [(torch.int8, "per_head"), (torch.int8, "per_tensor"),
-             (torch.bfloat16, "int8_out")]
+    for (b, n, heads) in ATTN_CASES:
+        kinds = [(dt, None) for dt in (torch.bfloat16, torch.float32)]
+        if heads == 12:
+            kinds += [(torch.int8, "per_head"), (torch.int8, "per_tensor"),
+                      (torch.bfloat16, "int8_out")]
         for dtype, opt in kinds:
-            qkv, bg, joint, sc = attention_inputs(b, n, 12, dtype, seed=n)
+            qkv, bg, joint, sc = attention_inputs(b, n, heads, dtype, seed=n)
             scales = None
             if opt == "per_head":
                 scales = torch.cat([sc, torch.tensor([20.0], device="cuda")])
@@ -522,7 +548,7 @@ def check_attention():
             for variant in VARIANTS:
                 for clamp in (False, True):
                     want = _call(ka.masked_attention_fused_ref, variant, qkv,
-                                 bg, joint, 12, clamp, scales)
+                                 bg, joint, heads, clamp, scales)
                     kind = opt or str(dtype).split(".")[-1]
                     tols = [None if scales is not None else TOL[(fdt, "out")],
                             TOL[(fdt, "prob")],
@@ -531,17 +557,18 @@ def check_attention():
                     for design in fwd_designs(dtype):
                         got = _fwd_design(design, _call,
                                           ka.masked_attention_fused, variant,
-                                          qkv, bg, joint, 12, clamp, scales)
+                                          qkv, bg, joint, heads, clamp, scales)
                         torch.cuda.synchronize()
                         case = f"attention {design:11s} {kind:10s} " \
-                               f"{variant:8s} clamp={clamp!s:5s} B={b} N={n}"
+                               f"{variant:8s} clamp={clamp!s:5s} B={b} " \
+                               f"N={n} H={heads}"
                         err = _compare(case, got, want, tols, failures)
-                        if design == fwd_designs(dtype)[0]:
+                        if design == fwd_designs(dtype)[0] and heads == 12:
                             errs[(kind, variant, clamp, n)] = err
                         if design == "tensor-core" and not all(
                                 torch.equal(x, y) for x, y in zip(got, _call(
                                     ka.masked_attention_fused, variant, qkv,
-                                    bg, joint, 12, clamp, scales))):
+                                    bg, joint, heads, clamp, scales))):
                             failures.append(f"{case}: a second launch gave "
                                             "other bits")
     if failures:
@@ -762,10 +789,13 @@ def _bwd_ref_inputs(qkv, bg, d_out):
 # The backward's cases (B, N, heads, head width): ViT-B/16's N = 197, a
 # ragged N = 37, ViT/16 at 384 pixels (N = 577) and N = 760 (the earlier limit)
 # at width 64; at width 80 (ViT-H/14: 16 heads) its N = 257, 37 and 577;
-# ViT-L/16@512's N = 1025 at both widths, and each width's limit
+# ViT-L/16@512's N = 1025 at both widths, and each width's limit; a
+# tensor-parallel rank's share at m = 2: ViT-B/16's 6 heads of 64 and
+# ViT-H/14's 8 of 80
 BWD_CASES = ((8, 197, 12, 64), (3, 37, 12, 64), (2, 577, 12, 64),
              (1, 760, 12, 64), (8, 257, 16, 80), (3, 37, 16, 80),
-             (2, 577, 16, 80), (1, 1025, 16, 64), (1, 1025, 16, 80))
+             (2, 577, 16, 80), (1, 1025, 16, 64), (1, 1025, 16, 80),
+             (16, 197, 6, 64), (8, 257, 8, 80))
 
 
 def check_attention_bwd():
@@ -780,8 +810,8 @@ def check_attention_bwd():
     independent check of the formula).  float32 is held to the plain version
     evaluated in float64 on the same values (``_bwd_ref_inputs``).  The
     tensor-core design runs twice on the same inputs and must give identical
-    bits.  Returns {(dtype name, clamp, n, bg kind, design, head width):
-    worst error}."""
+    bits.  Returns {(dtype name, clamp, n, heads, bg kind, design, head
+    width): worst error}."""
     from vision_transformer_cam_tpu_torch.kernels import attention as ka
     errs, failures = {}, []
     cases = BWD_CASES + tuple((1, ka.BWD_MAX_N[dh], 16, dh)
@@ -810,8 +840,9 @@ def check_attention_bwd():
                         torch.cuda.synchronize()
                         case = f"attention bwd {design:11s} {name:8s} " \
                                f"clamp={clamp!s:5s} {bg_kind:6s} B={b} " \
-                               f"N={n} dh={dh}"
-                        errs[(name, clamp, n, bg_kind, design, dh)] = \
+                               f"N={n} H={heads} dh={dh}"
+                        errs[(name, clamp, n, heads, bg_kind, design,
+                              dh)] = \
                             _compare(case, (got,), (want,),
                                      (TOL_BWD[dtype],), failures)
                         if auto is not None:
@@ -3626,47 +3657,33 @@ def _dp_validate_rank(argv):
     return res, read_counts()
 
 
-def _dp_time_in_turns(state, mesh, local, full, iters):
-    """img/s of the data-parallel step (every rank, its rows ``local``) and
-    of one rank alone on the whole global batch ``full`` (data rank 0, no
-    mesh, the other waiting), in turns: dp, one, one, dp; and the gradient
-    all-reduce of one step alone, on gradient-sized tensors."""
+def _time_in_turns(par, one, rows, collective, iters):
+    """img/s of a parallel step ``par(n)`` (n steps on every rank) and of
+    one rank alone ``one(n)`` (n steps on one rank, the others waiting),
+    each at ``rows`` images a step: one warm call each, then in turns par,
+    one, one, par of ``iters`` steps; and the ms of ``collective()``, the
+    collectives of one step alone on tensors of their shapes."""
     import torch.distributed as dist
-    from vision_transformer_cam_tpu_torch.parallel import mesh as meshlib
-    from vision_transformer_cam_tpu_torch.train.step import (average_grads,
-                                                             train_step)
-    rates = {"dp": [], "one": []}
+    rates = {"par": [], "one": []}
 
     def sync():
         torch.cuda.synchronize()
         dist.barrier()
-
-    def steps(kind, n):
-        nonlocal state
-        if kind == "dp":
-            with meshlib.set_mesh(mesh):
-                for _ in range(n):
-                    state, _ = train_step(state, *local)
-        elif mesh.data_rank == 0:
-            for _ in range(n):
-                state, _ = train_step(state, *full)
-    steps("dp", 1)      # one warm step of each kind first
-    steps("one", 1)
-    for kind in ("dp", "one", "one", "dp"):
+    par(1)
+    one(1)
+    for kind, fn in (("par", par), ("one", one), ("one", one), ("par", par)):
         sync()
         t0 = time.perf_counter()
-        steps(kind, iters)
+        fn(iters)
         sync()
-        rates[kind].append(full[0].shape[0] * iters
-                           / (time.perf_counter() - t0))
-    grads = [torch.zeros_like(p) for p in state.model.parameters()]
-    average_grads(grads, mesh)
+        rates[kind].append(rows * iters / (time.perf_counter() - t0))
+    collective()
     sync()
     t0 = time.perf_counter()
     for _ in range(iters):
-        average_grads(grads, mesh)
+        collective()
     sync()
-    rates["allreduce_ms"] = 1e3 * (time.perf_counter() - t0) / iters
+    rates["collective_ms"] = 1e3 * (time.perf_counter() - t0) / iters
     return rates
 
 
@@ -3680,6 +3697,8 @@ def _dp_train_rank(workdir, batch32, batch):
     from vision_transformer_cam_tpu_torch.parallel import mesh as meshlib
     from vision_transformer_cam_tpu_torch.scripts.dryrun_multichip import (
         train_steps)
+    from vision_transformer_cam_tpu_torch.train.step import (average_grads,
+                                                             train_step)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     meshlib.distributed_init("cuda")
@@ -3702,9 +3721,23 @@ def _dp_train_rank(workdir, batch32, batch):
         d["mixed"], mesh, optim=d["mixed_optim"], global_batch=batch,
         device="cuda")
     full = tuple(t.cuda() for t in d["mixed"][0])
-    res["img_per_s"] = _dp_time_in_turns(
-        state, mesh, tuple(meshlib.shard_batch(mesh, t) for t in full),
-        full, DP_TIMED)
+    local = tuple(meshlib.shard_batch(mesh, t) for t in full)
+    grads = [torch.zeros_like(p) for p in state.model.parameters()]
+
+    def par(n):     # the DP step, every rank its rows
+        nonlocal state
+        with meshlib.set_mesh(mesh):
+            for _ in range(n):
+                state, _ = train_step(state, *local)
+
+    def one(n):     # data rank 0 alone on the whole global batch, no mesh
+        nonlocal state
+        if mesh.data_rank == 0:
+            for _ in range(n):
+                state, _ = train_step(state, *full)
+    res["img_per_s"] = _time_in_turns(
+        par, one, full[0].shape[0], lambda: average_grads(grads, mesh),
+        DP_TIMED)
     out["mixed"] = res
     return out
 
@@ -3822,11 +3855,11 @@ def dp_path(batch32=8, batch=64, n_images=11, val_batch=4):
     rates = ranks[0]["mixed"]["img_per_s"]
     say(f"dp path img/s, ViT-B/16 mixed precision, remat, global batch "
         f"{batch}, {DP_TIMED} steps a reading, in turns (dp, one, one, "
-        f"dp): two ranks sharing one card {np.mean(rates['dp']):.1f} "
-        f"({rates['dp'][0]:.1f}, {rates['dp'][1]:.1f}); one rank alone on "
+        f"dp): two ranks sharing one card {np.mean(rates['par']):.1f} "
+        f"({rates['par'][0]:.1f}, {rates['par'][1]:.1f}); one rank alone on "
         f"the whole batch {np.mean(rates['one']):.1f} ({rates['one'][0]:.1f}"
         f", {rates['one'][1]:.1f}); the gradient all-reduce alone "
-        f"{rates['allreduce_ms']:.1f} ms a step; NOT a scaling figure: both "
+        f"{rates['collective_ms']:.1f} ms a step; NOT a scaling figure: both "
         f"ranks share the card, and gloo stages every all-reduce through "
         f"host memory")
 
@@ -3877,6 +3910,445 @@ def dp_path(batch32=8, batch=64, n_images=11, val_batch=4):
     say(f"dp path: {time.perf_counter() - t_phase:.1f} s")
     if fails:
         raise AssertionError("dp path: " + "; ".join(fails))
+    return counts
+
+
+TP_STEPS, TP_TIMED = 5, 3
+HUGE = "vit_huge_patch14_224_in21k"
+TP_GATES = {"cam": 5e-2, "logits": 5e-2, "row32": 1e-5, "logits32": 2e-4}
+
+
+def _tp_counts():
+    """The launch counts, read after one section of a rank of phase 22."""
+    torch.cuda.synchronize()
+    return read_counts()
+
+
+def _tp_rank(workdir):
+    """One rank of phase 22 (spawned by ``parallel.worker.launch``): on the
+    (1, 2) ('data', 'model') mesh, ViT-B/16 sharded over both ranks: the
+    float32 step, TP_STEPS mixed-precision steps and their img/s in turns,
+    the bf16 and float32 CAM forwards; ViT-H/14's mixed step and its
+    float32 step (held on model rank 0 to the one-rank step); then on the
+    (1, 2) ('data', 'stage') mesh the float32 pipeline forwards and step.
+    Every section's launch counts are set to 0 before it and read after
+    it.  Returns each section's results; the float32 parameters gathered to
+    the one-rank layout."""
+    from vision_transformer_cam_tpu_torch import serving
+    from vision_transformer_cam_tpu_torch.io.weights import load_state_dict
+    from vision_transformer_cam_tpu_torch.models.vit import ViTCAM
+    from vision_transformer_cam_tpu_torch.ops.rollout import (
+        cam_from_rollout_row)
+    from vision_transformer_cam_tpu_torch.parallel import mesh as meshlib
+    from vision_transformer_cam_tpu_torch.parallel import pipeline
+    from vision_transformer_cam_tpu_torch.scripts.dryrun_multichip import (
+        delta_excess, heads_seen, host_state, param_digest, train_steps)
+    from vision_transformer_cam_tpu_torch.train import state as statelib
+    from vision_transformer_cam_tpu_torch.train import step as steplib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    meshlib.distributed_init("cuda")
+    mesh = meshlib.make_mesh((1, 2), ("data", "model"))
+    d = torch.load(os.path.join(workdir, "tp_inputs.pt"), weights_only=False)
+    out = {"transport": mesh.transport("cuda")}
+    main = mesh.inner_rank == 0
+
+    # train_steps sets the launch counts to 0 before each step, reads them
+    # after it, and records the head counts
+    state, res = train_steps(d["cfg"], d["before"], d["f32"], mesh,
+                             optim=d["optim"], global_batch=d["b32"],
+                             device="cuda")
+    res["state"] = host_state(meshlib.full_state_dict(state.model))
+    if not main:
+        del res["state"]
+    out["f32"] = res
+    del state
+    gc_cuda()
+
+    cfg_mixed = d["cfg"].replace(dtype=torch.bfloat16, remat=True)
+    state, res = train_steps(cfg_mixed, d["before"], d["mixed"], mesh,
+                             optim=d["mixed_optim"], global_batch=d["b16"],
+                             device="cuda")
+    one = None
+    if main:
+        model = ViTCAM(cfg_mixed, device="cuda")
+        load_state_dict(model, d["before"])
+        opt, _ = statelib.make_optimizer(model, d["mixed_optim"], d["b16"],
+                                         100)
+        one = statelib.create_train_state(model, opt)
+    batch = tuple(t.cuda() for t in d["mixed"][0])
+    act = torch.zeros((batch[0].shape[0], cfg_mixed.seq_len,
+                       cfg_mixed.embed_dim), dtype=cfg_mixed.dtype,
+                      device="cuda")
+
+    def par(n):     # the tensor-parallel step, both ranks
+        nonlocal state
+        with meshlib.set_mesh(mesh):
+            for _ in range(n):
+                state, _ = steplib.train_step(state, *batch)
+
+    def alone(n):   # model rank 0 alone on the unsharded model
+        nonlocal one
+        if main:
+            for _ in range(n):
+                one, _ = steplib.train_step(one, *batch)
+
+    def allreduces():
+        # a step's activation all-reduces: two a layer in the forward, two
+        # in the remat forward, two in the backward
+        for _ in range(6 * cfg_mixed.depth):
+            mesh.inner_sum(act)
+    res["img_per_s"] = _time_in_turns(par, alone, batch[0].shape[0],
+                                      allreduces, TP_TIMED)
+    out["mixed"] = res
+    del state, one, act
+    gc_cuda()
+
+    for name, mode, x in (("cam_bf16", "bf16", d["x32"]),
+                          ("cam_f32", "off", d["x4"])):
+        model = ViTCAM(d["cfg"], device="cuda")
+        load_state_dict(model, d["before"])
+        meshlib.shard_params(mesh, model, "model")
+        serving.apply_serving_mode(model, mode)
+        reset_counts()
+        with meshlib.set_mesh(mesh), heads_seen() as heads:
+            o = model(x.cuda(), need_rollout=True)
+        out[name] = {"counts": _tp_counts(), "heads": sorted(heads),
+                     "logits": o.logits.float().cpu(),
+                     "rollout_row": o.rollout_row.float().cpu(),
+                     "cam": cam_from_rollout_row(
+                         o.rollout_row, model.cfg.grid_size).float().cpu()}
+        del model, o
+        gc_cuda()
+
+    model = zoo_train_model(HUGE, "kernel")
+    full_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    meshlib.shard_params(mesh, model, "model")
+    opt, _ = statelib.make_optimizer(model, d["mixed_optim"], d["bh"], 100)
+    state = statelib.create_train_state(model, opt)
+    xh, yh = (t.cuda() for t in d["huge"])
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with meshlib.set_mesh(mesh), heads_seen() as heads:
+        state, m = steplib.train_step(state, xh, yh)
+        loss = float(m["loss"])
+    out["huge"] = {"counts": _tp_counts(), "heads": sorted(heads),
+                   "loss": loss,
+                   "peak": torch.cuda.max_memory_allocated(),
+                   "param_bytes": sum(p.numel() * p.element_size()
+                                      for p in model.parameters()),
+                   "full_param_bytes": full_bytes,
+                   "whole_digest": param_digest(model, whole_only=True)}
+    del model, opt, state
+    gc_cuda()
+
+    # ViT-H/14 at float32: the tensor-parallel step, then on model rank 0
+    # the one-rank step from the same seeded weights (a copy of the whole
+    # model, taken before the cut), held to it
+    model = zoo_train_model(HUGE, "kernel", dtype=torch.float32)
+    one = copy.deepcopy(model) if main else None
+    meshlib.shard_params(mesh, model, "model")
+    opt, _ = statelib.make_optimizer(model, d["optim"], d["bh32"], 100)
+    state = statelib.create_train_state(model, opt)
+    xh, yh = (t.cuda() for t in d["huge32"])
+    reset_counts()
+    with meshlib.set_mesh(mesh), heads_seen() as heads:
+        state, m = steplib.train_step(state, xh, yh)
+        res = {"loss": float(m["loss"])}
+    res.update(counts=_tp_counts(), heads=sorted(heads))
+    after = meshlib.full_state_dict(model)
+    del model, opt, state
+    gc_cuda()
+    if main:
+        after = {k: v.cuda() for k, v in after.items()}
+        before = {k: v.detach().clone() for k, v in one.state_dict().items()}
+        opt, _ = statelib.make_optimizer(one, d["optim"], d["bh32"], 100)
+        state = statelib.create_train_state(one, opt)
+        state, m = steplib.train_step(state, xh, yh)
+        res["one_loss"] = float(m["loss"])
+        res["worst"], res["bad"] = delta_excess(
+            after, one.state_dict(), before, TRAIN_TOL["grad"])
+        del opt, state, before
+    out["huge32"] = res
+    del after, one
+    gc_cuda()
+
+    pmesh = meshlib.make_mesh((1, 2), ("data", "stage"))
+    pcfg = d["cfg"].replace(attn_impl="eager", per_sample_mask_norm=True)
+    model = ViTCAM(pcfg, device="cuda")
+    load_state_dict(model, d["before"])
+    x8, y8 = (t.cuda() for t in d["f32"][0])
+    res = {}
+    reset_counts()
+    for m_ in (2, 4):
+        o = pipeline.pipeline_forward(model, x8, pcfg, pmesh,
+                                      microbatches=m_, need_rollout=True)
+        res[f"fwd{m_}"] = {"logits": o.logits.cpu(),
+                           "rollout_row": o.rollout_row.cpu()}
+    pipeline.stage_shard_params(pmesh, model)
+    gc_cuda()
+    res["blocks"] = sorted({int(n.split(".")[1]) for n, _ in
+                            model.named_parameters()
+                            if n.startswith("blocks.")})
+    res["block_bytes"] = sum(p.numel() * p.element_size() for n, p in
+                             model.named_parameters()
+                             if n.startswith("blocks."))
+    opt, _ = statelib.make_optimizer(model, d["optim"], d["b32"], 100)
+    state = statelib.create_train_state(model, opt)
+    with meshlib.set_mesh(pmesh):
+        state, m = pipeline.pipeline_train_step(state, x8, y8, pmesh,
+                                                microbatches=2)
+    res["loss"] = float(m["loss"])
+    res["counts"] = _tp_counts()
+    res["state"] = host_state(meshlib.full_state_dict(model))
+    if not main:
+        del res["state"]
+    out["pipeline"] = res
+    return out
+
+
+def tp_path(batch32=8, batch=16, cam_batch=32, huge_batch=8, huge32=4):
+    """Phase 22, tensor parallelism and the pipeline on one card: two gloo
+    ranks share the card (CUDA tensors staged through host memory), each
+    holding half of ViT-B/16's heads and MLP hidden units (the kernel path:
+    kernel 1 and the backward at 6 heads of 64 a rank), half of ViT-H/14's
+    (8 heads of 80: a mixed step, and a float32 step held to one rank's),
+    and as pipeline stages 6 of ViT-B/16's 12 blocks (the
+    eager path, as JAX runs its XLA path there).  Each result is held to one
+    rank on the card.  For correctness: the img/s of two ranks sharing one
+    card is no scaling figure.  Returns the ranks' launch counts."""
+    import tempfile
+
+    from vision_transformer_cam_tpu_torch import configs, serving
+    from vision_transformer_cam_tpu_torch.io.weights import load_state_dict
+    from vision_transformer_cam_tpu_torch.models.vit import ViTCAM
+    from vision_transformer_cam_tpu_torch.ops.rollout import (
+        cam_from_rollout_row)
+    from vision_transformer_cam_tpu_torch.parallel.worker import launch
+    from vision_transformer_cam_tpu_torch.scripts.dryrun_multichip import (
+        OPTIM, delta_excess)
+    from vision_transformer_cam_tpu_torch.train import state as statelib
+    from vision_transformer_cam_tpu_torch.train import step as steplib
+    t_phase = time.perf_counter()
+    gc_cuda()
+    optim = configs.OptimConfig(**OPTIM)
+    mixed_optim = configs.OptimConfig(lr=1e-4, warmup_epochs=0, epochs=10,
+                                      linear_lr_scaling=False, clip_grad=1.0)
+    model = train_model("kernel", dtype=torch.float32, remat=False)
+    cfg32 = model.cfg
+    before = {k: v.detach().cpu().clone()
+              for k, v in model.state_dict().items()}
+    full_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    b32 = seeded_batch(batch32, 61)
+    x8, y8 = torch.from_numpy(b32["image"]), torch.from_numpy(b32["label"])
+    x32 = torch.from_numpy(seeded_batch(cam_batch, 62)["image"])
+    x4 = torch.from_numpy(seeded_batch(4, 63)["image"])
+
+    def one_step(cfg, x, y):
+        m_ = ViTCAM(cfg, device="cuda")
+        load_state_dict(m_, before)
+        opt, _ = statelib.make_optimizer(m_, optim, batch32, 100)
+        st = statelib.create_train_state(m_, opt)
+        st, met = steplib.train_step(st, x.cuda(), y.cuda())
+        return {k: v.detach().cpu() for k, v in m_.state_dict().items()}, \
+            float(met["loss"])
+
+    def forward(cfg, mode, x):
+        m_ = ViTCAM(cfg, device="cuda")
+        load_state_dict(m_, before)
+        serving.apply_serving_mode(m_, mode)
+        o = m_(x.cuda(), need_rollout=True)
+        return {"logits": o.logits.float().cpu(),
+                "rollout_row": o.rollout_row.float().cpu(),
+                "cam": cam_from_rollout_row(o.rollout_row, cfg.grid_size)
+                .float().cpu()}
+    del model
+    gc_cuda()
+    one, one_loss = one_step(cfg32, x8, y8)
+    pcfg = cfg32.replace(attn_impl="eager", per_sample_mask_norm=True)
+    p_one, p_loss = one_step(pcfg, x8, y8)
+    ref = {"cam_bf16": forward(cfg32, "bf16", x32),
+           "cam_f32": forward(cfg32, "off", x4),
+           "pipeline": forward(pcfg, "off", x8)}
+    gc_cuda()
+    # ViT-H/14 alone on this process: its mixed step and peak memory
+    bh = seeded_batch(huge_batch, 64)
+    huge = tuple(torch.from_numpy(bh[k]) for k in ("image", "label"))
+    hm = zoo_train_model("vit_huge_patch14_224_in21k", "kernel")
+    opt, _ = statelib.make_optimizer(hm, mixed_optim, huge_batch, 100)
+    st = statelib.create_train_state(hm, opt)
+    torch.cuda.reset_peak_memory_stats()
+    st, met = steplib.train_step(st, *(t.cuda() for t in huge))
+    huge_one = (float(met["loss"]), torch.cuda.max_memory_allocated())
+    del hm, opt, st
+    gc_cuda()
+
+    inputs = dict(
+        cfg=cfg32, before=before, optim=optim, mixed_optim=mixed_optim,
+        f32=[(x8, y8)], b32=batch32, b16=batch, bh=huge_batch, huge=huge,
+        bh32=huge32, huge32=tuple(torch.from_numpy(seeded_batch(huge32, 65)[k])
+                                  for k in ("image", "label")),
+        x32=x32, x4=x4,
+        mixed=[tuple(torch.from_numpy(b[k]) for k in ("image", "label"))
+               for b in (seeded_batch(batch, 70 + i)
+                         for i in range(TP_STEPS))])
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        torch.save(inputs, os.path.join(workdir, "tp_inputs.pt"))
+        del inputs
+        ranks = launch(_tp_rank, (workdir,), world=2, timeout=800)
+    say(f"tp path: 2 ranks on one card, transport {ranks[0]['transport']}, "
+        f"{time.perf_counter() - t0:.1f} s with the processes' start")
+    fails, counts = [], {}
+
+    def add(c, rename=None):
+        for k, v in c.items():
+            k = (rename or {}).get(k, k)
+            counts[k] = counts.get(k, 0) + v
+
+    depth = cfg32.depth
+    atol, rtol = TRAIN_TOL["grad"]
+    # the float32 step against one rank
+    d_loss = abs(ranks[0]["f32"]["metrics"][0]["loss"] - one_loss)
+    worst, bad = delta_excess(ranks[0]["f32"]["state"], one, before,
+                              (atol, rtol))
+    say(f"tp path f32 (B={batch32}, 6 heads a rank) vs one rank: loss "
+        f"{d_loss:.3e} (tol {TRAIN_TOL['loss']}), parameter changes max abs "
+        f"dev {worst:.3e} (atol {atol}, rtol {rtol}); heads "
+        f"{ranks[0]['f32']['heads']}")
+    if d_loss > TRAIN_TOL["loss"] or bad:
+        fails.append(f"f32 tp step vs one rank: loss {d_loss}, {bad}")
+    # the mixed steps: launches, heads, whole leaves bit-equal
+    train_row = "masked_attention_fused[bf16 plain, training]"
+    for rank, r in enumerate(ranks):
+        mx = r["mixed"]
+        # train_steps sets the counts to 0 before each step and reads them
+        # after it
+        add({train_row: sum(st["masked_attention_fused"]
+                            for st in mx["launches"]),
+             "masked_attention_bwd": sum(st["masked_attention_bwd"]
+                                         for st in mx["launches"])})
+        steps_ok = all(st == {"masked_attention_fused": 2 * depth,
+                              "masked_attention_bwd": depth}
+                       for st in mx["launches"]) and all(
+            h == [cfg32.num_heads // 2] for h in mx["heads"])
+        say(f"tp path mixed, rank {rank}: launches a step "
+            f"{mx['launches'][0]} (expected {2 * depth} / {depth}) at heads "
+            f"{mx['heads'][0]}, held over {TP_STEPS} steps: {steps_ok}; "
+            f"losses " + ", ".join(f"{x['loss']:.6f}"
+                                   for x in mx["metrics"])
+            + f"; parameter bytes {mx['param_bytes']} against {full_bytes} "
+            "unsharded")
+        if not steps_ok:
+            fails.append(f"mixed rank {rank}: launches or heads "
+                         f"{mx['launches']} {mx['heads']}")
+        if not all(np.isfinite(x["loss"]) for x in mx["metrics"]):
+            fails.append(f"mixed rank {rank}: loss not finite")
+        if not mx["param_bytes"] < full_bytes:
+            fails.append(f"mixed rank {rank}: holds the whole model")
+    same = ranks[0]["mixed"]["whole_digests"] == \
+        ranks[1]["mixed"]["whole_digests"]
+    say(f"tp path mixed: the leaves both ranks hold whole bit for bit equal "
+        f"after each of {TP_STEPS} steps: {same}")
+    if not same:
+        fails.append("mixed: the replicated leaves differ between ranks")
+    rates = ranks[0]["mixed"]["img_per_s"]
+    say(f"tp path img/s, ViT-B/16 mixed precision, remat, batch {batch}, "
+        f"{TP_TIMED} steps a reading, in turns (tp, one, one, tp): two ranks "
+        f"sharing one card {np.mean(rates['par']):.1f} ({rates['par'][0]:.1f}, "
+        f"{rates['par'][1]:.1f}); one rank alone {np.mean(rates['one']):.1f} "
+        f"({rates['one'][0]:.1f}, {rates['one'][1]:.1f}); the {6 * depth} "
+        f"activation all-reduces of a step alone {rates['collective_ms']:.1f} "
+        "ms; NOT a scaling figure: both ranks share the card, and gloo "
+        "stages every all-reduce through host memory")
+    # the CAM forwards
+    for name, gate in (("cam_bf16", ("cam", "logits")),
+                       ("cam_f32", ("row32", "logits32"))):
+        want = ref[name]
+        for rank, r in enumerate(ranks):
+            got = r[name]
+            add(got["counts"])
+            kinds = ("cam", "logits") if name == "cam_bf16" \
+                else ("rollout_row", "logits")
+            devs = [float((got[k] - want[k]).abs().max()) for k in kinds]
+            ok = all(dv <= TP_GATES[g] for dv, g in zip(devs, gate)) and \
+                got["counts"]["masked_attention_fused"] == depth and \
+                got["heads"] == [cfg32.num_heads // 2]
+            say(f"tp path {name}, rank {rank}: {kinds[0]} {devs[0]:.3e} "
+                f"(gate {TP_GATES[gate[0]]}), logits {devs[1]:.3e} (gate "
+                f"{TP_GATES[gate[1]]}); kernel-1 launches "
+                f"{got['counts']['masked_attention_fused']} (head-mean "
+                f"variant, expected {depth}) at heads {got['heads']}")
+            if not ok:
+                fails.append(f"{name} rank {rank}: {devs}, "
+                             f"{got['counts']}, {got['heads']}")
+    # ViT-H/14
+    hh = [r["huge"] for r in ranks]
+    for rank, h in enumerate(hh):
+        add(h["counts"])
+        ok = h["counts"]["masked_attention_fused"] == 64 and \
+            h["counts"]["masked_attention_bwd"] == 32 and \
+            h["counts"][W80] == 64 and h["counts"][BWD80] == 32 and \
+            h["heads"] == [8] and np.isfinite(h["loss"])
+        say(f"tp path ViT-H/14 mixed step, rank {rank} (B={huge_batch}): "
+            f"loss {h['loss']:.6f} (one rank {huge_one[0]:.6f}); kernel 1 "
+            f"{h['counts'][W80]} and backward {h['counts'][BWD80]} at head "
+            f"width 80, {h['heads']} heads a rank (expected 64 / 32, [8]); "
+            f"peak {h['peak'] / 2**30:.2f} GiB (one rank alone "
+            f"{huge_one[1] / 2**30:.2f}); parameter bytes "
+            f"{h['param_bytes']} of {h['full_param_bytes']}")
+        if not ok:
+            fails.append(f"ViT-H/14 rank {rank}: {h['counts']}, "
+                         f"{h['heads']}, loss {h['loss']}")
+    if hh[0]["whole_digest"] != hh[1]["whole_digest"]:
+        fails.append("ViT-H/14: the replicated leaves differ between ranks")
+    h32 = ranks[0]["huge32"]
+    for r in ranks:
+        add(r["huge32"]["counts"])
+    d_loss = abs(h32["loss"] - h32["one_loss"])
+    launches_ok = all(
+        r["huge32"]["counts"]["masked_attention_fused"] == 64
+        and r["huge32"]["counts"]["masked_attention_bwd"] == 32
+        and r["huge32"]["counts"][W80] == 64
+        and r["huge32"]["counts"][BWD80] == 32
+        and r["huge32"]["heads"] == [8] for r in ranks)
+    say(f"tp path ViT-H/14 f32 step (B={huge32}, 8 heads of 80 a rank) vs "
+        f"one rank: loss {h32['loss']:.6f} vs {h32['one_loss']:.6f} (diff "
+        f"{d_loss:.3e}, tol {TRAIN_TOL['loss']}), parameter changes max abs "
+        f"dev {h32['worst']:.3e} (atol {atol}, rtol {rtol}); launches a "
+        f"rank {h32['counts'][W80]} / {h32['counts'][BWD80]} at width 80 "
+        f"(expected 64 / 32) held on both ranks: {launches_ok}")
+    if d_loss > TRAIN_TOL["loss"] or h32["bad"] or not launches_ok:
+        fails.append(f"ViT-H/14 f32 tp step vs one rank: loss {d_loss}, "
+                     f"{h32['bad']}, launches "
+                     f"{[r['huge32']['counts'] for r in ranks]}")
+    # the pipeline
+    pp = [r["pipeline"] for r in ranks]
+    for m_ in (2, 4):
+        devs = [max(float((p[f"fwd{m_}"][k] - ref["pipeline"][k]).abs()
+                          .max()) for p in pp)
+                for k in ("rollout_row", "logits")]
+        say(f"pipeline path, 2 stages, M = {m_}, f32 B={batch32} vs one "
+            f"rank (per-sample norm): rollout row {devs[0]:.3e} (gate "
+            f"{TP_GATES['row32']}), logits {devs[1]:.3e} (gate "
+            f"{TP_GATES['logits32']})")
+        if devs[0] > TP_GATES["row32"] or devs[1] > TP_GATES["logits32"]:
+            fails.append(f"pipeline_forward M={m_}: {devs}")
+    d_loss = abs(pp[0]["loss"] - p_loss)
+    worst, bad = delta_excess(pp[0]["state"], p_one, before, (atol, rtol))
+    launched = sum(v for p in pp for v in p["counts"].values())
+    say(f"pipeline path pipeline_train_step (M = 2) vs one-rank train_step: "
+        f"loss {d_loss:.3e}, parameter changes max abs dev {worst:.3e}; "
+        f"blocks a stage {pp[0]['blocks']} / {pp[1]['blocks']}, block "
+        f"bytes {pp[0]['block_bytes']} / {pp[1]['block_bytes']}; kernel "
+        f"launches {launched} (expected 0: the eager path)")
+    if d_loss > TRAIN_TOL["loss"] or bad or launched or \
+            [len(p["blocks"]) for p in pp] != [depth // 2] * 2:
+        fails.append(f"pipeline step: loss {d_loss}, {bad}, launches "
+                     f"{launched}, blocks {[p['blocks'] for p in pp]}")
+    say(f"tp path: {time.perf_counter() - t_phase:.1f} s")
+    if fails:
+        raise AssertionError("tp path: " + "; ".join(fails))
     return counts
 
 
@@ -3988,6 +4460,9 @@ def time_attention_v1(b=64, n=197, heads=12):
 # Kernel 1 at head width 80 (ViT-H/14: 16 heads of 80), the shapes its
 # phase holds it at: ViT-H's N = 257, a ragged N = 37, and N = 577
 W80_SHAPES = ((8, 257), (3, 37), (2, 577))
+# a tensor-parallel rank's share of ViT-H/14 at m = 2, in the float dtypes
+# its training and CAMs run: B = 8, N = 257, 8 heads of 80
+W80_TP_CASE = (8, 257, 8)
 
 
 def _w80_scales(opt, sc):
@@ -4006,20 +4481,23 @@ def check_attention_w80(heads=16):
     check_attention holds it at 64: float32 (the FMA design), bf16 (the
     tensor-core design, launched twice for identical bits, and the FMA
     design behind ``_fwd_bf16_design``), int8_io with per-head and per-tensor
-    scales and int8_out, each variant, clamp on and off, at W80_SHAPES; the
-    tensor-core design's q_block 32 (two m16 tiles) bit for bit its 16 at N
-    = 257; at N = 1025 q_block 16 against the plain version and a forced 32
-    refused with the bytes it needs; head width 48 refused naming the
-    compiled widths.  Returns {(kind, variant, clamp, n): worst error} of
-    the path's design."""
+    scales and int8_out, each variant, clamp on and off, at W80_SHAPES, and
+    bf16 and float32 at W80_TP_CASE's 8 heads; the tensor-core design's
+    q_block 32 (two m16 tiles) bit for bit its 16 at N = 257; at N = 1025
+    q_block 16 against the plain version and a forced 32 refused with the
+    bytes it needs; head width 48 refused naming the compiled widths.
+    Returns {(kind, variant, clamp, n): worst error} of the path's design
+    at ``heads``."""
     from vision_transformer_cam_tpu_torch.kernels import attention as ka
     errs, failures = {}, []
     kinds = [(torch.bfloat16, None), (torch.float32, None),
              (torch.int8, "per_head"), (torch.int8, "per_tensor"),
              (torch.bfloat16, "int8_out")]
-    for (b, n) in W80_SHAPES:
-        for dtype, opt in kinds:
-            qkv, bg, joint, sc = attention_inputs(b, n, heads, dtype, seed=n,
+    cases = [(b, n, heads, kinds) for (b, n) in W80_SHAPES] + \
+        [(*W80_TP_CASE, kinds[:2])]
+    for (b, n, h, case_kinds) in cases:
+        for dtype, opt in case_kinds:
+            qkv, bg, joint, sc = attention_inputs(b, n, h, dtype, seed=n,
                                                   dh=80)
             scales = _w80_scales(opt, sc)
             fdt = torch.bfloat16 if dtype == torch.int8 else dtype
@@ -4027,7 +4505,7 @@ def check_attention_w80(heads=16):
             for variant in VARIANTS:
                 for clamp in (False, True):
                     want = _call(ka.masked_attention_fused_ref, variant, qkv,
-                                 bg, joint, heads, clamp, scales)
+                                 bg, joint, h, clamp, scales)
                     tols = [None if scales is not None else TOL[(fdt, "out")],
                             TOL[(fdt, "prob")],
                             TOL_JOINT if variant == "rollout"
@@ -4035,25 +4513,26 @@ def check_attention_w80(heads=16):
                     for design in fwd_designs(dtype):
                         got = _fwd_design(design, _call,
                                           ka.masked_attention_fused, variant,
-                                          qkv, bg, joint, heads, clamp, scales)
+                                          qkv, bg, joint, h, clamp, scales)
                         torch.cuda.synchronize()
                         case = f"attention dh=80 {design:11s} {kind:10s} " \
-                               f"{variant:8s} clamp={clamp!s:5s} B={b} N={n}"
+                               f"{variant:8s} clamp={clamp!s:5s} B={b} " \
+                               f"N={n} H={h}"
                         err = _compare(case, got, want, tols, failures)
-                        if design == fwd_designs(dtype)[0]:
+                        if design == fwd_designs(dtype)[0] and h == heads:
                             errs[(kind, variant, clamp, n)] = err
                         if design != "tensor-core":
                             continue
                         again = _call(ka.masked_attention_fused, variant, qkv,
-                                      bg, joint, heads, clamp, scales)
+                                      bg, joint, h, clamp, scales)
                         if not all(torch.equal(x, y)
                                    for x, y in zip(got, again)):
                             failures.append(f"{case}: a second launch gave "
                                             "other bits")
-                        if n != 257 or not clamp:
+                        if n != 257 or not clamp or h != heads:
                             continue
                         wide = _call(ka.masked_attention_fused, variant, qkv,
-                                     bg, joint, heads, clamp, scales,
+                                     bg, joint, h, clamp, scales,
                                      q_block=32)
                         torch.cuda.synchronize()
                         same = [torch.equal(x, y)
@@ -4986,6 +5465,10 @@ def main() -> int:
     validate_path()
     # phase 21, data parallelism: two ranks sharing the card; their launches
     for name, count in dp_path().items():
+        launches[name] = launches.get(name, 0) + count
+    # phase 22, tensor parallelism and the pipeline: two ranks sharing the
+    # card; their launches
+    for name, count in tp_path().items():
         launches[name] = launches.get(name, 0) + count
     # the measurement entry points: the launch counts of every run are set to
     # 0 before it and read after it

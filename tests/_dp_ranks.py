@@ -36,14 +36,16 @@ def no_tensorboard():
 
 
 def train_cli(zoo, zoo_kw, argv):
-    """cli.train.main on this rank; returns the step and the parameters."""
+    """cli.train.main on this rank; returns the step and the parameters in
+    the one-rank layout."""
     from vision_transformer_cam_tpu_torch.cli import train as tcli
+    from vision_transformer_cam_tpu_torch.parallel import mesh as pmesh
     register(zoo, **zoo_kw)
     no_tensorboard()
     state = tcli.main(argv)
     return {"step": state.step,
-            "params": {k: v.detach().cpu()
-                       for k, v in state.model.state_dict().items()}}
+            "params": {k: v.detach().cpu() for k, v in
+                       pmesh.full_state_dict(state.model).items()}}
 
 
 def validate_cli(zoo, zoo_kw, argv):
@@ -135,27 +137,91 @@ def dp_forward(cfg, state_dict, images):
 
 
 def train_runs(cfg, state_dict, batches, runs, optim, global_batch,
-               steps_per_epoch, ckpt_dir):
-    """Data-parallel training runs on this rank, each from ``state_dict``
-    (``scripts.dryrun_multichip.train_steps``): ``runs`` maps a name to
-    (config fields replaced, train_steps keywords, save a checkpoint
-    ``<ckpt_dir>/<name>.pt``).  Returns each run's result with its final
-    parameters."""
+               steps_per_epoch, ckpt_dir, mesh_shape=(-1,), forwards=None):
+    """Training runs on this rank of the ('data',) mesh, or with a second
+    entry in ``mesh_shape`` of the ('data', 'model') mesh, each from
+    ``state_dict`` (``scripts.dryrun_multichip.train_steps``): ``runs`` maps
+    a name to (config fields replaced, train_steps keywords, save a
+    checkpoint ``<ckpt_dir>/<name>.pt``; a keyword ``batches`` replaces the
+    batches).  ``forwards`` maps a name to (config fields replaced, global
+    images, forward keywords): the forward of this rank's rows.  Returns
+    each run's result with its final parameters in the one-rank layout."""
+    from vision_transformer_cam_tpu_torch.io.weights import load_state_dict
+    from vision_transformer_cam_tpu_torch.models.vit import ViTCAM
     from vision_transformer_cam_tpu_torch.parallel import mesh as pmesh
     from vision_transformer_cam_tpu_torch.scripts.dryrun_multichip import (
         train_steps)
     from vision_transformer_cam_tpu_torch.train import checkpoint as ckptlib
     pmesh.distributed_init("cpu")
-    mesh = pmesh.make_mesh((-1,), ("data",))
-    out = {"transport": mesh.transport("cpu")}
+    axes = ("data", "model")[:len(mesh_shape)]
+    mesh = pmesh.make_mesh(mesh_shape, axes)
+    out = {"transport": mesh.transport("cpu"), "data_rank": mesh.data_rank,
+           "model_rank": mesh.inner_rank}
+    for name, (over, images, kw) in (forwards or {}).items():
+        model = ViTCAM(cfg.replace(**over), device="cpu")
+        load_state_dict(model, state_dict)
+        pmesh.shard_params(mesh, model, "model")
+        with pmesh.set_mesh(mesh):
+            res = model(pmesh.shard_batch(mesh, images), **kw)
+        out[name] = {k: getattr(res, k) for k in (
+            "logits", "head1_logits", "rollout_row", "attn_cls_rows",
+            "top_patch_idx", "attn_headmean", "attn_perhead")
+            if getattr(res, k) is not None}
     for name, (over, kw, save) in runs.items():
-        state, res = train_steps(cfg.replace(**over), state_dict, batches,
-                                 mesh, optim=optim,
-                                 global_batch=global_batch, device="cpu",
+        kw = dict(kw)
+        state, res = train_steps(cfg.replace(**over), state_dict,
+                                 kw.pop("batches", batches), mesh,
+                                 optim=optim, global_batch=global_batch,
+                                 device="cpu",
                                  steps_per_epoch=steps_per_epoch, **kw)
         if save:
             ckptlib.save(ckpt_dir, name, state)
-        res["state"] = {k: v.detach().cpu()
-                        for k, v in state.model.state_dict().items()}
+        res["state"] = {k: v.detach().cpu() for k, v in
+                        pmesh.full_state_dict(state.model).items()}
         out[name] = res
+    return out
+
+
+def pipeline_runs(cfg, state_dict, images, labels, shape, micro, optim,
+                  global_batch, steps_per_epoch, ckpt_dir):
+    """On this rank of the ('data', 'stage') mesh ``shape``:
+    ``pipeline_forward`` with ``need_rollout`` of this rank's rows (those of
+    ``shard_batch(mesh, x, M)``) at each microbatch count of ``micro`` with
+    the whole model, then the model stage-sharded and one
+    ``pipeline_train_step`` at the first count, saved as
+    ``<ckpt_dir>/pipeline.pt``.  Returns the outputs, the metrics, the
+    blocks this rank holds and the parameters in the one-rank layout."""
+    from vision_transformer_cam_tpu_torch.io.weights import load_state_dict
+    from vision_transformer_cam_tpu_torch.models.vit import ViTCAM
+    from vision_transformer_cam_tpu_torch.parallel import mesh as pmesh
+    from vision_transformer_cam_tpu_torch.parallel import pipeline
+    from vision_transformer_cam_tpu_torch.train import checkpoint as ckptlib
+    from vision_transformer_cam_tpu_torch.train import state as statelib
+    pmesh.distributed_init("cpu")
+    mesh = pmesh.make_mesh(shape, ("data", "stage"))
+    model = ViTCAM(cfg, device="cpu")
+    load_state_dict(model, state_dict)
+    out = {"data_rank": mesh.data_rank, "stage_rank": mesh.inner_rank}
+    for m in micro:
+        res = pipeline.pipeline_forward(
+            model, pmesh.shard_batch(mesh, images, m), cfg, mesh,
+            microbatches=m, need_rollout=True)
+        out[f"fwd{m}"] = {k: getattr(res, k) for k in (
+            "logits", "head1_logits", "rollout_row", "attn_cls_rows",
+            "top_patch_idx")}
+    pipeline.stage_shard_params(mesh, model)
+    out["blocks"] = sorted({int(n.split(".")[1]) for n, _ in
+                            model.named_parameters()
+                            if n.startswith("blocks.")})
+    opt, _ = statelib.make_optimizer(model, optim, global_batch,
+                                     steps_per_epoch)
+    state = statelib.create_train_state(model, opt)
+    x, y = (pmesh.shard_batch(mesh, t, micro[0]) for t in (images, labels))
+    with pmesh.set_mesh(mesh):
+        state, m = pipeline.pipeline_train_step(state, x, y, mesh,
+                                                microbatches=micro[0])
+    out["metrics"] = {k: float(v) for k, v in m.items()}
+    ckptlib.save(ckpt_dir, "pipeline", state)
+    out["state"] = {k: v.detach().cpu() for k, v in
+                    pmesh.full_state_dict(model).items()}
     return out

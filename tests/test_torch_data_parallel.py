@@ -331,9 +331,18 @@ def test_global_batch_loader_splits_the_one_process_batches(n, drop_last,
 
 
 def test_dp_refuses_model_and_stage_axes():
+    """The 'model' and 'stage' axes build their grids (rank r at (r // m,
+    r % m)); one process refuses a two-rank grid of them, as a ('data',)
+    mesh of two."""
     for axes in (("data", "model"), ("data", "stage")):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            tmesh.make_mesh((1, 1), axes)
+        mesh = tmesh.make_mesh((1, 1), axes)
+        assert mesh.axis_names == axes
+        assert mesh.shape == {"data": 1, axes[1]: 1}
+        assert (mesh.inner_size, mesh.inner_rank) == (1, 0)
+        with pytest.raises(ValueError, match="needs 2 rank"):
+            tmesh.make_mesh((1, 2), axes)
+        with pytest.raises(ValueError, match="does not divide"):
+            tmesh.make_mesh((-1, 2), axes)
     with pytest.raises(ValueError, match="needs 2 rank"):
         tmesh.make_mesh((2,), ("data",))
     mesh = tmesh.make_mesh((-1,), ("data",))

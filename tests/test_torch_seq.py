@@ -481,9 +481,9 @@ def test_dynamic_int8_scales_raise_on_a_sharded_token_axis():
                                            seq_axis="seq"), device="cpu")
     quantize_params(model)                     # no act scales: dynamic
     x = torch.zeros(1, 32, 32, 3)
-    with tmesh.set_mesh(tmesh.SeqMesh(seq_size=1)):
+    with tmesh.set_mesh(tmesh.SeqMesh(inner_size=1)):
         assert torch.isfinite(model(x).logits).all()
-    with tmesh.set_mesh(tmesh.SeqMesh(seq_size=2)):
+    with tmesh.set_mesh(tmesh.SeqMesh(inner_size=2)):
         with pytest.raises(NotImplementedError, match="static act scales"):
             model(x)
 
@@ -516,15 +516,15 @@ def test_apply_seq_parallel_equals_jax(mode, capsys):
 
 def test_seq_parallel_mesh_shapes():
     mesh = tmesh.seq_parallel_mesh(1)
-    assert mesh.shape == {"data": 1, "seq": 1} and mesh.seq_group is None
+    assert mesh.shape == {"data": 1, "seq": 1} and mesh.inner_group is None
     with pytest.raises(ValueError, match="does not divide"):
         tmesh.seq_parallel_mesh(2)        # a world of one rank
     t = torch.arange(10.0).reshape(2, 5)
-    four = tmesh.SeqMesh(seq_size=4, seq_rank=3)
+    four = tmesh.SeqMesh(inner_size=4, inner_rank=3)
     np.testing.assert_array_equal(four.local_rows(t).numpy(),
                                   [[0.0, 0.0], [0.0, 0.0]])
     np.testing.assert_array_equal(
-        tmesh.SeqMesh(seq_size=4, seq_rank=2).local_rows(t).numpy(),
+        tmesh.SeqMesh(inner_size=4, inner_rank=2).local_rows(t).numpy(),
         [[4.0, 0.0], [9.0, 0.0]])
 
 

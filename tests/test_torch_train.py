@@ -660,20 +660,35 @@ def test_load_weights_pretrain_head_surgery(tmp_path):
 
 @pytest.mark.parametrize("knob", [dict(mesh_shape=(-1, 2),
                                        mesh_axes=("data", "seq")),
-                                  dict(pipeline=2),
+                                  dict(pipeline=2, mesh_shape=(-1, 2),
+                                       mesh_axes=("data", "stage")),
                                   dict(pp_microbatches=4),
                                   dict(mesh_shape=(1, 2),
                                        mesh_axes=("data", "model")),
                                   dict(mesh_shape=(-1, 2),
                                        mesh_axes=("data", "model"))])
 def test_unported_train_knobs_raise(knob):
-    """Tensor-parallel, pipeline and sequence-parallel training stay
-    refused; the ('data',) mesh and ZeRO-1 are ported."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tloop.check_supported(tcfgs.TrainConfig(**knob))
-    with pytest.raises(NotImplementedError):
-        tloop.fit(tcfgs.ViTCAMConfig(**TINY), tcfgs.TrainConfig(**knob),
-                  tcfgs.DataConfig(), tcfgs.DataConfig(), device="cpu")
+    """Sequence-parallel training stays refused (Queue 1 item 10); the
+    ('data', 'model') mesh and the pipeline's ('data', 'stage') mesh are
+    taken, and a process alone refuses them where they need two ranks, as a
+    ('data',) mesh of two; ``pp_microbatches`` without ``pipeline`` is
+    taken and unused, as in JAX, and ``pipeline`` wants its stage mesh."""
+    cfg = tcfgs.TrainConfig(**knob)
+    if knob.get("mesh_axes") == ("data", "seq"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+            tloop.check_supported(cfg)
+        with pytest.raises(NotImplementedError):
+            tloop.fit(tcfgs.ViTCAMConfig(**TINY), cfg, tcfgs.DataConfig(),
+                      tcfgs.DataConfig(), device="cpu")
+    elif "mesh_axes" in knob:
+        tloop.check_supported(cfg)
+        with pytest.raises(ValueError, match="rank"):
+            tloop.fit(tcfgs.ViTCAMConfig(**TINY), cfg, tcfgs.DataConfig(),
+                      tcfgs.DataConfig(), device="cpu")
+    else:
+        tloop.check_supported(cfg)
+        with pytest.raises(ValueError, match="'stage'"):
+            tloop.check_supported(tcfgs.TrainConfig(pipeline=2))
     tloop.check_supported(tcfgs.TrainConfig(mesh_shape=(1,)))
     tloop.check_supported(tcfgs.TrainConfig(mesh_shape=(2,), zero1=True))
 

@@ -334,7 +334,8 @@ def test_port_imports_no_jax():
                  "cli.predict", "cli.tools", "data.generic",
                  "scripts.e2e_bench", "examples", "examples.quickstart",
                  "kernels.ops", "cli.export", "examples.serve_artifact",
-                 "scripts.w80_variants", "scripts.dryrun_multichip"):
+                 "scripts.w80_variants", "scripts.dryrun_multichip",
+                 "parallel.pipeline"):
         assert "vision_transformer_cam_tpu_torch." + name in mods
     for root, _, files in os.walk(pkg):
         for f in files:

@@ -24,7 +24,7 @@ calls the program.  The batch is static.  The program's tensors live on
 the device it was exported on (``--device``; ``--platform`` must name the
 same), so export on the platform you deploy to.  ``--data_parallel`` and
 ``--seq_parallel`` are refused: a batch-sharded exported program is not
-ported yet (ROADMAP Queue 1 item 10, its second half; the port's data and
+ported yet (ROADMAP Queue 1 item 10; the port's data and
 sequence parallelism run ``torch.distributed`` collectives that an exported
 program cannot hold).
 """
@@ -70,8 +70,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "(auto = the fused CUDA kernel on the card, eager "
                         "on the CPU)")
     p.add_argument("--data_parallel", action="store_true",
-                   help="not ported: refused (ROADMAP Queue 1 item 10, "
-                        "its second half)")
+                   help="not ported: refused (ROADMAP Queue 1 item 10)")
     p.add_argument("--seq_parallel", type=int, default=0, metavar="N",
                    help="not exportable: refused (the sequence-parallel "
                         "forward's collectives cannot be held by an "
@@ -97,7 +96,7 @@ def build_fn(args, **overrides):
     if args.data_parallel:
         raise SystemExit("--data_parallel: a batch-sharded exported "
                          "program is not ported yet (ROADMAP Queue 1 item "
-                         "10, its second half)")
+                         "10)")
     if args.seq_parallel:
         raise SystemExit(
             f"--seq_parallel {args.seq_parallel}: the sequence-parallel "

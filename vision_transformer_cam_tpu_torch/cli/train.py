@@ -16,8 +16,15 @@ that sets the ``torch.distributed`` environment, e.g.
 scales the lr as in JAX; ``--zero1`` shards the AdamW moments over the
 ranks.  NCCL carries the collectives when each rank has a card of its own,
 gloo otherwise (ranks that share one card, for correctness runs only).
-Tensor-parallel meshes (``--mesh_shape d,m``), ``--seq_parallel``,
-``--pipeline`` and ``--pp_microbatches`` are refused as unported.
+
+Tensor parallelism: ``--mesh_shape d,m`` over d x m ranks, the ('data',
+'model') mesh of JAX, each block's heads and MLP hidden units cut over the
+m ranks of a model group.  The pipeline: ``--pipeline S`` over the
+('data', 'stage') mesh (-1, S), the blocks cut into S stages,
+``--pp_microbatches M`` microbatches a step (default S); it sets the
+per-sample mask norm, as JAX does, and refuses ``--grad_accum`` /
+``--zero1`` and nonzero drop ratios.  ``--seq_parallel`` (sequence-parallel
+training) is refused as unported.
 """
 
 from __future__ import annotations
@@ -69,9 +76,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log_dir", type=str, default=".")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--mesh_shape", type=str, default="-1",
-                   help="the ('data',) mesh over the launched ranks: '-1' "
-                        "(all of them) or their count; a second axis "
-                        "(tensor parallelism) is not ported yet")
+                   help="the mesh over the launched ranks: '-1' (all of "
+                        "them data-parallel) or their count, or 'd,m' "
+                        "(dp, tp: the ('data', 'model') mesh)")
     p.add_argument("--native_decode", action="store_true",
                    help="the C++ batched JPEG pipeline (PIL where the "
                         "library is unavailable)")
@@ -86,9 +93,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seq_parallel", type=int, default=0,
                    help="token-axis sharding in training (not ported yet)")
     p.add_argument("--pipeline", type=int, default=0,
-                   help="pipeline parallelism (not ported yet)")
+                   help="pipeline parallelism: the blocks over N stages "
+                        "((-1, N) ('data', 'stage') mesh, GPipe schedule); "
+                        "implies the per-sample mask norm, needs zero drop "
+                        "ratios; overrides --mesh_shape")
     p.add_argument("--pp_microbatches", type=int, default=0,
-                   help="microbatches per pipeline step (not ported yet)")
+                   help="microbatches per pipeline step (0 = stage count)")
     p.add_argument("--device", type=str, default="cuda",
                    help="'cuda' (default) or 'cpu'")
     p.add_argument("--local_rank", type=int, default=0,
@@ -111,7 +121,7 @@ def main(argv=None):
     if args.seq_parallel:
         raise NotImplementedError(
             "--seq_parallel (sequence-parallel training) is not ported yet "
-            "(ROADMAP Queue 1 item 10, its second half)")
+            "(ROADMAP Queue 1 item 10)")
     optim = configs.OptimConfig(
         opt=args.opt, lr=args.lr, opt_eps=args.opt_eps,
         weight_decay=args.weight_decay, sched=args.sched,
@@ -119,11 +129,17 @@ def main(argv=None):
         warmup_lr=args.warmup_lr, min_lr=args.min_lr,
         decay_epochs=args.decay_epochs, decay_rate=args.decay_rate,
         cooldown_epochs=args.cooldown_epochs, clip_grad=args.clip_grad)
-    mesh_shape = tuple(int(s) for s in args.mesh_shape.split(","))
-    # the JAX CLI's axes: ('data',), ('data', 'model'), or ax0, ax1, ...
-    mesh_axes = ("data", "model")[:len(mesh_shape)] \
-        if len(mesh_shape) <= 2 \
-        else tuple(f"ax{i}" for i in range(len(mesh_shape)))
+    if args.pipeline:
+        mesh_shape, mesh_axes = (-1, args.pipeline), ("data", "stage")
+        # the microbatched carry: the per-sample mask norm (the reference's
+        # batch-global max would make results depend on the microbatch count)
+        model_cfg = model_cfg.replace(per_sample_mask_norm=True)
+    else:
+        mesh_shape = tuple(int(s) for s in args.mesh_shape.split(","))
+        # the JAX CLI's axes: ('data',), ('data', 'model'), or ax0, ax1, ...
+        mesh_axes = ("data", "model")[:len(mesh_shape)] \
+            if len(mesh_shape) <= 2 \
+            else tuple(f"ax{i}" for i in range(len(mesh_shape)))
     train_cfg = configs.TrainConfig(
         optim=optim, batch_size=args.batch_size, seed=args.seed,
         freeze_backbone=args.freeze_layers, ckpt_dir=args.ckpt_dir,

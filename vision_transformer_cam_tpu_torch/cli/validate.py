@@ -145,7 +145,7 @@ def val(args) -> dict:
         pmesh.distributed_init(device)
         mesh = pmesh.seq_parallel_mesh(args.seq_parallel)
         print(f"sequence parallelism: mesh {mesh.shape}, this rank at "
-              f"(data {mesh.data_rank}, seq {mesh.seq_rank}); collectives: "
+              f"(data {mesh.data_rank}, seq {mesh.inner_rank}); collectives: "
               f"{mesh.transport(device)}", flush=True)
     elif args.data_parallel:
         pmesh.distributed_init(device)
@@ -155,7 +155,7 @@ def val(args) -> dict:
               flush=True)
     n_groups = mesh.data_size if mesh else 1
     group_idx = mesh.data_rank if mesh else 0
-    writer = mesh is None or mesh.seq_rank == 0
+    writer = mesh is None or mesh.inner_rank == 0
     if args.batch_size % n_groups:
         raise ValueError(f"--batch_size {args.batch_size} (the global batch) "
                          f"is not divisible by the {n_groups} data group(s)")

@@ -940,7 +940,7 @@ def masked_attention_seq(qkv_local, bg_local, *, group, n_real: int,
     c = qkv_local.shape[-1] // 3
     q = qkv_local[:, :, :c].contiguous()
     kv_l = qkv_local[:, :, c:]
-    if group is None or group.seq_size == 1:
+    if group is None or group.inner_size == 1:
         kv, bg_k = kv_l.contiguous(), bg_local
     else:
         kv = group.all_gather(kv_l.contiguous(), dim=1)
@@ -950,8 +950,8 @@ def masked_attention_seq(qkv_local, bg_local, *, group, n_real: int,
         mask_value=mask_value, with_headmean=with_headmean,
         clamp_softmax=clamp_softmax, hm_dtype=hm_dtype, n_real=n_real)
     row0 = res[1]
-    if group is not None and group.seq_size > 1:
-        row0 = group.broadcast_from_seq0(row0)
+    if group is not None and group.inner_size > 1:
+        row0 = group.inner_broadcast(row0, 0)
     cls_row = row0[:, :n_real]
     if with_headmean:
         return res[0], cls_row, res[2][:, :, :n_real]

@@ -66,6 +66,24 @@ Data parallelism (an ambient mesh whose data axis spans several ranks, and
 each rank runs its rows of the global batch, and the batch-global mask norm
 takes its max over the data group (``_mask_from_cls_row``).  Nothing else in
 the forward couples samples.
+
+Tensor parallelism (a model sharded by ``parallel.shard_params`` over the
+'model' axis of the ambient mesh; no config field, as in JAX, where it is a
+placement of the parameters) runs Megatron's block: each rank holds
+num_heads / m heads of qkv and of proj and mlp_hidden / m hidden units of fc1
+and fc2 (``parallel.mesh.ShardedLinear``).  The replicated activations enter
+qkv and fc1 as they are (their gradient is summed over the model group in
+the backward); the partial products of proj and fc2 are summed over the
+group (the all-reduce) before their biases are added once.  Attention runs
+on the rank's own heads (the kernels take the local head count); the cls
+row, the head mean and the rollout's inputs are the mean over all heads:
+the ranks' means are summed over the group and divided by m (no gradient),
+and the rollout joint is updated in torch from the summed head mean, since
+the kernel's rollout variant would see the rank's heads only.  Dropout draws
+the full-width mask and takes the rank's heads or hidden units, so a seed
+gives the same step at every m.  Refused under it: int8 layers and the fused
+knobs (``mlp_fusion``, ``attn_block_fusion``, ``ln_quant_fusion``,
+``int8_fused_gemm``), which the JAX package replicates.
 """
 
 from __future__ import annotations
@@ -92,7 +110,8 @@ from vision_transformer_cam_tpu_torch.ops.quant import (QLinear,
                                                         qlinear_requant)
 from vision_transformer_cam_tpu_torch.ops.rollout import (
     aug_cls_row, aug_normalize, cam_from_rollout_row)
-from vision_transformer_cam_tpu_torch.parallel.mesh import (ambient_mesh,
+from vision_transformer_cam_tpu_torch.parallel.mesh import (ShardedLinear,
+                                                            ambient_mesh,
                                                             current_mesh)
 from vision_transformer_cam_tpu_torch.utils import resolve_device
 
@@ -187,6 +206,35 @@ def check_supported(cfg: ViTCAMConfig) -> None:
         raise ValueError(f"attn_block_b={cfg.attn_block_b!r} must be >= 0")
 
 
+# the kernel fusions the JAX package replicates under GSPMD (a Pallas call's
+# sharded operands are gathered), refused on a tensor-parallel model
+_TP_REFUSED = ("mlp_fusion", "attn_block_fusion", "ln_quant_fusion",
+               "int8_fused_gemm")
+
+
+def check_layout(model: "ViTCAM", cfg: ViTCAMConfig) -> bool:
+    """Raise for what a sharded model cannot run through ``ViTCAM.forward``
+    / ``forward_train``; True where it is tensor-parallel."""
+    layout = getattr(model, "layout", None)
+    if layout is None:
+        return False
+    if layout.axis == "stage":
+        raise ValueError("a stage-sharded model holds only its stage's "
+                         "blocks: run it through parallel.pipeline ("
+                         "pipeline_forward, pipeline_train_step)")
+    bad = [name for name in _TP_REFUSED if getattr(cfg, name)]
+    if bad:
+        raise ValueError(
+            f"{', '.join(bad)} under tensor parallelism: the JAX package "
+            "replicates a Pallas call's sharded operands (tests/test_gspmd."
+            "py::test_plain_jit_replicates_pallas_call); drop the knobs "
+            "(ROADMAP Queue 3)")
+    if cfg.seq_axis:
+        raise NotImplementedError("tensor and sequence parallelism together "
+                                  "are not a layout of the port")
+    return True
+
+
 # ---------------------------------------------------------------------------
 # primitives
 # ---------------------------------------------------------------------------
@@ -202,12 +250,42 @@ def _gelu(x, approx=False):
     return F.gelu(x, approximate="tanh" if approx else "none")
 
 
+class _Enter(torch.autograd.Function):
+    """Identity forward, gradient summed over the model group: where the
+    replicated activations enter a column-parallel layer."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.inner_sum(g), None
+
+
+class _Exit(torch.autograd.Function):
+    """Sum over the model group forward, identity backward: the all-reduce
+    after a row-parallel layer."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return mesh.inner_sum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 def _linear(x, lin, cfg: ViTCAMConfig):
     """GEMM dispatch.  A float layer runs in the activation dtype (the
     weights are cast, a no-op unless params and activations differ).  A
     ``QLinear`` runs the int8 GEMM: with ``cfg.int8_fused_gemm``, a static
     act_scale and a float x on the fused route (x * inv_a, acc * cs), else
-    on the qlinear route (x / act_scale or int8 x, (acc * sx) * ws)."""
+    on the qlinear route (x / act_scale or int8 x, (acc * sx) * ws).  A
+    ``ShardedLinear`` runs its part of the tensor-parallel layer under the
+    ambient mesh (column: x enters, row: partial product, all-reduce,
+    bias)."""
     if isinstance(lin, QLinear):
         if cfg.int8_fused_gemm and lin.act_scale is not None \
                 and x.dtype != torch.int8:
@@ -215,7 +293,48 @@ def _linear(x, lin, cfg: ViTCAMConfig):
         return qlinear(x, lin, out_dtype=cfg.dtype)
     dtype = cfg.dtype
     bias = None if lin.bias is None else lin.bias.to(dtype)
+    if isinstance(lin, ShardedLinear):
+        mesh = current_mesh(lin.axis, "layout")
+        if lin.kind == "column":
+            return F.linear(_Enter.apply(x.to(dtype), mesh),
+                            lin.weight.to(dtype), bias)
+        y = _Exit.apply(F.linear(x.to(dtype), lin.weight.to(dtype)), mesh)
+        return y if bias is None else y + bias
     return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
+
+
+def _local_heads(ap, cfg: ViTCAMConfig) -> int:
+    """The heads this rank's attention runs: all of them, or its part of a
+    tensor-parallel qkv."""
+    qkv = ap.qkv
+    return cfg.num_heads // qkv.parts if isinstance(qkv, ShardedLinear) \
+        else cfg.num_heads
+
+
+def _heads_mean(t, lin):
+    """The mean over all heads from each rank's mean over its own heads
+    (``t``) under tensor parallelism (a sum over the model group / m,
+    without gradient); ``t`` itself otherwise."""
+    if t is None or not isinstance(lin, ShardedLinear):
+        return t
+    mesh = current_mesh(lin.axis, "layout")
+    return mesh.inner_sum(t.detach()) / lin.parts
+
+
+def _heads_gather(t, lin):
+    """Per-head probabilities [B, h, N, N] of every rank's heads, joined in
+    head order under tensor parallelism; ``t`` itself otherwise."""
+    if t is None or not isinstance(lin, ShardedLinear):
+        return t
+    mesh = current_mesh(lin.axis, "layout")
+    return torch.cat(mesh.inner_list(t.detach()), dim=1)
+
+
+def _shard_of(lin, dim: int):
+    """(dim, parts, index) of a tensor-parallel layer's output along
+    ``dim``, for its dropout mask; None for a whole layer."""
+    return (dim, lin.parts, lin.index) if isinstance(lin, ShardedLinear) \
+        else None
 
 
 def _is_static(lin, *extra) -> bool:
@@ -247,11 +366,24 @@ def _uniform(shape, seed: int, device):
                       dtype=torch.float32)
 
 
-def _dropout(x, rate: float, seed: Optional[int]):
+def _dropout(x, rate: float, seed: Optional[int], shard=None):
+    """Inverted dropout.  ``shard`` (dim, parts, index): ``x`` is part
+    ``index`` of ``parts`` along ``dim`` of a wider tensor (a rank's heads
+    or hidden units); the mask is drawn at the full width and cut, so it is
+    the one-rank mask's part."""
     if rate == 0.0 or seed is None:
         return x
     keep = 1.0 - rate
-    mask = _uniform(x.shape, seed, x.device) < keep
+    if shard is None:
+        u = _uniform(x.shape, seed, x.device)
+    else:
+        dim, parts, index = shard
+        dim %= x.dim()
+        full = list(x.shape)
+        full[dim] *= parts
+        u = _uniform(full, seed, x.device).narrow(
+            dim, index * x.shape[dim], x.shape[dim])
+    mask = u < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -291,8 +423,8 @@ def _attention_eager(ap, x, bg, cfg: ViTCAMConfig, need_probs, joint=None,
     ``joint`` is not consumed here: the caller updates the rollout.  With
     ``rngs`` (training) dropout falls on the probabilities and on the
     projection's output."""
-    b, n, c = x.shape
-    h, dh = cfg.num_heads, cfg.head_dim
+    b, n, _ = x.shape
+    h, dh = _local_heads(ap, cfg), cfg.head_dim
     qkv = _linear(x, ap.qkv, cfg)
     q, k, v = qkv.reshape(b, n, 3, h, dh).permute(2, 0, 3, 1, 4)
     attn = torch.matmul(q, k.transpose(-1, -2)) * cfg.scale
@@ -301,15 +433,18 @@ def _attention_eager(ap, x, bg, cfg: ViTCAMConfig, need_probs, joint=None,
     if cfg.softmax_clamp:
         attn = torch.clamp_max(attn, 80.0)
     probs = torch.softmax(attn, dim=-1)
-    cls_row = probs[:, :, 0, :].mean(dim=1)     # flushed by the caller
-    hm = _ftz(probs.mean(dim=1)) if need_probs else None
-    used = _dropout(probs, cfg.attn_drop_ratio, rngs["attn"]) if rngs \
-        else probs
-    out = torch.matmul(used, v).transpose(1, 2).reshape(b, n, c)
+    # flushed by the caller
+    cls_row = _heads_mean(probs[:, :, 0, :].mean(dim=1), ap.qkv)
+    hm = _ftz(_heads_mean(probs.mean(dim=1), ap.qkv)) if need_probs \
+        else None
+    used = _dropout(probs, cfg.attn_drop_ratio, rngs["attn"],
+                    _shard_of(ap.qkv, 1)) if rngs else probs
+    out = torch.matmul(used, v).transpose(1, 2).reshape(b, n, h * dh)
     out = _linear(out, ap.proj, cfg)
     if rngs:
         out = _dropout(out, cfg.drop_ratio, rngs["proj"])
-    ph = _ftz(probs) if need_probs == "perhead" else None
+    ph = _ftz(_heads_gather(probs, ap.qkv)) if need_probs == "perhead" \
+        else None
     if hm is not None and hm_dtype is not None:
         hm = hm.to(hm_dtype)
     return out, cls_row, hm, ph, None
@@ -354,10 +489,10 @@ def attention_kernel(ap, x, bg, cfg: ViTCAMConfig, need_probs, joint=None,
                 "attn_impl='eager'")
         qkv = _linear(x, ap.qkv, cfg)
         out, cls_row = fused_attention_diff(
-            qkv, bg, num_heads=cfg.num_heads, scale=cfg.scale,
+            qkv, bg, num_heads=_local_heads(ap, cfg), scale=cfg.scale,
             mask_value=cfg.mask_value, clamp_softmax=cfg.softmax_clamp)
-        return _linear(out, ap.proj, cfg), cls_row.to(cfg.dtype), None, \
-            None, None
+        return _linear(out, ap.proj, cfg), \
+            _heads_mean(cls_row, ap.qkv).to(cfg.dtype), None, None, None
     scales = None
     if cfg.int8_attn_io and _is_static(ap.qkv, "out_scales") \
             and _is_static(ap.proj):
@@ -372,10 +507,14 @@ def attention_kernel(ap, x, bg, cfg: ViTCAMConfig, need_probs, joint=None,
         qkv = _linear(x, ap.qkv, cfg)
         if cfg.int8_attn_out and _is_static(ap.proj):
             scales = ap.proj.inv_act.reshape(1)
-    kw = dict(num_heads=cfg.num_heads, scale=cfg.scale,
+    kw = dict(num_heads=_local_heads(ap, cfg), scale=cfg.scale,
               mask_value=cfg.mask_value, clamp_softmax=cfg.softmax_clamp,
               float_dtype=cfg.dtype, q_block=cfg.attn_q_block)
     hm = newj = None
+    if joint is not None and isinstance(ap.qkv, ShardedLinear):
+        raise ValueError("the kernel's rollout variant updates the joint "
+                         "from the rank's own heads: under tensor "
+                         "parallelism take the head mean and update it")
     if joint is not None:
         out, cls_row, newj = masked_attention_fused(qkv, bg, joint, scales,
                                                     **kw)
@@ -386,7 +525,8 @@ def attention_kernel(ap, x, bg, cfg: ViTCAMConfig, need_probs, joint=None,
     else:
         out, cls_row = masked_attention_fused(qkv, bg, None, scales, **kw)
     out = _linear(out, ap.proj, cfg)
-    return out, cls_row.to(cfg.dtype), hm, None, newj
+    return out, _heads_mean(cls_row, ap.qkv).to(cfg.dtype), \
+        _heads_mean(hm, ap.qkv), None, newj
 
 
 def _attention_seq(ap, x, bg, cfg: ViTCAMConfig, need_probs, mesh,
@@ -424,8 +564,8 @@ def _attention_seq(ap, x, bg, cfg: ViTCAMConfig, need_probs, mesh,
     if cfg.softmax_clamp:
         attn = torch.clamp_max(attn, 80.0)
     probs = torch.softmax(attn, dim=-1)
-    cls_row = mesh.broadcast_from_seq0(
-        _ftz(probs[:, :, 0, :].mean(dim=1)).contiguous())
+    cls_row = mesh.inner_broadcast(
+        _ftz(probs[:, :, 0, :].mean(dim=1)).contiguous(), 0)
     hm = _ftz(probs.mean(dim=1)) if need_probs else None
     out = torch.matmul(probs, v).transpose(1, 2).reshape(b, nq, c)
     out = _linear(out, ap.proj, cfg)
@@ -677,6 +817,7 @@ class ViTCAM(nn.Module):
                  need_perhead, need_rollout) -> ViTCAMOutput:
         cfg = self.cfg
         check_supported(cfg)
+        tp = check_layout(self, cfg)
         if cfg.data_axis and not cfg.seq_axis:
             # data parallelism: the rows are this rank's share of the global
             # batch, and the batch-global mask norm reads the mesh
@@ -685,8 +826,8 @@ class ViTCAM(nn.Module):
             if train:
                 raise NotImplementedError(
                     "forward_train under cfg.seq_axis (sequence-parallel "
-                    "training) is not ported yet (ROADMAP Queue 1 item 10, "
-                    "its second half)")
+                    "training) is not ported yet (ROADMAP Queue 1 item "
+                    "10)")
             return self._forward_seq(x, need_headmean, need_blocks,
                                      need_perhead, need_rollout)
         if train and cfg.softmax_clamp:
@@ -714,8 +855,13 @@ class ViTCAM(nn.Module):
                         and not (need_headmean or need_perhead))
         carry_rollout = need_rollout and not rollout_post
         # the kernel updates the joint itself unless the head-mean matrices
-        # are collected too
-        fuse_rollout = carry_rollout and not (need_headmean or need_perhead)
+        # are collected too, or a rank holds only some of the heads
+        fuse_rollout = carry_rollout and not (need_headmean or need_perhead
+                                              or tp)
+        # the summed head means in the rollout's dtype under tensor
+        # parallelism
+        hm_dtype = rollout_dtype if rollout_post or (tp and carry_rollout) \
+            else None
         joint = torch.eye(n, dtype=rollout_dtype, device=dev).expand(
             b, n, n).contiguous() if carry_rollout else None
         # fused LN -> int8 (serving): only where every consumer of the LN
@@ -767,8 +913,7 @@ class ViTCAM(nn.Module):
                 o, cls_row, hm, ph, newj = attn_fn(
                     ap, xn, bg, cfg, need_probs,
                     joint=joint if fuse_rollout else None,
-                    hm_dtype=rollout_dtype if rollout_post else None,
-                    train=train, rngs=rngs)
+                    hm_dtype=hm_dtype, train=train, rngs=rngs)
                 if use_rng and cfg.drop_path_ratio > 0:
                     o = _drop_path(o, dpr[i], rngs["dp1"])
                 tokens = tokens + o
@@ -799,7 +944,8 @@ class ViTCAM(nn.Module):
                 else:
                     hmid = _gelu(_linear(yn, f1, cfg), cfg.gelu_approx)
                     if use_rng:
-                        hmid = _dropout(hmid, cfg.drop_ratio, rngs["mlp1"])
+                        hmid = _dropout(hmid, cfg.drop_ratio, rngs["mlp1"],
+                                        _shard_of(f1, -1))
                 ymlp = _linear(hmid, f2, cfg)
             if use_rng:
                 ymlp = _dropout(ymlp, cfg.drop_ratio, rngs["mlp2"])
@@ -912,7 +1058,7 @@ class ViTCAM(nn.Module):
         forward's."""
         cfg = self.cfg
         mesh = current_mesh(cfg.seq_axis)
-        if mesh.seq_size > 1 and any(
+        if mesh.inner_size > 1 and any(
                 isinstance(m, QLinear) and m.act_scale is None
                 for m in self.blocks.modules()):
             # a dynamic scale is the absmax of the whole activation tensor;
@@ -977,7 +1123,8 @@ class ViTCAM(nn.Module):
 
         rollout_row = None
         if carry_rollout:
-            rollout_row = mesh.broadcast_from_seq0(joint[:, 0, :].contiguous())
+            rollout_row = mesh.inner_broadcast(joint[:, 0, :].contiguous(),
+                                               0)
         elif rollout_post:
             # the reversed chain: each rank adds r[its rows] . hm[its rows];
             # the padded rows of r are zero
@@ -987,7 +1134,7 @@ class ViTCAM(nn.Module):
             for hm_l in reversed(hms):
                 part = torch.bmm(mesh.local_rows(r)[:, None, :],
                                  hm_l.to(chain_dt))[:, 0]
-                r = 0.5 * (mesh.all_reduce_sum(part) + r)
+                r = 0.5 * (mesh.inner_sum(part) + r)
             rollout_row = r.to(rollout_dtype)
 
         def rows(t, dim):

@@ -177,12 +177,22 @@ _BLOCK_GEMMS = (("attn", "qkv"), ("attn", "proj"), ("mlp", "fc1"),
 
 
 @torch.no_grad()
+def _refuse_sharded(model):
+    if getattr(model, "layout", None) is not None:
+        raise NotImplementedError(
+            f"int8 serving of a model sharded over {model.layout.axis!r}: "
+            "the JAX package replicates quantized parameters (ROADMAP "
+            "Queue 3)")
+
+
 def quantize_params(model, act_scales=None):
     """Replace the patch-embed GEMM and the four GEMMs of every block with
     ``QLinear`` modules, in place, and return the model; the heads stay
     float.  ``act_scales`` (from ``calibrate_act_scales``) attaches static
     activation scales and the qkv output scales; without it every layer
-    quantizes its input dynamically."""
+    quantizes its input dynamically.  A model sharded over 'model' or
+    'stage' is refused: the JAX package replicates quantized parameters."""
+    _refuse_sharded(model)
     a = act_scales or {}
     ab = a.get("blocks", {})
     pe = model.patch_embed
@@ -221,6 +231,7 @@ def calibrate_act_scales(model, cfg, images, margin: float = 1.0):
     ``model`` must still hold float weights.  Attention runs with the
     serving graph's math (symmetric pair mask, then the clamp when
     ``cfg.softmax_clamp``), as the JAX ``_attn_calib``."""
+    _refuse_sharded(model)
     from vision_transformer_cam_tpu_torch.models import vit as m
 
     dev = model.pos_embed.device

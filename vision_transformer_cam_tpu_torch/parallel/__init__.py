@@ -2,14 +2,17 @@
 vision_transformer_cam_tpu/parallel): the data-parallel ('data',) mesh (the
 reference's DDP: each rank its rows of the global batch, the gradients and
 the batch-global mask max reduced over the ranks, ZeRO-1 in
-``train.state.Optimizer``) and the sequence-parallel ('data', 'seq') grid of
-``torch.distributed`` process groups.  ``worker`` spawns the ranks of either
-on one host.  Tensor parallelism ('model'), the pipeline ('stage') and
-sequence-parallel training are not ported yet (ROADMAP Queue 1 item 10, its
-second half)."""
+``train.state.Optimizer``), the sequence-parallel ('data', 'seq') grid, the
+tensor-parallel ('data', 'model') grid (``shard_params``: Megatron's layout
+of every block's heads and MLP hidden units) and the pipeline's ('data',
+'stage') grid (``parallel.pipeline``: the blocks in stages, GPipe's
+schedule) of ``torch.distributed`` process groups.  ``worker`` spawns the
+ranks of any of them on one host.  Sequence-parallel training is not ported
+yet (ROADMAP Queue 1 item 10)."""
 
 from vision_transformer_cam_tpu_torch.parallel.mesh import (  # noqa: F401
-    SeqMesh, ambient_mesh, apply_seq_parallel, barrier, current_mesh,
-    distributed_init, get_rank, get_world_size, is_main_process,
-    local_batch_rows, make_mesh, process_local_slice, reduce_value,
-    seq_parallel_mesh, set_mesh, shard_batch)
+    Layout, SeqMesh, ShardedLinear, ambient_mesh, apply_seq_parallel,
+    barrier, current_mesh, distributed_init, full_state_dict, get_rank,
+    get_world_size, is_main_process, load_full_state_dict, local_batch_rows,
+    make_mesh, param_pspecs, process_local_slice, reduce_value,
+    seq_parallel_mesh, set_mesh, shard_batch, shard_params)

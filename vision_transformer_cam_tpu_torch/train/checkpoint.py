@@ -7,7 +7,11 @@ resumes exactly.
 
 Under data parallelism every rank calls ``save`` (a ZeRO-1 optimizer
 gathers its moments, a collective) and the main process writes; every rank
-calls ``restore``, which waits at a barrier until the file is there.
+calls ``restore``, which waits at a barrier until the file is there.  A
+model sharded over 'model' or 'stage' is saved in the one-rank layout (its
+parameters and moments gathered over the inner group, as JAX's global arrays
+are) and restored into whatever layout the template has, so a run saved on a
+(2, 2) mesh resumes on one rank and back.
 """
 
 from __future__ import annotations
@@ -27,11 +31,12 @@ def save(ckpt_dir: str, tag: str, state: TrainState) -> str:
     """Save the full train state as <ckpt_dir>/<tag>.pt; returns the path."""
     path = os.path.abspath(os.path.join(ckpt_dir, tag + _EXT))
     optimizer = state.optimizer.state_dict()    # every rank: may gather
+    model = meshlib.full_state_dict(state.model)
     if meshlib.is_main_process():
         os.makedirs(ckpt_dir, exist_ok=True)
         tmp = path + ".tmp"
-        torch.save({"step": state.step, "model": state.model.state_dict(),
-                    "optimizer": optimizer}, tmp)
+        torch.save({"step": state.step, "model": model, "optimizer":
+                    optimizer}, tmp)
         os.replace(tmp, path)   # a reader never sees a half-written file
     meshlib.barrier()
     return path
@@ -43,7 +48,7 @@ def restore(ckpt_dir: str, tag: str, template: TrainState) -> TrainState:
     meshlib.barrier()
     path = os.path.join(ckpt_dir, tag + _EXT)
     sd = torch.load(path, map_location="cpu", weights_only=True)
-    template.model.load_state_dict(sd["model"])
+    meshlib.load_full_state_dict(template.model, sd["model"])
     template.optimizer.load_state_dict(sd["optimizer"])
     return template._replace(step=int(sd["step"]))
 

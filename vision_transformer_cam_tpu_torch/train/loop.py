@@ -1,9 +1,12 @@
 """Epoch-level training and evaluation (the port of
-vision_transformer_cam_tpu/train/loop.py), on one device or data-parallel
-over the ranks of a process group (the reference's DDP; the JAX package's
-data mesh): one rank per device, each loading its rows of every global
+vision_transformer_cam_tpu/train/loop.py), on one device or over the ranks
+of a process group, one rank per device: data-parallel (the reference's
+DDP; the JAX package's data mesh: each rank loads its rows of every global
 batch, gradients averaged over the ranks, optionally the optimizer state
-sharded (ZeRO-1).
+sharded, ZeRO-1), tensor-parallel over a ('data', 'model') mesh (the
+heads and the MLP hidden units of every block cut over the model ranks,
+``parallel.shard_params``) or pipelined over a ('data', 'stage') mesh (the
+blocks cut into stages, ``parallel.pipeline``).
 
 As there, and unlike the reference: the F1 accumulator averages over steps
 (the reference overwrites it and reports only the last sample's value), and
@@ -38,23 +41,26 @@ from vision_transformer_cam_tpu_torch.utils import resolve_device
 from vision_transformer_cam_tpu_torch.utils.metrics import compute_mAP
 
 
+_TRAIN_AXES = (("data",), ("data", "model"), ("data", "stage"))
+
+
 def check_supported(train_cfg: configs.TrainConfig) -> None:
     """Raise for a layout the trainer does not run: it runs a ('data',)
-    mesh of any size, with or without ZeRO-1; tensor, pipeline and
-    sequence-parallel training are not ported."""
-    item = "Queue 1 item 10, its second half"
+    mesh of any size, with or without ZeRO-1, a ('data', 'model') mesh
+    (tensor parallelism), and with ``pipeline`` a ('data', 'stage') mesh;
+    sequence-parallel training is not ported."""
     axes = tuple(train_cfg.mesh_axes)
-    if axes != ("data",) or len(tuple(train_cfg.mesh_shape)) != 1:
+    if axes not in _TRAIN_AXES or len(tuple(train_cfg.mesh_shape)) \
+            != len(axes):
         raise NotImplementedError(
             f"mesh_shape={train_cfg.mesh_shape!r} mesh_axes={axes!r}: the "
-            f"trainer runs a ('data',) mesh; tensor-parallel ('model'), "
-            f"pipeline ('stage') and sequence-parallel ('seq') training are "
-            f"not ported yet (ROADMAP {item})")
-    for name in ("pipeline", "pp_microbatches"):
-        if getattr(train_cfg, name):
-            raise NotImplementedError(
-                f"train_cfg.{name}={getattr(train_cfg, name)!r} is not ported "
-                f"yet (ROADMAP {item})")
+            f"trainer runs ('data',), ('data', 'model') and ('data', "
+            f"'stage') meshes; sequence-parallel ('seq') training is not "
+            f"ported yet (ROADMAP Queue 1 item 10)")
+    if (axes == ("data", "stage")) != bool(train_cfg.pipeline):
+        raise ValueError(f"train_cfg.pipeline={train_cfg.pipeline!r} with "
+                         f"mesh_axes={axes!r}: a pipeline runs on a ('data', "
+                         f"'stage') mesh and such a mesh runs a pipeline")
 
 
 def _log_line(path: Optional[str], text: str):
@@ -64,14 +70,21 @@ def _log_line(path: Optional[str], text: str):
             f.write(text + "\n")
 
 
-def train_one_epoch(state, loader, rng, epoch, log_every=50, grad_accum=1):
-    """One pass over ``loader`` on the device of ``state.model``.  Returns
-    (state, means of the step metrics)."""
+def train_one_epoch(state, loader, rng, epoch, log_every=50, grad_accum=1,
+                    pipeline_mesh=None, pp_microbatches=0):
+    """One pass over ``loader`` on the device of ``state.model``, through
+    ``parallel.pipeline.pipeline_train_step`` over ``pipeline_mesh`` when
+    given.  Returns (state, means of the step metrics)."""
     device = next(state.model.parameters()).device
     sums, steps = {}, 0
     t0 = time.time()
     for batch in device_prefetch(loader, device):
-        if grad_accum > 1:
+        if pipeline_mesh is not None:
+            from vision_transformer_cam_tpu_torch.parallel import pipeline
+            state, metrics = pipeline.pipeline_train_step(
+                state, batch["image"], batch["label"], pipeline_mesh,
+                microbatches=pp_microbatches or None)
+        elif grad_accum > 1:
             state, metrics = train_step_accum(
                 state, batch["image"], batch["label"], rng,
                 accum_steps=grad_accum)
@@ -104,12 +117,26 @@ def evaluate(model, loader):
     every batch's labels, probabilities and pad marks are gathered over the
     data group before the mAP, as JAX's ``process_allgather`` does, so every
     rank returns the same mAP (over the rows in the one-process order: the
-    loader gives each rank its rows of every global batch)."""
+    loader gives each rank its rows of every global batch).  A
+    tensor-parallel model runs its sharded forward under the ambient mesh, a
+    stage-sharded one ``parallel.pipeline.pipeline_forward`` (the stage
+    count's microbatches where they divide the rows, else one); only the
+    data group is gathered over."""
     device = next(model.parameters()).device
     mesh = meshlib.ambient_mesh()
+    layout = getattr(model, "layout", None)
     labels, p_cls, p_h1, keeps = [], [], [], []
     for batch in device_prefetch(loader, device):
-        out = eval_step(model, batch["image"])
+        if layout is not None and layout.axis == "stage":
+            from vision_transformer_cam_tpu_torch.parallel import pipeline
+            x, n_st = batch["image"], layout.mesh.inner_size
+            res = pipeline.pipeline_forward(
+                model, x, model.cfg, layout.mesh,
+                microbatches=n_st if x.shape[0] % n_st == 0 else 1)
+            out = {"probs_cls": torch.sigmoid(res.logits.float()),
+                   "probs_head1": torch.sigmoid(res.head1_logits.float())}
+        else:
+            out = eval_step(model, batch["image"])
         keep = torch.from_numpy((~np.asarray(batch["is_pad"])).astype(
             np.uint8)) if "is_pad" in batch else torch.ones(
             len(batch["label"]), dtype=torch.uint8)
@@ -140,32 +167,55 @@ def fit(model_cfg: configs.ViTCAMConfig, train_cfg: configs.TrainConfig,
         log_dir: str = ".", resume: bool = False, device=None):
     """Full fine-tune entry: joins the process group the environment
     describes (``parallel.distributed_init``; one process without one),
-    builds the ('data',) mesh of ``train_cfg.mesh_shape`` over it, the
-    loaders (each rank its rows of every global batch of
-    ``train_cfg.batch_size``), the model (``init_model``, or a fresh
-    ``ViTCAM`` seeded with ``train_cfg.seed``) on ``device`` (the card
-    unless asked otherwise), the optimizer (ZeRO-1 with ``train_cfg.zero1``)
+    builds the mesh of ``train_cfg.mesh_shape`` / ``mesh_axes`` over it
+    (('data',), ('data', 'model'), or ('data', 'stage') with
+    ``train_cfg.pipeline``), the loaders (each rank its rows of every global
+    batch of ``train_cfg.batch_size``; the ranks of a model or stage group
+    load the same rows), the model (``init_model``, or a fresh ``ViTCAM``
+    seeded with ``train_cfg.seed``) on ``device`` (the card unless asked
+    otherwise), sharded over a 'model' axis of more than one rank
+    (``parallel.shard_params``) or stage-sharded under ``pipeline``, with
+    JAX's guards (no grad_accum or zero1, drop ratios 0; the depth
+    divisible by the stage count: ``stage_shard_params``), the optimizer (ZeRO-1 with ``train_cfg.zero1``)
     and the schedule, scaled by the global batch as in JAX; trains
     ``epochs`` epochs with an evaluation and a log line after each, saving
-    the best-train-loss and the final checkpoint; ``resume`` continues from
-    the newest checkpoint in ``train_cfg.ckpt_dir``.  Only the main process
-    writes logs and checkpoints.  Returns the state."""
+    the best-train-loss and the final checkpoint (in the one-rank layout);
+    ``resume`` continues from the newest checkpoint in
+    ``train_cfg.ckpt_dir``.  Only the main process writes logs and
+    checkpoints.  Returns the state."""
     check_supported(train_cfg)
     device = resolve_device(device)
     meshlib.distributed_init(device)
     mesh = meshlib.make_mesh(train_cfg.mesh_shape, train_cfg.mesh_axes)
     dp, rank = mesh.data_size, mesh.data_rank
     is_main = meshlib.is_main_process()
-    if train_cfg.batch_size % (dp * train_cfg.grad_accum):
+    pipeline = train_cfg.pipeline
+    if pipeline:
+        # JAX's pipeline guards (its loop.fit): the schedule takes no
+        # dropout rng, and accumulation and ZeRO-1 compose with the dp / tp
+        # path only
+        if train_cfg.grad_accum > 1 or train_cfg.zero1:
+            raise ValueError("--pipeline composes with dp (and per-stage "
+                             "microbatching IS accumulation); drop "
+                             "--grad_accum/--zero1")
+        if (model_cfg.drop_ratio or model_cfg.attn_drop_ratio
+                or model_cfg.drop_path_ratio):
+            raise ValueError("pipeline training is deterministic (no "
+                             "dropout RNG threads through the tick "
+                             "schedule); set the drop ratios to 0")
+    micro = (train_cfg.pp_microbatches or mesh.inner_size) if pipeline \
+        else train_cfg.grad_accum
+    if train_cfg.batch_size % (dp * micro):
         raise ValueError(
             f"batch_size {train_cfg.batch_size} (the global batch) is not "
-            f"divisible by {dp} rank(s) x grad_accum {train_cfg.grad_accum}")
+            f"divisible by {dp} rank(s) x {micro} "
+            + ("pipeline microbatches" if pipeline else "grad_accum"))
     stripe = dict(process_index=rank, process_count=dp)
     loader = BatchLoader(_dataset(train_data), train_cfg.batch_size // dp,
                          shuffle=True, seed=train_cfg.seed,
                          num_threads=train_data.num_threads,
                          native_decode=train_data.native_decode,
-                         microbatches=train_cfg.grad_accum, **stripe)
+                         microbatches=micro, **stripe)
     val_loader = BatchLoader(_dataset(val_data), train_cfg.batch_size // dp,
                              shuffle=False, drop_last=False,
                              num_threads=val_data.num_threads,
@@ -182,6 +232,15 @@ def fit(model_cfg: configs.ViTCAMConfig, train_cfg: configs.TrainConfig,
         print(f"data parallelism: {dp} ranks, this rank {rank}; "
               f"collectives: {mesh.transport(device)}"
               + ("; ZeRO-1 optimizer state" if train_cfg.zero1 else ""),
+              flush=True)
+    if pipeline:
+        from vision_transformer_cam_tpu_torch.parallel import pipeline as pp
+        pp.stage_shard_params(mesh, model)
+    else:
+        meshlib.shard_params(mesh, model, "model")
+    if mesh.inner_size > 1:
+        print(f"{mesh.axis_names[1]} axis: {mesh.inner_size} ranks, this rank "
+              f"{mesh.inner_rank}; collectives: {mesh.transport(device)}",
               flush=True)
     mask = trainable_mask(model, train_cfg.freeze_backbone)
     optimizer, schedule = make_optimizer(
@@ -208,13 +267,18 @@ def fit(model_cfg: configs.ViTCAMConfig, train_cfg: configs.TrainConfig,
         except ImportError:
             pass
     best_loss = float("inf")
-    with meshlib.set_mesh(mesh if dp > 1 else None):
+    with meshlib.set_mesh(mesh if mesh.data_size * mesh.inner_size > 1
+                          else None):
         for epoch in range(n_epochs):
             loader.set_epoch(epoch)
             state, tm = train_one_epoch(state, loader, train_cfg.seed, epoch,
                                         train_cfg.log_every if is_main
                                         else 0,
-                                        grad_accum=train_cfg.grad_accum)
+                                        grad_accum=train_cfg.grad_accum,
+                                        pipeline_mesh=mesh if pipeline
+                                        else None,
+                                        pp_microbatches=train_cfg
+                                        .pp_microbatches)
             em = evaluate(model, val_loader)
             lr = schedule(state.step)
             if is_main:

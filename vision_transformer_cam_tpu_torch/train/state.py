@@ -37,16 +37,29 @@ def weight_decay_mask(model: torch.nn.Module) -> Dict[str, bool]:
 
 
 def clip_by_global_norm(grads: Sequence[torch.Tensor],
-                        clip: Optional[float]) -> List[torch.Tensor]:
+                        clip: Optional[float], parts=None,
+                        mesh=None) -> List[torch.Tensor]:
     """optax's clip: unchanged while the global norm is below ``clip``, else
     (g / norm) * clip (``torch.nn.utils.clip_grad_norm_`` divides by
-    norm + 1e-6 instead).  No host sync."""
+    norm + 1e-6 instead).  No host sync.
+
+    The norm is the whole gradient's.  Where a rank holds parts of it
+    (``parts``: one flag a gradient, True for a tensor-parallel slice or a
+    stage's block, ``parallel.mesh.Layout.is_part``), the squared norms of
+    the parts are summed over the inner group of ``mesh`` and the whole
+    (replicated) gradients' squared norm is added once."""
     grads = list(grads)
     if clip is None:
         return grads
     acc = torch.promote_types(grads[0].dtype, torch.float32)
-    norm = torch.linalg.vector_norm(torch.stack(
-        [n.to(acc) for n in torch._foreach_norm(grads)]))
+    norms = [n.to(acc) for n in torch._foreach_norm(grads)]
+    if parts is None or mesh is None:
+        norm = torch.linalg.vector_norm(torch.stack(norms))
+    else:
+        zero = torch.zeros((), dtype=acc, device=grads[0].device)
+        sq = [sum((n * n for n, p in zip(norms, parts) if p is want), zero)
+              for want in (True, False)]
+        norm = torch.sqrt(mesh.inner_sum(sq[0]) + sq[1])
     below = norm < clip
     div = torch.where(below, torch.ones_like(norm), norm)
     mul = torch.where(below, torch.ones_like(norm),
@@ -91,6 +104,15 @@ class Optimizer:
     ``load_state_dict`` takes such a file on any layout.  (JAX shards each
     moment along its first axis that divides by dp and replicates the rest;
     the flat ranges divide every parameter's elements evenly instead.)
+
+    A model sharded over 'model' or 'stage' (``model.layout``): the
+    parameters are the rank's parts, and so are the moments; the clip sums
+    the parts' squared norms over the inner group; ZeRO-1 lays the rank's
+    parts end to end over its data group (JAX ``zero1_opt_pspecs`` with a
+    model axis: the tensor-parallel spec first, then 'data');
+    ``state_dict`` gathers the moments to the one-rank layout (a collective
+    over the inner group too) and ``load_state_dict`` cuts this rank's
+    parts out of them.
     """
 
     def __init__(self, model: torch.nn.Module, cfg: OptimConfig,
@@ -101,6 +123,7 @@ class Optimizer:
             raise NotImplementedError(f"opt={cfg.opt!r}: only adamw is "
                                       "implemented, as in the JAX package")
         self.cfg, self.schedule = cfg, schedule
+        self.layout = getattr(model, "layout", None)
         named = list(model.named_parameters())
         self.names = [n for n, _ in named]
         self.params: List[torch.nn.Parameter] = [p for _, p in named]
@@ -166,7 +189,13 @@ class Optimizer:
     def update(self, grads: Sequence[torch.Tensor]) -> None:
         """One optimizer step from ``grads`` (one per parameter, in
         ``named_parameters`` order)."""
-        grads = clip_by_global_norm(grads, self.cfg.clip_grad)
+        if self.layout is None:
+            grads = clip_by_global_norm(grads, self.cfg.clip_grad)
+        else:
+            grads = clip_by_global_norm(
+                grads, self.cfg.clip_grad,
+                [self.layout.is_part(n) for n in self.names],
+                self.layout.mesh)
         for group in self.adamw.param_groups:
             group["lr"] = self.schedule(self.count)
         self.count += 1
@@ -224,9 +253,11 @@ class Optimizer:
 
     def state_dict(self) -> dict:
         full = self._full_moments()
-        return {"count": self.count,
-                "mu": dict(zip(self._trained_names, full["mu"])),
-                "nu": dict(zip(self._trained_names, full["nu"]))}
+        out = {"count": self.count}
+        for key in ("mu", "nu"):
+            d = dict(zip(self._trained_names, full[key]))
+            out[key] = d if self.layout is None else self.layout.gather(d)
+        return out
 
     def load_state_dict(self, sd: dict) -> None:
         """Load moments (tensors or numpy arrays by parameter name; those of
@@ -234,13 +265,16 @@ class Optimizer:
         moment's dtype and device.  Under ZeRO-1 each rank keeps its slices
         of the full moments."""
         for key, own in (("mu", self.mu), ("nu", self.nu)):
-            missing = set(self._trained_names) - set(sd[key])
+            moments = sd[key] if self.layout is None else \
+                self.layout.part({k: torch.as_tensor(v)
+                                  for k, v in sd[key].items()})
+            missing = set(self._trained_names) - set(moments)
             if missing:
                 raise KeyError(f"optimizer state lacks {key} of "
                                f"{sorted(missing)}")
             full = []
             for name, p in zip(self._trained_names, self._trained):
-                v = torch.as_tensor(sd[key][name])
+                v = torch.as_tensor(moments[name])
                 if tuple(v.shape) != tuple(p.shape):
                     raise ValueError(f"{key}[{name}] has shape "
                                      f"{tuple(v.shape)}, expected "
