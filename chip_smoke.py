@@ -255,6 +255,26 @@ Phases (any failure raises, and the exit code is non-zero):
      and one pipeline_train_step against one rank with the per-sample mask
      norm, 6 blocks a stage, no launch.  img/s of the two tensor-parallel
      ranks beside one rank alone, in turns (no scaling figure).
+ 23. sequence-parallel training and the batch-sharded artifact on one card
+     (run after phase 22): two gloo ranks share the card as in phase 21.
+     ViT-L/16@384 at full width and depth (24 layers, C=1024, N=577 as 289
+     and 288 rows, padded to 578), built once on the host and copied into
+     the ranks, on a (1, 2) ('data', 'seq') grid on the eager path: a
+     float32 step at batch 2 against the one-rank step (TRAIN_TOL), three
+     mixed-precision steps at batch 4 (float32 masters, remat; losses
+     finite, the last below the first, every leaf bit-equal on both ranks
+     after each, no kernel launch), each rank's peak memory beside one
+     rank's, and one step with the K/V gathers and the gradient sum timed;
+     the trained weights served in bf16 by the sequence-parallel kernel (24
+     launches a rank and forward) against one rank's unsharded kernel path
+     (SEQ_GATES).  ``cli.export --data_parallel`` of ViT-B/16 (phase 16's
+     weights) at global batch 64 in int8 and bf16 by both ranks: ``--check``
+     bit for bit on each rank's rows, the sidecar's ``nr_devices`` 2, each
+     rank's launches a call held (12 kernel-1 and 49 ``linear_int8``; 12),
+     the ranks' outputs against the one-rank artifact at batch 64
+     (SP_EXPORT_GATES), and ``serve_artifact`` of the int8 one on both
+     ranks over 70 JPEGs (rank 0 writes the overlays and prints the
+     one-rank artifact's classes).
 Nothing of the earlier phases was reduced.  It prints one JSON line
 describing the kernels (with each one's bound from the shapes it was timed
 at, and the library call's time where one PyTorch call computes the same
@@ -4021,7 +4041,13 @@ def _tp_rank(workdir):
         del model, o
         gc_cuda()
 
-    model = zoo_train_model(HUGE, "kernel")
+    def huge(dtype):
+        m = torch.load(os.path.join(workdir, "tp_huge.pt"),
+                       map_location="cuda", weights_only=False)
+        m.cfg = m.cfg.replace(dtype=dtype)
+        return m
+
+    model = huge(torch.bfloat16)
     full_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     meshlib.shard_params(mesh, model, "model")
     opt, _ = statelib.make_optimizer(model, d["mixed_optim"], d["bh"], 100)
@@ -4045,7 +4071,7 @@ def _tp_rank(workdir):
     # ViT-H/14 at float32: the tensor-parallel step, then on model rank 0
     # the one-rank step from the same seeded weights (a copy of the whole
     # model, taken before the cut), held to it
-    model = zoo_train_model(HUGE, "kernel", dtype=torch.float32)
+    model = huge(torch.float32)
     one = copy.deepcopy(model) if main else None
     meshlib.shard_params(mesh, model, "model")
     opt, _ = statelib.make_optimizer(model, d["optim"], d["bh32"], 100)
@@ -4175,6 +4201,9 @@ def tp_path(batch32=8, batch=16, cam_batch=32, huge_batch=8, huge32=4):
     bh = seeded_batch(huge_batch, 64)
     huge = tuple(torch.from_numpy(bh[k]) for k in ("image", "label"))
     hm = zoo_train_model("vit_huge_patch14_224_in21k", "kernel")
+    # the ranks load this copy of the seeded model (no init of their own)
+    work = tempfile.TemporaryDirectory()
+    torch.save(hm, os.path.join(work.name, "tp_huge.pt"))
     opt, _ = statelib.make_optimizer(hm, mixed_optim, huge_batch, 100)
     st = statelib.create_train_state(hm, opt)
     torch.cuda.reset_peak_memory_stats()
@@ -4193,10 +4222,12 @@ def tp_path(batch32=8, batch=16, cam_batch=32, huge_batch=8, huge32=4):
                for b in (seeded_batch(batch, 70 + i)
                          for i in range(TP_STEPS))])
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as workdir:
-        torch.save(inputs, os.path.join(workdir, "tp_inputs.pt"))
+    try:
+        torch.save(inputs, os.path.join(work.name, "tp_inputs.pt"))
         del inputs
-        ranks = launch(_tp_rank, (workdir,), world=2, timeout=800)
+        ranks = launch(_tp_rank, (work.name,), world=2, timeout=800)
+    finally:
+        work.cleanup()
     say(f"tp path: 2 ranks on one card, transport {ranks[0]['transport']}, "
         f"{time.perf_counter() - t0:.1f} s with the processes' start")
     fails, counts = [], {}
@@ -4349,6 +4380,477 @@ def tp_path(batch32=8, batch=16, cam_batch=32, huge_batch=8, huge32=4):
     say(f"tp path: {time.perf_counter() - t_phase:.1f} s")
     if fails:
         raise AssertionError("tp path: " + "; ".join(fails))
+    return counts
+
+
+# phase 23, sequence-parallel training of ViT-L/16@384 and the batch-sharded
+# serving artifact: two gloo ranks share the card on a (1, 2) grid
+SP_MIXED_STEPS = 3
+SP_EXPORT_RUNS = (   # serving mode, launches a rank and call
+    ("int8", {"masked_attention_fused": 12, "linear_int8_fused": 49}),
+    ("bf16", {"masked_attention_fused": 12}))
+# the data-parallel artifact against the one-rank artifact, CAM and logits
+SP_EXPORT_GATES = {"int8": {"cam": 1e-3, "logits": 1e-1},
+                   "bf16": {"cam": 5e-2, "logits": 5e-2}}
+
+
+def _sp_timed(meshlib, steplib, tm):
+    """Wrap the sequence group's collectives of a train step with
+    synchronising host timers that add to ``tm`` (ms): the all-gathers (K
+    and V of every block, again in the remat recompute, and the tokens
+    before the heads), the group sums (dK, dV in the backward and the
+    gradient sum) and the gradient sum alone.  Returns the undo."""
+    orig = (meshlib.SeqMesh.all_gather, meshlib.SeqMesh.inner_sum,
+            steplib.seq_sum_grads)
+
+    def timed(fn, key):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            tm[key] = tm.get(key, 0.0) + 1e3 * (time.perf_counter() - t0)
+            tm[key + "_calls"] = tm.get(key + "_calls", 0) + 1
+            return r
+        return call
+    meshlib.SeqMesh.all_gather = timed(orig[0], "gathers")
+    meshlib.SeqMesh.inner_sum = timed(orig[1], "sums")
+    steplib.seq_sum_grads = timed(orig[2], "grad_sum")
+
+    def undo():
+        meshlib.SeqMesh.all_gather, meshlib.SeqMesh.inner_sum, \
+            steplib.seq_sum_grads = orig
+    return undo
+
+
+def _sp_rank(workdir):
+    """One rank of phase 23 (spawned by ``parallel.worker.launch``) on the
+    (1, 2) ('data', 'seq') grid: ViT-L/16@384 (copied from the seeded model
+    the parent built) takes a float32 step, then SP_MIXED_STEPS
+    mixed-precision steps and one more with its collectives timed; the
+    trained weights are served in bf16 by the sequence-parallel kernel
+    (sequence rank 0 also runs the unsharded kernel path alone); then on
+    the ('data',) mesh of both ranks ``cli.export --data_parallel`` of
+    ViT-B/16 in int8 and bf16 with ``--check``, each artifact called on the
+    rank's rows, and ``serve_artifact`` of the int8 one.  Launch counts are
+    set to 0 before each section and read after it."""
+    from vision_transformer_cam_tpu_torch import serving
+    from vision_transformer_cam_tpu_torch.cli import export as ecli
+    from vision_transformer_cam_tpu_torch.examples import serve_artifact
+    from vision_transformer_cam_tpu_torch.kernels import ops as kops
+    from vision_transformer_cam_tpu_torch.ops.rollout import (
+        cam_from_rollout_row)
+    from vision_transformer_cam_tpu_torch.parallel import mesh as meshlib
+    from vision_transformer_cam_tpu_torch.scripts.dryrun_multichip import (
+        host_state, param_digest)
+    from vision_transformer_cam_tpu_torch.train import state as statelib
+    from vision_transformer_cam_tpu_torch.train import step as steplib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    meshlib.distributed_init("cuda")
+    mesh = meshlib.make_mesh((1, 2), ("data", "seq"))
+    d = torch.load(os.path.join(workdir, "sp_inputs.pt"), weights_only=False)
+    out = {"transport": mesh.transport("cuda")}
+    main = mesh.inner_rank == 0
+
+    def fresh(cfg, optim, batch):
+        m = torch.load(os.path.join(workdir, "sp_model.pt"),
+                       map_location="cuda", weights_only=False)
+        m.cfg = cfg
+        opt, _ = statelib.make_optimizer(m, optim, batch, 100)
+        return statelib.create_train_state(m, opt)
+
+    # (a) the float32 step against one rank's
+    state = fresh(d["cfg32"], d["optim"], 2)
+    x, y = (t.cuda() for t in d["f32"])
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with meshlib.set_mesh(mesh):
+        state, m = steplib.train_step(state, x, y)
+        res = {"loss": float(m["loss"])}
+    res.update(counts=read_counts(), peak=torch.cuda.max_memory_allocated(),
+               digest=param_digest(state.model))
+    if main:
+        res["state"] = host_state(state.model.state_dict())
+    out["f32"] = res
+    del state
+    gc_cuda()
+
+    # (a) the mixed-precision steps on one batch (the last one's wall, ended
+    # by the loss read, is the step's time), then one timed by collective
+    state = fresh(d["cfg_mixed"], d["mixed_optim"], 4)
+    x, y = (t.cuda() for t in d["mixed"])
+    res = {"loss": [], "digests": [], "counts": []}
+    torch.cuda.reset_peak_memory_stats()
+    with meshlib.set_mesh(mesh):
+        for _ in range(SP_MIXED_STEPS):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = steplib.train_step(state, x, y)
+            res["loss"].append(float(m["loss"]))
+            res["step_ms"] = 1e3 * (time.perf_counter() - t0)
+            res["counts"].append(read_counts())
+            res["digests"].append(param_digest(state.model))
+        res["peak"] = torch.cuda.max_memory_allocated()
+        tm = {}
+        undo = _sp_timed(meshlib, steplib, tm)
+        try:
+            t0 = time.perf_counter()
+            state, m = steplib.train_step(state, x, y)
+            float(m["loss"])
+            res["timed_step_ms"] = 1e3 * (time.perf_counter() - t0)
+        finally:
+            undo()
+    res["collectives"] = tm
+    out["mixed"] = res
+
+    # (b) the trained weights served by the seq kernel, bf16
+    model = state.model
+    del state
+    gc_cuda()
+    model.requires_grad_(False)
+    serving.apply_serving_mode(model, "bf16")
+    model.cfg = meshlib.apply_seq_parallel(model.cfg)
+    xc = d["cam_x"].cuda()
+    reset_counts()
+    with meshlib.set_mesh(mesh):
+        o = model(xc, need_rollout=True)
+    torch.cuda.synchronize()
+    res = {"counts": read_counts()}
+    if main:
+        model.cfg = model.cfg.replace(seq_axis=None, data_axis=None)
+        reset_counts()
+        want = model(xc, need_rollout=True)
+        torch.cuda.synchronize()
+        res["one_counts"] = read_counts()
+        grid = model.cfg.grid_size
+        res["cam_dev"] = float((cam_from_rollout_row(o.rollout_row, grid)
+                                - cam_from_rollout_row(want.rollout_row,
+                                                       grid)).abs().max())
+        res["logits_dev"] = float((o.logits.float() - want.logits.float())
+                                  .abs().max())
+        res["finite"] = bool(torch.isfinite(o.logits.float()).all())
+    out["serve"] = res
+    del model, o
+    gc_cuda()
+
+    # (c) cli.export --data_parallel on both ranks, ViT-B/16
+    x64 = d["x64"]
+    local = x64.shape[0] // meshlib.get_world_size()
+    rows = x64[meshlib.get_rank() * local:(meshlib.get_rank() + 1) * local]
+    for mode, _ in SP_EXPORT_RUNS:
+        art = os.path.join(workdir, f"dp_{mode}.pt2")
+        argv = ["--serving", mode, "--batch", str(x64.shape[0]),
+                "--calib_npy", d["calib"], "--out", art, "--check",
+                "--data_parallel"] + d["weights_argv"]
+        reset_counts()
+        t0 = time.perf_counter()
+        _, text = _capture(ecli.main, argv)
+        torch.cuda.synchronize()
+        res = {"wall": time.perf_counter() - t0, "text": text,
+               "check_counts": read_counts()}
+        with open(art + ".json") as f:
+            res["meta"] = json.load(f)
+        program = kops.load_program(art, "cuda").module()
+        with torch.no_grad():
+            reset_counts()
+            got = program(rows.cuda())
+            torch.cuda.synchronize()
+        res["counts"] = read_counts()
+        res["out"] = [g.float().cpu() for g in got]
+        out[f"export_{mode}"] = res
+        gc_cuda()
+    reset_counts()
+    rc, text = _capture(serve_artifact.main, [
+        "--artifact", os.path.join(workdir, "dp_int8.pt2"), "--images",
+        d["jpegs"], "--out", os.path.join(workdir, "served_dp")])
+    torch.cuda.synchronize()
+    out["serve_artifact"] = {"rc": rc, "text": text, "counts": read_counts()}
+    return out
+
+
+def seq_train_path(batch32=2, batch=4, cam_batch=4, weights=QUALITY_PARAMS):
+    """Phase 23: sequence-parallel training of ViT-L/16@384 at full width
+    and depth (24 layers, C = 1024, N = 577 over two ranks: 289 and 288
+    rows, padded to 578) on the eager path, two gloo ranks sharing the card:
+    a float32 step at batch 2 against one rank's (TRAIN_TOL), three
+    mixed-precision steps at batch 4 (float32 masters, remat: losses finite
+    and falling, every leaf bit-equal on both ranks after each), each
+    rank's peak memory beside one rank's, the ms of the K/V gathers and of
+    the gradient sum; the trained weights served in bf16 by the
+    sequence-parallel kernel (24 launches a rank and forward) against one
+    rank's unsharded kernel path (SEQ_GATES); ``cli.export --data_parallel``
+    of ViT-B/16 (phase 16's weights where that phase ran) at global batch
+    64 in int8 and bf16 by the two ranks (``--check`` bit for bit on each,
+    the sidecar's ``nr_devices`` 2, each rank's launches a call), against
+    the one-rank artifact at batch 64, and ``serve_artifact`` of the int8
+    one on both ranks.  Returns the launch counts to add to the kernels
+    line."""
+    import tempfile
+
+    import PIL.Image
+    from vision_transformer_cam_tpu_torch import configs
+    from vision_transformer_cam_tpu_torch.cli import export as ecli
+    from vision_transformer_cam_tpu_torch.data.transforms import (
+        load_and_preprocess)
+    from vision_transformer_cam_tpu_torch.kernels import ops as kops
+    from vision_transformer_cam_tpu_torch.models.vit import ViTCAM
+    from vision_transformer_cam_tpu_torch.parallel.worker import launch
+    from vision_transformer_cam_tpu_torch.scripts import quality_eval as qe
+    from vision_transformer_cam_tpu_torch.scripts.dryrun_multichip import (
+        OPTIM, delta_excess)
+    from vision_transformer_cam_tpu_torch.train import state as statelib
+    from vision_transformer_cam_tpu_torch.train import step as steplib
+    phase = "seq train path"
+    t_phase = time.perf_counter()
+    gc_cuda()
+    optim = configs.OptimConfig(**OPTIM)
+    mixed_optim = configs.OptimConfig(lr=1e-4, warmup_epochs=0, epochs=10,
+                                      linear_lr_scaling=False, clip_grad=1.0)
+    cfg = configs.vit_large_patch16_384(num_classes=20).replace(
+        representation_size=None, attn_impl="eager")
+    seq = dict(data_axis="data", seq_axis="seq")
+    cfg32 = cfg.replace(remat=False)
+    cfg_mixed = cfg.replace(dtype=torch.bfloat16, remat=True)
+    weights_argv = ["--weights", os.path.join(REPO, weights)] \
+        if weights and os.path.exists(os.path.join(REPO, weights)) else []
+    counts = {}
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory() as work:
+        # the one-rank peaks are read net of what the earlier phases left
+        # allocated in this process (a rank starts empty)
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        model = ViTCAM(cfg32, device="cuda",
+                       generator=torch.Generator().manual_seed(0))
+        torch.save(model, os.path.join(work, "sp_model.pt"))
+        before = {k: v.detach().cpu().clone()
+                  for k, v in model.state_dict().items()}
+        build_s = time.perf_counter() - t0
+        b32, bm = seeded_batch(batch32, 81, size=384), \
+            seeded_batch(batch, 82, size=384)
+        f32 = tuple(torch.from_numpy(b32[k]) for k in ("image", "label"))
+        mixed = tuple(torch.from_numpy(bm[k]) for k in ("image", "label"))
+        # one rank: the float32 step, and a mixed step's peak memory
+        opt, _ = statelib.make_optimizer(model, optim, batch32, 100)
+        st = statelib.create_train_state(model, opt)
+        torch.cuda.reset_peak_memory_stats()
+        st, met = steplib.train_step(st, *(t.cuda() for t in f32))
+        one = {"loss": float(met["loss"]),
+               "peak": torch.cuda.max_memory_allocated() - held,
+               "state": {k: v.detach().cpu() for k, v in
+                         model.state_dict().items()}}
+        del st, opt, model
+        gc_cuda()
+        model = torch.load(os.path.join(work, "sp_model.pt"),
+                           map_location="cuda", weights_only=False)
+        model.cfg = cfg_mixed
+        opt, _ = statelib.make_optimizer(model, mixed_optim, batch, 100)
+        st = statelib.create_train_state(model, opt)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        st, met = steplib.train_step(st, *(t.cuda() for t in mixed))
+        one["mixed_loss"] = float(met["loss"])
+        one["mixed_ms"] = 1e3 * (time.perf_counter() - t1)
+        one["mixed_peak"] = torch.cuda.max_memory_allocated() - held
+        del st, opt, model
+        gc_cuda()
+
+        # the export inputs: quality_eval's calibration batch, 64 seeded
+        # images, 70 generated JPEGs
+        calib = os.path.join(work, "calib.npy")
+        np.save(calib, qe.make_batch(777, 16)[0].numpy())
+        x64 = torch.from_numpy(np.random.default_rng(23).standard_normal(
+            (EXPORT_BATCH, 224, 224, 3), dtype=np.float32))
+        jpegs = os.path.join(work, "jpegs")
+        os.makedirs(jpegs)
+        images, _ = qe.make_batch(9998, SERVE_IMAGES)
+        names = [f"img_{i:03d}" for i in range(SERVE_IMAGES)]
+        mean = np.asarray((0.485, 0.456, 0.406), np.float32)
+        std = np.asarray((0.229, 0.224, 0.225), np.float32)
+        for name, img in zip(names, images.numpy()):
+            u8 = np.clip(np.rint((img * std + mean) * 255), 0, 255)
+            PIL.Image.fromarray(u8.astype(np.uint8)).save(
+                os.path.join(jpegs, name + ".jpg"), quality=95)
+        torch.save(dict(cfg32=cfg32.replace(**seq),
+                        cfg_mixed=cfg_mixed.replace(**seq), optim=optim,
+                        mixed_optim=mixed_optim, f32=f32, mixed=mixed,
+                        cam_x=torch.from_numpy(seeded_batch(
+                            cam_batch, 83, size=384)["image"]),
+                        x64=x64, calib=calib, jpegs=jpegs,
+                        weights_argv=weights_argv),
+                   os.path.join(work, "sp_inputs.pt"))
+        say(f"{phase}: ViT-L/16@384 ({cfg.depth} layers, C={cfg.embed_dim}, "
+            f"N={cfg.seq_len}: {-(-cfg.seq_len // 2)} + "
+            f"{cfg.seq_len - -(-cfg.seq_len // 2)} rows over 2 ranks, padded "
+            f"to {2 * -(-cfg.seq_len // 2)}) built once on the host in "
+            f"{build_s:.1f} s; one rank: float32 step B={batch32} loss "
+            f"{one['loss']:.6f}, peak {one['peak'] / 2**30:.2f} GiB; mixed "
+            f"step B={batch} {one['mixed_ms']:.1f} ms, peak "
+            f"{one['mixed_peak'] / 2**30:.2f} GiB")
+        t0 = time.perf_counter()
+        ranks = launch(_sp_rank, (work,), world=2, timeout=900)
+        say(f"{phase}: 2 ranks on one card, transport "
+            f"{ranks[0]['transport']}, {time.perf_counter() - t0:.1f} s with "
+            "the processes' start")
+        fails = []
+
+        # (a) the float32 step
+        r32 = [r["f32"] for r in ranks]
+        d_loss = abs(r32[0]["loss"] - one["loss"])
+        worst, bad = delta_excess(r32[0]["state"], one["state"], before,
+                                  TRAIN_TOL["grad"])
+        say(f"{phase} (a) f32 step B={batch32} vs one rank: loss "
+            f"{r32[0]['loss']:.6f} vs {one['loss']:.6f} (diff {d_loss:.3e}, "
+            f"tol {TRAIN_TOL['loss']}), parameter changes max abs dev "
+            f"{worst:.3e} (atol, rtol {TRAIN_TOL['grad']}); peak a rank "
+            f"{r32[0]['peak'] / 2**30:.2f} / {r32[1]['peak'] / 2**30:.2f} "
+            f"GiB (one rank {one['peak'] / 2**30:.2f}); both ranks' "
+            f"parameters bit-equal: {r32[0]['digest'] == r32[1]['digest']}")
+        if d_loss > TRAIN_TOL["loss"] or bad or \
+                r32[0]["digest"] != r32[1]["digest"]:
+            fails.append(f"f32 seq step vs one rank: loss {d_loss}, {bad}")
+        # (a) the mixed steps
+        mx = [r["mixed"] for r in ranks]
+        losses = mx[0]["loss"]
+        same = mx[0]["digests"] == mx[1]["digests"] and \
+            mx[0]["loss"] == mx[1]["loss"]
+        launched = sum(v for r in ranks for c in r["mixed"]["counts"]
+                       for v in c.values()) + sum(
+            v for r in r32 for v in r["counts"].values())
+        tm = mx[0]["collectives"]
+        say(f"{phase} (a) mixed B={batch}, {SP_MIXED_STEPS} steps: losses "
+            + ", ".join(f"{v:.6f}" for v in losses) + f" (one rank's first "
+            f"{one['mixed_loss']:.6f}); every leaf bit-equal on both ranks "
+            f"after every step: {same}; kernel launches {launched} (the "
+            f"eager path: 0); peak a rank {mx[0]['peak'] / 2**30:.2f} / "
+            f"{mx[1]['peak'] / 2**30:.2f} GiB (one rank "
+            f"{one['mixed_peak'] / 2**30:.2f}); the last step "
+            f"{mx[0]['step_ms']:.1f} ms (one rank alone, its first step, "
+            f"{one['mixed_ms']:.1f}); in a step timed by "
+            f"collective ({mx[0]['timed_step_ms']:.1f} ms with the "
+            f"synchronisations): all-gathers {tm.get('gathers', 0):.1f} ms in "
+            f"{tm.get('gathers_calls', 0)} calls (K and V of 24 blocks, "
+            f"again in the remat recompute, the tokens), group sums of dK, "
+            f"dV {tm.get('sums', 0) - tm.get('grad_sum', 0):.1f} ms, the "
+            f"gradient sum {tm.get('grad_sum', 0):.1f} ms; NOT a scaling "
+            "figure: both ranks share the card and gloo stages every "
+            "collective through host memory")
+        if not same or launched or not all(np.isfinite(losses)) or \
+                not losses[-1] < losses[0]:
+            fails.append(f"mixed seq steps: losses {losses}, bit-equal "
+                         f"{same}, launches {launched}")
+        # (b) the seq kernel on the trained weights
+        sv = [r["serve"] for r in ranks]
+        for s in sv:
+            add(s["counts"])
+        seq_ok = all(s["counts"]["masked_attention_seq_local"] == cfg.depth
+                     and s["counts"]["masked_attention_fused"] == 0
+                     for s in sv) and \
+            sv[0]["one_counts"]["masked_attention_fused"] == cfg.depth
+        say(f"{phase} (b) bf16 serving of the trained weights, B={cam_batch}, "
+            f"seq kernel vs one rank's unsharded kernel path: CAM "
+            f"{sv[0]['cam_dev']:.3e} (gate {SEQ_GATES['cam']}), logits "
+            f"{sv[0]['logits_dev']:.3e} (gate {SEQ_GATES['logits']}); seq "
+            f"launches a rank {[s['counts']['masked_attention_seq_local'] for s in sv]}"
+            f" (expected {cfg.depth} each), kernel 1 alone "
+            f"{sv[0]['one_counts']['masked_attention_fused']}")
+        if sv[0]["cam_dev"] > SEQ_GATES["cam"] or \
+                sv[0]["logits_dev"] > SEQ_GATES["logits"] or not seq_ok or \
+                not sv[0]["finite"]:
+            fails.append(f"seq serving: {sv[0]}, launches ok {seq_ok}")
+
+        # (c) the data-parallel artifact against the one-rank artifact
+        programs = {}
+        for mode, per_fwd in SP_EXPORT_RUNS:
+            one_out = os.path.join(work, f"one_{mode}.pt2")
+            args = ["--serving", mode, "--batch", str(EXPORT_BATCH),
+                    "--calib_npy", calib, "--out", one_out] + weights_argv
+            _capture(ecli.main, args)
+            programs[mode] = kops.load_program(one_out, "cuda").module()
+            with torch.no_grad():
+                want = [w.float().cpu() for w in programs[mode](x64.cuda())]
+            got = [torch.cat(parts) for parts in zip(
+                *(r[f"export_{mode}"]["out"] for r in ranks))]
+            devs = {k: float((got[i] - want[i]).abs().max())
+                    for k, i in (("logits", 0), ("cam", 2))}
+            devs["head1"] = float((got[1] - want[1]).abs().max())
+            ex = [r[f"export_{mode}"] for r in ranks]
+            checks = [f"bit-identical) on rank {i}'s rows" in e["text"]
+                      for i, e in enumerate(ex)]
+            want_check = {k: 2 * v for k, v in per_fwd.items()}
+            counts_ok = all(
+                {k: v for k, v in e["check_counts"].items() if v}
+                == want_check and {k: v for k, v in e["counts"].items()
+                                   if v} == per_fwd for e in ex)
+            for e in ex:
+                add(e["check_counts"])
+                add(e["counts"])
+            gate = SP_EXPORT_GATES[mode]
+            say(f"{phase} (c) export --data_parallel {mode}, global batch "
+                f"{EXPORT_BATCH} ({EXPORT_BATCH // 2} a rank; weights "
+                f"{'phase 16' if weights_argv else 'seeded'}): --check "
+                f"bit for bit on each rank {checks}, export + check "
+                f"{ex[0]['wall']:.1f} / {ex[1]['wall']:.1f} s; sidecar "
+                f"nr_devices {ex[0]['meta']['nr_devices']}, batch "
+                f"{ex[0]['meta']['batch']}; launches a rank and call "
+                f"{ex[0]['counts']} / {ex[1]['counts']} (expected "
+                f"{per_fwd}); vs the one-rank artifact at batch "
+                f"{EXPORT_BATCH}: CAM {devs['cam']:.3e} (gate {gate['cam']}), "
+                f"logits {devs['logits']:.3e} (gate {gate['logits']}), head1 "
+                f"{devs['head1']:.3e}")
+            if not all(checks) or ex[0]["meta"]["nr_devices"] != 2 or \
+                    not counts_ok or devs["cam"] > gate["cam"] or \
+                    devs["logits"] > gate["logits"]:
+                fails.append(f"export --data_parallel {mode}: checks "
+                             f"{checks}, counts ok {counts_ok}, {devs}")
+        # serve_artifact on both ranks: rank 0 writes and prints
+        sa = [r["serve_artifact"] for r in ranks]
+        n_calls = -(-SERVE_IMAGES // EXPORT_BATCH)
+        for s in sa:
+            add(s["counts"])
+        sa_counts_ok = all(
+            {k: v for k, v in s["counts"].items() if v} ==
+            {k: v * n_calls for k, v in SP_EXPORT_RUNS[0][1].items()}
+            for s in sa)
+        xs = np.zeros((n_calls * EXPORT_BATCH, 224, 224, 3), np.float32)
+        for i, name in enumerate(names):
+            xs[i] = load_and_preprocess(os.path.join(jpegs, name + ".jpg"),
+                                        224, mean, std)
+        probs = []
+        with torch.no_grad():
+            for lo in range(0, len(xs), EXPORT_BATCH):
+                h1 = programs["int8"](torch.from_numpy(
+                    xs[lo:lo + EXPORT_BATCH]).cuda())[1]
+                probs.append(1.0 / (1.0 + np.exp(
+                    -h1.float().cpu().numpy().astype(np.float64))))
+        del programs
+        gc_cuda()
+        want_lines = served_lines(np.concatenate(probs)[:SERVE_IMAGES], names)
+        got_lines = [ln for ln in sa[0]["text"].splitlines()
+                     if ln.startswith("  img_")]
+        overlays = len(os.listdir(os.path.join(work, "served_dp")))
+        say(f"{phase} (c) serve_artifact of the int8 artifact on 2 ranks: "
+            f"{SERVE_IMAGES} JPEGs, rc {[s['rc'] for s in sa]}, {overlays} "
+            f"overlays, rank 1 printed {len(sa[1]['text'].splitlines())} "
+            f"lines; launches a rank {sa[0]['counts']} (held: "
+            f"{sa_counts_ok}); rank 0's classes equal the one-rank "
+            f"artifact's: {got_lines == want_lines}")
+        if any(s["rc"] for s in sa) or overlays != SERVE_IMAGES or \
+                len(got_lines) != SERVE_IMAGES or not sa_counts_ok:
+            fails.append(f"serve_artifact on 2 ranks: rc "
+                         f"{[s['rc'] for s in sa]}, {overlays} overlays, "
+                         f"{len(got_lines)} lines, counts ok {sa_counts_ok}")
+    say(f"{phase}: {time.perf_counter() - t_phase:.1f} s in all; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    if fails:
+        raise AssertionError(f"{phase}: " + "; ".join(fails))
     return counts
 
 
@@ -4932,28 +5434,40 @@ ZOO_TRAIN = (("ViT-H/14", "vit_huge_patch14_224_in21k", 64, 4),
              ("ViT-L/16@512", "vit_large_patch16_512", 16, 2))
 
 
+# the seeded zoo models of zoo_train_model, built once a process and kept on
+# the host: the seeded init on the host is most of a build's time
+_ZOO_TRAIN_BASE = {}
+
+
 def zoo_train_model(name, impl, dtype=torch.bfloat16):
     """A zoo model as cli.train and bench --train build it (no pre-logits
     layer), float32 masters with ``dtype`` compute, remat on, on the card,
     seeded weights; ViT-L/16@512 takes ViT-L/16 (224)'s through the pos-embed
-    interpolation, as ``zoo_model``."""
+    interpolation, as ``zoo_model``.  The weights are built on the card once
+    a process, and each call copies them."""
     from vision_transformer_cam_tpu_torch import configs
     from vision_transformer_cam_tpu_torch.io.weights import load_state_dict
     from vision_transformer_cam_tpu_torch.models.vit import ViTCAM
-    cfg = configs.resolve_model(name)(num_classes=20)
-    if cfg.has_logits:
-        cfg = cfg.replace(representation_size=None)
-    cfg = cfg.replace(dtype=dtype, attn_impl=impl, remat=True)
-    if name != "vit_large_patch16_512":
-        return ViTCAM(cfg, device="cuda",
-                      generator=torch.Generator().manual_seed(0))
-    small = ViTCAM(configs.vit_large_patch16_224(num_classes=20),
-                   device="cuda", generator=torch.Generator().manual_seed(0))
-    sd = {k: v.clone() for k, v in small.state_dict().items()}
-    del small
-    model = ViTCAM(cfg, device="cuda",
-                   generator=torch.Generator().manual_seed(1))
-    load_state_dict(model, sd)
+    if name not in _ZOO_TRAIN_BASE:
+        cfg = configs.resolve_model(name)(num_classes=20)
+        if cfg.has_logits:
+            cfg = cfg.replace(representation_size=None)
+        if name != "vit_large_patch16_512":
+            model = ViTCAM(cfg, device="cuda",
+                           generator=torch.Generator().manual_seed(0))
+        else:
+            small = ViTCAM(configs.vit_large_patch16_224(num_classes=20),
+                           device="cuda",
+                           generator=torch.Generator().manual_seed(0))
+            sd = {k: v.clone() for k, v in small.state_dict().items()}
+            del small
+            model = ViTCAM(cfg, device="cuda",
+                           generator=torch.Generator().manual_seed(1))
+            load_state_dict(model, sd)
+        _ZOO_TRAIN_BASE[name] = model.cpu()
+    base = _ZOO_TRAIN_BASE[name]
+    model = copy.deepcopy(base).cuda()
+    model.cfg = base.cfg.replace(dtype=dtype, attn_impl=impl, remat=True)
     return model
 
 
@@ -5416,7 +5930,12 @@ def main() -> int:
     # float32 paths run in full float32: no TF32 in GEMMs or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_run = time.perf_counter()
+
+    def lap(what):
+        say(f"elapsed {time.perf_counter() - t_run:.1f} s after {what}")
     build_kernels()
+    lap("the build")
     attn_errs = check_attention()
     check_attention_bwd()
     bwd_occupancy()
@@ -5431,45 +5950,61 @@ def main() -> int:
     v1_err = check_attention_v1()
     check_q_block()
     variant_errs = check_attn_variants()
+    lap("the kernel-vs-plain checks")
     seq_ms = time_attention_seq()
     v1_ms, v1_sdpa, _ = time_attention_v1()
     times = time_kernels()
     fused_ms = time_fused()
     bwd_ms = time_attention_bwd()
     time_training_forward()
+    lap("the kernel timings")
     launches = main_path()
+    lap("phase 4")
     # phase 19, the zoo's widest and longest models, right after the main path
     zoo_launches, w80_err, w80_ms, _, _ = zoo_path()
     for name, count in zoo_launches.items():
         launches[name] = launches.get(name, 0) + count
+    lap("phase 19")
     # phase 20, the zoo trained, right after it
     zoo_train_counts, launches[BWD1025], _ = zoo_train_path()
     for name, count in zoo_train_counts.items():
         launches[name] = launches.get(name, 0) + count
+    lap("phase 20")
     train_launches = train_path()
     launches["masked_attention_fused[bf16 plain, training]"] = \
         train_launches["masked_attention_fused"]
     launches["masked_attention_bwd"] += train_launches["masked_attention_bwd"]
     train_kernel_vs_eager()
     train_throughput()
+    lap("phases 6-7")
     for name, count in quality_path().items():
         launches[name] = launches.get(name, 0) + count
+    lap("phase 16")
     # the user path on the weights phase 16 leaves
     for name, count in user_path().items():
         launches[name] = launches.get(name, 0) + count
     # the serving artifact on the same weights
     for name, count in export_path().items():
         launches[name] = launches.get(name, 0) + count
+    lap("phases 17-18")
     launches["masked_attention_seq_local"] = \
         seq_path()["masked_attention_seq_local"]
     validate_path()
+    lap("phases 9-10")
     # phase 21, data parallelism: two ranks sharing the card; their launches
     for name, count in dp_path().items():
         launches[name] = launches.get(name, 0) + count
+    lap("phase 21")
     # phase 22, tensor parallelism and the pipeline: two ranks sharing the
     # card; their launches
     for name, count in tp_path().items():
         launches[name] = launches.get(name, 0) + count
+    lap("phase 22")
+    # phase 23, sequence-parallel training and the batch-sharded artifact:
+    # two ranks sharing the card; their launches
+    for name, count in seq_train_path().items():
+        launches[name] = launches.get(name, 0) + count
+    lap("phase 23")
     # the measurement entry points: the launch counts of every run are set to
     # 0 before it and read after it
     variant_ms, variant_launches, _, _ = time_attn_variants()
@@ -5477,6 +6012,7 @@ def main() -> int:
     for name, count in bench_path().items():
         launches[name] = launches.get(name, 0) + count
     launches["masked_attention"] = scripts_path()
+    lap("phases 13-15")
     # the GEMMs' device time out of a CUDA graph: the shortest of them take
     # less than the wrapper's host work, which the event timing reads instead
     gemm_ms = sum(times[("gemm_graph", s)] for s in GEMM_SHAPES)

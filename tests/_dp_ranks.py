@@ -137,9 +137,11 @@ def dp_forward(cfg, state_dict, images):
 
 
 def train_runs(cfg, state_dict, batches, runs, optim, global_batch,
-               steps_per_epoch, ckpt_dir, mesh_shape=(-1,), forwards=None):
+               steps_per_epoch, ckpt_dir, mesh_shape=(-1,), forwards=None,
+               inner="model"):
     """Training runs on this rank of the ('data',) mesh, or with a second
-    entry in ``mesh_shape`` of the ('data', 'model') mesh, each from
+    entry in ``mesh_shape`` of the ('data', ``inner``) mesh ('model' or
+    'seq'), each from
     ``state_dict`` (``scripts.dryrun_multichip.train_steps``): ``runs`` maps
     a name to (config fields replaced, train_steps keywords, save a
     checkpoint ``<ckpt_dir>/<name>.pt``; a keyword ``batches`` replaces the
@@ -153,7 +155,7 @@ def train_runs(cfg, state_dict, batches, runs, optim, global_batch,
         train_steps)
     from vision_transformer_cam_tpu_torch.train import checkpoint as ckptlib
     pmesh.distributed_init("cpu")
-    axes = ("data", "model")[:len(mesh_shape)]
+    axes = ("data", inner)[:len(mesh_shape)]
     mesh = pmesh.make_mesh(mesh_shape, axes)
     out = {"transport": mesh.transport("cpu"), "data_rank": mesh.data_rank,
            "model_rank": mesh.inner_rank}
@@ -224,4 +226,29 @@ def pipeline_runs(cfg, state_dict, images, labels, shape, micro, optim,
     ckptlib.save(ckpt_dir, "pipeline", state)
     out["state"] = {k: v.detach().cpu() for k, v in
                     pmesh.full_state_dict(model).items()}
+    return out
+
+
+def export_cli(zoo, zoo_kw, argvs, serve_argv):
+    """``cli.export.main`` of each argv on this rank, then, with
+    ``serve_argv``, ``examples.serve_artifact.main``: what each printed, or
+    the text of its ``SystemExit``."""
+    import contextlib
+    import io
+
+    from vision_transformer_cam_tpu_torch.cli import export as ecli
+    from vision_transformer_cam_tpu_torch.examples import serve_artifact
+    register(zoo, **zoo_kw)
+    out = []
+    calls = [(ecli.main, a) for a in argvs]
+    if serve_argv:
+        calls.append((serve_artifact.main, serve_argv))
+    for fn, argv in calls:
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                fn(argv)
+            out.append(buf.getvalue())
+        except SystemExit as e:
+            out.append(f"SystemExit: {e}")
     return out

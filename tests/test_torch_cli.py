@@ -202,24 +202,21 @@ def test_train_cli_runs_on_the_card_by_default(voc_tree, tiny_zoo):
 @pytest.mark.parametrize("flags,shape,axes,err", [
     (("--mesh_shape", "1,2"), (1, 2), ("data", "model"), "needs 2 rank"),
     (("--pipeline", "2"), (-1, 2), ("data", "stage"), "does not divide"),
-    (("--seq_parallel", "2"), None, None, "item 10"),
+    (("--seq_parallel", "2"), (-1, 2), ("data", "seq"), "needs 2 rank"),
     (("--mesh_shape", "2,1"), (2, 1), ("data", "model"), "needs 2 rank"),
     (("--mesh_shape", "2,2"), (2, 2), ("data", "model"), "needs 4 rank"),
     (("--pp_microbatches", "2"), (-1,), ("data",), None)])
 def test_train_cli_refuses_unported_options(voc_tree, tiny_zoo, flags,
                                             shape, axes, err, monkeypatch):
-    """Tensor parallelism (``--mesh_shape d,m``) and the pipeline
-    (``--pipeline S``, which also sets the per-sample mask norm) build the
-    JAX CLI's meshes, which one process refuses where they need more ranks,
-    as ``--mesh_shape 2`` does; ``--pp_microbatches`` without
-    ``--pipeline`` is taken and unused, as in JAX; sequence-parallel
-    training stays refused (ROADMAP Queue 1 item 10).  The multi-rank runs:
-    tests/test_torch_data_parallel_cli.py."""
+    """Tensor parallelism (``--mesh_shape d,m``), the pipeline
+    (``--pipeline S``, which also sets the per-sample mask norm) and
+    sequence parallelism (``--seq_parallel N``, which sets the seq and data
+    axes of the config) build the JAX CLI's meshes, which one process
+    refuses where they need more ranks, as ``--mesh_shape 2`` does;
+    ``--pp_microbatches`` without ``--pipeline`` is taken and unused, as in
+    JAX.  The multi-rank runs: tests/test_torch_data_parallel_cli.py and
+    tests/test_torch_seq_train.py."""
     argv = _cli_args(voc_tree, tiny_zoo, "--device", "cpu", *flags)
-    if shape is None:
-        with pytest.raises(NotImplementedError, match=err):
-            tcli.main(argv)
-        return
     seen, fit = {}, tcli.looplib.fit
     monkeypatch.setattr(tcli.looplib, "fit",
                         lambda m, t, *a, **k: seen.update(model=m, train=t))
@@ -228,6 +225,9 @@ def test_train_cli_refuses_unported_options(voc_tree, tiny_zoo, flags,
     train = seen["train"]
     assert (tuple(train.mesh_shape), tuple(train.mesh_axes)) == (shape, axes)
     assert seen["model"].per_sample_mask_norm == ("--pipeline" in flags)
+    seq = "--seq_parallel" in flags
+    assert (seen["model"].seq_axis, seen["model"].data_axis) == \
+        (("seq", "data") if seq else (None, None))
     tcli.looplib.check_supported(train)
     if err:
         with pytest.raises(ValueError, match=err):

@@ -370,10 +370,16 @@ def test_param_digest_sees_one_bit():
 
 def test_dryrun_multichip_on_the_cpu(capsys):
     """The dry run's four blocks on two gloo ranks: DP step, accumulation,
-    ZeRO-1 and batch-sharded CAM extraction, each against one rank."""
+    ZeRO-1 and batch-sharded CAM extraction, each against one rank; and its
+    sequence-parallel block on the (1, 2) grid (N = 17 over two ranks): the
+    CAMs on both attention paths and the step against one rank."""
     out = dryrun_multichip.main(["--device", "cpu", "--world", "2",
                                  "--timeout", "150"])
     assert out["ok"] and out["zero1_bit_equal"]
+    assert out["sp_loss_dev"] <= dryrun_multichip.TOL["loss"]
+    assert out["sp_delta_dev"] <= dryrun_multichip.TOL["delta"][0]
+    for impl in ("eager", "kernel"):
+        assert out[f"sp_cam_{impl}_dev"] <= dryrun_multichip.TOL["cam"][0]
     assert out["dp_delta_dev"] <= dryrun_multichip.TOL["delta"][0]
     assert sum(out["zero1_moment_elements"]) == out["dp_moment_elements"]
     assert '"ok": true' in capsys.readouterr().out

@@ -7,6 +7,7 @@ run ``tests/_dp_ranks.py`` through ``parallel.worker.launch`` (a stand-in
 for ``torchrun``), which has a time limit of its own."""
 
 import dataclasses
+import json
 import os
 import sys
 
@@ -425,7 +426,7 @@ def test_validate_cli_seq_grid_data_groups_match_one_rank(tree, weights,
 
 
 # ---------------------------------------------------------------------------
-# what item 10 took, and what stays refused (ROADMAP Queue 1 item 10)
+# the layouts item 10 took, and what stays refused (ROADMAP Queue 3)
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("knob", [dict(mesh_shape=(-1, 2),
@@ -434,14 +435,16 @@ def test_validate_cli_seq_grid_data_groups_match_one_rank(tree, weights,
                                        mesh_axes=("data", "seq")),
                                   dict(pipeline=2), dict(pp_microbatches=4)])
 def test_trainer_still_refuses_tp_pipeline_and_seq(knob):
-    """The trainer takes a ('data', 'model') mesh and ``pp_microbatches``
-    (unused without a pipeline, as in JAX); ``pipeline`` wants its ('data',
-    'stage') mesh; sequence-parallel training stays refused (Queue 1 item
-    10)."""
+    """The trainer takes a ('data', 'model') mesh, a ('data', 'seq') mesh
+    and ``pp_microbatches`` (unused without a pipeline, as in JAX);
+    ``pipeline`` wants its ('data', 'stage') mesh; ``fit`` refuses a
+    ('data', 'seq') mesh for a config without the seq axis."""
     cfg = tcfgs.TrainConfig(**knob)
     if knob.get("mesh_axes") == ("data", "seq"):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            tloop.check_supported(cfg)
+        tloop.check_supported(cfg)
+        with pytest.raises(ValueError, match="cfg.seq_axis"):
+            tloop.fit(tcfgs.ViTCAMConfig(**TINY), cfg, tcfgs.DataConfig(),
+                      tcfgs.DataConfig(), device="cpu")
     elif knob.get("pipeline"):
         with pytest.raises(ValueError, match="'stage'"):
             tloop.check_supported(cfg)
@@ -452,23 +455,38 @@ def test_trainer_still_refuses_tp_pipeline_and_seq(knob):
     tloop.check_supported(tcfgs.TrainConfig(mesh_shape=(2,), zero1=True))
 
 
-@pytest.mark.parametrize("flags,err", [(("--seq_parallel", "2"), "item 10"),
+@pytest.mark.parametrize("flags,err", [(("--seq_parallel", "2"),
+                                        "needs 2 rank"),
                                        (("--mesh_shape", "2,2"),
                                         "needs 4 rank"),
                                        (("--pipeline", "2"),
                                         "does not divide")])
 def test_train_cli_still_refuses_item_10_second_half(tree, weights, tmp_path,
                                                      flags, err):
-    """Sequence-parallel training stays refused; ``--mesh_shape 2,2`` and
-    ``--pipeline 2`` are taken, and one process refuses their four- and
-    two-rank meshes, as ``--mesh_shape 2`` (the runs on their ranks:
-    below)."""
-    exc = NotImplementedError if "--seq_parallel" in flags else ValueError
-    with pytest.raises(exc, match=err):
+    """``--seq_parallel 2``, ``--mesh_shape 2,2`` and ``--pipeline 2`` are
+    taken, and one process refuses their two-, four- and two-rank meshes,
+    as ``--mesh_shape 2`` (the runs on their ranks: below and
+    tests/test_torch_seq_train.py); ``--seq_parallel`` with ``--pipeline``
+    is refused with JAX's text."""
+    with pytest.raises(ValueError, match=err):
         tcli.main(_train_args(tree, weights, tmp_path, *flags))
+    with pytest.raises(SystemExit, match="distinct mesh layouts"):
+        tcli.main(_train_args(tree, weights, tmp_path, "--seq_parallel",
+                              "2", "--pipeline", "2"))
 
 
-def test_export_still_refuses_data_parallel(tmp_path):
-    with pytest.raises(SystemExit, match="item 10"):
-        xcli.main(["--device", "cpu", "--out", str(tmp_path / "a.pt2"),
-                   "--data_parallel"])
+def test_export_still_refuses_data_parallel(tmp_path, monkeypatch):
+    """Without a process group ``--data_parallel`` exports the plain
+    artifact (``nr_devices`` 1); with ``--seq_parallel`` it stays refused
+    (the batch-global refusal on two ranks:
+    tests/test_torch_export_data_parallel.py)."""
+    monkeypatch.setitem(tcfgs.MODEL_ZOO, ZOO, _dp_ranks.tiny_factory(
+        dtype="float32", depth=2))
+    out = tmp_path / "a.pt2"
+    argv = ["--device", "cpu", "--model_name", ZOO, "--serving", "bf16",
+            "--batch", "2", "--out", str(out), "--data_parallel"]
+    assert xcli.main(argv + ["--check"]) == str(out)
+    meta = json.loads((tmp_path / "a.pt2.json").read_text())
+    assert (meta["nr_devices"], meta["batch"]) == (1, 2)
+    with pytest.raises(SystemExit, match="collectives"):
+        xcli.main(argv + ["--seq_parallel", "2"])

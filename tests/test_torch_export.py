@@ -465,7 +465,7 @@ def test_serve_artifact_prints_the_jax_scripts_classes(zoos, tmp_path,
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("extra,match", [
-    (["--data_parallel"], "item 10"),
+    (["--data_parallel", "--platform", "cuda"], "--platform cuda"),
     (["--seq_parallel", "2"], "collectives"),
     (["--platform", "cuda"], "--platform cuda"),
 ])

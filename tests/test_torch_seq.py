@@ -460,7 +460,8 @@ def test_fusion_knobs_raise_under_seq_axis(knob):
 
 def test_data_axis_alone_and_training_still_raise():
     """cfg.data_axis alone (data parallelism) needs an ambient mesh, as
-    seq_axis does; sequence-parallel training stays refused."""
+    seq_axis does; sequence-parallel training runs on the eager path, and
+    the kernel path refuses it (the seq kernel has no backward)."""
     alone = tvit.ViTCAM(tcfgs.ViTCAMConfig(**TINY, data_axis="data"),
                         device="cpu")
     with pytest.raises(ValueError, match="data_axis"):
@@ -471,7 +472,11 @@ def test_data_axis_alone_and_training_still_raise():
     with pytest.raises(ValueError, match="mesh"):   # no ambient mesh
         model(x)
     with tmesh.set_mesh(tmesh.seq_parallel_mesh(1)):
-        with pytest.raises(NotImplementedError, match="training"):
+        out = model.forward_train(x)
+        out.logits.sum().backward()
+        assert model.pos_embed.grad is not None
+        model.cfg = model.cfg.replace(attn_impl="kernel")
+        with pytest.raises(ValueError, match="training"):
             model.forward_train(x)
 
 

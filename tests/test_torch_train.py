@@ -668,16 +668,20 @@ def test_load_weights_pretrain_head_surgery(tmp_path):
                                   dict(mesh_shape=(-1, 2),
                                        mesh_axes=("data", "model"))])
 def test_unported_train_knobs_raise(knob):
-    """Sequence-parallel training stays refused (Queue 1 item 10); the
-    ('data', 'model') mesh and the pipeline's ('data', 'stage') mesh are
-    taken, and a process alone refuses them where they need two ranks, as a
-    ('data',) mesh of two; ``pp_microbatches`` without ``pipeline`` is
-    taken and unused, as in JAX, and ``pipeline`` wants its stage mesh."""
+    """The ('data', 'seq') mesh (sequence-parallel training, for a config
+    with the seq axis), the ('data', 'model') mesh and the pipeline's
+    ('data', 'stage') mesh are taken, and a process alone refuses them
+    where they need two ranks, as a ('data',) mesh of two;
+    ``pp_microbatches`` without ``pipeline`` is taken and unused, as in
+    JAX, and ``pipeline`` wants its stage mesh."""
     cfg = tcfgs.TrainConfig(**knob)
     if knob.get("mesh_axes") == ("data", "seq"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            tloop.check_supported(cfg)
-        with pytest.raises(NotImplementedError):
+        tloop.check_supported(cfg)
+        with pytest.raises(ValueError, match="needs 2 rank"):
+            tloop.fit(tcfgs.ViTCAMConfig(**TINY, data_axis="data",
+                                         seq_axis="seq"), cfg,
+                      tcfgs.DataConfig(), tcfgs.DataConfig(), device="cpu")
+        with pytest.raises(ValueError, match="cfg.seq_axis"):
             tloop.fit(tcfgs.ViTCAMConfig(**TINY), cfg, tcfgs.DataConfig(),
                       tcfgs.DataConfig(), device="cpu")
     elif "mesh_axes" in knob:

@@ -22,11 +22,24 @@ records the model / mode / shape contract with the JAX sidecar's keys, plus
 under, a process global no graph records, which the server sets before it
 calls the program.  The batch is static.  The program's tensors live on
 the device it was exported on (``--device``; ``--platform`` must name the
-same), so export on the platform you deploy to.  ``--data_parallel`` and
-``--seq_parallel`` are refused: a batch-sharded exported program is not
-ported yet (ROADMAP Queue 1 item 10; the port's data and
-sequence parallelism run ``torch.distributed`` collectives that an exported
-program cannot hold).
+same), so export on the platform you deploy to.
+
+``--data_parallel`` is the batch-sharded artifact, the port's counterpart of
+the JAX package's one SPMD program for every device.  Run by the N ranks of
+a process group (one device a rank: ``torchrun --nproc_per_node N``, or
+``parallel.worker.launch``), it exports one program at the local batch
+``--batch`` / N, which each rank serves on its rows
+(``examples/serve_artifact.py``); ``--batch`` is the global batch and the
+sidecar's ``nr_devices`` is N.  Rank 0 writes the program and the sidecar;
+``--check`` runs on every rank, on its rows of the check batch.  Without a
+process group N is 1 and the artifact is the plain one.  On more than one
+rank it takes the serving modes, whose mask norm is per sample, so that no
+image reads another's rows.  ``--serving off`` (the batch-global norm) is
+refused there: the batch-global max is a collective over the ranks, which
+an exported program does not hold, and a rank's program would take it over
+its own rows and give other CAMs than the JAX program, whose max spans the
+whole batch.  ``--seq_parallel`` is refused: the sequence-parallel forward
+runs collectives in every block.
 """
 
 from __future__ import annotations
@@ -41,8 +54,10 @@ import torch
 
 from vision_transformer_cam_tpu_torch import configs, serving
 from vision_transformer_cam_tpu_torch.io import weights as wio
+from vision_transformer_cam_tpu_torch.kernels import ops as kops
 from vision_transformer_cam_tpu_torch.models.vit import (
     _MATMUL_PRECISION, ServingFn, ViTCAM, matmul_precision)
+from vision_transformer_cam_tpu_torch.parallel import mesh as meshlib
 from vision_transformer_cam_tpu_torch.utils import resolve_device
 
 
@@ -70,7 +85,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "(auto = the fused CUDA kernel on the card, eager "
                         "on the CPU)")
     p.add_argument("--data_parallel", action="store_true",
-                   help="not ported: refused (ROADMAP Queue 1 item 10)")
+                   help="the batch-sharded artifact: one program at batch / "
+                        "N that the N ranks of the process group serve, "
+                        "each on its rows (on more than one rank the "
+                        "serving modes only)")
     p.add_argument("--seq_parallel", type=int, default=0, metavar="N",
                    help="not exportable: refused (the sequence-parallel "
                         "forward's collectives cannot be held by an "
@@ -93,10 +111,6 @@ def build_fn(args, **overrides):
     with the weights loaded and the serving mode applied, on ``args.device``.
     ``overrides`` are config fields set last (the serving fusions, for
     example); they are no flag of the JAX CLI."""
-    if args.data_parallel:
-        raise SystemExit("--data_parallel: a batch-sharded exported "
-                         "program is not ported yet (ROADMAP Queue 1 item "
-                         "10)")
     if args.seq_parallel:
         raise SystemExit(
             f"--seq_parallel {args.seq_parallel}: the sequence-parallel "
@@ -133,14 +147,37 @@ def build_fn(args, **overrides):
     if impl == "auto":
         impl = "kernel" if device.type == "cuda" else "eager"
     model.cfg = model.cfg.replace(attn_impl=impl, **overrides)
+    world = _world(args)
+    if world > 1 and not model.cfg.per_sample_mask_norm:
+        raise SystemExit(
+            f"--data_parallel on {world} ranks with --serving "
+            f"{args.serving}: its batch-global mask norm takes the max over "
+            "the whole batch, a collective over the ranks that an exported "
+            "program does not hold (each rank's program would take it over "
+            "its own rows and give other CAMs than the one-program "
+            "artifact); export a serving mode (bf16, int8, int8_hifi: the "
+            "per-sample norm) or export on one rank")
     model.requires_grad_(False)
     return ServingFn(model, with_cam=not args.no_cam), model.cfg, \
         calib_provenance
 
 
+def _world(args) -> int:
+    """The ranks that serve the artifact: the process group's under
+    ``--data_parallel``, else one."""
+    return meshlib.get_world_size() if args.data_parallel else 1
+
+
 def main(argv=None) -> str:
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
+    if args.data_parallel:
+        # the group a launcher describes (none: one rank)
+        meshlib.distributed_init(device)
+        world = meshlib.get_world_size()
+        if args.batch % world:
+            raise SystemExit(f"--batch {args.batch} must be a multiple of "
+                             f"the mesh's {world}-way batch axis")
     if args.platform and args.platform != device.type:
         # the program's tensors and the kernels it launches belong to the
         # device it was traced on
@@ -153,24 +190,30 @@ def main(argv=None) -> str:
 
 
 def write_artifact(args, fn, cfg, calib_provenance) -> str:
-    """Export ``fn`` (from ``build_fn``) at the static batch, save it to
-    ``args.out`` with its sidecar and, with ``args.check``, hold the loaded
-    artifact to ``fn`` bit for bit.  Returns ``args.out``."""
+    """Export ``fn`` (from ``build_fn``) at the static batch (under
+    ``--data_parallel`` the local batch of a rank), save it to ``args.out``
+    with its sidecar (rank 0) and, with ``args.check``, hold the loaded
+    artifact to ``fn`` bit for bit (every rank, on its rows).  Returns
+    ``args.out``."""
     device = resolve_device(args.device)
-    spec = torch.zeros((args.batch, cfg.img_size, cfg.img_size, 3),
-                       dtype=torch.float32, device=device)
+    world = _world(args)
+    rank = meshlib.get_rank() if world > 1 else 0
+    local = args.batch // world
     t0 = time.perf_counter()
-    with matmul_precision(cfg), torch.no_grad():
-        exported = torch.export.export(fn, (spec,), strict=False)
-    # the example batch is no part of the program (and 38.5 MB at ViT-B/16's
-    # batch 64): not saved
-    exported.example_inputs = None
-    torch.export.save(exported, args.out)
+    if rank == 0:
+        spec = torch.zeros((local, cfg.img_size, cfg.img_size, 3),
+                           dtype=torch.float32, device=device)
+        with matmul_precision(cfg), torch.no_grad():
+            exported = torch.export.export(fn, (spec,), strict=False)
+        # the example batch is no part of the program (and 38.5 MB at
+        # ViT-B/16's batch 64): not saved
+        exported.example_inputs = None
+        torch.export.save(exported, args.out)
     meta = {"model_name": args.model_name, "serving": args.serving,
             "scoped_vmem_kib": None,
             "batch": args.batch, "img_size": cfg.img_size,
             "num_classes": args.num_classes, "with_cam": not args.no_cam,
-            "nr_devices": 1, "seq_parallel": None,
+            "nr_devices": world, "seq_parallel": None,
             "platforms": [device.type],
             "calibration": calib_provenance,
             "input": "float32 [batch, H, W, 3], ImageNet-normalized",
@@ -180,17 +223,21 @@ def write_artifact(args, fn, cfg, calib_provenance) -> str:
                        (", cam [batch, grid, grid])" if not args.no_cam
                         else ")"),
             "matmul_precision": _MATMUL_PRECISION[cfg.matmul_precision]}
-    with open(args.out + ".json", "w") as f:
-        json.dump(meta, f, indent=1)
-    print(f"exported {os.path.getsize(args.out) / 1e6:.1f} MB -> {args.out} "
-          f"(platforms {meta['platforms']}, {time.perf_counter() - t0:.1f} "
-          "s)")
+    if rank == 0:
+        with open(args.out + ".json", "w") as f:
+            json.dump(meta, f, indent=1)
+        print(f"exported {os.path.getsize(args.out) / 1e6:.1f} MB -> "
+              f"{args.out} (platforms {meta['platforms']}, "
+              f"{time.perf_counter() - t0:.1f} s)" + (
+                  f", batch {local} a rank of {world}" if world > 1 else ""))
+    if world > 1:
+        meshlib.barrier()       # the file is there for every rank
 
     if args.check:
-        program = torch.export.load(args.out).module()
+        program = kops.load_program(args.out, device).module()
         x = torch.from_numpy(np.random.default_rng(3).standard_normal(
             (args.batch, cfg.img_size, cfg.img_size, 3)).astype(
-                np.float32)).to(device)
+                np.float32))[rank * local:(rank + 1) * local].to(device)
         with matmul_precision(cfg), torch.no_grad():
             got = program(x)
             want = fn(x)
@@ -205,7 +252,8 @@ def write_artifact(args, fn, cfg, calib_provenance) -> str:
                     f"live function ({g.dtype} {tuple(g.shape)} against "
                     f"{w.dtype} {tuple(w.shape)})")
         print(f"check OK: artifact == live fn on random input "
-              f"({len(got)} outputs, bit-identical)")
+              f"({len(got)} outputs, bit-identical)" + (
+                  f" on rank {rank}'s rows" if world > 1 else ""))
     return args.out
 
 

@@ -23,8 +23,15 @@ m ranks of a model group.  The pipeline: ``--pipeline S`` over the
 ('data', 'stage') mesh (-1, S), the blocks cut into S stages,
 ``--pp_microbatches M`` microbatches a step (default S); it sets the
 per-sample mask norm, as JAX does, and refuses ``--grad_accum`` /
-``--zero1`` and nonzero drop ratios.  ``--seq_parallel`` (sequence-parallel
-training) is refused as unported.
+``--zero1`` and nonzero drop ratios.  Sequence parallelism: ``--seq_parallel
+N`` over the ('data', 'seq') mesh (-1, N), the token axis of every batch cut
+over the N ranks of a seq group (``cfg.seq_axis``), e.g. on the CPU
+
+    torchrun --nproc_per_node 4 -m vision_transformer_cam_tpu_torch.cli.train \
+        --seq_parallel 2 --device cpu [--zero1] [--grad_accum 2] ...
+
+It trains on the eager attention (the trainer's, and the JAX package's XLA
+attention there); it and ``--pipeline`` are distinct layouts.
 """
 
 from __future__ import annotations
@@ -91,7 +98,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="ZeRO-1: shard the AdamW moments over the data "
                         "ranks")
     p.add_argument("--seq_parallel", type=int, default=0,
-                   help="token-axis sharding in training (not ported yet)")
+                   help="sequence parallelism: the token axis over N ranks "
+                        "((-1, N) ('data', 'seq') mesh, eager attention); "
+                        "overrides --mesh_shape")
     p.add_argument("--pipeline", type=int, default=0,
                    help="pipeline parallelism: the blocks over N stages "
                         "((-1, N) ('data', 'stage') mesh, GPipe schedule); "
@@ -118,10 +127,6 @@ def main(argv=None):
     if model_cfg.has_logits:
         model_cfg = model_cfg.replace(representation_size=None)
 
-    if args.seq_parallel:
-        raise NotImplementedError(
-            "--seq_parallel (sequence-parallel training) is not ported yet "
-            "(ROADMAP Queue 1 item 10)")
     optim = configs.OptimConfig(
         opt=args.opt, lr=args.lr, opt_eps=args.opt_eps,
         weight_decay=args.weight_decay, sched=args.sched,
@@ -129,7 +134,14 @@ def main(argv=None):
         warmup_lr=args.warmup_lr, min_lr=args.min_lr,
         decay_epochs=args.decay_epochs, decay_rate=args.decay_rate,
         cooldown_epochs=args.cooldown_epochs, clip_grad=args.clip_grad)
-    if args.pipeline:
+    if args.seq_parallel and args.pipeline:
+        raise SystemExit("--seq_parallel and --pipeline are distinct mesh "
+                         "layouts; pick one (dp composes with either)")
+    if args.seq_parallel:
+        # the (dp, sp) mesh; the config names the axes its forward reads
+        mesh_shape, mesh_axes = (-1, args.seq_parallel), ("data", "seq")
+        model_cfg = model_cfg.replace(data_axis="data", seq_axis="seq")
+    elif args.pipeline:
         mesh_shape, mesh_axes = (-1, args.pipeline), ("data", "stage")
         # the microbatched carry: the per-sample mask norm (the reference's
         # batch-global max would make results depend on the microbatch count)

@@ -23,6 +23,19 @@ discarded) and preprocessed as training did (PIL bilinear resize and the
 mean / std of the artifact's JSON sidecar).  The artifact runs on the
 device its tensors were saved on (the sidecar's platform): an artifact
 exported for the card is refused on a host without one.
+
+An artifact exported with ``cli.export --data_parallel`` by N ranks
+(``nr_devices`` N in the sidecar) is served by a process group of N ranks,
+one device a rank, as JAX's script rebuilds its mesh of N devices:
+
+  torchrun --nproc_per_node N -m \
+      vision_transformer_cam_tpu_torch.examples.serve_artifact \
+      --artifact model.pt2 --images /path/to/jpegs
+
+Each rank preprocesses and runs its rows of every batch (the global batch
+of the sidecar, cut into N blocks), the outputs are gathered, and rank 0
+writes the overlays and prints the classes.  A group of another size is
+refused.
 """
 
 from __future__ import annotations
@@ -62,23 +75,37 @@ def main(argv=None):
                                                              overlay_cam)
     from vision_transformer_cam_tpu_torch.data.transforms import (
         load_and_preprocess)
-    # registers the vitcam custom ops the program calls
-    from vision_transformer_cam_tpu_torch.kernels import ops  # noqa: F401
+    # registers the vitcam custom ops the program calls, and loads it
+    from vision_transformer_cam_tpu_torch.kernels import ops
     if not meta.get("with_cam", True):
         raise SystemExit("artifact was exported --no-cam; nothing to render")
-    if meta.get("nr_devices", 1) > 1:
-        raise SystemExit(f"artifact was exported for {meta['nr_devices']} "
-                         "devices; the port serves one")
     device = torch.device(meta["platforms"][0])
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("artifact was exported for the card (platform "
                          "cuda); this host has none (torch.cuda."
                          "is_available() is false)")
-    fn = torch.export.load(args.artifact).module()
+    n_dev = meta.get("nr_devices", 1)
+    mesh, rank = None, 0
+    if n_dev > 1:
+        from vision_transformer_cam_tpu_torch.parallel import mesh as meshlib
+        meshlib.distributed_init(device)
+        if meshlib.get_world_size() != n_dev:
+            raise SystemExit(
+                f"artifact was exported for {n_dev} devices: serve it on a "
+                f"process group of {n_dev} ranks (torchrun --nproc_per_node "
+                f"{n_dev}); this one has {meshlib.get_world_size()}")
+        mesh = meshlib.make_mesh((-1,), ("data",))
+        rank = mesh.data_rank
+    fn = ops.load_program(args.artifact, device).module()
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
     batch, size = meta["batch"], meta["img_size"]
-    print(f"artifact: {meta['model_name']} serving={meta['serving']} "
-          f"batch={batch} img={size} platforms={meta['platforms']} "
-          f"calibration={meta.get('calibration', '?')}")
+    local = batch // n_dev
+    say = print if rank == 0 else (lambda *a, **k: None)
+    say(f"artifact: {meta['model_name']} serving={meta['serving']} "
+        f"batch={batch} img={size} platforms={meta['platforms']} "
+        f"calibration={meta.get('calibration', '?')}"
+        + (f" nr_devices={n_dev}" if n_dev > 1 else ""))
 
     if os.path.isdir(args.images):
         paths = sorted(p for pat in ("*.jpg", "*.jpeg", "*.JPG", "*.JPEG")
@@ -87,7 +114,8 @@ def main(argv=None):
         paths = sorted(glob.glob(args.images))
     if not paths:
         raise SystemExit(f"no images match {args.images}")
-    os.makedirs(args.out, exist_ok=True)
+    if rank == 0:
+        os.makedirs(args.out, exist_ok=True)
 
     mean = tuple(meta.get("mean", (0.485, 0.456, 0.406)))
     std = tuple(meta.get("std", (0.229, 0.224, 0.225)))
@@ -100,11 +128,18 @@ def main(argv=None):
     try:
         for lo in range(0, len(paths), batch):
             chunk = paths[lo:lo + batch]
-            x = np.zeros((batch, size, size, 3), np.float32)  # tail padded
-            for i, p in enumerate(chunk):
+            # this rank's rows of the batch, the tail padded
+            x = np.zeros((local, size, size, 3), np.float32)
+            for i, p in enumerate(chunk[rank * local:(rank + 1) * local]):
                 x[i] = load_and_preprocess(p, size, mean, std)
             with torch.no_grad():
                 logits, head1_logits, cam = fn(torch.from_numpy(x).to(device))
+            if mesh is not None:
+                # every rank's rows, in rank order: the global batch
+                head1_logits, cam = (mesh.data_all_gather(t)
+                                     for t in (head1_logits, cam))
+                if rank:
+                    continue
             probs = 1.0 / (1.0 + np.exp(-head1_logits.float().cpu().numpy()
                                         .astype(np.float64)))
             cam = cam.float().cpu().numpy().astype(np.float64)
@@ -121,7 +156,7 @@ def main(argv=None):
                 done += 1
     finally:
         torch.set_float32_matmul_precision(before)
-    print(f"wrote {done} CAM overlays to {args.out}")
+    say(f"wrote {done} CAM overlays to {args.out}")
     return 0
 
 

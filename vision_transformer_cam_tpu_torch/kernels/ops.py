@@ -255,3 +255,19 @@ def attention_block_fused(xn, tokens, wqkv, bqkv, wproj, bproj, bg,
                       scale, mask_value, clamp_softmax)
     return _block_rollout(xn, tokens, wqkv, bqkv, wproj, bproj, bg, joint,
                           num_heads, scale, mask_value, clamp_softmax)
+
+
+def load_program(path: str, device):
+    """The ``ExportedProgram`` that ``cli.export`` saved at ``path`` (its
+    ops are registered here), on ``device``: a program exported on another
+    card of the same kind (rank 0's, for the ranks of a ``--data_parallel``
+    group that each have a card) is moved to this rank's."""
+    exported = torch.export.load(path)
+    device = torch.device(device)
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+        held = {t.device for t in exported.state_dict.values()}
+        if held and held != {device}:
+            from torch.export.passes import move_to_device_pass
+            exported = move_to_device_pass(exported, device)
+    return exported

@@ -50,16 +50,20 @@ kernel); ``cfg.mlp_fusion`` replaces fc1 -> GELU -> fc2 with one launch of
 fed the float LayerNorm output), and a partially quantized MLP takes the
 unfused chain.
 
-Sequence parallelism (``cfg.seq_axis``, set by ``parallel.apply_seq_parallel``;
-inference only) is the JAX package's token-sharded layout with the
-collectives written out: every rank of a sequence group embeds the same
-batch, keeps its slice of the token axis (zero-padded to a multiple of the
-group size; the padded rows never reach a statistic or an output), runs
+Sequence parallelism (``cfg.seq_axis``, set by ``parallel.apply_seq_parallel``
+or ``cli.train --seq_parallel``) is the JAX package's token-sharded layout
+with the collectives written out: every rank of a sequence group embeds the
+same batch, keeps its slice of the token axis (zero-padded to a multiple of
+the group size; the padded rows never reach a statistic or an output), runs
 LayerNorm, the GEMMs, the MLP and the residuals on its rows, and meets the
-other ranks in the attention (``masked_attention_seq``: K | V gathered, the
-cls row from sequence-rank 0), in the rollout and at the end, where the
-tokens are gathered and the heads run alike on every rank.  The model must
-be called under ``parallel.set_mesh``.
+other ranks in the attention (K | V gathered, the cls row from
+sequence-rank 0; ``masked_attention_seq`` in evaluation on the kernel path),
+in the rollout and at the end, where the tokens are gathered and the heads
+run alike on every rank.  It trains on the eager attention (JAX trains this
+layout on its XLA attention): the gathers are differentiable
+(``parallel.mesh.gather_rows``), and the train step sums the gradients of
+the parameters used on the rows over the group (``SEQ_ROW_PARAMS``).  The
+model must be called under ``parallel.set_mesh``.
 
 Data parallelism (an ambient mesh whose data axis spans several ranks, and
 ``cfg.data_axis``, which then requires one) changes one line of the forward:
@@ -112,7 +116,8 @@ from vision_transformer_cam_tpu_torch.ops.rollout import (
     aug_cls_row, aug_normalize, cam_from_rollout_row)
 from vision_transformer_cam_tpu_torch.parallel.mesh import (ShardedLinear,
                                                             ambient_mesh,
-                                                            current_mesh)
+                                                            current_mesh,
+                                                            gather_rows)
 from vision_transformer_cam_tpu_torch.utils import resolve_device
 
 
@@ -204,6 +209,18 @@ def check_supported(cfg: ViTCAMConfig) -> None:
             "query tile is 16 or 32 rows (0 = auto)")
     if cfg.attn_block_b < 0:
         raise ValueError(f"attn_block_b={cfg.attn_block_b!r} must be >= 0")
+
+
+def check_seq_training(cfg: ViTCAMConfig) -> None:
+    """Raise where a sequence-parallel config cannot train: on the kernel
+    path.  The JAX package sends that case to its XLA attention; the
+    sequence-parallel kernel has no backward in either package, and the
+    port reroutes nothing unasked."""
+    if cfg.seq_axis and cfg.attn_impl == "kernel":
+        raise ValueError(
+            "attn_impl='kernel' under cfg.seq_axis in training: the "
+            "sequence-parallel attention kernel has no backward; train this "
+            "layout with attn_impl='eager' (ROADMAP Queue 3)")
 
 
 # the kernel fusions the JAX package replicates under GSPMD (a Pallas call's
@@ -330,11 +347,19 @@ def _heads_gather(t, lin):
     return torch.cat(mesh.inner_list(t.detach()), dim=1)
 
 
-def _shard_of(lin, dim: int):
-    """(dim, parts, index) of a tensor-parallel layer's output along
-    ``dim``, for its dropout mask; None for a whole layer."""
-    return (dim, lin.parts, lin.index) if isinstance(lin, ShardedLinear) \
-        else None
+def _shard_of(lin, x, dim: int):
+    """The dropout shard (``_dropout``) of a tensor-parallel layer's output
+    ``x`` along ``dim``; None for a whole layer."""
+    if not isinstance(lin, ShardedLinear):
+        return None
+    w = x.shape[dim]
+    return (dim, w * lin.parts, w * lin.index)
+
+
+def _rows_of(mesh, n: int, x, dim: int = 1):
+    """The dropout shard (``_dropout``) of this sequence rank's rows ``x``
+    of the padded token axis ``dim`` (of n real rows)."""
+    return (dim, n, mesh.inner_rank * x.shape[dim])
 
 
 def _is_static(lin, *extra) -> bool:
@@ -342,6 +367,12 @@ def _is_static(lin, *extra) -> bool:
     return isinstance(lin, QLinear) and lin.act_scale is not None and all(
         getattr(lin, name) is not None for name in extra)
 
+
+# the parameters a sequence-parallel forward uses on the rank's rows of the
+# token axis (the rest act after the final gather of the tokens): their
+# gradients are the rank's share, summed over the sequence group
+SEQ_ROW_PARAMS = ("patch_embed.", "cls_token", "dist_token", "pos_embed",
+                  "blocks.")
 
 # the dropout sites of one block, in the JAX body's order
 _SITES = ("attn", "proj", "mlp1", "mlp2", "dp1", "dp2")
@@ -367,22 +398,28 @@ def _uniform(shape, seed: int, device):
 
 
 def _dropout(x, rate: float, seed: Optional[int], shard=None):
-    """Inverted dropout.  ``shard`` (dim, parts, index): ``x`` is part
-    ``index`` of ``parts`` along ``dim`` of a wider tensor (a rank's heads
-    or hidden units); the mask is drawn at the full width and cut, so it is
-    the one-rank mask's part."""
+    """Inverted dropout.  ``shard`` (dim, full, start): ``x`` is the slice
+    [start, start + x.shape[dim]) along ``dim`` of a tensor ``full`` long
+    there (a rank's heads or hidden units, ``_shard_of``, or its rows of the
+    token axis, ``_rows_of``, which may run into the zero padding past the
+    real rows); the mask is drawn at the full size and cut, so it is the
+    one-rank mask's part."""
     if rate == 0.0 or seed is None:
         return x
     keep = 1.0 - rate
     if shard is None:
         u = _uniform(x.shape, seed, x.device)
     else:
-        dim, parts, index = shard
+        dim, size, start = shard
         dim %= x.dim()
         full = list(x.shape)
-        full[dim] *= parts
-        u = _uniform(full, seed, x.device).narrow(
-            dim, index * x.shape[dim], x.shape[dim])
+        full[dim] = size
+        u = _uniform(full, seed, x.device)
+        pad = start + x.shape[dim] - size
+        if pad > 0:
+            full[dim] = pad
+            u = torch.cat([u, u.new_zeros(full)], dim=dim)
+        u = u.narrow(dim, start, x.shape[dim])
     mask = u < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
@@ -438,7 +475,7 @@ def _attention_eager(ap, x, bg, cfg: ViTCAMConfig, need_probs, joint=None,
     hm = _ftz(_heads_mean(probs.mean(dim=1), ap.qkv)) if need_probs \
         else None
     used = _dropout(probs, cfg.attn_drop_ratio, rngs["attn"],
-                    _shard_of(ap.qkv, 1)) if rngs else probs
+                    _shard_of(ap.qkv, probs, 1)) if rngs else probs
     out = torch.matmul(used, v).transpose(1, 2).reshape(b, n, h * dh)
     out = _linear(out, ap.proj, cfg)
     if rngs:
@@ -530,18 +567,23 @@ def attention_kernel(ap, x, bg, cfg: ViTCAMConfig, need_probs, joint=None,
 
 
 def _attention_seq(ap, x, bg, cfg: ViTCAMConfig, need_probs, mesh,
-                   hm_dtype=None):
+                   hm_dtype=None, rngs=None):
     """Attention on one rank of a sequence group.  x: [B, NQ, C], this rank's
     rows of the padded token axis; bg: [B, N], the same on every rank.
     Returns (out [B, NQ, C], cls_row [B, N] the same on every rank, the
     local rows of the head mean [B, NQ, N] or None, the local rows of the
     per-head probabilities [B, H, NQ, N] or None).
 
-    ``attn_impl="kernel"`` goes through ``masked_attention_seq``; the
-    per-head probabilities only the eager form produces.  The eager form is
-    ``_attention_eager`` on the local query rows against the gathered K and
-    V, cut back to the N real keys, with the symmetric pair mask and the
-    clamp after it."""
+    ``attn_impl="kernel"`` goes through ``masked_attention_seq`` (no
+    backward: the training forward refuses it); the per-head probabilities
+    only the eager form produces.  The eager form is ``_attention_eager`` on
+    the local query rows against K and V gathered over the group and cut
+    back to the N real keys (``gather_rows``: in the backward the ranks'
+    shares of dK and dV are summed and each takes its rows), with the
+    symmetric pair mask and the clamp after it.  With ``rngs`` (training)
+    dropout falls on the probabilities and on the projection's output, the
+    masks the rank's rows of the one-rank masks.  The statistics carry no
+    gradient."""
     b, nq, c = x.shape
     n, h, dh = cfg.seq_len, cfg.num_heads, cfg.head_dim
     bg_local = mesh.local_rows(bg)
@@ -556,22 +598,28 @@ def _attention_seq(ap, x, bg, cfg: ViTCAMConfig, need_probs, mesh,
         hm = res[2] if need_probs == "headmean" else None
         return _linear(out, ap.proj, cfg), cls_row, hm, None
     q, k, v = qkv.reshape(b, nq, 3, h, dh).permute(2, 0, 3, 1, 4)
-    k = mesh.all_gather(k.contiguous(), dim=2)[:, :, :n]
-    v = mesh.all_gather(v.contiguous(), dim=2)[:, :, :n]
+    k = gather_rows(k, mesh, 2, n, partial=True)
+    v = gather_rows(v, mesh, 2, n, partial=True)
     attn = torch.matmul(q, k.transpose(-1, -2)) * cfg.scale
     pair = torch.clamp_max(bg_local[:, :, None] + bg[:, None, :], 1.0)
     attn = attn + (cfg.mask_value * pair)[:, None, :, :]
     if cfg.softmax_clamp:
         attn = torch.clamp_max(attn, 80.0)
     probs = torch.softmax(attn, dim=-1)
+    stats = probs.detach()
     cls_row = mesh.inner_broadcast(
-        _ftz(probs[:, :, 0, :].mean(dim=1)).contiguous(), 0)
-    hm = _ftz(probs.mean(dim=1)) if need_probs else None
-    out = torch.matmul(probs, v).transpose(1, 2).reshape(b, nq, c)
+        _ftz(stats[:, :, 0, :].mean(dim=1)).contiguous(), 0)
+    hm = _ftz(stats.mean(dim=1)) if need_probs else None
+    used = _dropout(probs, cfg.attn_drop_ratio, rngs["attn"],
+                    _rows_of(mesh, n, probs, 2)) if rngs else probs
+    out = torch.matmul(used, v).transpose(1, 2).reshape(b, nq, c)
     out = _linear(out, ap.proj, cfg)
+    if rngs:
+        out = _dropout(out, cfg.drop_ratio, rngs["proj"],
+                       _rows_of(mesh, n, out))
     if hm is not None and hm_dtype is not None:
         hm = hm.to(hm_dtype)
-    return out, cls_row, hm, _ftz(probs) if need_probs == "perhead" else None
+    return out, cls_row, hm, _ftz(stats) if need_probs == "perhead" else None
 
 
 def _mask_from_cls_row(cls_row, cfg: ViTCAMConfig):
@@ -823,13 +871,8 @@ class ViTCAM(nn.Module):
             # batch, and the batch-global mask norm reads the mesh
             current_mesh(cfg.data_axis, "data_axis")
         if cfg.seq_axis:
-            if train:
-                raise NotImplementedError(
-                    "forward_train under cfg.seq_axis (sequence-parallel "
-                    "training) is not ported yet (ROADMAP Queue 1 item "
-                    "10)")
-            return self._forward_seq(x, need_headmean, need_blocks,
-                                     need_perhead, need_rollout)
+            return self._forward_seq(x, train, rng, need_headmean,
+                                     need_blocks, need_perhead, need_rollout)
         if train and cfg.softmax_clamp:
             cfg = cfg.replace(softmax_clamp=False)
         attn_fn = attention_kernel if cfg.attn_impl == "kernel" \
@@ -945,7 +988,7 @@ class ViTCAM(nn.Module):
                     hmid = _gelu(_linear(yn, f1, cfg), cfg.gelu_approx)
                     if use_rng:
                         hmid = _dropout(hmid, cfg.drop_ratio, rngs["mlp1"],
-                                        _shard_of(f1, -1))
+                                        _shard_of(f1, hmid, -1))
                 ymlp = _linear(hmid, f2, cfg)
             if use_rng:
                 ymlp = _dropout(ymlp, cfg.drop_ratio, rngs["mlp2"])
@@ -1050,14 +1093,29 @@ class ViTCAM(nn.Module):
             dist_logits=dist_logits if train else None,
         )
 
-    def _forward_seq(self, x, need_headmean, need_blocks, need_perhead,
-                     need_rollout) -> ViTCAMOutput:
-        """The eval forward on one rank of a sequence group (see the module
-        docstring).  Every rank of the group passes the same ``x``; every
-        output is complete and the same on every rank, as the unsharded
-        forward's."""
+    def _forward_seq(self, x, train, rng, need_headmean, need_blocks,
+                     need_perhead, need_rollout) -> ViTCAMOutput:
+        """The forward on one rank of a sequence group (see the module
+        docstring), for evaluation and, with ``train``, for training.  Every
+        rank of the group passes the same ``x``; every output is complete
+        and the same on every rank, as the unsharded forward's.
+
+        Training runs the math of the one-rank training forward on the
+        rank's rows: the clamp neutralised, dropout masks cut from the
+        one-rank masks (the embedding's drawn at [B, N, C] before the cut,
+        the attention's at [B, H, N, N] over the real keys, the others at
+        the one-rank shapes of the rank's rows), stochastic depth per
+        sample, ``cfg.remat`` per block (a recomputed block gathers K and V
+        again, in the same order on every rank).  Its gradients of the
+        parameters used on the rank's rows (``SEQ_ROW_PARAMS``) are the
+        rank's share, summed over the group by the train step; those after
+        the final gather of the tokens are whole on every rank."""
         cfg = self.cfg
         mesh = current_mesh(cfg.seq_axis)
+        if train:
+            check_seq_training(cfg)
+            if cfg.softmax_clamp:
+                cfg = cfg.replace(softmax_clamp=False)
         if mesh.inner_size > 1 and any(
                 isinstance(m, QLinear) and m.act_scale is None
                 for m in self.blocks.modules()):
@@ -1067,8 +1125,14 @@ class ViTCAM(nn.Module):
                 "int8 layers without static act scales (dynamic per-tensor "
                 "quantization) under cfg.seq_axis: calibrate the scales "
                 "(serving.apply_serving_mode)")
+        use_rng = train and rng is not None
+        tokens = self.embed_tokens(x, cfg)
+        if use_rng:
+            tokens = _dropout(tokens, cfg.drop_ratio, _fold(rng, _EMBED_SITE))
         # embedded alike on every rank, then cut to this rank's rows
-        tokens = mesh.local_rows(self.embed_tokens(x, cfg)).contiguous()
+        tokens = mesh.local_rows(tokens).contiguous()
+        dpr = torch.linspace(0.0, cfg.drop_path_ratio, cfg.depth).tolist() \
+            if use_rng else None
         b, nq, dev = tokens.shape[0], tokens.shape[1], tokens.device
         n = cfg.seq_len
         bg = torch.zeros((b, n), dtype=cfg.dtype, device=dev)
@@ -1077,7 +1141,7 @@ class ViTCAM(nn.Module):
         rollout_dtype = torch.float32 if cfg.dtype == torch.bfloat16 \
             else cfg.dtype
         want_post = (n > 512) if cfg.rollout_post is None else cfg.rollout_post
-        rollout_post = (need_rollout and want_post
+        rollout_post = (need_rollout and want_post and not train
                         and not (need_headmean or need_perhead))
         carry_rollout = need_rollout and not rollout_post
         # this rank's rows of the identity, for (hm + I) and as J_0's rows
@@ -1086,23 +1150,35 @@ class ViTCAM(nn.Module):
         joint = eye_local.expand(b, nq, n).contiguous() if carry_rollout \
             else None
 
-        cls_rows, hms, phs, blocks_out = [], [], [], []
-        for i, blk in enumerate(self.blocks):
+        def block(i, blk, tokens, bg, joint):
+            rngs = {site: _fold(rng, i + 1, j)
+                    for j, site in enumerate(_SITES)} if use_rng else None
             xn = _layer_norm(tokens, blk.norm1.weight, blk.norm1.bias,
                              cfg.ln_eps)
             o, cls_row, hm, ph = _attention_seq(
                 blk.attn, xn, bg, cfg, need_probs, mesh,
-                hm_dtype=rollout_dtype if rollout_post else None)
+                hm_dtype=rollout_dtype if rollout_post else None, rngs=rngs)
+            if use_rng and cfg.drop_path_ratio > 0:
+                o = _drop_path(o, dpr[i], rngs["dp1"])
             tokens = tokens + o
             f1, f2 = blk.mlp.fc1, blk.mlp.fc2
             yn = _layer_norm(tokens, blk.norm2.weight, blk.norm2.bias,
                              cfg.ln_eps)
-            if _is_static(f1) and _is_static(f2):
+            if _is_static(f1) and _is_static(f2) and not train:
                 hmid = qlinear_gelu_requant(yn, f1, f2.act_scale,
                                             gelu_approx=cfg.gelu_approx)
             else:
                 hmid = _gelu(_linear(yn, f1, cfg), cfg.gelu_approx)
-            tokens = tokens + _linear(hmid, f2, cfg)
+                if use_rng:
+                    hmid = _dropout(hmid, cfg.drop_ratio, rngs["mlp1"],
+                                    _rows_of(mesh, n, hmid))
+            ymlp = _linear(hmid, f2, cfg)
+            if use_rng:
+                ymlp = _dropout(ymlp, cfg.drop_ratio, rngs["mlp2"],
+                                _rows_of(mesh, n, ymlp))
+                if cfg.drop_path_ratio > 0:
+                    ymlp = _drop_path(ymlp, dpr[i], rngs["dp2"])
+            tokens = tokens + ymlp
             # the cls row is the same on every rank, and so is the mask
             if i >= cfg.mask_from:
                 _, bg = _mask_from_cls_row(cls_row, cfg)
@@ -1113,6 +1189,17 @@ class ViTCAM(nn.Module):
                 aug = aug / aug.sum(dim=-1, keepdim=True)
                 full = mesh.all_gather(joint, dim=1)[:, :n]
                 joint = torch.matmul(aug.to(pt), full.to(pt)).to(joint.dtype)
+            return tokens, bg, joint, cls_row, hm, ph
+
+        cls_rows, hms, phs, blocks_out = [], [], [], []
+        for i, blk in enumerate(self.blocks):
+            if train and cfg.remat:
+                tokens, bg, joint, cls_row, hm, ph = checkpoint(
+                    block, i, blk, tokens, bg, joint, use_reentrant=False,
+                    preserve_rng_state=False)
+            else:
+                tokens, bg, joint, cls_row, hm, ph = block(i, blk, tokens, bg,
+                                                           joint)
             cls_rows.append(cls_row)
             if need_headmean or need_perhead or rollout_post:
                 hms.append(hm)
@@ -1138,12 +1225,14 @@ class ViTCAM(nn.Module):
             rollout_row = r.to(rollout_dtype)
 
         def rows(t, dim):
-            """Local rows gathered into the complete tensor, padding cut."""
-            return mesh.all_gather(t, dim=dim).narrow(dim, 0, n)
+            """Local rows gathered into the complete tensor, padding cut:
+            every rank computes alike from it, so its gradient is whole on
+            every rank."""
+            return gather_rows(t, mesh, dim, n)
 
         collect = need_headmean or need_perhead
         return self._heads(
-            cfg, rows(tokens, 1), torch.stack(cls_rows), rollout_row, False,
+            cfg, rows(tokens, 1), torch.stack(cls_rows), rollout_row, train,
             attn_headmean=rows(torch.stack(hms), 2) if collect else None,
             attn_perhead=rows(torch.stack(phs), 3) if need_perhead else None,
             block_outputs=rows(torch.stack(blocks_out), 2) if need_blocks

@@ -223,6 +223,37 @@ class SeqMesh:
         return back(s)
 
 
+class _GatherRows(torch.autograd.Function):
+    """``gather_rows`` with its backward."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dim, n, partial):
+        ctx.mesh, ctx.dim, ctx.partial = mesh, dim, partial
+        return mesh.all_gather(t, dim).narrow(dim, 0, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.partial:
+            g = ctx.mesh.inner_sum(g)
+        return ctx.mesh.local_rows(g, ctx.dim), None, None, None, None
+
+
+def gather_rows(t, mesh: SeqMesh, dim: int, n: int, partial: bool = False):
+    """The whole tensor from every inner rank's rows of the padded token
+    axis (``dim`` of ``t``), cut to the ``n`` real rows; differentiable.
+    In the backward each rank takes its rows of the gradient.  With
+    ``partial`` the gradient over all n rows that a rank holds is only its
+    share, and the shares are summed over the inner group first: K and V
+    gathered for the rank's queries, whose gradients over every key add up
+    over the ranks' queries.  Without it every rank holds the same whole
+    gradient (the tokens gathered before the final norm and the heads,
+    which every rank computes alike), and a sum would count it once a
+    rank."""
+    if mesh.inner_size == 1:
+        return t.narrow(dim, 0, n)
+    return _GatherRows.apply(t.contiguous(), mesh, dim, n, partial)
+
+
 def local_batch_rows(global_batch: int, data_size: int, data_rank: int,
                      accum_steps: int = 1) -> List[int]:
     """The rows of a global batch that data rank ``data_rank`` holds, in
@@ -336,7 +367,9 @@ def make_mesh(shape: Sequence[int] = (-1,),
             raise ValueError(
                 f"mesh shape {tuple(shape)} over axes {axes}: the non-"
                 f"wildcard axes multiply to {known}, which does not divide "
-                f"the {world} rank(s) of the process group")
+                f"the {world} rank(s) of the process group (the mesh needs "
+                f"{known} rank(s) or a multiple; launch them with torchrun "
+                "--nproc_per_node)")
         shape[shape.index(-1)] = world // known
     n = math.prod(shape)
     if n != world:

@@ -32,13 +32,21 @@ per-sample mask norm (``parallel.pipeline``):
      the one-rank forward (logits and rollout row);
   10. one ``pipeline_train_step`` against one-rank ``train_step``.
 
+On the (dp, 2) ('data', 'seq') mesh (``parallel.apply_seq_parallel``; N =
+17 pads to 18, so the halves are 9 rows each and the last row of the
+second is padding):
+
+  11. CAM extraction on the eager path against the one-rank eager path;
+  12. CAM extraction on the kernel path (the sequence-parallel kernel, one
+      call a block) against the one-rank kernel path;
+  13. one sequence-parallel train step (the eager path) against the
+      one-rank step (the JAX dry run only asks for a finite loss there).
+
 The ranks of a data group (and, for the leaves every rank holds whole, of
 the whole world) must hold bit for bit equal parameters after every step.
 The optimizer is AdamW with eps 1 and lr 1 and no decay, so that a first
 step's change is -g / (|g| + 1), a contraction of the gradient: the
-tolerance on the changes is one on the gradients.  The JAX function's
-sequence-parallel training block is not ported yet (ROADMAP Queue 1 item
-10).
+tolerance on the changes is one on the gradients.
 
     python -m vision_transformer_cam_tpu_torch.scripts.dryrun_multichip \\
         [--world 2] [--device cpu]
@@ -177,6 +185,23 @@ def train_steps(cfg, state_dict, batches, mesh, *, optim, global_batch,
 
 
 @contextlib.contextmanager
+def calls_seen(module, name):
+    """A list that ``module.name`` appends to at each call while it is
+    open (a spy; on the CPU the wrappers count no launch)."""
+    seen = []
+    orig = getattr(module, name)
+
+    def call(*a, **kw):
+        seen.append(1)
+        return orig(*a, **kw)
+    setattr(module, name, call)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, orig)
+
+
+@contextlib.contextmanager
 def heads_seen():
     """The set of head counts kernel 1 and the backward are called with
     while it is open (a spy on the two wrappers of ``kernels.attention``)."""
@@ -229,8 +254,11 @@ def dp_rank(cfg, state_dict, x, y, optim, device):
     step, accumulation 2 and the ZeRO-1 step, each from ``state_dict`` on
     this rank's rows of the global batch (x, y), and the CAMs of this rank's
     rows; then on the (dp, 2) ('data', 'stage') mesh the pipeline forward
-    and one pipeline step.  Returns every run's result with its final
-    parameters in the one-rank layout, the CAMs and the transport."""
+    and one pipeline step, and on the (dp, 2) ('data', 'seq') mesh the CAMs
+    on both attention paths and one step.  Returns every run's result with
+    its final parameters in the one-rank layout, the CAMs and the
+    transport."""
+    from vision_transformer_cam_tpu_torch.models import vit
     from vision_transformer_cam_tpu_torch.parallel import pipeline
     meshlib.distributed_init(device)
     world = meshlib.get_world_size()
@@ -267,7 +295,29 @@ def dp_rank(cfg, state_dict, x, y, optim, device):
                           if n.startswith("blocks.")}),
         "whole_digest": param_digest(model, whole_only=True),
         "state": host_state(meshlib.full_state_dict(model))}
+
+    mesh = meshlib.make_mesh((world // 2, 2), ("data", "seq"))
+    xs = meshlib.shard_batch(mesh, x).to(device)
+    for impl in ("eager", "kernel"):
+        scfg = meshlib.apply_seq_parallel(cfg.replace(attn_impl=impl))
+        model = ViTCAM(scfg, device=device)
+        load_state_dict(model, state_dict)
+        with meshlib.set_mesh(mesh), \
+                calls_seen(vit, "masked_attention_seq") as calls:
+            row = model(xs, need_rollout=True).rollout_row
+        out[f"sp_cam_{impl}"] = cam_from_rollout_row(row, cfg.grid_size).cpu()
+        out[f"sp_calls_{impl}"] = len(calls)
+    state, res = train_steps(sp_config(cfg), state_dict, [(x, y)], mesh,
+                             optim=optim, global_batch=x.shape[0],
+                             device=device)
+    res["state"] = host_state(meshlib.full_state_dict(state.model))
+    out["sp"] = res
     return out
+
+
+def sp_config(cfg):
+    """The sequence-parallel training config: the eager path."""
+    return meshlib.apply_seq_parallel(cfg.replace(attn_impl="eager"))
 
 
 def main(argv=None) -> dict:
@@ -395,6 +445,40 @@ def main(argv=None) -> dict:
                 != ranks[0]["pp_step"]["whole_digest"] for r in ranks):
             failures.append(f"pipeline: launches, blocks a stage "
                             f"{out['pp_blocks']} or whole leaves differ")
+
+    if "sp" in ranks[0]:
+        ecfg = cfg.replace(attn_impl="eager")
+        ref = ViTCAM(ecfg, device=device)
+        ref.load_state_dict(before)
+        wants = {"kernel": want_cam, "eager": cam_from_rollout_row(
+            ref(x.to(device), need_rollout=True).rollout_row,
+            cfg.grid_size).cpu()}
+        for impl, want in wants.items():
+            # seq rank 0 of each data group, in data-rank order
+            got = torch.cat([r[f"sp_cam_{impl}"] for r in ranks[::2]])
+            out[f"sp_cam_{impl}_dev"] = float((got - want).abs().max())
+            calls = [r[f"sp_calls_{impl}"] for r in ranks]
+            want_calls = cfg.depth if impl == "kernel" else 0
+            if not torch.allclose(got, want, rtol=rtol, atol=atol) or \
+                    any(c != want_calls for c in calls):
+                failures.append(f"sp {impl} CAMs: max dev "
+                                f"{out[f'sp_cam_{impl}_dev']}, seq-kernel "
+                                f"calls {calls} (expected {want_calls})")
+        sone, sloss = one_step(sp_config(cfg).replace(seq_axis=None,
+                                                      data_axis=None), x, y)
+        out["sp_loss_dev"] = abs(ranks[0]["sp"]["metrics"][0]["loss"]
+                                 - sloss)
+        out["sp_delta_dev"], bad = delta_excess(ranks[0]["sp"]["state"],
+                                                sone, before)
+        if out["sp_loss_dev"] > TOL["loss"] or bad:
+            failures.append(f"sp step vs one rank: loss "
+                            f"{out['sp_loss_dev']}, changes of {bad}")
+        if any(r["sp"]["digests"] != ranks[0]["sp"]["digests"]
+               for r in ranks) or any(
+                sum(st.values()) for r in ranks
+                for st in r["sp"]["launches"]):
+            failures.append("sp step: the ranks' parameters differ, or a "
+                            "kernel launched on the eager path")
     out["ok"] = not failures
     print(json.dumps(out))
     if failures:

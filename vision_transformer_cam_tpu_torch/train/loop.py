@@ -3,10 +3,12 @@ vision_transformer_cam_tpu/train/loop.py), on one device or over the ranks
 of a process group, one rank per device: data-parallel (the reference's
 DDP; the JAX package's data mesh: each rank loads its rows of every global
 batch, gradients averaged over the ranks, optionally the optimizer state
-sharded, ZeRO-1), tensor-parallel over a ('data', 'model') mesh (the
-heads and the MLP hidden units of every block cut over the model ranks,
-``parallel.shard_params``) or pipelined over a ('data', 'stage') mesh (the
-blocks cut into stages, ``parallel.pipeline``).
+sharded, ZeRO-1), sequence-parallel over a ('data', 'seq') mesh (the token
+axis of every batch cut over the seq ranks, ``cfg.seq_axis``),
+tensor-parallel over a ('data', 'model') mesh (the heads and the MLP hidden
+units of every block cut over the model ranks, ``parallel.shard_params``)
+or pipelined over a ('data', 'stage') mesh (the blocks cut into stages,
+``parallel.pipeline``).
 
 As there, and unlike the reference: the F1 accumulator averages over steps
 (the reference overwrites it and reports only the last sample's value), and
@@ -28,7 +30,8 @@ from vision_transformer_cam_tpu_torch import configs
 from vision_transformer_cam_tpu_torch.data.loader import (BatchLoader,
                                                           device_prefetch)
 from vision_transformer_cam_tpu_torch.data.voc12 import VOC12Dataset
-from vision_transformer_cam_tpu_torch.models.vit import ViTCAM
+from vision_transformer_cam_tpu_torch.models.vit import (ViTCAM,
+                                                        check_seq_training)
 from vision_transformer_cam_tpu_torch.parallel import mesh as meshlib
 from vision_transformer_cam_tpu_torch.train import checkpoint as ckptlib
 from vision_transformer_cam_tpu_torch.train.state import (create_train_state,
@@ -41,22 +44,22 @@ from vision_transformer_cam_tpu_torch.utils import resolve_device
 from vision_transformer_cam_tpu_torch.utils.metrics import compute_mAP
 
 
-_TRAIN_AXES = (("data",), ("data", "model"), ("data", "stage"))
+_TRAIN_AXES = (("data",), ("data", "seq"), ("data", "model"),
+               ("data", "stage"))
 
 
 def check_supported(train_cfg: configs.TrainConfig) -> None:
     """Raise for a layout the trainer does not run: it runs a ('data',)
-    mesh of any size, with or without ZeRO-1, a ('data', 'model') mesh
-    (tensor parallelism), and with ``pipeline`` a ('data', 'stage') mesh;
-    sequence-parallel training is not ported."""
+    mesh of any size, with or without ZeRO-1, a ('data', 'seq') mesh
+    (sequence parallelism), a ('data', 'model') mesh (tensor parallelism),
+    and with ``pipeline`` a ('data', 'stage') mesh."""
     axes = tuple(train_cfg.mesh_axes)
     if axes not in _TRAIN_AXES or len(tuple(train_cfg.mesh_shape)) \
             != len(axes):
         raise NotImplementedError(
             f"mesh_shape={train_cfg.mesh_shape!r} mesh_axes={axes!r}: the "
-            f"trainer runs ('data',), ('data', 'model') and ('data', "
-            f"'stage') meshes; sequence-parallel ('seq') training is not "
-            f"ported yet (ROADMAP Queue 1 item 10)")
+            f"trainer runs ('data',), ('data', 'seq'), ('data', 'model') "
+            f"and ('data', 'stage') meshes")
     if (axes == ("data", "stage")) != bool(train_cfg.pipeline):
         raise ValueError(f"train_cfg.pipeline={train_cfg.pipeline!r} with "
                          f"mesh_axes={axes!r}: a pipeline runs on a ('data', "
@@ -168,10 +171,11 @@ def fit(model_cfg: configs.ViTCAMConfig, train_cfg: configs.TrainConfig,
     """Full fine-tune entry: joins the process group the environment
     describes (``parallel.distributed_init``; one process without one),
     builds the mesh of ``train_cfg.mesh_shape`` / ``mesh_axes`` over it
-    (('data',), ('data', 'model'), or ('data', 'stage') with
-    ``train_cfg.pipeline``), the loaders (each rank its rows of every global
-    batch of ``train_cfg.batch_size``; the ranks of a model or stage group
-    load the same rows), the model (``init_model``, or a fresh ``ViTCAM``
+    (('data',), ('data', 'seq') for a model with ``cfg.seq_axis``,
+    ('data', 'model'), or ('data', 'stage') with ``train_cfg.pipeline``),
+    the loaders (each rank its rows of every global batch of
+    ``train_cfg.batch_size``; the ranks of a seq, model or stage group load
+    the same rows), the model (``init_model``, or a fresh ``ViTCAM``
     seeded with ``train_cfg.seed``) on ``device`` (the card unless asked
     otherwise), sharded over a 'model' axis of more than one rank
     (``parallel.shard_params``) or stage-sharded under ``pipeline``, with
@@ -184,6 +188,16 @@ def fit(model_cfg: configs.ViTCAMConfig, train_cfg: configs.TrainConfig,
     ``train_cfg.ckpt_dir``.  Only the main process writes logs and
     checkpoints.  Returns the state."""
     check_supported(train_cfg)
+    seq = tuple(train_cfg.mesh_axes) == ("data", "seq")
+    if seq != bool(model_cfg.seq_axis):
+        raise ValueError(
+            f"mesh_axes={tuple(train_cfg.mesh_axes)!r} with cfg.seq_axis="
+            f"{model_cfg.seq_axis!r}: a ('data', 'seq') mesh trains a model "
+            "whose token axis is sharded over it (cfg.seq_axis='seq', "
+            "data_axis='data', as cli.train --seq_parallel sets them), and "
+            "such a model trains on that mesh")
+    # the model's own refusal, before any process group or loader
+    check_seq_training(model_cfg)
     device = resolve_device(device)
     meshlib.distributed_init(device)
     mesh = meshlib.make_mesh(train_cfg.mesh_shape, train_cfg.mesh_axes)
@@ -268,7 +282,7 @@ def fit(model_cfg: configs.ViTCAMConfig, train_cfg: configs.TrainConfig,
             pass
     best_loss = float("inf")
     with meshlib.set_mesh(mesh if mesh.data_size * mesh.inner_size > 1
-                          else None):
+                          or seq else None):
         for epoch in range(n_epochs):
             loader.set_epoch(epoch)
             state, tm = train_one_epoch(state, loader, train_cfg.seed, epoch,

@@ -17,17 +17,29 @@ reduced, so every rank returns the global batch's metrics.  Equal local
 batches make the mean of the local mean-losses' gradients the full-batch
 gradient: the dual loss is a sample mean.  Dropout draws per rank (the data
 rank is folded into the step's seed).
+
+Under sequence parallelism (``cfg.seq_axis``, the ('data', 'seq') grid)
+the ranks of a sequence group pass the same rows and each runs the forward
+on its rows of the token axis.  Their gradients of the parameters used on
+those rows (``models.vit.SEQ_ROW_PARAMS``: the blocks, the patch embedding,
+the position embedding and the prefix tokens) are shares of the gradient
+and are summed over the group, in float32 (at least) buckets; the final
+norm and the heads act on the gathered tokens, so every rank holds their
+whole gradient, which is not summed.  Then comes the data-group mean, then
+the clip.  Every rank of a group draws the same dropout masks.
 """
 
 from __future__ import annotations
 
 import torch
 
-from vision_transformer_cam_tpu_torch.models.vit import (_fold,
+from vision_transformer_cam_tpu_torch.models.vit import (SEQ_ROW_PARAMS,
+                                                        _fold,
                                                         matmul_precision)
 from vision_transformer_cam_tpu_torch.ops.losses import (
     dual_head_loss, multilabel_soft_margin_loss)
-from vision_transformer_cam_tpu_torch.parallel.mesh import ambient_mesh
+from vision_transformer_cam_tpu_torch.parallel.mesh import (ambient_mesh,
+                                                            current_mesh)
 from vision_transformer_cam_tpu_torch.train.state import TrainState
 
 # elements per gradient all-reduce (64 MiB of float32)
@@ -99,11 +111,11 @@ def _step_rng(rng, step):
     return seed if mesh is None else _fold(seed, mesh.data_rank)
 
 
-def average_grads(grads, mesh):
-    """Every gradient's mean over the data group of ``mesh``: flattened into
-    buckets of at most ``GRAD_BUCKET`` elements in the gradient's dtype
-    promoted to float32 at least (float64 stays float64), one all-reduce a
-    bucket, then cast back.  Every rank gets the same bits."""
+def _bucketed(grads, reduce):
+    """``reduce`` of every gradient: flattened into buckets of at most
+    ``GRAD_BUCKET`` elements in the gradient's dtype promoted to float32 at
+    least (float64 stays float64), one collective a bucket, then cast
+    back."""
     out = list(grads)
     by_dtype = {}
     for i, g in enumerate(grads):
@@ -119,8 +131,8 @@ def average_grads(grads, mesh):
             size += grads[i].numel()
         buckets.append(cur)
         for bucket in buckets:
-            flat = torch.cat([grads[i].reshape(-1).to(wide) for i in bucket])
-            flat = mesh.data_sum(flat) / mesh.data_size
+            flat = reduce(torch.cat([grads[i].reshape(-1).to(wide)
+                                     for i in bucket]))
             off = 0
             for i in bucket:
                 n = grads[i].numel()
@@ -128,6 +140,37 @@ def average_grads(grads, mesh):
                     .to(grads[i].dtype)
                 off += n
     return out
+
+
+def average_grads(grads, mesh):
+    """Every gradient's mean over the data group of ``mesh``, in float32 (at
+    least) buckets (``_bucketed``).  Every rank gets the same bits."""
+    return _bucketed(grads, lambda f: mesh.data_sum(f) / mesh.data_size)
+
+
+def seq_sum_grads(model, grads, mesh):
+    """The gradients of ``model``'s parameters used on the rank's rows of
+    the token axis (``SEQ_ROW_PARAMS``) summed over the sequence group of
+    ``mesh`` in float32 (at least) buckets; the others as they are (whole
+    on every rank).  Every rank gets the same bits."""
+    idx = [i for i, (name, _) in enumerate(model.named_parameters())
+           if name.startswith(SEQ_ROW_PARAMS)]
+    out = list(grads)
+    for i, g in zip(idx, _bucketed([grads[i] for i in idx],
+                                   mesh.inner_sum)):
+        out[i] = g
+    return out
+
+
+def _reduce_grads(model, grads):
+    """The step's gradients from the rank's: summed over the sequence group
+    (``seq_sum_grads``) where the model's token axis is sharded, averaged
+    over the data group (``average_grads``) where the batch is."""
+    seq = model.cfg.seq_axis
+    if seq and current_mesh(seq).inner_size > 1:
+        grads = seq_sum_grads(model, grads, current_mesh(seq))
+    mesh = ambient_mesh()
+    return grads if mesh is None else average_grads(grads, mesh)
 
 
 def _group_metrics(mesh, loss, parts, counts):
@@ -153,12 +196,11 @@ def train_step(state: TrainState, images, labels, rng=None):
     mesh = ambient_mesh()
     loss, parts, logits, grads = _grads(state.model, images, labels,
                                         _step_rng(rng, state.step))
+    state.optimizer.update(_reduce_grads(state.model, grads))
     if mesh is None:
-        state.optimizer.update(grads)
         return state._replace(step=state.step + 1), \
             {"loss": loss, "f1": _f1_of(_f1_counts(logits, labels)),
              **parts}
-    state.optimizer.update(average_grads(grads, mesh))
     return state._replace(step=state.step + 1), \
         _group_metrics(mesh, loss, parts, _f1_counts(logits, labels))
 
@@ -204,8 +246,7 @@ def train_step_accum(state: TrainState, images, labels, rng=None, *,
         all_logits.append(logits)
     inv = 1.0 / accum_steps
     mesh = ambient_mesh()
-    if mesh is not None:
-        acc = average_grads(acc, mesh)
+    acc = _reduce_grads(state.model, acc)
     state.optimizer.update([(a * inv).to(p.dtype)
                             for a, p in zip(acc, params)])
     if mesh is not None:
