@@ -31,13 +31,13 @@ Phases (any failure raises, and the exit code is non-zero):
      N=37, and N=256 and N=17, the ends of its range), and reads the block
      kernel's occupancy (clusters at once, registers, local and shared
      memory) in both designs; then times each kernel
-     against its plain version at B=64 (the attention variants, the int8
-     GEMMs and the block kernel in turns with the designs they ran before;
+     against its plain version at B=64 in turns (the designs they ran
+     before are checked above and no longer timed: they do not change;
      the GEMMs beside bf16 F.linear and torch._int_mm; kernel 1's int8
      rollout variants also at B=16 N=577; ln_quant also at batch 256's rows,
      and it and the GEMMs also out of a CUDA graph), the three fused kernels
      also beside the unfused route of several launches that the port
-     already has (the MLP kernels in both designs, also at M = 50432);
+     already has (the MLP kernels also at M = 50432);
   4. the main path: ViT-B/16 with random weights from a seed answers 3
      requests of 32 images with the rollout CAM in serving mode "bf16",
      then, calibrated on 16 seeded images, in "int8" and "int8_hifi" with
@@ -66,13 +66,15 @@ Phases (any failure raises, and the exit code is non-zero):
      N=577 and B=1 N=760 (12 heads), at head width 80 (16 heads) B=8 N=257,
      B=3 N=37 and B=2 N=577, B=1 N=1025 at both widths, a tensor-parallel
      rank's share (B=16 N=197 at 6 heads of 64, B=8 N=257 at 8 of 80), and
-     each width's limit (BWD_MAX_N: 1564, 1520), one past it refused by both wrappers and
+     each width's limit (BWD_MAX_N: 1564, 1520; 1704, 1656, 1636 at 16,
+     32, 40), one past it refused by both wrappers and
      head width 48 refused; the occupancy of every backward kernel at N =
      197, 257 and 1025 with the ptxas spills of both translation units; then
      at bf16, B=64 N=197, B=16 N=577, ViT-H/14's B=64 N=257 (16 heads of 80)
-     and ViT-L/16@512's B=16 N=1025 (16 heads), each design, the plain
-     version and the backward of F.scaled_dot_product_attention with the
-     same mask (the library call: timed only, never on a path) in turns,
+     and ViT-L/16@512's B=16 N=1025 (16 heads), each design held to the
+     plain version, then the tensor-core design, the plain version and the
+     backward of F.scaled_dot_product_attention with the same mask (the
+     library call: timed only, never on a path) in turns,
      beside the bound; kernel 1's training variant (bf16, plain, no clamp)
      at the last two shapes against its plain version, timed in turns;
   6. the training path: ViT-B/16 at full depth, float32 masters with bf16
@@ -98,9 +100,10 @@ Phases (any failure raises, and the exit code is non-zero):
      background, 30 % and all but cls; the stitched shards against the
      attention kernel of the unsharded path where that takes the length; at
      B=16 N=577 C=1024 (one rank, and a shard of four) the tensor-core
-     design, the FMA design bf16 ran before (both held to the plain version
-     there), the plain version and F.scaled_dot_product_attention with the
-     same mask (timed only), in turns;
+     design and the FMA design bf16 ran before held to the plain version
+     there, then the tensor-core design, the plain version and
+     F.scaled_dot_product_attention with the same mask (timed only), in
+     turns;
   9. the sequence-parallel main path: ViT-L/16@384 at full depth and width
      (24 layers, C=1024, 16 heads, N=577), seeded random weights of the 224
      model loaded through the 224 -> 384 pos-embed interpolation, bf16
@@ -121,8 +124,9 @@ Phases (any failure raises, and the exit code is non-zero):
      version: float32 and bf16, with and without the head mean, 30 %
      background, none and all, B=8 N=197, a ragged B=3 N=37 and B=2 N=577
      (bf16 in its tensor-core design, launched twice for identical bits, and
-     in the FMA design it ran before); its time at B=64 N=197 bf16 in both
-     designs in turns with its plain version, beside the fused kernel's
+     in the FMA design it ran before); its time at B=64 N=197 bf16 in the
+     tensor-core design in turns with its plain version, beside the fused
+     kernel's
      plain variant and F.scaled_dot_product_attention (timed only);
  12. the fused attention kernel with q_block 16 against 32 at B=8 N=197
      (bit-identical out), q_block 16 alone at N=1025 against the plain
@@ -132,8 +136,8 @@ Phases (any failure raises, and the exit code is non-zero):
      and the FMA design it ran before) and float32, and the tensor-core
      ``full`` bit for bit against kernel 1's bf16 rollout variant; then
      ``attn_variants --all`` at B=512 (eight ms/layer lines and the
-     differences) and each variant in both designs in turns with its plain
-     version, ``full`` also beside kernel 1;
+     differences) and each variant's tensor-core design in turns with its
+     plain version, ``full`` also beside kernel 1;
  14. the bench entry point through ``bench.main``, one JSON line each:
      default (int8), --bf16, --int8-hifi, --bf16 --xla, --no-cam, --latency,
      --mlp-fusion, --train --mixed --batch 64, ViT-L/16@384 --batch 16
@@ -196,7 +200,7 @@ Phases (any failure raises, and the exit code is non-zero):
      N=577; bf16 and float32 at B=8 N=257 H=8, a tensor-parallel rank's
      share; N=1025 at q_block 16, a forced 32 refused; head width 48
      refused), timed at B=64 N=257 H=16 (bf16 and int8_io rollout,
-     tensor-core / FMA / plain in turns) beside its bound, with the
+     tensor-core / plain in turns) beside its bound, with the
      occupancy of every kernel-1 instance at N=197 (dh 64) and N=257 (dh
      80) and the ptxas spills; ViT-H/14 at full width and depth (32 layers,
      C=1280, N=257, pre-logits 1280) and ViT-L/16@512 (24 layers, N=1025,
@@ -275,6 +279,33 @@ Phases (any failure raises, and the exit code is non-zero):
      (SP_EXPORT_GATES), and ``serve_artifact`` of the int8 one on both
      ranks over 70 JPEGs (rank 0 writes the overlays and prints the
      one-rank artifact's classes).
+ 24. kernel 1 and the backward at head widths 16, 32 and 40 (run after
+     phase 20; each width its own translation unit): at the JAX kernel
+     tests' fuzz shapes (B=2: N=130, 4 heads of 32; N=147, 3 of 40; N=513
+     and 1025, 2 of 32) and the JAX quickstart's N=65 with 4 heads of 16,
+     kernel 1 in every dtype and int8 option (bf16, float32, int8_io per
+     head and per tensor, int8_out), variant, clamp and design, the
+     backward in both dtypes, both backgrounds, clamp off and on and every
+     design, against their plain versions at the width-80 gates (the
+     tensor-core designs twice, for identical bits); widths 24 and 48
+     refused; each width's occupancy; each width timed at one shape (16:
+     B=64 N=65 H=4; 32: B=16 N=1025 H=2; 40: B=64 N=147 H=3), kernel 1's
+     bf16 and int8_io rollout against the FMA design and the plain version,
+     the bf16 backward against its other designs, the plain version and the
+     SDPA backward, in turns, beside the bounds; each width's model through
+     bench.main (the JAX quickstart's tiny ViT; ViT-B/16's token grid at C =
+     128 in 4 heads and C = 120 in 3), served in bf16 at batch 64 and
+     trained at batch 32, the launch counts held at the model's width.  The
+     quickstart of phase 17 trains and serves at width 16 too (the JAX tiny
+     config), its width-16 counts held.  Each check's limit cases of phase 5
+     now also run at 16, 32 and 40 (BWD_MAX_N 1704, 1656, 1636).
+ 25. the CNN-CAM demo: cli.cnn_cam_demo.main for resnet18, squeezenet1_1
+     and densenet161 at full width, 224 x 224, seeded weights, on the card
+     and with --device cpu (the same top-5, CAMs within one step on at most
+     1 % of the pixels), each module on the card against the same module on
+     the CPU at float32 with TF32 off (logits and features within 1e-4 of
+     their largest magnitude), and its warm img/s at batch 1 and 64.  The
+     convolutions are cuDNN's, as the JAX ones are XLA's: no kernel row.
 Nothing of the earlier phases was reduced.  It prints one JSON line
 describing the kernels (with each one's bound from the shapes it was timed
 at, and the library call's time where one PyTorch call computes the same
@@ -286,6 +317,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import io
 import json
 import os
 import re
@@ -304,6 +336,12 @@ W80 = "masked_attention_fused[head width 80]"
 # N = 1025 (ViT-L/16@512's), rows of their own
 BWD80 = "masked_attention_bwd[head width 80]"
 BWD1025 = "masked_attention_bwd[N=1025]"
+# kernel 1's and the backward's launches at head widths 16 (the JAX
+# quickstart's tiny ViT), 32 and 40 (the JAX kernel tests' fuzz widths), rows
+# of their own
+NEW_WIDTHS = (16, 32, 40)
+FWD_W = {dh: f"masked_attention_fused[head width {dh}]" for dh in NEW_WIDTHS}
+BWD_W = {dh: f"masked_attention_bwd[head width {dh}]" for dh in NEW_WIDTHS}
 KERNELS = {   # name: (route, source, TPU kernel replaced)
     "masked_attention_fused": (
         "cuda", CSRC + "masked_attention.cu",
@@ -339,6 +377,14 @@ KERNELS = {   # name: (route, source, TPU kernel replaced)
     BWD1025: (
         "cuda", CSRC + "masked_attention_bwd.cu",
         "vision_transformer_cam_tpu/kernels/attention.py:803"),
+    # both kernels' instances at head widths 16, 32 and 40 (each width its
+    # own translation unit), bf16 rollout (kernel 1) and bf16 (the backward)
+    **{FWD_W[dh]: ("cuda", CSRC + f"masked_attention_w{dh}.cu",
+                   "vision_transformer_cam_tpu/kernels/attention.py:133")
+       for dh in NEW_WIDTHS},
+    **{BWD_W[dh]: ("cuda", CSRC + f"masked_attention_bwd_w{dh}.cu",
+                   "vision_transformer_cam_tpu/kernels/attention.py:803")
+       for dh in NEW_WIDTHS},
     # the same forward kernel as the bf16 serving path launches it: bf16 qkv,
     # rollout variant, clamp on
     "masked_attention_fused[bf16 rollout, serving]": (
@@ -454,9 +500,11 @@ def build_kernels():
         name, _, body = part.partition("\n")
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", body)]
         spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", body)]
+        wall = re.search(r"nvcc wall ([\d.]+) s", body)
         if regs:
             say(f"build {name}: {len(regs)} entry points, registers max "
-                f"{max(regs)}, spill stores max {max(spills, default=0)} bytes")
+                f"{max(regs)}, spill stores max {max(spills, default=0)} "
+                f"bytes" + (f", nvcc {wall.group(1)} s" if wall else ""))
     say(f"build: {time.perf_counter() - t0:.1f} s (nvcc, parallel, "
         f"{_build.build_seconds or 0:.1f} s); {_build.lib_path()}")
     t0 = time.perf_counter()
@@ -672,8 +720,9 @@ BITS_CASES = ((8, 197, 12), (3, 37, 12), (2, 577, 12), (1, 760, 12))
 
 
 def bwd_bits(root, out):
-    """SHA-256 of the backward's d_qkv bytes, at head width 64, for every
-    design, dtype, clamp and background at BITS_CASES, from the port of the
+    """SHA-256 of the backward's d_qkv bytes, at head width 64 for every
+    design, dtype, clamp and background at BITS_CASES and at head width 80
+    at W80_SHAPES (16 heads), from the port of the
     checkout at ``root`` (imported from there, so that its kernels are
     built and run; call this in a process that has imported no module of
     the port), written to ``out`` as JSON:
@@ -688,19 +737,21 @@ def bwd_bits(root, out):
     designs = {torch.bfloat16: ("tensor-core", "one-block", "two-kernel"),
                torch.float32: ("one-block", "two-kernel")}
     got = {}
-    for b, n, heads in BITS_CASES:
+    cases = [(b, n, heads, 64) for b, n, heads in BITS_CASES] + \
+        [(b, n, 16, 80) for b, n in W80_SHAPES]
+    for b, n, heads, dh in cases:
         for dtype, names in designs.items():
             g = torch.Generator(device="cuda").manual_seed(n)
-            qkv = torch.randn((b, n, 3 * heads * 64), generator=g,
+            qkv = torch.randn((b, n, 3 * heads * dh), generator=g,
                               device="cuda")
-            qkv[:, 1:4, :heads * 64] *= 40.0
+            qkv[:, 1:4, :heads * dh] *= 40.0
             qkv = qkv.to(dtype).contiguous()
-            d_out = torch.randn((b, n, heads * 64), generator=g,
+            d_out = torch.randn((b, n, heads * dh), generator=g,
                                 device="cuda").to(dtype)
             bg = (torch.rand((b, n), generator=g, device="cuda") < 0.3).float()
             bg[:, 0] = 0.0
             for design in names:
-                if design == "one-block" and n > 256:
+                if design == "one-block" and n > (256 if dh == 64 else 208):
                     continue
                 # the design forced as _bwd_design does; the one-block
                 # limit is a number in versions before head width 80
@@ -717,18 +768,55 @@ def bwd_bits(root, out):
                                          ("none", torch.zeros_like(bg))):
                         for clamp in (False, True):
                             res = ka.masked_attention_bwd(
-                                qkv, bg_, d_out, num_heads=heads, scale=0.125,
-                                clamp_softmax=clamp)
+                                qkv, bg_, d_out, num_heads=heads,
+                                scale=dh ** -0.5, clamp_softmax=clamp)
                             raw = res.view(torch.int16 if dtype ==
                                            torch.bfloat16 else torch.int32)
+                            width = "" if dh == 64 else f" dh={dh}"
                             got[f"{design} {dtype} B={b} N={n} bg={bg_kind} "
-                                f"clamp={clamp}"] = hashlib.sha256(
+                                f"clamp={clamp}{width}"] = hashlib.sha256(
                                 raw.cpu().numpy().tobytes()).hexdigest()
                 finally:
                     ka._bwd_bf16_design, ka.BWD_ONE_BLOCK_MAX_N = saved
     with open(out, "w") as f:
         json.dump(got, f, indent=1, sort_keys=True)
     say(f"bwd_bits: {len(got)} cases from {ka.__file__} -> {out}")
+    return got
+
+
+def fwd_bits(root, out):
+    """SHA-256 of kernel 1's output bytes (out, cls row, head mean or J') at
+    head widths 64 (ATTN_CASES' first two) and 80 (W80_SHAPES' first two),
+    every dtype and int8 option, variant, clamp and design, from the port of
+    the checkout at ``root``, as ``bwd_bits`` does (and compared by
+    ``compare_bits``)."""
+    import hashlib
+    sys.path.insert(0, os.path.abspath(root))
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    got = {}
+    cases = [(b, n, h, 64) for b, n, h in ATTN_CASES[:2]] + \
+        [(b, n, 16, 80) for b, n in W80_SHAPES[:2]]
+    for b, n, h, dh in cases:
+        for dtype, opt in KERNEL1_KINDS:
+            qkv, bg, joint, sc = attention_inputs(b, n, h, dtype, seed=n,
+                                                  dh=dh)
+            scales = _w80_scales(opt, sc)
+            kind = opt or str(dtype).split(".")[-1]
+            for variant in VARIANTS:
+                for clamp in (False, True):
+                    for design in fwd_designs(dtype):
+                        res = _fwd_design(design, _call,
+                                          ka.masked_attention_fused, variant,
+                                          qkv, bg, joint, h, clamp, scales)
+                        digest = hashlib.sha256()
+                        for t in res:
+                            digest.update(t.contiguous().view(torch.uint8)
+                                          .cpu().numpy().tobytes())
+                        got[f"{design} {kind} {variant} clamp={clamp} B={b} "
+                            f"N={n} H={h} dh={dh}"] = digest.hexdigest()
+    with open(out, "w") as f:
+        json.dump(got, f, indent=1, sort_keys=True)
+    say(f"fwd_bits: {len(got)} cases from {ka.__file__} -> {out}")
     return got
 
 
@@ -818,6 +906,53 @@ BWD_CASES = ((8, 197, 12, 64), (3, 37, 12, 64), (2, 577, 12, 64),
              (16, 197, 6, 64), (8, 257, 8, 80))
 
 
+def bwd_case(b, n, heads, dh, failures):
+    """The backward at [B, N, H x dh] against its plain version in every
+    design that takes the shape, bf16 and float32, 30 % background and none,
+    clamp off and on (float32 without the clamp also against torch.autograd
+    through the plain forward), at TOL_BWD; the tensor-core design launched
+    twice for identical bits.  Returns {(dtype name, clamp, n, heads, bg
+    kind, design, head width): worst error}."""
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        qkv, bg, d_out = bwd_inputs(b, n, heads, dtype, seed=n, dh=dh)
+        name = str(dtype).split(".")[-1]
+        for bg_kind, bg_ in (("30% bg", bg), ("no bg", torch.zeros_like(bg))):
+            for clamp in (False, True):
+                want = _bwd_call(ka.masked_attention_bwd_ref,
+                                 *_bwd_ref_inputs(qkv, bg_, d_out), heads,
+                                 clamp)
+                auto = None
+                if dtype == torch.float32 and not clamp:
+                    q64, bg64, do64 = _bwd_ref_inputs(qkv, bg_, d_out)
+                    leaf = q64.clone().requires_grad_(True)
+                    out, _ = ka.masked_attention_fused_ref(
+                        leaf, bg64, num_heads=heads, scale=dh ** -0.5)
+                    auto, = torch.autograd.grad(out, leaf, do64)
+                    del leaf, out, q64, bg64, do64
+                for design in bwd_designs(dtype, n, dh):
+                    got = _bwd_design(design, qkv, bg_, d_out, heads, clamp)
+                    torch.cuda.synchronize()
+                    case = f"attention bwd {design:11s} {name:8s} " \
+                           f"clamp={clamp!s:5s} {bg_kind:6s} B={b} N={n} " \
+                           f"H={heads} dh={dh}"
+                    errs[(name, clamp, n, heads, bg_kind, design, dh)] = \
+                        _compare(case, (got,), (want,), (TOL_BWD[dtype],),
+                                 failures)
+                    if auto is not None:
+                        _compare(case + " vs autograd", (got,), (auto,),
+                                 (TOL_BWD[dtype],), failures)
+                    if design == "tensor-core" and not torch.equal(
+                            got, _bwd_design(design, qkv, bg_, d_out, heads,
+                                             clamp)):
+                        failures.append(f"{case}: a second launch gave "
+                                        "other bits")
+                del want, auto
+        del qkv, bg, d_out
+    return errs
+
+
 def check_attention_bwd():
     """Backward kernel vs its plain version on the card, in every design that
     takes the shape: bf16 the tensor-core design (the training path's) and
@@ -836,45 +971,8 @@ def check_attention_bwd():
     errs, failures = {}, []
     cases = BWD_CASES + tuple((1, ka.BWD_MAX_N[dh], 16, dh)
                               for dh in ka.BWD_HEAD_DIMS)
-    for (b, n, heads, dh) in cases:
-        for dtype in (torch.bfloat16, torch.float32):
-            qkv, bg, d_out = bwd_inputs(b, n, heads, dtype, seed=n, dh=dh)
-            name = str(dtype).split(".")[-1]
-            for bg_kind, bg_ in (("30% bg", bg), ("no bg",
-                                                  torch.zeros_like(bg))):
-                for clamp in (False, True):
-                    want = _bwd_call(ka.masked_attention_bwd_ref,
-                                     *_bwd_ref_inputs(qkv, bg_, d_out),
-                                     heads, clamp)
-                    auto = None
-                    if dtype == torch.float32 and not clamp:
-                        q64, bg64, do64 = _bwd_ref_inputs(qkv, bg_, d_out)
-                        leaf = q64.clone().requires_grad_(True)
-                        out, _ = ka.masked_attention_fused_ref(
-                            leaf, bg64, num_heads=heads, scale=dh ** -0.5)
-                        auto, = torch.autograd.grad(out, leaf, do64)
-                        del leaf, out, q64, bg64, do64
-                    for design in bwd_designs(dtype, n, dh):
-                        got = _bwd_design(design, qkv, bg_, d_out, heads,
-                                          clamp)
-                        torch.cuda.synchronize()
-                        case = f"attention bwd {design:11s} {name:8s} " \
-                               f"clamp={clamp!s:5s} {bg_kind:6s} B={b} " \
-                               f"N={n} H={heads} dh={dh}"
-                        errs[(name, clamp, n, heads, bg_kind, design,
-                              dh)] = \
-                            _compare(case, (got,), (want,),
-                                     (TOL_BWD[dtype],), failures)
-                        if auto is not None:
-                            _compare(case + " vs autograd", (got,), (auto,),
-                                     (TOL_BWD[dtype],), failures)
-                        if design == "tensor-core" and not torch.equal(
-                                got, _bwd_design(design, qkv, bg_, d_out,
-                                                 heads, clamp)):
-                            failures.append(f"{case}: a second launch gave "
-                                            "other bits")
-                    del want, auto
-            del qkv, bg, d_out
+    for case in cases:
+        errs.update(bwd_case(*case, failures))
     # one past each width's limit: refused by both wrappers, in both dtypes
     for dh in ka.BWD_HEAD_DIMS:
         n = ka.BWD_MAX_N[dh] + 1
@@ -981,16 +1079,17 @@ BWD_TIMED = ((64, 197, 12, 64), (16, 577, 12, 64), (64, 257, 16, 80),
              (16, 1025, 16, 64))
 
 
-def time_attention_bwd():
-    """bf16, no clamp (the training path's call), at each BWD_TIMED shape:
-    the tensor-core design (the path's) held against its plain version, then
-    in turns with the FMA designs bf16 ran before, the plain version and the
-    backward of F.scaled_dot_product_attention with the same additive mask
-    (the library call, timed only).  Returns {(B, N, heads, dh): (kernel,
-    plain, library, worst error) ms}."""
+def time_attention_bwd(shapes=BWD_TIMED):
+    """bf16, no clamp (the training path's call), at each of ``shapes``:
+    the tensor-core design (the path's) and the FMA designs bf16 ran before
+    held against the plain version, then the tensor-core design, the plain
+    version and the backward of F.scaled_dot_product_attention with the same
+    additive mask (the library call, timed only) in turns; the FMA designs
+    no longer change and are not timed.  Returns {(B, N, heads, dh):
+    (kernel, plain, library, worst error) ms}."""
     from vision_transformer_cam_tpu_torch.kernels import attention as ka
     res = {}
-    for shape in BWD_TIMED:
+    for shape in shapes:
         bb, nn, heads, dh = shape
         qkv, bg, d_out = bwd_inputs(bb, nn, heads, torch.bfloat16,
                                     seed=3 if nn == 197 else 4, dh=dh)
@@ -1014,7 +1113,9 @@ def time_attention_bwd():
             f"(recorded, not gated): max abs dev "
             f"{float((fns['tensor-core']().float() - fns['SDPA backward']().float()).abs().max()):.3e}")
         del want
-        ms = round_robin(fns, iters=20 if nn < 500 else 5)
+        ms = round_robin({k: f for k, f in fns.items() if k in (
+            "tensor-core", "plain", "SDPA backward")},
+            iters=20 if nn < 500 else 5)
         t_bound, by = bwd_bound(bb, nn, heads, dh)
         say(f"time attention bwd bf16 B={bb} N={nn} H={heads} dh={dh}: "
             + ", ".join(f"{name} {t:.4f} ms" for name, t in ms.items())
@@ -1704,10 +1805,11 @@ def time_attention_seq(b=16, n=577, heads=16):
     float32 head mean (as the main path launches it): one rank (NQ = 577) and
     a shard of four (NQ = 145, Np = 580).  The FMA design bf16 ran before is
     held against the plain version too, then the tensor-core design (the
-    path's), the FMA design, the plain version and
-    F.scaled_dot_product_attention on the same q, K, V with the additive
-    mask (a yardstick for the shape: it returns neither row0 nor hm) run in
-    turns.  Returns {sp: (kernel ms, plain ms, sdpa ms, fma design ms)}."""
+    path's), the plain version and F.scaled_dot_product_attention on the
+    same q, K, V with the additive mask (a yardstick for the shape: it
+    returns neither row0 nor hm) run in turns; the FMA design, which no
+    longer changes, is not timed (PERF.md keeps its last times).  Returns
+    {sp: (kernel ms, plain ms, sdpa ms)}."""
     from vision_transformer_cam_tpu_torch.kernels import attention as ka
     qkv, bg = seq_inputs(b, n, heads, torch.bfloat16, 7)
     times = {}
@@ -1739,13 +1841,13 @@ def time_attention_seq(b=16, n=577, heads=16):
         if failures:
             raise AssertionError("sequence-parallel kernel != plain version:"
                                  "\n" + "\n".join(failures))
+        del fns["fma"]
         ms = round_robin(fns)
-        times[sp] = (ms["tensor-core"], ms["plain"], ms["SDPA"], ms["fma"])
+        times[sp] = (ms["tensor-core"], ms["plain"], ms["SDPA"])
         say(f"time attention_seq bf16 hm f32 B={b} N={n} sp={sp} (NQ={nq}, "
-            f"Np={np_}): tensor-core design {ms['tensor-core']:.4f} ms, FMA "
-            f"design {ms['fma']:.4f} ms, plain {ms['plain']:.4f} ms, "
-            f"F.scaled_dot_product_attention (no row0, no hm) "
-            f"{ms['SDPA']:.4f} ms")
+            f"Np={np_}): tensor-core design {ms['tensor-core']:.4f} ms, "
+            f"plain {ms['plain']:.4f} ms, F.scaled_dot_product_attention (no "
+            f"row0, no hm) {ms['SDPA']:.4f} ms")
         del want, fns
     return times
 
@@ -1764,14 +1866,14 @@ def in_turns(kern, plain, iters=20):
 
 def time_kernels(b=64, n=197):
     """Each kernel against its plain version at ViT-B shapes and B=64, in
-    turns: the attention variants (bf16 and int8 in the tensor-core design
-    and the FMA design they ran before) and the int8 GEMMs (the tensor-core
-    and the dp4a design), the GEMMs also beside bf16 F.linear and
+    turns: the attention variants (bf16 and int8 in the tensor-core design,
+    float32 in the FMA design) and the int8 GEMMs (the tensor-core design;
+    the designs they replaced, which no longer change, are not timed:
+    PERF.md keeps their last times), the GEMMs also beside bf16 F.linear and
     torch._int_mm (the bare int8 product: no quantize, no epilogue) at the
     same shape; then kernel 1's int8 rollout variants at ViT-L/16@384's
     N = 577 (B=16, 16 heads), checked against the plain version and timed
-    the same way.  Returns {key: (kernel ms, plain ms)} and, under
-    ("earlier", ...) keys, the earlier design's ms."""
+    the same way.  Returns {key: (kernel ms, plain ms)}."""
     from vision_transformer_cam_tpu_torch.kernels import attention as ka
     from vision_transformer_cam_tpu_torch.kernels import gemm
     times = {}
@@ -1780,7 +1882,7 @@ def time_kernels(b=64, n=197):
                         scales, iters=20):
         fns = {d: (lambda d=d: _fwd_design(
             d, _call, ka.masked_attention_fused, variant, qkv, bg, joint,
-            heads, clamp, scales)) for d in fwd_designs(dtype)}
+            heads, clamp, scales)) for d in fwd_designs(dtype)[:1]}
         fns["plain"] = lambda: _call(ka.masked_attention_fused_ref, variant,
                                      qkv, bg, joint, heads, clamp, scales)
         ms = round_robin(fns, iters)
@@ -1802,8 +1904,6 @@ def time_kernels(b=64, n=197):
                                  qkv, bg, joint, 12, variant, clamp, scales)
             times[("attention", kind, variant)] = (
                 ms[fwd_designs(dtype)[0]], ms["plain"])
-            if dtype != torch.float32:
-                times[("earlier", "attention", kind, variant)] = ms["fma"]
     # the training forward: bf16, plain variant, no clamp
     qkv, bg, joint, _ = attention_inputs(b, n, 12, torch.bfloat16, seed=1)
     ms = attention_turns(f"bf16 plain, no clamp (the training forward) B={b} "
@@ -1811,7 +1911,6 @@ def time_kernels(b=64, n=197):
                          False, None)
     times[("attention", "bf16 no clamp", "plain")] = (ms["tensor-core"],
                                                       ms["plain"])
-    times[("earlier", "attention", "bf16 no clamp", "plain")] = ms["fma"]
     # kernel 1's int8 rollout variants past 512 tokens (ViT-L/16@384): the
     # int8 route of serving.py stops at 640 tokens; recorded, not routed
     ln, lb, lh = 577, 16, 16
@@ -1838,7 +1937,6 @@ def time_kernels(b=64, n=197):
                              scales, iters=10)
         times[("attention", kind, "rollout", ln)] = (ms["tensor-core"],
                                                      ms["plain"])
-        times[("earlier", "attention", kind, "rollout", ln)] = ms["fma"]
         del want
     # the int8 GEMMs as the int8 main path calls them (ln_quant and the
     # fused route on): patch fused bf16 -> bf16, qkv int8 -> requant/36,
@@ -1854,17 +1952,14 @@ def time_kernels(b=64, n=197):
         args, kw = _gemm_args(ops, route, x_kind, epi, extra, si)
         fns = {"tensor-core": lambda: _gemm_design("tensor-core", *args,
                                                    **kw),
-               "dp4a": lambda: _gemm_design("dp4a", *args, **kw),
                "plain": lambda: gemm.linear_int8_ref(*args, **kw)}
         ms = round_robin(fns, iters=5)
         # the same calls' device time, out of a CUDA graph: a call shorter
         # than the wrapper's host work is timed as that work by time_ms
-        dev = round_robin({d: fns[d] for d in ("tensor-core", "dp4a")},
-                          iters=10, timer=graph_ms)
+        dev = round_robin({"tensor-core": fns["tensor-core"]}, iters=10,
+                          timer=graph_ms)
         times[("gemm", shape)] = (ms["tensor-core"], ms["plain"])
-        times[("earlier", "gemm", shape)] = ms["dp4a"]
         times[("gemm_graph", shape)] = dev["tensor-core"]
-        times[("earlier", "gemm_graph", shape)] = dev["dp4a"]
         wb = torch.randn((n_out, k), device="cuda").to(torch.bfloat16)
         xq = torch.clamp(torch.round(ops["x"].float() / ops["act"]), -127,
                          127).to(torch.int8)
@@ -1881,23 +1976,20 @@ def time_kernels(b=64, n=197):
         times[("gemm_int_mm_graph", shape)] = yard_dev["torch._int_mm"]
         say(f"time int8 GEMM {shape:5s} M={b * n} K={k} N={n_out} "
             f"({route}, {x_kind}, {epi}): tensor-core {ms['tensor-core']:.4f} "
-            f"ms, dp4a {ms['dp4a']:.4f} ms, plain {ms['plain']:.4f} ms; "
+            f"ms, plain {ms['plain']:.4f} ms; "
             f"bf16 F.linear {yard['bf16 F.linear']:.4f} ms, torch._int_mm "
             f"(int32 product only) {yard['torch._int_mm']:.4f} ms; out of a "
             f"CUDA graph (device time): tensor-core "
-            f"{dev['tensor-core']:.4f} ms, dp4a {dev['dp4a']:.4f} ms, bf16 "
+            f"{dev['tensor-core']:.4f} ms, bf16 "
             f"F.linear {yard_dev['bf16 F.linear']:.4f} ms, torch._int_mm "
             f"{yard_dev['torch._int_mm']:.4f} ms")
     five = {"tensor-core": [times[("gemm", s_)][0] for s_ in GEMM_SHAPES],
-            "dp4a": [times[("earlier", "gemm", s_)] for s_ in GEMM_SHAPES],
             "plain": [times[("gemm", s_)][1] for s_ in GEMM_SHAPES],
             "bf16 F.linear": [times[("gemm_bf16", s_)] for s_ in GEMM_SHAPES],
             "torch._int_mm": [times[("gemm_int_mm", s_)]
                               for s_ in GEMM_SHAPES],
             "tensor-core out of a CUDA graph": [times[("gemm_graph", s_)]
                                                 for s_ in GEMM_SHAPES],
-            "dp4a out of a CUDA graph": [
-                times[("earlier", "gemm_graph", s_)] for s_ in GEMM_SHAPES],
             "bf16 F.linear out of a CUDA graph": [
                 times[("gemm_bf16_graph", s_)] for s_ in GEMM_SHAPES],
             "torch._int_mm out of a CUDA graph": [
@@ -1928,14 +2020,14 @@ def time_kernels(b=64, n=197):
 
 def time_fused(b=64, n=197, heads=12):
     """The three fused kernels at ViT-B shapes and B=64 (the MLP kernels
-    also at batch 256's M = 50432), in turns with the designs they ran
-    before and their plain versions, and beside each the unfused route the
-    port already has, a yardstick for the shape and not the same single
-    call: F.linear -> F.gelu -> F.linear; two fused-route int8 GEMM
-    launches; the qkv GEMM, the attention kernel, the proj GEMM and the
-    residual add.  Returns {name: (kernel ms, plain ms, unfused route ms)},
-    the MLP kernels at M = 50432 under (name, M), and the earlier designs'
-    ms under ("earlier", ...) keys."""
+    also at batch 256's M = 50432), in turns with their plain versions (the
+    designs they replaced no longer change and are not timed: PERF.md keeps
+    their last times), and beside each the unfused route the port already
+    has, a yardstick for the shape and not the same single call: F.linear
+    -> F.gelu -> F.linear; two fused-route int8 GEMM launches; the qkv GEMM,
+    the attention kernel, the proj GEMM and the residual add.  Returns
+    {name: (kernel ms, plain ms, unfused route ms)}, the MLP kernels at M =
+    50432 under (name, M)."""
     import torch.nn.functional as F
     from vision_transformer_cam_tpu_torch.kernels import attention as ka
     from vision_transformer_cam_tpu_torch.kernels import gemm
@@ -1944,24 +2036,21 @@ def time_fused(b=64, n=197, heads=12):
 
     hid = 4 * c
     # the two fused MLP kernels at B=64 and at batch 256's rows: the wgmma
-    # design, the mma design it replaced, the plain version and the unfused
-    # route, in turns
+    # design, the plain version and the unfused route, in turns
     for rows in (m, 4 * m):
         x, w1, b1, w2, b2 = mlp_operands(rows, c, hid, torch.bfloat16,
                                          seed=50)
-        fns = {d: (lambda d=d: _mlp_design(d, gemm.mlp_fused, x, w1, b1, w2,
-                                           b2))
-               for d in ("wgmma", "mma")}
+        fns = {"wgmma": lambda: _mlp_design("wgmma", gemm.mlp_fused, x, w1,
+                                            b1, w2, b2)}
         fns["plain"] = lambda: gemm.mlp_fused_plain(x, w1, b1, w2, b2)
         fns["unfused"] = lambda: F.linear(F.gelu(F.linear(x, w1, b1),
                                                  approximate="tanh"), w2, b2)
         ms = round_robin(fns, iters=5)
         key = "mlp_fused" if rows == m else ("mlp_fused", rows)
         times[key] = (ms["wgmma"], ms["plain"], ms["unfused"])
-        times[("earlier",) + ((key,) if rows == m else key)] = ms["mma"]
         bound_ms = mlp_bound(rows, c, hid, torch.bfloat16)[0]
         say(f"time mlp_fused bf16 M={rows} C={c} HID={hid}, in turns: wgmma "
-            f"{ms['wgmma']:.4f} ms, mma (earlier) {ms['mma']:.4f} ms, plain "
+            f"{ms['wgmma']:.4f} ms, plain "
             f"{ms['plain']:.4f} ms; unfused F.linear, F.gelu, F.linear "
             f"(cuBLAS and ATen) {ms['unfused']:.4f} ms; bound {bound_ms:.4f} "
             f"ms ({100 * bound_ms / ms['wgmma']:.1f} % of the bound's rate)")
@@ -1976,17 +2065,16 @@ def time_fused(b=64, n=197, heads=12):
                                   epilogue="gelu", out_scales=inv2.reshape(1))
             return gemm.linear_int8(hq.float(), w2q, cs2, b2q, one,
                                     route="fused", out_dtype=torch.bfloat16)
-        fns = {d: (lambda d=d: _mlp_design(d, gemm.mlp_fused_int8, *ops))
-               for d in ("wgmma", "mma")}
+        fns = {"wgmma": lambda: _mlp_design("wgmma", gemm.mlp_fused_int8,
+                                            *ops)}
         fns["plain"] = lambda: gemm.mlp_fused_int8_plain(*ops)
         fns["unfused"] = chain
         ms = round_robin(fns, iters=5)
         key = "mlp_fused_int8" if rows == m else ("mlp_fused_int8", rows)
         times[key] = (ms["wgmma"], ms["plain"], ms["unfused"])
-        times[("earlier",) + ((key,) if rows == m else key)] = ms["mma"]
         bound_ms = mlp_bound(rows, c, hid, torch.int8)[0]
         say(f"time mlp_fused_int8 bf16 M={rows} C={c} HID={hid}, in turns: "
-            f"wgmma {ms['wgmma']:.4f} ms, mma (earlier) {ms['mma']:.4f} ms, "
+            f"wgmma {ms['wgmma']:.4f} ms, "
             f"plain {ms['plain']:.4f} ms; unfused chain of two int8 GEMM "
             f"launches (and the cast between them) {ms['unfused']:.4f} ms; "
             f"bound {bound_ms:.4f} ms ({100 * bound_ms / ms['wgmma']:.1f} % "
@@ -2002,19 +2090,17 @@ def time_fused(b=64, n=197, heads=12):
         o, _, _ = ka.masked_attention_fused(F.linear(xn, wqkv, bqkv), bg,
                                             joint, **kw)
         return tok + F.linear(o, wproj, bproj)
-    fns = {d: (lambda d=d: _block_design(d, ka.attention_block_fused, *bops,
-                                         bg, joint, **kw))
-           for d in block_designs(torch.bfloat16)}
+    fns = {"tensor-core": lambda: _block_design(
+        "tensor-core", ka.attention_block_fused, *bops, bg, joint, **kw)}
     fns["plain"] = lambda: ka.attention_block_fused_plain(*bops, bg, joint,
                                                           **kw)
     fns["unfused"] = unfused
     ms = round_robin(fns, iters=5)
     times["attention_block_fused"] = (ms["tensor-core"], ms["plain"],
                                       ms["unfused"])
-    times[("earlier", "attention_block_fused")] = ms["fma"]
     say(f"time attention_block_fused bf16 rollout B={b} N={n}, in turns: "
-        f"tensor-core {ms['tensor-core']:.4f} ms, fma (earlier) "
-        f"{ms['fma']:.4f} ms, plain {ms['plain']:.4f} ms; unfused qkv GEMM, "
+        f"tensor-core {ms['tensor-core']:.4f} ms, "
+        f"plain {ms['plain']:.4f} ms; unfused qkv GEMM, "
         f"attention kernel, proj GEMM, add {ms['unfused']:.4f} ms")
     return times
 
@@ -2050,7 +2136,9 @@ def read_counts():
             "attention_block_fused": ka.block_launches,
             "masked_attention_seq_local": ka.seq_launches,
             W80: ka.width_launches[80],
-            BWD80: ka.bwd_width_launches[80]}
+            BWD80: ka.bwd_width_launches[80],
+            **{FWD_W[dh]: ka.width_launches[dh] for dh in NEW_WIDTHS},
+            **{BWD_W[dh]: ka.bwd_width_launches[dh] for dh in NEW_WIDTHS}}
 
 
 def read_new_counts():
@@ -3143,6 +3231,10 @@ def user_path():
                                "linear_int8_fused": 2 * (1 + 4 * q_depth)},
                     "serve": {"masked_attention_fused": q_depth,
                               "linear_int8_fused": 1 + 4 * q_depth}}
+            # every attention launch at the JAX tiny config's head width, 16
+            for w in want.values():
+                w[FWD_W[16]] = w.get("masked_attention_fused", 0)
+                w[BWD_W[16]] = w.get("masked_attention_bwd", 0)
             calls = []
             reset_counts()
             t0 = time.perf_counter()
@@ -3665,16 +3757,21 @@ DP_WORLD = 2
 DP_STEPS, DP_TIMED = 5, 3
 
 
-def _dp_validate_rank(argv):
+def _dp_validate_rank(argvs):
     """One rank of ``cli.validate --data_parallel`` (spawned by
-    ``parallel.worker.launch``): its scores and its kernel launches."""
+    ``parallel.worker.launch``) for each argv of ``argvs`` in turn, in one
+    process (the first run joins the process group, the next ones find it):
+    [(its scores, its kernel launches)] in argvs' order."""
     from vision_transformer_cam_tpu_torch.cli import validate as vcli
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    reset_counts()
-    res = vcli.main(argv)
-    torch.cuda.synchronize()
-    return res, read_counts()
+    got = []
+    for argv in argvs:
+        reset_counts()
+        res = vcli.main(argv)
+        torch.cuda.synchronize()
+        got.append((res, read_counts()))
+    return got
 
 
 def _time_in_turns(par, one, rows, collective, iters):
@@ -3883,42 +3980,50 @@ def dp_path(batch32=8, batch=64, n_images=11, val_batch=4):
         f"ranks share the card, and gloo stages every all-reduce through "
         f"host memory")
 
-    # cli.validate --data_parallel against the one-rank run
+    # cli.validate --data_parallel against the one-rank run, bf16 and int8:
+    # the one-rank runs in this process, the ranks' runs in one spawn
+    modes = ("bf16", "int8")
     with tempfile.TemporaryDirectory() as root:
         split, names = fake_voc_tree(root, n_images)
-        for mode in ("bf16", "int8"):
-            argv = ["--model_name", "vit_base_patch16_224_in21k",
-                    "--dataset_path", root, "--val_img_name_path", split,
-                    "--batch_size", str(val_batch), "--serving", mode]
-            dirs = {k: os.path.join(root, f"{mode}_{k}")
-                    for k in ("one", "dp")}
+        argvs, dirs, want = {}, {}, {}
+        for mode in modes:
+            argvs[mode] = ["--model_name", "vit_base_patch16_224_in21k",
+                           "--dataset_path", root, "--val_img_name_path",
+                           split, "--batch_size", str(val_batch),
+                           "--serving", mode]
+            dirs[mode] = {k: os.path.join(root, f"{mode}_{k}")
+                          for k in ("one", "dp")}
             cwd = os.getcwd()
             os.chdir(root)
             try:
-                want, one_counts = _dp_validate_rank(
-                    argv + ["--seg_pred_dir", dirs["one"]])
+                want[mode], = _dp_validate_rank(
+                    [argvs[mode] + ["--seg_pred_dir", dirs[mode]["one"]]])
             finally:
                 os.chdir(cwd)
-            t0 = time.perf_counter()
-            got = launch(_dp_validate_rank,
-                         (argv + ["--seg_pred_dir", dirs["dp"],
-                                  "--data_parallel"],),
-                         world=DP_WORLD, timeout=400, cwd=root)
+        t0 = time.perf_counter()
+        ranks = launch(_dp_validate_rank,
+                       ([argvs[m] + ["--seg_pred_dir", dirs[m]["dp"],
+                                     "--data_parallel"] for m in modes],),
+                       world=DP_WORLD, timeout=400, cwd=root)
+        wall = time.perf_counter() - t0
+        for i, mode in enumerate(modes):
+            got = [r[i] for r in ranks]
+            ref, one_counts = want[mode]
             png = {k: [open(os.path.join(d, f"{n}.png"), "rb").read()
-                       for n in names] for k, d in dirs.items()}
+                       for n in names] for k, d in dirs[mode].items()}
             same = png["one"] == png["dp"]
-            scores = all(r[k] == want[k] for r, _ in got
+            scores = all(r[k] == ref[k] for r, _ in got
                          for k in ("mAP", "mIoU", "n_images"))
             for rank, (_, c) in enumerate(got):
                 for k, v in c.items():
                     counts[k] = counts.get(k, 0) + v
                 say(f"dp path validate {mode}, rank {rank}: launches "
                     f"{ {k: v for k, v in c.items() if v} }")
-            say(f"dp path validate {mode}, {DP_WORLD} ranks "
-                f"({time.perf_counter() - t0:.1f} s) vs one rank: "
+            say(f"dp path validate {mode}, {DP_WORLD} ranks (both modes in "
+                f"one spawn, {wall:.1f} s) vs one rank: "
                 f"{n_images} PNGs byte for byte equal: {same}; mAP "
-                f"{got[0][0]['mAP']:.6f} vs {want['mAP']:.6f}, mIoU "
-                f"{got[0][0]['mIoU']:.4f} vs {want['mIoU']:.4f}; one-rank "
+                f"{got[0][0]['mAP']:.6f} vs {ref['mAP']:.6f}, mIoU "
+                f"{got[0][0]['mIoU']:.4f} vs {ref['mIoU']:.4f}; one-rank "
                 f"launches { {k: v for k, v in one_counts.items() if v} }")
             if not (same and scores):
                 fails.append(f"validate {mode}: PNGs equal {same}, scores "
@@ -4921,26 +5026,25 @@ def check_attention_v1():
 
 def time_attention_v1(b=64, n=197, heads=12):
     """The split-tensor kernel at B=64 N=197 bf16, with and without the head
-    mean, in turns: the tensor-core design, the FMA design it replaced and
-    the plain version; beside them the fused kernel's plain variant on the
-    same values packed (no clamp) and F.scaled_dot_product_attention with the
-    additive [B, 1, N, N] pair mask (out only, neither cls row nor head mean:
-    the yardstick for the shape, timed only).  Returns ({with_headmean:
-    (kernel ms, plain ms)}, the SDPA ms, {with_headmean: earlier ms})."""
+    mean, in turns: the tensor-core design and the plain version (the FMA
+    design it replaced no longer changes and is not timed); beside them the
+    fused kernel's plain variant on the same values packed (no clamp) and
+    F.scaled_dot_product_attention with the additive [B, 1, N, N] pair mask
+    (out only, neither cls row nor head mean: the yardstick for the shape,
+    timed only).  Returns ({with_headmean: (kernel ms, plain ms)}, the SDPA
+    ms)."""
     import torch.nn.functional as F
     from vision_transformer_cam_tpu_torch.kernels import attention as ka
     (q, k, v), bg = v1_inputs(b, n, heads, torch.bfloat16, 5)
-    times, earlier = {}, {}
+    times = {}
     for hm in (False, True):
         kw = dict(scale=64 ** -0.5, with_headmean=hm)
-        fns = {d: (lambda d=d: _switched(ka, "_v1_bf16_design", d,
-                                         ka.masked_attention, q, k, v, bg,
-                                         **kw))
-               for d in fwd_designs(torch.bfloat16)}
+        fns = {"tensor-core": lambda: _switched(
+            ka, "_v1_bf16_design", "tensor-core", ka.masked_attention, q, k,
+            v, bg, **kw)}
         fns["plain"] = lambda: ka.masked_attention_ref(q, k, v, bg, **kw)
         ms = round_robin(fns)
         times[hm] = (ms["tensor-core"], ms["plain"])
-        earlier[hm] = ms["fma"]
     qkv = torch.stack([q, k, v]).permute(1, 3, 0, 2, 4).reshape(
         b, n, 3 * heads * 64).contiguous()
     fused = time_ms(lambda: ka.masked_attention_fused(
@@ -4950,13 +5054,13 @@ def time_attention_v1(b=64, n=197, heads=12):
     sdpa = time_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=pair, scale=64 ** -0.5))
     say(f"time attention v1 bf16 B={b} N={n}, in turns: tensor-core "
-        f"{times[False][0]:.4f} ms, fma (earlier) {earlier[False]:.4f} ms, "
+        f"{times[False][0]:.4f} ms, "
         f"plain {times[False][1]:.4f} ms; with the head mean tensor-core "
-        f"{times[True][0]:.4f} ms, fma {earlier[True]:.4f} ms, plain "
+        f"{times[True][0]:.4f} ms, plain "
         f"{times[True][1]:.4f} ms; the fused kernel's plain variant on the "
         f"packed values {fused:.4f} ms; F.scaled_dot_product_attention (out "
         f"only) {sdpa:.4f} ms")
-    return times, sdpa, earlier
+    return times, sdpa
 
 
 # Kernel 1 at head width 80 (ViT-H/14: 16 heads of 80), the shapes its
@@ -4978,6 +5082,61 @@ def _w80_scales(opt, sc):
     return None
 
 
+def kernel1_case(b, n, h, dh, kinds, failures, seed, on_tc=None):
+    """Kernel 1 at [B, N, H x dh] against its plain version: each (dtype,
+    int8 option) of ``kinds``, each variant, clamp off and on, in every
+    design that takes the dtype (the tensor-core design launched twice for
+    identical bits), at the width-80 gates (TOL, TOL_JOINT, int8 within one
+    step).  ``on_tc(case, variant, clamp, got, call)`` runs after each
+    tensor-core check.  Returns {(kind, variant, clamp, design): worst
+    error}."""
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    errs = {}
+    for dtype, opt in kinds:
+        qkv, bg, joint, sc = attention_inputs(b, n, h, dtype, seed=seed,
+                                              dh=dh)
+        scales = _w80_scales(opt, sc)
+        fdt = torch.bfloat16 if dtype == torch.int8 else dtype
+        kind = opt or str(dtype).split(".")[-1]
+        for variant in VARIANTS:
+            for clamp in (False, True):
+                want = _call(ka.masked_attention_fused_ref, variant, qkv, bg,
+                             joint, h, clamp, scales)
+                tols = [None if scales is not None else TOL[(fdt, "out")],
+                        TOL[(fdt, "prob")],
+                        TOL_JOINT if variant == "rollout"
+                        else TOL[(fdt, "prob")]]
+
+                def call(**extra):
+                    return _call(ka.masked_attention_fused, variant, qkv, bg,
+                                 joint, h, clamp, scales, **extra)
+                for design in fwd_designs(dtype):
+                    got = _fwd_design(design, call)
+                    torch.cuda.synchronize()
+                    case = f"attention dh={dh} {design:11s} {kind:10s} " \
+                           f"{variant:8s} clamp={clamp!s:5s} B={b} N={n} " \
+                           f"H={h}"
+                    errs[(kind, variant, clamp, design)] = _compare(
+                        case, got, want, tols, failures)
+                    if design != "tensor-core":
+                        continue
+                    if not all(torch.equal(x, y)
+                               for x, y in zip(got, call())):
+                        failures.append(f"{case}: a second launch gave "
+                                        "other bits")
+                    if on_tc is not None:
+                        on_tc(case, variant, clamp, got, call)
+        del qkv, joint
+    return errs
+
+
+# kernel 1's dtypes and int8 options at a width: bf16, float32, int8_io with
+# per-head and per-tensor scales, int8_out
+KERNEL1_KINDS = ((torch.bfloat16, None), (torch.float32, None),
+                 (torch.int8, "per_head"), (torch.int8, "per_tensor"),
+                 (torch.bfloat16, "int8_out"))
+
+
 def check_attention_w80(heads=16):
     """Kernel 1 at head width 80 against its plain version, as
     check_attention holds it at 64: float32 (the FMA design), bf16 (the
@@ -4992,61 +5151,30 @@ def check_attention_w80(heads=16):
     at ``heads``."""
     from vision_transformer_cam_tpu_torch.kernels import attention as ka
     errs, failures = {}, []
-    kinds = [(torch.bfloat16, None), (torch.float32, None),
-             (torch.int8, "per_head"), (torch.int8, "per_tensor"),
-             (torch.bfloat16, "int8_out")]
-    cases = [(b, n, heads, kinds) for (b, n) in W80_SHAPES] + \
-        [(*W80_TP_CASE, kinds[:2])]
+    cases = [(b, n, heads, KERNEL1_KINDS) for (b, n) in W80_SHAPES] + \
+        [(*W80_TP_CASE, KERNEL1_KINDS[:2])]
     for (b, n, h, case_kinds) in cases:
-        for dtype, opt in case_kinds:
-            qkv, bg, joint, sc = attention_inputs(b, n, h, dtype, seed=n,
-                                                  dh=80)
-            scales = _w80_scales(opt, sc)
-            fdt = torch.bfloat16 if dtype == torch.int8 else dtype
-            kind = opt or str(dtype).split(".")[-1]
-            for variant in VARIANTS:
-                for clamp in (False, True):
-                    want = _call(ka.masked_attention_fused_ref, variant, qkv,
-                                 bg, joint, h, clamp, scales)
-                    tols = [None if scales is not None else TOL[(fdt, "out")],
-                            TOL[(fdt, "prob")],
-                            TOL_JOINT if variant == "rollout"
-                            else TOL[(fdt, "prob")]]
-                    for design in fwd_designs(dtype):
-                        got = _fwd_design(design, _call,
-                                          ka.masked_attention_fused, variant,
-                                          qkv, bg, joint, h, clamp, scales)
-                        torch.cuda.synchronize()
-                        case = f"attention dh=80 {design:11s} {kind:10s} " \
-                               f"{variant:8s} clamp={clamp!s:5s} B={b} " \
-                               f"N={n} H={h}"
-                        err = _compare(case, got, want, tols, failures)
-                        if design == fwd_designs(dtype)[0] and h == heads:
-                            errs[(kind, variant, clamp, n)] = err
-                        if design != "tensor-core":
-                            continue
-                        again = _call(ka.masked_attention_fused, variant, qkv,
-                                      bg, joint, h, clamp, scales)
-                        if not all(torch.equal(x, y)
-                                   for x, y in zip(got, again)):
-                            failures.append(f"{case}: a second launch gave "
-                                            "other bits")
-                        if n != 257 or not clamp or h != heads:
-                            continue
-                        wide = _call(ka.masked_attention_fused, variant, qkv,
-                                     bg, joint, h, clamp, scales,
-                                     q_block=32)
-                        torch.cuda.synchronize()
-                        same = [torch.equal(x, y)
-                                for x, y in zip(got, wide)]
-                        d3 = float((got[-1].float() - wide[-1].float())
-                                   .abs().max())
-                        say(f"check {case}: q_block 32 vs 16 bit-identical "
-                            f"{same} (third max abs dev {d3:.2e})")
-                        if not (same[0] and same[1]) or d3 > 1e-6 or (
-                                variant == "headmean" and not same[2]):
-                            failures.append(f"{case}: q_block 32 != 16")
-            del qkv, joint
+
+        def q_block_32(case, variant, clamp, got, call, n=n, h=h):
+            if n != 257 or not clamp or h != heads:
+                return
+            wide = call(q_block=32)
+            torch.cuda.synchronize()
+            same = [torch.equal(x, y) for x, y in zip(got, wide)]
+            d3 = float((got[-1].float() - wide[-1].float()).abs().max())
+            say(f"check {case}: q_block 32 vs 16 bit-identical {same} "
+                f"(third max abs dev {d3:.2e})")
+            if not (same[0] and same[1]) or d3 > 1e-6 or (
+                    variant == "headmean" and not same[2]):
+                failures.append(f"{case}: q_block 32 != 16")
+        got = kernel1_case(b, n, h, 80, case_kinds, failures, seed=n,
+                           on_tc=q_block_32)
+        if h == heads:
+            for (kind, variant, clamp, design), err in got.items():
+                dtype = torch.float32 if kind == "float32" else torch.int8 \
+                    if kind.startswith("per_") else torch.bfloat16
+                if design == fwd_designs(dtype)[0]:
+                    errs[(kind, variant, clamp, n)] = err
     # past the FMA design's [32, N] tiles: q_block 16 holds, 32 is refused
     refused = ""
     for dtype in (torch.bfloat16, torch.float32):
@@ -5149,27 +5277,28 @@ def attention_bound(b, n, heads, dh, kind, variant="rollout"):
                  f"H={heads} dh={dh}", nbytes, ops)
 
 
-def time_attention_w80(b=64, n=257, heads=16):
-    """Kernel 1 at ViT-H/14's shape (B=64, N=257, 16 heads of 80): bf16 and
-    int8_io rollout (clamp on, the serving path's), the tensor-core design,
-    the FMA design and the plain version in turns, beside the bound and the
-    occupancy.  Returns {kind: (tensor-core ms, plain ms, FMA ms, bound ms,
-    bound by)}."""
+def time_attention_w80(b=64, n=257, heads=16, dh=80):
+    """Kernel 1 at ViT-H/14's shape (B=64, N=257, 16 heads of 80), or at
+    [B, N, heads x dh]: bf16 and int8_io rollout (clamp on, the serving
+    path's), the tensor-core design and the plain version in turns (the FMA
+    design bf16 and int8 ran before no longer changes and is not timed),
+    beside the bound and the occupancy.  Returns {kind: (tensor-core ms,
+    plain ms, bound ms, bound by)}."""
     from vision_transformer_cam_tpu_torch.kernels import attention as ka
     got = {}
     for kind, dtype in (("bf16", torch.bfloat16), ("int8_io", torch.int8)):
         qkv, bg, joint, sc = attention_inputs(b, n, heads, dtype, seed=5,
-                                              dh=80)
+                                              dh=dh)
         scales = _w80_scales("per_head" if kind == "int8_io" else None, sc)
         fns = {d: (lambda d=d: _fwd_design(
             d, _call, ka.masked_attention_fused, "rollout", qkv, bg, joint,
-            heads, True, scales)) for d in fwd_designs(dtype)}
+            heads, True, scales)) for d in fwd_designs(dtype)[:1]}
         fns["plain"] = lambda: _call(ka.masked_attention_fused_ref, "rollout",
                                      qkv, bg, joint, heads, True, scales)
         ms = round_robin(fns, iters=10)
-        t_bound, by = attention_bound(b, n, heads, 80, kind)
-        got[kind] = (ms["tensor-core"], ms["plain"], ms["fma"], t_bound, by)
-        say(f"time attention dh=80 {kind:8s} rollout B={b} N={n} H={heads}: "
+        t_bound, by = attention_bound(b, n, heads, dh, kind)
+        got[kind] = (ms["tensor-core"], ms["plain"], t_bound, by)
+        say(f"time attention dh={dh} {kind:8s} rollout B={b} N={n} H={heads}: "
             + ", ".join(f"{d} {t:.4f} ms" for d, t in ms.items())
             + f"; bound {t_bound:.4f} ms ({by}), the tensor-core design at "
               f"{100 * t_bound / ms['tensor-core']:.1f} % of the bound's "
@@ -5213,6 +5342,221 @@ def time_int8_route(b=32, n=1025, heads=16):
     say(f"time int8 routes headmean B={b} N={n} H={heads}: " + ", ".join(
         f"{k} {t:.4f} ms (bound {bd:.4f} ms)" for k, (t, bd) in got.items()))
     return got
+
+
+# Phase 24, kernel 1 and the backward at head widths 16, 32 and 40: the JAX
+# kernel tests' fuzz shapes (tests/test_kernel_fuzz.py, B = 2) and the JAX
+# quickstart's N = 65 with 4 heads of 16, (B, N, heads, head width)
+WIDTH_CASES = ((2, 130, 4, 32), (2, 147, 3, 40), (2, 513, 2, 32),
+               (2, 1025, 2, 32), (2, 65, 4, 16))
+# each width's timed shape: the quickstart's at B = 64, and the fuzz shapes
+# of 32 (N = 1025) and 40 at B = 16 and 64
+WIDTH_TIMED = {16: (64, 65, 4, 16), 32: (16, 1025, 2, 32),
+               40: (64, 147, 3, 40)}
+# the models each width's main path runs through bench.main: the JAX
+# quickstart's tiny ViT (16), and ViT-B/16's token grid at C = 128 and 120
+WIDTH_MODELS = {
+    16: dict(img_size=64, patch_size=8, embed_dim=64, depth=6, num_heads=4,
+             mask_from=2, top_k_patches=4),
+    32: dict(img_size=224, patch_size=16, embed_dim=128, depth=4,
+             num_heads=4, mask_from=2),
+    40: dict(img_size=224, patch_size=16, embed_dim=120, depth=4,
+             num_heads=3, mask_from=2)}
+
+
+def check_attention_widths():
+    """Kernel 1 (every dtype, int8 option, variant, clamp and design) and
+    the backward (every design, both dtypes, both backgrounds, clamp off and
+    on) at WIDTH_CASES against their plain versions, at the gates of the
+    width-80 rows; head widths 24 and 48 refused by both, naming the
+    compiled widths.  Returns ({dh: worst error of kernel 1's bf16 rollout
+    serving case}, {dh: worst error of the bf16 tensor-core backward})."""
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    failures, fwd, bwd = [], {}, {}
+    for (b, n, h, dh) in WIDTH_CASES:
+        errs = kernel1_case(b, n, h, dh, KERNEL1_KINDS, failures, seed=n)
+        fwd[dh] = max(fwd.get(dh, 0.0),
+                      errs[("bfloat16", "rollout", True, "tensor-core")])
+        for key, err in bwd_case(b, n, h, dh, failures).items():
+            if key[0] == "bfloat16" and key[5] == "tensor-core":
+                bwd[dh] = max(bwd.get(dh, 0.0), err)
+    for dh in (24, 48):
+        qkv, bg, d_out = bwd_inputs(1, 37, 2, torch.bfloat16, seed=2, dh=dh)
+        for label, call in (
+                ("kernel 1", lambda: _call(ka.masked_attention_fused, "plain",
+                                           qkv, bg, None, 2, True)),
+                ("the backward", lambda: _bwd_call(
+                    ka.masked_attention_bwd, qkv, bg, d_out, 2, False))):
+            try:
+                call()
+                failures.append(f"{label} at head width {dh}: not refused")
+            except ValueError as e:
+                say(f"check {label} at head width {dh} is refused: {e}")
+                if "16, 32, 40, 64, 80" not in str(e):
+                    failures.append(f"{label} at head width {dh}: {e}")
+    if failures:
+        raise AssertionError("kernel 1 or the backward at head widths 16, "
+                             "32, 40 != plain version:\n"
+                             + "\n".join(failures))
+    return fwd, bwd
+
+
+def time_widths():
+    """Each new width at WIDTH_TIMED: kernel 1's bf16 and int8_io rollout and
+    the plain version (time_attention_w80), and the bf16 backward, the plain
+    version and the SDPA backward with the same mask (time_attention_bwd),
+    in turns, beside their bounds.
+    Returns ({dh: (ms, plain ms, bound ms, bound by)} of kernel 1's bf16
+    rollout, {dh: (ms, plain ms, SDPA ms, bound ms, bound by)} of the
+    backward)."""
+    fwd, bwd = {}, {}
+    for dh, (b, n, h, _) in WIDTH_TIMED.items():
+        fwd[dh] = time_attention_w80(b, n, h, dh)["bf16"]
+        r = time_attention_bwd(((b, n, h, dh),))[(b, n, h, dh)]
+        bwd[dh] = (r[0], r[1], r[2], *bwd_bound(b, n, h, dh))
+    return fwd, bwd
+
+
+def widths_main_path():
+    """Each new width's model (WIDTH_MODELS, seeded random weights) through
+    bench.main: served in bf16 at batch 64 and trained (--train --mixed, remat
+    on) at batch 32, its launch counts set to 0 before each run and held
+    after it: per forward one kernel-1 launch a layer, per step two (the
+    forward and the recompute) and one backward launch a layer, all at the
+    model's width.  Returns the summed launch counts."""
+    from vision_transformer_cam_tpu_torch import configs
+    totals = {}
+    for dh, fields in WIDTH_MODELS.items():
+        name = f"width{dh}_smoke"
+        configs.MODEL_ZOO[name] = lambda num_classes=20, has_logits=False, \
+            f=fields: configs.ViTCAMConfig(num_classes=num_classes, **f)
+        depth = fields["depth"]
+        try:
+            for argv, per, times in (
+                    (["--model", name, "--batch", "64", "--bf16"],
+                     {"masked_attention_fused": depth, FWD_W[dh]: depth},
+                     BENCH_FWD),
+                    (["--model", name, "--train", "--mixed", "--batch",
+                      "32"],
+                     {"masked_attention_fused": 2 * depth,
+                      FWD_W[dh]: 2 * depth, "masked_attention_bwd": depth,
+                      BWD_W[dh]: depth}, BENCH_STEPS)):
+                counts = bench_run(argv, {k: v * times
+                                          for k, v in per.items()})
+                for k, v in counts.items():
+                    totals[k] = totals.get(k, 0) + v
+        finally:
+            del configs.MODEL_ZOO[name]
+    return totals
+
+
+def widths_path():
+    """Phase 24: kernel 1 and the backward at head widths 16, 32 and 40
+    against their plain versions, their occupancy read, timed, and each
+    width's model through bench.main.  Returns (launch counts, the checks'
+    worst errors, the timings)."""
+    t0 = time.perf_counter()
+    errs = check_attention_widths()
+    attention_occupancy(cases=tuple((n, dh, h) for dh, (_, n, h, _)
+                                    in WIDTH_TIMED.items()))
+    bwd_occupancy(cases=tuple((n, dh) for dh, (_, n, _, _)
+                              in WIDTH_TIMED.items()))
+    times = time_widths()
+    launches = widths_main_path()
+    say(f"widths path: {time.perf_counter() - t0:.1f} s")
+    return launches, errs, times
+
+
+# Phase 25, the CNN-CAM demo: the archs at full width, the gates of the card
+# against the CPU at float32 with TF32 off (cuDNN's and the CPU's
+# convolutions sum in other orders): logits and features within CNN_REL of
+# their largest magnitude, the uint8 CAMs within one step on at most
+# CNN_CAM_FRAC of the pixels, the same top classes
+CNN_ARCHS = ("resnet18", "squeezenet1_1", "densenet161")
+CNN_REL, CNN_CAM_FRAC = 1e-4, 1e-2
+
+
+def cnn_path():
+    """Phase 25: cli.cnn_cam_demo through ``main`` for each arch at full
+    width and 224 x 224, seeded weights, on the card (the default device)
+    and with ``--device cpu``: the top classes, probabilities and uint8
+    CAMs of the two runs held together, and the arch's module on the card
+    against the same module on the CPU (logits, features), TF32 off; then
+    the warm img/s of the card's forward at batch 1 and 64 (CUDA events, TF32
+    off).  Returns {arch: (img/s at 1, img/s at 64)}."""
+    import tempfile
+
+    from vision_transformer_cam_tpu_torch.cli import cnn_cam_demo as demo
+    from vision_transformer_cam_tpu_torch.data.transforms import (
+        preprocess_array)
+    t0 = time.perf_counter()
+    rates, failures = {}, []
+    with tempfile.TemporaryDirectory() as work:
+        img = os.path.join(work, "cnn_demo.png")
+        synthetic_png(img, seed=77)
+        import PIL.Image
+        x = preprocess_array(np.asarray(PIL.Image.open(img).convert("RGB")),
+                             224, (0.485, 0.456, 0.406),
+                             (0.229, 0.224, 0.225))
+        for arch in CNN_ARCHS:
+            runs = {}
+            for dev in ("cuda", "cpu"):
+                out = os.path.join(work, f"{arch}_{dev}")
+                argv = ["--image", img, "--arch", arch, "--out", out]
+                t1 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    runs[dev] = demo.main(argv + (["--device", "cpu"]
+                                                  if dev == "cpu" else []))
+                if len(os.listdir(out)) != 5:
+                    failures.append(f"{arch} {dev}: {os.listdir(out)}")
+                say(f"cnn {arch} demo on {dev}: {time.perf_counter() - t1:.1f} "
+                    f"s, top {runs[dev]['top'].tolist()}")
+            card, host = runs["cuda"], runs["cpu"]
+            d_prob = float(np.abs(card["probs"] - host["probs"]).max())
+            d_cam = np.abs(card["cams"].astype(int) - host["cams"].astype(int))
+            say(f"check cnn {arch} card vs CPU: probs {d_prob:.2e}, CAM "
+                f"{int(d_cam.max())} step on {float((d_cam > 0).mean()):.2e} "
+                f"of the pixels, top-5 {card['top'].tolist()} / "
+                f"{host['top'].tolist()}")
+            # a rank may swap only between classes tied within the
+            # probabilities' deviation; its CAMs are then of other classes
+            same = card["top"] == host["top"]
+            tied = np.abs(host["probs"][card["top"]]
+                          - host["probs"][host["top"]]) <= 2 * d_prob
+            d_cam = d_cam[same]
+            if not (same | tied).all() or int(d_cam.max(initial=0)) > 1 or \
+                    (d_cam > 0).mean() > CNN_CAM_FRAC:
+                failures.append(f"{arch}: top {card['top']} vs {host['top']}"
+                                f", CAM {int(d_cam.max(initial=0))} steps")
+            models = {dev: demo.build_model(arch, device=dev)
+                      for dev in ("cuda", "cpu")}
+            with torch.no_grad(), demo.no_tf32():
+                got = models["cuda"](torch.from_numpy(x[None]).cuda())
+                want = models["cpu"](torch.from_numpy(x[None]))
+            for name, g_, w_ in zip(("logits", "features"), got, want):
+                err = float((g_.cpu() - w_).abs().max())
+                scale = float(w_.abs().max())
+                say(f"check cnn {arch} {name} card vs CPU: max abs dev "
+                    f"{err:.3e} of {scale:.3e} ({err / scale:.2e})")
+                if not torch.isfinite(g_).all() or err > CNN_REL * scale:
+                    failures.append(f"{arch} {name}: {err:.3e} of {scale:.3e}")
+            model = models["cuda"]
+            del models
+            rates[arch] = []
+            for b in (1, 64):
+                xb = torch.from_numpy(np.repeat(x[None], b, 0)).cuda()
+                with torch.no_grad(), demo.no_tf32():
+                    ms = time_ms(lambda: model(xb), iters=20 if b == 1 else 10)
+                rates[arch].append(1e3 * b / ms)
+                say(f"time cnn {arch} forward B={b}: {ms:.4f} ms, "
+                    f"{1e3 * b / ms:.1f} img/s (TF32 off, warm)")
+            del model
+            gc_cuda()
+    if failures:
+        raise AssertionError("CNN-CAM demo on the card:\n"
+                             + "\n".join(failures))
+    say(f"cnn path: {time.perf_counter() - t0:.1f} s")
+    return rates
 
 
 # The zoo's widest and longest models served (phase 19): label, zoo name,
@@ -5771,10 +6115,10 @@ def time_attn_variants(b=512):
     """``attn_variants --all`` at the script's batch on the tensor-core design
     (eight ms/layer lines and the differences, through its own ``main``; the
     launch counts are set to 0 before and read after), then each variant in
-    turns: the tensor-core design, the FMA design it replaced and the plain
-    version, and with ``full`` kernel 1's bf16 rollout variant on the same
-    inputs.  Returns ({variant: (kernel ms, plain ms)}, {row name:
-    launches}, {variant: earlier ms}, kernel 1's ms)."""
+    turns: the tensor-core design and the plain version (the FMA design it
+    replaced no longer changes and is not timed), and with ``full`` kernel
+    1's bf16 rollout variant on the same inputs.  Returns ({variant: (kernel
+    ms, plain ms)}, {row name: launches}, kernel 1's ms)."""
     from vision_transformer_cam_tpu_torch.scripts import attn_variants as av
     reset_counts()
     ms = av.main(["--all", "--batch", str(b)])
@@ -5784,18 +6128,17 @@ def time_attn_variants(b=512):
     if set(ms) != set(av._VARIANTS) or any(v != 62 for v in counts.values()):
         raise AssertionError(f"attn_variants --all: {ms}, launches {counts}")
     qkv, bg, joint = av.inputs(b, "cuda")
-    times, earlier, k1 = {}, {}, None
+    times, k1 = {}, None
     with torch.inference_mode():
         for variant in av._VARIANTS:
-            fns = {d: (lambda d=d: _switched(av, "_variants_bf16_design", d,
-                                             av.run, qkv, bg, joint, variant))
-                   for d in fwd_designs(torch.bfloat16)}
+            fns = {"tensor-core": lambda: _switched(
+                av, "_variants_bf16_design", "tensor-core", av.run, qkv, bg,
+                joint, variant)}
             fns["plain"] = lambda: av.run_ref(qkv, bg, joint, variant)
             if variant == "full":
                 fns["kernel 1"] = lambda: _kernel1_rollout(qkv, bg, joint)
             got = round_robin(fns, iters=3)
             times[variant] = (got["tensor-core"], got["plain"])
-            earlier[variant] = got["fma"]
             k1 = got.get("kernel 1", k1)
             say(f"time attn_variants {variant:11s} bf16 B={b} N=197, in turns: "
                 + ", ".join(f"{k} {v:.4f} ms" for k, v in got.items()))
@@ -5810,7 +6153,7 @@ def time_attn_variants(b=512):
             say(f"time attn_variants {variant:11s} bf16 B={b} N=197, 30 % "
                 f"background {with_bg:.4f} ms, no background {without:.4f} "
                 f"ms")
-    return times, counts, earlier, k1
+    return times, counts, k1
 
 
 def _capture(fn, *args, **kw):
@@ -5824,6 +6167,10 @@ def _capture(fn, *args, **kw):
     sys.stdout.write(text)
     sys.stdout.flush()
     return res, text
+
+
+# the forwards of a bench.main serving run and the steps of a training run
+BENCH_FWD, BENCH_STEPS = 2 + 10 * 3, 2 + 5 * 3
 
 
 def bench_run(argv, want):
@@ -5856,8 +6203,7 @@ def bench_path():
     """The bench entry point, one JSON line per run through ``bench.main``,
     with the launch counts set to 0 before each and read after it.  Returns
     the summed launch counts."""
-    fwd, lat = 2 + 10 * 3, 2 + 10 * 15      # forwards of a run
-    steps = 2 + 5 * 3                       # training steps of a run
+    fwd, lat, steps = BENCH_FWD, 2 + 10 * 15, BENCH_STEPS
     int8 = {"masked_attention_fused": 12, "linear_int8_fused": 49}
     runs = [   # argv, {kernel: launches per forward or step}, how many
         ([], int8, fwd),
@@ -5952,7 +6298,7 @@ def main() -> int:
     variant_errs = check_attn_variants()
     lap("the kernel-vs-plain checks")
     seq_ms = time_attention_seq()
-    v1_ms, v1_sdpa, _ = time_attention_v1()
+    v1_ms, v1_sdpa = time_attention_v1()
     times = time_kernels()
     fused_ms = time_fused()
     bwd_ms = time_attention_bwd()
@@ -5970,6 +6316,14 @@ def main() -> int:
     for name, count in zoo_train_counts.items():
         launches[name] = launches.get(name, 0) + count
     lap("phase 20")
+    # phase 24, kernel 1 and the backward at head widths 16, 32 and 40
+    width_counts, width_errs, width_ms = widths_path()
+    for name, count in width_counts.items():
+        launches[name] = launches.get(name, 0) + count
+    lap("phase 24")
+    # phase 25, the CNN-CAM demo (cuDNN convolutions: no kernel of its own)
+    cnn_path()
+    lap("phase 25")
     train_launches = train_path()
     launches["masked_attention_fused[bf16 plain, training]"] = \
         train_launches["masked_attention_fused"]
@@ -6007,7 +6361,7 @@ def main() -> int:
     lap("phase 23")
     # the measurement entry points: the launch counts of every run are set to
     # 0 before it and read after it
-    variant_ms, variant_launches, _, _ = time_attn_variants()
+    variant_ms, variant_launches, _ = time_attn_variants()
     launches.update(variant_launches)
     for name, count in bench_path().items():
         launches[name] = launches.get(name, 0) + count
@@ -6040,6 +6394,12 @@ def main() -> int:
             *times[("attention", "bf16", "rollout")]),
         # bf16 rollout at ViT-H/14's B=64 N=257, 16 heads of 80
         W80: (w80_err, *w80_ms["bf16"][:2]),
+        # the new widths: the worst error of their checks, the time at
+        # WIDTH_TIMED (kernel 1's bf16 rollout, the bf16 backward)
+        **{FWD_W[dh]: (width_errs[0][dh], *width_ms[0][dh][:2])
+           for dh in NEW_WIDTHS},
+        **{BWD_W[dh]: (width_errs[1][dh], *width_ms[1][dh][:2])
+           for dh in NEW_WIDTHS},
         "mlp_fused": (mlp_err, *fused_ms["mlp_fused"][:2]),
         "mlp_fused_int8": (mlp8_err, *fused_ms["mlp_fused_int8"][:2]),
         "attention_block_fused": (
@@ -6071,9 +6431,12 @@ def main() -> int:
     library = {"masked_attention_bwd": bwd_ms[BWD_TIMED[0]][2],
                BWD80: bwd_ms[BWD_TIMED[2]][2],
                BWD1025: bwd_ms[BWD_TIMED[3]][2],
+               **{BWD_W[dh]: width_ms[1][dh][2] for dh in NEW_WIDTHS},
                "masked_attention_seq_local": seq_ms[1][2],
                "masked_attention": v1_sdpa}
     bounds = kernel_bounds()
+    bounds.update({FWD_W[dh]: width_ms[0][dh][2:4] for dh in NEW_WIDTHS})
+    bounds.update({BWD_W[dh]: width_ms[1][dh][3:5] for dh in NEW_WIDTHS})
     say(json.dumps({"kernels": [
         {"name": name, "route": route, "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": stats[name][0],

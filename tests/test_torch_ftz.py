@@ -275,21 +275,32 @@ def test_block_design_rule(dtype, design):
     (torch.float32, 209, 80, "two-kernel"),
     (torch.float32, 257, 80, "two-kernel"),
     (torch.float32, 1025, 80, "two-kernel"),
+    (torch.bfloat16, 65, 16, "tensor-core"),
+    (torch.bfloat16, 1704, 16, "tensor-core"),
+    (torch.float32, 572, 16, "one-block"),
+    (torch.float32, 573, 16, "two-kernel"),
+    (torch.float32, 416, 32, "one-block"),
+    (torch.float32, 417, 32, "two-kernel"),
+    (torch.float32, 360, 40, "one-block"),
+    (torch.float32, 361, 40, "two-kernel"),
 ])
 def test_bwd_design_rule(dtype, n, dh, design):
     """bf16 takes the tensor-core design at every N <= BWD_MAX_N (1564 at
-    head width 64, 1520 at 80); float32 keeps the one-block design up to 256
-    (208 at 80) and the two-kernel design past it.  Every design but the
+    head width 64, 1520 at 80, 1636 to 1704 at 40 to 16); float32 keeps the
+    one-block design up to 256 (208 at 80, 360 to 572 at 40 to 16) and the
+    two-kernel design past it.  Every design but the
     one-block one passes a [B, H, N, 3] float32 scratch of row statistics
     from its first kernel to its second.  Other widths raise."""
-    assert tattn.BWD_ONE_BLOCK_MAX_N == {64: 256, 80: 208}
-    assert tattn.BWD_MAX_N == {64: 1564, 80: 1520}
+    assert tattn.BWD_ONE_BLOCK_MAX_N == {16: 572, 32: 416, 40: 360,
+                                         64: 256, 80: 208}
+    assert tattn.BWD_MAX_N == {16: 1704, 32: 1656, 40: 1636, 64: 1564,
+                               80: 1520}
     assert tattn.bwd_design(dtype, n, dh) == design
     shape = tattn.bwd_scratch_shape(design, 4, 12, n)
     assert shape == (None if design == "one-block" else (4, 12, n, 3))
     with pytest.raises(ValueError, match="N <="):
         tattn.bwd_design(dtype, tattn.BWD_MAX_N[dh] + 1, dh)
-    with pytest.raises(ValueError, match="head widths 64, 80, got 48"):
+    with pytest.raises(ValueError, match="head widths 16, 32, 40, 64, 80, got 48"):
         tattn.bwd_design(dtype, n, 48)
 
 

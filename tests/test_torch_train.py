@@ -737,16 +737,20 @@ def test_kernel_bwd_limit_is_stated():
                              + 64 * (dh + 4) + qb)
     assert all(one(n, 64) == 192 * pad(n) + n + 8480 for n in (37, 256))
     assert all(two(n, 64, 32) == 64 * pad(n) + n + 8480 for n in (37, 760))
-    assert tka.BWD_HEAD_DIMS == (64, 80)
-    rows32 = {64: 760, 80: 732}
+    assert tka.BWD_HEAD_DIMS == (16, 32, 40, 64, 80)
+    rows32 = {16: 856, 32: 824, 40: 808, 64: 760, 80: 732}
     for dh in tka.BWD_HEAD_DIMS:
         for floats, n in ((lambda n: one(n, dh), tka.BWD_ONE_BLOCK_MAX_N[dh]),
                           (lambda n: two(n, dh, 32), rows32[dh]),
                           (lambda n: two(n, dh, 16), tka.BWD_MAX_N[dh])):
             assert floats(n) * 4 <= 232448 < floats(n + 1) * 4
-        pitch = 64 if dh == 64 else dh + 8      # bf16 elements a staged row
+        # bf16 elements a staged row: whole k16 steps, an odd number of
+        # 16-byte segments (64: the swizzled rows)
+        width = (dh + 15) // 16 * 16
+        pitch = 64 if dh == 64 else width + 8 * (1 - width // 8 % 2)
         tc = 4 * 64 * pitch * 2 + 4 * ceil64(tka.BWD_MAX_N[dh])
         assert tc <= 232448
-    assert tka.BWD_ONE_BLOCK_MAX_N == {64: 256, 80: 208}
+    assert tka.BWD_ONE_BLOCK_MAX_N == {16: 572, 32: 416, 40: 360, 64: 256,
+                                       80: 208}
     assert min(tka.BWD_MAX_N.values()) >= 1025  # ViT-L/16@512's N
     assert tka.BWD_MAX_N[64] >= 640     # the TPU kernel's longest sequence

@@ -335,7 +335,9 @@ def test_port_imports_no_jax():
                  "scripts.e2e_bench", "examples", "examples.quickstart",
                  "kernels.ops", "cli.export", "examples.serve_artifact",
                  "scripts.w80_variants", "scripts.dryrun_multichip",
-                 "parallel.pipeline"):
+                 "parallel.pipeline", "models.resnet", "models.squeezenet",
+                 "models.densenet", "cli.cnn_cam_demo",
+                 "scripts.width_units"):
         assert "vision_transformer_cam_tpu_torch." + name in mods
     for root, _, files in os.walk(pkg):
         for f in files:

@@ -366,7 +366,7 @@ def test_cuda_bwd_zoo_shapes_match_plain_version():
                                      torch.zeros((1, n, dh), device="cuda"),
                                      num_heads=1, scale=0.1)
     qkv = torch.zeros((1, 37, 3 * 48), device="cuda")
-    with pytest.raises(ValueError, match="head widths 64, 80, got 48"):
+    with pytest.raises(ValueError, match="head widths 16, 32, 40, 64, 80, got 48"):
         tka.masked_attention_bwd(qkv, torch.zeros((1, 37), device="cuda"),
                                  torch.zeros((1, 37, 48), device="cuda"),
                                  num_heads=1, scale=0.1)

@@ -16,7 +16,10 @@
                                                             flops / convert /
                                                             convert_sbd; host
                                                             only, no --device)
-
-The JAX package's ``cli.cnn_cam_demo`` is not ported yet (ROADMAP Queue 1
-item 11).
+  python -m vision_transformer_cam_tpu_torch.cli.cnn_cam_demo
+                                                           (the classic
+                                                            CNN-CAM demo:
+                                                            resnet18,
+                                                            squeezenet1_1,
+                                                            densenet161)
 """

@@ -24,12 +24,10 @@ backward in training, the attention and int8 GEMM kernels in the int8
 validate, the export check and the served artifact); ``--device cpu`` runs
 the same steps on the CPU.
 
-The tiny model has head width 64 (``embed_dim=128, num_heads=2``), where the
-JAX quickstart's has 16 (64 and 4).  It trains, and the attention backward
-takes head width 64 only (kernel 1, the forward, takes 64 and 80; ROADMAP
-Queue 3, difference 1), so the JAX tiny config would raise on the card.  The
-rest of it is the JAX one: img_size 64, patch 8, depth 6, mask_from 2, top-4
-patches.
+The tiny model is the JAX quickstart's: img_size 64, patch 8, embed_dim 64,
+depth 6, 4 heads of width 16, mask_from 2, top-4 patches.  On the card its
+training runs kernel 1 and the attention backward at head width 16, and its
+int8 validate, export check and served artifact kernel 1's int8 route.
 
 For real VOC2012 training, swap step 1 for your dataset root and use the
 full-size zoo models (run_train_and_validate_torch.sh).
@@ -102,13 +100,13 @@ def make_synthetic_voc(root: str, names_train, names_val, img: int = 64):
 
 
 def tiny_demo(num_classes=20, has_logits=False, attn_impl="eager"):
-    """The quickstart's zoo entry, sized for the 64x64 synthetic images at
-    the training kernels' head width of 64.  ``attn_impl`` is the path the fine-tune
-    takes (the train CLI, like the JAX one, trains on the config's; validate
-    and predict resolve theirs from the device)."""
+    """The quickstart's zoo entry, the JAX quickstart's tiny ViT sized for the
+    64x64 synthetic images.  ``attn_impl`` is the path the fine-tune takes
+    (the train CLI, like the JAX one, trains on the config's; validate and
+    predict resolve theirs from the device)."""
     from vision_transformer_cam_tpu_torch import configs
-    return configs.ViTCAMConfig(img_size=64, patch_size=8, embed_dim=128,
-                                depth=6, num_heads=2,
+    return configs.ViTCAMConfig(img_size=64, patch_size=8, embed_dim=64,
+                                depth=6, num_heads=4,
                                 num_classes=num_classes, mask_from=2,
                                 top_k_patches=4, attn_impl=attn_impl)
 

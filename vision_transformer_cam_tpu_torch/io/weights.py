@@ -24,6 +24,8 @@ JAX trainer's orbax checkpoint directories need orbax, which the card's
 machine lacks: they go through the JAX package's ``tools convert`` to a
 ``.npz`` first.  ``optimizer_state_from_jax`` carries optax AdamW moments
 across, so both packages can take the same step from the same state.
+``save_cnn_npz`` / ``load_cnn_npz`` hold the CNN-CAM demo's pytrees, whose
+lists of stages, fires and blocks the flat layout keeps as path parts.
 """
 
 from __future__ import annotations
@@ -317,6 +319,46 @@ def load_npz(path: str) -> dict:
                 node = node.setdefault(p, {})
             node[parts[-1]] = data[k]
     return out
+
+
+def save_cnn_npz(path: str, params: Mapping) -> None:
+    """A CNN parameter pytree of the JAX package's layout (dicts and the
+    lists ``stages``, ``fires``, ``blocks`` and ``transitions``) as a flat
+    ``.npz`` of ``save_npz``'s kind: one array per leaf, named by its path
+    joined with "/", a list position a path part (``stages/1/0/conv1``).
+    The JAX package's ``save_npz`` descends into dicts only and pickles such
+    lists, which its ``load_npz`` then refuses (ROADMAP, "Discrepancies
+    already in the reference")."""
+    flat = {}
+
+    def rec(node, prefix):
+        if isinstance(node, Mapping):
+            items = node.items()
+        elif isinstance(node, (list, tuple)):
+            items = enumerate(node)
+        else:
+            flat["/".join(prefix)] = np.asarray(node)
+            return
+        for k, v in items:
+            rec(v, prefix + (str(k),))
+
+    rec(params, ())
+    np.savez(path, **flat)
+
+
+def load_cnn_npz(path: str):
+    """A ``save_cnn_npz`` archive as the nested pytree of numpy arrays, with
+    its lists rebuilt: a level whose keys are all 0..n-1 becomes a list.
+    (``load_npz`` keeps every level a dict, so that no ViT archive reads
+    differently.)"""
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: lists(v) for k, v in node.items()}
+        if node and sorted(node) == sorted(map(str, range(len(node)))):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+    return lists(load_npz(path))
 
 
 def optimizer_state_from_jax(mu: Mapping, nu: Mapping, count: int,

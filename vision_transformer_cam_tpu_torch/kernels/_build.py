@@ -18,6 +18,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -60,7 +61,8 @@ def lib_path() -> Path:
 def build() -> Path:
     """Compile the library unless this source hash was built already: every
     ``.cu`` to an object in parallel, then one link.  The compilers' reports
-    (``-Xptxas -v``) are kept beside it as ``build.log``."""
+    (``-Xptxas -v``), each after the wall time its nvcc process took from
+    the start of the build, are kept beside it as ``build.log``."""
     global build_seconds
     so = lib_path()
     if so.exists():
@@ -75,7 +77,12 @@ def build() -> Path:
                                   stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
                  for s, o in zip(srcs, objs)]
-        logs = [p.communicate()[0] for p in procs]
+
+        def finish(p):   # the report and the wall time of one nvcc process
+            out = p.communicate()[0]
+            return f"nvcc wall {time.perf_counter() - t0:.1f} s\n{out}"
+        with ThreadPoolExecutor(len(procs)) as pool:
+            logs = list(pool.map(finish, procs))
         # link to a private name, then rename: a concurrent build never sees
         # a half-written library
         tmp = os.path.join(tmpdir, LIB_NAME)

@@ -54,11 +54,7 @@ from __future__ import annotations
 import torch
 
 launches = 0
-# kernel 1's launches by head width (each also counts in ``launches``)
-width_launches = {64: 0, 80: 0}
 bwd_launches = 0
-# the backward's calls by head width (each also counts in ``bwd_launches``)
-bwd_width_launches = {64: 0, 80: 0}
 block_launches = 0
 seq_launches = 0
 v1_launches = 0
@@ -70,13 +66,19 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _NO_SCALES, _OUT_ONLY, _PER_TENSOR, _PER_HEAD = 0, 1, 2, 3
 _OUT_I8, _CLS_BF16, _HM_BF16 = 1, 2, 4
 # The head widths kernel 1 (masked_attention_fused) and the backward
-# (masked_attention_bwd) are compiled for: 64 (ViT-S/B/L) and 80 (ViT-H/14),
-# each its own set of instances (csrc/masked_attention.cu and
-# masked_attention_w80.cu; csrc/masked_attention_bwd.cu and
-# masked_attention_bwd_w80.cu).  The other CUDA kernels take HEAD_DIM only.
-FWD_HEAD_DIMS = (64, 80)
-BWD_HEAD_DIMS = (64, 80)
+# (masked_attention_bwd) are compiled for: 64 (ViT-S/B/L), 80 (ViT-H/14), 16
+# (the JAX quickstart's tiny ViT) and 32 and 40 (the JAX kernel tests' fuzz
+# widths), each its own set of instances (csrc/masked_attention.cu and
+# masked_attention_w16.cu, _w32, _w40, _w80; csrc/masked_attention_bwd.cu and
+# masked_attention_bwd_w16.cu, ...).  The other CUDA kernels take HEAD_DIM
+# only.
+FWD_HEAD_DIMS = (16, 32, 40, 64, 80)
+BWD_HEAD_DIMS = (16, 32, 40, 64, 80)
 HEAD_DIM = 64
+# kernel 1's launches and the backward's calls by head width (each also
+# counts in ``launches`` / ``bwd_launches``)
+width_launches = {dh: 0 for dh in FWD_HEAD_DIMS}
+bwd_width_launches = {dh: 0 for dh in BWD_HEAD_DIMS}
 # The CUDA backward has three designs.  bf16 runs the tensor-core design: a
 # dQ kernel per 64 query rows and a dK / dV kernel per 64 keys, products on
 # mma.sync, a [B, H, N, 3] float32 scratch of row statistics between them;
@@ -84,16 +86,25 @@ HEAD_DIM = 64
 # designs, whose [rows, N] float32 tiles set the limits, per head width dh
 # (floats of the 227 KB a block may use on sm_90):
 #   one block per (image, head), dK and dV [N, dh] beside two [32, N] tiles:
-#     (2 dh + 64) * ceil4(N) + N + 64 dh + 64 (dh + 4) + 32 floats, N <=
-#     BWD_ONE_BLOCK_MAX_N (256 at 64, 208 at 80);
+#     (2 dh + 64) * ceil4(N) + N + 64 dh + 64 (dh + 4) + 32 floats of the
+#     58112, N <= BWD_ONE_BLOCK_MAX_N:
+#       16: 96 ceil4(N) + N + 2336 -> 572;
+#       32: 128 ceil4(N) + N + 4384 -> 416;
+#       40: 144 ceil4(N) + N + 5408 -> 360;
+#       64: 192 ceil4(N) + N + 8480 -> 256;
+#       80: 224 ceil4(N) + N + 10528 -> 208;
 #   past it two kernels, one per query tile of 32 rows (dQ and the rows'
-#     softmax statistics; N <= 760 at 64, 732 at 80), or of 16 past that:
-#     32 * ceil4(N) + N + 32 dh + 64 (dh + 4) + 16 floats, N <= BWD_MAX_N
-#     (1564 at 64, 1520 at 80), and one per 64 keys (dK, dV) whatever N is.
+#     softmax statistics; N <= 856, 824, 808, 760 and 732 at 16, 32, 40, 64
+#     and 80), or of 16 past that: 32 * ceil4(N) + N + 32 dh + 64 (dh + 4) +
+#     16 floats, N <= BWD_MAX_N:
+#       16: 32 ceil4(N) + N + 1808 -> 1704;  32: ... + 3344 -> 1656;
+#       40: ... + 4112 -> 1636;  64: ... + 6416 -> 1564;
+#       80: ... + 7952 -> 1520;
+#     and one per 64 keys (dK, dV) whatever N is.
 # Both dtypes take the same N <= BWD_MAX_N, so that a model trains the same
 # shapes in float32 and in bf16.
-BWD_ONE_BLOCK_MAX_N = {64: 256, 80: 208}
-BWD_MAX_N = {64: 1564, 80: 1520}
+BWD_ONE_BLOCK_MAX_N = {16: 572, 32: 416, 40: 360, 64: 256, 80: 208}
+BWD_MAX_N = {16: 1704, 32: 1656, 40: 1636, 64: 1564, 80: 1520}
 BWD_DESIGNS = {"one-block": 0, "two-kernel": 1, "tensor-core": 2}
 # The design bf16 runs.  Only chip_smoke.py sets another ("one-block" or
 # "two-kernel", the FMA designs bf16 ran before), to time the designs side by
@@ -130,10 +141,12 @@ _seq_bf16_design = "tensor-core"
 # head mean or the rollout its FMA design keeps two [q_block, N] float32
 # tiles in shared memory (csrc/masked_attention.cuh: smem_bytes): N <= 780
 # at 32 rows and N <= 1548 at 16 at head width 64, N <= 756 and N <= 1512 at
-# 80; the plain variant's one tile fits both past that (2928 and 1516 at 64,
-# 2856 and 1472 at 80).  The tensor-core design takes the same (q_block, N)
-# pairs as one or two m16 tiles (16 rows by default, which fit its own
-# tiles to N = 2272 in bf16 and 2688 in int8 at 64, 1888 and 2560 at 80).
+# 80 (852 / 1660 at 16, 828 / 1624 at 32, 816 / 1604 at 40); the plain
+# variant's one tile fits both past that (2928 and 1516 at 64, 2856 and 1472
+# at 80).  The tensor-core design takes the same (q_block, N) pairs as one or
+# two m16 tiles (16 rows by default, which fit its own tiles to N = 2272 in
+# bf16 and 2688 in int8 at 64, 1888 and 2560 at 80, 2848 / 3008 at 16, 2592
+# / 2848 at 32 and 2368 / 2784 at 40).
 # The split-tensor kernel tiles the same way.
 Q_BLOCKS = (16, 32)
 # The forward kernel has two designs.  bf16 and int8 qkv run the tensor-core
@@ -323,7 +336,8 @@ def masked_attention_fused(qkv, bg, joint=None, scales=None, *,
                            float_dtype=torch.bfloat16, q_block: int = 0):
     """Same contract as ``masked_attention_fused_ref``.  CPU tensors run the
     plain version; CUDA tensors launch the kernel (bf16, float32 or int8
-    qkv, head width 64 or 80 (``FWD_HEAD_DIMS``), bg float32 or bf16, joint
+    qkv, head width 16, 32, 40, 64 or 80 (``FWD_HEAD_DIMS``), bg float32 or
+    bf16, joint
     float32, scales float32) or raise.
 
     ``q_block`` is the number of query rows a thread block owns: 16 or 32
@@ -503,8 +517,9 @@ def masked_attention_bwd(qkv, bg, d_out, *, num_heads: int, scale: float,
                          clamp_softmax: bool = False):
     """Same contract as ``masked_attention_bwd_ref``.  CPU tensors run the
     plain version; CUDA tensors launch the kernel (bf16 or float32 qkv and
-    d_out of one dtype, head width 64 or 80 (``BWD_HEAD_DIMS``), N <=
-    ``BWD_MAX_N[dh]``, bg float32 or bf16) or raise.
+    d_out of one dtype, head width 16, 32, 40, 64 or 80
+    (``BWD_HEAD_DIMS``), N <= ``BWD_MAX_N[dh]``, bg float32 or bf16) or
+    raise.
 
     The design follows ``bwd_design``: the tensor-core design for bf16; for
     float32 the one-block design up to ``BWD_ONE_BLOCK_MAX_N[dh]`` and the
@@ -603,7 +618,8 @@ def fused_attention_diff(qkv, bg, *, num_heads: int, scale: float,
     launch their kernels, on CPU tensors both run their plain versions.
 
     On a CUDA tensor the backward kernel takes head widths
-    ``BWD_HEAD_DIMS`` and N <= ``BWD_MAX_N[dh]`` (1564 at 64, 1520 at 80;
+    ``BWD_HEAD_DIMS`` and N <= ``BWD_MAX_N[dh]`` (1704 at 16, 1564 at 64,
+    1520 at 80;
     the TPU kernel: 640, past which the JAX package trains through XLA) and
     raises past them before the forward runs: nothing here leaves the
     kernels for autograd through the plain version."""

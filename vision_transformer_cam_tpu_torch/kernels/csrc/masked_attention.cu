@@ -1,14 +1,35 @@
 // Kernel 1, the fused masked attention with the CAM statistics (the port of
 // vision_transformer_cam_tpu/kernels/attention.py: _attn_kernel_fused): its
 // C entry points, and its instances at head width 64.  The kernels and their
-// design notes are in masked_attention.cuh; the instances at head width 80
-// (ViT-H/14) are built from masked_attention_w80.cu, in parallel with this
-// file.
+// design notes are in masked_attention.cuh; the instances at head widths 16,
+// 32, 40 and 80 are built from masked_attention_w16.cu, ..._w32.cu,
+// ..._w40.cu and ..._w80.cu, in parallel with this file.
 
 #include "masked_attention.cuh"
 
 extern "C" {
 
+int vitcam_masked_attention_fused_w16(const void* qkv, const void* bg, const void* joint,
+                                      void* out, void* cls, void* hm, void* newj,
+                                      const void* scales, int scales_kind, int batch, int n,
+                                      int heads, float scale, float mask_value, int dtype,
+                                      int mode, int clamp, int flags, int q_block, int design,
+                                      void* stream);
+int vitcam_masked_attention_occupancy_w16(int n, int mode, int dtype, int design, int* info);
+int vitcam_masked_attention_fused_w32(const void* qkv, const void* bg, const void* joint,
+                                      void* out, void* cls, void* hm, void* newj,
+                                      const void* scales, int scales_kind, int batch, int n,
+                                      int heads, float scale, float mask_value, int dtype,
+                                      int mode, int clamp, int flags, int q_block, int design,
+                                      void* stream);
+int vitcam_masked_attention_occupancy_w32(int n, int mode, int dtype, int design, int* info);
+int vitcam_masked_attention_fused_w40(const void* qkv, const void* bg, const void* joint,
+                                      void* out, void* cls, void* hm, void* newj,
+                                      const void* scales, int scales_kind, int batch, int n,
+                                      int heads, float scale, float mask_value, int dtype,
+                                      int mode, int clamp, int flags, int q_block, int design,
+                                      void* stream);
+int vitcam_masked_attention_occupancy_w40(int n, int mode, int dtype, int design, int* info);
 int vitcam_masked_attention_fused_w80(const void* qkv, const void* bg, const void* joint,
                                       void* out, void* cls, void* hm, void* newj,
                                       const void* scales, int scales_kind, int batch, int n,
@@ -27,7 +48,7 @@ int vitcam_masked_attention_occupancy_w80(int n, int mode, int dtype, int design
 // the larger one that fits; the tensor-core design: 16).
 // design: 0 = the FMA design (every dtype), 1 = the tensor-core design
 // (bfloat16 and int8 qkv, 16-byte aligned).
-// head_dim: 64 or 80, the compiled widths.
+// head_dim: 16, 32, 40, 64 or 80, the compiled widths.
 // Returns a cudaError_t; 0 means the kernel was launched.
 int vitcam_masked_attention_fused(const void* qkv, const void* bg, const void* joint,
                                   void* out, void* cls, void* hm, void* newj,
@@ -40,6 +61,21 @@ int vitcam_masked_attention_fused(const void* qkv, const void* bg, const void* j
       return fused_entry<64>(qkv, bg, joint, out, cls, hm, newj, scales, scales_kind, batch, n,
                              heads, scale, mask_value, dtype, mode, clamp, flags, q_block,
                              design, stream);
+    case 16:
+      return vitcam_masked_attention_fused_w16(qkv, bg, joint, out, cls, hm, newj, scales,
+                                               scales_kind, batch, n, heads, scale, mask_value,
+                                               dtype, mode, clamp, flags, q_block, design,
+                                               stream);
+    case 32:
+      return vitcam_masked_attention_fused_w32(qkv, bg, joint, out, cls, hm, newj, scales,
+                                               scales_kind, batch, n, heads, scale, mask_value,
+                                               dtype, mode, clamp, flags, q_block, design,
+                                               stream);
+    case 40:
+      return vitcam_masked_attention_fused_w40(qkv, bg, joint, out, cls, hm, newj, scales,
+                                               scales_kind, batch, n, heads, scale, mask_value,
+                                               dtype, mode, clamp, flags, q_block, design,
+                                               stream);
     case 80:
       return vitcam_masked_attention_fused_w80(qkv, bg, joint, out, cls, hm, newj, scales,
                                                scales_kind, batch, n, heads, scale, mask_value,
@@ -65,6 +101,12 @@ int vitcam_masked_attention_occupancy(int n, int mode, int dtype, int design, in
   switch (head_dim) {
     case 64:
       return occupancy_entry<64>(n, mode, dtype, design, info);
+    case 16:
+      return vitcam_masked_attention_occupancy_w16(n, mode, dtype, design, info);
+    case 32:
+      return vitcam_masked_attention_occupancy_w32(n, mode, dtype, design, info);
+    case 40:
+      return vitcam_masked_attention_occupancy_w40(n, mode, dtype, design, info);
     case 80:
       return vitcam_masked_attention_occupancy_w80(n, mode, dtype, design, info);
     default:

@@ -20,15 +20,19 @@
 // [4] per tensor, or [1] (inv_out), and are indexed per head at run time.
 // cls and the head mean are float32 or bf16 (flags), whatever qkv's type.
 //
-// The head width dh is a template parameter, DH: 64 (ViT-S/B/L) and 80
-// (ViT-H/14) are compiled, each instantiated in its own translation unit
-// (masked_attention.cu and masked_attention_w80.cu, so that nvcc builds the
-// two in parallel); the C entry point dispatches on head_dim.  At 80 the
-// FMA design's P V gives each thread (row, column) pairs (256 threads do not
-// divide by 80); the tensor-core design stages rows of an odd number of
-// 16-byte segments without a swizzle (bf16 176 bytes, int8 80), takes QK^T
-// in five bf16 k16 steps (int8: two k32 steps and one m16n8k16.s8 step) and
-// P V in ten n8 tiles, and at bf16 reads Q from shared memory (tc_q_bytes).
+// The head width dh is a template parameter, DH: 64 (ViT-S/B/L), 80 (ViT-H/14),
+// and 16, 32 and 40 (the JAX quickstart's tiny ViT and the JAX kernel's fuzz
+// widths) are compiled, each instantiated in its own translation unit
+// (masked_attention.cu, masked_attention_w80.cu, masked_attention_w16.cu, ...,
+// so that nvcc builds them in parallel); the C entry point dispatches on
+// head_dim.  At 40 and 80 the FMA design's P V gives each thread (row, column)
+// pairs (256 threads do not divide by the width; at 40 and 16 query rows the
+// last pairs of a block are idle); at 40 the tensor-core design stages,
+// multiplies and exchanges 48 columns, whose last 8 are zeros
+// (attention_tc.cuh).  At 80 the tensor-core design stages rows of an odd
+// number of 16-byte segments without a swizzle (bf16 176 bytes, int8 80), takes
+// QK^T in five bf16 k16 steps (int8: two k32 steps and one m16n8k16.s8 step)
+// and P V in ten n8 tiles, and at bf16 reads Q from shared memory (tc_q_bytes).
 // On an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py, B=64 N=257 H=16,
 // bf16 rollout) the two-block bound of 128 registers spills 48 bytes with Q
 // in registers (1.06 ms) and 32 with Q in shared memory (0.95 ms); one block
@@ -265,13 +269,14 @@ masked_attention_kernel(const T* __restrict__ qkv, const float* __restrict__ bg,
       if (lane == 0) den_s[r] = sum;
     }
 
-    // O = P V, one V chunk at a time.  Where the threads divide by DH (64):
-    // thread = one column d, kQB/4 rows.  Else (80): kQB * DH / kThreads
-    // (row, column) pairs, pair i at index tid + i * kThreads of the [kQB][DH]
-    // tile.  The two branches store alike, written out in each: the row
-    // computed from the pair index, or a shared lambda, moved ptxas's register
-    // choice for some width-64 instances (chip_smoke.py, B=64 N=197: the bf16
-    // head-mean FMA instance at 1.36 ms against 1.19).
+    // O = P V, one V chunk at a time.  Where the threads divide by DH (16, 32,
+    // 64): thread = one column d, kQB * DH / kThreads rows.  Else (40, 80):
+    // ceil(kQB * DH / kThreads) (row, column) pairs, pair i at index tid + i *
+    // kThreads of the [kQB][DH] tile (at 40 and kQB = 16 the pairs past the
+    // tile are skipped).  The two branches store alike, written out in each:
+    // the row computed from the pair index, or a shared lambda, moved ptxas's
+    // register choice for some width-64 instances (chip_smoke.py, B=64 N=197:
+    // the bf16 head-mean FMA instance at 1.36 ms against 1.19).
     if constexpr (kThreads % DH == 0) {
       constexpr int kRows = kQB * DH / kThreads, kStep = kThreads / DH;
       const int d = tid % DH, rg = tid / DH;
@@ -311,8 +316,8 @@ masked_attention_kernel(const T* __restrict__ qkv, const float* __restrict__ bg,
         }
       }
     } else {
-      constexpr int kRows = kQB * DH / kThreads;
-      static_assert(kQB * DH % kThreads == 0, "whole pairs per thread");
+      constexpr int kPairs = kQB * DH, kRows = (kPairs + kThreads - 1) / kThreads;
+      constexpr bool kWholeP = kPairs % kThreads == 0;
       float acc[kRows];
 #pragma unroll
       for (int i = 0; i < kRows; ++i) acc[i] = 0.f;
@@ -325,6 +330,7 @@ masked_attention_kernel(const T* __restrict__ qkv, const float* __restrict__ bg,
 #pragma unroll
           for (int i = 0; i < kRows; ++i) {
             const int idx = tid + i * kThreads, r = idx / DH, d = idx % DH;
+            if (!kWholeP && idx >= kPairs) break;
             const float4 p = *reinterpret_cast<const float4*>(s_s + r * ns + k0 + j);
             acc[i] += p.x * kv_s[(j + 0) * kStride + d] + p.y * kv_s[(j + 1) * kStride + d] +
                       p.z * kv_s[(j + 2) * kStride + d] + p.w * kv_s[(j + 3) * kStride + d];
@@ -334,6 +340,7 @@ masked_attention_kernel(const T* __restrict__ qkv, const float* __restrict__ bg,
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
         const int idx = tid + i * kThreads, r = idx / DH, d = idx % DH;
+        if (!kWholeP && idx >= kPairs) break;
         if (q0 + r < n) {
           const float o = MODE != kPlain ? acc[i] : acc[i] / den_s[r];
           const size_t oi = (size_t(b) * n + q0 + r) * c + h * DH + d;
@@ -373,7 +380,7 @@ masked_attention_kernel(const T* __restrict__ qkv, const float* __restrict__ bg,
 // The tensor-core design (bf16 and int8 qkv)
 // ---------------------------------------------------------------------------
 
-// bf16 at a head width past 64 keeps the head's Q tile in shared memory
+// bf16 at a head width other than 64 keeps the head's Q tile in shared memory
 // (these bytes) and reads its A fragments per chunk, instead of holding them
 // in registers: at 80 the 20 registers of Q a thread pushed the two-block
 // bound of 128 registers into 48 bytes of spills (32 with Q in shared
@@ -407,7 +414,9 @@ size_t tc_smem_bytes(int n, int mode, int mt, int elem_bytes, int dh) {
 // thread holds 10 n8 tiles of O (40 floats) a tile, and a warp's ring is 11
 // KB (bf16: rows of 176 bytes); bf16 reads Q from a [QB][88] tile in shared
 // memory (tc_q_bytes), so one m16 tile at N = 257 takes 113 KB and two
-// blocks still share an SM.
+// blocks still share an SM.  At 16, 32 and 40 a thread holds 2, 4 and 6 n8
+// tiles (at 40 the sixth is the zero pad, kept so that P V runs in pairs of
+// n8 tiles from one ldmatrix), and Q is in shared memory as at 80.
 template <typename T, int MODE, bool CLAMP, int MT, int DH>
 __global__ void __launch_bounds__(kTcThreads, MT == 1 ? 2 : 1)
 masked_attention_tc_kernel(const T* __restrict__ qkv, const float* __restrict__ bg,
@@ -421,7 +430,7 @@ masked_attention_tc_kernel(const T* __restrict__ qkv, const float* __restrict__ 
   constexpr int QB = 16 * MT;
   constexpr int kRing = tc_ring_bytes(sizeof(T), MT, DH);
   constexpr int kOStride = kTcOStrideOf<DH>;
-  constexpr int kNT = DH / 8;                       // n8 tiles of O
+  constexpr int kNT = tc_width(DH) / 8;             // n8 tiles of O (zero past DH)
   constexpr int kStage = 2 * TC::kChunk;            // elements of one (K, V) stage
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nk = tc_keys(n), hs = tc_hm_stride(n);
@@ -459,13 +468,14 @@ masked_attention_tc_kernel(const T* __restrict__ qkv, const float* __restrict__ 
     fg_s[r] = (q0 + r < n) ? 1.f - bg[size_t(b) * n + q0 + r] : 0.f;
   if (MODE != kPlain)
     for (int i = tid; i < QB * hs; i += kTcThreads) hm_s[i] = 0.f;
-  // head h's Q rows into q_s (rows past n zero), 16 bytes a thread
+  // head h's Q rows into q_s (rows and columns past n and DH zero), 16
+  // bytes a thread
   auto stage_q = [&](int h) {
-    constexpr int kSegs = DH / 8;
+    constexpr int kSegs = BfTile<DH>::kWidth / 8;
     for (int i = tid; i < QB * kSegs; i += kTcThreads) {
       const int r = i / kSegs, sg = i % kSegs;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (q0 + r < n)
+      if (q0 + r < n && (BfTile<DH>::kWidth == DH || sg < DH / 8))
         v = __ldg(reinterpret_cast<const uint4*>(qkv_b + size_t(q0 + r) * c3 + h * DH + sg * 8));
       *reinterpret_cast<uint4*>(q_s + BfTile<DH>::at(r, sg * 8)) = v;
     }

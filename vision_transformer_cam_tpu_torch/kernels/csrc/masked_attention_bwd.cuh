@@ -18,11 +18,16 @@
 // gradient and the cotangent of the cls row is dropped, as there.  P, dP and
 // dS, [B, H, N, N] each, never reach device memory.
 //
-// The head width dh is a template parameter, DH: 64 (ViT-S/B/L) and 80
-// (ViT-H/14) are compiled, each in its own translation unit
-// (masked_attention_bwd.cu, which holds the C entry points, and
-// masked_attention_bwd_w80.cu, so that nvcc builds the two in parallel); the C
-// entry point dispatches on head_dim.
+// The head width dh is a template parameter, DH: 64 (ViT-S/B/L), 80
+// (ViT-H/14), and 16, 32 and 40 (the JAX quickstart's tiny ViT and the JAX
+// kernel's fuzz widths) are compiled, each in its own translation unit
+// (masked_attention_bwd.cu, which holds the C entry points,
+// masked_attention_bwd_w80.cu, masked_attention_bwd_w16.cu, ..., so that nvcc
+// builds them in parallel); the C entry point dispatches on head_dim.  At 40
+// the tensor-core design stages and multiplies 48 columns, whose last 8 are
+// zeros (BfTile<40> rows of 56 elements; Q and dO fragments zero past 40 in
+// registers), and the sixth n8 tile of dQ, dK and dV is computed and never
+// stored; the FMA designs take 40 with the row-group scheme of 80.
 //
 // What bounds it on this card.  At ViT-B/16 (N=197, C=768, H=12) and batch 64
 // a call reads qkv and dO and writes d_qkv, 7 * B*N*C elements: 135.6 MB in
@@ -578,6 +583,9 @@ template <int DH>
 constexpr size_t kTcDkvSmem = (kKvSmem<DH> ? 6 : 4) * size_t(kTcStageOf<DH>) * 2 +
                               2 * kTcSlab * 4 * 4;
 
+// the k16 steps of a head of width DH (at 40: three, the last half zeros)
+template <int DH> constexpr int kK16 = BfTile<DH>::kWidth / 16;
+
 // The A fragment of k16 step ks of rows row0..row0 + 15 of a BfTile<DH> in
 // shared memory, by ldmatrix.
 template <int DH>
@@ -586,15 +594,15 @@ __device__ __forceinline__ void a_tile(unsigned (&a)[4], const bf16* x, int row0
   ldmatrix_x4(a, x + BfTile<DH>::at(row0 + (lane & 15), ks * 16 + (lane >> 4) * 8));
 }
 
-// acc[t] += A B^T over DH columns for the two n8 tiles t of rows 16 * sc..
-// of a staged BfTile<DH> x, A's k16 fragments from a(ks, frag): pairs of k16
-// steps from one ldmatrix, and past a multiple of 32 one ldmatrix of the last
-// step of both n8 tiles.  Each accumulator takes its k16 steps in order.
+// acc[t] += A B^T over the kWidth columns of a staged BfTile<DH> x for the
+// two n8 tiles t of rows 16 * sc.., A's k16 fragments from a(ks, frag):
+// pairs of k16 steps from one ldmatrix, and past a multiple of 32 one
+// ldmatrix of the last step of both n8 tiles.  Each accumulator takes its k16 steps in order.
 template <int DH, typename AFrag>
 __device__ __forceinline__ void tc_rows_product(float (&acc)[2][4], AFrag a, const bf16* x,
                                                 int sc, int lane) {
 #pragma unroll
-  for (int kp = 0; kp < DH / 32; ++kp) {
+  for (int kp = 0; kp < BfTile<DH>::kWidth / 32; ++kp) {
     unsigned a0[4], a1[4];
     a(2 * kp, a0);
     a(2 * kp + 1, a1);
@@ -606,9 +614,9 @@ __device__ __forceinline__ void tc_rows_product(float (&acc)[2][4], AFrag a, con
       mma16816(acc[t], a1, b[2], b[3]);
     }
   }
-  if constexpr (DH % 32 != 0) {
+  if constexpr (BfTile<DH>::kWidth % 32 != 0) {
     unsigned a0[4], b[4];
-    a(DH / 16 - 1, a0);
+    a(kK16<DH> - 1, a0);
     b_rows_tail<DH>(b, x + BfTile<DH>::at(sc * 16, 0), lane);
     mma16816(acc[0], a0, b[0], b[1]);
     mma16816(acc[1], a0, b[2], b[3]);
@@ -619,8 +627,8 @@ __device__ __forceinline__ void tc_rows_product(float (&acc)[2][4], AFrag a, con
 // staged K and V slabs, for the warp's 16 query rows; -inf past n.
 template <bool CLAMP, int DH>
 __device__ __forceinline__ void tc_s_dp(float (&s)[2][4], float (&dp)[2][4],
-                                        const unsigned (&qa)[DH / 16][4],
-                                        const unsigned (&da)[DH / 16][4], const bf16* k_s,
+                                        const unsigned (&qa)[kK16<DH>][4],
+                                        const unsigned (&da)[kK16<DH>][4], const bf16* k_s,
                                         const bf16* v_s, int sc, int kb, int n, float scale,
                                         const float* km_s, float fg_lo, float fg_hi, int lane) {
 #pragma unroll
@@ -689,16 +697,16 @@ masked_attention_bwd_tc_dq_kernel(const bf16* __restrict__ qkv, const float* __r
   const bool active = r0 < n;
   const int lo = r0 + g, hi = r0 + g + 8;
   const float fg_lo = lo < n ? 1.f - bg_b[lo] : 0.f, fg_hi = hi < n ? 1.f - bg_b[hi] : 0.f;
-  unsigned qa[DH / 16][4], da[DH / 16][4];
-  a_rows<DH / 16>(qa, qkv_b + h * DH, c3, r0, n, lane);
-  a_rows<DH / 16>(da, d_out + size_t(b) * n * c + h * DH, c, r0, n, lane);
+  unsigned qa[kK16<DH>][4], da[kK16<DH>][4];
+  a_rows_w<DH>(qa, qkv_b + h * DH, c3, r0, n, lane);
+  a_rows_w<DH>(da, d_out + size_t(b) * n * c + h * DH, c, r0, n, lane);
 
   float m_lo = CLAMP ? 0.f : -INFINITY, m_hi = m_lo;   // pass 1: running statistics
   float l_lo = 0.f, l_hi = 0.f, d_lo = 0.f, d_hi = 0.f;
   float inv_lo = 0.f, inv_hi = 0.f;                     // pass 2: 1 / sum and the rowsum
-  float dq[DH / 8][4];
+  float dq[2 * kK16<DH>][4];   // n8 tiles of dQ (at 40 the sixth is the zero pad)
 #pragma unroll
-  for (int j = 0; j < DH / 8; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+  for (int j = 0; j < 2 * kK16<DH>; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
 
   for (int j = 0; j < 2 * n_slabs; ++j) {
     cp_async_wait<0>();
@@ -765,7 +773,7 @@ masked_attention_bwd_tc_dq_kernel(const bf16* __restrict__ qkv, const float* __r
       unsigned dsa[4];
       a_from_c(dsa, s[0], s[1]);
 #pragma unroll
-      for (int jd = 0; jd < DH / 16; ++jd) {
+      for (int jd = 0; jd < kK16<DH>; ++jd) {
         unsigned kb[4];
         b_cols_w<DH>(kb, k_s, sc, jd, lane);
         mma16816(dq[2 * jd], dsa, kb[0], kb[1]);
@@ -878,9 +886,9 @@ masked_attention_bwd_tc_dkv_kernel(const bf16* __restrict__ qkv, const float* __
       for (int i = 0; i < 4; ++i) a[i] = va[ks][i];
     }
   };
-  float dk[DH / 8][4], dv[DH / 8][4];
+  float dk[2 * kK16<DH>][4], dv[2 * kK16<DH>][4];   // n8 tiles (at 40 the sixth is the pad)
 #pragma unroll
-  for (int j = 0; j < DH / 8; ++j)
+  for (int j = 0; j < 2 * kK16<DH>; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
 
@@ -917,7 +925,7 @@ masked_attention_bwd_tc_dkv_kernel(const bf16* __restrict__ qkv, const float* __
       a_from_c(pa, s[0], s[1]);
       a_from_c(dsa, dp[0], dp[1]);
 #pragma unroll
-      for (int jd = 0; jd < DH / 16; ++jd) {
+      for (int jd = 0; jd < kK16<DH>; ++jd) {
         unsigned bo[4];
         b_cols_w<DH>(bo, do_s, sc, jd, lane);
         mma16816(dv[2 * jd], pa, bo[0], bo[1]);

@@ -1,0 +1,23 @@
+// The attention backward's instances at head width 16 (the JAX quickstart's
+// tiny ViT: C = 64, 4 heads), called through the C entry points in
+// masked_attention_bwd.cu.  A translation unit of their own, so that nvcc
+// builds them beside the other widths'.
+
+#include "masked_attention_bwd.cuh"
+
+extern "C" {
+
+int vitcam_masked_attention_bwd_w16(const void* qkv, const void* bg, const void* d_out,
+                                    void* d_qkv, void* stats, int batch, int n, int heads,
+                                    float scale, float mask_value, int dtype, int clamp,
+                                    int design, void* stream) {
+  return bwd_entry<16>(qkv, bg, d_out, d_qkv, stats, batch, n, heads, scale, mask_value, dtype,
+                       clamp, design, stream);
+}
+
+int vitcam_masked_attention_bwd_occupancy_w16(int n, int dtype, int design, int part,
+                                              int* info) {
+  return bwd_occupancy_entry<16>(n, dtype, design, part, info);
+}
+
+}  // extern "C"

@@ -21,7 +21,9 @@
 // bank groups.  A tile of another width (kernel 1's head width 80: 160 bytes,
 // ten segments) is not swizzled but padded to an odd number of segments a
 // row (BfTile: 176 bytes, eleven), which puts the eight rows in eight bank
-// groups too.
+// groups too.  A width that is no multiple of 16 (40) is staged as whole
+// k16 steps (48 columns, zeros past 40), so that every product over it runs
+// k16 steps whose extra columns add exact zeros.
 
 #pragma once
 
@@ -35,6 +37,13 @@ using bf16 = __nv_bfloat16;
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(src_bytes));
+}
+// the same copy of 8 bytes (src and smem 8-byte aligned: int8 rows of a head
+// width that is no multiple of 16)
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem, int src_bytes) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(gmem),
                "r"(src_bytes));
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -65,13 +74,18 @@ __device__ __forceinline__ void stage_rows64(bf16* dst, const bf16* __restrict__
   }
 }
 
+// columns of a head of width dh in whole k16 steps (zeros past dh)
+__host__ __device__ constexpr int k16_width(int dh) { return (dh + 15) / 16 * 16; }
+
 // A bf16 tile of DH columns staged for ldmatrix: the swizzled [rows][64]
 // tile at DH = 64, else rows of kPitch elements, an odd number of 16-byte
-// segments, unswizzled.
+// segments, unswizzled (16: 24, 32: 40, 40: 56, 80: 88), whose kWidth
+// columns are whole k16 steps, zero past DH.
 template <int DH> struct BfTile {
-  static_assert(DH % 16 == 0, "whole k16 steps");
+  static_assert(DH % 8 == 0, "whole 16-byte segments");
+  static constexpr int kWidth = k16_width(DH);
   static constexpr bool kSwizzled = DH == 64;
-  static constexpr int kPitch = kSwizzled ? 64 : (DH / 8) % 2 ? DH : DH + 8;
+  static constexpr int kPitch = kSwizzled ? 64 : (kWidth / 8) % 2 ? kWidth : kWidth + 8;
   static __device__ __forceinline__ int at(int row, int col) {
     if constexpr (kSwizzled) return swz(row, col);
     else return row * kPitch + col;
@@ -79,19 +93,20 @@ template <int DH> struct BfTile {
 };
 
 // Stage ROWS rows of DH bf16 into a BfTile<DH> as stage_rows64 does (which
-// it is at DH = 64).
+// it is at DH = 64); the columns past DH are zero-filled.
 template <int ROWS, int THREADS, int DH>
 __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* __restrict__ src,
                                            size_t pitch, int valid, int id) {
   if constexpr (DH == 64) {
     stage_rows64<ROWS, THREADS>(dst, src, pitch, valid, id);
   } else {
-    constexpr int kSegs = DH / 8, kTotal = ROWS * kSegs;
+    constexpr bool kPad = BfTile<DH>::kWidth != DH;
+    constexpr int kSegs = BfTile<DH>::kWidth / 8, kTotal = ROWS * kSegs;
 #pragma unroll
     for (int j = 0; j < (kTotal + THREADS - 1) / THREADS; ++j) {
       const int seg = id + j * THREADS, r = seg / kSegs, s = seg % kSegs;
       if (kTotal % THREADS != 0 && seg >= kTotal) break;
-      const bool ok = r < valid;
+      const bool ok = r < valid && (!kPad || s < DH / 8);
       cp_async16(dst + BfTile<DH>::at(r, s * 8), src + (ok ? size_t(r) * pitch + s * 8 : 0),
                  ok ? 16 : 0);
     }
@@ -141,13 +156,13 @@ __device__ __forceinline__ void b_cols_w(unsigned (&r)[4], const bf16* x, int kt
   const int i = lane >> 3, row = kt * 16 + (i & 1) * 8 + (lane & 7);
   ldmatrix_x4_trans(r, x + BfTile<DH>::at(row, np * 16 + (i >> 1) * 8));
 }
-// The B fragments of the last k16 step of a width DH = 32 j + 16 (columns
-// DH - 16..DH - 1), rows of both n8 tiles: r[0..1] for rows 0-7, r[2..3]
-// for rows 8-15.
+// The B fragments of the last k16 step of a tile whose kWidth is 32 j + 16
+// (columns kWidth - 16..kWidth - 1), rows of both n8 tiles: r[0..1] for
+// rows 0-7, r[2..3] for rows 8-15.
 template <int DH>
 __device__ __forceinline__ void b_rows_tail(unsigned (&r)[4], const bf16* x, int lane) {
   const int i = lane >> 3, row = (i >> 1) * 8 + (lane & 7);
-  ldmatrix_x4(r, x + BfTile<DH>::at(row, DH - 16 + (i & 1) * 8));
+  ldmatrix_x4(r, x + BfTile<DH>::at(row, BfTile<DH>::kWidth - 16 + (i & 1) * 8));
 }
 
 // four 8 x 16-byte matrices of any element type (int8 tiles): lane l gets
@@ -232,6 +247,31 @@ __device__ __forceinline__ void a_rows(unsigned (&a)[KS][4], const bf16* __restr
     a[kk][1] = hi ? __ldg(phi + kk * 8 + t) : 0u;
     a[kk][2] = lo ? __ldg(plo + kk * 8 + 4 + t) : 0u;
     a[kk][3] = hi ? __ldg(phi + kk * 8 + 4 + t) : 0u;
+  }
+}
+// a_rows over a head of DH columns in whole k16 steps (BfTile<DH>::kWidth):
+// a_rows itself where DH is a multiple of 16, else the last step's columns
+// past DH (a[.][2..3]) are zero and never read.
+template <int DH>
+__device__ __forceinline__ void a_rows_w(unsigned (&a)[k16_width(DH) / 16][4],
+                                         const bf16* __restrict__ src, size_t pitch, int r0,
+                                         int valid, int lane) {
+  if constexpr (DH % 16 == 0) {
+    a_rows<DH / 16>(a, src, pitch, r0, valid, lane);
+  } else {
+    static_assert(DH % 16 == 8, "a last step of 8 columns");
+    const int g = lane >> 2, t = lane & 3;
+    const bool lo = r0 + g < valid, hi = r0 + g + 8 < valid;
+    const unsigned* plo = reinterpret_cast<const unsigned*>(src + size_t(r0 + g) * pitch);
+    const unsigned* phi = reinterpret_cast<const unsigned*>(src + size_t(r0 + g + 8) * pitch);
+#pragma unroll
+    for (int kk = 0; kk < k16_width(DH) / 16; ++kk) {
+      const bool whole = kk < DH / 16;
+      a[kk][0] = lo ? __ldg(plo + kk * 8 + t) : 0u;
+      a[kk][1] = hi ? __ldg(phi + kk * 8 + t) : 0u;
+      a[kk][2] = lo && whole ? __ldg(plo + kk * 8 + 4 + t) : 0u;
+      a[kk][3] = hi && whole ? __ldg(phi + kk * 8 + 4 + t) : 0u;
+    }
   }
 }
 __device__ __forceinline__ void a_rows64(unsigned (&a)[4][4], const bf16* __restrict__ src,
