@@ -342,6 +342,12 @@ BWD1025 = "masked_attention_bwd[N=1025]"
 NEW_WIDTHS = (16, 32, 40)
 FWD_W = {dh: f"masked_attention_fused[head width {dh}]" for dh in NEW_WIDTHS}
 BWD_W = {dh: f"masked_attention_bwd[head width {dh}]" for dh in NEW_WIDTHS}
+# the fused MLP kernels' widths with rows of their own in the kernels line:
+# ViT-B's, then ViT-L's and ViT-H/14's (two column groups each, the instances
+# of mlp_fused_wgmma_wide.cu), launched by phase 19's fused paths
+MLP_WIDTHS = (768, 1024, 1280)
+MLP_W = {c: f"mlp_fused[C={c}]" for c in MLP_WIDTHS[1:]}
+MLP8_W = {c: f"mlp_fused_int8[C={c}]" for c in MLP_WIDTHS[1:]}
 KERNELS = {   # name: (route, source, TPU kernel replaced)
     "masked_attention_fused": (
         "cuda", CSRC + "masked_attention.cu",
@@ -398,6 +404,14 @@ KERNELS = {   # name: (route, source, TPU kernel replaced)
     "mlp_fused_int8": (
         "cuda", CSRC + "mlp_fused_wgmma.cu",
         "vision_transformer_cam_tpu/kernels/gemm.py:55"),
+    # the same design at ViT-L's and ViT-H/14's widths: a block owns one of
+    # two column groups (256 or 320 output columns a consumer warpgroup)
+    **{MLP_W[c]: ("cuda", CSRC + "mlp_fused_wgmma_wide.cu",
+                  "vision_transformer_cam_tpu/kernels/gemm.py:46")
+       for c in MLP_W},
+    **{MLP8_W[c]: ("cuda", CSRC + "mlp_fused_wgmma_wide.cu",
+                   "vision_transformer_cam_tpu/kernels/gemm.py:55")
+       for c in MLP8_W},
     "attention_block_fused": (
         "cuda", CSRC + "attention_block.cu",
         "vision_transformer_cam_tpu/kernels/attention.py:663"),
@@ -820,15 +834,59 @@ def fwd_bits(root, out):
     return got
 
 
+def mlp_bits(root, out):
+    """SHA-256 of both fused MLP kernels' output bytes at the MLP_SHAPES of
+    C <= 768 (one column group), in every design that takes the shape
+    (bf16: wgmma and mma; float32: fma; int8: wgmma and mma with bf16 x and
+    float32 and bf16 out, float32 x and out), both GELUs, from the port of
+    the checkout at ``root``, as ``bwd_bits`` does (and compared by
+    ``compare_bits``)."""
+    import hashlib
+    sys.path.insert(0, os.path.abspath(root))
+    from vision_transformer_cam_tpu_torch.kernels import gemm
+    got = {}
+
+    def digest(t):
+        return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy()
+                              .tobytes()).hexdigest()
+    for si, (m, c, hid) in enumerate(MLP_SHAPES):
+        if c > 768:
+            continue
+        for dtype in (torch.bfloat16, torch.float32):
+            ops = mlp_operands(m, c, hid, dtype, seed=20 + si)
+            for approx in (True, False):
+                for design in mlp_designs(c, hid, dtype):
+                    res = _mlp_design(design, gemm.mlp_fused, *ops,
+                                      gelu_approx=approx)
+                    got[f"mlp_fused {design} {dtype} approx={approx} M={m} "
+                        f"C={c} HID={hid}"] = digest(res)
+        for x_dtype, out_dtype in ((torch.bfloat16, torch.float32),
+                                   (torch.bfloat16, torch.bfloat16),
+                                   (torch.float32, torch.float32)):
+            ops = mlp_int8_operands(m, c, hid, x_dtype, seed=30 + si)
+            for approx in (True, False):
+                for design in mlp_designs(c, hid, torch.int8):
+                    res = _mlp_design(design, gemm.mlp_fused_int8, *ops,
+                                      gelu_approx=approx,
+                                      out_dtype=out_dtype)
+                    got[f"mlp_fused_int8 {design} {x_dtype}->{out_dtype} "
+                        f"approx={approx} M={m} C={c} HID={hid}"] = \
+                        digest(res)
+    with open(out, "w") as f:
+        json.dump(got, f, indent=1, sort_keys=True)
+    say(f"mlp_bits: {len(got)} cases from {gemm.__file__} -> {out}")
+    return got
+
+
 def compare_bits(a, b):
-    """Two bwd_bits files: raises where a case differs or is missing."""
+    """Two files of ``bwd_bits``, ``fwd_bits`` or ``mlp_bits``: raises where
+    a case differs or is missing."""
     fa, fb = (json.load(open(f)) for f in (a, b))
     diff = sorted(k for k in set(fa) | set(fb) if fa.get(k) != fb.get(k))
-    say(f"bwd_bits: {len(fa)} and {len(fb)} cases, {len(diff)} differ"
-        + "".join(f"\n  {k}" for k in diff))
+    say(f"compare_bits {a} {b}: {len(fa)} and {len(fb)} cases, {len(diff)} "
+        "differ" + "".join(f"\n  {k}" for k in diff))
     if diff or not fa:
-        raise AssertionError(f"the backward's bits moved in {len(diff)} "
-                             "cases")
+        raise AssertionError(f"the bits moved in {len(diff)} cases")
 
 
 def round_robin(fns, iters=20, timer=None):
@@ -1317,11 +1375,14 @@ def mlp_operands(m, c, hid, dtype, seed):
 # (M, C, HID) of the fused MLP checks: the ViT-B widths at M = 8 * 197, two
 # ragged shapes only the earlier design takes (72, 200; 66, 150: off every
 # vector width), the ViT-B widths with a tail of 37 rows past a multiple of
-# 64, and the narrowest width the wgmma design takes (C = 64: most of its W2
-# tiles out of bounds).  Shape i's operands come from seed 20 + i (bf16,
-# float32) or 30 + i (int8).
+# 64, the narrowest width the wgmma design takes (C = 64: most of its W2
+# tiles out of bounds), and ViT-H/14's and ViT-L's widths (two column groups)
+# at ragged rows past 8 of its images (N = 257) and 2 of ViT-L/16@512's (N =
+# 1025).  Shape i's operands come from seed 20 + i (bf16, float32) or 30 + i
+# (int8).
 MLP_SHAPES = ((8 * 197, 768, 3072), (111, 72, 200), (111, 66, 150),
-              (8 * 197 + 37, 768, 3072), (111, 64, 256))
+              (8 * 197 + 37, 768, 3072), (111, 64, 256),
+              (8 * 257 + 37, 1280, 5120), (2 * 1025 + 37, 1024, 4096))
 
 
 def mlp_designs(c, hid, dtype):
@@ -1351,10 +1412,10 @@ def check_mlp():
     float32, both GELUs, in every design that takes the shape: bf16 the
     wgmma design (launched twice for identical bits, and held to the mma
     design at the same tolerance) and the mma design it replaced; float32
-    the FMA design.  Returns the worst error of the path's design at the
-    ViT-B widths in bf16."""
+    the FMA design.  Returns {C: the worst error of the path's design in
+    bf16} at MLP_WIDTHS."""
     from vision_transformer_cam_tpu_torch.kernels import gemm
-    worst, failures = 0.0, []
+    worst, failures = dict.fromkeys(MLP_WIDTHS, 0.0), []
     for si, (m, c, hid) in enumerate(MLP_SHAPES):
         for dtype in (torch.bfloat16, torch.float32):
             ops = mlp_operands(m, c, hid, dtype, seed=20 + si)
@@ -1371,9 +1432,9 @@ def check_mlp():
                            f"HID={hid}"
                     err = _compare(case, (got[design],), (want,),
                                    (TOL_MLP[dtype],), failures)
-                    if c == 768 and dtype == torch.bfloat16 and \
+                    if c in worst and dtype == torch.bfloat16 and \
                             design == mlp_designs(c, hid, dtype)[0]:
-                        worst = max(worst, err)
+                        worst[c] = max(worst[c], err)
                 if "wgmma" in got:
                     _compare(f"mlp_fused wgmma against mma {name} M={m} "
                              f"C={c} HID={hid}", (got["wgmma"],),
@@ -1429,10 +1490,10 @@ def check_mlp_int8():
     whether it is equal bit for bit) and the bf16 output to one bf16 ulp;
     against the same chain of two linear_int8 launches on the card (the
     tensor-core GEMM), and the two designs against each other, it must be
-    equal bit for bit.  Returns the worst float32 error of the path's design
-    at the ViT-B widths."""
+    equal bit for bit.  Returns {C: the worst float32 error of the path's
+    design} at MLP_WIDTHS."""
     from vision_transformer_cam_tpu_torch.kernels import gemm
-    worst, failures = 0.0, []
+    worst, failures = dict.fromkeys(MLP_WIDTHS, 0.0), []
     for si, (m, c, hid) in enumerate(MLP_SHAPES):
         designs = mlp_designs(c, hid, torch.int8)
         for x_dtype, out_dtype in ((torch.bfloat16, torch.float32),
@@ -1462,9 +1523,9 @@ def check_mlp_int8():
                     if not torch.equal(got[design], chain):
                         failures.append(f"{case}: not the chain of two "
                                         "linear_int8 launches bit for bit")
-                    if c == 768 and out_dtype == torch.float32 and \
+                    if c in worst and out_dtype == torch.float32 and \
                             design == designs[0]:
-                        worst = max(worst, err)
+                        worst[c] = max(worst[c], err)
                 if "wgmma" in got:
                     if not torch.equal(got["wgmma"], got["mma"]):
                         failures.append(f"mlp_fused_int8 M={m} C={c} "
@@ -1480,38 +1541,48 @@ def check_mlp_int8():
     return worst
 
 
-def mlp_occupancy(c=768):
+def mlp_occupancy(widths=MLP_WIDTHS):
     """For the fused MLP kernel instances the serving paths run (bf16; int8
-    with bf16 x and out) in both designs at C = ``c``: blocks an SM holds at
-    once, registers a thread at launch and local memory
-    (cudaFuncGetAttributes), shared memory a block; and from ptxas
-    (build.log) every entry of the two sources with its registers and spill
-    bytes (the wgmma design's consumers run at setmaxnreg 240, its producer
-    at 24: ptxas reports the launch figure).  Returns {(design, kind):
-    (blocks, registers, local bytes, shared bytes)}."""
+    with bf16 x and out) in both designs at each C of ``widths``: blocks an
+    SM holds at once, registers a thread at launch and local memory
+    (cudaFuncGetAttributes), shared memory a block, and for the wgmma design
+    its ring stages and a consumer warpgroup's output columns (the column
+    group's instance); and from ptxas (build.log) every entry of the three
+    sources with its registers and spill bytes (the wgmma design's consumers
+    run at setmaxnreg 240, its producer at 24: ptxas reports the launch
+    figure).  Returns {(design, kind, C): (blocks, registers, local bytes,
+    shared bytes)}."""
     import ctypes
 
     from vision_transformer_cam_tpu_torch.kernels import _build
     lib, got = _build.load(), {}
-    for design, fn, threads in (
-            ("wgmma", lib.vitcam_mlp_wgmma_occupancy, 384),
-            ("mma", lib.vitcam_mlp_fused_occupancy, 256)):
-        for kind, name in ((1, "bf16"), (2, "int8")):
-            info = (ctypes.c_int * 4)()
-            err = fn(c, kind, info)
-            if err:
-                raise RuntimeError(
-                    f"mlp occupancy ({design}, {name}): cudaError {err} "
-                    f"({lib.vitcam_cuda_error_string(err).decode()})")
-            got[(design, name)] = tuple(info)
-            say(f"mlp_occupancy {design:5s} {name:4s} C={c}: {info[0]} "
-                f"blocks of {threads} threads an SM, {info[1]} registers a "
-                f"thread at launch, {info[2]} bytes of local memory a "
-                f"thread, {info[3]} bytes of shared memory a block")
+    for c in widths:
+        for design, fn, threads in (
+                ("wgmma", lib.vitcam_mlp_wgmma_occupancy, 384),
+                ("mma", lib.vitcam_mlp_fused_occupancy, 256)):
+            for kind, name in ((1, "bf16"), (2, "int8")):
+                info = (ctypes.c_int * 4)()
+                err = fn(c, kind, info)
+                if err:
+                    raise RuntimeError(
+                        f"mlp occupancy ({design}, {name}, C={c}): cudaError "
+                        f"{err} ({lib.vitcam_cuda_error_string(err).decode()})")
+                got[(design, name, c)] = tuple(info)
+                ring = ""
+                if design == "wgmma":
+                    nw = lib.vitcam_mlp_wgmma_group_cols(c)
+                    ring = (f"; {lib.vitcam_mlp_wgmma_ring_stages(c, kind)} "
+                            f"ring stages, {nw} output columns a consumer "
+                            f"warpgroup, {-(-c // (2 * nw))} column groups")
+                say(f"mlp_occupancy {design:5s} {name:4s} C={c}: {info[0]} "
+                    f"blocks of {threads} threads an SM, {info[1]} registers "
+                    f"a thread at launch, {info[2]} bytes of local memory a "
+                    f"thread, {info[3]} bytes of shared memory a block{ring}")
     log = (_build.lib_path().parent / "build.log").read_text()
     for part in re.split(r"^== ", log, flags=re.M)[1:]:
         src, _, body = part.partition("\n")
-        if src not in ("mlp_fused_wgmma.cu", "mlp_fused.cu"):
+        if src not in ("mlp_fused_wgmma.cu", "mlp_fused_wgmma_wide.cu",
+                       "mlp_fused.cu"):
             continue
         for entry, props in re.findall(
                 r"Compiling entry function '(\S+)'.*?\n(.*?Used \d+ "
@@ -2018,69 +2089,84 @@ def time_kernels(b=64, n=197):
     return times
 
 
+# the wide widths' timed shapes, C: (rows, C): ViT-H/14 at B = 64 (N = 257)
+# and ViT-L/16@512 at B = 32 (N = 1025)
+MLP_TIMED = {1280: (64 * 257, 1280), 1024: (32 * 1025, 1024)}
+
+
+def time_mlp(rows, c, hid):
+    """Both fused MLP kernels on [rows, c] (bf16 x; int8 with bf16 x and
+    out) in the path's design, in turns with the plain version and the
+    unfused route (F.linear -> F.gelu -> F.linear; two fused-route int8 GEMM
+    launches).  Returns {name: (kernel ms, plain ms, unfused ms)}."""
+    import torch.nn.functional as F
+    from vision_transformer_cam_tpu_torch.kernels import gemm
+    times = {}
+    x, w1, b1, w2, b2 = mlp_operands(rows, c, hid, torch.bfloat16, seed=50)
+    fns = {"wgmma": lambda: _mlp_design("wgmma", gemm.mlp_fused, x, w1,
+                                        b1, w2, b2)}
+    fns["plain"] = lambda: gemm.mlp_fused_plain(x, w1, b1, w2, b2)
+    fns["unfused"] = lambda: F.linear(F.gelu(F.linear(x, w1, b1),
+                                             approximate="tanh"), w2, b2)
+    ms = round_robin(fns, iters=5)
+    times["mlp_fused"] = (ms["wgmma"], ms["plain"], ms["unfused"])
+    bound_ms = mlp_bound(rows, c, hid, torch.bfloat16)[0]
+    say(f"time mlp_fused bf16 M={rows} C={c} HID={hid}, in turns: wgmma "
+        f"{ms['wgmma']:.4f} ms, plain "
+        f"{ms['plain']:.4f} ms; unfused F.linear, F.gelu, F.linear "
+        f"(cuBLAS and ATen) {ms['unfused']:.4f} ms; bound {bound_ms:.4f} "
+        f"ms ({100 * bound_ms / ms['wgmma']:.1f} % of the bound's rate)")
+    del x, w1, b1, w2, b2, fns
+
+    ops = mlp_int8_operands(rows, c, hid, torch.bfloat16, seed=51)
+    xq, w1q, cs1, b1q, w2q, cs2, b2q, inv1, inv2 = ops
+    one = torch.ones((), device="cuda")
+
+    def chain():
+        hq = gemm.linear_int8(xq, w1q, cs1, b1q, inv1, route="fused",
+                              epilogue="gelu", out_scales=inv2.reshape(1))
+        return gemm.linear_int8(hq.float(), w2q, cs2, b2q, one,
+                                route="fused", out_dtype=torch.bfloat16)
+    fns = {"wgmma": lambda: _mlp_design("wgmma", gemm.mlp_fused_int8, *ops)}
+    fns["plain"] = lambda: gemm.mlp_fused_int8_plain(*ops)
+    fns["unfused"] = chain
+    ms = round_robin(fns, iters=5)
+    times["mlp_fused_int8"] = (ms["wgmma"], ms["plain"], ms["unfused"])
+    bound_ms = mlp_bound(rows, c, hid, torch.int8)[0]
+    say(f"time mlp_fused_int8 bf16 M={rows} C={c} HID={hid}, in turns: "
+        f"wgmma {ms['wgmma']:.4f} ms, "
+        f"plain {ms['plain']:.4f} ms; unfused chain of two int8 GEMM "
+        f"launches (and the cast between them) {ms['unfused']:.4f} ms; "
+        f"bound {bound_ms:.4f} ms ({100 * bound_ms / ms['wgmma']:.1f} % "
+        f"of the bound's rate)")
+    return times
+
+
 def time_fused(b=64, n=197, heads=12):
     """The three fused kernels at ViT-B shapes and B=64 (the MLP kernels
-    also at batch 256's M = 50432), in turns with their plain versions (the
+    also at batch 256's M = 50432 and at the wide widths, MLP_TIMED), in
+    turns with their plain versions (the
     designs they replaced no longer change and are not timed: PERF.md keeps
     their last times), and beside each the unfused route the port already
     has, a yardstick for the shape and not the same single call: F.linear
     -> F.gelu -> F.linear; two fused-route int8 GEMM launches; the qkv GEMM,
     the attention kernel, the proj GEMM and the residual add.  Returns
     {name: (kernel ms, plain ms, unfused route ms)}, the MLP kernels at M =
-    50432 under (name, M)."""
+    50432 under (name, M) and at a wide width under (name, "C=<C>")."""
     import torch.nn.functional as F
     from vision_transformer_cam_tpu_torch.kernels import attention as ka
-    from vision_transformer_cam_tpu_torch.kernels import gemm
     c, m = heads * 64, b * n
     times = {}
 
-    hid = 4 * c
-    # the two fused MLP kernels at B=64 and at batch 256's rows: the wgmma
-    # design, the plain version and the unfused route, in turns
-    for rows in (m, 4 * m):
-        x, w1, b1, w2, b2 = mlp_operands(rows, c, hid, torch.bfloat16,
-                                         seed=50)
-        fns = {"wgmma": lambda: _mlp_design("wgmma", gemm.mlp_fused, x, w1,
-                                            b1, w2, b2)}
-        fns["plain"] = lambda: gemm.mlp_fused_plain(x, w1, b1, w2, b2)
-        fns["unfused"] = lambda: F.linear(F.gelu(F.linear(x, w1, b1),
-                                                 approximate="tanh"), w2, b2)
-        ms = round_robin(fns, iters=5)
-        key = "mlp_fused" if rows == m else ("mlp_fused", rows)
-        times[key] = (ms["wgmma"], ms["plain"], ms["unfused"])
-        bound_ms = mlp_bound(rows, c, hid, torch.bfloat16)[0]
-        say(f"time mlp_fused bf16 M={rows} C={c} HID={hid}, in turns: wgmma "
-            f"{ms['wgmma']:.4f} ms, plain "
-            f"{ms['plain']:.4f} ms; unfused F.linear, F.gelu, F.linear "
-            f"(cuBLAS and ATen) {ms['unfused']:.4f} ms; bound {bound_ms:.4f} "
-            f"ms ({100 * bound_ms / ms['wgmma']:.1f} % of the bound's rate)")
-        del x, w1, b1, w2, b2, fns
-
-        ops = mlp_int8_operands(rows, c, hid, torch.bfloat16, seed=51)
-        xq, w1q, cs1, b1q, w2q, cs2, b2q, inv1, inv2 = ops
-        one = torch.ones((), device="cuda")
-
-        def chain():
-            hq = gemm.linear_int8(xq, w1q, cs1, b1q, inv1, route="fused",
-                                  epilogue="gelu", out_scales=inv2.reshape(1))
-            return gemm.linear_int8(hq.float(), w2q, cs2, b2q, one,
-                                    route="fused", out_dtype=torch.bfloat16)
-        fns = {"wgmma": lambda: _mlp_design("wgmma", gemm.mlp_fused_int8,
-                                            *ops)}
-        fns["plain"] = lambda: gemm.mlp_fused_int8_plain(*ops)
-        fns["unfused"] = chain
-        ms = round_robin(fns, iters=5)
-        key = "mlp_fused_int8" if rows == m else ("mlp_fused_int8", rows)
-        times[key] = (ms["wgmma"], ms["plain"], ms["unfused"])
-        bound_ms = mlp_bound(rows, c, hid, torch.int8)[0]
-        say(f"time mlp_fused_int8 bf16 M={rows} C={c} HID={hid}, in turns: "
-            f"wgmma {ms['wgmma']:.4f} ms, "
-            f"plain {ms['plain']:.4f} ms; unfused chain of two int8 GEMM "
-            f"launches (and the cast between them) {ms['unfused']:.4f} ms; "
-            f"bound {bound_ms:.4f} ms ({100 * bound_ms / ms['wgmma']:.1f} % "
-            f"of the bound's rate)")
-        del ops, xq, w1q, w2q, fns
-
+    # the two fused MLP kernels at B=64 and at batch 256's rows, and at the
+    # wide widths (MLP_TIMED): the wgmma design, the plain version and the
+    # unfused route, in turns
+    for rows, mc in ((m, c), (4 * m, c)) + tuple(MLP_TIMED.values()):
+        got = time_mlp(rows, mc, 4 * mc)
+        for name, ms in got.items():
+            key = name if (rows, mc) == (m, c) else \
+                (name, rows) if mc == c else (name, f"C={mc}")
+            times[key] = ms
     bops, bg, joint = block_operands(b, n, heads, torch.bfloat16, seed=52,
                                      hot=False)
     xn, tok, wqkv, bqkv, wproj, bproj = bops
@@ -2503,6 +2589,13 @@ def kernel_bounds(b=64, n=197, heads=12):
             {"bf16": 2 * qk, "f32": 2 * b * n ** 3}),
         "mlp_fused": mlp_bound(m, c, hid, torch.bfloat16),
         "mlp_fused_int8": mlp_bound(m, c, hid, torch.int8),
+        # at the wide widths as time_mlp times them (MLP_TIMED): the
+        # function's 4 M C HID operations (the kernel computes fc1 once per
+        # column group, 1.5x that)
+        **{MLP_W[wc]: mlp_bound(*MLP_TIMED[wc], 4 * wc, torch.bfloat16)
+           for wc in MLP_W},
+        **{MLP8_W[wc]: mlp_bound(*MLP_TIMED[wc], 4 * wc, torch.int8)
+           for wc in MLP8_W},
         # bf16 xn and tokens, the qkv and proj weights and biases, f32 bg
         # and the f32 joint in; bf16 tokens and cls row and the f32 joint
         # out.  qkv and proj GEMMs, QK^T and PV at the bf16 rate, hm @ J f32
@@ -3859,16 +3952,20 @@ def _dp_train_rank(workdir, batch32, batch):
     return out
 
 
-def dp_path(batch32=8, batch=64, n_images=11, val_batch=4):
-    """Phase 21, data parallelism on one card: two gloo ranks share the card
+def dp_prepare(work, batch32=8, batch=64, n_images=11, val_batch=4):
+    """Phase 21's part in this process, before its ranks (``_dp_train_rank``,
+    then ``_dp_validate_rank``) run in ``parallel_path``'s spawn: the
+    one-rank float32 step and the ranks' inputs saved into ``work``, a faked
+    VOC tree there, the one-rank ``cli.validate`` runs in bf16 and int8 and
+    the ranks' batches and argvs (``dp_ranks.pt``).  Returns the check of the ranks'
+    results, ``check(ranks) -> launch counts``.
+
+    Phase 21, data parallelism on one card: two gloo ranks share the card
     (NCCL refuses two ranks on one device; CUDA tensors are staged through
     host memory), ViT-B/16 at full width on the kernel path.  For
     correctness: the img/s of two ranks sharing one card is no scaling
-    figure.  Returns the ranks' launch counts."""
-    import tempfile
-
+    figure."""
     from vision_transformer_cam_tpu_torch import configs
-    from vision_transformer_cam_tpu_torch.parallel.worker import launch
     from vision_transformer_cam_tpu_torch.scripts.dryrun_multichip import (
         OPTIM, delta_excess)
     from vision_transformer_cam_tpu_torch.train import state as statelib
@@ -3903,111 +4000,112 @@ def dp_path(batch32=8, batch=64, n_images=11, val_batch=4):
         mixed_optim=configs.OptimConfig(lr=1e-4, warmup_epochs=0, epochs=10,
                                         linear_lr_scaling=False,
                                         clip_grad=1.0))
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as workdir:
-        torch.save(inputs, os.path.join(workdir, "dp_inputs.pt"))
-        del inputs
-        ranks = launch(_dp_train_rank, (workdir, batch32, batch),
-                       world=DP_WORLD, timeout=600)
-    say(f"dp path: {DP_WORLD} training ranks on one card, transport "
-        f"{ranks[0]['transport']}, {time.perf_counter() - t0:.1f} s with the "
-        "processes' start")
-    fails = []
-    for name in ("f32", "zero1", "accum2", "mixed"):
-        same = all(r[name]["digests"] == ranks[0][name]["digests"]
-                   and [x["loss"] for x in r[name]["metrics"]]
-                   == [x["loss"] for x in ranks[0][name]["metrics"]]
-                   for r in ranks)
-        say(f"dp path {name}: parameters bit for bit equal on every rank "
-            f"after each of {len(ranks[0][name]['digests'])} step(s): "
-            f"{same}; losses "
-            + ", ".join(f"{x['loss']:.6f}" for x in ranks[0][name]["metrics"]))
-        if not same:
-            fails.append(f"{name}: the ranks differ")
-
-    # float32: the two ranks' step against the one-rank step
-    atol, rtol = TRAIN_TOL["grad"]
-    d_loss = abs(ranks[0]["f32"]["metrics"][0]["loss"] - one_loss)
-    worst, bad = delta_excess(ranks[0]["f32"]["state"], one, before,
-                              (atol, rtol))
-    say(f"dp path f32 (B={batch32}, {batch32 // DP_WORLD} a rank) vs one "
-        f"rank: loss {d_loss:.3e} (tol {TRAIN_TOL['loss']}), parameter "
-        f"changes max abs dev {worst:.3e} (atol {atol}, rtol {rtol})")
-    if d_loss > TRAIN_TOL["loss"] or bad:
-        fails.append(f"f32 dp step vs one rank: loss {d_loss}, {bad}")
-    for name in ("zero1", "accum2"):
-        worst, bad = delta_excess(ranks[0][name]["state"],
-                                  ranks[0]["f32"]["state"], before,
-                                  (atol, rtol))
-        d = abs(ranks[0][name]["metrics"][0]["loss"]
-                - ranks[0]["f32"]["metrics"][0]["loss"])
-        say(f"dp path {name} vs the dp step: parameter changes max abs dev "
-            f"{worst:.3e}, loss {d:.3e}")
-        if bad or d > TRAIN_TOL["loss"]:
-            fails.append(f"{name} vs the dp step: loss {d}, {bad}")
-    full = ranks[0]["f32"]["moment_bytes"]
-    say("dp path zero1: moment bytes a rank "
-        + ", ".join(str(r["zero1"]["moment_bytes"]) for r in ranks)
-        + f" against {full} unsharded")
-    if sum(r["zero1"]["moment_bytes"] for r in ranks) != full:
-        fails.append("zero1 moments are not a partition")
-
-    # mixed precision: launches, losses, img/s in turns
-    depth = cfg32.depth
-    train_row = "masked_attention_fused[bf16 plain, training]"
-    counts = {train_row: 0, "masked_attention_bwd": 0}
-    for rank, r in enumerate(ranks):
-        steps = r["mixed"]["launches"]
-        say(f"dp path mixed, rank {rank}: launches in one step: kernel 1 "
-            f"{steps[0]['masked_attention_fused']} (expected {2 * depth}), "
-            f"backward {steps[0]['masked_attention_bwd']} (expected {depth})")
-        for st in steps:
-            counts[train_row] += st["masked_attention_fused"]
-            counts["masked_attention_bwd"] += st["masked_attention_bwd"]
-            if (st["masked_attention_fused"], st["masked_attention_bwd"]) \
-                    != (2 * depth, depth):
-                fails.append(f"mixed rank {rank}: launches {st}")
-        if not all(np.isfinite(x["loss"]) for x in r["mixed"]["metrics"]):
-            fails.append(f"mixed rank {rank}: loss not finite")
-    rates = ranks[0]["mixed"]["img_per_s"]
-    say(f"dp path img/s, ViT-B/16 mixed precision, remat, global batch "
-        f"{batch}, {DP_TIMED} steps a reading, in turns (dp, one, one, "
-        f"dp): two ranks sharing one card {np.mean(rates['par']):.1f} "
-        f"({rates['par'][0]:.1f}, {rates['par'][1]:.1f}); one rank alone on "
-        f"the whole batch {np.mean(rates['one']):.1f} ({rates['one'][0]:.1f}"
-        f", {rates['one'][1]:.1f}); the gradient all-reduce alone "
-        f"{rates['collective_ms']:.1f} ms a step; NOT a scaling figure: both "
-        f"ranks share the card, and gloo stages every all-reduce through "
-        f"host memory")
-
+    torch.save(inputs, os.path.join(work, "dp_inputs.pt"))
+    del inputs
     # cli.validate --data_parallel against the one-rank run, bf16 and int8:
-    # the one-rank runs in this process, the ranks' runs in one spawn
+    # the one-rank runs in this process, the ranks' after their training
     modes = ("bf16", "int8")
-    with tempfile.TemporaryDirectory() as root:
-        split, names = fake_voc_tree(root, n_images)
-        argvs, dirs, want = {}, {}, {}
-        for mode in modes:
-            argvs[mode] = ["--model_name", "vit_base_patch16_224_in21k",
-                           "--dataset_path", root, "--val_img_name_path",
-                           split, "--batch_size", str(val_batch),
-                           "--serving", mode]
-            dirs[mode] = {k: os.path.join(root, f"{mode}_{k}")
-                          for k in ("one", "dp")}
-            cwd = os.getcwd()
-            os.chdir(root)
-            try:
-                want[mode], = _dp_validate_rank(
-                    [argvs[mode] + ["--seg_pred_dir", dirs[mode]["one"]]])
-            finally:
-                os.chdir(cwd)
-        t0 = time.perf_counter()
-        ranks = launch(_dp_validate_rank,
-                       ([argvs[m] + ["--seg_pred_dir", dirs[m]["dp"],
-                                     "--data_parallel"] for m in modes],),
-                       world=DP_WORLD, timeout=400, cwd=root)
-        wall = time.perf_counter() - t0
+    root = os.path.join(work, "voc")
+    os.makedirs(root)
+    split, names = fake_voc_tree(root, n_images)
+    argvs, dirs, want = {}, {}, {}
+    for mode in modes:
+        argvs[mode] = ["--model_name", "vit_base_patch16_224_in21k",
+                       "--dataset_path", root, "--val_img_name_path",
+                       split, "--batch_size", str(val_batch),
+                       "--serving", mode]
+        dirs[mode] = {k: os.path.join(root, f"{mode}_{k}")
+                      for k in ("one", "dp")}
+        cwd = os.getcwd()
+        os.chdir(root)
+        try:
+            want[mode], = _dp_validate_rank(
+                [argvs[mode] + ["--seg_pred_dir", dirs[mode]["one"]]])
+        finally:
+            os.chdir(cwd)
+    torch.save({"batch32": batch32, "batch": batch, "root": root,
+                "argvs": [argvs[m] + ["--seg_pred_dir", dirs[m]["dp"],
+                                      "--data_parallel"] for m in modes]},
+               os.path.join(work, "dp_ranks.pt"))
+    say(f"dp path: set up in {time.perf_counter() - t_phase:.1f} s")
+
+    def check(ranks):
+        """Phase 21's gates on its ranks' results."""
+        say(f"dp path: {DP_WORLD} training ranks on one card, transport "
+            f"{ranks[0]['train']['transport']}")
+        val = [r["validate"] for r in ranks]
+        ranks = [r["train"] for r in ranks]
+        fails = []
+        for name in ("f32", "zero1", "accum2", "mixed"):
+            same = all(r[name]["digests"] == ranks[0][name]["digests"]
+                       and [x["loss"] for x in r[name]["metrics"]]
+                       == [x["loss"] for x in ranks[0][name]["metrics"]]
+                       for r in ranks)
+            say(f"dp path {name}: parameters bit for bit equal on every rank "
+                f"after each of {len(ranks[0][name]['digests'])} step(s): "
+                f"{same}; losses "
+                + ", ".join(f"{x['loss']:.6f}"
+                            for x in ranks[0][name]["metrics"]))
+            if not same:
+                fails.append(f"{name}: the ranks differ")
+
+        # float32: the two ranks' step against the one-rank step
+        atol, rtol = TRAIN_TOL["grad"]
+        d_loss = abs(ranks[0]["f32"]["metrics"][0]["loss"] - one_loss)
+        worst, bad = delta_excess(ranks[0]["f32"]["state"], one, before,
+                                  (atol, rtol))
+        say(f"dp path f32 (B={batch32}, {batch32 // DP_WORLD} a rank) vs one "
+            f"rank: loss {d_loss:.3e} (tol {TRAIN_TOL['loss']}), parameter "
+            f"changes max abs dev {worst:.3e} (atol {atol}, rtol {rtol})")
+        if d_loss > TRAIN_TOL["loss"] or bad:
+            fails.append(f"f32 dp step vs one rank: loss {d_loss}, {bad}")
+        for name in ("zero1", "accum2"):
+            worst, bad = delta_excess(ranks[0][name]["state"],
+                                      ranks[0]["f32"]["state"], before,
+                                      (atol, rtol))
+            d = abs(ranks[0][name]["metrics"][0]["loss"]
+                    - ranks[0]["f32"]["metrics"][0]["loss"])
+            say(f"dp path {name} vs the dp step: parameter changes max abs dev "
+                f"{worst:.3e}, loss {d:.3e}")
+            if bad or d > TRAIN_TOL["loss"]:
+                fails.append(f"{name} vs the dp step: loss {d}, {bad}")
+        full = ranks[0]["f32"]["moment_bytes"]
+        say("dp path zero1: moment bytes a rank "
+            + ", ".join(str(r["zero1"]["moment_bytes"]) for r in ranks)
+            + f" against {full} unsharded")
+        if sum(r["zero1"]["moment_bytes"] for r in ranks) != full:
+            fails.append("zero1 moments are not a partition")
+
+        # mixed precision: launches, losses, img/s in turns
+        depth = cfg32.depth
+        train_row = "masked_attention_fused[bf16 plain, training]"
+        counts = {train_row: 0, "masked_attention_bwd": 0}
+        for rank, r in enumerate(ranks):
+            steps = r["mixed"]["launches"]
+            say(f"dp path mixed, rank {rank}: launches in one step: kernel 1 "
+                f"{steps[0]['masked_attention_fused']} (expected {2 * depth}), "
+                f"backward {steps[0]['masked_attention_bwd']} (expected {depth})")
+            for st in steps:
+                counts[train_row] += st["masked_attention_fused"]
+                counts["masked_attention_bwd"] += st["masked_attention_bwd"]
+                if (st["masked_attention_fused"], st["masked_attention_bwd"]) \
+                        != (2 * depth, depth):
+                    fails.append(f"mixed rank {rank}: launches {st}")
+            if not all(np.isfinite(x["loss"]) for x in r["mixed"]["metrics"]):
+                fails.append(f"mixed rank {rank}: loss not finite")
+        rates = ranks[0]["mixed"]["img_per_s"]
+        say(f"dp path img/s, ViT-B/16 mixed precision, remat, global batch "
+            f"{batch}, {DP_TIMED} steps a reading, in turns (dp, one, one, "
+            f"dp): two ranks sharing one card {np.mean(rates['par']):.1f} "
+            f"({rates['par'][0]:.1f}, {rates['par'][1]:.1f}); one rank alone on "
+            f"the whole batch {np.mean(rates['one']):.1f} ({rates['one'][0]:.1f}"
+            f", {rates['one'][1]:.1f}); the gradient all-reduce alone "
+            f"{rates['collective_ms']:.1f} ms a step; NOT a scaling figure: both "
+            f"ranks share the card, and gloo stages every all-reduce through "
+            f"host memory")
+
         for i, mode in enumerate(modes):
-            got = [r[i] for r in ranks]
+            got = [r[i] for r in val]
             ref, one_counts = want[mode]
             png = {k: [open(os.path.join(d, f"{n}.png"), "rb").read()
                        for n in names] for k, d in dirs[mode].items()}
@@ -4019,8 +4117,7 @@ def dp_path(batch32=8, batch=64, n_images=11, val_batch=4):
                     counts[k] = counts.get(k, 0) + v
                 say(f"dp path validate {mode}, rank {rank}: launches "
                     f"{ {k: v for k, v in c.items() if v} }")
-            say(f"dp path validate {mode}, {DP_WORLD} ranks (both modes in "
-                f"one spawn, {wall:.1f} s) vs one rank: "
+            say(f"dp path validate {mode}, {DP_WORLD} ranks vs one rank: "
                 f"{n_images} PNGs byte for byte equal: {same}; mAP "
                 f"{got[0][0]['mAP']:.6f} vs {ref['mAP']:.6f}, mIoU "
                 f"{got[0][0]['mIoU']:.4f} vs {ref['mIoU']:.4f}; one-rank "
@@ -4032,10 +4129,10 @@ def dp_path(batch32=8, batch=64, n_images=11, val_batch=4):
                     mode == "int8" and not got[0][1]["linear_int8_fused"]):
                 fails.append(f"validate {mode}: the ranks launched no "
                              "kernel")
-    say(f"dp path: {time.perf_counter() - t_phase:.1f} s")
-    if fails:
-        raise AssertionError("dp path: " + "; ".join(fails))
-    return counts
+        if fails:
+            raise AssertionError("dp path: " + "; ".join(fails))
+        return counts
+    return check
 
 
 TP_STEPS, TP_TIMED = 5, 3
@@ -4238,8 +4335,14 @@ def _tp_rank(workdir):
     return out
 
 
-def tp_path(batch32=8, batch=16, cam_batch=32, huge_batch=8, huge32=4):
-    """Phase 22, tensor parallelism and the pipeline on one card: two gloo
+def tp_prepare(work, batch32=8, batch=16, cam_batch=32, huge_batch=8,
+               huge32=4):
+    """Phase 22's part in this process, before its ranks (``_tp_rank``) run
+    in ``parallel_path``'s spawn: the one-rank references, the ranks' inputs
+    and ViT-H/14's seeded model saved into ``work``.  Returns the check of
+    the ranks' results, ``check(ranks) -> launch counts``.
+
+    Phase 22, tensor parallelism and the pipeline on one card: two gloo
     ranks share the card (CUDA tensors staged through host memory), each
     holding half of ViT-B/16's heads and MLP hidden units (the kernel path:
     kernel 1 and the backward at 6 heads of 64 a rank), half of ViT-H/14's
@@ -4247,15 +4350,12 @@ def tp_path(batch32=8, batch=16, cam_batch=32, huge_batch=8, huge32=4):
     and as pipeline stages 6 of ViT-B/16's 12 blocks (the
     eager path, as JAX runs its XLA path there).  Each result is held to one
     rank on the card.  For correctness: the img/s of two ranks sharing one
-    card is no scaling figure.  Returns the ranks' launch counts."""
-    import tempfile
-
+    card is no scaling figure."""
     from vision_transformer_cam_tpu_torch import configs, serving
     from vision_transformer_cam_tpu_torch.io.weights import load_state_dict
     from vision_transformer_cam_tpu_torch.models.vit import ViTCAM
     from vision_transformer_cam_tpu_torch.ops.rollout import (
         cam_from_rollout_row)
-    from vision_transformer_cam_tpu_torch.parallel.worker import launch
     from vision_transformer_cam_tpu_torch.scripts.dryrun_multichip import (
         OPTIM, delta_excess)
     from vision_transformer_cam_tpu_torch.train import state as statelib
@@ -4307,8 +4407,7 @@ def tp_path(batch32=8, batch=16, cam_batch=32, huge_batch=8, huge32=4):
     huge = tuple(torch.from_numpy(bh[k]) for k in ("image", "label"))
     hm = zoo_train_model("vit_huge_patch14_224_in21k", "kernel")
     # the ranks load this copy of the seeded model (no init of their own)
-    work = tempfile.TemporaryDirectory()
-    torch.save(hm, os.path.join(work.name, "tp_huge.pt"))
+    torch.save(hm, os.path.join(work, "tp_huge.pt"))
     opt, _ = statelib.make_optimizer(hm, mixed_optim, huge_batch, 100)
     st = statelib.create_train_state(hm, opt)
     torch.cuda.reset_peak_memory_stats()
@@ -4326,166 +4425,172 @@ def tp_path(batch32=8, batch=16, cam_batch=32, huge_batch=8, huge32=4):
         mixed=[tuple(torch.from_numpy(b[k]) for k in ("image", "label"))
                for b in (seeded_batch(batch, 70 + i)
                          for i in range(TP_STEPS))])
-    t0 = time.perf_counter()
-    try:
-        torch.save(inputs, os.path.join(work.name, "tp_inputs.pt"))
-        del inputs
-        ranks = launch(_tp_rank, (work.name,), world=2, timeout=800)
-    finally:
-        work.cleanup()
-    say(f"tp path: 2 ranks on one card, transport {ranks[0]['transport']}, "
-        f"{time.perf_counter() - t0:.1f} s with the processes' start")
-    fails, counts = [], {}
+    torch.save(inputs, os.path.join(work, "tp_inputs.pt"))
+    del inputs
+    say(f"tp path: set up in {time.perf_counter() - t_phase:.1f} s")
 
-    def add(c, rename=None):
-        for k, v in c.items():
-            k = (rename or {}).get(k, k)
-            counts[k] = counts.get(k, 0) + v
+    def check(ranks):
+        """Phase 22's gates on its ranks' results."""
+        ranks = [r["tp"] for r in ranks]
+        fails, counts = [], {}
+        say(f"tp path: 2 ranks on one card, transport "
+            f"{ranks[0]['transport']}")
 
-    depth = cfg32.depth
-    atol, rtol = TRAIN_TOL["grad"]
-    # the float32 step against one rank
-    d_loss = abs(ranks[0]["f32"]["metrics"][0]["loss"] - one_loss)
-    worst, bad = delta_excess(ranks[0]["f32"]["state"], one, before,
-                              (atol, rtol))
-    say(f"tp path f32 (B={batch32}, 6 heads a rank) vs one rank: loss "
-        f"{d_loss:.3e} (tol {TRAIN_TOL['loss']}), parameter changes max abs "
-        f"dev {worst:.3e} (atol {atol}, rtol {rtol}); heads "
-        f"{ranks[0]['f32']['heads']}")
-    if d_loss > TRAIN_TOL["loss"] or bad:
-        fails.append(f"f32 tp step vs one rank: loss {d_loss}, {bad}")
-    # the mixed steps: launches, heads, whole leaves bit-equal
-    train_row = "masked_attention_fused[bf16 plain, training]"
-    for rank, r in enumerate(ranks):
-        mx = r["mixed"]
-        # train_steps sets the counts to 0 before each step and reads them
-        # after it
-        add({train_row: sum(st["masked_attention_fused"]
-                            for st in mx["launches"]),
-             "masked_attention_bwd": sum(st["masked_attention_bwd"]
-                                         for st in mx["launches"])})
-        steps_ok = all(st == {"masked_attention_fused": 2 * depth,
-                              "masked_attention_bwd": depth}
-                       for st in mx["launches"]) and all(
-            h == [cfg32.num_heads // 2] for h in mx["heads"])
-        say(f"tp path mixed, rank {rank}: launches a step "
-            f"{mx['launches'][0]} (expected {2 * depth} / {depth}) at heads "
-            f"{mx['heads'][0]}, held over {TP_STEPS} steps: {steps_ok}; "
-            f"losses " + ", ".join(f"{x['loss']:.6f}"
-                                   for x in mx["metrics"])
-            + f"; parameter bytes {mx['param_bytes']} against {full_bytes} "
-            "unsharded")
-        if not steps_ok:
-            fails.append(f"mixed rank {rank}: launches or heads "
-                         f"{mx['launches']} {mx['heads']}")
-        if not all(np.isfinite(x["loss"]) for x in mx["metrics"]):
-            fails.append(f"mixed rank {rank}: loss not finite")
-        if not mx["param_bytes"] < full_bytes:
-            fails.append(f"mixed rank {rank}: holds the whole model")
-    same = ranks[0]["mixed"]["whole_digests"] == \
-        ranks[1]["mixed"]["whole_digests"]
-    say(f"tp path mixed: the leaves both ranks hold whole bit for bit equal "
-        f"after each of {TP_STEPS} steps: {same}")
-    if not same:
-        fails.append("mixed: the replicated leaves differ between ranks")
-    rates = ranks[0]["mixed"]["img_per_s"]
-    say(f"tp path img/s, ViT-B/16 mixed precision, remat, batch {batch}, "
-        f"{TP_TIMED} steps a reading, in turns (tp, one, one, tp): two ranks "
-        f"sharing one card {np.mean(rates['par']):.1f} ({rates['par'][0]:.1f}, "
-        f"{rates['par'][1]:.1f}); one rank alone {np.mean(rates['one']):.1f} "
-        f"({rates['one'][0]:.1f}, {rates['one'][1]:.1f}); the {6 * depth} "
-        f"activation all-reduces of a step alone {rates['collective_ms']:.1f} "
-        "ms; NOT a scaling figure: both ranks share the card, and gloo "
-        "stages every all-reduce through host memory")
-    # the CAM forwards
-    for name, gate in (("cam_bf16", ("cam", "logits")),
-                       ("cam_f32", ("row32", "logits32"))):
-        want = ref[name]
+        def add(c, rename=None):
+            for k, v in c.items():
+                k = (rename or {}).get(k, k)
+                counts[k] = counts.get(k, 0) + v
+
+        depth = cfg32.depth
+        atol, rtol = TRAIN_TOL["grad"]
+        # the float32 step against one rank
+        d_loss = abs(ranks[0]["f32"]["metrics"][0]["loss"] - one_loss)
+        worst, bad = delta_excess(ranks[0]["f32"]["state"], one, before,
+                                  (atol, rtol))
+        say(f"tp path f32 (B={batch32}, 6 heads a rank) vs one rank: loss "
+            f"{d_loss:.3e} (tol {TRAIN_TOL['loss']}), parameter changes max "
+            f"abs dev {worst:.3e} (atol {atol}, rtol {rtol}); heads "
+            f"{ranks[0]['f32']['heads']}")
+        if d_loss > TRAIN_TOL["loss"] or bad:
+            fails.append(f"f32 tp step vs one rank: loss {d_loss}, {bad}")
+        # the mixed steps: launches, heads, whole leaves bit-equal
+        train_row = "masked_attention_fused[bf16 plain, training]"
         for rank, r in enumerate(ranks):
-            got = r[name]
-            add(got["counts"])
-            kinds = ("cam", "logits") if name == "cam_bf16" \
-                else ("rollout_row", "logits")
-            devs = [float((got[k] - want[k]).abs().max()) for k in kinds]
-            ok = all(dv <= TP_GATES[g] for dv, g in zip(devs, gate)) and \
-                got["counts"]["masked_attention_fused"] == depth and \
-                got["heads"] == [cfg32.num_heads // 2]
-            say(f"tp path {name}, rank {rank}: {kinds[0]} {devs[0]:.3e} "
-                f"(gate {TP_GATES[gate[0]]}), logits {devs[1]:.3e} (gate "
-                f"{TP_GATES[gate[1]]}); kernel-1 launches "
-                f"{got['counts']['masked_attention_fused']} (head-mean "
-                f"variant, expected {depth}) at heads {got['heads']}")
+            mx = r["mixed"]
+            # train_steps sets the counts to 0 before each step and reads them
+            # after it
+            add({train_row: sum(st["masked_attention_fused"]
+                                for st in mx["launches"]),
+                 "masked_attention_bwd": sum(st["masked_attention_bwd"]
+                                             for st in mx["launches"])})
+            steps_ok = all(st == {"masked_attention_fused": 2 * depth,
+                                  "masked_attention_bwd": depth}
+                           for st in mx["launches"]) and all(
+                h == [cfg32.num_heads // 2] for h in mx["heads"])
+            say(f"tp path mixed, rank {rank}: launches a step "
+                f"{mx['launches'][0]} (expected {2 * depth} / {depth}) at "
+                f"heads {mx['heads'][0]}, held over {TP_STEPS} steps: "
+                f"{steps_ok}; "
+                f"losses " + ", ".join(f"{x['loss']:.6f}"
+                                       for x in mx["metrics"])
+                + f"; parameter bytes {mx['param_bytes']} against "
+                f"{full_bytes} unsharded")
+            if not steps_ok:
+                fails.append(f"mixed rank {rank}: launches or heads "
+                             f"{mx['launches']} {mx['heads']}")
+            if not all(np.isfinite(x["loss"]) for x in mx["metrics"]):
+                fails.append(f"mixed rank {rank}: loss not finite")
+            if not mx["param_bytes"] < full_bytes:
+                fails.append(f"mixed rank {rank}: holds the whole model")
+        same = ranks[0]["mixed"]["whole_digests"] == \
+            ranks[1]["mixed"]["whole_digests"]
+        say(f"tp path mixed: the leaves both ranks hold whole bit for bit "
+            f"equal after each of {TP_STEPS} steps: {same}")
+        if not same:
+            fails.append("mixed: the replicated leaves differ between ranks")
+        rates = ranks[0]["mixed"]["img_per_s"]
+        say(f"tp path img/s, ViT-B/16 mixed precision, remat, batch {batch}, "
+            f"{TP_TIMED} steps a reading, in turns (tp, one, one, tp): two "
+            f"ranks sharing one card {np.mean(rates['par']):.1f} "
+            f"({rates['par'][0]:.1f}, {rates['par'][1]:.1f}); one rank alone "
+            f"{np.mean(rates['one']):.1f} "
+            f"({rates['one'][0]:.1f}, {rates['one'][1]:.1f}); the {6 * depth} "
+            f"activation all-reduces of a step alone "
+            f"{rates['collective_ms']:.1f} ms; NOT a scaling figure: both "
+            "ranks share the card, and gloo stages every all-reduce through "
+            "host memory")
+        # the CAM forwards
+        for name, gate in (("cam_bf16", ("cam", "logits")),
+                           ("cam_f32", ("row32", "logits32"))):
+            want = ref[name]
+            for rank, r in enumerate(ranks):
+                got = r[name]
+                add(got["counts"])
+                kinds = ("cam", "logits") if name == "cam_bf16" \
+                    else ("rollout_row", "logits")
+                devs = [float((got[k] - want[k]).abs().max()) for k in kinds]
+                ok = all(dv <= TP_GATES[g] for dv, g in zip(devs, gate)) and \
+                    got["counts"]["masked_attention_fused"] == depth and \
+                    got["heads"] == [cfg32.num_heads // 2]
+                say(f"tp path {name}, rank {rank}: {kinds[0]} {devs[0]:.3e} "
+                    f"(gate {TP_GATES[gate[0]]}), logits {devs[1]:.3e} (gate "
+                    f"{TP_GATES[gate[1]]}); kernel-1 launches "
+                    f"{got['counts']['masked_attention_fused']} (head-mean "
+                    f"variant, expected {depth}) at heads {got['heads']}")
+                if not ok:
+                    fails.append(f"{name} rank {rank}: {devs}, "
+                                 f"{got['counts']}, {got['heads']}")
+        # ViT-H/14
+        hh = [r["huge"] for r in ranks]
+        for rank, h in enumerate(hh):
+            add(h["counts"])
+            ok = h["counts"]["masked_attention_fused"] == 64 and \
+                h["counts"]["masked_attention_bwd"] == 32 and \
+                h["counts"][W80] == 64 and h["counts"][BWD80] == 32 and \
+                h["heads"] == [8] and np.isfinite(h["loss"])
+            say(f"tp path ViT-H/14 mixed step, rank {rank} (B={huge_batch}): "
+                f"loss {h['loss']:.6f} (one rank {huge_one[0]:.6f}); kernel 1 "
+                f"{h['counts'][W80]} and backward {h['counts'][BWD80]} at "
+                f"head width 80, {h['heads']} heads a rank (expected 64 / 32, "
+                f"[8]); "
+                f"peak {h['peak'] / 2**30:.2f} GiB (one rank alone "
+                f"{huge_one[1] / 2**30:.2f}); parameter bytes "
+                f"{h['param_bytes']} of {h['full_param_bytes']}")
             if not ok:
-                fails.append(f"{name} rank {rank}: {devs}, "
-                             f"{got['counts']}, {got['heads']}")
-    # ViT-H/14
-    hh = [r["huge"] for r in ranks]
-    for rank, h in enumerate(hh):
-        add(h["counts"])
-        ok = h["counts"]["masked_attention_fused"] == 64 and \
-            h["counts"]["masked_attention_bwd"] == 32 and \
-            h["counts"][W80] == 64 and h["counts"][BWD80] == 32 and \
-            h["heads"] == [8] and np.isfinite(h["loss"])
-        say(f"tp path ViT-H/14 mixed step, rank {rank} (B={huge_batch}): "
-            f"loss {h['loss']:.6f} (one rank {huge_one[0]:.6f}); kernel 1 "
-            f"{h['counts'][W80]} and backward {h['counts'][BWD80]} at head "
-            f"width 80, {h['heads']} heads a rank (expected 64 / 32, [8]); "
-            f"peak {h['peak'] / 2**30:.2f} GiB (one rank alone "
-            f"{huge_one[1] / 2**30:.2f}); parameter bytes "
-            f"{h['param_bytes']} of {h['full_param_bytes']}")
-        if not ok:
-            fails.append(f"ViT-H/14 rank {rank}: {h['counts']}, "
-                         f"{h['heads']}, loss {h['loss']}")
-    if hh[0]["whole_digest"] != hh[1]["whole_digest"]:
-        fails.append("ViT-H/14: the replicated leaves differ between ranks")
-    h32 = ranks[0]["huge32"]
-    for r in ranks:
-        add(r["huge32"]["counts"])
-    d_loss = abs(h32["loss"] - h32["one_loss"])
-    launches_ok = all(
-        r["huge32"]["counts"]["masked_attention_fused"] == 64
-        and r["huge32"]["counts"]["masked_attention_bwd"] == 32
-        and r["huge32"]["counts"][W80] == 64
-        and r["huge32"]["counts"][BWD80] == 32
-        and r["huge32"]["heads"] == [8] for r in ranks)
-    say(f"tp path ViT-H/14 f32 step (B={huge32}, 8 heads of 80 a rank) vs "
-        f"one rank: loss {h32['loss']:.6f} vs {h32['one_loss']:.6f} (diff "
-        f"{d_loss:.3e}, tol {TRAIN_TOL['loss']}), parameter changes max abs "
-        f"dev {h32['worst']:.3e} (atol {atol}, rtol {rtol}); launches a "
-        f"rank {h32['counts'][W80]} / {h32['counts'][BWD80]} at width 80 "
-        f"(expected 64 / 32) held on both ranks: {launches_ok}")
-    if d_loss > TRAIN_TOL["loss"] or h32["bad"] or not launches_ok:
-        fails.append(f"ViT-H/14 f32 tp step vs one rank: loss {d_loss}, "
-                     f"{h32['bad']}, launches "
-                     f"{[r['huge32']['counts'] for r in ranks]}")
-    # the pipeline
-    pp = [r["pipeline"] for r in ranks]
-    for m_ in (2, 4):
-        devs = [max(float((p[f"fwd{m_}"][k] - ref["pipeline"][k]).abs()
-                          .max()) for p in pp)
-                for k in ("rollout_row", "logits")]
-        say(f"pipeline path, 2 stages, M = {m_}, f32 B={batch32} vs one "
-            f"rank (per-sample norm): rollout row {devs[0]:.3e} (gate "
-            f"{TP_GATES['row32']}), logits {devs[1]:.3e} (gate "
-            f"{TP_GATES['logits32']})")
-        if devs[0] > TP_GATES["row32"] or devs[1] > TP_GATES["logits32"]:
-            fails.append(f"pipeline_forward M={m_}: {devs}")
-    d_loss = abs(pp[0]["loss"] - p_loss)
-    worst, bad = delta_excess(pp[0]["state"], p_one, before, (atol, rtol))
-    launched = sum(v for p in pp for v in p["counts"].values())
-    say(f"pipeline path pipeline_train_step (M = 2) vs one-rank train_step: "
-        f"loss {d_loss:.3e}, parameter changes max abs dev {worst:.3e}; "
-        f"blocks a stage {pp[0]['blocks']} / {pp[1]['blocks']}, block "
-        f"bytes {pp[0]['block_bytes']} / {pp[1]['block_bytes']}; kernel "
-        f"launches {launched} (expected 0: the eager path)")
-    if d_loss > TRAIN_TOL["loss"] or bad or launched or \
-            [len(p["blocks"]) for p in pp] != [depth // 2] * 2:
-        fails.append(f"pipeline step: loss {d_loss}, {bad}, launches "
-                     f"{launched}, blocks {[p['blocks'] for p in pp]}")
-    say(f"tp path: {time.perf_counter() - t_phase:.1f} s")
-    if fails:
-        raise AssertionError("tp path: " + "; ".join(fails))
-    return counts
+                fails.append(f"ViT-H/14 rank {rank}: {h['counts']}, "
+                             f"{h['heads']}, loss {h['loss']}")
+        if hh[0]["whole_digest"] != hh[1]["whole_digest"]:
+            fails.append("ViT-H/14: the replicated leaves differ between "
+                         "ranks")
+        h32 = ranks[0]["huge32"]
+        for r in ranks:
+            add(r["huge32"]["counts"])
+        d_loss = abs(h32["loss"] - h32["one_loss"])
+        launches_ok = all(
+            r["huge32"]["counts"]["masked_attention_fused"] == 64
+            and r["huge32"]["counts"]["masked_attention_bwd"] == 32
+            and r["huge32"]["counts"][W80] == 64
+            and r["huge32"]["counts"][BWD80] == 32
+            and r["huge32"]["heads"] == [8] for r in ranks)
+        say(f"tp path ViT-H/14 f32 step (B={huge32}, 8 heads of 80 a rank) vs "
+            f"one rank: loss {h32['loss']:.6f} vs {h32['one_loss']:.6f} (diff "
+            f"{d_loss:.3e}, tol {TRAIN_TOL['loss']}), parameter changes max "
+            f"abs dev {h32['worst']:.3e} (atol {atol}, rtol {rtol}); launches "
+            f"a rank {h32['counts'][W80]} / {h32['counts'][BWD80]} at width "
+            f"80 (expected 64 / 32) held on both ranks: {launches_ok}")
+        if d_loss > TRAIN_TOL["loss"] or h32["bad"] or not launches_ok:
+            fails.append(f"ViT-H/14 f32 tp step vs one rank: loss {d_loss}, "
+                         f"{h32['bad']}, launches "
+                         f"{[r['huge32']['counts'] for r in ranks]}")
+        # the pipeline
+        pp = [r["pipeline"] for r in ranks]
+        for m_ in (2, 4):
+            devs = [max(float((p[f"fwd{m_}"][k] - ref["pipeline"][k]).abs()
+                              .max()) for p in pp)
+                    for k in ("rollout_row", "logits")]
+            say(f"pipeline path, 2 stages, M = {m_}, f32 B={batch32} vs one "
+                f"rank (per-sample norm): rollout row {devs[0]:.3e} (gate "
+                f"{TP_GATES['row32']}), logits {devs[1]:.3e} (gate "
+                f"{TP_GATES['logits32']})")
+            if devs[0] > TP_GATES["row32"] or devs[1] > TP_GATES["logits32"]:
+                fails.append(f"pipeline_forward M={m_}: {devs}")
+        d_loss = abs(pp[0]["loss"] - p_loss)
+        worst, bad = delta_excess(pp[0]["state"], p_one, before, (atol, rtol))
+        launched = sum(v for p in pp for v in p["counts"].values())
+        say(f"pipeline path pipeline_train_step (M = 2) vs one-rank "
+            f"train_step: loss {d_loss:.3e}, parameter changes max abs dev "
+            f"{worst:.3e}; blocks a stage {pp[0]['blocks']} / "
+            f"{pp[1]['blocks']}, block bytes {pp[0]['block_bytes']} / "
+            f"{pp[1]['block_bytes']}; kernel "
+            f"launches {launched} (expected 0: the eager path)")
+        if d_loss > TRAIN_TOL["loss"] or bad or launched or \
+                [len(p["blocks"]) for p in pp] != [depth // 2] * 2:
+            fails.append(f"pipeline step: loss {d_loss}, {bad}, launches "
+                         f"{launched}, blocks {[p['blocks'] for p in pp]}")
+        if fails:
+            raise AssertionError("tp path: " + "; ".join(fails))
+        return counts
+    return check
 
 
 # phase 23, sequence-parallel training of ViT-L/16@384 and the batch-sharded
@@ -4675,8 +4780,14 @@ def _sp_rank(workdir):
     return out
 
 
-def seq_train_path(batch32=2, batch=4, cam_batch=4, weights=QUALITY_PARAMS):
-    """Phase 23: sequence-parallel training of ViT-L/16@384 at full width
+def sp_prepare(work, batch32=2, batch=4, cam_batch=4, weights=QUALITY_PARAMS):
+    """Phase 23's part in this process, before its ranks (``_sp_rank``) run
+    in ``parallel_path``'s spawn: ViT-L/16@384 built once and its one-rank
+    steps, the export inputs, the ranks' inputs saved into ``work``.
+    Returns the check of the ranks' results, ``check(ranks) -> launch
+    counts``.
+
+    Phase 23: sequence-parallel training of ViT-L/16@384 at full width
     and depth (24 layers, C = 1024, N = 577 over two ranks: 289 and 288
     rows, padded to 578) on the eager path, two gloo ranks sharing the card:
     a float32 step at batch 2 against one rank's (TRAIN_TOL), three
@@ -4690,10 +4801,7 @@ def seq_train_path(batch32=2, batch=4, cam_batch=4, weights=QUALITY_PARAMS):
     64 in int8 and bf16 by the two ranks (``--check`` bit for bit on each,
     the sidecar's ``nr_devices`` 2, each rank's launches a call), against
     the one-rank artifact at batch 64, and ``serve_artifact`` of the int8
-    one on both ranks.  Returns the launch counts to add to the kernels
-    line."""
-    import tempfile
-
+    one on both ranks."""
     import PIL.Image
     from vision_transformer_cam_tpu_torch import configs
     from vision_transformer_cam_tpu_torch.cli import export as ecli
@@ -4701,7 +4809,6 @@ def seq_train_path(batch32=2, batch=4, cam_batch=4, weights=QUALITY_PARAMS):
         load_and_preprocess)
     from vision_transformer_cam_tpu_torch.kernels import ops as kops
     from vision_transformer_cam_tpu_torch.models.vit import ViTCAM
-    from vision_transformer_cam_tpu_torch.parallel.worker import launch
     from vision_transformer_cam_tpu_torch.scripts import quality_eval as qe
     from vision_transformer_cam_tpu_torch.scripts.dryrun_multichip import (
         OPTIM, delta_excess)
@@ -4726,84 +4833,84 @@ def seq_train_path(batch32=2, batch=4, cam_batch=4, weights=QUALITY_PARAMS):
         for k, v in c.items():
             counts[k] = counts.get(k, 0) + v
 
-    with tempfile.TemporaryDirectory() as work:
-        # the one-rank peaks are read net of what the earlier phases left
-        # allocated in this process (a rank starts empty)
-        held = torch.cuda.memory_allocated()
-        t0 = time.perf_counter()
-        model = ViTCAM(cfg32, device="cuda",
-                       generator=torch.Generator().manual_seed(0))
-        torch.save(model, os.path.join(work, "sp_model.pt"))
-        before = {k: v.detach().cpu().clone()
-                  for k, v in model.state_dict().items()}
-        build_s = time.perf_counter() - t0
-        b32, bm = seeded_batch(batch32, 81, size=384), \
-            seeded_batch(batch, 82, size=384)
-        f32 = tuple(torch.from_numpy(b32[k]) for k in ("image", "label"))
-        mixed = tuple(torch.from_numpy(bm[k]) for k in ("image", "label"))
-        # one rank: the float32 step, and a mixed step's peak memory
-        opt, _ = statelib.make_optimizer(model, optim, batch32, 100)
-        st = statelib.create_train_state(model, opt)
-        torch.cuda.reset_peak_memory_stats()
-        st, met = steplib.train_step(st, *(t.cuda() for t in f32))
-        one = {"loss": float(met["loss"]),
-               "peak": torch.cuda.max_memory_allocated() - held,
-               "state": {k: v.detach().cpu() for k, v in
-                         model.state_dict().items()}}
-        del st, opt, model
-        gc_cuda()
-        model = torch.load(os.path.join(work, "sp_model.pt"),
-                           map_location="cuda", weights_only=False)
-        model.cfg = cfg_mixed
-        opt, _ = statelib.make_optimizer(model, mixed_optim, batch, 100)
-        st = statelib.create_train_state(model, opt)
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        st, met = steplib.train_step(st, *(t.cuda() for t in mixed))
-        one["mixed_loss"] = float(met["loss"])
-        one["mixed_ms"] = 1e3 * (time.perf_counter() - t1)
-        one["mixed_peak"] = torch.cuda.max_memory_allocated() - held
-        del st, opt, model
-        gc_cuda()
+    # the one-rank peaks are read net of what the earlier phases left
+    # allocated in this process (a rank starts empty)
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = ViTCAM(cfg32, device="cuda",
+                   generator=torch.Generator().manual_seed(0))
+    torch.save(model, os.path.join(work, "sp_model.pt"))
+    before = {k: v.detach().cpu().clone()
+              for k, v in model.state_dict().items()}
+    build_s = time.perf_counter() - t0
+    b32, bm = seeded_batch(batch32, 81, size=384), \
+        seeded_batch(batch, 82, size=384)
+    f32 = tuple(torch.from_numpy(b32[k]) for k in ("image", "label"))
+    mixed = tuple(torch.from_numpy(bm[k]) for k in ("image", "label"))
+    # one rank: the float32 step, and a mixed step's peak memory
+    opt, _ = statelib.make_optimizer(model, optim, batch32, 100)
+    st = statelib.create_train_state(model, opt)
+    torch.cuda.reset_peak_memory_stats()
+    st, met = steplib.train_step(st, *(t.cuda() for t in f32))
+    one = {"loss": float(met["loss"]),
+           "peak": torch.cuda.max_memory_allocated() - held,
+           "state": {k: v.detach().cpu() for k, v in
+                     model.state_dict().items()}}
+    del st, opt, model
+    gc_cuda()
+    model = torch.load(os.path.join(work, "sp_model.pt"),
+                       map_location="cuda", weights_only=False)
+    model.cfg = cfg_mixed
+    opt, _ = statelib.make_optimizer(model, mixed_optim, batch, 100)
+    st = statelib.create_train_state(model, opt)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    st, met = steplib.train_step(st, *(t.cuda() for t in mixed))
+    one["mixed_loss"] = float(met["loss"])
+    one["mixed_ms"] = 1e3 * (time.perf_counter() - t1)
+    one["mixed_peak"] = torch.cuda.max_memory_allocated() - held
+    del st, opt, model
+    gc_cuda()
 
-        # the export inputs: quality_eval's calibration batch, 64 seeded
-        # images, 70 generated JPEGs
-        calib = os.path.join(work, "calib.npy")
-        np.save(calib, qe.make_batch(777, 16)[0].numpy())
-        x64 = torch.from_numpy(np.random.default_rng(23).standard_normal(
-            (EXPORT_BATCH, 224, 224, 3), dtype=np.float32))
-        jpegs = os.path.join(work, "jpegs")
-        os.makedirs(jpegs)
-        images, _ = qe.make_batch(9998, SERVE_IMAGES)
-        names = [f"img_{i:03d}" for i in range(SERVE_IMAGES)]
-        mean = np.asarray((0.485, 0.456, 0.406), np.float32)
-        std = np.asarray((0.229, 0.224, 0.225), np.float32)
-        for name, img in zip(names, images.numpy()):
-            u8 = np.clip(np.rint((img * std + mean) * 255), 0, 255)
-            PIL.Image.fromarray(u8.astype(np.uint8)).save(
-                os.path.join(jpegs, name + ".jpg"), quality=95)
-        torch.save(dict(cfg32=cfg32.replace(**seq),
-                        cfg_mixed=cfg_mixed.replace(**seq), optim=optim,
-                        mixed_optim=mixed_optim, f32=f32, mixed=mixed,
-                        cam_x=torch.from_numpy(seeded_batch(
-                            cam_batch, 83, size=384)["image"]),
-                        x64=x64, calib=calib, jpegs=jpegs,
-                        weights_argv=weights_argv),
-                   os.path.join(work, "sp_inputs.pt"))
-        say(f"{phase}: ViT-L/16@384 ({cfg.depth} layers, C={cfg.embed_dim}, "
-            f"N={cfg.seq_len}: {-(-cfg.seq_len // 2)} + "
-            f"{cfg.seq_len - -(-cfg.seq_len // 2)} rows over 2 ranks, padded "
-            f"to {2 * -(-cfg.seq_len // 2)}) built once on the host in "
-            f"{build_s:.1f} s; one rank: float32 step B={batch32} loss "
-            f"{one['loss']:.6f}, peak {one['peak'] / 2**30:.2f} GiB; mixed "
-            f"step B={batch} {one['mixed_ms']:.1f} ms, peak "
-            f"{one['mixed_peak'] / 2**30:.2f} GiB")
-        t0 = time.perf_counter()
-        ranks = launch(_sp_rank, (work,), world=2, timeout=900)
-        say(f"{phase}: 2 ranks on one card, transport "
-            f"{ranks[0]['transport']}, {time.perf_counter() - t0:.1f} s with "
-            "the processes' start")
+    # the export inputs: quality_eval's calibration batch, 64 seeded
+    # images, 70 generated JPEGs
+    calib = os.path.join(work, "calib.npy")
+    np.save(calib, qe.make_batch(777, 16)[0].numpy())
+    x64 = torch.from_numpy(np.random.default_rng(23).standard_normal(
+        (EXPORT_BATCH, 224, 224, 3), dtype=np.float32))
+    jpegs = os.path.join(work, "jpegs")
+    os.makedirs(jpegs)
+    images, _ = qe.make_batch(9998, SERVE_IMAGES)
+    names = [f"img_{i:03d}" for i in range(SERVE_IMAGES)]
+    mean = np.asarray((0.485, 0.456, 0.406), np.float32)
+    std = np.asarray((0.229, 0.224, 0.225), np.float32)
+    for name, img in zip(names, images.numpy()):
+        u8 = np.clip(np.rint((img * std + mean) * 255), 0, 255)
+        PIL.Image.fromarray(u8.astype(np.uint8)).save(
+            os.path.join(jpegs, name + ".jpg"), quality=95)
+    torch.save(dict(cfg32=cfg32.replace(**seq),
+                    cfg_mixed=cfg_mixed.replace(**seq), optim=optim,
+                    mixed_optim=mixed_optim, f32=f32, mixed=mixed,
+                    cam_x=torch.from_numpy(seeded_batch(
+                        cam_batch, 83, size=384)["image"]),
+                    x64=x64, calib=calib, jpegs=jpegs,
+                    weights_argv=weights_argv),
+               os.path.join(work, "sp_inputs.pt"))
+    say(f"{phase}: ViT-L/16@384 ({cfg.depth} layers, C={cfg.embed_dim}, "
+        f"N={cfg.seq_len}: {-(-cfg.seq_len // 2)} + "
+        f"{cfg.seq_len - -(-cfg.seq_len // 2)} rows over 2 ranks, padded "
+        f"to {2 * -(-cfg.seq_len // 2)}) built once on the host in "
+        f"{build_s:.1f} s; one rank: float32 step B={batch32} loss "
+        f"{one['loss']:.6f}, peak {one['peak'] / 2**30:.2f} GiB; mixed "
+        f"step B={batch} {one['mixed_ms']:.1f} ms, peak "
+        f"{one['mixed_peak'] / 2**30:.2f} GiB")
+    say(f"{phase}: set up in {time.perf_counter() - t_phase:.1f} s")
+
+    def check(ranks):
+        """Phase 23's gates on its ranks' results."""
+        ranks = [r["sp"] for r in ranks]
+        say(f"{phase}: transport {ranks[0]['transport']}")
         fails = []
 
         # (a) the float32 step
@@ -4952,10 +5059,68 @@ def seq_train_path(batch32=2, batch=4, cam_batch=4, weights=QUALITY_PARAMS):
             fails.append(f"serve_artifact on 2 ranks: rc "
                          f"{[s['rc'] for s in sa]}, {overlays} overlays, "
                          f"{len(got_lines)} lines, counts ok {sa_counts_ok}")
-    say(f"{phase}: {time.perf_counter() - t_phase:.1f} s in all; launches "
-        f"{ {k: v for k, v in counts.items() if v} }")
-    if fails:
-        raise AssertionError(f"{phase}: " + "; ".join(fails))
+        say(f"{phase}: launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        if fails:
+            raise AssertionError(f"{phase}: " + "; ".join(fails))
+        return counts
+    return check
+
+
+def _parallel_rank(workdir):
+    """One rank of phases 21, 22 and 23, all run by one spawn of two ranks
+    on one process group: phase 21's training sections
+    (``_dp_train_rank``) and its ``cli.validate --data_parallel`` runs
+    (``_dp_validate_rank``, in the faked tree), phase 22's sections
+    (``_tp_rank``), then phase 23's (``_sp_rank``).  Returns every result
+    and each phase's wall time."""
+    t = [time.perf_counter()]
+    dp = torch.load(os.path.join(workdir, "dp_ranks.pt"))
+    train = _dp_train_rank(workdir, dp["batch32"], dp["batch"])
+    gc_cuda()
+    cwd = os.getcwd()
+    os.chdir(dp["root"])
+    try:
+        validate = _dp_validate_rank(dp["argvs"])
+    finally:
+        os.chdir(cwd)
+    gc_cuda()
+    t.append(time.perf_counter())
+    tp = _tp_rank(workdir)
+    gc_cuda()
+    t.append(time.perf_counter())
+    sp = _sp_rank(workdir)
+    t.append(time.perf_counter())
+    return {"train": train, "validate": validate, "tp": tp, "sp": sp,
+            "seconds": [b - a for a, b in zip(t, t[1:])]}
+
+
+def parallel_path():
+    """Phases 21 (data parallelism), 22 (tensor parallelism and the
+    pipeline) and 23 (sequence-parallel training and the batch-sharded
+    artifact) in one spawn of two gloo ranks sharing the card, with every
+    check, gate, depth and width each phase has (``dp_prepare``,
+    ``tp_prepare``, ``sp_prepare``): the parent sets up the three, the
+    ranks run their sections in turn, the parent checks the three.  Returns
+    each phase's launch counts."""
+    import tempfile
+
+    from vision_transformer_cam_tpu_torch.parallel.worker import launch
+    with tempfile.TemporaryDirectory() as work:
+        t = [time.perf_counter()]
+        checks = []
+        for prepare in (dp_prepare, tp_prepare, sp_prepare):
+            checks.append(prepare(work))
+            t.append(time.perf_counter())
+        ranks = launch(_parallel_rank, (work,), world=2, timeout=1200)
+        t.append(time.perf_counter())
+        secs = ranks[0]["seconds"]
+        say(f"phases 21-23: set-up {t[1] - t[0]:.1f} / {t[2] - t[1]:.1f} / "
+            f"{t[3] - t[2]:.1f} s; one spawn of 2 ranks {t[4] - t[3]:.1f} s "
+            f"with the processes' start, rank 0's sections {secs[0]:.1f} / "
+            f"{secs[1]:.1f} / {secs[2]:.1f} s (21 / 22 / 23)")
+        counts = [check(ranks) for check in checks]
+        say(f"phases 21-23: the checks {time.perf_counter() - t[4]:.1f} s")
     return counts
 
 
@@ -5598,9 +5763,16 @@ def zoo_serve(label, name, requests, batch, bench_batch, whole_b):
     """One zoo model at full width served through apply_serving_mode: bf16
     (held to the eager path), int8 and int8_hifi (ln_quant_fusion and
     int8_fused_gemm on, as main_path; each held to the same quantized model
-    on the CPU), ``requests`` requests of ``batch`` images with the rollout
-    CAM and their launch counts; then img/s at ``bench_batch`` in turns (bf16,
-    bf16 eager, int8, int8_hifi).  Returns (launch counts, {mode: img/s})."""
+    on the CPU), and with ``mlp_fusion`` (the fused MLP kernels in two column
+    groups at these widths; the block kernel takes C <= 768 and stays off):
+    bf16 fused (held to the bf16 kernel path within ZOO_BF16_GATES) and int8
+    fused (held within WHOLE_TOL to the same model's unfused int8 path on
+    the card: its rows are held to the plain versions by check_mlp_int8 at
+    these widths, bit for bit); ``requests`` requests
+    of ``batch`` images with the rollout CAM and their launch counts (the
+    fused MLP kernels' under the wide rows, MLP_W / MLP8_W); then img/s at
+    ``bench_batch`` in turns (bf16, bf16 eager, int8, int8_hifi, bf16 fused,
+    int8 fused).  Returns (launch counts, {mode: img/s})."""
     from vision_transformer_cam_tpu_torch import serving
     from vision_transformer_cam_tpu_torch.ops.rollout import (
         cam_from_rollout_row)
@@ -5620,9 +5792,12 @@ def zoo_serve(label, name, requests, batch, bench_batch, whole_b):
 
     reqs = [images(batch) for _ in range(requests)]
     totals, served = {}, {}
+    c = cfg.embed_dim
+    wide = {"mlp_fused": MLP_W[c], "mlp_fused_int8": MLP8_W[c]}
 
     def add(counts):
         for k, v in counts.items():
+            k = wide.get(k, k)
             totals[k] = totals.get(k, 0) + v
 
     model = serving.apply_serving_mode(copy.deepcopy(base), "bf16")
@@ -5649,6 +5824,24 @@ def zoo_serve(label, name, requests, batch, bench_batch, whole_b):
     del refs
     served["bf16"] = (model, kcfg)
     served["bf16 eager"] = (model, kcfg.replace(attn_impl="eager"))
+    # the bf16 fused path: the fused MLP kernel on every layer
+    model.cfg = kcfg.replace(mlp_fusion=True)
+    outs, counts = serve(model, reqs, {"masked_attention_fused": depth,
+                                       W80: w80, "mlp_fused": depth},
+                         f"{label} bf16 fused")
+    add(counts)
+    served["bf16 fused"] = (model, model.cfg)
+    model.cfg = kcfg
+    d_cam, d_logit, ov = deviation(outs, outs_bf16)
+    say(f"{label} bf16 fused vs bf16 kernel path: CAM max abs dev "
+        f"{d_cam:.3e} (tol {ZOO_BF16_GATES['cam']}), logits max abs dev "
+        f"{d_logit:.3e} (tol {ZOO_BF16_GATES['logits']}), "
+        f"top-{cfg.top_k_patches} overlap {ov:.4f}")
+    if not (d_cam <= ZOO_BF16_GATES["cam"]
+            and d_logit <= ZOO_BF16_GATES["logits"]):
+        raise AssertionError(f"{label}: bf16 fused path disagrees with the "
+                             "bf16 kernel path")
+    del outs
     calib = np.random.default_rng(1).standard_normal(
         (16, size, size, 3), dtype=np.float32)
     for mode in ("int8", "int8_hifi"):
@@ -5667,6 +5860,28 @@ def zoo_serve(label, name, requests, batch, bench_batch, whole_b):
             f"max abs dev {d_cam:.3e}, logits max abs dev {d_logit:.3e}, "
             f"top-{cfg.top_k_patches} overlap {ov:.4f}")
         served[mode] = (qm, qm.cfg)
+        if mode != "int8":
+            continue
+        # the int8 fused path: the same model with mlp_fusion on, the fused
+        # int8 MLP kernel in place of fc1, fc2 and the second ln_quant
+        qm.cfg = qm.cfg.replace(mlp_fusion=True)
+        outs_f, counts = serve(
+            qm, reqs, {"masked_attention_fused": depth, W80: w80,
+                       "linear_int8_fused": 1 + 2 * depth,
+                       "ln_quant": depth if qm.cfg.int8_attn_io else 0,
+                       "mlp_fused_int8": depth}, f"{label} int8 fused")
+        add(counts)
+        d_cam, d_logit, ov = deviation(outs_f, outs)
+        say(f"{label} int8 fused vs the same model's int8 path on the card: "
+            f"CAM max abs dev {d_cam:.3e} (tol {WHOLE_TOL['cam']}), logits "
+            f"max abs dev {d_logit:.3e} (tol {WHOLE_TOL['logits']}), "
+            f"top-{cfg.top_k_patches} overlap {ov:.4f}")
+        if not (d_cam <= WHOLE_TOL["cam"] and d_logit <= WHOLE_TOL["logits"]):
+            raise AssertionError(f"{label}: int8 fused path disagrees with "
+                                 "the int8 path")
+        served["int8 fused"] = (qm, qm.cfg)
+        qm.cfg = served["int8"][1]
+        del outs_f
     del base, outs_bf16, outs
     torch.cuda.empty_cache()
     xb = images(bench_batch)
@@ -5682,7 +5897,8 @@ def zoo_serve(label, name, requests, batch, bench_batch, whole_b):
             cam_from_rollout_row(m(xb, need_rollout=True).rollout_row, g)
         torch.cuda.synchronize()
         return bench_batch * iters / (time.perf_counter() - t)
-    order = ("bf16", "bf16 eager", "int8", "int8_hifi")
+    order = ("bf16", "bf16 eager", "int8", "int8_hifi", "bf16 fused",
+             "int8 fused")
     rates = {}
     for mode in order + order[::-1]:
         rates.setdefault(mode, []).append(rate(mode))
@@ -5744,6 +5960,98 @@ def zoo_entry_points():
         f"{int(np.argmax(arts['probs_head1']))}")
     for k, v in counts.items():
         totals[k] = totals.get(k, 0) + v
+    return totals
+
+
+def wide_entry_points(f32_batch=4, export_batch=8):
+    """The entry points that reach the fused MLP kernels at the zoo's wide
+    widths, each on the card without a refusal (not a phase of ``main``;
+    run it after ``build_kernels``): ``bench --mlp-fusion`` at ViT-H/14
+    (int8 and --bf16, batch 64) and at ViT-L/16@512 (int8, batch 32), their
+    launch counts held; ViT-H/14 at float32 (serving off) with
+    ``mlp_fusion`` (the FMA design in two column groups) against the eager
+    path at ``f32_batch``, at main_path's float32 gates; ``cli.export`` of
+    ViT-H/14 in bf16 with ``mlp_fusion`` through ``build_fn``'s overrides
+    at ``export_batch``, ``--check`` bit for bit and one artifact call's
+    launches.  Returns the launch counts."""
+    import tempfile
+
+    from vision_transformer_cam_tpu_torch import configs
+    from vision_transformer_cam_tpu_torch.cli import export as ecli
+    from vision_transformer_cam_tpu_torch.models.vit import ViTCAM
+    fwd = 2 + 10 * 3                        # forwards of a bench run
+    vith = ["--model", HUGE, "--batch", "64", "--mlp-fusion"]
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+    for argv, per in (
+            (vith, {"masked_attention_fused": 32, W80: 32,
+                    "linear_int8_fused": 65, "mlp_fused_int8": 32}),
+            (vith + ["--bf16"], {"masked_attention_fused": 32, W80: 32,
+                                 "mlp_fused": 32}),
+            (["--model", "vit_large_patch16_512", "--batch", "32",
+              "--mlp-fusion"],
+             {"masked_attention_fused": 24, "linear_int8_fused": 49,
+              "mlp_fused_int8": 24})):
+        add(bench_run(argv, {k: v * fwd for k, v in per.items()}))
+    # float32: the fused kernel path against the eager path
+    cfg = configs.resolve_model(HUGE)(num_classes=20)
+    model = ViTCAM(cfg, device="cuda",
+                   generator=torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (f32_batch, cfg.img_size, cfg.img_size, 3), dtype=np.float32)).cuda()
+    want = model(x, need_rollout=True)
+    model.cfg = cfg.replace(attn_impl="kernel", mlp_fusion=True)
+    reset_counts()
+    got = model(x, need_rollout=True)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    add(counts)
+    d_roll = float((got.rollout_row - want.rollout_row).abs().max())
+    d_logit = float((got.logits - want.logits).abs().max())
+    say(f"wide entry points: ViT-H/14 f32 fused kernel path vs eager "
+        f"(B={f32_batch}): rollout row {d_roll:.3e} (tol 1e-5), logits "
+        f"{d_logit:.3e} (tol 2e-4); launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    del model, got, want
+    gc_cuda()
+    if not (d_roll <= 1e-5 and d_logit <= 2e-4) or \
+            (counts["mlp_fused"], counts[W80]) != (32, 32):
+        raise AssertionError("ViT-H/14 f32 fused kernel path disagrees with "
+                             "the eager path, or did not run its kernels")
+    # the serving artifact of the bf16 fused configuration
+    with tempfile.TemporaryDirectory() as work:
+        out = os.path.join(work, "vith_bf16_fused.pt2")
+        args = ecli.build_parser().parse_args([
+            "--model_name", HUGE, "--serving", "bf16", "--batch",
+            str(export_batch), "--out", out, "--check"])
+        reset_counts()
+        t0 = time.perf_counter()
+        fn, cfg, prov = ecli.build_fn(args, mlp_fusion=True)
+        _, text = _capture(ecli.write_artifact, args, fn, cfg, prov)
+        torch.cuda.synchronize()
+        per_fwd = {"masked_attention_fused": 32, W80: 32, "mlp_fused": 32}
+        add(_expect("ViT-H/14 bf16 fused export --check",
+                    {k: 2 * v for k, v in per_fwd.items()}, phase="wide"))
+        if "bit-identical" not in text:
+            raise AssertionError("ViT-H/14 bf16 fused export: no --check "
+                                 "line")
+        program = torch.export.load(out).module()
+        xe = torch.from_numpy(np.random.default_rng(5).standard_normal(
+            (export_batch, 224, 224, 3), dtype=np.float32)).cuda()
+        with torch.no_grad():
+            reset_counts()
+            res = program(xe)
+            torch.cuda.synchronize()
+        add(_expect("ViT-H/14 bf16 fused artifact call", per_fwd,
+                    phase="wide"))
+        if not all(torch.isfinite(r.float()).all() for r in res):
+            raise AssertionError("ViT-H/14 bf16 fused artifact: outputs")
+        say(f"wide entry points: ViT-H/14 bf16 fused export + --check "
+            f"{time.perf_counter() - t0:.1f} s, "
+            f"{os.path.getsize(out) / 1e6:.1f} MB")
     return totals
 
 
@@ -6345,20 +6653,14 @@ def main() -> int:
         seq_path()["masked_attention_seq_local"]
     validate_path()
     lap("phases 9-10")
-    # phase 21, data parallelism: two ranks sharing the card; their launches
-    for name, count in dp_path().items():
-        launches[name] = launches.get(name, 0) + count
-    lap("phase 21")
-    # phase 22, tensor parallelism and the pipeline: two ranks sharing the
-    # card; their launches
-    for name, count in tp_path().items():
-        launches[name] = launches.get(name, 0) + count
-    lap("phase 22")
-    # phase 23, sequence-parallel training and the batch-sharded artifact:
-    # two ranks sharing the card; their launches
-    for name, count in seq_train_path().items():
-        launches[name] = launches.get(name, 0) + count
-    lap("phase 23")
+    # phase 21, data parallelism, phase 22, tensor parallelism and the
+    # pipeline, and phase 23, sequence-parallel training and the
+    # batch-sharded artifact: one spawn of two ranks sharing the card; their
+    # launches
+    for counts in parallel_path():
+        for name, count in counts.items():
+            launches[name] = launches.get(name, 0) + count
+    lap("phases 21-23")
     # the measurement entry points: the launch counts of every run are set to
     # 0 before it and read after it
     variant_ms, variant_launches, _ = time_attn_variants()
@@ -6400,8 +6702,15 @@ def main() -> int:
            for dh in NEW_WIDTHS},
         **{BWD_W[dh]: (width_errs[1][dh], *width_ms[1][dh][:2])
            for dh in NEW_WIDTHS},
-        "mlp_fused": (mlp_err, *fused_ms["mlp_fused"][:2]),
-        "mlp_fused_int8": (mlp8_err, *fused_ms["mlp_fused_int8"][:2]),
+        "mlp_fused": (mlp_err[768], *fused_ms["mlp_fused"][:2]),
+        "mlp_fused_int8": (mlp8_err[768], *fused_ms["mlp_fused_int8"][:2]),
+        # the wide widths: the worst error of their checks (bf16; int8 at
+        # float32 out), the time at MLP_TIMED
+        **{MLP_W[c]: (mlp_err[c], *fused_ms[("mlp_fused", f"C={c}")][:2])
+           for c in MLP_W},
+        **{MLP8_W[c]: (mlp8_err[c],
+                       *fused_ms[("mlp_fused_int8", f"C={c}")][:2])
+           for c in MLP8_W},
         "attention_block_fused": (
             block_errs[("bfloat16", True, True, 197, "30% bg")],
             *fused_ms["attention_block_fused"][:2]),

@@ -226,10 +226,12 @@ def test_mlp_fused_int8_checks():
 
 
 # the design each (C, HID) takes at bf16 and int8: the wgmma design where C
-# and HID are multiples of 64 (C <= 768), the mma design elsewhere; no kernel
-# past C = 768
+# and HID are multiples of 64, the mma design elsewhere; ViT-L's and ViT-H's
+# widths in two column groups; no kernel past the wgmma design's widest C
+# (1280 at bf16, 2688 at int8), where float32 keeps the FMA design
 MLP_ROUTES = {(768, 3072): "wgmma", (64, 256): "wgmma", (72, 200): "mma",
-              (66, 150): "mma", (1024, 4096): None}
+              (66, 150): "mma", (1024, 4096): "wgmma", (1280, 5120): "wgmma",
+              (2752, 11008): None}
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32", "int8"])
@@ -237,14 +239,15 @@ MLP_ROUTES = {(768, 3072): "wgmma", (64, 256): "wgmma", (72, 200): "mma",
 def test_mlp_design_routes_by_shape(shape, dtype):
     """``mlp_design`` is the one rule the two wrappers route by: float32
     keeps the FMA design (TF32 would change the numbers), bf16 and int8 take
-    the wgmma design where the TMA boxes and wgmma tiles fit, and C past 768
-    has no kernel.  The private switches turn "wgmma" into "mma" only."""
+    the wgmma design where the TMA boxes and wgmma tiles fit, and a width
+    whose block would not fit in shared memory has no kernel (it raises,
+    naming the bytes).  The private switches turn "wgmma" into "mma" only."""
     c, hid = shape
     dt = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "int8": torch.int8}[dtype]
     want = MLP_ROUTES[shape]
-    if want is None:
-        with pytest.raises(ValueError, match="C <= 768"):
+    if want is None and dt != torch.float32:
+        with pytest.raises(ValueError, match=r"needs \d+ bytes of shared"):
             tgemm.mlp_design(c, hid, dt)
         return
     if dt == torch.float32:
@@ -260,6 +263,45 @@ def test_mlp_design_routes_by_shape(shape, dtype):
     finally:
         setattr(tgemm, switch, saved)
     assert set(tgemm.MLP_DESIGNS) == {"wgmma", "mma", "fma"}
+
+
+def test_mlp_design_limits_follow_shared_memory():
+    """The widths each design takes follow from the shared memory a block
+    needs (``mlp_smem_bytes``, the CUDA sources' formulas): at C = 768 the
+    figures the kernels state (their occupancy reading), the wgmma ring
+    shrinking to 3 / 2 stages (bf16) and 6 / 5 (int8) at C = 1024 / 1280,
+    and past the widest C a raise that names the bytes."""
+    sm = tgemm.mlp_smem_bytes
+    assert tgemm.MLP_SMEM_LIMIT == 232448
+    assert (sm(768, "wgmma", torch.bfloat16), sm(768, "wgmma", torch.int8),
+            sm(768, "mma", torch.bfloat16), sm(768, "mma", torch.int8)) == \
+        (214088, 205928, 189952, 197632)
+    stage = 24576 + 16
+    assert sm(1024, "wgmma", torch.bfloat16) == 1024 + 16 * 8192 + 16384 + 8 \
+        + 3 * stage
+    assert sm(1280, "wgmma", torch.bfloat16) == 1024 + 20 * 8192 + 16384 + 8 \
+        + 2 * stage
+    assert sm(1024, "wgmma", torch.int8) == 1024 + 8 * 8192 + 8192 + 8 \
+        + 6 * stage
+    assert sm(1280, "wgmma", torch.int8) == 1024 + 10 * 8192 + 8192 + 8 \
+        + 5 * stage
+    # the float kernels of mlp_fused.cu do not grow past one column group
+    assert sm(768, "fma", torch.float32) == sm(5120, "fma", torch.float32)
+    assert tgemm.MLP_MAX_C == {("wgmma", torch.bfloat16): 1280,
+                               ("wgmma", torch.int8): 2688,
+                               ("mma", torch.int8): 1856}
+    with pytest.raises(ValueError, match="C=1344 needs 238632 bytes"):
+        tgemm.mlp_design(1344, 5376, torch.bfloat16)
+    assert tgemm.mlp_design(1344, 5376, torch.int8) == "wgmma"
+    assert tgemm.mlp_design(1344, 5376, torch.float32) == "fma"
+    saved = tgemm._mlp_int8_design
+    tgemm._mlp_int8_design = "mma"
+    try:
+        with pytest.raises(ValueError, match="mma design at int8 takes C "
+                           "<= 1856"):
+            tgemm.mlp_design(1920, 7680, torch.int8)
+    finally:
+        tgemm._mlp_int8_design = saved
 
 
 def test_mlp_design_rejects_other_types():

@@ -154,6 +154,10 @@ def load():
         lib.vitcam_mlp_fused_smem_bytes.restype = ctypes.c_size_t
         lib.vitcam_mlp_wgmma_smem_bytes.argtypes = [i, i]
         lib.vitcam_mlp_wgmma_smem_bytes.restype = ctypes.c_size_t
+        lib.vitcam_mlp_wgmma_ring_stages.argtypes = [i, i]
+        lib.vitcam_mlp_wgmma_ring_stages.restype = i
+        lib.vitcam_mlp_wgmma_group_cols.argtypes = [i]
+        lib.vitcam_mlp_wgmma_group_cols.restype = i
         lib.vitcam_attention_block_smem_bytes.argtypes = [i, i, i, i, i]
         lib.vitcam_attention_block_smem_bytes.restype = ctypes.c_size_t
         lib.vitcam_masked_attention_bwd_smem_bytes.argtypes = [i, i, i]

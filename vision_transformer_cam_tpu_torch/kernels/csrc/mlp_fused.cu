@@ -4,11 +4,14 @@
 // _mlp_kernel (mlp_fused) and _mlp_int8_kernel (mlp_fused_int8).  What both
 // keep is the property, not the tiling: the [M, HID] hidden tensor never
 // reaches device memory.  The TPU kernels hold both weights and a [512, HID]
-// hidden tile in VMEM; an SM has 227 KB, so here a block owns 32 rows of x,
-// walks HID in chunks of 384, forms the chunk of the hidden tensor in shared
-// memory and adds its product with the matching columns of fc2 into a
-// [32, C] accumulator, also in shared memory.  The weights are read in the
-// torch layout [out, in] and stream from L2 (they are read once per 32 rows).
+// hidden tile in VMEM; an SM has 227 KB, so here a block owns 32 rows of x
+// and one group of at most 768 output columns (blockIdx.y), walks HID in
+// chunks of 384, forms the chunk of the hidden tensor in shared memory and
+// adds its product with the group's columns of fc2 into a [32, <= 768]
+// accumulator, also in shared memory.  To C = 768 one group covers C; past
+// it each group's blocks compute fc1 again (ViT-L's C = 1024 and ViT-H's
+// 1280: two groups).  The weights are read in the torch layout [out, in]
+// and stream from L2 (they are read once per 32 rows and group).
 //
 //   mlp_fused       h = gelu(x w1^T + b1) in float32 (f32 sums), rounded to
 //                   x's type; out = h w2^T + b2 in float32, then x's type.
@@ -29,8 +32,10 @@
 // kernel runs mma.sync.m16n8k32 on the int8 tensor cores, its weight chunks
 // double buffered the same way.  Each block streams both weights from L2 for
 // its 32 rows, and that traffic sets the pace (PERF.md).
-// Limit: C <= 768 for both kernels (the accumulator's shared memory); the
-// launch fails past it.
+// Limits: the float kernels take any C (their shared memory does not grow
+// past one group); the int8 kernel keeps the quantized rows of x, [32, C], in
+// shared memory beside the accumulator, which fits to C = 1856
+// (mlp_int8_smem_bytes); the launch fails past it.
 //
 // This is the earlier design.  bf16 and int8 calls whose shape the Hopper
 // design takes (mlp_fused_wgmma.cu: 64-row tiles, a TMA ring, wgmma) run that
@@ -52,11 +57,17 @@ namespace {
 constexpr int kTM = 4;
 constexpr int kBN = Tile<kTM>::kBN;            // 384: columns per tile, hidden chunk
 constexpr int kAcc = kTM * kGTN;               // accumulators per thread
+constexpr int kGroupTiles = 2;                 // column tiles of a group: 768 columns
 
 __host__ __device__ inline int col_tiles(int c) { return (c + kBN - 1) / kBN; }
+// column tiles a block's accumulator holds, and column groups of a call
+__host__ __device__ inline int acc_tiles(int c) {
+  return col_tiles(c) < kGroupTiles ? col_tiles(c) : kGroupTiles;
+}
+inline int col_groups(int c) { return (col_tiles(c) + kGroupTiles - 1) / kGroupTiles; }
 
 template <typename T> size_t mlp_smem_bytes(int c) {
-  return sizeof(float) * kGM * col_tiles(c) * kBN + sizeof(T) * kGM * (kBN + a_pad<T>()) +
+  return sizeof(float) * kGM * acc_tiles(c) * kBN + sizeof(T) * kGM * (kBN + a_pad<T>()) +
          stage_bytes<T, kTM>();
 }
 
@@ -68,17 +79,20 @@ mlp_fused_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __r
   using F = Frag<kTM, T>;
   constexpr int kHS = kBN + a_pad<T>();         // hidden chunk rows (A of fc2)
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int acc_stride = col_tiles(C) * kBN;
+  const int acc_stride = acc_tiles(C) * kBN;
   float* acc_s = reinterpret_cast<float*>(smem_raw);     // [kGM][acc_stride]
   T* h_s = reinterpret_cast<T*>(acc_s + kGM * acc_stride);   // [kGM][kHS]
   void* stage = h_s + kGM * kHS;
 
   const int row0 = blockIdx.x * kGM;
+  // the group's column tiles ct0 .. ct1 - 1, local tile ct - ct0 of acc_s
+  const int ct0 = blockIdx.y * kGroupTiles, ct1 = min(ct0 + kGroupTiles, col_tiles(C));
   // every accumulator element belongs to one thread, which alone reads and
   // writes it: no barrier guards acc_s
-  for (int ct = 0; ct < col_tiles(C); ++ct)
+  for (int ct = ct0; ct < ct1; ++ct)
 #pragma unroll
-    for (int e = 0; e < kAcc; ++e) acc_s[F::row(e) * acc_stride + ct * kBN + F::col(e)] = 0.f;
+    for (int e = 0; e < kAcc; ++e)
+      acc_s[F::row(e) * acc_stride + (ct - ct0) * kBN + F::col(e)] = 0.f;
 
   for (int hc0 = 0; hc0 < HID; hc0 += kBN) {
     float acc[kAcc];
@@ -98,26 +112,27 @@ mlp_fused_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __r
       h_s[F::row(e) * kHS + c] = from_f<T>(h);
     }
     const int kh = min(kBN, (HID - hc0 + kGK - 1) / kGK * kGK);
-    for (int ct = 0; ct < col_tiles(C); ++ct) {
+    for (int ct = ct0; ct < ct1; ++ct) {
 #pragma unroll
       for (int e = 0; e < kAcc; ++e)
-        acc[e] = acc_s[F::row(e) * acc_stride + ct * kBN + F::col(e)];
+        acc[e] = acc_s[F::row(e) * acc_stride + (ct - ct0) * kBN + F::col(e)];
       gemm_shared_a<kTM>(
           acc, h_s, kHS, w2, HID, [=](int c) { return ct * kBN + c < C ? ct * kBN + c : -1; },
           hc0, HID, kh, stage);
 #pragma unroll
       for (int e = 0; e < kAcc; ++e)
-        acc_s[F::row(e) * acc_stride + ct * kBN + F::col(e)] = acc[e];
+        acc_s[F::row(e) * acc_stride + (ct - ct0) * kBN + F::col(e)] = acc[e];
     }
   }
 
-  for (int ct = 0; ct < col_tiles(C); ++ct)
+  for (int ct = ct0; ct < ct1; ++ct)
 #pragma unroll
     for (int e = 0; e < kAcc; ++e) {
-      const int c = ct * kBN + F::col(e), r = row0 + F::row(e);
+      const int lc = (ct - ct0) * kBN + F::col(e), c = ct * kBN + F::col(e);
+      const int r = row0 + F::row(e);
       if (c < C && r < M)
         out[size_t(r) * C + c] =
-            from_f<T>(__fadd_rn(acc_s[F::row(e) * acc_stride + c], to_f(b2[c])));
+            from_f<T>(__fadd_rn(acc_s[F::row(e) * acc_stride + lc], to_f(b2[c])));
     }
 }
 
@@ -138,7 +153,7 @@ constexpr int kW8Buf = kBN * kW8Stride;        // bytes of one staging buffer
 __host__ __device__ inline int xq_stride(int c) { return (c + kK8 - 1) / kK8 * kK8 + 16; }
 
 size_t mlp_int8_smem_bytes(int c) {
-  return size_t(kGM) * xq_stride(c) + sizeof(int) * kGM * col_tiles(c) * kBN +
+  return size_t(kGM) * xq_stride(c) + sizeof(int) * kGM * acc_tiles(c) * kBN +
          kGM * kHQStride + 2 * kW8Buf;
 }
 
@@ -240,13 +255,14 @@ mlp_fused_int8_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w1q,
                       int C, int HID, int gelu_approx) {
   using F = Frag<kTM, bf16>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int xs = xq_stride(C), acc_stride = col_tiles(C) * kBN;
+  const int xs = xq_stride(C), acc_stride = acc_tiles(C) * kBN;
   int* acc_s = reinterpret_cast<int*>(smem_raw);                      // [kGM][acc_stride]
   int8_t* xq_s = reinterpret_cast<int8_t*>(acc_s + kGM * acc_stride);   // [kGM][xs]
   int8_t* hq_s = xq_s + kGM * xs;                                     // [kGM][kHQStride]
   int8_t* w_s = hq_s + kGM * kHQStride;                               // 2 x [kBN][kW8Stride]
 
   const int row0 = blockIdx.x * kGM;
+  const int ct0 = blockIdx.y * kGroupTiles, ct1 = min(ct0 + kGroupTiles, col_tiles(C));
   const float inv_a1 = *inv_a1_ptr, inv_a2 = *inv_a2_ptr;
 
   // prologue: the block's rows of x, quantized once, four k per thread and
@@ -265,9 +281,10 @@ mlp_fused_int8_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w1q,
   }
   // every accumulator element belongs to one thread, which alone reads and
   // writes it: no barrier guards acc_s
-  for (int ct = 0; ct < col_tiles(C); ++ct)
+  for (int ct = ct0; ct < ct1; ++ct)
 #pragma unroll
-    for (int e = 0; e < kAcc; ++e) acc_s[F::row(e) * acc_stride + ct * kBN + F::col(e)] = 0;
+    for (int e = 0; e < kAcc; ++e)
+      acc_s[F::row(e) * acc_stride + (ct - ct0) * kBN + F::col(e)] = 0;
 
   for (int hc0 = 0; hc0 < HID; hc0 += kBN) {
     int acc[kAcc];
@@ -289,24 +306,25 @@ mlp_fused_int8_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w1q,
       hq_s[F::row(e) * kHQStride + F::col(e)] = static_cast<int8_t>(q);
     }
     const int kh = min(kBN, (HID - hc0 + kK8 - 1) / kK8 * kK8);
-    for (int ct = 0; ct < col_tiles(C); ++ct) {
+    for (int ct = ct0; ct < ct1; ++ct) {
 #pragma unroll
       for (int e = 0; e < kAcc; ++e)
-        acc[e] = acc_s[F::row(e) * acc_stride + ct * kBN + F::col(e)];
+        acc[e] = acc_s[F::row(e) * acc_stride + (ct - ct0) * kBN + F::col(e)];
       gemm_s8(acc, hq_s, kHQStride, w2q, HID,
               [=](int c) { return ct * kBN + c < C ? ct * kBN + c : -1; }, hc0, HID, kh, w_s);
 #pragma unroll
       for (int e = 0; e < kAcc; ++e)
-        acc_s[F::row(e) * acc_stride + ct * kBN + F::col(e)] = acc[e];
+        acc_s[F::row(e) * acc_stride + (ct - ct0) * kBN + F::col(e)] = acc[e];
     }
   }
 
-  for (int ct = 0; ct < col_tiles(C); ++ct)
+  for (int ct = ct0; ct < ct1; ++ct)
 #pragma unroll
     for (int e = 0; e < kAcc; ++e) {
-      const int c = ct * kBN + F::col(e), r = row0 + F::row(e);
+      const int lc = (ct - ct0) * kBN + F::col(e), c = ct * kBN + F::col(e);
+      const int r = row0 + F::row(e);
       if (c >= C || r >= M) continue;
-      float y = __fmul_rn(__int2float_rn(acc_s[F::row(e) * acc_stride + c]), cs2[c]);
+      float y = __fmul_rn(__int2float_rn(acc_s[F::row(e) * acc_stride + lc]), cs2[c]);
       if (b2 != nullptr) y = __fadd_rn(y, b2[c]);
       out[size_t(r) * C + c] = from_f<OT>(y);
     }
@@ -330,7 +348,8 @@ cudaError_t launch_mlp(const void* x, const void* w1, const void* b1, const void
   const size_t smem = mlp_smem_bytes<T>(C);
   cudaError_t err = prepare(mlp_fused_kernel<T>, smem);
   if (err != cudaSuccess) return err;
-  mlp_fused_kernel<T><<<(M + kGM - 1) / kGM, kGT, smem, stream>>>(
+  const dim3 grid((M + kGM - 1) / kGM, col_groups(C));
+  mlp_fused_kernel<T><<<grid, kGT, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w1), static_cast<const T*>(b1),
       static_cast<const T*>(w2), static_cast<const T*>(b2), static_cast<T*>(out), M, C, HID,
       gelu_approx);
@@ -349,7 +368,8 @@ cudaError_t launch_mlp_int8(const Int8Args& a, cudaStream_t stream) {
   cudaError_t err = prepare(mlp_fused_int8_kernel<XT, OT>, smem);
   if (err != cudaSuccess) return err;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
-  mlp_fused_int8_kernel<XT, OT><<<(a.M + kGM - 1) / kGM, kGT, smem, stream>>>(
+  const dim3 grid((a.M + kGM - 1) / kGM, col_groups(a.C));
+  mlp_fused_int8_kernel<XT, OT><<<grid, kGT, smem, stream>>>(
       static_cast<const XT*>(a.x), static_cast<const int8_t*>(a.w1q), f(a.cs1), f(a.b1),
       static_cast<const int8_t*>(a.w2q), f(a.cs2), f(a.b2), f(a.inv_a1), f(a.inv_a2),
       static_cast<OT*>(a.out), a.M, a.C, a.HID, a.gelu_approx);

@@ -225,10 +225,6 @@ def linear_int8(x, weight_q, col_scale, bias, a_scale, *, route,
 # fused MLP: fc2(gelu(fc1(x))), the hidden tensor kept on chip
 # ---------------------------------------------------------------------------
 
-# the fused MLP kernels keep a [32, C] float32 accumulator in shared memory
-# (csrc/mlp_fused.cu) or a [64, C] one in the registers of two warpgroups
-# (csrc/mlp_fused_wgmma.cu)
-MLP_MAX_C = 768
 # The designs of the fused MLP kernels: "wgmma" (csrc/mlp_fused_wgmma.cu:
 # 64-row blocks, a producer warp's TMA ring of weight tiles, wgmma, the fc2
 # sums in registers), "mma" (csrc/mlp_fused.cu: 32-row blocks, mma.sync with
@@ -240,6 +236,56 @@ MLP_DESIGNS = ("wgmma", "mma", "fma")
 # one; no config field or flag reaches them.
 _mlp_bf16_design = "wgmma"
 _mlp_int8_design = "wgmma"
+# The shared memory one block may hold (sm_90's opt-in limit).  A block of
+# every design owns its rows and one group of at most 768 output columns
+# (wider C runs more groups, each computing fc1 again); what grows with C is
+# the shared memory of the rows of x a block keeps whole, which sets each
+# design's widest C (``MLP_MAX_C``).
+MLP_SMEM_LIMIT = 232448
+_MLP_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def mlp_smem_bytes(c: int, design: str, dtype) -> int:
+    """Dynamic shared memory a block of the fused MLP kernel ``design`` takes
+    at width ``c`` (dtype torch.int8 for ``mlp_fused_int8``), as the CUDA
+    sources compute it (``vitcam_mlp_wgmma_smem_bytes``,
+    ``vitcam_mlp_fused_smem_bytes``).
+
+    "wgmma" (csrc/mlp_fused_wgmma.cuh): alignment slack, x [64, C] resident
+    (bf16 by TMA; int8 quantized), two h tiles, and a ring of 24 KB stages
+    with two mbarriers each, as many as fit up to 4 (bf16) or 6 (int8) and at
+    least 2.  "mma" / "fma" (csrc/mlp_fused.cu): the [32, <= 768] float32 or
+    int32 accumulator, the hidden chunk, the staging buffers, and for int8
+    the quantized rows of x [32, C]."""
+    kind = _MLP_KINDS[dtype]
+    if design == "wgmma":
+        esz, hspan, most = (1, 64, 6) if kind == 2 else (2, 128, 4)
+        fixed = 1024 + -(-c * esz // 128) * 8192 + 2 * 64 * hspan + 8
+        stage = 24576 + 16
+        stages = min(most, max(2, (MLP_SMEM_LIMIT - fixed) // stage))
+        return fixed + stages * stage
+    acc = 4 * 32 * min(-(-c // 384), 2) * 384
+    if kind == 2:
+        return 32 * (-(-c // 64) * 64 + 16) + acc + 32 * 400 + 2 * 384 * 80
+    if kind == 1:
+        return acc + 2 * 32 * 392 + 2 * (32 + 384) * 40 * 2
+    return acc + 4 * 32 * 388 + (32 * 36 + 32 * 388) * 4
+
+
+def _widest_c(design, dtype):
+    c = 64
+    while mlp_smem_bytes(c + 64, design, dtype) <= MLP_SMEM_LIMIT:
+        c += 64
+    return c
+
+
+# The widest C each design takes, where one is set: the wgmma design (x
+# resident beside a ring of at least two stages) at bf16 and int8, the mma
+# design's int8 kernel (the quantized rows of x beside the accumulator).  The
+# float kernels of csrc/mlp_fused.cu take any C.
+MLP_MAX_C = {("wgmma", torch.bfloat16): _widest_c("wgmma", torch.bfloat16),
+             ("wgmma", torch.int8): _widest_c("wgmma", torch.int8),
+             ("mma", torch.int8): _widest_c("mma", torch.int8)}
 
 
 def mlp_design(c: int, hid: int, dtype) -> str:
@@ -247,22 +293,32 @@ def mlp_design(c: int, hid: int, dtype) -> str:
     ``hid`` and element type ``dtype`` runs: torch.bfloat16 or torch.float32
     for ``mlp_fused``, torch.int8 for ``mlp_fused_int8`` (whatever its x).
 
-    The rule, and the only one: C past ``MLP_MAX_C`` has no kernel (raises);
-    float32 runs "fma" (TF32 would change the numbers); bf16 and int8 run
-    "wgmma" where C and HID are multiples of 64 (the TMA boxes and wgmma
-    tiles), else "mma".  ``_mlp_bf16_design`` / ``_mlp_int8_design`` = "mma"
-    turn "wgmma" into "mma".  It picks by shape before the launch; a launch
-    that fails raises and is never retried in another design."""
-    if c > MLP_MAX_C:
-        raise ValueError(f"the CUDA fused MLP kernels take C <= {MLP_MAX_C}, "
-                         f"got {c}; serve this width without mlp_fusion")
+    The rule, and the only one: float32 runs "fma" (TF32 would change the
+    numbers); bf16 and int8 run "wgmma" where C and HID are multiples of 64
+    (the TMA boxes and wgmma tiles), else "mma".  ``_mlp_bf16_design`` /
+    ``_mlp_int8_design`` = "mma" turn "wgmma" into "mma".  A width whose
+    block would need more shared memory than ``MLP_SMEM_LIMIT`` in that
+    design (past ``MLP_MAX_C``) has no kernel: it raises, naming the bytes.
+    It picks by shape before the launch; a launch that fails raises and is
+    never retried in another design."""
     if dtype == torch.float32:
-        return "fma"
-    if dtype not in (torch.bfloat16, torch.int8):
+        design = "fma"
+    elif dtype not in (torch.bfloat16, torch.int8):
         raise TypeError(f"mlp_design: bfloat16, float32 or int8, got {dtype}")
-    if c % 64 or hid % 64:
-        return "mma"
-    return _mlp_int8_design if dtype == torch.int8 else _mlp_bf16_design
+    elif c % 64 or hid % 64:
+        design = "mma"
+    else:
+        design = _mlp_int8_design if dtype == torch.int8 \
+            else _mlp_bf16_design
+    need = mlp_smem_bytes(c, design, dtype)
+    if need > MLP_SMEM_LIMIT:
+        name = str(dtype).split(".")[-1]
+        raise ValueError(
+            f"the CUDA fused MLP kernel's {design} design at {name} takes C "
+            f"<= {MLP_MAX_C[(design, dtype)]}: C={c} needs {need} bytes of "
+            f"shared memory a block, past the {MLP_SMEM_LIMIT} one may hold; "
+            "serve this width without mlp_fusion")
+    return design
 
 
 def _launch_error(lib, name, err, c, kind, design):
@@ -311,8 +367,8 @@ def mlp_fused_plain(x, w1, b1, w2, b2, *, gelu_approx: bool = True):
 def mlp_fused(x, w1, b1, w2, b2, *, gelu_approx: bool = True):
     """Same contract as ``mlp_fused_plain``.  CPU tensors run the plain
     version; CUDA tensors launch the kernel of ``mlp_design`` (x, weights
-    and biases all float32 or all bfloat16, contiguous, C <= ``MLP_MAX_C``)
-    or raise.  The kernel reads the weights in the torch layout: no
+    and biases all float32 or all bfloat16, contiguous, C within the
+    design's ``MLP_MAX_C``) or raise.  The kernel reads the weights in the torch layout: no
     transposed copy is made."""
     global mlp_fused_launches
     if x.device.type == "cpu":
@@ -398,7 +454,7 @@ def mlp_fused_int8(x, w1q, cs1, b1, w2q, cs2, b2, inv_a1, inv_a2, *,
     """Same contract as ``mlp_fused_int8_plain``.  CPU tensors run the plain
     version; CUDA tensors launch the kernel of ``mlp_design`` (x float32 or
     bfloat16; scales, biases and the inverse act scales float32; out float32
-    or bfloat16; C <= ``MLP_MAX_C``) or raise."""
+    or bfloat16; C within the design's ``MLP_MAX_C``) or raise."""
     global mlp_fused_int8_launches
     args = (x, w1q, cs1, b1, w2q, cs2, b2, inv_a1, inv_a2)
     if x.device.type == "cpu":
