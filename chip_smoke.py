@@ -30,14 +30,21 @@ Phases (any failure raises, and the exit code is non-zero):
      clamp on and off, 30 % background and none, B=8 N=197, a ragged B=3
      N=37, and N=256 and N=17, the ends of its range), and reads the block
      kernel's occupancy (clusters at once, registers, local and shared
-     memory) in both designs; then times each kernel
-     against its plain version at B=64 in turns (the designs they ran
-     before are checked above and no longer timed: they do not change;
-     the GEMMs beside bf16 F.linear and torch._int_mm; kernel 1's int8
-     rollout variants also at B=16 N=577; ln_quant also at batch 256's rows,
+     memory) in both designs; the same block checks at the zoo's shapes at
+     B=2 (ViT-H/14's N=257 C=1280 in 16 heads of 80, ViT-L/16@384's N=577,
+     ViT-L/16@512's N=1025 and ViT-L/16's N=197 at C=1024), the streamed
+     design's launches twice for identical bits in both dtypes, its
+     occupancy and shared memory held to the Python formula; then times
+     each kernel against its plain version at B=64 in turns (the designs
+     they ran before are checked above and no longer timed: they do not
+     change; the GEMMs beside bf16 F.linear and torch._int_mm; kernel 1's
+     int8 rollout variants also at B=16 N=577; ln_quant also at batch 256's
+     rows,
      and it and the GEMMs also out of a CUDA graph), the three fused kernels
      also beside the unfused route of several launches that the port
-     already has (the MLP kernels also at M = 50432);
+     already has (the MLP kernels also at M = 50432; the block kernel's
+     streamed design also at ViT-H/14's B=64 N=257 and ViT-L/16@512's B=32
+     N=1025);
   4. the main path: ViT-B/16 with random weights from a seed answers 3
      requests of 32 images with the rollout CAM in serving mode "bf16",
      then, calibrated on 16 seeded images, in "int8" and "int8_hifi" with
@@ -209,7 +216,10 @@ Phases (any failure raises, and the exit code is non-zero):
      and the fused GEMM on; held to the same quantized model on the CPU on
      one seeded batch): 3 requests of 32 / 2 of 16 with their launch counts
      (32 / 24 kernel-1 launches a forward, 129 / 97 int8 GEMM launches an
-     int8 forward), img/s at batch 64 / 32 in turns; kernel 1's int8_io
+     int8 forward), then in bf16 with mlp_fusion and with both fusions
+     (the block kernel's streamed design, the rollout carried through the
+     layers: 32 / 24 launches a forward, held to the eager path), img/s at
+     batch 64 / 32 in turns; kernel 1's int8_io
      against int8_out head-mean variant at B=32 N=1025 H=16; bench.main at
      ViT-H/14 (int8 and --bf16, batch 64) and ViT-L/16@512 (batch 32), and
      cli.predict at ViT-H/14 (--no_figure), their launch counts held.
@@ -348,6 +358,13 @@ BWD_W = {dh: f"masked_attention_bwd[head width {dh}]" for dh in NEW_WIDTHS}
 MLP_WIDTHS = (768, 1024, 1280)
 MLP_W = {c: f"mlp_fused[C={c}]" for c in MLP_WIDTHS[1:]}
 MLP8_W = {c: f"mlp_fused_int8[C={c}]" for c in MLP_WIDTHS[1:]}
+# the block kernel's streamed design (attention_block_streamed.cuh), a row
+# a head width: its calls at ViT-H/14's width 80 and at ViT-L/16@512's
+# width 64, which phase 19's both-fusion paths launch, each timed at its
+# model's shape (B, N, heads)
+BLOCK_W = {80: "attention_block_fused[N=257 C=1280 w80]",
+           64: "attention_block_fused[N=1025 C=1024]"}
+BLOCK_TIMED = {80: (64, 257, 16), 64: (32, 1025, 16)}
 KERNELS = {   # name: (route, source, TPU kernel replaced)
     "masked_attention_fused": (
         "cuda", CSRC + "masked_attention.cu",
@@ -414,6 +431,12 @@ KERNELS = {   # name: (route, source, TPU kernel replaced)
        for c in MLP8_W},
     "attention_block_fused": (
         "cuda", CSRC + "attention_block.cu",
+        "vision_transformer_cam_tpu/kernels/attention.py:663"),
+    BLOCK_W[80]: (
+        "cuda", CSRC + "attention_block_streamed_w80.cu",
+        "vision_transformer_cam_tpu/kernels/attention.py:663"),
+    BLOCK_W[64]: (
+        "cuda", CSRC + "attention_block_streamed.cu",
         "vision_transformer_cam_tpu/kernels/attention.py:663"),
     "masked_attention_seq_local": (
         "cuda", CSRC + "masked_attention_seq.cu",
@@ -1601,110 +1624,184 @@ def mlp_occupancy(widths=MLP_WIDTHS):
     return got
 
 
-def block_operands(b, n, heads, dtype, seed, hot):
-    """The operands of attention_block_fused: xn ~ N(0, 1), tokens ~ N(0, 1),
-    weights ~ N(0, 1 / C) in the torch layout, biases ~ 0.1 N(0, 1), a random
-    bg with 30 % background (cls column 0) and a row-stochastic float32
-    joint.  ``hot`` scales the q rows of heads 0 and 1 of the qkv weight by
-    40, so that logits of those heads pass the clamp at 80."""
+def block_operands(b, n, heads, dtype, seed, hot, dh=64):
+    """The operands of attention_block_fused at ``heads`` heads of width
+    ``dh``: xn ~ N(0, 1), tokens ~ N(0, 1), weights ~ N(0, 1 / C) in the
+    torch layout, biases ~ 0.1 N(0, 1), a random bg with 30 % background
+    (cls column 0) and a row-stochastic float32 joint.  ``hot`` scales the
+    q rows of heads 0 and 1 of the qkv weight by 40, so that logits of those
+    heads pass the clamp at 80."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    c = heads * 64
+    c = heads * dh
 
     def rnd(*shape, gain=1.0):
         return gain * torch.randn(shape, generator=g, device="cuda")
     ops = (rnd(b, n, c), rnd(b, n, c), rnd(3 * c, c, gain=c ** -0.5),
            rnd(3 * c, gain=0.1), rnd(c, c, gain=c ** -0.5), rnd(c, gain=0.1))
     if hot:
-        ops[2][:128] *= 40.0
+        ops[2][:2 * dh] *= 40.0
     bg = (torch.rand((b, n), generator=g, device="cuda") < 0.3).float()
     bg[:, 0] = 0.0
     joint = torch.softmax(rnd(b, n, n), dim=-1)
     return tuple(t.to(dtype).contiguous() for t in ops), bg.to(dtype), joint
 
 
-def block_designs(dtype):
-    """The block kernel's designs that take xn of ``dtype``, the path's
-    first: bf16 the tensor-core design, then the FMA design it ran before;
-    float32 the FMA design."""
-    return ("fma",) if dtype == torch.float32 else ("tensor-core", "fma")
+def block_designs(dtype, n=197, c=768, dh=64, rollout=True):
+    """The block kernel's designs that take xn of ``dtype`` at this shape,
+    the path's first (``kernels.attention.block_design``): the streamed
+    design alone past the cluster design's shapes; else bf16 the cluster
+    design's tensor-core core, then the FMA core it ran before where that
+    fits; float32 the FMA core."""
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    path = ka.block_design(dtype, n, c, dh, rollout)
+    if path == "tensor-core" and ka.block_smem_bytes(
+            "fma", dtype, n, c, dh, rollout) <= ka.BLOCK_SMEM_LIMIT:
+        return ("tensor-core", "fma")
+    return (path,)
 
 
 def _block_design(design, fn, *args, **kw):
-    """``fn(*args, **kw)`` with the block wrapper's bf16 design set to
-    ``design`` ("tensor-core", the path's, or "fma", the design bf16 ran
-    before); float32 runs the FMA design either way."""
+    """``fn(*args, **kw)`` with the block wrapper's bf16 cluster core set to
+    ``design`` ("tensor-core", the path's, or "fma", the core bf16 ran
+    before; "streamed" leaves the switch as it is: the shape picks it);
+    float32 runs the FMA core either way."""
     from vision_transformer_cam_tpu_torch.kernels import attention as ka
-    saved, ka._block_bf16_design = ka._block_bf16_design, design
+    saved = ka._block_bf16_design
+    if design != "streamed":
+        ka._block_bf16_design = design
     try:
         return fn(*args, **kw)
     finally:
         ka._block_bf16_design = saved
 
 
-def check_attention_block():
+# the block kernel's cases (B, N, heads, head width): ViT-B/16's B=8 N=197
+# (clusters of 7 blocks), a ragged B=3 N=37 (2) and the ends of the cluster
+# design's range, B=2 N=256 (8) and B=2 N=17 (1), at 12 heads of 64; then
+# the zoo's wider and longer shapes at B=2: ViT-H/14 (N=257, 16 heads of
+# 80), ViT-L/16@384 (577), ViT-L/16@512 (1025) and ViT-L/16 (197, 16 of 64)
+BLOCK_CASES = ((8, 197, 12, 64), (3, 37, 12, 64), (2, 256, 12, 64),
+               (2, 17, 12, 64))
+BLOCK_ZOO = ((2, 257, 16, 80), (2, 577, 16, 64), (2, 1025, 16, 64),
+             (2, 197, 16, 64))
+
+
+def _block_variants(b, n, heads, dh, dtype, seed):
+    """(case label, operands, bg, joint or None, kwargs) of every variant of
+    one block case: 30 % background and none, with and without the joint,
+    clamp off and on."""
+    ops, bg, joint = block_operands(b, n, heads, dtype, seed=seed,
+                                    hot=dtype == torch.float32, dh=dh)
+    name = str(dtype).split(".")[-1]
+    for bg_kind, bg_ in (("30% bg", bg), ("no bg", torch.zeros_like(bg))):
+        for with_joint in (True, False):
+            for clamp in (False, True):
+                kw = dict(num_heads=heads, scale=dh ** -0.5,
+                          clamp_softmax=clamp)
+                label = (name, with_joint, clamp, n, bg_kind)
+                yield label, ops, bg_, joint if with_joint else None, kw
+
+
+def check_attention_block(cases=BLOCK_CASES + BLOCK_ZOO):
     """attention_block_fused vs its plain version on the card, in every
-    design that takes the dtype (bf16: the tensor-core design, launched twice
-    for identical bits, and the FMA design it ran before; float32: the FMA
-    design): with and without the joint, clamp on and off, 30 % background
-    and none, B=8 N=197 (clusters of 7 blocks), a ragged B=3 N=37 (2), and
-    the ends of its range, B=2 N=256 (8) and B=2 N=17 (1).  Returns {(dtype
-    name, joint, clamp, n, bg kind): worst error} of the path's design."""
+    design that takes the dtype and shape (block_designs; the path's bf16
+    design launched twice for identical bits): with and without the joint,
+    clamp on and off, 30 % background and none, at ``cases``.  Returns
+    {(dtype name, joint, clamp, n, bg kind): worst error} of the path's
+    design at 12 heads of 64, and under ("zoo", n, dh) the worst error over
+    each zoo shape's cases."""
     from vision_transformer_cam_tpu_torch.kernels import attention as ka
     errs, failures = {}, []
-    for (b, n) in ((8, 197), (3, 37), (2, 256), (2, 17)):
+    for (b, n, heads, dh) in cases:
+        c = heads * dh
         for dtype in (torch.bfloat16, torch.float32):
-            ops, bg, joint = block_operands(b, n, 12, dtype, seed=40 + n,
-                                            hot=dtype == torch.float32)
-            name = str(dtype).split(".")[-1]
-            for bg_kind, bg_ in (("30% bg", bg), ("no bg",
-                                                  torch.zeros_like(bg))):
-                for with_joint in (True, False):
-                    for clamp in (False, True):
-                        kw = dict(num_heads=12, scale=64 ** -0.5,
-                                  clamp_softmax=clamp)
-                        j = joint if with_joint else None
-                        want = ka.attention_block_fused_plain(*ops, bg_, j,
-                                                              **kw)
-                        tols = [TOL[(dtype, "out")], TOL[(dtype, "prob")],
-                                TOL_JOINT]
-                        for design in block_designs(dtype):
-                            got = _block_design(design,
-                                                ka.attention_block_fused,
-                                                *ops, bg_, j, **kw)
-                            torch.cuda.synchronize()
-                            case = f"attention block {design:11s} " \
-                                   f"{name:8s} joint={with_joint!s:5s} " \
-                                   f"clamp={clamp!s:5s} {bg_kind:6s} " \
-                                   f"B={b} N={n}"
-                            err = _compare(case, got, want, tols, failures)
-                            if design == block_designs(dtype)[0]:
-                                errs[(name, with_joint, clamp, n,
-                                      bg_kind)] = err
-                            if design == "tensor-core" and not all(
-                                    torch.equal(x, y) for x, y in zip(
-                                        got, ka.attention_block_fused(
-                                            *ops, bg_, j, **kw))):
-                                failures.append(f"{case}: a second launch "
-                                                "gave other bits")
+            for label, ops, bg_, j, kw in _block_variants(
+                    b, n, heads, dh, dtype, seed=40 + n):
+                want = ka.attention_block_fused_plain(*ops, bg_, j, **kw)
+                tols = [TOL[(dtype, "out")], TOL[(dtype, "prob")],
+                        TOL_JOINT]
+                designs = block_designs(dtype, n, c, dh, j is not None)
+                for design in designs:
+                    got = _block_design(design, ka.attention_block_fused,
+                                        *ops, bg_, j, **kw)
+                    torch.cuda.synchronize()
+                    name, with_joint, clamp, _, bg_kind = label
+                    case = f"attention block {design:11s} {name:8s} " \
+                           f"joint={with_joint!s:5s} clamp={clamp!s:5s} " \
+                           f"{bg_kind:6s} B={b} N={n} C={c} dh={dh}"
+                    err = _compare(case, got, want, tols, failures)
+                    if design == designs[0]:
+                        if (heads, dh) == (12, 64):
+                            errs[label] = err
+                        else:
+                            key = ("zoo", n, dh)
+                            errs[key] = max(errs.get(key, 0.0), err)
+                    if design != "fma" and not all(
+                            torch.equal(x, y) for x, y in zip(
+                                got, _block_design(
+                                    design, ka.attention_block_fused,
+                                    *ops, bg_, j, **kw))):
+                        failures.append(f"{case}: a second launch gave "
+                                        "other bits")
     if failures:
         raise AssertionError("attention block kernel != plain version:\n"
                              + "\n".join(failures))
     return errs
 
 
+def block_bits(root, out):
+    """SHA-256 of the block kernel's output bytes (out, cls row, J') at
+    BLOCK_CASES (the cluster design's shapes), every dtype, background,
+    joint, clamp and bf16 core, from the port of the checkout at ``root``,
+    as ``bwd_bits`` does (and compared by ``compare_bits``)."""
+    import hashlib
+    sys.path.insert(0, os.path.abspath(root))
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    got = {}
+    for (b, n, heads, dh) in BLOCK_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            designs = ("fma",) if dtype == torch.float32 else \
+                ("tensor-core", "fma")
+            for label, ops, bg_, j, kw in _block_variants(
+                    b, n, heads, dh, dtype, seed=40 + n):
+                for design in designs:
+                    res = _block_design(design, ka.attention_block_fused,
+                                        *ops, bg_, j, **kw)
+                    digest = hashlib.sha256()
+                    for t in res:
+                        digest.update(t.contiguous().view(torch.uint8)
+                                      .cpu().numpy().tobytes())
+                    got[f"{design} {label}"] = digest.hexdigest()
+    with open(out, "w") as f:
+        json.dump(got, f, indent=1, sort_keys=True)
+    say(f"block_bits: {len(got)} cases from {ka.__file__} -> {out}")
+    return got
+
+
 def block_occupancy(heads=12):
     """For each instance of the block kernel the serving path could run
-    (rollout, clamp) at N = 197 (clusters of 7) and N = 256 (8): how many
-    clusters the card holds at once (cudaOccupancyMaxActiveClusters), the
-    registers and local memory per thread and the shared memory per block.
-    Returns {(design, dtype name, n): (clusters, registers, local bytes,
-    shared bytes)}."""
+    (rollout, clamp): the cluster design at N = 197 (clusters of 7) and N =
+    256 (8) at 12 heads of 64, how many clusters the card holds at once
+    (cudaOccupancyMaxActiveClusters); the streamed design at the zoo's
+    shapes (BLOCK_ZOO), how many blocks an SM holds; and the registers and
+    local memory per thread and the shared memory per block of each, the
+    shared memory also held to the Python formula
+    (kernels.attention.block_smem_bytes).  Returns {(design, dtype name,
+    n[, C, dh]): (clusters or blocks, registers, local bytes, shared
+    bytes)}."""
     import ctypes
 
     from vision_transformer_cam_tpu_torch.kernels import _build
     from vision_transformer_cam_tpu_torch.kernels import attention as ka
     lib, got = _build.load(), {}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def held(info, dtype, design, n, c, dh, qb=32):
+        want = ka.block_smem_bytes(design, dtype, n, c, dh, True, qb)
+        if info[3] != want:
+            raise AssertionError(f"block kernel {design} N={n} C={c}: the "
+                                 f"kernel takes {info[3]} bytes of shared "
+                                 f"memory, the Python formula {want}")
     for n in (197, 256):
         for dtype in (torch.bfloat16, torch.float32):
             for design in block_designs(dtype):
@@ -1717,6 +1814,7 @@ def block_occupancy(heads=12):
                         f"attention block occupancy ({design}, {dtype}, "
                         f"N={n}): cudaError {err} "
                         f"({lib.vitcam_cuda_error_string(err).decode()})")
+                held(info, dtype, design, n, heads * 64, 64)
                 name = str(dtype).split(".")[-1]
                 got[(design, name, n)] = tuple(info)
                 blocks = -(-n // ka.BLOCK_ROWS)
@@ -1726,6 +1824,30 @@ def block_occupancy(heads=12):
                     f"{info[1]} registers, {info[2]} bytes of local "
                     f"memory per thread, {info[3]} bytes of shared memory "
                     f"per block")
+    for _, n, zh, dh in BLOCK_ZOO:
+        c = zh * dh
+        for dtype in (torch.bfloat16, torch.float32):
+            design = ka.block_design(dtype, n, c, dh)
+            if design != "streamed":
+                continue
+            qb = ka.block_rows(dtype, n, c, dh)
+            info = (ctypes.c_int * 4)()
+            err = lib.vitcam_attention_block_streamed_occupancy(
+                n, zh, dh, 1, 1, ka._DTYPE_CODES[dtype], qb, info)
+            if err:
+                raise RuntimeError(
+                    f"attention block occupancy (streamed, {dtype}, N={n} "
+                    f"C={c}): cudaError {err} "
+                    f"({lib.vitcam_cuda_error_string(err).decode()})")
+            held(info, dtype, design, n, c, dh, qb)
+            name = str(dtype).split(".")[-1]
+            got[(design, name, n, c, dh)] = tuple(info)
+            say(f"occupancy attention block streamed    {name:8s} rollout "
+                f"clamp N={n} C={c} dh={dh}: {qb} query rows a block, "
+                f"{info[0]} blocks an SM at once ({info[0] * sms} on {sms} "
+                f"SMs), {info[1]} registers, {info[2]} bytes of local "
+                f"memory per thread, {info[3]} bytes of shared memory per "
+                f"block")
     return got
 
 
@@ -2188,7 +2310,45 @@ def time_fused(b=64, n=197, heads=12):
         f"tensor-core {ms['tensor-core']:.4f} ms, "
         f"plain {ms['plain']:.4f} ms; unfused qkv GEMM, "
         f"attention kernel, proj GEMM, add {ms['unfused']:.4f} ms")
+    del bops, bg, joint
+    for dh, shape in BLOCK_TIMED.items():
+        times[("attention_block_fused", dh)] = time_block_streamed(*shape, dh)
     return times
+
+
+def time_block_streamed(b, n, heads, dh):
+    """The block kernel's streamed design (bf16 rollout, clamp on, as the
+    bf16 serving path launches it) at B, N, heads of ``dh``, its plain
+    version and the unfused route (the qkv GEMM, kernel 1, the proj GEMM,
+    the residual add), in turns.  Returns (kernel ms, plain ms, unfused
+    ms)."""
+    import torch.nn.functional as F
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    bops, bg, joint = block_operands(b, n, heads, torch.bfloat16, seed=53,
+                                     hot=False, dh=dh)
+    xn, tok, wqkv, bqkv, wproj, bproj = bops
+    kw = dict(num_heads=heads, scale=dh ** -0.5, clamp_softmax=True)
+    if ka.block_design(torch.bfloat16, n, heads * dh, dh) != "streamed":
+        raise AssertionError(f"B={b} N={n}: not the streamed design")
+    qb = ka.block_rows(torch.bfloat16, n, heads * dh, dh)
+
+    def unfused():
+        o, _, _ = ka.masked_attention_fused(F.linear(xn, wqkv, bqkv), bg,
+                                            joint, **kw)
+        return tok + F.linear(o, wproj, bproj)
+    ms = round_robin({
+        "streamed": lambda: ka.attention_block_fused(*bops, bg, joint, **kw),
+        "plain": lambda: ka.attention_block_fused_plain(*bops, bg, joint,
+                                                        **kw),
+        "unfused": unfused}, iters=5)
+    say(f"time attention_block_fused streamed bf16 rollout B={b} N={n} "
+        f"{heads} heads of {dh} ({qb} query rows a block), in turns: "
+        f"streamed {ms['streamed']:.4f} ms, "
+        f"plain {ms['plain']:.4f} ms; unfused qkv GEMM, attention kernel, "
+        f"proj GEMM, add {ms['unfused']:.4f} ms")
+    del bops, bg, joint
+    gc_cuda()
+    return ms["streamed"], ms["plain"], ms["unfused"]
 
 
 def reset_counts():
@@ -2200,6 +2360,7 @@ def reset_counts():
     ka.bwd_launches = 0
     ka.bwd_width_launches = {dh: 0 for dh in ka.BWD_HEAD_DIMS}
     ka.block_launches = 0
+    ka.block_streamed_launches = {dh: 0 for dh in ka.BLOCK_HEAD_DIMS}
     ka.seq_launches = 0
     ka.v1_launches = 0
     for variant in av.launches:
@@ -2219,7 +2380,10 @@ def read_counts():
             "masked_attention_bwd": ka.bwd_launches,
             "mlp_fused": gemm.mlp_fused_launches,
             "mlp_fused_int8": gemm.mlp_fused_int8_launches,
-            "attention_block_fused": ka.block_launches,
+            # the cluster design's; the streamed design's under BLOCK_W
+            "attention_block_fused": ka.block_launches - sum(
+                ka.block_streamed_launches.values()),
+            **{BLOCK_W[dh]: ka.block_streamed_launches[dh] for dh in BLOCK_W},
             "masked_attention_seq_local": ka.seq_launches,
             W80: ka.width_launches[80],
             BWD80: ka.bwd_width_launches[80],
@@ -2518,6 +2682,20 @@ def mlp_bound(m, c, hid, dtype):
                  + (hid + c) * 2, {"bf16": 4 * m * c * hid})
 
 
+def block_bound(b, n, heads, dh):
+    """The block kernel's bound, bf16 rollout: bf16 xn and tokens, the qkv
+    and proj weights and biases, f32 bg and the f32 joint in; bf16 tokens
+    and cls row and the f32 joint out.  The qkv and proj GEMMs, QK^T and PV
+    at the bf16 rate, hm @ J f32 (the streamed design's K / V scratch is
+    not the function's: not counted)."""
+    c, m = heads * dh, b * n
+    qk = 2 * b * heads * n * n * dh          # one of the attention products
+    return bound(f"attention_block_fused bf16 rollout B={b} N={n} C={c}",
+                 3 * m * c * 2 + 4 * c * c * 2 + 4 * c * 2 + m * 4
+                 + 2 * b * n * n * 4 + m * 2,
+                 {"bf16": 2 * m * c * 4 * c + 2 * qk, "f32": 2 * b * n ** 3})
+
+
 def kernel_bounds(b=64, n=197, heads=12):
     """Bounds of the kernels at the shapes ``time_kernels`` and
     ``time_attention_bwd`` time them at (each input read once, each output
@@ -2596,14 +2774,10 @@ def kernel_bounds(b=64, n=197, heads=12):
            for wc in MLP_W},
         **{MLP8_W[wc]: mlp_bound(*MLP_TIMED[wc], 4 * wc, torch.int8)
            for wc in MLP8_W},
-        # bf16 xn and tokens, the qkv and proj weights and biases, f32 bg
-        # and the f32 joint in; bf16 tokens and cls row and the f32 joint
-        # out.  qkv and proj GEMMs, QK^T and PV at the bf16 rate, hm @ J f32
-        "attention_block_fused": bound(
-            "attention_block_fused bf16 rollout",
-            3 * m * c * 2 + 4 * c * c * 2 + 4 * c * 2 + m * 4
-            + 2 * b * n * n * 4 + m * 2,
-            {"bf16": 2 * m * c * 4 * c + 2 * qk, "f32": 2 * b * n ** 3}),
+        # the block kernel at ViT-B/16's shape, and its streamed design at
+        # the shapes time_block_streamed times
+        "attention_block_fused": block_bound(b, n, heads, 64),
+        **{BLOCK_W[dh]: block_bound(*BLOCK_TIMED[dh], dh) for dh in BLOCK_W},
     })
     # the five GEMMs as the int8 path calls them: x (bf16 for the patch
     # embed, else int8), the int8 weight, float32 scale and bias vectors;
@@ -5763,16 +5937,19 @@ def zoo_serve(label, name, requests, batch, bench_batch, whole_b):
     """One zoo model at full width served through apply_serving_mode: bf16
     (held to the eager path), int8 and int8_hifi (ln_quant_fusion and
     int8_fused_gemm on, as main_path; each held to the same quantized model
-    on the CPU), and with ``mlp_fusion`` (the fused MLP kernels in two column
-    groups at these widths; the block kernel takes C <= 768 and stays off):
-    bf16 fused (held to the bf16 kernel path within ZOO_BF16_GATES) and int8
-    fused (held within WHOLE_TOL to the same model's unfused int8 path on
-    the card: its rows are held to the plain versions by check_mlp_int8 at
-    these widths, bit for bit); ``requests`` requests
-    of ``batch`` images with the rollout CAM and their launch counts (the
-    fused MLP kernels' under the wide rows, MLP_W / MLP8_W); then img/s at
-    ``bench_batch`` in turns (bf16, bf16 eager, int8, int8_hifi, bf16 fused,
-    int8 fused).  Returns (launch counts, {mode: img/s})."""
+    on the CPU), with ``mlp_fusion`` (the fused MLP kernels in two column
+    groups at these widths): bf16 fused (held to the bf16 kernel path within
+    ZOO_BF16_GATES) and int8 fused (held within WHOLE_TOL to the same
+    model's unfused int8 path on the card: its rows are held to the plain
+    versions by check_mlp_int8 at these widths, bit for bit), and in bf16
+    with both fusions (``mlp_fusion`` and ``attn_block_fusion``: the block
+    kernel's streamed design, BLOCK_W; the rollout carried through the
+    layers, ``rollout_post`` off; held to the eager path within
+    ZOO_BF16_GATES); ``requests`` requests of ``batch`` images with the
+    rollout CAM and their launch counts (the fused MLP kernels' under the
+    wide rows, MLP_W / MLP8_W); then img/s at ``bench_batch`` in turns
+    (bf16, bf16 eager, int8, int8_hifi, bf16 fused, int8 fused, bf16 both
+    fused).  Returns (launch counts, {mode: img/s})."""
     from vision_transformer_cam_tpu_torch import serving
     from vision_transformer_cam_tpu_torch.ops.rollout import (
         cam_from_rollout_row)
@@ -5821,7 +5998,30 @@ def zoo_serve(label, name, requests, batch, bench_batch, whole_b):
             and d_logit <= ZOO_BF16_GATES["logits"]):
         raise AssertionError(f"{label}: bf16 kernel path disagrees with the "
                              "eager path")
-    del refs
+    # the bf16 path with both fusions: the block kernel's streamed design
+    # and the fused MLP kernel on every layer, no kernel-1 launch.  The
+    # rollout is carried through the layers (rollout_post off): past N =
+    # 512 its default forms the rollout row after the layers from each
+    # layer's head mean, which the block kernel does not emit, and the
+    # layers then run kernel 1 (as the JAX package's forward does)
+    model.cfg = kcfg.replace(mlp_fusion=True, attn_block_fusion=True,
+                             rollout_post=False)
+    outs, counts = serve(model, reqs, {"mlp_fused": depth,
+                                       BLOCK_W[cfg.head_dim]: depth},
+                         f"{label} bf16 both fused")
+    add(counts)
+    served["bf16 both fused"] = (model, model.cfg)
+    model.cfg = kcfg
+    d_cam, d_logit, ov = deviation(outs, refs)
+    say(f"{label} bf16 both fused vs eager: CAM max abs dev {d_cam:.3e} "
+        f"(tol {ZOO_BF16_GATES['cam']}), logits max abs dev {d_logit:.3e} "
+        f"(tol {ZOO_BF16_GATES['logits']}), top-{cfg.top_k_patches} overlap "
+        f"{ov:.4f}")
+    if not (d_cam <= ZOO_BF16_GATES["cam"]
+            and d_logit <= ZOO_BF16_GATES["logits"]):
+        raise AssertionError(f"{label}: bf16 path with both fusions "
+                             "disagrees with the eager path")
+    del refs, outs
     served["bf16"] = (model, kcfg)
     served["bf16 eager"] = (model, kcfg.replace(attn_impl="eager"))
     # the bf16 fused path: the fused MLP kernel on every layer
@@ -5898,7 +6098,7 @@ def zoo_serve(label, name, requests, batch, bench_batch, whole_b):
         torch.cuda.synchronize()
         return bench_batch * iters / (time.perf_counter() - t)
     order = ("bf16", "bf16 eager", "int8", "int8_hifi", "bf16 fused",
-             "int8 fused")
+             "int8 fused", "bf16 both fused")
     rates = {}
     for mode in order + order[::-1]:
         rates.setdefault(mode, []).append(rate(mode))
@@ -5963,22 +6163,53 @@ def zoo_entry_points():
     return totals
 
 
+def zoo_f32_fused(f32_batch=4):
+    """ViT-H/14 at float32 (serving off) with ``mlp_fusion`` (the FMA design
+    in two column groups) and ``attn_block_fusion`` (the block kernel's
+    streamed design, its FMA core) against the eager path at ``f32_batch``,
+    at main_path's float32 gates (rollout row 1e-5, logits 2e-4), 32
+    launches of each kernel held.  Returns the launch counts."""
+    from vision_transformer_cam_tpu_torch import configs
+    from vision_transformer_cam_tpu_torch.models.vit import ViTCAM
+    cfg = configs.resolve_model(HUGE)(num_classes=20)
+    model = ViTCAM(cfg, device="cuda",
+                   generator=torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (f32_batch, cfg.img_size, cfg.img_size, 3), dtype=np.float32)).cuda()
+    want = model(x, need_rollout=True)
+    model.cfg = cfg.replace(attn_impl="kernel", mlp_fusion=True,
+                            attn_block_fusion=True)
+    reset_counts()
+    got = model(x, need_rollout=True)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    d_roll = float((got.rollout_row - want.rollout_row).abs().max())
+    d_logit = float((got.logits - want.logits).abs().max())
+    say(f"zoo ViT-H/14 f32 kernel path with both fusions vs eager "
+        f"(B={f32_batch}): rollout row {d_roll:.3e} (tol 1e-5), logits "
+        f"{d_logit:.3e} (tol 2e-4); launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    del model, got, want
+    gc_cuda()
+    if not (d_roll <= 1e-5 and d_logit <= 2e-4) or \
+            (counts["mlp_fused"], counts[BLOCK_W[80]]) != (32, 32):
+        raise AssertionError("ViT-H/14 f32 fused kernel path disagrees with "
+                             "the eager path, or did not run its kernels")
+    return counts
+
+
 def wide_entry_points(f32_batch=4, export_batch=8):
     """The entry points that reach the fused MLP kernels at the zoo's wide
     widths, each on the card without a refusal (not a phase of ``main``;
     run it after ``build_kernels``): ``bench --mlp-fusion`` at ViT-H/14
     (int8 and --bf16, batch 64) and at ViT-L/16@512 (int8, batch 32), their
-    launch counts held; ViT-H/14 at float32 (serving off) with
-    ``mlp_fusion`` (the FMA design in two column groups) against the eager
-    path at ``f32_batch``, at main_path's float32 gates; ``cli.export`` of
-    ViT-H/14 in bf16 with ``mlp_fusion`` through ``build_fn``'s overrides
+    launch counts held; ``zoo_f32_fused`` at ``f32_batch``; ``cli.export``
+    of ViT-H/14 in bf16 with ``mlp_fusion`` through ``build_fn``'s overrides
     at ``export_batch``, ``--check`` bit for bit and one artifact call's
     launches.  Returns the launch counts."""
     import tempfile
 
-    from vision_transformer_cam_tpu_torch import configs
     from vision_transformer_cam_tpu_torch.cli import export as ecli
-    from vision_transformer_cam_tpu_torch.models.vit import ViTCAM
     fwd = 2 + 10 * 3                        # forwards of a bench run
     vith = ["--model", HUGE, "--batch", "64", "--mlp-fusion"]
     totals = {}
@@ -5996,31 +6227,7 @@ def wide_entry_points(f32_batch=4, export_batch=8):
              {"masked_attention_fused": 24, "linear_int8_fused": 49,
               "mlp_fused_int8": 24})):
         add(bench_run(argv, {k: v * fwd for k, v in per.items()}))
-    # float32: the fused kernel path against the eager path
-    cfg = configs.resolve_model(HUGE)(num_classes=20)
-    model = ViTCAM(cfg, device="cuda",
-                   generator=torch.Generator().manual_seed(0))
-    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
-        (f32_batch, cfg.img_size, cfg.img_size, 3), dtype=np.float32)).cuda()
-    want = model(x, need_rollout=True)
-    model.cfg = cfg.replace(attn_impl="kernel", mlp_fusion=True)
-    reset_counts()
-    got = model(x, need_rollout=True)
-    torch.cuda.synchronize()
-    counts = read_counts()
-    add(counts)
-    d_roll = float((got.rollout_row - want.rollout_row).abs().max())
-    d_logit = float((got.logits - want.logits).abs().max())
-    say(f"wide entry points: ViT-H/14 f32 fused kernel path vs eager "
-        f"(B={f32_batch}): rollout row {d_roll:.3e} (tol 1e-5), logits "
-        f"{d_logit:.3e} (tol 2e-4); launches "
-        f"{ {k: v for k, v in counts.items() if v} }")
-    del model, got, want
-    gc_cuda()
-    if not (d_roll <= 1e-5 and d_logit <= 2e-4) or \
-            (counts["mlp_fused"], counts[W80]) != (32, 32):
-        raise AssertionError("ViT-H/14 f32 fused kernel path disagrees with "
-                             "the eager path, or did not run its kernels")
+    add(zoo_f32_fused(f32_batch))
     # the serving artifact of the bf16 fused configuration
     with tempfile.TemporaryDirectory() as work:
         out = os.path.join(work, "vith_bf16_fused.pt2")
@@ -6057,10 +6264,11 @@ def wide_entry_points(f32_batch=4, export_batch=8):
 
 def zoo_path():
     """Phase 19: kernel 1 at head width 80 against its plain version, timed,
-    its occupancy read; ViT-H/14 and ViT-L/16@512 served; the int8 tier's
-    two attention routes at N = 1025; the entry points.  Returns (launch
-    counts, worst error of the width-80 bf16 rollout case, times,
-    throughputs)."""
+    its occupancy read; ViT-H/14 and ViT-L/16@512 served; ViT-H/14 at
+    float32 with both fusions against the eager path (zoo_f32_fused); the
+    int8 tier's two attention routes at N = 1025; the entry points.
+    Returns (launch counts, worst error of the width-80 bf16 rollout case,
+    times, throughputs)."""
     t0 = time.perf_counter()
     w80_errs = check_attention_w80()
     attention_occupancy()
@@ -6072,6 +6280,7 @@ def zoo_path():
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
         gc_cuda()
+    zoo_f32_fused()
     route_ms = time_int8_route()
     for k, v in zoo_entry_points().items():
         launches[k] = launches.get(k, 0) + v
@@ -6714,6 +6923,11 @@ def main() -> int:
         "attention_block_fused": (
             block_errs[("bfloat16", True, True, 197, "30% bg")],
             *fused_ms["attention_block_fused"][:2]),
+        # the streamed design: the worst error over its zoo shape's checks
+        # (B=2, both dtypes and every variant), the time at BLOCK_TIMED
+        **{BLOCK_W[dh]: (block_errs[("zoo", BLOCK_TIMED[dh][1], dh)],
+                         *fused_ms[("attention_block_fused", dh)][:2])
+           for dh in BLOCK_W},
         # the error over the bf16, clamp, float32-head-mean cases at N=577,
         # the time on one rank at B=16 N=577
         "masked_attention_seq_local": (seq_err, *seq_ms[1][:2]),

@@ -249,13 +249,16 @@ def test_flushed_block_plain_matches_jax_kernel(flushed_exp, with_joint,
     (torch.float32, "fma"),
 ])
 def test_block_design_rule(dtype, design):
-    """bf16 takes the block kernel's tensor-core core (the bf16 fused
-    serving path's), float32 its FMA core; nothing else has a CUDA design."""
-    assert tattn.block_design(dtype) == design
-    assert set(tattn.BLOCK_DESIGNS) == {"tensor-core", "fma"}
+    """At the cluster design's shapes (ViT-B/16's) bf16 takes the block
+    kernel's tensor-core core (the bf16 fused serving path's), float32 its
+    FMA core; past them both take the streamed design; nothing else has a
+    CUDA design."""
+    assert tattn.block_design(dtype, 197, 768) == design
+    assert tattn.block_design(dtype, 1025, 1024) == "streamed"
+    assert set(tattn.BLOCK_DESIGNS) == {"tensor-core", "fma", "streamed"}
     assert tattn._block_bf16_design == "tensor-core"
     with pytest.raises(TypeError, match="bfloat16 or float32"):
-        tattn.block_design(torch.float16)
+        tattn.block_design(torch.float16, 197, 768)
 
 
 @pytest.mark.parametrize("dtype,n,dh,design", [

@@ -390,7 +390,10 @@ def test_attention_block_fused_checks():
         tka.attention_block_fused(*good, num_heads=5, scale=0.25)
     with pytest.raises(ValueError, match="no kernel for device"):
         tka.attention_block_fused(*(a.to("meta") for a in good), **kw)
-    assert tka.BLOCK_MAX_N == 256
+    # the cluster design's range (8 blocks of 32 rows) and the limits at the
+    # zoo's extremes, past which the streamed design raises too
+    assert tka.BLOCK_MAX_CLUSTER * tka.BLOCK_ROWS == 256
+    assert tka.BLOCK_MAX_N == {torch.bfloat16: 1376, torch.float32: 944}
 
 
 # ---------------------------------------------------------------------------

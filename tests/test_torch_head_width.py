@@ -259,6 +259,14 @@ def test_other_kernels_refuse_head_width_80(kernel):
                                              r"80, got 48$"):
             tka.check_head_width(kernel, 48)
         return
+    if kernel == "block":
+        # compiled for 64 and 80 (BLOCK_HEAD_DIMS) since its streamed design
+        # serves ViT-H/14; other widths are still refused
+        assert tka.BLOCK_HEAD_DIMS == (64, 80)
+        assert tka.check_head_width(kernel, 80) == 80
+        with pytest.raises(ValueError, match=r"head widths 64, 80, got 48$"):
+            tka.check_head_width(kernel, 48)
+        return
     with pytest.raises(ValueError, match=r"head width 64, got 80$"):
         tka.check_head_width(kernel, 80)
 

@@ -281,7 +281,7 @@ def test_cuda_attention_block_tensor_core_matches_plain_and_fma(n):
     TOL_JOINT (3.7e-9 apart on an NVIDIA H100), out and cls row at twice
     the bf16 tolerances."""
     _card()
-    assert tka.block_design(torch.bfloat16) == "tensor-core"
+    assert tka.block_design(torch.bfloat16, n, 768) == "tensor-core"
     ops, bg, joint = _block_operands(2, n, seed=n)
     for bg_ in (bg, torch.zeros_like(bg)):
         for j in (joint, None):

@@ -145,6 +145,15 @@ def load():
         fn = lib.vitcam_attention_block_occupancy
         fn.argtypes = [i, i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
         fn.restype = i
+        fn = lib.vitcam_attention_block_streamed
+        fn.argtypes = [p] * 12 + [i, i, i, i, f, f, i, i, i, p]
+        fn.restype = i
+        fn = lib.vitcam_attention_block_streamed_occupancy
+        fn.argtypes = [i] * 7 + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = i
+        lib.vitcam_attention_block_streamed_smem_bytes.argtypes = [i] * 6
+        lib.vitcam_attention_block_streamed_smem_bytes.restype = \
+            ctypes.c_size_t
         fn = lib.vitcam_masked_attention_seq
         fn.argtypes = [p] * 7 + [i, i, i, i, i, i, f, f, i, i, i, i, i, p]
         fn.restype = i

@@ -21,9 +21,11 @@ same name) for training.
 ``attention_block_fused`` is the port of the TPU kernel of the same name:
 the whole attention sub-block, ``tokens + proj(attention(qkv(xn)))`` with the
 cls row and the rollout update, in one launch; neither the qkv tensor nor the
-attention output reaches device memory.  ``csrc/attention_block.cu`` on a
-CUDA tensor (bf16 its tensor-core attention core, float32 its FMA core:
-``block_design``), ``attention_block_fused_plain`` on a CPU tensor.
+attention output reaches device memory.  ``csrc/attention_block.cu`` (the
+cluster design: bf16 its tensor-core attention core, float32 its FMA core)
+or ``csrc/attention_block_streamed.cuh`` (the streamed design, past the
+cluster design's shapes and at head width 80) on a CUDA tensor, chosen by
+``block_design``; ``attention_block_fused_plain`` on a CPU tensor.
 
 ``masked_attention_seq_local`` is the port of the TPU sequence-parallel
 kernel (same file: _masked_attention_seq_local): a rank's local query rows
@@ -46,7 +48,8 @@ on a CPU tensor.  No model path runs it; ``scripts.microbench`` drives it.
 backward, the block, the sequence-parallel and the split-tensor wrapper, so a
 run can show that its main path went through the kernels;
 ``width_launches`` and ``bwd_width_launches`` split the forward's and the
-backward's counts by head width.
+backward's counts by head width, ``block_streamed_launches`` the block
+wrapper's calls that ran the streamed design, by head width.
 """
 
 from __future__ import annotations
@@ -110,22 +113,34 @@ BWD_DESIGNS = {"one-block": 0, "two-kernel": 1, "tensor-core": 2}
 # "two-kernel", the FMA designs bf16 ran before), to time the designs side by
 # side; no config field or flag reaches it.
 _bwd_bf16_design = "tensor-core"
-# The block kernel gives every 32 query rows of an image one thread block and
-# joins an image's blocks into one cluster, of at most 8 blocks.
+# The block kernel has two designs, chosen by shape (``block_design``).  The
+# cluster design (csrc/attention_block.cu) gives every 32 query rows of an
+# image one thread block and joins an image's blocks into one cluster of at
+# most 8: N <= 256, head width 64, and its [32, C] output tile, the head mean
+# and its core's tiles within the shared memory one block may hold.  Its
+# attention core has two forms.  bf16 runs the tensor-core core: the head's K
+# and V as bf16 in every block of the cluster (each block pushes its rows to
+# the others through distributed shared memory), QK^T and P V on mma.sync, S
+# in registers, two passes over the keys a head.  float32 runs the FMA core
+# (K and V pulled as float32 chunks, a [32, N] float32 tile of S, float32
+# products): its gates need full float32 products.  The streamed design
+# (csrc/attention_block_streamed.cuh) takes every other shape the shared
+# memory allows, head widths 64 and 80: a first launch writes K and V of
+# every head to a [B, 2, H, N, dh] scratch, a second gives each block one
+# tile of 16 or 32 query rows of one image across all heads (bf16: kernel
+# 1's tensor-core core streaming K and V from the scratch; float32: the FMA
+# core).
 BLOCK_ROWS = 32
-BLOCK_MAX_N = 8 * BLOCK_ROWS
-BLOCK_MAX_C = 768   # its [32, C] output tile and staging in shared memory
-# The block kernel's attention core has two designs.  bf16 runs the
-# tensor-core design: the head's K and V as bf16 in every block of the
-# cluster (each block pushes its rows to the others through distributed
-# shared memory), QK^T and P V on mma.sync, S in registers, two passes over
-# the keys a head.  float32 runs the FMA design (K and V pulled as float32
-# chunks, a [32, N] float32 tile of S, float32 products): its gates need full
-# float32 products.
-BLOCK_DESIGNS = {"fma": 0, "tensor-core": 1}
-# The design bf16 runs; only chip_smoke.py sets "fma", to time the earlier
-# one beside it.  No config field or flag reaches it.
+BLOCK_MAX_CLUSTER = 8
+BLOCK_HEAD_DIMS = (64, 80)
+BLOCK_SMEM_LIMIT = 232448   # sm_90's opt-in shared memory a block
+BLOCK_DESIGNS = {"fma": 0, "tensor-core": 1, "streamed": 2}
+# The core the cluster design runs at bf16; only chip_smoke.py sets "fma",
+# to time the earlier one beside it.  No config field or flag reaches it.
 _block_bf16_design = "tensor-core"
+# the block wrapper's calls that ran the streamed design, by head width (each
+# also counts in ``block_launches``)
+block_streamed_launches = {dh: 0 for dh in BLOCK_HEAD_DIMS}
 # The sequence-parallel kernel takes Np <= SEQ_MAX_NP (N = 1025 padded to 8
 # ranks is 1032).  bf16 runs its tensor-core design (16 query rows a block;
 # S in registers; the [16, Np] float32 head mean in shared memory).  float32
@@ -216,9 +231,10 @@ def check_head_width(kernel: str, dh: int) -> int:
     """``dh`` if the CUDA kernel ``kernel`` (a key of ``_WIDTH_NAMES``) is
     compiled for that head width, else ValueError naming the widths it
     takes: ``FWD_HEAD_DIMS`` for kernel 1, ``BWD_HEAD_DIMS`` for the
-    backward, ``HEAD_DIM`` for the others.  Needs no CUDA."""
-    widths = {"fused": FWD_HEAD_DIMS, "backward": BWD_HEAD_DIMS}.get(
-        kernel, (HEAD_DIM,))
+    backward, ``BLOCK_HEAD_DIMS`` for the block kernel, ``HEAD_DIM`` for the
+    others.  Needs no CUDA."""
+    widths = {"fused": FWD_HEAD_DIMS, "backward": BWD_HEAD_DIMS,
+              "block": BLOCK_HEAD_DIMS}.get(kernel, (HEAD_DIM,))
     if dh not in widths:
         which = ", ".join(map(str, widths))
         raise ValueError(f"{_WIDTH_NAMES[kernel]} is compiled for head "
@@ -650,13 +666,121 @@ def _check_block(xn, tokens, wqkv, bqkv, wproj, bproj, bg, joint, num_heads):
                          f"{tuple(joint.shape)}")
 
 
-def block_design(dtype) -> str:
-    """The CUDA block kernel's design for xn of ``dtype``: "tensor-core" for
-    bfloat16, "fma" for float32 (its gates need full float32 products)."""
+def _ceil(x, m):
+    return -(-x // m) * m
+
+
+def block_smem_bytes(design, dtype, n, c, head_dim=HEAD_DIM, rollout=True,
+                     q_block=BLOCK_ROWS) -> int:
+    """Dynamic shared memory a block of the block kernel's ``design`` takes
+    at (N, C, head width, rollout), as the CUDA sources compute it
+    (``vitcam_attention_block_smem_bytes`` for the cluster design's cores,
+    ``vitcam_attention_block_streamed_smem_bytes`` for the streamed design,
+    whose row tile is ``q_block``, 16 or 32).  Needs no CUDA.
+
+    The cluster design (csrc/attention_block.cu), 32 rows a block: "fma"
+    (layout) the [32, C] output tile, the [32, N] head mean, q, the block's
+    K and V rows, the cls and key-mask rows, then the larger of the GEMM
+    staging and the [32, N] S tile with a 64-key chunk; "tensor-core"
+    (tc_layout, bf16) the output tile, the head mean, the whole head's K
+    and V, q, the cls and key-mask rows, the row statistics, then the larger
+    of the GEMM staging and the partial O tiles.  The streamed design
+    (csrc/attention_block_streamed.cuh): bf16 the [q_block, C] q / output
+    tile, the head mean, the cls and key-mask rows, the warps' row
+    statistics, then the larger of the eight warps' rings and the GEMM
+    staging; float32 the q / output tile, the head mean, the cls and
+    key-mask rows, then the larger of the GEMM staging and the [q_block, N]
+    S tile with a 64-key chunk."""
+    bf = dtype == torch.bfloat16
+    esz, pad = (2, 8) if bf else (4, 4)
+    stage = 2 * (32 + 384) * 40 * 2 if bf else (32 * 36 + 32 * 388) * 4
+    ns, nk = _ceil(n, 4), _ceil(n, 16)
+    hs = _ceil(n, 32) + 8
+    if design == "streamed":
+        qb = q_block
+        if bf:
+            w = _ceil(head_dim, 16)
+            pitch = 64 if head_dim == 64 else w if (w // 8) % 2 else w + 8
+            ring = max(4 * 16 * pitch * 2, qb // 16 * 16 * (w + 8) * 4)
+            return (qb * (c + pad) * esz + (qb * hs * 4 if rollout else 0)
+                    + 2 * nk * 4 + 8 * qb * 2 * 4 + 2 * qb * 4
+                    + max(8 * ring, stage))
+        return (qb * (c + pad) * esz + (qb * ns * 4 if rollout else 0)
+                + 2 * ns * 4 + 2 * qb * 4
+                + max(stage, (qb * ns + 64 * (head_dim + 4)) * 4))
+    if design == "tensor-core":
+        return (32 * (c + 8) * 2 + (32 * hs * 4 if rollout else 0)
+                + 2 * _ceil(n, 32) * 64 * 2 + 32 * 64 * 2 + 2 * nk * 4
+                + 2 * 32 * 4 + 4 * 32 * 2 * 4
+                + max(stage, 4 * 32 * 72 * 4))
+    return (32 * (c + pad) * esz + (32 * ns * 4 if rollout else 0)
+            + 32 * 64 * 4 + 2 * 32 * 68 * 4 + 2 * ns * 4 + 2 * 32 * 4
+            + max(stage, (32 * ns + 64 * 68) * 4))
+
+
+def _block_dtype(dtype):
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the CUDA block kernel takes bfloat16 or float32, "
                         f"got {dtype}")
-    return "fma" if dtype == torch.float32 else _block_bf16_design
+
+
+def block_design(dtype, n, c, head_dim=HEAD_DIM, rollout=True) -> str:
+    """The CUDA block kernel's design for xn of ``dtype`` [B, N, C] at head
+    width ``head_dim``, with the rollout or without.  The rule, and the only
+    one: the cluster design where it takes the shape (head width 64, N <=
+    ``BLOCK_MAX_CLUSTER`` * 32, its layout within ``BLOCK_SMEM_LIMIT``):
+    "tensor-core" for bfloat16 (``_block_bf16_design`` = "fma" its FMA
+    core), "fma" for float32; else "streamed" where its layout fits at 16
+    query rows a block.  A shape past both raises, naming the bytes; the
+    wrapper never falls back to another route."""
+    _block_dtype(dtype)
+    check_head_width("block", head_dim)
+    cluster = "fma" if dtype == torch.float32 else _block_bf16_design
+    if head_dim == HEAD_DIM and -(-n // BLOCK_ROWS) <= BLOCK_MAX_CLUSTER and \
+            block_smem_bytes(cluster, dtype, n, c, head_dim,
+                             rollout) <= BLOCK_SMEM_LIMIT:
+        return cluster
+    need = block_smem_bytes("streamed", dtype, n, c, head_dim, rollout, 16)
+    if need > BLOCK_SMEM_LIMIT:
+        name = str(dtype).split(".")[-1]
+        raise ValueError(
+            f"the CUDA block kernel takes no N={n}, C={c} at head width "
+            f"{head_dim} ({name}, rollout={rollout}): its streamed design "
+            f"needs {need} bytes of shared memory a block at 16 query rows, "
+            f"past the {BLOCK_SMEM_LIMIT} one may hold; serve this shape "
+            "without attn_block_fusion")
+    return "streamed"
+
+
+def block_rows(dtype, n, c, head_dim=HEAD_DIM, rollout=True) -> int:
+    """Query rows a block of the streamed design owns at this shape: 32
+    where its layout fits, else 16."""
+    return 32 if block_smem_bytes("streamed", dtype, n, c, head_dim, rollout,
+                                  32) <= BLOCK_SMEM_LIMIT else 16
+
+
+def _largest(fits, step):
+    """The largest multiple of ``step`` for which ``fits`` holds (it holds
+    for ``step`` and for nothing past the first value where it fails)."""
+    v = step
+    while fits(v + step):
+        v += step
+    return v
+
+
+def _streamed_fits(dtype, n, c, dh):
+    return block_smem_bytes("streamed", dtype, n, c, dh, True,
+                            16) <= BLOCK_SMEM_LIMIT
+
+
+# The limits at the zoo's extremes, with the rollout (every (N, C) pair whose
+# layout fits runs; ``block_design`` holds the rule): the longest N at the
+# widest C (ViT-H/14's 1280 in 16 heads of 80), and the widest C (heads of
+# 64) at the longest N (ViT-L/16@512's 1025).
+BLOCK_MAX_N = {dt: _largest(lambda n: _streamed_fits(dt, n, 1280, 80), 1)
+               for dt in (torch.bfloat16, torch.float32)}
+BLOCK_MAX_C = {dt: _largest(lambda c: _streamed_fits(dt, 1025, c, 64), 64)
+               for dt in (torch.bfloat16, torch.float32)}
 
 
 def attention_block_fused_plain(xn, tokens, wqkv, bqkv, wproj, bproj, bg,
@@ -697,11 +821,13 @@ def attention_block_fused(xn, tokens, wqkv, bqkv, wproj, bproj, bg,
     """Same contract as ``attention_block_fused_plain``.  CPU tensors run the
     plain version; CUDA tensors launch the kernel or raise.  The kernel takes
     xn, tokens, weights and biases all float32 or all bfloat16, contiguous;
-    head width 64; N <= ``BLOCK_MAX_N`` (the TPU kernel tiles queries at 512;
-    here an image's query tiles form one cluster of at most 8 blocks) and
-    C <= ``BLOCK_MAX_C`` (its shared memory); bg float32 or bfloat16; joint
-    float32.  It reads the weights in the torch layout: no transposed copy
-    is made."""
+    head width 64 or 80; any (N, C) whose layout fits a block's shared
+    memory in the design ``block_design`` picks (the cluster design, or the
+    streamed design past it: ``BLOCK_MAX_N`` and ``BLOCK_MAX_C`` give the
+    limits at the zoo's extremes); bg float32 or bfloat16; joint float32.
+    It reads the weights in the torch layout: no transposed copy is made.
+    The streamed design allocates a [B, 2, H, N, dh] scratch of xn's type
+    for K and V."""
     global block_launches
     kw = dict(num_heads=num_heads, scale=scale, mask_value=mask_value,
               clamp_softmax=clamp_softmax)
@@ -730,20 +856,12 @@ def attention_block_fused(xn, tokens, wqkv, bqkv, wproj, bproj, bg,
         raise ValueError("attention_block_fused: operands must be contiguous "
                          "and 16-byte aligned")
     b, n, c = xn.shape
-    check_head_width("block", c // num_heads)
-    if n > BLOCK_MAX_N:
-        raise ValueError(f"the CUDA block kernel takes N <= {BLOCK_MAX_N}, "
-                         f"got {n}; serve this shape without "
-                         "attn_block_fusion")
-    if c > BLOCK_MAX_C:
-        raise ValueError(f"the CUDA block kernel takes C <= {BLOCK_MAX_C}, "
-                         f"got {c}; serve this width without "
-                         "attn_block_fusion")
-    if joint is not None and (joint.dtype != torch.float32
-                              or not joint.is_contiguous()):
+    dh = c // num_heads
+    rollout = joint is not None
+    design = block_design(xn.dtype, n, c, dh, rollout)
+    if rollout and (joint.dtype != torch.float32
+                    or not joint.is_contiguous()):
         raise TypeError("joint must be a contiguous float32 tensor")
-
-    design = block_design(xn.dtype)
 
     from vision_transformer_cam_tpu_torch.kernels import _build
     lib = _build.load()
@@ -751,27 +869,40 @@ def attention_block_fused(xn, tokens, wqkv, bqkv, wproj, bproj, bg,
     out = torch.empty_like(xn)
     cls_row = torch.empty((b, n), dtype=xn.dtype, device=xn.device)
     # never in place: every block of an image reads all of J
-    newj = torch.empty_like(joint) if joint is not None else None
+    newj = torch.empty_like(joint) if rollout else None
+    ptrs = (xn.data_ptr(), tokens.data_ptr(), wqkv.data_ptr(),
+            bqkv.data_ptr(), wproj.data_ptr(), bproj.data_ptr(),
+            bg32.data_ptr(), joint.data_ptr() if rollout else None)
+    outs = (out.data_ptr(), cls_row.data_ptr(),
+            newj.data_ptr() if rollout else None)
+    code = _DTYPE_CODES[xn.dtype]
     with torch.cuda.device(xn.device):
         stream = torch.cuda.current_stream(xn.device).cuda_stream
-        err = lib.vitcam_attention_block_fused(
-            xn.data_ptr(), tokens.data_ptr(), wqkv.data_ptr(),
-            bqkv.data_ptr(), wproj.data_ptr(), bproj.data_ptr(),
-            bg32.data_ptr(), joint.data_ptr() if joint is not None else None,
-            out.data_ptr(), cls_row.data_ptr(),
-            newj.data_ptr() if joint is not None else None, b, n, num_heads,
-            c // num_heads, float(scale), float(mask_value),
-            _DTYPE_CODES[xn.dtype], int(clamp_softmax),
-            -(-n // BLOCK_ROWS), BLOCK_DESIGNS[design], stream)
+        if design == "streamed":
+            q_block = block_rows(xn.dtype, n, c, dh, rollout)
+            kv = torch.empty((b, 2, num_heads, n, dh), dtype=xn.dtype,
+                             device=xn.device)
+            err = lib.vitcam_attention_block_streamed(
+                *ptrs, kv.data_ptr(), *outs, b, n, num_heads, dh,
+                float(scale), float(mask_value), code, int(clamp_softmax),
+                q_block, stream)
+            need = lib.vitcam_attention_block_streamed_smem_bytes(
+                n, num_heads, dh, int(rollout), code, q_block)
+        else:
+            err = lib.vitcam_attention_block_fused(
+                *ptrs, *outs, b, n, num_heads, dh, float(scale),
+                float(mask_value), code, int(clamp_softmax),
+                -(-n // BLOCK_ROWS), BLOCK_DESIGNS[design], stream)
+            need = lib.vitcam_attention_block_smem_bytes(
+                n, num_heads, int(rollout), code, BLOCK_DESIGNS[design])
     if err:
         msg = lib.vitcam_cuda_error_string(err).decode()
-        need = lib.vitcam_attention_block_smem_bytes(
-            n, num_heads, int(joint is not None), _DTYPE_CODES[xn.dtype],
-            BLOCK_DESIGNS[design])
         raise RuntimeError(
             f"attention_block_fused kernel launch failed ({design} design): "
             f"cudaError {err} ({msg}); shared memory needed {need} bytes")
     block_launches += 1
+    if design == "streamed":
+        block_streamed_launches[dh] += 1
     if newj is None:
         return out, cls_row
     return out, cls_row, newj

@@ -70,8 +70,11 @@
 // output tile 49,664); each of the 448 blocks streams all of Wqkv and Wproj
 // (4.7 MB) from L2 for its 32 rows.
 //
-// Limits: head width 64; N <= 256 (a cluster has at most 8 blocks); the
-// shared memory holds C <= 768 at that N.  The launch fails past them.
+// Limits: head width 64; N <= 256 (a cluster has at most 8 blocks); C as
+// far as the layout fits the 232,448 bytes a block may hold (bf16 at N =
+// 197: C = 1024, 226,688 bytes).  The launch fails past them; the wrapper
+// (kernels.attention.block_design) sends those shapes to the streamed
+// design, attention_block_streamed.cuh.
 //
 // Built by kernels/_build.py with nvcc into the shared library with a plain C
 // interface (no PyTorch headers) and called through ctypes.

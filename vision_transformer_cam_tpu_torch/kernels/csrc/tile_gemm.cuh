@@ -139,11 +139,16 @@ __device__ __forceinline__ void stage_b(float* b_s, const float* __restrict__ w,
   }
 }
 
-// acc += A chunk (a_s, rows of pitch a_stride, k contiguous) x W chunk (b_s)
-template <int TM>
+// acc += A chunk (a_s, rows of pitch a_stride, k contiguous) x W chunk (b_s);
+// with ROWS = 16 the threads of rows 16-31 (warps 4-7 at TM = 4) skip it,
+// their accumulators left as they are
+template <int TM, int ROWS = kGM>
 __device__ __forceinline__ void tile_fma(float (&acc)[TM * kGTN], const float* a_s,
                                          int a_stride, const float* b_s) {
   constexpr int kStride = Tile<TM>::kBStride;
+  if constexpr (ROWS < kGM) {
+    if (Tile<TM>::ty() * TM >= ROWS) return;
+  }
   const float* a_row = a_s + Tile<TM>::ty() * TM * a_stride;
   const float* b_col = b_s + Tile<TM>::tx() * kGTN;
 #pragma unroll 2
@@ -224,18 +229,20 @@ __device__ __forceinline__ unsigned ld32(const bf16* p) {
 }
 
 // acc += A chunk (a_s[r][k], rows of pitch a_stride) x W chunk (b_s[c][k]):
-// two m16 tiles by kNT n8 tiles per warp, two k16 steps
-template <int TM>
+// ROWS / 16 m16 tiles (two, or the first alone) by kNT n8 tiles per warp,
+// two k16 steps
+template <int TM, int ROWS = kGM>
 __device__ __forceinline__ void tile_mma(float (&acc)[TM * kGTN], const bf16* a_s,
                                          int a_stride, const bf16* b_s) {
-  constexpr int kNT = Tile<TM>::kNT;
+  constexpr int kNT = Tile<TM>::kNT, kMT = ROWS / 16;
+  static_assert(ROWS == 16 || ROWS == kGM, "one or two m16 tiles");
   const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
   const bf16* b_warp = b_s + ((threadIdx.x >> 5) * kNT * 8 + g) * kHStride + tig * 2;
 #pragma unroll
   for (int kk = 0; kk < kGK; kk += 16) {
-    unsigned a[2][4];
+    unsigned a[kMT][4];
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
+    for (int mt = 0; mt < kMT; ++mt) {
       const bf16* p = a_s + (mt * 16 + g) * a_stride + kk + tig * 2;
       a[mt][0] = ld32(p);
       a[mt][1] = ld32(p + 8 * a_stride);
@@ -247,7 +254,7 @@ __device__ __forceinline__ void tile_mma(float (&acc)[TM * kGTN], const bf16* a_
       const unsigned b0 = ld32(b_warp + nt * 8 * kHStride + kk);
       const unsigned b1 = ld32(b_warp + nt * 8 * kHStride + kk + 8);
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
+      for (int mt = 0; mt < kMT; ++mt) {
         float* c = acc + (mt * kNT + nt) * 4;
         asm volatile(
             "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
@@ -260,12 +267,15 @@ __device__ __forceinline__ void tile_mma(float (&acc)[TM * kGTN], const bf16* a_
 }
 
 // ---------------------------------------------------------------------------
-// the two GEMM loops; every thread of the block must call them
+// the two GEMM loops; every thread of the block must call them.  ROWS = 16:
+// only the tile's first 16 rows are wanted (the products of the others are
+// skipped, their accumulators stay zero or partial, and the caller drops
+// them); A is still staged as 32 rows from device memory.
 // ---------------------------------------------------------------------------
 
 // acc += A[row0.., 0..K) x W[row_of(c), 0..K)^T, A read from device memory.
 // `stage` holds stage_bytes<T, TM>() bytes, 16-byte aligned.
-template <int TM, typename T, typename RowOf>
+template <int TM, int ROWS = kGM, typename T, typename RowOf>
 __device__ __forceinline__ void gemm_global_a(float (&acc)[TM * kGTN], const T* __restrict__ a,
                                               int lda, int row0, int rows_end,
                                               const T* __restrict__ w, int ldw, RowOf row_of,
@@ -289,7 +299,7 @@ __device__ __forceinline__ void gemm_global_a(float (&acc)[TM * kGTN], const T* 
         cp_async_wait<0>();
       }
       __syncthreads();
-      tile_mma<TM>(acc, cur, kHStride, cur + kGM * kHStride);
+      tile_mma<TM, ROWS>(acc, cur, kHStride, cur + kGM * kHStride);
       __syncthreads();   // before the chunk after next overwrites this buffer
     }
   } else {
@@ -300,7 +310,7 @@ __device__ __forceinline__ void gemm_global_a(float (&acc)[TM * kGTN], const T* 
       stage_a(a_s, a, lda, row0, rows_end, k0, K);
       stage_b<TM>(b_s, w, ldw, row_of, k0, K);
       __syncthreads();
-      tile_fma<TM>(acc, a_s, kGAStride, b_s);
+      tile_fma<TM, ROWS>(acc, a_s, kGAStride, b_s);
     }
   }
 }
@@ -309,7 +319,7 @@ __device__ __forceinline__ void gemm_global_a(float (&acc)[TM * kGTN], const T* 
 // rounded up to kGK (the caller keeps zeros past K), rows of pitch a_stride;
 // W's k runs from w_k0 and ends at w_k_end.  Its first barrier also publishes
 // a_sm.
-template <int TM, typename T, typename RowOf>
+template <int TM, int ROWS = kGM, typename T, typename RowOf>
 __device__ __forceinline__ void gemm_shared_a(float (&acc)[TM * kGTN], const T* a_sm,
                                               int a_stride, const T* __restrict__ w, int ldw,
                                               RowOf row_of, int w_k0, int w_k_end, int K,
@@ -329,7 +339,7 @@ __device__ __forceinline__ void gemm_shared_a(float (&acc)[TM * kGTN], const T* 
         cp_async_wait<0>();
       }
       __syncthreads();
-      tile_mma<TM>(acc, a_sm + k0, a_stride, buf + (i & 1) * kBuf);
+      tile_mma<TM, ROWS>(acc, a_sm + k0, a_stride, buf + (i & 1) * kBuf);
       __syncthreads();
     }
   } else {
@@ -338,7 +348,7 @@ __device__ __forceinline__ void gemm_shared_a(float (&acc)[TM * kGTN], const T* 
       __syncthreads();
       stage_b<TM>(b_s, w, ldw, row_of, w_k0 + k0, w_k_end);
       __syncthreads();
-      tile_fma<TM>(acc, a_sm + k0, a_stride, b_s);
+      tile_fma<TM, ROWS>(acc, a_sm + k0, a_stride, b_s);
     }
   }
 }

@@ -41,8 +41,11 @@ import torch
 
 # kernel groups, first match of a substring of the kernel's name
 GROUPS = (
+    # the cluster design's kernels, then the streamed design's two launches
     ("attention block kernel", ("attention_block_kernel",
-                                "attention_block_tc_kernel")),
+                                "attention_block_tc_kernel",
+                                "attention_block_streamed_",
+                                "block_kv_kernel")),
     ("fused MLP kernel", ("mlp_wgmma_kernel", "mlp_fused_kernel",
                           "mlp_fused_int8_kernel")),
     ("sequence-parallel attention kernel", ("masked_attention_seq_kernel",
