@@ -110,7 +110,18 @@ Phases (any failure raises, and the exit code is non-zero):
      design and the FMA design bf16 ran before held to the plain version
      there, then the tensor-core design, the plain version and
      F.scaled_dot_product_attention with the same mask (timed only), in
-     turns;
+     turns; the same kernel at head width 80 (16 heads; its own translation
+     unit, as 16, 32 and 40) on every rank's shard of 1, 2, 4 and 8 ranks at
+     N = 257 and 1025 in the same matrix, the stitched shards against kernel
+     1 at width 80; at 16, 32 and 40 phase 24's shapes (WIDTH_CASES) in a
+     compact matrix (30 % background; the float32 head mean with the clamp,
+     and neither); widths 24 and 48 refused; each width at its longest
+     padded axis (SEQ_MAX_NP: 1660, 1624, 1604, 1548, 1512 at 16,
+     32, 40, 64, 80) against the plain version and one key past it refused;
+     every width's occupancy at Np = 257 and at its limit; timed in turns
+     with the plain version and SDPA at ViT-H/14's B=64 N=257 H=16 on one
+     rank and a shard of two (NQ=129, Np=258) and at 16, 32 and 40 at phase
+     24's timed shapes on one rank;
   9. the sequence-parallel main path: ViT-L/16@384 at full depth and width
      (24 layers, C=1024, 16 heads, N=577), seeded random weights of the 224
      model loaded through the 224 -> 384 pos-embed interpolation, bf16
@@ -222,7 +233,13 @@ Phases (any failure raises, and the exit code is non-zero):
      batch 64 / 32 in turns; kernel 1's int8_io
      against int8_out head-mean variant at B=32 N=1025 H=16; bench.main at
      ViT-H/14 (int8 and --bf16, batch 64) and ViT-L/16@512 (batch 32), and
-     cli.predict at ViT-H/14 (--no_figure), their launch counts held.
+     cli.predict at ViT-H/14 (--no_figure), their launch counts held;
+     ViT-H/14, the same build, also under apply_seq_parallel on a one-rank
+     NCCL process group: float32 at batch 2 against its unsharded kernel
+     path (rollout row 1e-5, logits 2e-4), bf16 over the 3 requests of 32
+     against the unsharded bf16 kernel path within ZOO_BF16_GATES (32
+     seq-kernel launches at head width 80 a forward, none of kernel 1), its
+     img/s in the turns at batch 64.
  20. the zoo trained (run right after phase 19): ViT-H/14 (32 layers,
      C=1280, 16 heads of 80, N=257) at batch 64 and ViT-L/16@512 (24 layers,
      N=1025, the 224 model's seeded weights through the pos-embed
@@ -308,7 +325,12 @@ Phases (any failure raises, and the exit code is non-zero):
      trained at batch 32, the launch counts held at the model's width.  The
      quickstart of phase 17 trains and serves at width 16 too (the JAX tiny
      config), its width-16 counts held.  Each check's limit cases of phase 5
-     now also run at 16, 32 and 40 (BWD_MAX_N 1704, 1656, 1636).
+     now also run at 16, 32 and 40 (BWD_MAX_N 1704, 1656, 1636).  Each
+     width's model also under apply_seq_parallel on a one-rank NCCL process
+     group: float32 at batch 2 against its unsharded kernel path (rollout
+     row 1e-5, logits 2e-4), bf16 over 3 requests of 64 against its
+     unsharded bf16 kernel path (SEQ_GATES), a seq-kernel launch a layer at
+     the model's width held.
  25. the CNN-CAM demo: cli.cnn_cam_demo.main for resnet18, squeezenet1_1
      and densenet161 at full width, 224 x 224, seeded weights, on the card
      and with --device cpu (the same top-5, CAMs within one step on at most
@@ -365,6 +387,14 @@ MLP8_W = {c: f"mlp_fused_int8[C={c}]" for c in MLP_WIDTHS[1:]}
 BLOCK_W = {80: "attention_block_fused[N=257 C=1280 w80]",
            64: "attention_block_fused[N=1025 C=1024]"}
 BLOCK_TIMED = {80: (64, 257, 16), 64: (32, 1025, 16)}
+# the sequence-parallel kernel's instances at head widths 80 (ViT-H/14 served
+# under sequence parallelism in phase 19) and 16, 32 and 40 (phase 24's
+# models under it), a row a width, each timed at its shape (B, N, heads) on
+# one rank: ViT-H/14's, and the widths' of phase 24 (WIDTH_TIMED)
+SEQ_WIDTHS = (80, 16, 32, 40)
+SEQ_W = {dh: f"masked_attention_seq[head width {dh}]" for dh in SEQ_WIDTHS}
+SEQ_TIMED = {80: (64, 257, 16), 16: (64, 65, 4), 32: (16, 1025, 2),
+             40: (64, 147, 3)}
 KERNELS = {   # name: (route, source, TPU kernel replaced)
     "masked_attention_fused": (
         "cuda", CSRC + "masked_attention.cu",
@@ -441,6 +471,13 @@ KERNELS = {   # name: (route, source, TPU kernel replaced)
     "masked_attention_seq_local": (
         "cuda", CSRC + "masked_attention_seq.cu",
         "vision_transformer_cam_tpu/kernels/attention.py:433"),
+    # the same kernel's instances at head widths 80, 16, 32 and 40
+    # (csrc/masked_attention_seq.cuh, each width its own translation unit),
+    # bf16 with the float32 head mean and clamp, as the serving path under
+    # sequence parallelism launches them
+    **{SEQ_W[dh]: ("cuda", CSRC + f"masked_attention_seq_w{dh}.cu",
+                   "vision_transformer_cam_tpu/kernels/attention.py:433")
+       for dh in SEQ_WIDTHS},
     # the split-tensor ("v1") kernel, which only scripts.microbench drives
     "masked_attention": (
         "cuda", CSRC + "masked_attention_v1.cu",
@@ -902,8 +939,8 @@ def mlp_bits(root, out):
 
 
 def compare_bits(a, b):
-    """Two files of ``bwd_bits``, ``fwd_bits`` or ``mlp_bits``: raises where
-    a case differs or is missing."""
+    """Two files of ``bwd_bits``, ``fwd_bits``, ``mlp_bits``, ``block_bits``
+    or ``seq_bits``: raises where a case differs or is missing."""
     fa, fb = (json.load(open(f)) for f in (a, b))
     diff = sorted(k for k in set(fa) | set(fb) if fa.get(k) != fb.get(k))
     say(f"compare_bits {a} {b}: {len(fa)} and {len(fb)} cases, {len(diff)} "
@@ -1778,6 +1815,54 @@ def block_bits(root, out):
     return got
 
 
+# seq_bits' cases (B, N, heads, ranks) at head width 64: ViT-B's N = 197 on
+# one rank and over four, and a ragged N = 37 over two
+SEQ_BITS_CASES = ((2, 197, 16, 1), (2, 197, 16, 4), (3, 37, 12, 2))
+
+
+def seq_bits(root, out):
+    """SHA-256 of the sequence-parallel kernel's output bytes (out, row0,
+    head mean) at head width 64 on every rank's shard of SEQ_BITS_CASES, in
+    every design (float32: fma; bf16: tensor-core and fma), background,
+    clamp and head-mean dtype, from the port of the checkout at ``root``, as
+    ``bwd_bits`` does (and compared by ``compare_bits``)."""
+    import hashlib
+    sys.path.insert(0, os.path.abspath(root))
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    got = {}
+    for (b, n, heads, sp) in SEQ_BITS_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            designs = ("fma",) if dtype == torch.float32 else \
+                ("tensor-core", "fma")
+            hms = (None, torch.float32) + (
+                (torch.bfloat16,) if dtype == torch.bfloat16 else ())
+            for bi, bg_kind in enumerate(("none", "30%", "all but cls")):
+                qkv, bg = seq_inputs(b, n, heads, dtype, 100 * n + bi,
+                                     bg_kind)
+                shards, kv, bg_k = seq_shards(qkv, bg, sp)
+                for clamp in (False, True):
+                    for hm_dt in hms:
+                        kw = dict(num_heads=heads, scale=0.125, n_real=n,
+                                  clamp_softmax=clamp,
+                                  with_headmean=hm_dt is not None,
+                                  hm_dtype=hm_dt)
+                        for design in designs:
+                            for rank, (q, bg_q) in enumerate(shards):
+                                res = _seq_design(design, q, kv, bg_q, bg_k,
+                                                  **kw)
+                                digest = hashlib.sha256()
+                                for t in res:
+                                    digest.update(t.contiguous().view(
+                                        torch.uint8).cpu().numpy().tobytes())
+                                got[f"{design} {dtype} B={b} N={n} H={heads} "
+                                    f"sp={sp} rank {rank} bg={bg_kind} clamp="
+                                    f"{clamp} hm={hm_dt}"] = digest.hexdigest()
+    with open(out, "w") as f:
+        json.dump(got, f, indent=1, sort_keys=True)
+    say(f"seq_bits: {len(got)} cases from {ka.__file__} -> {out}")
+    return got
+
+
 def block_occupancy(heads=12):
     """For each instance of the block kernel the serving path could run
     (rollout, clamp): the cluster design at N = 197 (clusters of 7) and N =
@@ -1851,11 +1936,12 @@ def block_occupancy(heads=12):
     return got
 
 
-def seq_inputs(b, n, heads, dtype, seed, bg_kind="30%"):
-    """Packed qkv [B, N, 3C] with hot query rows 1-3 (logits past the clamp)
-    and a background of the given kind (cls column never background)."""
+def seq_inputs(b, n, heads, dtype, seed, bg_kind="30%", dh=64):
+    """Packed qkv [B, N, 3C] at head width ``dh`` with hot query rows 1-3
+    (logits past the clamp) and a background of the given kind (cls column
+    never background)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    c = heads * 64
+    c = heads * dh
     share = {"none": 0.0, "30%": 0.3, "all but cls": 1.1}[bg_kind]
     bg = (torch.rand((b, n), generator=g, device="cuda") < share).float()
     bg[:, 0] = 0.0
@@ -1878,108 +1964,226 @@ def seq_shards(qkv, bg, sp):
     return shards, kv, bg_p
 
 
-def check_attention_seq(b=2, heads=16):
-    """The sequence-parallel kernel against its plain version on every rank's
-    shard (bf16: the tensor-core design, launched twice for identical bits;
-    float32: the FMA design), and the stitched shards against the attention
-    kernel of the unsharded path where that takes the length.  Returns the worst error of
-    the (bf16, clamp, float32 head mean) cases at N=577."""
+def check_attention_seq(b=2, heads=16, dh=64, ns=(197, 577, 1025),
+                        sps=(1, 2, 4, 8), compact=False, kept_n=577):
+    """The sequence-parallel kernel at head width ``dh`` against its plain
+    version on every rank's shard of ``sps`` ranks at each N of ``ns`` (bf16:
+    the tensor-core design, launched twice for identical bits; float32: the
+    FMA design), and the stitched shards against the attention kernel of the
+    unsharded path (kernel 1, at the same width).  The full matrix: three
+    backgrounds, clamp off and on, no head mean and the head mean in float32
+    and in the element type; ``compact``: 30 % background, the float32 head
+    mean with the clamp, and neither.  Returns the worst error of the (bf16,
+    clamp, float32 head mean) cases at N = ``kept_n``."""
     from vision_transformer_cam_tpu_torch.kernels import attention as ka
     failures, n_cases, kept = [], 0, 0.0
-    kw = dict(num_heads=heads, scale=64 ** -0.5)
-    for n in (197, 577, 1025):
-        for sp in (1, 2, 4, 8):
+    kw = dict(num_heads=heads, scale=dh ** -0.5)
+    for n in ns:
+        for sp in sps:
             for dtype in (torch.float32, torch.bfloat16):
                 worst = {"out": 0.0, "row0": 0.0, "hm": 0.0, "stitched": 0.0}
-                hms = (None, torch.float32) if dtype == torch.float32 else \
-                    (None, torch.float32, torch.bfloat16)
-                for bi, bg_kind in enumerate(("none", "30%", "all but cls")):
+                if compact:
+                    combos = ((False, None), (True, torch.float32))
+                    bgs = ("30%",)
+                else:
+                    hms = (None, torch.float32) if dtype == torch.float32 \
+                        else (None, torch.float32, torch.bfloat16)
+                    combos = tuple((clamp, hm_dt) for clamp in (False, True)
+                                   for hm_dt in hms)
+                    bgs = ("none", "30%", "all but cls")
+                for bi, bg_kind in enumerate(bgs):
                     qkv, bg = seq_inputs(b, n, heads, dtype, 100 * n + bi,
-                                         bg_kind)
+                                         bg_kind, dh)
                     shards, kv, bg_k = seq_shards(qkv, bg, sp)
-                    for clamp in (False, True):
-                        for hm_dt in hms:
-                            ckw = dict(kw, clamp_softmax=clamp, n_real=n,
-                                       with_headmean=hm_dt is not None,
-                                       hm_dtype=hm_dt)
-                            got_all = []
-                            for rank, (q, bg_q) in enumerate(shards):
-                                got = ka.masked_attention_seq_local(
-                                    q, kv, bg_q, bg_k, **ckw)
-                                want = ka.masked_attention_seq_local_ref(
-                                    q, kv, bg_q, bg_k, **ckw)
-                                got_all.append(got)
-                                n_cases += 1
-                                # the tensor-core design: identical bits
-                                # from a second launch
-                                if dtype == torch.bfloat16 and not all(
-                                        torch.equal(x, y) for x, y in zip(
-                                            got, ka.masked_attention_seq_local(
-                                                q, kv, bg_q, bg_k, **ckw))):
+                    for clamp, hm_dt in combos:
+                        ckw = dict(kw, clamp_softmax=clamp, n_real=n,
+                                   with_headmean=hm_dt is not None,
+                                   hm_dtype=hm_dt)
+                        got_all = []
+                        for rank, (q, bg_q) in enumerate(shards):
+                            got = ka.masked_attention_seq_local(
+                                q, kv, bg_q, bg_k, **ckw)
+                            want = ka.masked_attention_seq_local_ref(
+                                q, kv, bg_q, bg_k, **ckw)
+                            got_all.append(got)
+                            n_cases += 1
+                            # the tensor-core design: identical bits from a
+                            # second launch
+                            if dtype == torch.bfloat16 and not all(
+                                    torch.equal(x, y) for x, y in zip(
+                                        got, ka.masked_attention_seq_local(
+                                            q, kv, bg_q, bg_k, **ckw))):
+                                failures.append(
+                                    f"dh={dh} N={n} sp={sp} rank {rank} hm="
+                                    f"{hm_dt} clamp={clamp} bg={bg_kind}: a "
+                                    "second launch gave other bits")
+                            tols = [TOL[(dtype, "out")], TOL[(dtype, "prob")],
+                                    TOL[(hm_dt or dtype, "prob")]]
+                            for name, g_, w_, (atol, rtol) in zip(
+                                    ("out", "row0", "hm"), got, want, tols):
+                                g_, w_ = g_.float(), w_.float()
+                                err = (g_ - w_).abs()
+                                worst[name] = max(worst[name],
+                                                  float(err.max()))
+                                if n == kept_n and clamp and \
+                                        dtype == torch.bfloat16 and \
+                                        hm_dt == torch.float32:
+                                    kept = max(kept, float(err.max()))
+                                if not torch.isfinite(g_).all() or float(
+                                        (err - atol - rtol * w_.abs())
+                                        .max()) > 0:
                                     failures.append(
-                                        f"N={n} sp={sp} rank {rank} hm="
-                                        f"{hm_dt} clamp={clamp} bg={bg_kind}:"
-                                        " a second launch gave other bits")
-                                tols = [TOL[(dtype, "out")],
-                                        TOL[(dtype, "prob")],
-                                        TOL[(hm_dt or dtype, "prob")]]
-                                for name, g_, w_, (atol, rtol) in zip(
-                                        ("out", "row0", "hm"), got, want,
-                                        tols):
-                                    g_, w_ = g_.float(), w_.float()
-                                    err = (g_ - w_).abs()
-                                    worst[name] = max(worst[name],
-                                                      float(err.max()))
-                                    if n == 577 and clamp and \
-                                            dtype == torch.bfloat16 and \
-                                            hm_dt == torch.float32:
-                                        kept = max(kept, float(err.max()))
-                                    if not torch.isfinite(g_).all() or float(
-                                            (err - atol - rtol * w_.abs())
-                                            .max()) > 0:
-                                        failures.append(
-                                            f"N={n} sp={sp} rank {rank} "
-                                            f"{dtype} clamp={clamp} hm="
-                                            f"{hm_dt} bg={bg_kind} {name}: "
-                                            f"{float(err.max()):.3e}")
-                            # stitched shards against the unsharded kernel
-                            limit = 780 if hm_dt is not None else 1516
-                            if n > limit:
-                                continue
-                            ref = ka.masked_attention_fused(
-                                qkv, bg, with_headmean=hm_dt is not None,
-                                hm_dtype=hm_dt, clamp_softmax=clamp, **kw)
-                            out = torch.cat([g_[0] for g_ in got_all],
-                                            dim=1)[:, :n]
-                            pairs = [(out, ref[0], TOL[(dtype, "out")]),
-                                     (got_all[0][1][:, :n], ref[1],
-                                      TOL[(dtype, "prob")])]
-                            if hm_dt is not None:
-                                hm = torch.cat([g_[2] for g_ in got_all],
-                                               dim=1)[:, :n, :n]
-                                pairs.append((hm, ref[2],
-                                              TOL[(hm_dt, "prob")]))
-                            for g_, w_, (atol, rtol) in pairs:
-                                err = (g_.float() - w_.float()).abs()
-                                worst["stitched"] = max(worst["stitched"],
-                                                        float(err.max()))
-                                if float((err - atol - rtol * w_.float().abs()
-                                          ).max()) > 0:
-                                    failures.append(
-                                        f"N={n} sp={sp} {dtype} clamp={clamp}"
-                                        f" hm={hm_dt} bg={bg_kind} stitched "
-                                        f"vs masked_attention_fused: "
+                                        f"dh={dh} N={n} sp={sp} rank {rank} "
+                                        f"{dtype} clamp={clamp} hm={hm_dt} "
+                                        f"bg={bg_kind} {name}: "
                                         f"{float(err.max()):.3e}")
+                        # stitched shards against the unsharded kernel
+                        if dh == 64 and n > (780 if hm_dt is not None
+                                             else 1516):
+                            continue
+                        ref = ka.masked_attention_fused(
+                            qkv, bg, with_headmean=hm_dt is not None,
+                            hm_dtype=hm_dt, clamp_softmax=clamp, **kw)
+                        out = torch.cat([g_[0] for g_ in got_all],
+                                        dim=1)[:, :n]
+                        pairs = [(out, ref[0], TOL[(dtype, "out")]),
+                                 (got_all[0][1][:, :n], ref[1],
+                                  TOL[(dtype, "prob")])]
+                        if hm_dt is not None:
+                            hm = torch.cat([g_[2] for g_ in got_all],
+                                           dim=1)[:, :n, :n]
+                            pairs.append((hm, ref[2], TOL[(hm_dt, "prob")]))
+                        for g_, w_, (atol, rtol) in pairs:
+                            err = (g_.float() - w_.float()).abs()
+                            worst["stitched"] = max(worst["stitched"],
+                                                    float(err.max()))
+                            if float((err - atol - rtol * w_.float().abs()
+                                      ).max()) > 0:
+                                failures.append(
+                                    f"dh={dh} N={n} sp={sp} {dtype} clamp="
+                                    f"{clamp} hm={hm_dt} bg={bg_kind} "
+                                    "stitched vs masked_attention_fused: "
+                                    f"{float(err.max()):.3e}")
                 torch.cuda.synchronize()
-                say(f"check attention_seq N={n} sp={sp} (NQ={-(-n // sp)}, "
-                    f"Np={-(-n // sp) * sp}) {str(dtype).split('.')[-1]:8s}: "
-                    "max abs err " + ", ".join(f"{k} {v:.2e}"
-                                               for k, v in worst.items()))
-    say(f"check attention_seq: {n_cases} shard cases")
+                say(f"check attention_seq dh={dh} H={heads} N={n} sp={sp} "
+                    f"(NQ={-(-n // sp)}, Np={-(-n // sp) * sp}) "
+                    f"{str(dtype).split('.')[-1]:8s}: max abs err "
+                    + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+    say(f"check attention_seq dh={dh}: {n_cases} shard cases")
     if failures:
         raise AssertionError("sequence-parallel kernel != plain version:\n"
                              + "\n".join(failures[:40]))
     return kept
+
+
+def check_attention_seq_widths():
+    """Phase 8 at head widths 80, 16, 32 and 40: at 80 (16 heads) the full
+    matrix of ``check_attention_seq`` on every rank's shard of 1, 2, 4 and 8
+    ranks at N = 257 and 1025; at 16, 32 and 40 its compact matrix at phase
+    24's shapes (WIDTH_CASES); widths 24 and 48 refused, naming the compiled
+    widths; at each compiled width (64 too) the longest padded token axis
+    (SEQ_MAX_NP: 16 query rows, 2 heads, the float32 head mean,
+    clamp) against the plain version in both dtypes, and one key more
+    refused, naming the bytes.  Returns {dh: worst error of the bf16, clamp,
+    float32 head-mean cases} (at 80: at N = 257)."""
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    t0 = time.perf_counter()
+    errs = {80: check_attention_seq(heads=16, dh=80, ns=(257, 1025),
+                                    kept_n=257)}
+    for (b, n, h, dh) in WIDTH_CASES:
+        errs[dh] = max(errs.get(dh, 0.0), check_attention_seq(
+            b, h, dh, ns=(n,), compact=True, kept_n=n))
+    failures = []
+    for dh in (24, 48):
+        qkv, bg = seq_inputs(1, 37, 2, torch.bfloat16, 3, dh=dh)
+        shards, kv, bg_k = seq_shards(qkv, bg, 1)
+        q, bg_q = shards[0]
+        try:
+            ka.masked_attention_seq_local(q, kv, bg_q, bg_k, num_heads=2,
+                                          scale=0.125)
+            failures.append(f"head width {dh}: not refused")
+        except ValueError as e:
+            say(f"check attention_seq at head width {dh} is refused: {e}")
+            if "16, 32, 40, 64, 80" not in str(e):
+                failures.append(f"head width {dh}: {e}")
+    for dh in ka.SEQ_HEAD_DIMS:
+        limit = ka.SEQ_MAX_NP[dh]
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv, bg = seq_inputs(1, limit, 2, dtype, limit, dh=dh)
+            c = 2 * dh
+            q, bg_q = qkv[:, :16, :c].contiguous(), bg[:, :16].contiguous()
+            kv = qkv[:, :, c:].contiguous()
+            kw = dict(num_heads=2, scale=dh ** -0.5, n_real=limit,
+                      with_headmean=True, clamp_softmax=True,
+                      hm_dtype=torch.float32)
+            _compare(f"attention_seq dh={dh} {dtype} at Np={limit}",
+                     ka.masked_attention_seq_local(q, kv, bg_q, bg, **kw),
+                     ka.masked_attention_seq_local_ref(q, kv, bg_q, bg, **kw),
+                     [TOL[(dtype, "out")], TOL[(dtype, "prob")],
+                      TOL[(torch.float32, "prob")]], failures)
+            kv1 = torch.nn.functional.pad(kv, (0, 0, 0, 1))
+            bg1 = torch.nn.functional.pad(bg, (0, 1))
+            try:
+                ka.masked_attention_seq_local(q, kv1, bg_q, bg1,
+                                              **dict(kw, n_real=limit + 1))
+                failures.append(f"dh={dh} {dtype} Np={limit + 1}: not "
+                                "refused")
+            except ValueError as e:
+                if dtype == torch.bfloat16:
+                    say(f"check attention_seq dh={dh} at Np={limit + 1} is "
+                        f"refused: {e}")
+                if "bytes of shared memory" not in str(e):
+                    failures.append(f"dh={dh} Np={limit + 1}: {e}")
+    if failures:
+        raise AssertionError("sequence-parallel kernel at head widths 80, "
+                             "16, 32, 40 != plain version:\n"
+                             + "\n".join(failures[:40]))
+    say(f"check attention_seq widths: {time.perf_counter() - t0:.1f} s, worst "
+        "bf16 clamp hm-f32 errors " + ", ".join(f"dh={k} {v:.2e}"
+                                                for k, v in errs.items()))
+    return errs
+
+
+def seq_occupancy(widths=(64, 80, 16, 32, 40), n=257):
+    """For each width's instances the serving path runs (the head mean,
+    clamp): blocks an SM, registers and local memory (spills) a thread and
+    shared memory a block of the tensor-core (bf16) and FMA (float32)
+    designs at Np = ``n`` and at the width's limit (SEQ_MAX_NP),
+    the shared memory held to the Python formula (seq_smem_bytes).
+    Returns {(dh, design, Np): info}."""
+    import ctypes
+
+    from vision_transformer_cam_tpu_torch.kernels import _build
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    lib, got = _build.load(), {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dh in widths:
+        for np_ in (n, ka.SEQ_MAX_NP[dh]):
+            for design, dtype in (("tensor-core", torch.bfloat16),
+                                  ("fma", torch.float32)):
+                info = (ctypes.c_int * 4)()
+                err = lib.vitcam_masked_attention_seq_occupancy(
+                    np_, 1, ka._DTYPE_CODES[dtype], ka.SEQ_DESIGNS[design],
+                    dh, info)
+                if err:
+                    raise RuntimeError(
+                        f"attention_seq occupancy ({design}, dh={dh}, "
+                        f"Np={np_}): cudaError {err} "
+                        f"({lib.vitcam_cuda_error_string(err).decode()})")
+                want = ka.seq_smem_bytes(np_, dh, True, design)
+                if info[3] != want:
+                    raise AssertionError(
+                        f"attention_seq {design} dh={dh} Np={np_}: the kernel "
+                        f"takes {info[3]} bytes of shared memory, the Python "
+                        f"formula {want}")
+                got[(dh, design, np_)] = tuple(info)
+                say(f"occupancy attention_seq {design:11s} "
+                    f"{str(dtype).split('.')[-1]:8s} hm clamp dh={dh} "
+                    f"Np={np_}: {info[0]} blocks an SM at once "
+                    f"({info[0] * sms} on {sms} SMs), {info[1]} registers, "
+                    f"{info[2]} bytes of local memory per thread, {info[3]} "
+                    "bytes of shared memory per block")
+    return got
 
 
 def _seq_design(design, *args, **kw):
@@ -1993,27 +2197,27 @@ def _seq_design(design, *args, **kw):
         ka._seq_bf16_design = saved
 
 
-def time_attention_seq(b=16, n=577, heads=16):
-    """The sequence-parallel kernel at the ViT-L/16@384 shape, bf16, clamp,
-    float32 head mean (as the main path launches it): one rank (NQ = 577) and
-    a shard of four (NQ = 145, Np = 580).  The FMA design bf16 ran before is
-    held against the plain version too, then the tensor-core design (the
-    path's), the plain version and F.scaled_dot_product_attention on the
-    same q, K, V with the additive mask (a yardstick for the shape: it
-    returns neither row0 nor hm) run in turns; the FMA design, which no
-    longer changes, is not timed (PERF.md keeps its last times).  Returns
-    {sp: (kernel ms, plain ms, sdpa ms)}."""
+def time_attention_seq(b=16, n=577, heads=16, dh=64, sps=(1, 4)):
+    """The sequence-parallel kernel at head width ``dh``, bf16, clamp,
+    float32 head mean (as the main path launches it), at the ViT-L/16@384
+    shape by default: one rank (NQ = 577) and a shard of four (NQ = 145, Np
+    = 580).  The FMA design bf16 ran before is held against the plain
+    version too, then the tensor-core design (the path's), the plain version
+    and F.scaled_dot_product_attention on the same q, K, V with the additive
+    mask (a yardstick for the shape: it returns neither row0 nor hm) run in
+    turns; the FMA design, which no longer changes, is not timed (PERF.md
+    keeps its last times).  Returns {sp: (kernel ms, plain ms, sdpa ms)}."""
     from vision_transformer_cam_tpu_torch.kernels import attention as ka
-    qkv, bg = seq_inputs(b, n, heads, torch.bfloat16, 7)
+    qkv, bg = seq_inputs(b, n, heads, torch.bfloat16, 7, dh=dh)
     times = {}
-    for sp in (1, 4):
+    for sp in sps:
         shards, kv, bg_k = seq_shards(qkv, bg, sp)
         q, bg_q = shards[0]
-        kw = dict(num_heads=heads, scale=64 ** -0.5, clamp_softmax=True,
+        kw = dict(num_heads=heads, scale=dh ** -0.5, clamp_softmax=True,
                   with_headmean=True, hm_dtype=torch.float32, n_real=n)
         nq, np_ = q.shape[1], kv.shape[1]
-        qh = q.reshape(b, nq, heads, 64).transpose(1, 2)
-        kh, vh = kv.reshape(b, np_, 2, heads, 64).permute(2, 0, 3, 1, 4)
+        qh = q.reshape(b, nq, heads, dh).transpose(1, 2)
+        kh, vh = kv.reshape(b, np_, 2, heads, dh).permute(2, 0, 3, 1, 4)
         mask = ((1 - bg_q.float())[:, :, None]
                 * (-100.0 * bg_k.float())[:, None, :])
         mask[:, :, n:] = -1e9
@@ -2029,20 +2233,45 @@ def time_attention_seq(b=16, n=577, heads=16):
             tols = [TOL[(torch.bfloat16, "out")],
                     TOL[(torch.bfloat16, "prob")],
                     TOL[(torch.float32, "prob")]]
-            _compare(f"attention_seq {d} bf16 hm f32 B={b} N={n} sp={sp}",
-                     fns[d](), want, tols, failures)
+            _compare(f"attention_seq {d} bf16 hm f32 B={b} N={n} H={heads} "
+                     f"dh={dh} sp={sp}", fns[d](), want, tols, failures)
         if failures:
             raise AssertionError("sequence-parallel kernel != plain version:"
                                  "\n" + "\n".join(failures))
         del fns["fma"]
         ms = round_robin(fns)
         times[sp] = (ms["tensor-core"], ms["plain"], ms["SDPA"])
-        say(f"time attention_seq bf16 hm f32 B={b} N={n} sp={sp} (NQ={nq}, "
-            f"Np={np_}): tensor-core design {ms['tensor-core']:.4f} ms, "
+        say(f"time attention_seq bf16 hm f32 B={b} N={n} H={heads} dh={dh} "
+            f"sp={sp} (NQ={nq}, Np={np_}): tensor-core design "
+            f"{ms['tensor-core']:.4f} ms, "
             f"plain {ms['plain']:.4f} ms, F.scaled_dot_product_attention (no "
             f"row0, no hm) {ms['SDPA']:.4f} ms")
         del want, fns
     return times
+
+
+def time_attention_seq_widths():
+    """Each width of SEQ_TIMED through ``time_attention_seq``: ViT-H/14's
+    shape (B=64, N=257, 16 heads of 80) on one rank and on a shard of two
+    (NQ = 129, Np = 258), the narrow widths on one rank.  Returns {dh: {sp:
+    (kernel ms, plain ms, sdpa ms)}}."""
+    return {dh: time_attention_seq(b, n, h, dh, (1, 2) if dh == 80 else (1,))
+            for dh, (b, n, h) in SEQ_TIMED.items()}
+
+
+def seq_bound(b, n, heads, dh, sp=1):
+    """The sequence-parallel kernel's bound on one rank's shard of ``sp``
+    (rank 0's: NQ = ceil(N / sp) query rows, Np = sp NQ keys), bf16 with
+    the float32 head mean: bf16 q and K | V and the two float32 bg rows in;
+    bf16 out and row0 and the float32 head mean [B, NQ, Np] out; both
+    products at the bf16 rate."""
+    nq = -(-n // sp)
+    np_, c = nq * sp, heads * dh
+    return bound(f"masked_attention_seq_local bf16, f32 head mean B={b} "
+                 f"NQ={nq} Np={np_} H={heads} dh={dh}",
+                 b * nq * c * 2 + b * np_ * 2 * c * 2 + b * (nq + np_) * 4
+                 + b * nq * c * 2 + b * np_ * 2 + b * nq * np_ * 4,
+                 {"bf16": 4 * b * heads * nq * np_ * dh})
 
 
 def time_ms(fn, iters=20, warmup=3):
@@ -2362,6 +2591,7 @@ def reset_counts():
     ka.block_launches = 0
     ka.block_streamed_launches = {dh: 0 for dh in ka.BLOCK_HEAD_DIMS}
     ka.seq_launches = 0
+    ka.seq_width_launches = {dh: 0 for dh in ka.SEQ_HEAD_DIMS}
     ka.v1_launches = 0
     for variant in av.launches:
         av.launches[variant] = 0
@@ -2388,7 +2618,8 @@ def read_counts():
             W80: ka.width_launches[80],
             BWD80: ka.bwd_width_launches[80],
             **{FWD_W[dh]: ka.width_launches[dh] for dh in NEW_WIDTHS},
-            **{BWD_W[dh]: ka.bwd_width_launches[dh] for dh in NEW_WIDTHS}}
+            **{BWD_W[dh]: ka.bwd_width_launches[dh] for dh in NEW_WIDTHS},
+            **{SEQ_W[dh]: ka.seq_width_launches[dh] for dh in SEQ_WIDTHS}}
 
 
 def read_new_counts():
@@ -3831,34 +4062,13 @@ def seq_path(batch=16, requests=3):
         return torch.from_numpy(rng.standard_normal(
             (b, cfg.img_size, cfg.img_size, 3), dtype=np.float32)).cuda()
 
-    dist.init_process_group("nccl",
-                            init_method=f"tcp://localhost:{_free_port()}",
-                            rank=0, world_size=1)
-    mesh = pmesh.seq_parallel_mesh(1)
+    mesh = one_rank_seq_mesh()
     say(f"seq path: process group {dist.get_backend()}, world "
         f"{dist.get_world_size()}, mesh {mesh.shape}")
 
     # float32, batch 2: the sequence-parallel kernel path against the
     # unsharded kernel path at the CPU tests' tolerances
-    x = images(2)
-    model.cfg = cfg.replace(attn_impl="kernel")
-    want = model(x, need_rollout=True)
-    model.cfg = pmesh.apply_seq_parallel(model.cfg)
-    reset_counts()
-    with pmesh.set_mesh(mesh):
-        got = model(x, need_rollout=True)
-    counts = read_counts()
-    d_roll = float((got.rollout_row - want.rollout_row).abs().max())
-    d_logit = float((got.logits - want.logits).abs().max())
-    say(f"f32 seq path vs unsharded kernel path (B=2): rollout row "
-        f"{d_roll:.3e} (tol 1e-5), logits {d_logit:.3e} (tol 2e-4); launches "
-        f"{counts}")
-    if not (d_roll <= 1e-5 and d_logit <= 2e-4) or \
-            (counts["masked_attention_seq_local"],
-             counts["masked_attention_fused"]) != (cfg.depth, 0):
-        raise AssertionError("f32 sequence-parallel path disagrees with the "
-                             "unsharded kernel path, or did not run its kernel")
-    model.cfg = cfg
+    seq_vs_unsharded("ViT-L/16@384", model, images(2), mesh, "seq path")
 
     state_bf16 = {k: v.detach().to(torch.bfloat16) if v.is_floating_point()
                   else v.detach() for k, v in model.state_dict().items()}
@@ -5789,11 +5999,71 @@ def widths_main_path():
     return totals
 
 
+def widths_seq_path(requests=3, batch=64, f32_batch=2):
+    """Each new width's model (WIDTH_MODELS, seeded random weights) under
+    apply_seq_parallel on a one-rank NCCL process group, as phase 9 serves
+    on: float32 at ``f32_batch`` against its unsharded kernel path
+    (seq_vs_unsharded), then in bf16 ``requests`` requests of ``batch``
+    against its unsharded bf16 kernel path within SEQ_GATES, the launches
+    held at the model's width (a seq-kernel launch a layer and forward, none
+    of kernel 1; kernel 1's on the unsharded path).  Returns the summed
+    launch counts."""
+    import torch.distributed as dist
+    from vision_transformer_cam_tpu_torch import configs, serving
+    from vision_transformer_cam_tpu_torch.models.vit import ViTCAM
+    from vision_transformer_cam_tpu_torch.parallel import mesh as pmesh
+    t0, totals = time.perf_counter(), {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+    mesh = one_rank_seq_mesh()
+    try:
+        for dh, fields in WIDTH_MODELS.items():
+            cfg = configs.ViTCAMConfig(num_classes=20, **fields)
+            model = ViTCAM(cfg, device="cuda",
+                           generator=torch.Generator().manual_seed(dh))
+            label, depth = f"width-{dh} model", cfg.depth
+            rng = np.random.default_rng(dh)
+            reqs = [torch.from_numpy(rng.standard_normal(
+                (batch, cfg.img_size, cfg.img_size, 3),
+                dtype=np.float32)).cuda() for _ in range(requests)]
+            add(seq_vs_unsharded(label, model, reqs[0][:f32_batch], mesh,
+                                 "widths"))
+            serving.apply_serving_mode(model, "bf16")
+            kcfg = model.cfg
+            refs, counts = serve(model, reqs, {"masked_attention_fused": depth,
+                                               FWD_W[dh]: depth},
+                                 f"{label} bf16")
+            add(counts)
+            model.cfg = pmesh.apply_seq_parallel(kcfg)
+            with pmesh.set_mesh(mesh):
+                outs, counts = serve(
+                    model, reqs, {"masked_attention_seq_local": depth,
+                                  SEQ_W[dh]: depth}, f"{label} bf16 seq")
+            add(counts)
+            d_cam, d_logit, ov = deviation(outs, refs)
+            say(f"{label} bf16 seq vs unsharded bf16 kernel path: CAM max "
+                f"abs dev {d_cam:.3e} (tol {SEQ_GATES['cam']}), logits max "
+                f"abs dev {d_logit:.3e} (tol {SEQ_GATES['logits']}), "
+                f"top-{cfg.top_k_patches} overlap {ov:.4f}")
+            if not (d_cam <= SEQ_GATES["cam"]
+                    and d_logit <= SEQ_GATES["logits"]):
+                raise AssertionError(f"{label}: bf16 sequence-parallel path "
+                                     "disagrees with the unsharded kernel "
+                                     "path")
+            del model, refs, outs
+    finally:
+        dist.destroy_process_group()
+    say(f"widths seq path: {time.perf_counter() - t0:.1f} s")
+    return totals
+
+
 def widths_path():
     """Phase 24: kernel 1 and the backward at head widths 16, 32 and 40
-    against their plain versions, their occupancy read, timed, and each
-    width's model through bench.main.  Returns (launch counts, the checks'
-    worst errors, the timings)."""
+    against their plain versions, their occupancy read, timed, each width's
+    model through bench.main and under sequence parallelism.  Returns
+    (launch counts, the checks' worst errors, the timings)."""
     t0 = time.perf_counter()
     errs = check_attention_widths()
     attention_occupancy(cases=tuple((n, dh, h) for dh, (_, n, h, _)
@@ -5802,6 +6072,8 @@ def widths_path():
                               in WIDTH_TIMED.items()))
     times = time_widths()
     launches = widths_main_path()
+    for k, v in widths_seq_path().items():
+        launches[k] = launches.get(k, 0) + v
     say(f"widths path: {time.perf_counter() - t0:.1f} s")
     return launches, errs, times
 
@@ -5933,6 +6205,89 @@ def zoo_model(name):
     return model
 
 
+def one_rank_seq_mesh():
+    """A one-rank NCCL process group, as phase 9 serves on, and the ('data',
+    'seq') mesh over it; the caller destroys the group."""
+    import torch.distributed as dist
+    from vision_transformer_cam_tpu_torch.parallel import mesh as pmesh
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1)
+    return pmesh.seq_parallel_mesh(1)
+
+
+def seq_vs_unsharded(label, model, x, mesh, phase):
+    """The float32 model on the sequence-parallel kernel path against its
+    unsharded kernel path on ``x``, at phase 9's gates (rollout row 1e-5,
+    logits 2e-4), a seq-kernel launch a layer at the model's head width and
+    none of kernel 1.  Returns the seq path's launch counts."""
+    from vision_transformer_cam_tpu_torch.parallel import mesh as pmesh
+    cfg = model.cfg
+    model.cfg = cfg.replace(attn_impl="kernel")
+    want = model(x, need_rollout=True)
+    model.cfg = pmesh.apply_seq_parallel(model.cfg)
+    reset_counts()
+    try:
+        with pmesh.set_mesh(mesh):
+            got = model(x, need_rollout=True)
+        torch.cuda.synchronize()
+    finally:
+        model.cfg = cfg
+    per_fwd = {"masked_attention_seq_local": cfg.depth}
+    if cfg.head_dim in SEQ_W:
+        per_fwd[SEQ_W[cfg.head_dim]] = cfg.depth
+    counts = _expect(f"{label} f32 seq (B={x.shape[0]})", per_fwd,
+                     phase=phase)
+    d_roll = float((got.rollout_row - want.rollout_row).abs().max())
+    d_logit = float((got.logits - want.logits).abs().max())
+    say(f"{label} f32 seq path vs unsharded kernel path (B={x.shape[0]}): "
+        f"rollout row {d_roll:.3e} (tol 1e-5), logits {d_logit:.3e} (tol "
+        "2e-4)")
+    if not (d_roll <= 1e-5 and d_logit <= 2e-4):
+        raise AssertionError(f"{label}: f32 sequence-parallel path disagrees "
+                             "with the unsharded kernel path")
+    return counts
+
+
+def zoo_seq(label, base, model, kcfg, reqs, outs_bf16, f32_batch=2):
+    """Phase 19's ViT-H/14 (its float32 build ``base``, and ``model`` served
+    in bf16 by ``kcfg``) under apply_seq_parallel on a one-rank NCCL
+    process group, as phase 9 serves ViT-L/16@384: float32 at ``f32_batch``
+    against the unsharded kernel path (seq_vs_unsharded), then bf16 over
+    ``reqs`` against the unsharded kernel path's outputs ``outs_bf16``
+    within ZOO_BF16_GATES, a seq-kernel launch a layer and forward at the
+    model's head width and none of kernel 1.  Returns (the mesh, the launch
+    counts); the caller destroys the process group."""
+    from vision_transformer_cam_tpu_torch.parallel import mesh as pmesh
+    t0 = time.perf_counter()
+    mesh = one_rank_seq_mesh()
+    cfg = base.cfg
+    totals = dict(seq_vs_unsharded(label, base, reqs[0][:f32_batch], mesh,
+                                   "zoo"))
+    model.cfg = pmesh.apply_seq_parallel(kcfg)
+    try:
+        with pmesh.set_mesh(mesh):
+            outs, counts = serve(
+                model, reqs, {"masked_attention_seq_local": cfg.depth,
+                              SEQ_W[cfg.head_dim]: cfg.depth},
+                f"{label} bf16 seq")
+    finally:
+        model.cfg = kcfg
+    for k, v in counts.items():
+        totals[k] += v
+    d_cam, d_logit, ov = deviation(outs, outs_bf16)
+    say(f"{label} bf16 seq vs unsharded bf16 kernel path: CAM max abs dev "
+        f"{d_cam:.3e} (tol {ZOO_BF16_GATES['cam']}), logits max abs dev "
+        f"{d_logit:.3e} (tol {ZOO_BF16_GATES['logits']}), "
+        f"top-{cfg.top_k_patches} overlap {ov:.4f}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (d_cam <= ZOO_BF16_GATES["cam"]
+            and d_logit <= ZOO_BF16_GATES["logits"]):
+        raise AssertionError(f"{label}: bf16 sequence-parallel path "
+                             "disagrees with the unsharded kernel path")
+    return mesh, totals
+
+
 def zoo_serve(label, name, requests, batch, bench_batch, whole_b):
     """One zoo model at full width served through apply_serving_mode: bf16
     (held to the eager path), int8 and int8_hifi (ln_quant_fusion and
@@ -5949,8 +6304,12 @@ def zoo_serve(label, name, requests, batch, bench_batch, whole_b):
     rollout CAM and their launch counts (the fused MLP kernels' under the
     wide rows, MLP_W / MLP8_W); then img/s at ``bench_batch`` in turns
     (bf16, bf16 eager, int8, int8_hifi, bf16 fused, int8 fused, bf16 both
-    fused).  Returns (launch counts, {mode: img/s})."""
+    fused); ViT-H/14 also under sequence parallelism (zoo_seq), its img/s
+    in the same turns ("bf16 seq").  Returns (launch counts, {mode:
+    img/s})."""
+    import torch.distributed as dist
     from vision_transformer_cam_tpu_torch import serving
+    from vision_transformer_cam_tpu_torch.parallel import mesh as pmesh
     from vision_transformer_cam_tpu_torch.ops.rollout import (
         cam_from_rollout_row)
     t_phase = time.perf_counter()
@@ -5998,6 +6357,11 @@ def zoo_serve(label, name, requests, batch, bench_batch, whole_b):
             and d_logit <= ZOO_BF16_GATES["logits"]):
         raise AssertionError(f"{label}: bf16 kernel path disagrees with the "
                              "eager path")
+    mesh = None
+    if name == HUGE:
+        mesh, counts = zoo_seq(label, base, model, kcfg, reqs, outs_bf16)
+        add(counts)
+        served["bf16 seq"] = (model, pmesh.apply_seq_parallel(kcfg))
     # the bf16 path with both fusions: the block kernel's streamed design
     # and the fused MLP kernel on every layer, no kernel-1 launch.  The
     # rollout is carried through the layers (rollout_post off): past N =
@@ -6089,20 +6453,24 @@ def zoo_serve(label, name, requests, batch, bench_batch, whole_b):
     def rate(mode, iters=5):
         m, mcfg = served[mode]
         m.cfg = mcfg
-        for _ in range(2):
-            cam_from_rollout_row(m(xb, need_rollout=True).rollout_row, g)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(iters):
-            cam_from_rollout_row(m(xb, need_rollout=True).rollout_row, g)
-        torch.cuda.synchronize()
+        with pmesh.set_mesh(mesh if mode == "bf16 seq" else None):
+            for _ in range(2):
+                cam_from_rollout_row(m(xb, need_rollout=True).rollout_row, g)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(iters):
+                cam_from_rollout_row(m(xb, need_rollout=True).rollout_row, g)
+            torch.cuda.synchronize()
         return bench_batch * iters / (time.perf_counter() - t)
-    order = ("bf16", "bf16 eager", "int8", "int8_hifi", "bf16 fused",
-             "int8 fused", "bf16 both fused")
+    order = tuple(mode for mode in (
+        "bf16", "bf16 eager", "int8", "int8_hifi", "bf16 fused", "int8 fused",
+        "bf16 both fused", "bf16 seq") if mode in served)
     rates = {}
     for mode in order + order[::-1]:
         rates.setdefault(mode, []).append(rate(mode))
     model.cfg = kcfg
+    if mesh is not None:
+        dist.destroy_process_group()
     for mode, r in rates.items():
         say(f"{label} {mode} CAM throughput, batch {bench_batch}: "
             f"{np.mean(r):.1f} img/s ({r[0]:.1f}, {r[1]:.1f})")
@@ -6810,11 +7178,14 @@ def main() -> int:
     block_errs = check_attention_block()
     block_occupancy()
     seq_err = check_attention_seq()
+    seq_w_errs = check_attention_seq_widths()
+    seq_occupancy()
     v1_err = check_attention_v1()
     check_q_block()
     variant_errs = check_attn_variants()
     lap("the kernel-vs-plain checks")
     seq_ms = time_attention_seq()
+    seq_w_ms = time_attention_seq_widths()
     v1_ms, v1_sdpa = time_attention_v1()
     times = time_kernels()
     fused_ms = time_fused()
@@ -6931,6 +7302,11 @@ def main() -> int:
         # the error over the bf16, clamp, float32-head-mean cases at N=577,
         # the time on one rank at B=16 N=577
         "masked_attention_seq_local": (seq_err, *seq_ms[1][:2]),
+        # the other widths: the worst error of their bf16, clamp, float32
+        # head-mean checks (at 80: at N=257), the time on one rank at
+        # SEQ_TIMED
+        **{SEQ_W[dh]: (seq_w_errs[dh], *seq_w_ms[dh][1][:2])
+           for dh in SEQ_WIDTHS},
         # the bf16 cases at N=197 without the head mean; the time at B=64
         "masked_attention": (v1_err, *v1_ms[False]),
         # the bf16 case at B=8 N=197 (an int8 P V out: the largest deviation,
@@ -6956,10 +7332,13 @@ def main() -> int:
                BWD1025: bwd_ms[BWD_TIMED[3]][2],
                **{BWD_W[dh]: width_ms[1][dh][2] for dh in NEW_WIDTHS},
                "masked_attention_seq_local": seq_ms[1][2],
+               **{SEQ_W[dh]: seq_w_ms[dh][1][2] for dh in SEQ_WIDTHS},
                "masked_attention": v1_sdpa}
     bounds = kernel_bounds()
     bounds.update({FWD_W[dh]: width_ms[0][dh][2:4] for dh in NEW_WIDTHS})
     bounds.update({BWD_W[dh]: width_ms[1][dh][3:5] for dh in NEW_WIDTHS})
+    bounds.update({SEQ_W[dh]: seq_bound(*SEQ_TIMED[dh], dh)
+                   for dh in SEQ_WIDTHS})
     say(json.dumps({"kernels": [
         {"name": name, "route": route, "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": stats[name][0],

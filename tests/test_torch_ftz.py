@@ -309,11 +309,12 @@ def test_bwd_design_rule(dtype, n, dh, design):
 
 def test_seq_design_rule():
     """bf16 takes the sequence-parallel kernel's tensor-core design, float32
-    its FMA design; both take Np <= SEQ_MAX_NP (N = 1025 over 8 ranks)."""
+    its FMA design; both take Np <= SEQ_MAX_NP[dh] (N = 1025 over 8 ranks)
+    at every head width."""
     assert tattn.seq_design(torch.bfloat16) == "tensor-core"
     assert tattn.seq_design(torch.float32) == "fma"
     assert set(tattn.SEQ_DESIGNS) == {"tensor-core", "fma"}
-    assert tattn.SEQ_MAX_NP >= -(-1025 // 8) * 8
+    assert min(tattn.SEQ_MAX_NP.values()) >= -(-1025 // 8) * 8
 
 
 @pytest.mark.parametrize("dtype,design", [

@@ -157,8 +157,11 @@ def load():
         fn = lib.vitcam_masked_attention_seq
         fn.argtypes = [p] * 7 + [i, i, i, i, i, i, f, f, i, i, i, i, i, p]
         fn.restype = i
-        lib.vitcam_masked_attention_seq_smem_bytes.argtypes = [i, i, i]
+        lib.vitcam_masked_attention_seq_smem_bytes.argtypes = [i, i, i, i]
         lib.vitcam_masked_attention_seq_smem_bytes.restype = ctypes.c_size_t
+        fn = lib.vitcam_masked_attention_seq_occupancy
+        fn.argtypes = [i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = i
         lib.vitcam_mlp_fused_smem_bytes.argtypes = [i, i]
         lib.vitcam_mlp_fused_smem_bytes.restype = ctypes.c_size_t
         lib.vitcam_mlp_wgmma_smem_bytes.argtypes = [i, i]

@@ -47,9 +47,10 @@ on a CPU tensor.  No model path runs it; ``scripts.microbench`` drives it.
 ``v1_launches`` count the CUDA kernel launches made through the forward, the
 backward, the block, the sequence-parallel and the split-tensor wrapper, so a
 run can show that its main path went through the kernels;
-``width_launches`` and ``bwd_width_launches`` split the forward's and the
-backward's counts by head width, ``block_streamed_launches`` the block
-wrapper's calls that ran the streamed design, by head width.
+``width_launches``, ``bwd_width_launches`` and ``seq_width_launches``
+split the forward's, the backward's and the sequence-parallel kernel's
+counts by head width, ``block_streamed_launches`` the block wrapper's calls
+that ran the streamed design, by head width.
 """
 
 from __future__ import annotations
@@ -73,15 +74,20 @@ _OUT_I8, _CLS_BF16, _HM_BF16 = 1, 2, 4
 # (the JAX quickstart's tiny ViT) and 32 and 40 (the JAX kernel tests' fuzz
 # widths), each its own set of instances (csrc/masked_attention.cu and
 # masked_attention_w16.cu, _w32, _w40, _w80; csrc/masked_attention_bwd.cu and
-# masked_attention_bwd_w16.cu, ...).  The other CUDA kernels take HEAD_DIM
-# only.
+# masked_attention_bwd_w16.cu, ...), and the sequence-parallel kernel
+# (masked_attention_seq) the same widths (csrc/masked_attention_seq.cu and
+# masked_attention_seq_w16.cu, ...).  The other CUDA kernels take HEAD_DIM
+# only, or BLOCK_HEAD_DIMS (the block kernel).
 FWD_HEAD_DIMS = (16, 32, 40, 64, 80)
 BWD_HEAD_DIMS = (16, 32, 40, 64, 80)
+SEQ_HEAD_DIMS = FWD_HEAD_DIMS
 HEAD_DIM = 64
-# kernel 1's launches and the backward's calls by head width (each also
-# counts in ``launches`` / ``bwd_launches``)
+# kernel 1's launches, the backward's calls and the sequence-parallel
+# kernel's launches by head width (each also counts in ``launches`` /
+# ``bwd_launches`` / ``seq_launches``)
 width_launches = {dh: 0 for dh in FWD_HEAD_DIMS}
 bwd_width_launches = {dh: 0 for dh in BWD_HEAD_DIMS}
+seq_width_launches = {dh: 0 for dh in SEQ_HEAD_DIMS}
 # The CUDA backward has three designs.  bf16 runs the tensor-core design: a
 # dQ kernel per 64 query rows and a dK / dV kernel per 64 keys, products on
 # mma.sync, a [B, H, N, 3] float32 scratch of row statistics between them;
@@ -141,14 +147,15 @@ _block_bf16_design = "tensor-core"
 # the block wrapper's calls that ran the streamed design, by head width (each
 # also counts in ``block_launches``)
 block_streamed_launches = {dh: 0 for dh in BLOCK_HEAD_DIMS}
-# The sequence-parallel kernel takes Np <= SEQ_MAX_NP (N = 1025 padded to 8
-# ranks is 1032).  bf16 runs its tensor-core design (16 query rows a block;
-# S in registers; the [16, Np] float32 head mean in shared memory).  float32
-# runs the FMA design, which keeps a [QB, Np] float32 tile of S (and one of
-# the head mean) in shared memory, QB = 32 query rows or 16 where 32 do not
-# fit: (33 * ceil4(Np) + Np + 5408) floats at QB = 16 with the head mean fit
-# the 227 KB for Np <= 1536.
-SEQ_MAX_NP = 1536
+# The sequence-parallel kernel takes Np <= SEQ_MAX_NP[dh] at head width dh
+# (``seq_smem_bytes``; N = 1025 padded to 8 ranks is 1032).  bf16 runs its
+# tensor-core design (16 query rows a block; S in registers; the
+# [16, Np] float32 head mean in shared memory).  float32 runs the FMA design,
+# which keeps a [QB, Np] float32 tile of S (and one of the head mean) in
+# shared memory, QB = 32 query rows or 16 where 32 do not fit: with the head
+# mean (33 * ceil4(Np) + Np + 16 dh + 64 (dh + 4) + 32) floats at QB = 16,
+# which sets every width's limit (16: 1660, 32: 1624, 40: 1604, 64: 1548,
+# 80: 1512), since both dtypes take the same Np.
 SEQ_DESIGNS = {"fma": 0, "tensor-core": 1}
 # The design bf16 runs; only chip_smoke.py sets "fma", to time the earlier one
 _seq_bf16_design = "tensor-core"
@@ -231,9 +238,11 @@ def check_head_width(kernel: str, dh: int) -> int:
     """``dh`` if the CUDA kernel ``kernel`` (a key of ``_WIDTH_NAMES``) is
     compiled for that head width, else ValueError naming the widths it
     takes: ``FWD_HEAD_DIMS`` for kernel 1, ``BWD_HEAD_DIMS`` for the
-    backward, ``BLOCK_HEAD_DIMS`` for the block kernel, ``HEAD_DIM`` for the
-    others.  Needs no CUDA."""
+    backward, ``SEQ_HEAD_DIMS`` for the sequence-parallel kernel,
+    ``BLOCK_HEAD_DIMS`` for the block kernel, ``HEAD_DIM`` for the others.
+    Needs no CUDA."""
     widths = {"fused": FWD_HEAD_DIMS, "backward": BWD_HEAD_DIMS,
+              "seq": SEQ_HEAD_DIMS,
               "block": BLOCK_HEAD_DIMS}.get(kernel, (HEAD_DIM,))
     if dh not in widths:
         which = ", ".join(map(str, widths))
@@ -931,6 +940,49 @@ def seq_design(dtype) -> str:
     return _seq_bf16_design if dtype == torch.bfloat16 else "fma"
 
 
+def seq_smem_bytes(np_, dh, with_hm=True, design="fma") -> int:
+    """Dynamic shared memory a block of the sequence-parallel kernel's
+    ``design`` takes at Np keys and head width ``dh``, with the head mean or
+    without, as csrc/masked_attention_seq.cuh computes it
+    (``vitcam_masked_attention_seq_smem_bytes``).  Needs no CUDA.
+
+    "fma" (smem_bytes): the [QB, dh] q tile, a 64-key chunk of K or V at
+    pitch dh + 4, the [QB, Np] S tile and, with the head mean, the [QB, Np]
+    head-mean tile, the row-0 and key-mask rows and two [QB] vectors, all
+    float32, at QB = 32 where that fits ``BLOCK_SMEM_LIMIT``, else 16.
+    "tensor-core" (tc_smem_bytes): eight warps' rings (two stages of a
+    16-key K and V chunk in bf16 rows of the tile pitch, or the warp's
+    [16, width + 8] float32 O tile, whichever is larger), the key-mask and
+    row-0 rows, the warps' row statistics, two [16] vectors, the [16, Np]
+    head mean at a pitch of ceil32(Np) + 8, and past width 64 the [16,
+    pitch] bf16 Q tile."""
+    if design == "tensor-core":
+        w = _ceil(dh, 16)
+        pitch = 64 if dh == 64 else w if (w // 8) % 2 else w + 8
+        ring = max(4 * 16 * pitch * 2, 16 * (w + 8) * 4)
+        floats = 2 * _ceil(np_, 16) + 8 * 16 * 2 + 2 * 16
+        if with_hm:
+            floats += 16 * (_ceil(np_, 32) + 8)
+        return 8 * ring + floats * 4 + (0 if dh == 64 else 16 * pitch * 2)
+    ns = _ceil(np_, 4)
+
+    def fma(qb):
+        return 4 * (qb * dh + 64 * (dh + 4) + qb * ns * (2 if with_hm else 1)
+                    + ns + np_ + 2 * qb)
+    return fma(32) if fma(32) <= BLOCK_SMEM_LIMIT else fma(16)
+
+
+def _seq_fits(np_, dh):
+    return all(seq_smem_bytes(np_, dh, True, d) <= BLOCK_SMEM_LIMIT
+               for d in SEQ_DESIGNS)
+
+
+# The longest padded token axis each width takes: both designs' layouts with
+# the head mean within the shared memory a block may hold
+SEQ_MAX_NP = {dh: _largest(lambda n, dh=dh: _seq_fits(n, dh), 1)
+              for dh in SEQ_HEAD_DIMS}
+
+
 def masked_attention_seq_local_ref(q, kv, bg_q, bg_k, *, num_heads: int,
                                    scale: float, mask_value: float = -100.0,
                                    with_headmean: bool = False,
@@ -989,9 +1041,10 @@ def masked_attention_seq_local(q, kv, bg_q, bg_k, *, num_heads: int,
                                n_real: int = 0):
     """Same contract as ``masked_attention_seq_local_ref``.  CPU tensors run
     the plain version; CUDA tensors launch the kernel (q and kv both float32
-    or both bfloat16, contiguous, head width 64, Np <= ``SEQ_MAX_NP``, bg
-    float32 or bf16, hm float32 or bf16) or raise: bf16 its tensor-core
-    design (kv 16-byte aligned), float32 its FMA design."""
+    or both bfloat16, contiguous, a head width dh of ``SEQ_HEAD_DIMS``, Np
+    <= ``SEQ_MAX_NP[dh]``, bg float32 or bf16, hm float32 or bf16) or
+    raise: bf16 its tensor-core design (q and kv 16-byte aligned),
+    float32 its FMA design."""
     global seq_launches
     kw = dict(num_heads=num_heads, scale=scale, mask_value=mask_value,
               with_headmean=with_headmean, clamp_softmax=clamp_softmax,
@@ -1020,18 +1073,22 @@ def masked_attention_seq_local(q, kv, bg_q, bg_k, *, num_heads: int,
         raise ValueError("q and kv must be contiguous")
     b, nq, c = q.shape
     np_ = kv.shape[1]
-    check_head_width("seq", c // num_heads)
-    if np_ > SEQ_MAX_NP:
-        raise ValueError(f"the CUDA sequence-parallel kernel takes Np <= "
-                         f"{SEQ_MAX_NP} (its shared memory), got {np_}")
+    dh = check_head_width("seq", c // num_heads)
+    if np_ > SEQ_MAX_NP[dh]:
+        need = max(seq_smem_bytes(np_, dh, True, d) for d in SEQ_DESIGNS)
+        raise ValueError(
+            f"the CUDA sequence-parallel kernel takes Np <= "
+            f"{SEQ_MAX_NP[dh]} at head width {dh}, got {np_}: with "
+            f"the head mean its designs need up to {need} bytes of shared "
+            f"memory a block there, past the {BLOCK_SMEM_LIMIT} one may hold")
     hm_dtype = hm_dtype or q.dtype
     if hm_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"hm_dtype must be float32 or bfloat16, got "
                         f"{hm_dtype}")
     design = seq_design(q.dtype)
-    if design == "tensor-core" and kv.data_ptr() % 16:
-        raise ValueError("the tensor-core sequence-parallel kernel needs kv "
-                         "16-byte aligned")
+    if design == "tensor-core" and (q.data_ptr() % 16 or kv.data_ptr() % 16):
+        raise ValueError("the tensor-core sequence-parallel kernel needs q "
+                         "and kv 16-byte aligned")
 
     from vision_transformer_cam_tpu_torch.kernels import _build
     lib = _build.load()
@@ -1049,19 +1106,20 @@ def masked_attention_seq_local(q, kv, bg_q, bg_k, *, num_heads: int,
             q.data_ptr(), kv.data_ptr(), bgq32.data_ptr(), bgk32.data_ptr(),
             out.data_ptr(), row0.data_ptr(),
             hm.data_ptr() if with_headmean else None, b, nq, np_,
-            n_real or np_, num_heads, c // num_heads, float(scale),
+            n_real or np_, num_heads, dh, float(scale),
             float(mask_value), _DTYPE_CODES[q.dtype], int(with_headmean),
             int(clamp_softmax), int(hm_dtype == torch.bfloat16),
             SEQ_DESIGNS[design], stream)
     if err:
         msg = lib.vitcam_cuda_error_string(err).decode()
         need = lib.vitcam_masked_attention_seq_smem_bytes(
-            np_, int(with_headmean), SEQ_DESIGNS[design])
+            np_, int(with_headmean), SEQ_DESIGNS[design], dh)
         raise RuntimeError(
             f"masked_attention_seq_local kernel launch failed ({design} "
             f"design): cudaError {err} ({msg}); shared memory needed {need} "
             f"bytes")
     seq_launches += 1
+    seq_width_launches[dh] += 1
     if with_headmean:
         return out, row0, hm
     return out, row0

@@ -1,11 +1,13 @@
-"""The nvcc wall time of two layouts of the instances of kernel 1 and of the
-attention backward at head widths 16, 32 and 40.
+"""The nvcc wall time of two layouts of the instances of kernel 1, of the
+attention backward and of the sequence-parallel kernel at head widths 16, 32
+and 40.
 
     python3 -m vision_transformer_cam_tpu_torch.scripts.width_units
 
 "One unit a width" is the sources as they are: ``csrc/masked_attention_w16.cu``,
-``_w32.cu``, ``_w40.cu`` and the backward's three.  "One unit a kernel" merges
-each kernel's three into one translation unit.  Each layout is a copy of
+``_w32.cu``, ``_w40.cu``, the backward's three and the sequence-parallel
+kernel's three.  "One unit a kernel" merges each kernel's three into one
+translation unit.  Each layout is a copy of
 ``kernels/csrc`` in a temporary directory whose every ``.cu`` is compiled to
 an object by its own nvcc process, all started together, as
 ``kernels/_build.py`` builds the library; the two layouts one after the
@@ -29,7 +31,8 @@ from vision_transformer_cam_tpu_torch.utils import check_cli_flags
 WIDTHS = (16, 32, 40)
 # each kernel's width units (stem_w16.cu, ...) and the header they include
 HEADERS = {"masked_attention": "masked_attention.cuh",
-           "masked_attention_bwd": "masked_attention_bwd.cuh"}
+           "masked_attention_bwd": "masked_attention_bwd.cuh",
+           "masked_attention_seq": "masked_attention_seq.cuh"}
 LAYOUTS = {"one unit a width": False, "one unit a kernel": True}
 
 
