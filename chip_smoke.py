@@ -306,8 +306,9 @@ Phases (any failure raises, and the exit code is non-zero):
      (SP_EXPORT_GATES), and ``serve_artifact`` of the int8 one on both
      ranks over 70 JPEGs (rank 0 writes the overlays and prints the
      one-rank artifact's classes).
- 24. kernel 1 and the backward at head widths 16, 32 and 40 (run after
-     phase 20; each width its own translation unit): at the JAX kernel
+ 24. kernel 1, the backward, the split-tensor kernel and the block kernel
+     at head widths 16, 32 and 40 (run after phase 20; each width its own
+     translation unit): at the JAX kernel
      tests' fuzz shapes (B=2: N=130, 4 heads of 32; N=147, 3 of 40; N=513
      and 1025, 2 of 32) and the JAX quickstart's N=65 with 4 heads of 16,
      kernel 1 in every dtype and int8 option (bf16, float32, int8_io per
@@ -330,7 +331,25 @@ Phases (any failure raises, and the exit code is non-zero):
      group: float32 at batch 2 against its unsharded kernel path (rollout
      row 1e-5, logits 2e-4), bf16 over 3 requests of 64 against its
      unsharded bf16 kernel path (SEQ_GATES), a seq-kernel launch a layer at
-     the model's width held.
+     the model's width held.  The split-tensor kernel (v1) at head widths
+     16, 32, 40 and 80 (each its own translation unit) against its plain
+     version at the fuzz shapes, the JAX kernel test's B=2 N=37 in 4 heads
+     of 16 and ViT-H/14's B=64 N=257 in 16 heads of 80, both dtypes and
+     designs, with and without the head mean, background none, 30 % and
+     all (the tensor-core design twice, for identical bits); width 40 with
+     NaN past the tensors' ends; each width at V1_MAX_N and one key past it
+     refused; widths 24 and 48 refused; its occupancy; each width timed
+     against the plain version and SDPA with the pair mask, in turns; its
+     path: each width's masked_attention at its timed shape in both dtypes,
+     with and without the head mean, four launches a width held.  The
+     block kernel's streamed design at 16, 32 and 40 against its plain
+     version at the width models' shapes (B = 2 and 64), both dtypes, every
+     background, joint and clamp, its occupancy, timed at B = 64 beside the
+     unfused route; each width model with attn_block_fusion: float32 at
+     batch 2 against its eager path (rollout row 1e-5, logits 2e-4), bf16
+     over the 3 requests of 64 against its bf16 kernel path (CAM and logits
+     5e-2), a block launch a layer held, and img/s at batch 64 of the two
+     paths in turns.
  25. the CNN-CAM demo: cli.cnn_cam_demo.main for resnet18, squeezenet1_1
      and densenet161 at full width, 224 x 224, seeded weights, on the card
      and with --device cpu (the same top-5, CAMs within one step on at most
@@ -387,6 +406,13 @@ MLP8_W = {c: f"mlp_fused_int8[C={c}]" for c in MLP_WIDTHS[1:]}
 BLOCK_W = {80: "attention_block_fused[N=257 C=1280 w80]",
            64: "attention_block_fused[N=1025 C=1024]"}
 BLOCK_TIMED = {80: (64, 257, 16), 64: (32, 1025, 16)}
+# the streamed design's instances at head widths 16, 32 and 40, a row a
+# width: phase 24's width models launch them under attn_block_fusion
+BLOCK_NW = {dh: f"attention_block_fused[head width {dh}]" for dh in NEW_WIDTHS}
+# the split-tensor kernel's (v1) instances at head widths 16, 32, 40 and 80,
+# a row a width (phase 24's v1 path launches them)
+V1_WIDTHS = (16, 32, 40, 80)
+V1_W = {dh: f"masked_attention[head width {dh}]" for dh in V1_WIDTHS}
 # the sequence-parallel kernel's instances at head widths 80 (ViT-H/14 served
 # under sequence parallelism in phase 19) and 16, 32 and 40 (phase 24's
 # models under it), a row a width, each timed at its shape (B, N, heads) on
@@ -468,6 +494,12 @@ KERNELS = {   # name: (route, source, TPU kernel replaced)
     BLOCK_W[64]: (
         "cuda", CSRC + "attention_block_streamed.cu",
         "vision_transformer_cam_tpu/kernels/attention.py:663"),
+    # the streamed design's instances at head widths 16, 32 and 40 (each its
+    # own translation unit), bf16 rollout, clamp on, as the width models'
+    # bf16 serving path launches them under attn_block_fusion
+    **{BLOCK_NW[dh]: ("cuda", CSRC + f"attention_block_streamed_w{dh}.cu",
+                      "vision_transformer_cam_tpu/kernels/attention.py:663")
+       for dh in NEW_WIDTHS},
     "masked_attention_seq_local": (
         "cuda", CSRC + "masked_attention_seq.cu",
         "vision_transformer_cam_tpu/kernels/attention.py:433"),
@@ -482,6 +514,12 @@ KERNELS = {   # name: (route, source, TPU kernel replaced)
     "masked_attention": (
         "cuda", CSRC + "masked_attention_v1.cu",
         "vision_transformer_cam_tpu/kernels/attention.py:39"),
+    # its instances at head widths 16, 32, 40 and 80 (csrc/
+    # masked_attention_v1.cuh, each width its own translation unit), which
+    # phase 24's v1 path launches
+    **{V1_W[dh]: ("cuda", CSRC + f"masked_attention_v1_w{dh}.cu",
+                  "vision_transformer_cam_tpu/kernels/attention.py:39")
+       for dh in V1_WIDTHS},
     # the ablation kernels, one row each (scripts.attn_variants drives them)
     **{f"attn_variants[{v}]": (
         "cuda", CSRC + "attn_variants.cu",
@@ -1739,14 +1777,15 @@ def _block_variants(b, n, heads, dh, dtype, seed):
                 yield label, ops, bg_, joint if with_joint else None, kw
 
 
-def check_attention_block(cases=BLOCK_CASES + BLOCK_ZOO):
+def check_attention_block(cases=BLOCK_CASES + BLOCK_ZOO,
+                          bf16_joint=TOL_JOINT):
     """attention_block_fused vs its plain version on the card, in every
     design that takes the dtype and shape (block_designs; the path's bf16
     design launched twice for identical bits): with and without the joint,
-    clamp on and off, 30 % background and none, at ``cases``.  Returns
-    {(dtype name, joint, clamp, n, bg kind): worst error} of the path's
-    design at 12 heads of 64, and under ("zoo", n, dh) the worst error over
-    each zoo shape's cases."""
+    clamp on and off, 30 % background and none, at ``cases``; bf16's
+    rollout update at ``bf16_joint``.  Returns {(dtype name, joint, clamp,
+    n, bg kind): worst error} of the path's design at 12 heads of 64, and
+    under ("zoo", n, dh) the worst error over each zoo shape's cases."""
     from vision_transformer_cam_tpu_torch.kernels import attention as ka
     errs, failures = {}, []
     for (b, n, heads, dh) in cases:
@@ -1756,7 +1795,7 @@ def check_attention_block(cases=BLOCK_CASES + BLOCK_ZOO):
                     b, n, heads, dh, dtype, seed=40 + n):
                 want = ka.attention_block_fused_plain(*ops, bg_, j, **kw)
                 tols = [TOL[(dtype, "out")], TOL[(dtype, "prob")],
-                        TOL_JOINT]
+                        bf16_joint if dtype == torch.bfloat16 else TOL_JOINT]
                 designs = block_designs(dtype, n, c, dh, j is not None)
                 for design in designs:
                     got = _block_design(design, ka.attention_block_fused,
@@ -1788,19 +1827,27 @@ def check_attention_block(cases=BLOCK_CASES + BLOCK_ZOO):
 
 def block_bits(root, out):
     """SHA-256 of the block kernel's output bytes (out, cls row, J') at
-    BLOCK_CASES (the cluster design's shapes), every dtype, background,
-    joint, clamp and bf16 core, from the port of the checkout at ``root``,
-    as ``bwd_bits`` does (and compared by ``compare_bits``)."""
+    BLOCK_CASES (the cluster design's shapes: every dtype, background,
+    joint, clamp and bf16 core, 96 cases) and at BLOCK_ZOO (the zoo shapes:
+    the design each variant routes to, the streamed design at widths 64 and
+    80 but bf16 with the rollout at N = 197, C = 1024, 64 cases), from the
+    port of the checkout at ``root``, as ``bwd_bits`` does (and compared by
+    ``compare_bits``)."""
     import hashlib
     sys.path.insert(0, os.path.abspath(root))
     from vision_transformer_cam_tpu_torch.kernels import attention as ka
     got = {}
-    for (b, n, heads, dh) in BLOCK_CASES:
+    for (b, n, heads, dh) in BLOCK_CASES + BLOCK_ZOO:
+        zoo = (b, n, heads, dh) in BLOCK_ZOO
         for dtype in (torch.bfloat16, torch.float32):
-            designs = ("fma",) if dtype == torch.float32 else \
-                ("tensor-core", "fma")
             for label, ops, bg_, j, kw in _block_variants(
                     b, n, heads, dh, dtype, seed=40 + n):
+                if zoo:
+                    designs = block_designs(dtype, n, heads * dh, dh,
+                                            j is not None)[:1]
+                else:
+                    designs = ("fma",) if dtype == torch.float32 else \
+                        ("tensor-core", "fma")
                 for design in designs:
                     res = _block_design(design, ka.attention_block_fused,
                                         *ops, bg_, j, **kw)
@@ -1808,7 +1855,10 @@ def block_bits(root, out):
                     for t in res:
                         digest.update(t.contiguous().view(torch.uint8)
                                       .cpu().numpy().tobytes())
-                    got[f"{design} {label}"] = digest.hexdigest()
+                    key = f"{design} {label}"
+                    if zoo:
+                        key = f"{design} B={b} H={heads} dh={dh} {label}"
+                    got[key] = digest.hexdigest()
     with open(out, "w") as f:
         json.dump(got, f, indent=1, sort_keys=True)
     say(f"block_bits: {len(got)} cases from {ka.__file__} -> {out}")
@@ -1863,14 +1913,25 @@ def seq_bits(root, out):
     return got
 
 
+def _block_smem_held(info, dtype, design, n, c, dh, qb=32):
+    """The shared memory a block kernel instance takes (``info[3]``) held
+    to the Python formula (kernels.attention.block_smem_bytes)."""
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    want = ka.block_smem_bytes(design, dtype, n, c, dh, True, qb)
+    if info[3] != want:
+        raise AssertionError(f"block kernel {design} N={n} C={c}: the "
+                             f"kernel takes {info[3]} bytes of shared "
+                             f"memory, the Python formula {want}")
+
+
 def block_occupancy(heads=12):
     """For each instance of the block kernel the serving path could run
     (rollout, clamp): the cluster design at N = 197 (clusters of 7) and N =
     256 (8) at 12 heads of 64, how many clusters the card holds at once
     (cudaOccupancyMaxActiveClusters); the streamed design at the zoo's
-    shapes (BLOCK_ZOO), how many blocks an SM holds; and the registers and
-    local memory per thread and the shared memory per block of each, the
-    shared memory also held to the Python formula
+    shapes (BLOCK_ZOO, streamed_occupancy); and the registers and local
+    memory per thread and the shared memory per block of each, the shared
+    memory also held to the Python formula
     (kernels.attention.block_smem_bytes).  Returns {(design, dtype name,
     n[, C, dh]): (clusters or blocks, registers, local bytes, shared
     bytes)}."""
@@ -1880,13 +1941,6 @@ def block_occupancy(heads=12):
     from vision_transformer_cam_tpu_torch.kernels import attention as ka
     lib, got = _build.load(), {}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-
-    def held(info, dtype, design, n, c, dh, qb=32):
-        want = ka.block_smem_bytes(design, dtype, n, c, dh, True, qb)
-        if info[3] != want:
-            raise AssertionError(f"block kernel {design} N={n} C={c}: the "
-                                 f"kernel takes {info[3]} bytes of shared "
-                                 f"memory, the Python formula {want}")
     for n in (197, 256):
         for dtype in (torch.bfloat16, torch.float32):
             for design in block_designs(dtype):
@@ -1899,7 +1953,7 @@ def block_occupancy(heads=12):
                         f"attention block occupancy ({design}, {dtype}, "
                         f"N={n}): cudaError {err} "
                         f"({lib.vitcam_cuda_error_string(err).decode()})")
-                held(info, dtype, design, n, heads * 64, 64)
+                _block_smem_held(info, dtype, design, n, heads * 64, 64)
                 name = str(dtype).split(".")[-1]
                 got[(design, name, n)] = tuple(info)
                 blocks = -(-n // ka.BLOCK_ROWS)
@@ -1909,7 +1963,23 @@ def block_occupancy(heads=12):
                     f"{info[1]} registers, {info[2]} bytes of local "
                     f"memory per thread, {info[3]} bytes of shared memory "
                     f"per block")
-    for _, n, zh, dh in BLOCK_ZOO:
+    got.update(streamed_occupancy(BLOCK_ZOO))
+    return got
+
+
+def streamed_occupancy(cases):
+    """The block kernel's streamed design at ``cases`` (B, N, heads, head
+    width; B unused), each dtype whose route is the streamed design, with
+    the rollout and the clamp: query rows a block, blocks an SM,
+    registers, local memory, shared memory (held to the Python formula).
+    Returns {("streamed", dtype name, n, C, dh): info}."""
+    import ctypes
+
+    from vision_transformer_cam_tpu_torch.kernels import _build
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    lib, got = _build.load(), {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for _, n, zh, dh in cases:
         c = zh * dh
         for dtype in (torch.bfloat16, torch.float32):
             design = ka.block_design(dtype, n, c, dh)
@@ -1924,7 +1994,7 @@ def block_occupancy(heads=12):
                     f"attention block occupancy (streamed, {dtype}, N={n} "
                     f"C={c}): cudaError {err} "
                     f"({lib.vitcam_cuda_error_string(err).decode()})")
-            held(info, dtype, design, n, c, dh, qb)
+            _block_smem_held(info, dtype, design, n, c, dh, qb)
             name = str(dtype).split(".")[-1]
             got[(design, name, n, c, dh)] = tuple(info)
             say(f"occupancy attention block streamed    {name:8s} rollout "
@@ -2593,6 +2663,7 @@ def reset_counts():
     ka.seq_launches = 0
     ka.seq_width_launches = {dh: 0 for dh in ka.SEQ_HEAD_DIMS}
     ka.v1_launches = 0
+    ka.v1_width_launches = {dh: 0 for dh in ka.V1_HEAD_DIMS}
     for variant in av.launches:
         av.launches[variant] = 0
     gemm.linear_int8_launches = 0
@@ -2614,6 +2685,8 @@ def read_counts():
             "attention_block_fused": ka.block_launches - sum(
                 ka.block_streamed_launches.values()),
             **{BLOCK_W[dh]: ka.block_streamed_launches[dh] for dh in BLOCK_W},
+            **{BLOCK_NW[dh]: ka.block_streamed_launches[dh]
+               for dh in NEW_WIDTHS},
             "masked_attention_seq_local": ka.seq_launches,
             W80: ka.width_launches[80],
             BWD80: ka.bwd_width_launches[80],
@@ -5508,13 +5581,17 @@ def parallel_path():
     return counts
 
 
-def v1_inputs(b, n, heads, dtype, seed, bg_kind="30%"):
-    """Split q, k, v [B, H, N, 64] with hot query rows 1-3 (logits of order
+def v1_inputs(b, n, heads, dtype, seed, bg_kind="30%", dh=64, grid=False):
+    """Split q, k, v [B, H, N, dh] with hot query rows 1-3 (logits of order
     1e2) and a background of the given kind; the cls column may be
-    background too, the pair mask has no special column."""
+    background too, the pair mask has no special column.  With ``grid`` the
+    normals are rounded to multiples of 1/8 first, so that every dot
+    product of QK^T is exact in float32 whatever the order of its sums."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v = (torch.randn((b, heads, n, 64), generator=g, device="cuda")
+    q, k, v = (torch.randn((b, heads, n, dh), generator=g, device="cuda")
                for _ in range(3))
+    if grid:
+        q, k, v = (torch.round(t * 8.0) / 8.0 for t in (q, k, v))
     q[:, :, 1:4] *= 40.0
     share = {"none": 0.0, "30%": 0.3, "all": 1.1}[bg_kind]
     bg = (torch.rand((b, n), generator=g, device="cuda") < share).float()
@@ -5573,21 +5650,22 @@ def check_attention_v1():
     return kept
 
 
-def time_attention_v1(b=64, n=197, heads=12):
-    """The split-tensor kernel at B=64 N=197 bf16, with and without the head
-    mean, in turns: the tensor-core design and the plain version (the FMA
-    design it replaced no longer changes and is not timed); beside them the
-    fused kernel's plain variant on the same values packed (no clamp) and
+def time_attention_v1(b=64, n=197, heads=12, dh=64):
+    """The split-tensor kernel at B, N, heads of ``dh`` (B=64 N=197 12 of 64
+    by default) bf16, with and without the head mean, in turns: the
+    tensor-core design and the plain version (the FMA design it replaced no
+    longer changes and is not timed); beside them the fused kernel's plain
+    variant on the same values packed (no clamp) and
     F.scaled_dot_product_attention with the additive [B, 1, N, N] pair mask
     (out only, neither cls row nor head mean: the yardstick for the shape,
     timed only).  Returns ({with_headmean: (kernel ms, plain ms)}, the SDPA
     ms)."""
     import torch.nn.functional as F
     from vision_transformer_cam_tpu_torch.kernels import attention as ka
-    (q, k, v), bg = v1_inputs(b, n, heads, torch.bfloat16, 5)
+    (q, k, v), bg = v1_inputs(b, n, heads, torch.bfloat16, 5, dh=dh)
     times = {}
     for hm in (False, True):
-        kw = dict(scale=64 ** -0.5, with_headmean=hm)
+        kw = dict(scale=dh ** -0.5, with_headmean=hm)
         fns = {"tensor-core": lambda: _switched(
             ka, "_v1_bf16_design", "tensor-core", ka.masked_attention, q, k,
             v, bg, **kw)}
@@ -5595,14 +5673,15 @@ def time_attention_v1(b=64, n=197, heads=12):
         ms = round_robin(fns)
         times[hm] = (ms["tensor-core"], ms["plain"])
     qkv = torch.stack([q, k, v]).permute(1, 3, 0, 2, 4).reshape(
-        b, n, 3 * heads * 64).contiguous()
+        b, n, 3 * heads * dh).contiguous()
     fused = time_ms(lambda: ka.masked_attention_fused(
-        qkv, bg, num_heads=heads, scale=64 ** -0.5))
+        qkv, bg, num_heads=heads, scale=dh ** -0.5))
     pair = (torch.clamp_max(bg[:, :, None] + bg[:, None, :], 1.0)
             * -100.0)[:, None].to(torch.bfloat16)
     sdpa = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=pair, scale=64 ** -0.5))
-    say(f"time attention v1 bf16 B={b} N={n}, in turns: tensor-core "
+        q, k, v, attn_mask=pair, scale=dh ** -0.5))
+    say(f"time attention v1 bf16 B={b} N={n} {heads} heads of {dh}, in "
+        f"turns: tensor-core "
         f"{times[False][0]:.4f} ms, "
         f"plain {times[False][1]:.4f} ms; with the head mean tensor-core "
         f"{times[True][0]:.4f} ms, plain "
@@ -6006,8 +6085,12 @@ def widths_seq_path(requests=3, batch=64, f32_batch=2):
     (seq_vs_unsharded), then in bf16 ``requests`` requests of ``batch``
     against its unsharded bf16 kernel path within SEQ_GATES, the launches
     held at the model's width (a seq-kernel launch a layer and forward, none
-    of kernel 1; kernel 1's on the unsharded path).  Returns the summed
-    launch counts."""
+    of kernel 1; kernel 1's on the unsharded path).  Each model also with
+    ``attn_block_fusion`` (the block kernel's streamed design at its
+    width): float32 at ``f32_batch`` against its eager path
+    (block_vs_eager), bf16 over the same requests against its bf16 kernel
+    path and img/s of the two in turns (block_fused_served), a block launch
+    a layer and forward.  Returns the summed launch counts."""
     import torch.distributed as dist
     from vision_transformer_cam_tpu_torch import configs, serving
     from vision_transformer_cam_tpu_torch.models.vit import ViTCAM
@@ -6030,12 +6113,14 @@ def widths_seq_path(requests=3, batch=64, f32_batch=2):
                 dtype=np.float32)).cuda() for _ in range(requests)]
             add(seq_vs_unsharded(label, model, reqs[0][:f32_batch], mesh,
                                  "widths"))
+            add(block_vs_eager(label, model, reqs[0][:f32_batch]))
             serving.apply_serving_mode(model, "bf16")
             kcfg = model.cfg
             refs, counts = serve(model, reqs, {"masked_attention_fused": depth,
                                                FWD_W[dh]: depth},
                                  f"{label} bf16")
             add(counts)
+            add(block_fused_served(label, model, kcfg, reqs, refs)[0])
             model.cfg = pmesh.apply_seq_parallel(kcfg)
             with pmesh.set_mesh(mesh):
                 outs, counts = serve(
@@ -6059,23 +6144,366 @@ def widths_seq_path(requests=3, batch=64, f32_batch=2):
     return totals
 
 
+# The split-tensor kernel (v1) at head widths 16, 32, 40 and 80: the JAX fuzz
+# shapes of phase 24 (WIDTH_CASES), the JAX kernel test's own shape (B=2,
+# N=37, 4 heads of 16) and ViT-H/14's (B=64, N=257, 16 heads of 80); each
+# width timed at phase 24's shape, width 80 at ViT-H/14's
+V1_WIDTH_CASES = WIDTH_CASES + ((2, 37, 4, 16), (64, 257, 16, 80))
+V1_TIMED = {**{dh: shape[:3] for dh, shape in WIDTH_TIMED.items()},
+            80: (64, 257, 16)}
+# the block kernel at the width models' shapes (WIDTH_MODELS: N 65 in 4
+# heads of 16, N 197 in 4 of 32 and in 3 of 40), checked at B = 2 and 64,
+# timed at 64.  Its bf16 rollout update is held at the bf16 probability
+# tolerance, as tests/test_torch_tensor_core_cuda.py holds the cluster
+# design's: the kernel forms qkv itself, summing in another order than the
+# plain version before both round it to bf16, and an ulp of qkv moves P by
+# ~1e-3 relative; over B = 64 images the update read 1.72e-6 to 5.85e-6
+# from the plain version (an NVIDIA H100 80GB HBM3), past TOL_JOINT's 1e-6
+# + 1e-4 |J'| (B = 2: within it).  float32 keeps TOL_JOINT.
+BLOCK_WIDTH_SHAPES = {16: (65, 4), 32: (197, 4), 40: (197, 3)}
+BLOCK_WIDTH_CASES = tuple((b, n, h, dh) for dh, (n, h)
+                          in BLOCK_WIDTH_SHAPES.items() for b in (2, 64))
+
+
+def v1_case(b, n, heads, dh, failures, seed):
+    """The split-tensor kernel at one shape against its plain version, in
+    every design that takes the dtype (bf16: the tensor-core design,
+    launched twice for identical bits, and the FMA design; float32: the FMA
+    design), with and without the head mean, background none, 30 % and all,
+    at check_attention_v1's gates.  float32 inputs lie on a grid of 1/8
+    (v1_inputs): without the clamp the hot rows' logits reach |S| ~ 150,
+    one float32 ulp of which (1.5e-5), summed over 80 products in another
+    order than the plain version's, moved out by up to 1.07e-4 at ViT-H/14's
+    B=64 N=257 (an NVIDIA H100 80GB HBM3), past TOL's 5e-5 + 1e-4 |out|;
+    on the grid S is exact on both sides and the gate holds what follows it
+    (exp, the softmax sums, P V), as tests/test_torch_seq_width.py holds
+    the seq kernel at width 80.  Returns the worst error of the bf16
+    tensor-core cases."""
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for bi, bg_kind in enumerate(("none", "30%", "all")):
+            (q, k, v), bg = v1_inputs(b, n, heads, dtype, seed + bi, bg_kind,
+                                      dh=dh, grid=dtype == torch.float32)
+            for hm in (False, True):
+                kw = dict(scale=dh ** -0.5, with_headmean=hm)
+                want = ka.masked_attention_ref(q, k, v, bg, **kw)
+                tols = [TOL[(dtype, "out")], TOL[(dtype, "prob")],
+                        TOL[(dtype, "prob")]]
+                for design in fwd_designs(dtype):
+                    got = _switched(ka, "_v1_bf16_design", design,
+                                    ka.masked_attention, q, k, v, bg, **kw)
+                    torch.cuda.synchronize()
+                    case = (f"attention v1 {design:11s} {name:8s} hm={hm!s:5s} "
+                            f"bg={bg_kind:4s} B={b} N={n} H={heads} dh={dh}")
+                    err = _compare(case, got, want, tols, failures)
+                    if design == "tensor-core":
+                        worst = max(worst, err)
+                        again = ka.masked_attention(q, k, v, bg, **kw)
+                        if not all(torch.equal(x, y)
+                                   for x, y in zip(got, again)):
+                            failures.append(f"{case}: a second launch gave "
+                                            "other bits")
+    return worst
+
+
+def check_attention_v1_widths():
+    """The split-tensor kernel at head widths 16, 32, 40 and 80 against its
+    plain version (v1_case at V1_WIDTH_CASES); width 40's tail on the last
+    row of the last slab, with NaN past the tensors' ends (a 48-column read
+    of K there would make S NaN); each width at V1_MAX_N and one key past it
+    refused, naming the bytes; widths 24 and 48 refused, naming the compiled
+    widths.  Returns {dh: worst error of the bf16 tensor-core cases}."""
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    failures, errs = [], {}
+    for (b, n, h, dh) in V1_WIDTH_CASES:
+        err = v1_case(b, n, h, dh, failures, seed=3 * n + dh)
+        errs[dh] = max(errs.get(dh, 0.0), err)
+    # width 40: q, k and v the heads of tensors followed by NaN
+    for dtype in (torch.bfloat16, torch.float32):
+        (q, k, v), bg = v1_inputs(2, 37, 3, dtype, 9, dh=40)
+        ends = []
+        for t in (q, k, v):
+            buf = torch.full((t.numel() + 64,), float("nan"), dtype=dtype,
+                             device="cuda")
+            buf[:t.numel()] = t.reshape(-1)
+            ends.append(buf[:t.numel()].view(t.shape))
+        kw = dict(scale=40 ** -0.5, with_headmean=True)
+        want = ka.masked_attention_ref(q, k, v, bg, **kw)
+        for design in fwd_designs(dtype):
+            got = _switched(ka, "_v1_bf16_design", design,
+                            ka.masked_attention, *ends, bg, **kw)
+            torch.cuda.synchronize()
+            _compare(f"attention v1 {design} {dtype} dh=40, NaN past the "
+                     "tensors", got, want,
+                     [TOL[(dtype, "out")], TOL[(dtype, "prob")],
+                      TOL[(dtype, "prob")]], failures)
+    for dh in V1_WIDTHS + (64,):
+        for n in (ka.V1_MAX_N[dh], ka.V1_MAX_N[dh] + 1):
+            (q, k, v), bg = v1_inputs(1, n, 1, torch.bfloat16, 2, dh=dh)
+            for dtype in (torch.bfloat16, torch.float32):
+                try:
+                    ka.masked_attention(q.to(dtype), k.to(dtype),
+                                        v.to(dtype), bg, scale=0.125,
+                                        with_headmean=True)
+                    torch.cuda.synchronize()
+                    if n > ka.V1_MAX_N[dh]:
+                        failures.append(f"v1 width {dh} N={n}: not refused")
+                except ValueError as e:
+                    if n <= ka.V1_MAX_N[dh] or "bytes" not in str(e):
+                        failures.append(f"v1 width {dh} N={n}: {e}")
+    for dh in (24, 48):
+        (q, k, v), bg = v1_inputs(1, 37, 2, torch.bfloat16, 2, dh=dh)
+        try:
+            ka.masked_attention(q, k, v, bg, scale=0.125)
+            failures.append(f"v1 at head width {dh}: not refused")
+        except ValueError as e:
+            say(f"check v1 at head width {dh} is refused: {e}")
+            if "16, 32, 40, 64, 80" not in str(e):
+                failures.append(f"v1 at head width {dh}: {e}")
+    if failures:
+        raise AssertionError("split-tensor attention kernel at head widths "
+                             "16, 32, 40, 80 != plain version:\n"
+                             + "\n".join(failures))
+    say(f"check attention v1 widths: worst bf16 tensor-core errors {errs}")
+    return errs
+
+
+def v1_bits(root, out):
+    """SHA-256 of the split-tensor kernel's output bytes (out, cls row, head
+    mean) at head width 64, B=2, 12 heads, N = 37, 197, 577 and 1025 (the
+    FMA design's 32-row and, with the head mean at 1025, 16-row tiles), in
+    every design (float32: fma; bf16: tensor-core and fma), background
+    (none, 30 %, all) and with the head mean or without: 72 cases, from the
+    port of the checkout at ``root``, as ``bwd_bits`` does (and compared by
+    ``compare_bits``)."""
+    import hashlib
+    sys.path.insert(0, os.path.abspath(root))
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    got = {}
+    for n in (37, 197, 577, 1025):
+        for dtype in (torch.float32, torch.bfloat16):
+            designs = ("fma",) if dtype == torch.float32 else \
+                ("tensor-core", "fma")
+            for bi, bg_kind in enumerate(("none", "30%", "all")):
+                (q, k, v), bg = v1_inputs(2, n, 12, dtype, 11 * n + bi,
+                                          bg_kind)
+                for hm in (False, True):
+                    for design in designs:
+                        res = _switched(ka, "_v1_bf16_design", design,
+                                        ka.masked_attention, q, k, v, bg,
+                                        scale=0.125, with_headmean=hm)
+                        digest = hashlib.sha256()
+                        for t in res:
+                            digest.update(t.contiguous().view(torch.uint8)
+                                          .cpu().numpy().tobytes())
+                        got[f"{design} {dtype} N={n} bg={bg_kind} hm={hm}"] = \
+                            digest.hexdigest()
+    with open(out, "w") as f:
+        json.dump(got, f, indent=1, sort_keys=True)
+    say(f"v1_bits: {len(got)} cases from {ka.__file__} -> {out}")
+    return got
+
+
+def v1_occupancy(cases=tuple((n, dh) for dh, (_, n, _) in V1_TIMED.items())):
+    """For the split-tensor kernel's instances at (N, head width) ``cases``,
+    with the head mean: the tensor-core instance (bf16) and the FMA instance
+    (float32) at the tile it picks: blocks an SM, registers and local
+    memory a thread, shared memory a block (held to ``v1_smem_bytes``).
+    Returns {(design, n, dh): info}."""
+    import ctypes
+
+    from vision_transformer_cam_tpu_torch.kernels import _build
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    lib, got = _build.load(), {}
+    for n, dh in cases:
+        for design, dtype in (("tensor-core", torch.bfloat16),
+                              ("fma", torch.float32)):
+            info = (ctypes.c_int * 4)()
+            err = lib.vitcam_masked_attention_v1_occupancy(
+                n, 1, ka._DTYPE_CODES[dtype], ka.V1_DESIGNS[design], dh, info)
+            if err:
+                raise RuntimeError(
+                    f"v1 occupancy ({design}, N={n}, dh={dh}): cudaError "
+                    f"{err} ({lib.vitcam_cuda_error_string(err).decode()})")
+            want = ka.v1_smem_bytes(design, dtype, n, dh)
+            if info[3] != want:
+                raise AssertionError(f"v1 {design} N={n} dh={dh}: the kernel "
+                                     f"takes {info[3]} bytes of shared "
+                                     f"memory, the Python formula {want}")
+            got[(design, n, dh)] = tuple(info)
+            say(f"occupancy attention v1 {design:11s} head mean N={n} "
+                f"dh={dh}: {info[0]} blocks an SM, {info[1]} registers, "
+                f"{info[2]} bytes of local memory per thread, {info[3]} "
+                f"bytes of shared memory per block")
+    return got
+
+
+def v1_bound(b, n, heads, dh):
+    """The split-tensor kernel's bound as time_attention_v1 times it (bf16,
+    no head mean): bf16 q, k, v and the float32 bg in, bf16 out and cls row
+    out; both products at the bf16 rate."""
+    m, c = b * n, heads * dh
+    return bound(f"masked_attention (v1) bf16 B={b} N={n} H={heads} dh={dh}",
+                 4 * m * c * 2 + m * 4 + m * 2,
+                 {"bf16": 4 * b * heads * n * n * dh})
+
+
+def time_attention_v1_widths():
+    """Each width of V1_TIMED through ``time_attention_v1`` (the tensor-core
+    design and the plain version in turns, SDPA with the additive pair mask
+    beside them), with its bound.  Returns {dh: ({with_headmean: (kernel ms,
+    plain ms)}, SDPA ms, (bound ms, bound by))}."""
+    return {dh: (*time_attention_v1(b, n, h, dh), v1_bound(b, n, h, dh))
+            for dh, (b, n, h) in V1_TIMED.items()}
+
+
+def v1_widths_path():
+    """The split-tensor kernel's path at the new widths, as the JAX package
+    runs its kernel (only its tests do: no model path runs it): each width's
+    ``masked_attention`` at its V1_TIMED shape, bf16 and float32, with and
+    without the head mean, the launch counts set to 0 before and read after
+    (four launches at the width, none at another), each result finite,
+    its cls row and head-mean rows summing to 1.  Returns {row: launches}."""
+    from vision_transformer_cam_tpu_torch.kernels import attention as ka
+    reset_counts()
+    for dh, (b, n, h) in V1_TIMED.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            (q, k, v), bg = v1_inputs(b, n, h, dtype, 17, dh=dh)
+            for hm in (False, True):
+                res = ka.masked_attention(q, k, v, bg, scale=dh ** -0.5,
+                                          with_headmean=hm)
+                rows = res[1:]
+                if not all(torch.isfinite(t).all() for t in res) or \
+                        tuple(res[0].shape) != (b, h, n, dh) or \
+                        any(float((r.float().sum(-1) - 1).abs().max())
+                            > 2e-2 for r in rows):
+                    raise AssertionError(f"v1 path dh={dh} {dtype} hm={hm}: "
+                                         "an output is off")
+    torch.cuda.synchronize()
+    counts = {V1_W[dh]: ka.v1_width_launches[dh] for dh in V1_WIDTHS}
+    say(f"v1 widths path: launches {counts} (expected 4 a width)")
+    if set(counts.values()) != {4} or ka.v1_width_launches[64] != 0:
+        raise AssertionError(f"v1 widths path: launch counts {counts}")
+    return counts
+
+
+def block_vs_eager(label, model, x):
+    """The float32 model on the kernel path with ``attn_block_fusion`` (the
+    block kernel's streamed design, its FMA core) against its eager path on
+    ``x``, at main_path's float32 gates (rollout row 1e-5, logits 2e-4), a
+    block launch a layer at the model's head width.  Returns the launch
+    counts."""
+    cfg = model.cfg
+    model.cfg = cfg.replace(attn_impl="eager")
+    want = model(x, need_rollout=True)
+    model.cfg = cfg.replace(attn_impl="kernel", attn_block_fusion=True)
+    reset_counts()
+    try:
+        got = model(x, need_rollout=True)
+        torch.cuda.synchronize()
+    finally:
+        model.cfg = cfg
+    counts = _expect(f"{label} f32 block fused (B={x.shape[0]})",
+                     {BLOCK_NW[cfg.head_dim]: cfg.depth}, phase="widths")
+    d_roll = float((got.rollout_row - want.rollout_row).abs().max())
+    d_logit = float((got.logits - want.logits).abs().max())
+    say(f"{label} f32 block fused vs eager (B={x.shape[0]}): rollout row "
+        f"{d_roll:.3e} (tol 1e-5), logits {d_logit:.3e} (tol 2e-4)")
+    if not (d_roll <= 1e-5 and d_logit <= 2e-4):
+        raise AssertionError(f"{label}: f32 block-fused path disagrees with "
+                             "the eager path")
+    return counts
+
+
+def block_fused_served(label, model, kcfg, reqs, refs):
+    """The bf16 model (``kcfg``, its kernel path) with ``attn_block_fusion``
+    over ``reqs`` against the same requests' bf16 kernel-path outputs
+    ``refs`` within ZOO_BF16_GATES, a block launch a layer and forward at the
+    model's head width and none of kernel 1; then img/s at the requests'
+    batch of the two paths in turns.  Returns (launch counts, {path:
+    img/s})."""
+    from vision_transformer_cam_tpu_torch.ops.rollout import (
+        cam_from_rollout_row)
+    depth, dh = kcfg.depth, kcfg.head_dim
+    fcfg = kcfg.replace(attn_block_fusion=True)
+    model.cfg = fcfg
+    try:
+        outs, counts = serve(model, reqs, {BLOCK_NW[dh]: depth},
+                             f"{label} bf16 block fused")
+    finally:
+        model.cfg = kcfg
+    d_cam, d_logit, ov = deviation(outs, refs)
+    say(f"{label} bf16 block fused vs bf16 kernel path: CAM max abs dev "
+        f"{d_cam:.3e} (tol {ZOO_BF16_GATES['cam']}), logits max abs dev "
+        f"{d_logit:.3e} (tol {ZOO_BF16_GATES['logits']}), "
+        f"top-{kcfg.top_k_patches} overlap {ov:.4f}")
+    if not (d_cam <= ZOO_BF16_GATES["cam"]
+            and d_logit <= ZOO_BF16_GATES["logits"]):
+        raise AssertionError(f"{label}: bf16 block-fused path disagrees "
+                             "with the bf16 kernel path")
+    g, xb = kcfg.grid_size, reqs[0]
+
+    def rate(mcfg, iters=5):
+        model.cfg = mcfg
+        for _ in range(2):
+            cam_from_rollout_row(model(xb, need_rollout=True).rollout_row, g)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(iters):
+            cam_from_rollout_row(model(xb, need_rollout=True).rollout_row, g)
+        torch.cuda.synchronize()
+        return xb.shape[0] * iters / (time.perf_counter() - t)
+    paths = {"bf16": kcfg, "bf16 block fused": fcfg}
+    rates = {}
+    try:
+        for name in list(paths) + list(paths)[::-1]:
+            rates.setdefault(name, []).append(rate(paths[name]))
+    finally:
+        model.cfg = kcfg
+    for name, r in rates.items():
+        say(f"{label} {name} CAM throughput, batch {xb.shape[0]}: "
+            f"{np.mean(r):.1f} img/s ({r[0]:.1f}, {r[1]:.1f})")
+    return counts, {name: float(np.mean(r)) for name, r in rates.items()}
+
+
+def time_block_widths():
+    """The block kernel's streamed design at each width model's shape (B =
+    64; WIDTH_MODELS) through ``time_block_streamed``, with its bound.
+    Returns {dh: (kernel ms, plain ms, unfused ms, (bound ms, bound by))}."""
+    return {dh: (*time_block_streamed(64, n, h, dh), block_bound(64, n, h, dh))
+            for dh, (n, h) in BLOCK_WIDTH_SHAPES.items()}
+
+
 def widths_path():
-    """Phase 24: kernel 1 and the backward at head widths 16, 32 and 40
-    against their plain versions, their occupancy read, timed, each width's
-    model through bench.main and under sequence parallelism.  Returns
-    (launch counts, the checks' worst errors, the timings)."""
+    """Phase 24: kernel 1, the backward, the split-tensor kernel (v1) and the
+    block kernel at head widths 16, 32 and 40 (v1 also at 80) against their
+    plain versions, their occupancy read, timed, each width's model through
+    bench.main, under sequence parallelism and with attn_block_fusion, and
+    v1's path.  Returns (launch counts, the checks' worst errors (kernel 1,
+    the backward, v1, the block kernel), the timings (the same four))."""
     t0 = time.perf_counter()
     errs = check_attention_widths()
+    v1_errs = check_attention_v1_widths()
+    block_errs = check_attention_block(
+        BLOCK_WIDTH_CASES, bf16_joint=TOL[(torch.bfloat16, "prob")])
     attention_occupancy(cases=tuple((n, dh, h) for dh, (_, n, h, _)
                                     in WIDTH_TIMED.items()))
     bwd_occupancy(cases=tuple((n, dh) for dh, (_, n, _, _)
                               in WIDTH_TIMED.items()))
+    v1_occupancy()
+    streamed_occupancy(tuple((2, n, h, dh) for dh, (n, h)
+                             in BLOCK_WIDTH_SHAPES.items()))
     times = time_widths()
+    v1_ms = time_attention_v1_widths()
+    block_ms = time_block_widths()
     launches = widths_main_path()
     for k, v in widths_seq_path().items():
         launches[k] = launches.get(k, 0) + v
+    launches.update(v1_widths_path())
     say(f"widths path: {time.perf_counter() - t0:.1f} s")
-    return launches, errs, times
+    return launches, (*errs, v1_errs, block_errs), (*times, v1_ms, block_ms)
 
 
 # Phase 25, the CNN-CAM demo: the archs at full width, the gates of the card
@@ -7204,7 +7632,8 @@ def main() -> int:
     for name, count in zoo_train_counts.items():
         launches[name] = launches.get(name, 0) + count
     lap("phase 20")
-    # phase 24, kernel 1 and the backward at head widths 16, 32 and 40
+    # phase 24, kernel 1, the backward, the split-tensor and the block kernel
+    # at head widths 16, 32 and 40 (the split-tensor kernel also at 80)
     width_counts, width_errs, width_ms = widths_path()
     for name, count in width_counts.items():
         launches[name] = launches.get(name, 0) + count
@@ -7299,6 +7728,11 @@ def main() -> int:
         **{BLOCK_W[dh]: (block_errs[("zoo", BLOCK_TIMED[dh][1], dh)],
                          *fused_ms[("attention_block_fused", dh)][:2])
            for dh in BLOCK_W},
+        # the streamed design at the new widths: the worst error over the
+        # width model's shape's checks (B=2 and 64), the time at B=64
+        **{BLOCK_NW[dh]: (width_errs[3][("zoo", BLOCK_WIDTH_SHAPES[dh][0],
+                                         dh)], *width_ms[3][dh][:2])
+           for dh in NEW_WIDTHS},
         # the error over the bf16, clamp, float32-head-mean cases at N=577,
         # the time on one rank at B=16 N=577
         "masked_attention_seq_local": (seq_err, *seq_ms[1][:2]),
@@ -7309,6 +7743,10 @@ def main() -> int:
            for dh in SEQ_WIDTHS},
         # the bf16 cases at N=197 without the head mean; the time at B=64
         "masked_attention": (v1_err, *v1_ms[False]),
+        # the other widths: the worst error of their bf16 tensor-core checks,
+        # the time (bf16, no head mean) at V1_TIMED
+        **{V1_W[dh]: (width_errs[2][dh], *width_ms[2][dh][0][False])
+           for dh in V1_WIDTHS},
         # the bf16 case at B=8 N=197 (an int8 P V out: the largest deviation,
         # a rounding flip of P); the time at the script's B=512
         **{f"attn_variants[{v}]": (variant_errs[v], *variant_ms[v])
@@ -7333,12 +7771,18 @@ def main() -> int:
                **{BWD_W[dh]: width_ms[1][dh][2] for dh in NEW_WIDTHS},
                "masked_attention_seq_local": seq_ms[1][2],
                **{SEQ_W[dh]: seq_w_ms[dh][1][2] for dh in SEQ_WIDTHS},
-               "masked_attention": v1_sdpa}
+               "masked_attention": v1_sdpa,
+               **{V1_W[dh]: width_ms[2][dh][1] for dh in V1_WIDTHS}}
     bounds = kernel_bounds()
     bounds.update({FWD_W[dh]: width_ms[0][dh][2:4] for dh in NEW_WIDTHS})
     bounds.update({BWD_W[dh]: width_ms[1][dh][3:5] for dh in NEW_WIDTHS})
     bounds.update({SEQ_W[dh]: seq_bound(*SEQ_TIMED[dh], dh)
                    for dh in SEQ_WIDTHS})
+    bounds.update({V1_W[dh]: width_ms[2][dh][2] for dh in V1_WIDTHS})
+    bounds.update({BLOCK_NW[dh]: width_ms[3][dh][3] for dh in NEW_WIDTHS})
+    idle = [name for name in KERNELS if not launches.get(name)]
+    if idle:
+        raise AssertionError(f"kernels the run's paths never launched: {idle}")
     say(json.dumps({"kernels": [
         {"name": name, "route": route, "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": stats[name][0],

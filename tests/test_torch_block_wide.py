@@ -194,8 +194,9 @@ def test_block_refuses_past_its_limits(dtype):
     with pytest.raises(ValueError, match="attn_block_fusion"):
         tka.block_design(dtype, 1025, c, 64)
     assert tka.block_design(dtype, n, 1280, 80, rollout=False) == "streamed"
-    with pytest.raises(ValueError, match="head widths 64, 80, got 40"):
-        tka.block_design(dtype, 197, 480, 40)
+    with pytest.raises(ValueError, match="head widths 16, 32, 40, 64, 80, "
+                                         "got 48"):
+        tka.block_design(dtype, 197, 480, 48)
     with pytest.raises(TypeError, match="bfloat16 or float32"):
         tka.block_design(torch.float16, 197, 768)
 

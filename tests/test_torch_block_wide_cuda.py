@@ -169,8 +169,9 @@ def test_cuda_block_refuses_past_its_limits(dtype):
     with pytest.raises(ValueError, match="bytes of shared memory"):
         tka.attention_block_fused(*ops, bg, joint, num_heads=16,
                                   scale=80 ** -0.5)
-    ops, bg, joint = _operands(1, 37, 12, 40, dtype, seed=4)
-    with pytest.raises(ValueError, match="head widths 64, 80, got 40"):
+    ops, bg, joint = _operands(1, 37, 12, 48, dtype, seed=4)
+    with pytest.raises(ValueError, match="head widths 16, 32, 40, 64, 80, "
+                                         "got 48"):
         tka.attention_block_fused(*ops, bg, joint, num_heads=12,
-                                  scale=40 ** -0.5)
+                                  scale=48 ** -0.5)
     assert tka.block_launches == before

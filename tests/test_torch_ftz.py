@@ -370,14 +370,14 @@ def test_no_config_field_reaches_the_design_switches():
 ])
 def test_v1_design_rule(dtype, n, design):
     """The split-tensor kernel: bf16 takes its tensor-core design at every
-    N <= V1_MAX_N (the FMA design's range, head mean or not), float32 its
-    FMA design; past V1_MAX_N and for other dtypes the rule raises."""
-    assert tattn.V1_MAX_N == 1536
+    N <= V1_MAX_N[64] (the FMA design's range, head mean or not), float32
+    its FMA design; past V1_MAX_N and for other dtypes the rule raises."""
+    assert tattn.V1_MAX_N[64] == 1536
     assert tattn.v1_design(dtype, n) == design
     assert set(tattn.V1_DESIGNS) == {"tensor-core", "fma"}
     assert tattn._v1_bf16_design == "tensor-core"
     with pytest.raises(ValueError, match="N <= 1536"):
-        tattn.v1_design(dtype, tattn.V1_MAX_N + 1)
+        tattn.v1_design(dtype, tattn.V1_MAX_N[64] + 1)
     with pytest.raises(TypeError, match="bfloat16 or all float32"):
         tattn.v1_design(torch.float16, n)
 

@@ -259,21 +259,18 @@ def test_other_kernels_refuse_head_width_80(kernel):
                                              r"80, got 48$"):
             tka.check_head_width(kernel, 48)
         return
-    if kernel == "seq":
-        # compiled for kernel 1's widths (SEQ_HEAD_DIMS) since ViT-H/14
-        # serves under sequence parallelism; other widths are still refused
-        assert tka.SEQ_HEAD_DIMS == (16, 32, 40, 64, 80)
+    if kernel in ("seq", "block", "v1"):
+        # compiled for kernel 1's widths (SEQ_HEAD_DIMS, BLOCK_HEAD_DIMS,
+        # V1_HEAD_DIMS): the seq kernel since ViT-H/14 serves under sequence
+        # parallelism, the block kernel's streamed design and the
+        # split-tensor kernel at every width the JAX kernels take; other
+        # widths are still refused
+        widths = {"seq": tka.SEQ_HEAD_DIMS, "block": tka.BLOCK_HEAD_DIMS,
+                  "v1": tka.V1_HEAD_DIMS}[kernel]
+        assert widths == (16, 32, 40, 64, 80)
         assert tka.check_head_width(kernel, 80) == 80
         with pytest.raises(ValueError, match=r"head widths 16, 32, 40, 64, "
                                              r"80, got 48$"):
-            tka.check_head_width(kernel, 48)
-        return
-    if kernel == "block":
-        # compiled for 64 and 80 (BLOCK_HEAD_DIMS) since its streamed design
-        # serves ViT-H/14; other widths are still refused
-        assert tka.BLOCK_HEAD_DIMS == (64, 80)
-        assert tka.check_head_width(kernel, 80) == 80
-        with pytest.raises(ValueError, match=r"head widths 64, 80, got 48$"):
             tka.check_head_width(kernel, 48)
         return
     with pytest.raises(ValueError, match=r"head width 64, got 80$"):

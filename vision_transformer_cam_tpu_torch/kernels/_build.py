@@ -182,8 +182,11 @@ def load():
         fn = lib.vitcam_masked_attention_occupancy
         fn.argtypes = [i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
         fn.restype = i
-        lib.vitcam_masked_attention_v1_smem_bytes.argtypes = [i, i, i]
+        lib.vitcam_masked_attention_v1_smem_bytes.argtypes = [i, i, i, i]
         lib.vitcam_masked_attention_v1_smem_bytes.restype = ctypes.c_size_t
+        fn = lib.vitcam_masked_attention_v1_occupancy
+        fn.argtypes = [i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = i
         lib.vitcam_attn_variant_smem_bytes.argtypes = [i, i, i, i]
         lib.vitcam_attn_variant_smem_bytes.restype = ctypes.c_size_t
         lib.vitcam_cuda_error_string.argtypes = [i]

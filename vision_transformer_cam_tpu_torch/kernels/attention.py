@@ -39,18 +39,20 @@ sequence group, the local kernel call, the cls row from sequence-rank 0.
 ``masked_attention`` is the port of the TPU package's first attention kernel
 (same file: masked_attention), on split q, k, v [B, H, N, dh] with the
 reference's symmetric pair mask and the row-max softmax,
-``csrc/masked_attention_v1.cu`` on a CUDA tensor (bf16 its tensor-core
-design, float32 its FMA design: ``v1_design``) and ``masked_attention_ref``
-on a CPU tensor.  No model path runs it; ``scripts.microbench`` drives it.
+``csrc/masked_attention_v1.cuh`` (its C entry points in
+``masked_attention_v1.cu``) on a CUDA tensor (bf16 its tensor-core design,
+float32 its FMA design: ``v1_design``) and ``masked_attention_ref`` on a CPU
+tensor.  No model path runs it; ``scripts.microbench`` drives it.
 
 ``launches``, ``bwd_launches``, ``block_launches``, ``seq_launches`` and
 ``v1_launches`` count the CUDA kernel launches made through the forward, the
 backward, the block, the sequence-parallel and the split-tensor wrapper, so a
 run can show that its main path went through the kernels;
-``width_launches``, ``bwd_width_launches`` and ``seq_width_launches``
-split the forward's, the backward's and the sequence-parallel kernel's
-counts by head width, ``block_streamed_launches`` the block wrapper's calls
-that ran the streamed design, by head width.
+``width_launches``, ``bwd_width_launches``, ``seq_width_launches`` and
+``v1_width_launches`` split the forward's, the backward's, the
+sequence-parallel and the split-tensor kernel's counts by head width,
+``block_streamed_launches`` the block wrapper's calls that ran the streamed
+design, by head width.
 """
 
 from __future__ import annotations
@@ -76,18 +78,24 @@ _OUT_I8, _CLS_BF16, _HM_BF16 = 1, 2, 4
 # masked_attention_w16.cu, _w32, _w40, _w80; csrc/masked_attention_bwd.cu and
 # masked_attention_bwd_w16.cu, ...), and the sequence-parallel kernel
 # (masked_attention_seq) the same widths (csrc/masked_attention_seq.cu and
-# masked_attention_seq_w16.cu, ...).  The other CUDA kernels take HEAD_DIM
-# only, or BLOCK_HEAD_DIMS (the block kernel).
+# masked_attention_seq_w16.cu, ...), the split-tensor kernel
+# (masked_attention) the same widths (csrc/masked_attention_v1.cu and
+# masked_attention_v1_w16.cu, ...), and the block kernel's streamed design
+# the same widths (BLOCK_HEAD_DIMS: csrc/attention_block_streamed.cu and
+# attention_block_streamed_w16.cu, ...).  The other CUDA kernels take
+# HEAD_DIM only.
 FWD_HEAD_DIMS = (16, 32, 40, 64, 80)
 BWD_HEAD_DIMS = (16, 32, 40, 64, 80)
 SEQ_HEAD_DIMS = FWD_HEAD_DIMS
+V1_HEAD_DIMS = FWD_HEAD_DIMS
 HEAD_DIM = 64
-# kernel 1's launches, the backward's calls and the sequence-parallel
-# kernel's launches by head width (each also counts in ``launches`` /
-# ``bwd_launches`` / ``seq_launches``)
+# kernel 1's launches, the backward's calls, the sequence-parallel and the
+# split-tensor kernel's launches by head width (each also counts in
+# ``launches`` / ``bwd_launches`` / ``seq_launches`` / ``v1_launches``)
 width_launches = {dh: 0 for dh in FWD_HEAD_DIMS}
 bwd_width_launches = {dh: 0 for dh in BWD_HEAD_DIMS}
 seq_width_launches = {dh: 0 for dh in SEQ_HEAD_DIMS}
+v1_width_launches = {dh: 0 for dh in V1_HEAD_DIMS}
 # The CUDA backward has three designs.  bf16 runs the tensor-core design: a
 # dQ kernel per 64 query rows and a dK / dV kernel per 64 keys, products on
 # mma.sync, a [B, H, N, 3] float32 scratch of row statistics between them;
@@ -131,14 +139,14 @@ _bwd_bf16_design = "tensor-core"
 # (K and V pulled as float32 chunks, a [32, N] float32 tile of S, float32
 # products): its gates need full float32 products.  The streamed design
 # (csrc/attention_block_streamed.cuh) takes every other shape the shared
-# memory allows, head widths 64 and 80: a first launch writes K and V of
-# every head to a [B, 2, H, N, dh] scratch, a second gives each block one
-# tile of 16 or 32 query rows of one image across all heads (bf16: kernel
-# 1's tensor-core core streaming K and V from the scratch; float32: the FMA
-# core).
+# memory allows, at every head width kernel 1 takes (16, 32, 40, 64, 80): a
+# first launch writes K and V of every head to a [B, 2, H, N, dh] scratch, a
+# second gives each block one tile of 16 or 32 query rows of one image
+# across all heads (bf16: kernel 1's tensor-core core streaming K and V from
+# the scratch; float32: the FMA core).
 BLOCK_ROWS = 32
 BLOCK_MAX_CLUSTER = 8
-BLOCK_HEAD_DIMS = (64, 80)
+BLOCK_HEAD_DIMS = FWD_HEAD_DIMS
 BLOCK_SMEM_LIMIT = 232448   # sm_90's opt-in shared memory a block
 BLOCK_DESIGNS = {"fma": 0, "tensor-core": 1, "streamed": 2}
 # The core the cluster design runs at bf16; only chip_smoke.py sets "fma",
@@ -181,12 +189,12 @@ FWD_DESIGNS = {"fma": 0, "tensor-core": 1}
 # The design bf16 and int8 qkv run; only chip_smoke.py sets "fma", to time
 # the earlier one beside it.  No config field or flag reaches it.
 _fwd_bf16_design = "tensor-core"
-# The split-tensor kernel takes N <= V1_MAX_N.  bf16 runs its tensor-core
-# design (kernel 1's: 16 query rows a block of 8 warps, S in registers, the
-# [16, N] float32 head mean in shared memory, which fits for every such N);
-# float32 runs the FMA design (a [q_block, N] float32 tile of S in shared
-# memory, 32 query rows, or 16 past N = 780 with the head mean).
-V1_MAX_N = 1536
+# The split-tensor kernel takes N <= V1_MAX_N[dh] at head width dh
+# (``v1_smem_bytes``; 1536 at 64).  bf16 runs its tensor-core design (kernel
+# 1's: 16 query rows a block of 8 warps, S in registers, the [16, N] float32
+# head mean in shared memory); float32 runs the FMA design (a [q_block, N]
+# float32 tile of S in shared memory, 32 query rows, or 16 past N = 780 with
+# the head mean at width 64).
 V1_DESIGNS = {"fma": 0, "tensor-core": 1}
 # The design bf16 runs; only chip_smoke.py sets "fma", to time the earlier
 # one beside it.  No config field or flag reaches it.
@@ -239,10 +247,11 @@ def check_head_width(kernel: str, dh: int) -> int:
     compiled for that head width, else ValueError naming the widths it
     takes: ``FWD_HEAD_DIMS`` for kernel 1, ``BWD_HEAD_DIMS`` for the
     backward, ``SEQ_HEAD_DIMS`` for the sequence-parallel kernel,
-    ``BLOCK_HEAD_DIMS`` for the block kernel, ``HEAD_DIM`` for the others.
+    ``V1_HEAD_DIMS`` for the split-tensor kernel, ``BLOCK_HEAD_DIMS`` for
+    the block kernel, ``HEAD_DIM`` for the others (the ablation kernels).
     Needs no CUDA."""
     widths = {"fused": FWD_HEAD_DIMS, "backward": BWD_HEAD_DIMS,
-              "seq": SEQ_HEAD_DIMS,
+              "seq": SEQ_HEAD_DIMS, "v1": V1_HEAD_DIMS,
               "block": BLOCK_HEAD_DIMS}.get(kernel, (HEAD_DIM,))
     if dh not in widths:
         which = ", ".join(map(str, widths))
@@ -830,10 +839,11 @@ def attention_block_fused(xn, tokens, wqkv, bqkv, wproj, bproj, bg,
     """Same contract as ``attention_block_fused_plain``.  CPU tensors run the
     plain version; CUDA tensors launch the kernel or raise.  The kernel takes
     xn, tokens, weights and biases all float32 or all bfloat16, contiguous;
-    head width 64 or 80; any (N, C) whose layout fits a block's shared
-    memory in the design ``block_design`` picks (the cluster design, or the
-    streamed design past it: ``BLOCK_MAX_N`` and ``BLOCK_MAX_C`` give the
-    limits at the zoo's extremes); bg float32 or bfloat16; joint float32.
+    head width 16, 32, 40, 64 or 80 (``BLOCK_HEAD_DIMS``); any (N, C)
+    whose layout fits a block's shared memory in the design ``block_design``
+    picks (the cluster design, or the streamed design past it:
+    ``BLOCK_MAX_N`` and ``BLOCK_MAX_C`` give the limits at the zoo's
+    extremes); bg float32 or bfloat16; joint float32.
     It reads the weights in the torch layout: no transposed copy is made.
     The streamed design allocates a [B, 2, H, N, dh] scratch of xn's type
     for K and V."""
@@ -1173,18 +1183,75 @@ def _check_v1(q, k, v, bg):
                          f"got {tuple(bg.shape)}")
 
 
-def v1_design(dtype, n: int) -> str:
+def v1_smem_bytes(design, dtype, n, head_dim=HEAD_DIM, with_hm=True) -> int:
+    """Dynamic shared memory a block of the split-tensor kernel's ``design``
+    takes at N and head width ``head_dim``, with the head mean or without,
+    as csrc/masked_attention_v1.cuh computes it
+    (``vitcam_masked_attention_v1_smem_bytes``).  Needs no CUDA; the FMA
+    design's layout is float32 whatever q's ``dtype``.
+
+    "fma" (smem_bytes): the [QB, dh] q tile, a 64-key chunk of K or V at
+    pitch dh + 4, the [QB, N] S tile and, with the head mean, the [QB, N]
+    head-mean tile, the cls row, the keys' bg and the query rows' bg, all
+    float32, at QB = 32 where that fits ``BLOCK_SMEM_LIMIT``, else 16.
+    "tensor-core" (tc_smem_bytes): eight warps' rings (two stages of a
+    16-key K and V chunk in bf16 rows of the tile pitch, or the warp's
+    [16, width + 8] float32 O tile, whichever is larger), the keys' bg and
+    the cls sums, the warps' row statistics, the query rows' bg, the [16, N]
+    head mean at a pitch of ceil32(N) + 8, and at every width but 64 the
+    [16, pitch] bf16 Q tile."""
+    del dtype
+    if design == "tensor-core":
+        w = _ceil(head_dim, 16)
+        pitch = 64 if head_dim == 64 else w if (w // 8) % 2 else w + 8
+        ring = max(4 * 16 * pitch * 2, 16 * (w + 8) * 4)
+        floats = 2 * _ceil(n, 16) + 8 * 16 * 2 + 16
+        if with_hm:
+            floats += 16 * (_ceil(n, 32) + 8)
+        return 8 * ring + floats * 4 + (0 if head_dim == 64
+                                        else 16 * pitch * 2)
+    ns = _ceil(n, 4)
+
+    def fma(qb):
+        return 4 * (qb * head_dim + 64 * (head_dim + 4)
+                    + qb * ns * (2 if with_hm else 1) + ns + n + qb)
+    return fma(32) if fma(32) <= BLOCK_SMEM_LIMIT else fma(16)
+
+
+def _v1_fits(n, dh):
+    return all(v1_smem_bytes(d, None, n, dh) <= BLOCK_SMEM_LIMIT
+               for d in V1_DESIGNS)
+
+
+# The longest N each width takes: the largest multiple of 16 (the
+# tensor-core design's key chunk) at which both designs' layouts with the
+# head mean fit the shared memory a block may hold, so that a shape runs in
+# float32 and in bf16 alike (16: 1648, 32: 1616, 40: 1600, 64: 1536, 80:
+# 1504)
+V1_MAX_N = {dh: _largest(lambda n, dh=dh: _v1_fits(n, dh), 16)
+            for dh in V1_HEAD_DIMS}
+
+
+def v1_design(dtype, n: int, head_dim: int = HEAD_DIM) -> str:
     """The CUDA split-tensor design for q of ``dtype`` at sequence length
-    ``n``: "tensor-core" for bfloat16, "fma" for float32 (its gates need full
-    float32 products), both for every N <= ``V1_MAX_N``.  Raises past it and
-    for any other dtype."""
+    ``n`` and head width ``head_dim``: "tensor-core" for bfloat16, "fma" for
+    float32 (its gates need full float32 products), both for every N <=
+    ``V1_MAX_N[head_dim]``.  Raises past it, naming the bytes, for a width
+    that is not compiled and for any other dtype."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the CUDA split-tensor attention kernel takes q, k "
                         f"and v all bfloat16 or all float32, got {dtype}")
-    if n > V1_MAX_N:
-        raise ValueError(f"the CUDA split-tensor attention kernel takes N <= "
-                         f"{V1_MAX_N} (its shared memory), got {n}")
-    return _v1_bf16_design if dtype == torch.bfloat16 else "fma"
+    check_head_width("v1", head_dim)
+    design = _v1_bf16_design if dtype == torch.bfloat16 else "fma"
+    if n > V1_MAX_N[head_dim]:
+        need = max(v1_smem_bytes(d, dtype, n, head_dim) for d in V1_DESIGNS)
+        raise ValueError(
+            f"the CUDA split-tensor attention kernel takes N <= "
+            f"{V1_MAX_N[head_dim]} at head width {head_dim} (the largest "
+            f"multiple of 16 at which its layouts fit the {BLOCK_SMEM_LIMIT} "
+            f"bytes of shared memory a block may hold), got {n}: with the "
+            f"head mean it needs {need} bytes a block there")
+    return design
 
 
 def masked_attention_ref(q, k, v, bg, *, scale: float,
@@ -1225,10 +1292,11 @@ def masked_attention(q, k, v, bg, *, scale: float, mask_value: float = -100.0,
                      with_headmean: bool = False):
     """Same contract as ``masked_attention_ref``.  CPU tensors run the plain
     version; CUDA tensors launch the kernel (q, k, v all float32 or all
-    bfloat16, contiguous, head width 64, N <= ``V1_MAX_N``, bg float32 or
-    bf16) or raise: bf16 its tensor-core design (q, k, v 16-byte aligned),
-    float32 its FMA design (``v1_design``).  It has no backward, as the TPU
-    kernel has none."""
+    bfloat16, contiguous, head width 16, 32, 40, 64 or 80
+    (``V1_HEAD_DIMS``), N <= ``V1_MAX_N[dh]``, bg float32 or bf16) or
+    raise: bf16 its tensor-core design (q, k, v 16-byte aligned), float32
+    its FMA design (``v1_design``).  It has no backward, as the TPU kernel
+    has none."""
     global v1_launches
     kw = dict(scale=scale, mask_value=mask_value, with_headmean=with_headmean)
     if q.device.type == "cpu":
@@ -1252,8 +1320,7 @@ def masked_attention(q, k, v, bg, *, scale: float, mask_value: float = -100.0,
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
     b, h, n, dh = q.shape
-    check_head_width("v1", dh)
-    design = v1_design(q.dtype, n)
+    design = v1_design(q.dtype, n, dh)
     if design == "tensor-core" and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("the tensor-core split-tensor attention kernel needs "
                          "q, k and v 16-byte aligned")
@@ -1276,11 +1343,12 @@ def masked_attention(q, k, v, bg, *, scale: float, mask_value: float = -100.0,
     if err:
         msg = lib.vitcam_cuda_error_string(err).decode()
         need = lib.vitcam_masked_attention_v1_smem_bytes(
-            n, int(with_headmean), V1_DESIGNS[design])
+            n, int(with_headmean), V1_DESIGNS[design], dh)
         raise RuntimeError(
             f"masked_attention kernel launch failed ({design} design): "
             f"cudaError {err} ({msg}); shared memory needed {need} bytes")
     v1_launches += 1
+    v1_width_launches[dh] += 1
     if with_headmean:
         return out, cls_row, hm
     return out, cls_row

@@ -1,8 +1,9 @@
 // The attention block kernel's streamed design (attention_block_streamed.cuh,
 // where its design notes are): the C entry points, the first launch (K and V
 // of every head into the scratch) and the instances at head width 64.  The
-// width-80 instances (ViT-H/14) are built from attention_block_streamed_w80.cu,
-// in parallel with this file.
+// instances at 80 (ViT-H/14), 16, 32 and 40 are built from
+// attention_block_streamed_w80.cu, _w16.cu, _w32.cu and _w40.cu, in parallel
+// with this file.
 
 #include "attention_block_streamed.cuh"
 
@@ -24,10 +25,36 @@ cudaError_t kv_launch(const void* xn, const void* wqkv, const void* bqkv, void* 
   return cudaGetLastError();
 }
 
+bool compiled_width(int dh) { return dh == 16 || dh == 32 || dh == 40 || dh == 64 || dh == 80; }
+
 }  // namespace
 
 extern "C" {
 
+int vitcam_attention_block_streamed_w16(const void* xn, const void* tok, const void* wqkv,
+                                        const void* bqkv, const void* wproj, const void* bproj,
+                                        const void* bg, const void* joint, const void* kv,
+                                        void* out, void* cls, void* newj, int batch, int n,
+                                        int heads, float scale, float mask_value, int dtype,
+                                        int clamp, int q_block, void* stream);
+int vitcam_attention_block_streamed_occupancy_w16(int n, int heads, int rollout, int clamp,
+                                                  int dtype, int q_block, int* info);
+int vitcam_attention_block_streamed_w32(const void* xn, const void* tok, const void* wqkv,
+                                        const void* bqkv, const void* wproj, const void* bproj,
+                                        const void* bg, const void* joint, const void* kv,
+                                        void* out, void* cls, void* newj, int batch, int n,
+                                        int heads, float scale, float mask_value, int dtype,
+                                        int clamp, int q_block, void* stream);
+int vitcam_attention_block_streamed_occupancy_w32(int n, int heads, int rollout, int clamp,
+                                                  int dtype, int q_block, int* info);
+int vitcam_attention_block_streamed_w40(const void* xn, const void* tok, const void* wqkv,
+                                        const void* bqkv, const void* wproj, const void* bproj,
+                                        const void* bg, const void* joint, const void* kv,
+                                        void* out, void* cls, void* newj, int batch, int n,
+                                        int heads, float scale, float mask_value, int dtype,
+                                        int clamp, int q_block, void* stream);
+int vitcam_attention_block_streamed_occupancy_w40(int n, int heads, int rollout, int clamp,
+                                                  int dtype, int q_block, int* info);
 int vitcam_attention_block_streamed_w80(const void* xn, const void* tok, const void* wqkv,
                                         const void* bqkv, const void* wproj, const void* bproj,
                                         const void* bg, const void* joint, const void* kv,
@@ -48,7 +75,8 @@ size_t vitcam_attention_block_streamed_smem_bytes(int n, int heads, int head_dim
 // xn, tok, out [B, N, C], wqkv [3C, C], bqkv [3C], wproj [C, C], bproj [C] and
 // cls [B, N] of dtype 0 = float32 or 1 = bfloat16; bg [B, N] float32; joint
 // and newj [B, N, N] float32, both null without the rollout; kv, the
-// scratch [B, 2, H, N, head_dim] of xn's type.  head_dim 64 or 80; q_block
+// scratch [B, 2, H, N, head_dim] of xn's type.  head_dim 16, 32, 40, 64 or
+// 80, the compiled widths; q_block
 // 16 or 32 (query rows a block of the second launch; the launch fails where
 // its shared memory does not fit).  Returns a cudaError_t; 0 means both
 // kernels were launched.
@@ -58,7 +86,7 @@ int vitcam_attention_block_streamed(const void* xn, const void* tok, const void*
                                     void* cls, void* newj, int batch, int n, int heads,
                                     int head_dim, float scale, float mask_value, int dtype,
                                     int clamp, int q_block, void* stream) {
-  if (batch < 1 || batch > 65535 || n < 1 || heads < 1 || (head_dim != 64 && head_dim != 80) ||
+  if (batch < 1 || batch > 65535 || n < 1 || heads < 1 || !compiled_width(head_dim) ||
       (q_block != 16 && q_block != 32) || (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
   if ((joint == nullptr) != (newj == nullptr)) return cudaErrorInvalidValue;
@@ -72,12 +100,29 @@ int vitcam_attention_block_streamed(const void* xn, const void* tok, const void*
                                                    head_dim, s)
                         : kv_launch<float>(xn, wqkv, bqkv, kv, batch * n, n, heads, head_dim, s);
   if (err != cudaSuccess) return err;
-  if (head_dim == 80)
-    return vitcam_attention_block_streamed_w80(xn, tok, wqkv, bqkv, wproj, bproj, bg, joint, kv,
-                                               out, cls, newj, batch, n, heads, scale,
-                                               mask_value, dtype, clamp, q_block, stream);
-  return st_entry<64>(xn, tok, wqkv, bqkv, wproj, bproj, bg, joint, kv, out, cls, newj, batch,
-                      n, heads, scale, mask_value, dtype, clamp, q_block, stream);
+  switch (head_dim) {
+    case 16:
+      return vitcam_attention_block_streamed_w16(xn, tok, wqkv, bqkv, wproj, bproj, bg, joint,
+                                                 kv, out, cls, newj, batch, n, heads, scale,
+                                                 mask_value, dtype, clamp, q_block, stream);
+    case 32:
+      return vitcam_attention_block_streamed_w32(xn, tok, wqkv, bqkv, wproj, bproj, bg, joint,
+                                                 kv, out, cls, newj, batch, n, heads, scale,
+                                                 mask_value, dtype, clamp, q_block, stream);
+    case 40:
+      return vitcam_attention_block_streamed_w40(xn, tok, wqkv, bqkv, wproj, bproj, bg, joint,
+                                                 kv, out, cls, newj, batch, n, heads, scale,
+                                                 mask_value, dtype, clamp, q_block, stream);
+    case 80:
+      return vitcam_attention_block_streamed_w80(xn, tok, wqkv, bqkv, wproj, bproj, bg, joint,
+                                                 kv, out, cls, newj, batch, n, heads, scale,
+                                                 mask_value, dtype, clamp, q_block, stream);
+    case 64:
+      return st_entry<64>(xn, tok, wqkv, bqkv, wproj, bproj, bg, joint, kv, out, cls, newj,
+                          batch, n, heads, scale, mask_value, dtype, clamp, q_block, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // The occupancy of the second launch's instance at N: info[4] = {blocks an
@@ -87,11 +132,24 @@ int vitcam_attention_block_streamed_occupancy(int n, int heads, int head_dim, in
                                               int clamp, int dtype, int q_block, int* info) {
   if (n < 1 || heads < 1 || (q_block != 16 && q_block != 32) || (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
-  if (head_dim == 80)
-    return vitcam_attention_block_streamed_occupancy_w80(n, heads, rollout, clamp, dtype,
-                                                         q_block, info);
-  if (head_dim != 64) return cudaErrorInvalidValue;
-  return st_occupancy<64>(n, heads, rollout != 0, clamp, dtype, q_block, info);
+  switch (head_dim) {
+    case 16:
+      return vitcam_attention_block_streamed_occupancy_w16(n, heads, rollout, clamp, dtype,
+                                                           q_block, info);
+    case 32:
+      return vitcam_attention_block_streamed_occupancy_w32(n, heads, rollout, clamp, dtype,
+                                                           q_block, info);
+    case 40:
+      return vitcam_attention_block_streamed_occupancy_w40(n, heads, rollout, clamp, dtype,
+                                                           q_block, info);
+    case 80:
+      return vitcam_attention_block_streamed_occupancy_w80(n, heads, rollout, clamp, dtype,
+                                                           q_block, info);
+    case 64:
+      return st_occupancy<64>(n, heads, rollout != 0, clamp, dtype, q_block, info);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

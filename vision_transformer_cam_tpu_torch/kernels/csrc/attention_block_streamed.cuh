@@ -2,7 +2,9 @@
 // the same function as attention_block.cu (see its head for the formulas and
 // the roundings), for the shapes its cluster design does not take: N past 256
 // (an image's query tiles no longer fit one cluster of 8 blocks), C past what
-// its shared memory holds, and head width 80 (ViT-H/14).
+// its shared memory holds, and the head widths other than 64: 80 (ViT-H/14),
+// and 16, 32 and 40 (the JAX quickstart's tiny ViT and the JAX kernel tests'
+// fuzz widths), the widths kernel 1 takes.
 //
 // Replaces, with attention_block.cu, the TPU kernel
 // vision_transformer_cam_tpu/kernels/attention.py: _attn_block_kernel
@@ -33,15 +35,29 @@
 // The cores.  bf16 runs kernel 1's tensor-core core (attention_tc.cuh): the 8
 // warps take the 16-key chunks in turn, each staging its chunks of K and V by
 // cp.async into a private two-stage ring (swizzled [16][64] tiles at width
-// 64, rows of 88 elements at 80); QK^T and P V on mma.sync.m16n8k16 with the
-// A fragments of q read by ldmatrix from the [QB, C] tile (its rows are C + 8
-// elements, an odd number of 16-byte segments, so the 8 rows an ldmatrix
-// reads lie in 8 bank groups) and five k16 steps at width 80; S in
-// registers; two passes over the keys a head (row sums, then P, the head
+// 64, rows of an odd number of 16-byte segments at the other widths: 24, 40,
+// 56, 88 elements at 16, 32, 40, 80); QK^T and P V on mma.sync.m16n8k16 with
+// the A fragments of q read by ldmatrix from the [QB, C] tile (its rows are C
+// + 8 elements, an odd number of 16-byte segments where C is a multiple of
+// 16, so the 8 rows an ldmatrix reads lie in 8 bank groups) in 1 / 2 / 3 / 4
+// / 5 k16 steps at 16 / 32 / 40 / 64 / 80; S in registers; two passes over the keys a head (row sums, then P, the head
 // mean, the cls row and P V); the warps' partial O tiles meet in their own
 // rings, summed in one order.  float32 runs the FMA core of the cluster
 // design on 64-key chunks of K and V staged from the scratch, with a [QB, N]
-// float32 tile of S: its gates need full float32 products.
+// float32 tile of S: its gates need full float32 products; its P V gives a
+// thread one column where the 256 threads divide by the width (16, 32, 64),
+// (row, column) pairs at 40 and 80.
+//
+// Width 40 is staged and multiplied as 48 columns (BfTile<40>: K and V
+// zero-filled past 40 in the rings).  Head h's q is the 40 columns h * 40..
+// of the [QB, C + 8] tile, so the last k16 step of its QK^T reads 8 columns
+// past them: head h + 1's first q columns, or for the last head the tile's
+// pad.  That step's A fragments are zeroed past the head's columns in
+// registers, and the pad columns of the tile are zeroed once: the proj GEMM
+// walks K = C in steps of 32 and, at C = 120, reads the pad as A columns
+// 120..127 (a NaN bit pattern left there by an earlier kernel would turn the
+// zero weights' products into NaN).  O's sixth n8 tile, zero, is never
+// stored.
 //
 // The row tile QB is 32 query rows (two m16 tiles) where the layout fits the
 // 232,448 bytes a block may hold, else 16 (st_layout_tc / st_layout_fma,
@@ -60,7 +76,8 @@
 // Built by kernels/_build.py with nvcc into the shared library with a plain C
 // interface (no PyTorch headers) and called through ctypes; the width-64
 // instances and the C entry points are attention_block_streamed.cu, the
-// width-80 ones attention_block_streamed_w80.cu.
+// ones at 80, 16, 32 and 40 attention_block_streamed_w80.cu, _w16.cu, _w32.cu
+// and _w40.cu.
 
 #pragma once
 
@@ -200,7 +217,9 @@ block_kv_kernel(const T* __restrict__ xn, const T* __restrict__ wqkv, const T* _
 // The dot products of one 16-key chunk of K (a BfTile<DH> in a ring) with
 // the q rows of MT m16 tiles, their A fragments loaded by ldmatrix from the
 // [QB, C + 8] tile (q: the head's first column, row pitch `pitch`), per k16
-// step; a width of 32 j + 16 takes its last step from b_rows_tail.
+// step; a width of 32 j + 16 takes its last step from b_rows_tail, and at a
+// width of 16 j + 8 (40) that step's A columns past the head (the next head's
+// q, or the tile's pad) are zeros in registers.
 template <int DH, int MT>
 __device__ __forceinline__ void dots_q(float (&d)[MT][2][4], const bf16* q, int pitch,
                                        const bf16* k_s, int lane) {
@@ -235,6 +254,7 @@ __device__ __forceinline__ void dots_q(float (&d)[MT][2][4], const bf16* q, int 
     for (int mt = 0; mt < MT; ++mt) {
       unsigned a[4];
       a_frag(a, mt, kW / 16 - 1);
+      if constexpr (DH % 16 != 0) a[2] = a[3] = 0u;   // columns 8..15 of the step
       mma16816(d[mt][0], a, tail[0], tail[1]);
       mma16816(d[mt][1], a, tail[2], tail[3]);
     }
@@ -290,6 +310,8 @@ attention_block_streamed_tc_kernel(const bf16* __restrict__ xn, const bf16* __re
   for (int r = tid; r < QB; r += kGT) fg_s[r] = (q0 + r < n) ? 1.f - bg_b[q0 + r] : 0.f;
   if (ROLLOUT)
     for (int i = tid; i < QB * hs; i += kGT) hm_s[i] = 0.f;
+  for (int i = tid; i < QB * (cs - c); i += kGT)   // the pad columns: zero A columns of proj
+    attn_s[i / (cs - c) * cs + c + i % (cs - c)] = __float2bfloat16(0.f);
   q_rows<bf16, QB>(attn_s, cs, xn_b, q0, n, wqkv, bqkv, c, stage);
   __syncthreads();   // q of every head is in place; the staging is free
   float fg[MT][2];
@@ -543,6 +565,8 @@ attention_block_streamed_fma_kernel(const float* __restrict__ xn, const float* _
   for (int r = tid; r < QB; r += kGT) fg_s[r] = (q0 + r < n) ? 1.f - bg_b[q0 + r] : 0.f;
   if (ROLLOUT)
     for (int i = tid; i < QB * ns; i += kGT) hm_s[i] = 0.f;
+  for (int i = tid; i < QB * (cs - c); i += kGT)   // the pad columns: zero A columns of proj
+    attn_s[i / (cs - c) * cs + c + i % (cs - c)] = 0.f;
   q_rows<float, QB>(attn_s, cs, xn_b, q0, n, wqkv, bqkv, c, stage);
 
   // rows [k0, k0 + kKC) of K or V of head h (part 0 or 1), zeros past n
@@ -627,9 +651,10 @@ attention_block_streamed_fma_kernel(const float* __restrict__ xn, const float* _
     }
 
     // O = P V, one V chunk at a time, over the head's q columns of attn_s
-    // (read by now).  Where the threads divide by DH (64): thread = one
-    // column d, QB * DH / kGT rows.  Else (80): (row, column) pairs, pair i
-    // at index tid + i * kGT of the [QB][DH] tile.
+    // (read by now).  Where the threads divide by DH (16, 32, 64): thread =
+    // one column d, QB * DH / kGT rows.  Else (40, 80): (row, column) pairs,
+    // pair i at index tid + i * kGT of the [QB][DH] tile (at 40 and QB = 16
+    // the pairs past the tile are skipped).
     if constexpr (kGT % DH == 0) {
       constexpr int kRows = QB * DH / kGT, kStep = kGT / DH;
       const int d = tid % DH, rg = tid / DH;

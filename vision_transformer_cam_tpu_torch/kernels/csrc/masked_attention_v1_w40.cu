@@ -1,0 +1,22 @@
+// The split-tensor kernel's instances at head width 40 (the JAX kernel tests'
+// fuzz width: C = 120, 3 heads), called through the C entry points in
+// masked_attention_v1.cu.  A translation unit of their own, so that nvcc
+// builds them beside the other widths'.
+
+#include "masked_attention_v1.cuh"
+
+extern "C" {
+
+int vitcam_masked_attention_v1_w40(const void* q, const void* k, const void* v, const void* bg,
+                                   void* out, void* cls, void* hm, int batch, int n, int heads,
+                                   float scale, float mask_value, int dtype, int with_hm,
+                                   int design, void* stream) {
+  return v1_entry<40>(q, k, v, bg, out, cls, hm, batch, n, heads, scale, mask_value, dtype,
+                      with_hm, design, stream);
+}
+
+int vitcam_masked_attention_v1_occupancy_w40(int n, int with_hm, int dtype, int design, int* info) {
+  return v1_occupancy_entry<40>(n, with_hm, dtype, design, info);
+}
+
+}  // extern "C"

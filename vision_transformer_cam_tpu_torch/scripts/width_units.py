@@ -1,15 +1,15 @@
 """The nvcc wall time of two layouts of the instances of kernel 1, of the
-attention backward and of the sequence-parallel kernel at head widths 16, 32
-and 40.
+attention backward, of the sequence-parallel kernel, of the split-tensor
+kernel and of the block kernel's streamed design at head widths 16, 32 and
+40.
 
     python3 -m vision_transformer_cam_tpu_torch.scripts.width_units
 
 "One unit a width" is the sources as they are: ``csrc/masked_attention_w16.cu``,
-``_w32.cu``, ``_w40.cu``, the backward's three and the sequence-parallel
-kernel's three.  "One unit a kernel" merges each kernel's three into one
-translation unit.  Each layout is a copy of
-``kernels/csrc`` in a temporary directory whose every ``.cu`` is compiled to
-an object by its own nvcc process, all started together, as
+``_w32.cu``, ``_w40.cu``, and the three of each other kernel.  "One unit a
+kernel" merges each kernel's three into one translation unit.  Each layout
+is a copy of ``kernels/csrc`` in a temporary directory whose every ``.cu``
+is compiled to an object by its own nvcc process, all started together, as
 ``kernels/_build.py`` builds the library; the two layouts one after the
 other.  Prints each layout's wall time and each unit's, and returns them.
 Needs nvcc (no GPU).
@@ -32,7 +32,9 @@ WIDTHS = (16, 32, 40)
 # each kernel's width units (stem_w16.cu, ...) and the header they include
 HEADERS = {"masked_attention": "masked_attention.cuh",
            "masked_attention_bwd": "masked_attention_bwd.cuh",
-           "masked_attention_seq": "masked_attention_seq.cuh"}
+           "masked_attention_seq": "masked_attention_seq.cuh",
+           "masked_attention_v1": "masked_attention_v1.cuh",
+           "attention_block_streamed": "attention_block_streamed.cuh"}
 LAYOUTS = {"one unit a width": False, "one unit a kernel": True}
 
 
