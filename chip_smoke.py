@@ -220,31 +220,31 @@ Phases (any failure raises, and the exit code is non-zero):
      refused), timed at B=64 N=257 H=16 (bf16 and int8_io rollout,
      tensor-core / plain in turns) beside its bound, with the
      occupancy of every kernel-1 instance at N=197 (dh 64) and N=257 (dh
-     80) and the ptxas spills; ViT-H/14 at full width and depth (32 layers,
-     C=1280, N=257, pre-logits 1280) and ViT-L/16@512 (24 layers, N=1025,
-     the 224 model's seeded weights through the pos-embed interpolation)
-     served in bf16 (held to the eager path), int8 and int8_hifi (ln_quant
-     and the fused GEMM on; held to the same quantized model on the CPU on
-     one seeded batch): 3 requests of 32 / 2 of 16 with their launch counts
-     (32 / 24 kernel-1 launches a forward, 129 / 97 int8 GEMM launches an
-     int8 forward), then in bf16 with mlp_fusion and with both fusions
-     (the block kernel's streamed design, the rollout carried through the
-     layers: 32 / 24 launches a forward, held to the eager path), img/s at
-     batch 64 / 32 in turns; kernel 1's int8_io
+     80) and the ptxas spills; ViT-H/14 at full width (C=1280, N=257,
+     pre-logits 1280) and ViT-L/16@512 (N=1025, the 224 model's seeded
+     weights through the pos-embed interpolation), each at ZOO_SERVE_DEPTH
+     (8) of its 32 / 24 layers, served in bf16 (held to the eager path), int8 and
+     int8_hifi (ln_quant and the fused GEMM on; held to the same quantized
+     model on the CPU on one seeded batch): 3 requests of 32 / 2 of 16 with
+     their launch counts (8 kernel-1 launches a forward, 33 int8 GEMM
+     launches an int8 forward), then in bf16 with mlp_fusion and with both
+     fusions (the block kernel's streamed design, the rollout carried
+     through the layers: 8 launches a forward, held to the eager path),
+     img/s at batch 64 / 32 in turns; kernel 1's int8_io
      against int8_out head-mean variant at B=32 N=1025 H=16; bench.main at
      ViT-H/14 (int8 and --bf16, batch 64) and ViT-L/16@512 (batch 32), and
      cli.predict at ViT-H/14 (--no_figure), their launch counts held;
      ViT-H/14, the same build, also under apply_seq_parallel on a one-rank
      NCCL process group: float32 at batch 2 against its unsharded kernel
      path (rollout row 1e-5, logits 2e-4), bf16 over the 3 requests of 32
-     against the unsharded bf16 kernel path within ZOO_BF16_GATES (32
+     against the unsharded bf16 kernel path within ZOO_BF16_GATES (8
      seq-kernel launches at head width 80 a forward, none of kernel 1), its
      img/s in the turns at batch 64.
- 20. the zoo trained (run right after phase 19): ViT-H/14 (32 layers,
-     C=1280, 16 heads of 80, N=257) at batch 64 and ViT-L/16@512 (24 layers,
-     N=1025, the 224 model's seeded weights through the pos-embed
-     interpolation) at batch 16, at full width and depth as cli.train builds
-     them (no pre-logits layer), float32 masters with bf16 compute,
+ 20. the zoo trained (run right after phase 19): ViT-H/14 (C=1280, 16
+     heads of 80, N=257) at batch 64 and ViT-L/16@512 (N=1025, the 224
+     model's seeded weights through the pos-embed interpolation) at batch
+     16, at full width as cli.train builds them (no pre-logits layer) and
+     at ZOO_DEPTH (4) layers, float32 masters with bf16 compute,
      attn_impl="kernel", remat on: train_one_epoch over 3 in-memory batches,
      then 5 train_step calls on one fixed batch (losses finite and falling,
      every parameter moved), each held to its launch counts (per step and
@@ -256,7 +256,8 @@ Phases (any failure raises, and the exit code is non-zero):
  21. data parallelism on one card (run after phase 10): two gloo ranks
      share the card through ``parallel.worker`` (NCCL refuses two ranks on
      one device; CUDA tensors are staged through host memory), ViT-B/16 at
-     full width on the kernel path.  A float32 DP step at global batch 8 (4
+     full width and PAR_DEPTH (6) layers on the kernel path.  A float32 DP
+     step at global batch 8 (4
      a rank) against the one-rank step in this process, loss and every
      parameter's change within TRAIN_TOL (AdamW with eps 1, lr 1 and no
      decay, so that a first step's change is -g / (|g| + 1) and the
@@ -265,26 +266,28 @@ Phases (any failure raises, and the exit code is non-zero):
      unsharded ones; five mixed-precision DP steps at global batch 64
      (float32 masters, bf16 compute, remat) with the parameters' digests
      bit-equal on both ranks after every step and each rank's launches a
-     step held (24 kernel-1, 12 backward); the img/s of the two ranks
+     step held (12 kernel-1, 6 backward); the img/s of the two ranks
      sharing the card beside one rank alone, in turns (no scaling
-     figure); ``cli.validate --data_parallel`` on two ranks (ViT-B/16, a
+     figure); ``cli.validate --data_parallel`` on two ranks (ViT-B/16, all
+     12 layers, a
      faked VOC tree of 11 images, batch 4, bf16 and int8) against the
      one-rank run: the PNGs byte for byte, mAP and mIoU equal.
  22. tensor parallelism and the pipeline on one card (run after phase 21):
-     two gloo ranks share the card as in phase 21.  ViT-B/16 on a (1, 2)
-     ('data', 'model') mesh on the kernel path (kernel 1 and the backward
+     two gloo ranks share the card as in phase 21.  ViT-B/16 at PAR_DEPTH
+     (6) layers on a (1, 2) ('data', 'model') mesh on the kernel path (kernel 1 and the backward
      at 6 heads of 64 a rank): a float32 step at batch 8 against the
      one-rank step (TRAIN_TOL); five mixed-precision steps at batch 16 with
      the leaves both ranks hold whole bit-equal after each and the launches
-     a step held (24 kernel-1, 12 backward); bf16 CAMs at batch 32 and
-     float32 at batch 4 against one rank's kernel path (TP_GATES), 12
-     head-mean launches a forward.  ViT-H/14 (8 heads of 80 a rank): a
-     float32 step at batch 4 against the one-rank step (TRAIN_TOL) and a
+     a step held (12 kernel-1, 6 backward); bf16 CAMs at batch 32 and
+     float32 at batch 4 against one rank's kernel path (TP_GATES), 6
+     head-mean launches a forward.  ViT-H/14 at ZOO_DEPTH (4) layers (8
+     heads of 80 a rank): a float32 step at batch 4 against the one-rank
+     step (TRAIN_TOL) and a
      mixed step at batch 8 (loss finite, each rank's peak memory beside
      one rank alone), the launches held.  ViT-B/16 as a (1, 2) ('data',
      'stage') pipeline on the eager path: pipeline_forward at M = 2 and 4
      and one pipeline_train_step against one rank with the per-sample mask
-     norm, 6 blocks a stage, no launch.  img/s of the two tensor-parallel
+     norm, 3 blocks a stage, no launch.  img/s of the two tensor-parallel
      ranks beside one rank alone, in turns (no scaling figure).
  23. sequence-parallel training and the batch-sharded artifact on one card
      (run after phase 22): two gloo ranks share the card as in phase 21.
@@ -298,14 +301,21 @@ Phases (any failure raises, and the exit code is non-zero):
      rank's, and one step with the K/V gathers and the gradient sum timed;
      the trained weights served in bf16 by the sequence-parallel kernel (24
      launches a rank and forward) against one rank's unsharded kernel path
-     (SEQ_GATES).  ``cli.export --data_parallel`` of ViT-B/16 (phase 16's
-     weights) at global batch 64 in int8 and bf16 by both ranks: ``--check``
-     bit for bit on each rank's rows, the sidecar's ``nr_devices`` 2, each
-     rank's launches a call held (12 kernel-1 and 49 ``linear_int8``; 12),
-     the ranks' outputs against the one-rank artifact at batch 64
-     (SP_EXPORT_GATES), and ``serve_artifact`` of the int8 one on both
-     ranks over 70 JPEGs (rank 0 writes the overlays and prints the
-     one-rank artifact's classes).
+     (SEQ_GATES).  The trained weights exported by ``cli.export
+     --seq_parallel 2 --check`` in bf16 and int8 at batch 4, one program a
+     rank (bit for bit on each; 24 seq-op launches a rank and call, and 97
+     ``linear_int8`` in int8; against the unsharded kernel path of the same
+     weights, mode and knobs within SEQ_GATES; artifact and live function
+     timed in turns), and ``serve_artifact`` of the bf16 one on both ranks
+     over 8 JPEGs.  ``cli.export --data_parallel`` of ViT-B/16 (phase 16's
+     weights) at global batch 64 in int8, bf16 and float32 ``off`` (the
+     batch-global mask norm, all-reduced inside the program) by both ranks:
+     ``--check`` bit for bit on each rank's rows, the sidecar's
+     ``nr_devices`` 2, each rank's launches a call held (12 kernel-1 and 49
+     ``linear_int8``; 12; 12), the ranks' outputs against the one-rank
+     artifact at batch 64 (SP_EXPORT_GATES), and ``serve_artifact`` of the
+     int8 one on both ranks over 70 JPEGs (rank 0 writes the overlays and
+     prints the one-rank artifact's classes).
  24. kernel 1, the backward, the split-tensor kernel and the block kernel
      at head widths 16, 32 and 40 (run after phase 20; each width its own
      translation unit): at the JAX kernel
@@ -3155,13 +3165,14 @@ def seeded_batch(b, seed, size=224, classes=20):
     return {"image": x, "label": y}
 
 
-def train_model(impl, dtype=torch.bfloat16, remat=True):
+def train_model(impl, dtype=torch.bfloat16, remat=True, depth=12):
     """ViT-B/16 (the VOC head) with float32 masters and ``dtype`` compute,
-    weights from torch.Generator seed 0."""
+    weights from torch.Generator seed 0; ``depth`` of its 12 layers."""
     from vision_transformer_cam_tpu_torch import configs
     from vision_transformer_cam_tpu_torch.models.vit import ViTCAM
     cfg = configs.vit_base_patch16_224_in21k(num_classes=20).replace(
-        representation_size=None, dtype=dtype, attn_impl=impl, remat=remat)
+        representation_size=None, dtype=dtype, attn_impl=impl, remat=remat,
+        depth=depth)
     return ViTCAM(cfg, device="cuda",
                   generator=torch.Generator().manual_seed(0))
 
@@ -4305,6 +4316,11 @@ def validate_path(n_images=12, batch=4):
 
 DP_WORLD = 2
 DP_STEPS, DP_TIMED = 5, 3
+# Phases 21 and 22 train ViT-B/16 at full width, heads and token count but at
+# PAR_DEPTH of its 12 layers (the cut that made room for phase 23's
+# sequence-sharded artifacts in the 1200 s, PERF.md §4); their cli.validate
+# runs build the whole model
+PAR_DEPTH = 6
 
 
 def _dp_validate_rank(argvs):
@@ -4419,7 +4435,8 @@ def dp_prepare(work, batch32=8, batch=64, n_images=11, val_batch=4):
 
     Phase 21, data parallelism on one card: two gloo ranks share the card
     (NCCL refuses two ranks on one device; CUDA tensors are staged through
-    host memory), ViT-B/16 at full width on the kernel path.  For
+    host memory), ViT-B/16 at full width and PAR_DEPTH layers on the
+    kernel path.  For
     correctness: the img/s of two ranks sharing one card is no scaling
     figure."""
     from vision_transformer_cam_tpu_torch import configs
@@ -4433,7 +4450,8 @@ def dp_prepare(work, batch32=8, batch=64, n_images=11, val_batch=4):
     # with eps 1, lr 1 and no decay makes the first step's change -g / (|g|
     # + 1), so TRAIN_TOL on the changes holds the gradients to it
     optim = configs.OptimConfig(**OPTIM)
-    model = train_model("kernel", dtype=torch.float32, remat=False)
+    model = train_model("kernel", dtype=torch.float32, remat=False,
+                        depth=PAR_DEPTH)
     cfg32 = model.cfg
     before = {k: v.detach().cpu().clone()
               for k, v in model.state_dict().items()}
@@ -4801,10 +4819,12 @@ def tp_prepare(work, batch32=8, batch=16, cam_batch=32, huge_batch=8,
 
     Phase 22, tensor parallelism and the pipeline on one card: two gloo
     ranks share the card (CUDA tensors staged through host memory), each
-    holding half of ViT-B/16's heads and MLP hidden units (the kernel path:
+    holding half of the heads and MLP hidden units of ViT-B/16 at
+    PAR_DEPTH layers (the kernel path:
     kernel 1 and the backward at 6 heads of 64 a rank), half of ViT-H/14's
-    (8 heads of 80: a mixed step, and a float32 step held to one rank's),
-    and as pipeline stages 6 of ViT-B/16's 12 blocks (the
+    at ZOO_DEPTH layers (8 heads of 80: a mixed step, and a float32 step
+    held to one rank's),
+    and as pipeline stages half of ViT-B/16's PAR_DEPTH blocks (the
     eager path, as JAX runs its XLA path there).  Each result is held to one
     rank on the card.  For correctness: the img/s of two ranks sharing one
     card is no scaling figure."""
@@ -4822,7 +4842,8 @@ def tp_prepare(work, batch32=8, batch=16, cam_batch=32, huge_batch=8,
     optim = configs.OptimConfig(**OPTIM)
     mixed_optim = configs.OptimConfig(lr=1e-4, warmup_epochs=0, epochs=10,
                                       linear_lr_scaling=False, clip_grad=1.0)
-    model = train_model("kernel", dtype=torch.float32, remat=False)
+    model = train_model("kernel", dtype=torch.float32, remat=False,
+                        depth=PAR_DEPTH)
     cfg32 = model.cfg
     before = {k: v.detach().cpu().clone()
               for k, v in model.state_dict().items()}
@@ -4981,15 +5002,16 @@ def tp_prepare(work, batch32=8, batch=16, cam_batch=32, huge_batch=8,
         hh = [r["huge"] for r in ranks]
         for rank, h in enumerate(hh):
             add(h["counts"])
-            ok = h["counts"]["masked_attention_fused"] == 64 and \
-                h["counts"]["masked_attention_bwd"] == 32 and \
-                h["counts"][W80] == 64 and h["counts"][BWD80] == 32 and \
+            ok = h["counts"]["masked_attention_fused"] == 2 * ZOO_DEPTH \
+                and h["counts"]["masked_attention_bwd"] == ZOO_DEPTH and \
+                h["counts"][W80] == 2 * ZOO_DEPTH and \
+                h["counts"][BWD80] == ZOO_DEPTH and \
                 h["heads"] == [8] and np.isfinite(h["loss"])
             say(f"tp path ViT-H/14 mixed step, rank {rank} (B={huge_batch}): "
                 f"loss {h['loss']:.6f} (one rank {huge_one[0]:.6f}); kernel 1 "
                 f"{h['counts'][W80]} and backward {h['counts'][BWD80]} at "
-                f"head width 80, {h['heads']} heads a rank (expected 64 / 32, "
-                f"[8]); "
+                f"head width 80, {h['heads']} heads a rank (expected "
+                f"{2 * ZOO_DEPTH} / {ZOO_DEPTH}, [8]); "
                 f"peak {h['peak'] / 2**30:.2f} GiB (one rank alone "
                 f"{huge_one[1] / 2**30:.2f}); parameter bytes "
                 f"{h['param_bytes']} of {h['full_param_bytes']}")
@@ -5004,17 +5026,18 @@ def tp_prepare(work, batch32=8, batch=16, cam_batch=32, huge_batch=8,
             add(r["huge32"]["counts"])
         d_loss = abs(h32["loss"] - h32["one_loss"])
         launches_ok = all(
-            r["huge32"]["counts"]["masked_attention_fused"] == 64
-            and r["huge32"]["counts"]["masked_attention_bwd"] == 32
-            and r["huge32"]["counts"][W80] == 64
-            and r["huge32"]["counts"][BWD80] == 32
+            r["huge32"]["counts"]["masked_attention_fused"] == 2 * ZOO_DEPTH
+            and r["huge32"]["counts"]["masked_attention_bwd"] == ZOO_DEPTH
+            and r["huge32"]["counts"][W80] == 2 * ZOO_DEPTH
+            and r["huge32"]["counts"][BWD80] == ZOO_DEPTH
             and r["huge32"]["heads"] == [8] for r in ranks)
         say(f"tp path ViT-H/14 f32 step (B={huge32}, 8 heads of 80 a rank) vs "
             f"one rank: loss {h32['loss']:.6f} vs {h32['one_loss']:.6f} (diff "
             f"{d_loss:.3e}, tol {TRAIN_TOL['loss']}), parameter changes max "
             f"abs dev {h32['worst']:.3e} (atol {atol}, rtol {rtol}); launches "
             f"a rank {h32['counts'][W80]} / {h32['counts'][BWD80]} at width "
-            f"80 (expected 64 / 32) held on both ranks: {launches_ok}")
+            f"80 (expected {2 * ZOO_DEPTH} / {ZOO_DEPTH}) held on both "
+            f"ranks: {launches_ok}")
         if d_loss > TRAIN_TOL["loss"] or h32["bad"] or not launches_ok:
             fails.append(f"ViT-H/14 f32 tp step vs one rank: loss {d_loss}, "
                          f"{h32['bad']}, launches "
@@ -5055,10 +5078,24 @@ def tp_prepare(work, batch32=8, batch=16, cam_batch=32, huge_batch=8,
 SP_MIXED_STEPS = 3
 SP_EXPORT_RUNS = (   # serving mode, launches a rank and call
     ("int8", {"masked_attention_fused": 12, "linear_int8_fused": 49}),
-    ("bf16", {"masked_attention_fused": 12}))
+    ("bf16", {"masked_attention_fused": 12}),
+    # float32, the batch-global mask norm: its max all-reduced over the two
+    # ranks inside the program
+    ("off", {"masked_attention_fused": 12}))
 # the data-parallel artifact against the one-rank artifact, CAM and logits
 SP_EXPORT_GATES = {"int8": {"cam": 1e-3, "logits": 1e-1},
-                   "bf16": {"cam": 5e-2, "logits": 5e-2}}
+                   "bf16": {"cam": 5e-2, "logits": 5e-2},
+                   "off": {"cam": 1e-3, "logits": 1e-3}}
+# the sequence-sharded artifact of the seq-trained ViT-L/16@384 (cli.export
+# --seq_parallel 2, one program a rank): serving mode, launches a rank and
+# call (int8: the patch embedding and four GEMMs a layer, plain qlinear)
+SP_SEQ_RUNS = (
+    ("bf16", {"masked_attention_seq_local": 24}),
+    ("int8", {"masked_attention_seq_local": 24, "linear_int8_fused": 97}))
+# the JPEGs serve_artifact reads from the bf16 seq artifact: two calls of 4
+SP_SEQ_SERVED = 8
+# the mode whose artifact and live function are timed in turns
+SP_SEQ_TIMED = "bf16"
 
 
 def _sp_timed(meshlib, steplib, tm):
@@ -5096,11 +5133,13 @@ def _sp_rank(workdir):
     the parent built) takes a float32 step, then SP_MIXED_STEPS
     mixed-precision steps and one more with its collectives timed; the
     trained weights are served in bf16 by the sequence-parallel kernel
-    (sequence rank 0 also runs the unsharded kernel path alone); then on
-    the ('data',) mesh of both ranks ``cli.export --data_parallel`` of
-    ViT-B/16 in int8 and bf16 with ``--check``, each artifact called on the
-    rank's rows, and ``serve_artifact`` of the int8 one.  Launch counts are
-    set to 0 before each section and read after it."""
+    (sequence rank 0 also runs the unsharded kernel path alone); the
+    trained weights exported by ``cli.export --seq_parallel 2`` in bf16 and
+    int8 (``_sp_seq_artifacts``); then on the ('data',) mesh of both ranks
+    ``cli.export --data_parallel`` of ViT-B/16 in int8, bf16 and float32
+    ``off`` (the batch-global mask norm) with ``--check``, each artifact
+    called on the rank's rows, and ``serve_artifact`` of the int8 one.
+    Launch counts are set to 0 before each section and read after it."""
     from vision_transformer_cam_tpu_torch import serving
     from vision_transformer_cam_tpu_torch.cli import export as ecli
     from vision_transformer_cam_tpu_torch.examples import serve_artifact
@@ -5176,6 +5215,11 @@ def _sp_rank(workdir):
     model = state.model
     del state
     gc_cuda()
+    trained = os.path.join(workdir, "sp_trained.pth")
+    if main:
+        # the float32 masters, bit-equal on both ranks: (d) exports them
+        torch.save(model.state_dict(), trained)
+    meshlib.barrier()
     model.requires_grad_(False)
     serving.apply_serving_mode(model, "bf16")
     model.cfg = meshlib.apply_seq_parallel(model.cfg)
@@ -5201,6 +5245,7 @@ def _sp_rank(workdir):
     out["serve"] = res
     del model, o
     gc_cuda()
+    out.update(_sp_seq_artifacts(workdir, d, trained, main))
 
     # (c) cli.export --data_parallel on both ranks, ViT-B/16
     x64 = d["x64"]
@@ -5219,7 +5264,10 @@ def _sp_rank(workdir):
                "check_counts": read_counts()}
         with open(art + ".json") as f:
             res["meta"] = json.load(f)
-        program = kops.load_program(art, "cuda").module()
+        # the groups its collectives name (the off program's mask-norm max)
+        program = kops.load_program(
+            art, "cuda", res["meta"]["process_groups"][meshlib.get_rank()]
+        ).module()
         with torch.no_grad():
             reset_counts()
             got = program(rows.cuda())
@@ -5234,6 +5282,76 @@ def _sp_rank(workdir):
         d["jpegs"], "--out", os.path.join(workdir, "served_dp")])
     torch.cuda.synchronize()
     out["serve_artifact"] = {"rc": rc, "text": text, "counts": read_counts()}
+    return out
+
+
+def _sp_seq_artifacts(workdir, d, trained, main):
+    """Phase 23's section (d) on one rank: ``cli.export --seq_parallel 2
+    --check`` of the trained ViT-L/16@384 in each mode of SP_SEQ_RUNS at the
+    CAM batch (``build_fn`` + ``serving_mesh`` + ``write_artifact``, the
+    steps of ``main``, so that the live function is at hand), the rank's
+    program called once, in SP_SEQ_TIMED it and the live function timed in
+    turns, on the main rank the live function unsharded (the kernel path of one rank,
+    the same weights, mode and knobs); then ``serve_artifact`` of the bf16
+    artifact on SP_SEQ_SERVED JPEGs.  Launch counts are set to 0 before each
+    part and read after it."""
+    from vision_transformer_cam_tpu_torch.cli import export as ecli
+    from vision_transformer_cam_tpu_torch.examples import serve_artifact
+    from vision_transformer_cam_tpu_torch.kernels import ops as kops
+    from vision_transformer_cam_tpu_torch.parallel import mesh as meshlib
+    xc = d["cam_x"].cuda()
+    rank = meshlib.get_rank()
+    out = {}
+    for mode, _ in SP_SEQ_RUNS:
+        art = os.path.join(workdir, f"sp_{mode}.pt2")
+        args = ecli.build_parser().parse_args([
+            "--model_name", "vit_large_patch16_384", "--serving", mode,
+            "--batch", str(xc.shape[0]), "--seq_parallel", "2", "--weights",
+            trained, "--calib_npy", d["sp_calib"], "--out", art, "--check"])
+        reset_counts()
+        t0 = time.perf_counter()
+        fn, cfg, prov = ecli.build_fn(args)
+        built = time.perf_counter() - t0
+        smesh = ecli.serving_mesh(args)
+        _, text = _capture(ecli.write_artifact, args, fn, cfg, prov, smesh)
+        torch.cuda.synchronize()
+        res = {"build": built, "wall": time.perf_counter() - t0,
+               "text": text, "check_counts": read_counts()}
+        with open(art + ".json") as f:
+            res["meta"] = meta = json.load(f)
+        path = os.path.join(workdir, meta["programs"][rank])
+        res["mb"] = os.path.getsize(path) / 1e6
+        program = kops.load_program(path, "cuda",
+                                    meta["process_groups"][rank]).module()
+        with torch.no_grad():
+            reset_counts()
+            got = program(xc)
+            torch.cuda.synchronize()
+            res["counts"] = read_counts()
+            res["out"] = [g.float().cpu() for g in got]
+            if mode == SP_SEQ_TIMED:
+                with meshlib.set_mesh(smesh):
+                    res["ms"] = round_robin(
+                        {"artifact": lambda: program(xc),
+                         "live": lambda: fn(xc)}, iters=2,
+                        timer=lambda f, i: time_ms(f, i, warmup=1))
+            if main:
+                fn.model.cfg = cfg.replace(seq_axis=None, data_axis=None)
+                reset_counts()
+                one = fn(xc)
+                torch.cuda.synchronize()
+                res["one_counts"] = read_counts()
+                res["one"] = [o.float().cpu() for o in one]
+        out[f"sp_{mode}"] = res
+        del program, fn, got
+        gc_cuda()
+    reset_counts()
+    rc, text = _capture(serve_artifact.main, [
+        "--artifact", os.path.join(workdir, "sp_bf16.pt2"), "--images",
+        os.path.join(d["jpegs"], "img_00[0-7].jpg"), "--out",
+        os.path.join(workdir, "served_sp")])
+    torch.cuda.synchronize()
+    out["serve_sp"] = {"rc": rc, "text": text, "counts": read_counts()}
     return out
 
 
@@ -5253,12 +5371,18 @@ def sp_prepare(work, batch32=2, batch=4, cam_batch=4, weights=QUALITY_PARAMS):
     rank's peak memory beside one rank's, the ms of the K/V gathers and of
     the gradient sum; the trained weights served in bf16 by the
     sequence-parallel kernel (24 launches a rank and forward) against one
-    rank's unsharded kernel path (SEQ_GATES); ``cli.export --data_parallel``
-    of ViT-B/16 (phase 16's weights where that phase ran) at global batch
-    64 in int8 and bf16 by the two ranks (``--check`` bit for bit on each,
-    the sidecar's ``nr_devices`` 2, each rank's launches a call), against
-    the one-rank artifact at batch 64, and ``serve_artifact`` of the int8
-    one on both ranks."""
+    rank's unsharded kernel path (SEQ_GATES); the trained weights exported
+    by ``cli.export --seq_parallel 2 --check`` in bf16 and int8 at the CAM
+    batch, one program a rank (bit for bit on each, 24 seq launches a rank
+    and call, against the unsharded kernel path of the same weights, mode
+    and knobs at SEQ_GATES, artifact and live function timed in turns) and
+    ``serve_artifact`` of the bf16 one on both ranks; ``cli.export
+    --data_parallel`` of ViT-B/16 (phase 16's weights where that phase ran)
+    at global batch 64 in int8, bf16 and float32 ``off`` (the batch-global
+    mask norm, all-reduced inside the program) by the two ranks
+    (``--check`` bit for bit on each, the sidecar's ``nr_devices`` 2, each
+    rank's launches a call), against the one-rank artifact at batch 64, and
+    ``serve_artifact`` of the int8 one on both ranks."""
     import PIL.Image
     from vision_transformer_cam_tpu_torch import configs
     from vision_transformer_cam_tpu_torch.cli import export as ecli
@@ -5346,12 +5470,15 @@ def sp_prepare(work, batch32=2, batch=4, cam_batch=4, weights=QUALITY_PARAMS):
         u8 = np.clip(np.rint((img * std + mean) * 255), 0, 255)
         PIL.Image.fromarray(u8.astype(np.uint8)).save(
             os.path.join(jpegs, name + ".jpg"), quality=95)
+    # the seq artifacts' int8 calibration: 8 seeded images at 384
+    sp_calib = os.path.join(work, "sp_calib.npy")
+    np.save(sp_calib, seeded_batch(8, 84, size=384)["image"])
     torch.save(dict(cfg32=cfg32.replace(**seq),
                     cfg_mixed=cfg_mixed.replace(**seq), optim=optim,
                     mixed_optim=mixed_optim, f32=f32, mixed=mixed,
                     cam_x=torch.from_numpy(seeded_batch(
                         cam_batch, 83, size=384)["image"]),
-                    x64=x64, calib=calib, jpegs=jpegs,
+                    x64=x64, calib=calib, jpegs=jpegs, sp_calib=sp_calib,
                     weights_argv=weights_argv),
                os.path.join(work, "sp_inputs.pt"))
     say(f"{phase}: ViT-L/16@384 ({cfg.depth} layers, C={cfg.embed_dim}, "
@@ -5435,6 +5562,86 @@ def sp_prepare(work, batch32=2, batch=4, cam_batch=4, weights=QUALITY_PARAMS):
                 not sv[0]["finite"]:
             fails.append(f"seq serving: {sv[0]}, launches ok {seq_ok}")
 
+        # (d) the sequence-sharded artifacts of the trained weights
+        for mode, per_fwd in SP_SEQ_RUNS:
+            ex = [r[f"sp_{mode}"] for r in ranks]
+            m0 = ex[0]
+            checks = [f"bit-identical) on rank {i}'s rows" in e["text"]
+                      and f"rank {i}'s program" in e["text"]
+                      for i, e in enumerate(ex)]
+            want_check = {k: 2 * v for k, v in per_fwd.items()}
+            counts_ok = all(
+                {k: v for k, v in e["check_counts"].items() if v}
+                == want_check and {k: v for k, v in e["counts"].items()
+                                   if v} == per_fwd for e in ex) and \
+                m0["one_counts"]["masked_attention_fused"] == cfg.depth and \
+                m0["one_counts"]["masked_attention_seq_local"] == 0
+            for e in ex:
+                add(e["check_counts"])
+                add(e["counts"])
+            grid = cfg.grid_size
+            devs = {"cam": float((m0["out"][2] - m0["one"][2]).abs().max()),
+                    "logits": float((m0["out"][0] - m0["one"][0])
+                                    .abs().max())}
+            same = all(torch.equal(a, b) for a, b in
+                       zip(ex[0]["out"], ex[1]["out"]))
+            finite = all(bool(torch.isfinite(t).all()) for t in m0["out"])
+            shapes = [tuple(t.shape) for t in m0["out"]]
+            b = cam_batch
+            timed = "" if mode != SP_SEQ_TIMED else (
+                f"; artifact / live function in turns, both ranks sharing "
+                f"the card: rank 0 {ex[0]['ms']['artifact']:.1f} / "
+                f"{ex[0]['ms']['live']:.1f} ms "
+                f"({1e3 * b / ex[0]['ms']['artifact']:.1f} / "
+                f"{1e3 * b / ex[0]['ms']['live']:.1f} img/s), rank 1 "
+                f"{ex[1]['ms']['artifact']:.1f} / {ex[1]['ms']['live']:.1f} "
+                f"ms")
+            say(f"{phase} (d) export --seq_parallel 2 {mode} of the trained "
+                f"weights, batch {b} ({cfg.depth} layers, C={cfg.embed_dim}, "
+                f"N={cfg.seq_len}): --check bit for bit on each rank "
+                f"{checks}; build_fn {ex[0]['build']:.1f} / "
+                f"{ex[1]['build']:.1f} s, build + export + check "
+                f"{ex[0]['wall']:.1f} / {ex[1]['wall']:.1f} s; programs "
+                f"{ex[0]['mb']:.1f} / {ex[1]['mb']:.1f} MB "
+                f"({m0['meta']['programs']}); sidecar nr_devices "
+                f"{m0['meta']['nr_devices']}, seq_parallel "
+                f"{m0['meta']['seq_parallel']}; launches a rank and call "
+                f"{ex[0]['counts']} / {ex[1]['counts']} (expected {per_fwd}); "
+                f"outputs {shapes}, finite {finite}, the same on both ranks "
+                f"{same}; vs the unsharded kernel path (rank 0, the same "
+                f"weights, mode and knobs, {m0['one_counts']}): CAM "
+                f"{devs['cam']:.3e} (gate {SEQ_GATES['cam']}), logits "
+                f"{devs['logits']:.3e} (gate {SEQ_GATES['logits']})" + timed)
+            if not all(checks) or not counts_ok or not same or not finite \
+                    or shapes != [(b, 20), (b, 20), (b, grid, grid)] or \
+                    m0["meta"]["nr_devices"] != 2 or \
+                    m0["meta"]["seq_parallel"] != 2 or \
+                    devs["cam"] > SEQ_GATES["cam"] or \
+                    devs["logits"] > SEQ_GATES["logits"]:
+                fails.append(f"export --seq_parallel 2 {mode}: checks "
+                             f"{checks}, counts ok {counts_ok}, same {same}, "
+                             f"finite {finite}, {shapes}, {devs}")
+        sa = [r["serve_sp"] for r in ranks]
+        for s_ in sa:
+            add(s_["counts"])
+        calls = SP_SEQ_SERVED // cam_batch
+        sa_ok = all({k: v for k, v in s_["counts"].items() if v} ==
+                    {k: v * calls for k, v in SP_SEQ_RUNS[0][1].items()}
+                    for s_ in sa)
+        lines = [ln for ln in sa[0]["text"].splitlines()
+                 if ln.startswith("  img_")]
+        overlays = len(os.listdir(os.path.join(work, "served_sp")))
+        say(f"{phase} (d) serve_artifact of the bf16 seq artifact on 2 "
+            f"ranks: {SP_SEQ_SERVED} JPEGs, rc {[s_['rc'] for s_ in sa]}, "
+            f"{overlays} overlays, rank 0 printed {len(lines)} class lines, "
+            f"rank 1 {len(sa[1]['text'].splitlines())} lines; launches a "
+            f"rank {sa[0]['counts']} / {sa[1]['counts']} (held: {sa_ok})")
+        if any(s_["rc"] for s_ in sa) or overlays != SP_SEQ_SERVED or \
+                len(lines) != SP_SEQ_SERVED or sa[1]["text"] or not sa_ok:
+            fails.append(f"serve_artifact of the seq artifact: rc "
+                         f"{[s_['rc'] for s_ in sa]}, {overlays} overlays, "
+                         f"{len(lines)} lines, counts ok {sa_ok}")
+
         # (c) the data-parallel artifact against the one-rank artifact
         programs = {}
         for mode, per_fwd in SP_EXPORT_RUNS:
@@ -5450,6 +5657,7 @@ def sp_prepare(work, batch32=2, batch=4, cam_batch=4, weights=QUALITY_PARAMS):
             devs = {k: float((got[i] - want[i]).abs().max())
                     for k, i in (("logits", 0), ("cam", 2))}
             devs["head1"] = float((got[1] - want[1]).abs().max())
+            bits = all(torch.equal(g, w) for g, w in zip(got, want))
             ex = [r[f"export_{mode}"] for r in ranks]
             checks = [f"bit-identical) on rank {i}'s rows" in e["text"]
                       for i, e in enumerate(ex)]
@@ -5473,7 +5681,7 @@ def sp_prepare(work, batch32=2, batch=4, cam_batch=4, weights=QUALITY_PARAMS):
                 f"{per_fwd}); vs the one-rank artifact at batch "
                 f"{EXPORT_BATCH}: CAM {devs['cam']:.3e} (gate {gate['cam']}), "
                 f"logits {devs['logits']:.3e} (gate {gate['logits']}), head1 "
-                f"{devs['head1']:.3e}")
+                f"{devs['head1']:.3e}; bit for bit: {bits}")
             if not all(checks) or ex[0]["meta"]["nr_devices"] != 2 or \
                     not counts_ok or devs["cam"] > gate["cam"] or \
                     devs["logits"] > gate["logits"]:
@@ -6598,6 +6806,18 @@ def cnn_path():
     return rates
 
 
+# Phases 19, 20 and 22 run the zoo's widest and longest models at their full
+# width, heads and token count but at a part of their layers, the seeded
+# models of zoo_model (phase 19, ZOO_SERVE_DEPTH) and zoo_train_model
+# (phases 20 and 22, ZOO_DEPTH): the cut that made room for phase 23's
+# sequence-sharded artifacts in the 1200 s, PERF.md §4.  Phase 19 keeps 8
+# layers: it holds the int8 fused path to the unfused int8 path, two routes
+# that quantize the MLP input otherwise, and at 4 random layers their plain
+# versions already differ by nearly WHOLE_TOL in the CAM, twice what they
+# differ by at 8 (int8_route_gap, PERF.md §6).  The bench and predict runs
+# of phases 19 and 20 build the whole models through their entry points
+ZOO_SERVE_DEPTH = 8
+ZOO_DEPTH = 4
 # The zoo's widest and longest models served (phase 19): label, zoo name,
 # requests x batch through serve(), the throughput batch, the batch of the
 # card-vs-CPU whole-path check
@@ -6608,19 +6828,21 @@ ZOO_BF16_GATES = {"cam": 5e-2, "logits": 5e-2}
 
 
 def zoo_model(name):
-    """The zoo model at full width and depth with seeded random weights, on
-    the card, float32.  ViT-H/14 keeps its pre-logits layer (1280).
-    ViT-L/16@512 takes the seeded weights of ViT-L/16 (224) through the
-    pos-embed interpolation of ``io.weights.load_state_dict``."""
+    """The zoo model at full width and ZOO_SERVE_DEPTH layers with seeded random
+    weights, on the card, float32.  ViT-H/14 keeps its pre-logits layer
+    (1280).  ViT-L/16@512 takes the seeded weights of ViT-L/16 (224) through
+    the pos-embed interpolation of ``io.weights.load_state_dict``."""
     from vision_transformer_cam_tpu_torch import configs
     from vision_transformer_cam_tpu_torch.io.weights import load_state_dict
     from vision_transformer_cam_tpu_torch.models.vit import ViTCAM
-    cfg = configs.resolve_model(name)(num_classes=20)
+    cfg = configs.resolve_model(name)(num_classes=20).replace(
+        depth=ZOO_SERVE_DEPTH)
     if name != "vit_large_patch16_512":
         return ViTCAM(cfg, device="cuda",
                       generator=torch.Generator().manual_seed(0))
-    small = ViTCAM(configs.vit_large_patch16_224(num_classes=20),
-                   device="cuda", generator=torch.Generator().manual_seed(0))
+    small = ViTCAM(configs.vit_large_patch16_224(num_classes=20).replace(
+        depth=ZOO_SERVE_DEPTH), device="cuda",
+        generator=torch.Generator().manual_seed(0))
     sd = {k: v.clone() for k, v in small.state_dict().items()}
     del small
     model = ViTCAM(cfg, device="cuda",
@@ -6631,6 +6853,44 @@ def zoo_model(name):
             or not torch.equal(pe[:, 0], sd["pos_embed"][:, 0]):
         raise AssertionError("224 -> 512 pos-embed interpolation failed")
     return model
+
+
+def int8_route_gap(depth, batch=32, device="cuda"):
+    """ViT-H/14 at full width and ``depth`` layers (zoo_model's seeded
+    weights, on ``device``: the CPU runs the plain versions) served in int8
+    as phase 19 serves it, through the unfused route and with
+    ``mlp_fusion``, on ``batch`` images of zoo_serve's seed; prints and
+    returns their gap (CAM max abs dev, logits max abs dev), the quantity
+    phase 19 holds within WHOLE_TOL.  Not in main: it reads how the gap of
+    the two routes grows as the depth is cut (ZOO_SERVE_DEPTH)."""
+    from vision_transformer_cam_tpu_torch import configs, serving
+    from vision_transformer_cam_tpu_torch.models.vit import ViTCAM
+    from vision_transformer_cam_tpu_torch.ops.rollout import (
+        cam_from_rollout_row)
+    cfg = configs.resolve_model(HUGE)(num_classes=20).replace(depth=depth)
+    g, size = cfg.grid_size, cfg.img_size
+    model = ViTCAM(cfg, device=device,
+                   generator=torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (batch, size, size, 3), dtype=np.float32)).to(device)
+    calib = np.random.default_rng(1).standard_normal(
+        (16, size, size, 3), dtype=np.float32)
+    qm = serving.apply_serving_mode(model, "int8", calib_images=calib)
+    qcfg = qm.cfg.replace(ln_quant_fusion=True, int8_fused_gemm=True)
+    outs = []
+    for fused in (False, True):
+        qm.cfg = qcfg.replace(mlp_fusion=fused)
+        out = qm(x, need_rollout=True)
+        outs.append((cam_from_rollout_row(out.rollout_row, g).float().cpu(),
+                     out.logits.float().cpu()))
+    (cam, logits), (cam_f, logits_f) = outs
+    d_cam = float((cam_f - cam).abs().max())
+    d_logit = float((logits_f - logits).abs().max())
+    say(f"int8 fused vs int8 route, ViT-H/14 at {depth} layers, B={batch}, "
+        f"{device}: CAM max abs dev {d_cam:.3e} (WHOLE_TOL "
+        f"{WHOLE_TOL['cam']}), logits max abs dev {d_logit:.3e} (WHOLE_TOL "
+        f"{WHOLE_TOL['logits']})")
+    return d_cam, d_logit
 
 
 def one_rank_seq_mesh():
@@ -7098,24 +7358,25 @@ _ZOO_TRAIN_BASE = {}
 
 def zoo_train_model(name, impl, dtype=torch.bfloat16):
     """A zoo model as cli.train and bench --train build it (no pre-logits
-    layer), float32 masters with ``dtype`` compute, remat on, on the card,
-    seeded weights; ViT-L/16@512 takes ViT-L/16 (224)'s through the pos-embed
-    interpolation, as ``zoo_model``.  The weights are built on the card once
-    a process, and each call copies them."""
+    layer) at ZOO_DEPTH layers, float32 masters with ``dtype`` compute, remat
+    on, on the card, seeded weights; ViT-L/16@512 takes ViT-L/16 (224)'s
+    through the pos-embed interpolation, as ``zoo_model``.  The weights are
+    built on the card once a process, and each call copies them."""
     from vision_transformer_cam_tpu_torch import configs
     from vision_transformer_cam_tpu_torch.io.weights import load_state_dict
     from vision_transformer_cam_tpu_torch.models.vit import ViTCAM
     if name not in _ZOO_TRAIN_BASE:
-        cfg = configs.resolve_model(name)(num_classes=20)
+        cfg = configs.resolve_model(name)(num_classes=20).replace(
+            depth=ZOO_DEPTH)
         if cfg.has_logits:
             cfg = cfg.replace(representation_size=None)
         if name != "vit_large_patch16_512":
             model = ViTCAM(cfg, device="cuda",
                            generator=torch.Generator().manual_seed(0))
         else:
-            small = ViTCAM(configs.vit_large_patch16_224(num_classes=20),
-                           device="cuda",
-                           generator=torch.Generator().manual_seed(0))
+            small = ViTCAM(configs.vit_large_patch16_224(
+                num_classes=20).replace(depth=ZOO_DEPTH), device="cuda",
+                generator=torch.Generator().manual_seed(0))
             sd = {k: v.clone() for k, v in small.state_dict().items()}
             del small
             model = ViTCAM(cfg, device="cuda",
@@ -7140,7 +7401,8 @@ def zoo_train_launches(steps_fwd, steps_bwd, depth, dh):
 
 
 def zoo_train(label, name, batch, f32_batch):
-    """One zoo model trained at full width and depth on the kernel path:
+    """One zoo model trained at full width (ZOO_DEPTH layers) on the kernel
+    path:
     ``train_one_epoch`` over 3 in-memory batches, then 5 ``train_step`` calls
     on one fixed batch (finite, falling losses; every parameter moved), the
     launch counts held after each; one float32 step against the eager path;
@@ -7239,8 +7501,9 @@ def zoo_train_entry_points():
 
 
 def zoo_train_path():
-    """Phase 20: ViT-H/14 and ViT-L/16@512 trained at full width and depth
-    on the kernel path, then their bench --train runs.  Returns (launch
+    """Phase 20: ViT-H/14 and ViT-L/16@512 trained at full width and
+    ZOO_DEPTH layers on the kernel path, then their bench --train runs (the
+    whole models).  Returns (launch
     counts, the launches of the backward at N = 1025, {label: (rates, f32
     step)})."""
     t0 = time.perf_counter()

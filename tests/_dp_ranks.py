@@ -252,3 +252,88 @@ def export_cli(zoo, zoo_kw, argvs, serve_argv):
         except SystemExit as e:
             out.append(f"SystemExit: {e}")
     return out
+
+
+def _fresh_group(work, step):
+    """A process group of its own for ``step`` on this rank (the launcher's
+    ranks, a FileStore under ``work``): its groups are named from the
+    first, as in a process that a launcher starts for one CLI run."""
+    import os
+
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    world = int(os.environ["WORLD_SIZE"])
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(work, f"store_{step}"),
+                                     world),
+        rank=int(os.environ["RANK"]), world_size=world)
+
+
+def export_seq(zoo, zoo_kw, work, argvs, serve_argv, x, run, trap):
+    """``cli.export.main`` of each argv, then ``examples.serve_artifact.
+    main`` of ``serve_argv``, each in a fresh process group, what each
+    printed or the text of its ``SystemExit``; then, in a fresh group with
+    the (world / 2, 2) ('data', 'seq') grid made first, each sidecar of
+    ``run`` served on ``x`` (the global batch): this rank's program on its
+    data rank's rows, the outputs gathered over the data group; then, in a
+    fresh group whose grid's groups are made in another order (the data
+    groups first), ``kernels.ops.load_program`` of this rank's program of
+    the sidecar ``trap``: what it raised."""
+    import contextlib
+    import io
+    import json
+    import os
+
+    import torch.distributed as dist
+
+    from vision_transformer_cam_tpu_torch.cli import export as ecli
+    from vision_transformer_cam_tpu_torch.examples import serve_artifact
+    from vision_transformer_cam_tpu_torch.kernels import ops as kops
+    from vision_transformer_cam_tpu_torch.parallel import mesh as pmesh
+    register(zoo, **zoo_kw)
+    printed = []
+    calls = [(ecli.main, a) for a in argvs] + [(serve_artifact.main,
+                                                 serve_argv)]
+    for step, (fn, argv) in enumerate(calls):
+        _fresh_group(work, step)
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                fn(argv)
+            printed.append(buf.getvalue())
+        except SystemExit as e:
+            printed.append(f"SystemExit: {e}")
+
+    def program(sidecar):
+        meta = json.load(open(sidecar))
+        path = os.path.join(os.path.dirname(sidecar),
+                            meta["programs"][dist.get_rank()])
+        return meta, path, meta["process_groups"][dist.get_rank()]
+
+    _fresh_group(work, "run")
+    grids = {2: pmesh.seq_parallel_mesh(2),
+             None: pmesh.make_mesh((-1,), ("data",))}
+    outputs = {}
+    for name, sidecar in run.items():
+        meta, path, groups = program(sidecar)
+        mesh = grids[meta["seq_parallel"]]
+        local = x.shape[0] // mesh.data_size
+        fn = kops.load_program(path, "cpu", groups).module()
+        with torch.no_grad():
+            got = fn(x[mesh.data_rank * local:(mesh.data_rank + 1) * local])
+        outputs[name] = [mesh.data_all_gather(t) for t in got]
+
+    _fresh_group(work, "trap")
+    world = dist.get_world_size()
+    for s in range(2):
+        dist.new_group([d * 2 + s for d in range(world // 2)])
+    for d in range(world // 2):
+        dist.new_group([d * 2 + s for s in range(2)])
+    _, path, groups = program(trap)
+    try:
+        kops.load_program(path, "cpu", groups)
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    return printed, outputs, refused

@@ -477,9 +477,10 @@ def test_train_cli_still_refuses_item_10_second_half(tree, weights, tmp_path,
 
 def test_export_still_refuses_data_parallel(tmp_path, monkeypatch):
     """Without a process group ``--data_parallel`` exports the plain
-    artifact (``nr_devices`` 1); with ``--seq_parallel`` it stays refused
-    (the batch-global refusal on two ranks:
-    tests/test_torch_export_data_parallel.py)."""
+    artifact (``nr_devices`` 1); one process exports ``--seq_parallel 1``
+    (the one-rank grid) and refuses ``--seq_parallel 2``, whose sequence
+    axis its one rank cannot hold (the sequence-sharded artifact on four
+    ranks: tests/test_torch_export_seq.py)."""
     monkeypatch.setitem(tcfgs.MODEL_ZOO, ZOO, _dp_ranks.tiny_factory(
         dtype="float32", depth=2))
     out = tmp_path / "a.pt2"
@@ -488,5 +489,8 @@ def test_export_still_refuses_data_parallel(tmp_path, monkeypatch):
     assert xcli.main(argv + ["--check"]) == str(out)
     meta = json.loads((tmp_path / "a.pt2.json").read_text())
     assert (meta["nr_devices"], meta["batch"]) == (1, 2)
-    with pytest.raises(SystemExit, match="collectives"):
+    assert xcli.main(argv + ["--seq_parallel", "1", "--check"]) == str(out)
+    meta = json.loads((tmp_path / "a.pt2.json").read_text())
+    assert (meta["nr_devices"], meta["seq_parallel"]) == (1, 1)
+    with pytest.raises(SystemExit, match="does not divide the 1 rank"):
         xcli.main(argv + ["--seq_parallel", "2"])

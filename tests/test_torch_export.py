@@ -1,9 +1,10 @@
 """The port's serving artifact on the CPU: the ``vitcam`` custom ops
-(``kernels/ops.py``) against their fake implementations, the exported graph
-(the kernels as ops, no plain version inlined), ``cli.export --check`` in the
-four serving modes, the port's artifact against the JAX package's artifact of
-the same weights and calibration, ``serve_artifact`` against the live CAMs
-and against the JAX script, and the refusals.
+(``kernels/ops.py``, the sequence-parallel kernel's too) against their fake
+implementations, the exported graph (the kernels as ops, no plain version
+inlined), ``cli.export --check`` in the four serving modes, the port's
+artifact against the JAX package's artifact of the same weights and
+calibration, ``serve_artifact`` against the live CAMs and against the JAX
+script, and the refusals.
 
 A tiny ViT is registered in both zoos (as tests/test_torch_predict.py
 does).  The exports run with ``--attn_impl kernel`` on the CPU, where every
@@ -154,6 +155,31 @@ def _opcheck_attention(kind, variant, dh):
     args = (qkv, bg, joint, scales, *common, variant == "headmean", True,
             hm_dtype, torch.bfloat16, 0)
     torch.library.opcheck(kops._attention_stats, args)
+
+
+@pytest.mark.parametrize("with_hm", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [64, 80])
+def test_opcheck_attention_seq(dh, dtype, with_hm):
+    """The sequence-parallel kernel's ops at ViT-B's and ViT-H/14's head
+    widths: one rank's 5 query rows against the 10 gathered keys of a token
+    axis of 9 (the last key padded), with the head mean (in float32 under
+    bf16) and without."""
+    rng = np.random.default_rng(dh)
+    b, nq, np_, heads = 2, 5, 10, 2
+    q, kv = (torch.from_numpy(rng.standard_normal((b, n, k * heads * dh))
+                              .astype(np.float32)).to(dtype)
+             for n, k in ((nq, 1), (np_, 2)))
+    bg_k = torch.zeros((b, np_))
+    bg_k[:, 4:] = 1.0
+    common = (heads, dh ** -0.5, -100.0, True)
+    if with_hm:
+        hm_dtype = torch.float32 if dtype == torch.bfloat16 else None
+        torch.library.opcheck(kops._seq_hm, (q, kv, bg_k[:, :nq], bg_k,
+                                             *common, hm_dtype, 9))
+    else:
+        torch.library.opcheck(kops._seq, (q, kv, bg_k[:, :nq], bg_k,
+                                          *common, 9))
 
 
 def _gemm_operands(x_dtype, seed=1, m=6, k=32, n=24):
@@ -466,7 +492,7 @@ def test_serve_artifact_prints_the_jax_scripts_classes(zoos, tmp_path,
 
 @pytest.mark.parametrize("extra,match", [
     (["--data_parallel", "--platform", "cuda"], "--platform cuda"),
-    (["--seq_parallel", "2"], "collectives"),
+    (["--seq_parallel", "2"], "does not divide the 1 rank"),
     (["--platform", "cuda"], "--platform cuda"),
 ])
 def test_export_refuses(zoos, tmp_path, extra, match):

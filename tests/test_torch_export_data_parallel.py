@@ -1,9 +1,8 @@
 """The port's batch-sharded serving artifact (``cli.export
 --data_parallel``) on the CPU: two gloo ranks (``parallel.worker.launch``
 running ``tests/_dp_ranks.export_cli``) export a tiny ViT in bf16 and int8
-at the global batch 16 with ``--check``, serve the int8 artifact with
-``examples.serve_artifact`` and refuse the batch-global norm; the
-artifact's outputs are held to the JAX package's ``--data_parallel``
+at the global batch 16 with ``--check`` and serve the int8 artifact with
+``examples.serve_artifact``; the artifact's outputs are held to the JAX package's ``--data_parallel``
 artifact of the same weights and calibration (its one program over the 8
 virtual CPU devices, tests/conftest.py) at tests/test_torch_export.py's
 tolerances, and to the port's one-rank artifact at batch 16 (bit for
@@ -73,9 +72,8 @@ def _port(out, mode, assets, *extra):
 def dp(tmp_path_factory):
     """The weights (a JAX ``vit.init`` tree, qkv gain 10 so that the mask
     engages), the calibration batch, 20 JPEGs (two calls of 16, the second
-    padded), and what every rank printed: the two exports with ``--check``,
-    the batch-global refusal, a batch that is no multiple of the ranks, and
-    ``serve_artifact`` of the int8 artifact."""
+    padded), and what every rank printed: the two exports with ``--check``
+    and ``serve_artifact`` of the int8 artifact."""
     d = tmp_path_factory.mktemp("export_dp")
     params = jvit.init(_jax_factory(), jax.random.key(0))
     params["blocks"]["attn"]["qkv"]["kernel"] = \
@@ -94,9 +92,6 @@ def dp(tmp_path_factory):
         PIL.Image.fromarray(arr).save(jpegs / f"im_{i:02d}.jpg")
     argvs = [_port(d / f"{m}.pt2", m, assets, "--data_parallel", "--check")
              for m in MODES]
-    argvs.append(_port(d / "off.pt2", "off", assets, "--data_parallel"))
-    argvs.append(_port(d / "odd.pt2", "bf16", assets, "--batch", "15",
-                       "--data_parallel"))
     serve = ["--artifact", str(d / "int8.pt2"), "--images", str(jpegs),
              "--out", str(d / "served2"), "--threshold", "0.5"]
     printed = launch(_dp_ranks.export_cli, (ZOO, ZOO_KW, argvs, serve),
@@ -145,8 +140,10 @@ def test_dp_sidecar_keys_equal_the_jax_sidecar(dp, zoos, tmp_path):
     jout = tmp_path / "j.jaxex"
     jecli.main(_argv(jout, "bf16", assets, "--data_parallel"))
     j = json.loads((tmp_path / "j.jaxex.json").read_text())
-    assert set(t) == set(j) | {"matmul_precision"}
+    assert set(t) == set(j) | {"matmul_precision", "programs",
+                               "process_groups"}
     assert (t["nr_devices"], t["batch"]) == (WORLD, BATCH)
+    assert t["programs"] == ["bf16.pt2"] * WORLD
     assert (j["nr_devices"], j["batch"]) == (len(jax.devices()), BATCH)
     for key in ("model_name", "serving", "img_size", "num_classes",
                 "with_cam", "calibration", "input", "mean", "std", "outputs",
@@ -204,22 +201,6 @@ def test_dp_serve_artifact_on_two_ranks(dp, zoos, tmp_path, capsys):
         return [ln for ln in text.splitlines() if ln.startswith("  im_")]
     want = lines(capsys.readouterr().out)
     assert lines(served) == want and len(want) == N_JPEGS
-
-
-def test_dp_export_refuses_the_batch_global_norm_on_two_ranks(dp):
-    """``--serving off`` (the batch-global mask norm) on two ranks raises
-    on each with the reason, and writes nothing; a batch that is no
-    multiple of the ranks is refused with JAX's text."""
-    assets, printed = dp
-    for r in range(WORLD):
-        assert printed[r][2].startswith("SystemExit: --data_parallel on 2 "
-                                        "ranks with --serving off")
-        assert "batch-global mask norm" in printed[r][2]
-        assert "collective" in printed[r][2]
-        assert printed[r][3] == ("SystemExit: --batch 15 must be a multiple "
-                                 "of the mesh's 2-way batch axis")
-    assert not (assets["dir"] / "off.pt2").exists()
-    assert not (assets["dir"] / "odd.pt2").exists()
 
 
 def test_dp_export_on_one_rank_is_the_plain_artifact(dp, zoos, tmp_path):

@@ -32,14 +32,32 @@ a process group (one device a rank: ``torchrun --nproc_per_node N``, or
 (``examples/serve_artifact.py``); ``--batch`` is the global batch and the
 sidecar's ``nr_devices`` is N.  Rank 0 writes the program and the sidecar;
 ``--check`` runs on every rank, on its rows of the check batch.  Without a
-process group N is 1 and the artifact is the plain one.  On more than one
-rank it takes the serving modes, whose mask norm is per sample, so that no
-image reads another's rows.  ``--serving off`` (the batch-global norm) is
-refused there: the batch-global max is a collective over the ranks, which
-an exported program does not hold, and a rank's program would take it over
-its own rows and give other CAMs than the JAX program, whose max spans the
-whole batch.  ``--seq_parallel`` is refused: the sequence-parallel forward
-runs collectives in every block.
+process group N is 1 and the artifact is the plain one.  Under ``--serving
+off`` (the batch-global mask norm) the program takes the max over the whole
+global batch: an all-reduce over the ranks inside the program, as JAX's
+GSPMD program spans its devices.
+
+``--seq_parallel N`` is the sequence-sharded artifact (JAX's
+``--seq_parallel``): the ranks of the process group form the (world / N, N)
+('data', 'seq') grid (``parallel.seq_parallel_mesh``), the config gets
+``apply_seq_parallel`` after the serving mode (the batch-axis fusions are
+cleared; the attention is the sequence-parallel kernel on each rank's token
+rows), ``--batch`` must be a multiple of the data axis, and the ranks of a
+data group serve the same rows.  A trace bakes in the rank (its token rows
+and the group-rank roots), so every rank exports and saves a program of its
+own: rank r's is ``--out`` with ``.rank<r>`` before the suffix (rank 0's is
+``--out`` itself), and the sidecar's ``programs`` names them by rank.
+
+The collectives of both (``parallel.mesh.SeqMesh``: the all-gathers of K |
+V and of the key mask, the cls-row broadcast, the rollout sums, the
+mask-norm max; staged through host memory where gloo carries CUDA tensors)
+are functional ``_c10d_functional`` ops in the program.  They name their
+process group by the name the exporting process gave it, which comes from
+the order in which that process made its groups.  On more than one rank the
+sidecar records every rank's groups (``process_groups``: name -> world
+ranks and backend), and ``kernels.ops.load_program`` refuses a program
+where a name resolves to no group or to other ranks: a server makes its
+grid first, in the exporter's order (``examples/serve_artifact.py`` does).
 """
 
 from __future__ import annotations
@@ -87,12 +105,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_parallel", action="store_true",
                    help="the batch-sharded artifact: one program at batch / "
                         "N that the N ranks of the process group serve, "
-                        "each on its rows (on more than one rank the "
-                        "serving modes only)")
+                        "each on its rows")
     p.add_argument("--seq_parallel", type=int, default=0, metavar="N",
-                   help="not exportable: refused (the sequence-parallel "
-                        "forward's collectives cannot be held by an "
-                        "exported program)")
+                   help="shard the token axis over N ranks of the process "
+                        "group (the sequence-parallel kernel; the batch over "
+                        "the remaining world size / N): one program a rank, "
+                        "each rank exports and checks its own")
     p.add_argument("--out", type=str, required=True,
                    help="artifact path (.pt2); a .json sidecar is written "
                         "next to it")
@@ -111,11 +129,6 @@ def build_fn(args, **overrides):
     with the weights loaded and the serving mode applied, on ``args.device``.
     ``overrides`` are config fields set last (the serving fusions, for
     example); they are no flag of the JAX CLI."""
-    if args.seq_parallel:
-        raise SystemExit(
-            f"--seq_parallel {args.seq_parallel}: the sequence-parallel "
-            "forward runs torch.distributed collectives, which an exported "
-            "program cannot hold; export without it (ROADMAP Queue 3)")
     device = resolve_device(args.device)
     # strict resolution (no silent ViT-B fallback: the sidecar would record
     # the wrong model), with the reference's 'vit_base' alias
@@ -147,37 +160,54 @@ def build_fn(args, **overrides):
     if impl == "auto":
         impl = "kernel" if device.type == "cuda" else "eager"
     model.cfg = model.cfg.replace(attn_impl=impl, **overrides)
-    world = _world(args)
-    if world > 1 and not model.cfg.per_sample_mask_norm:
-        raise SystemExit(
-            f"--data_parallel on {world} ranks with --serving "
-            f"{args.serving}: its batch-global mask norm takes the max over "
-            "the whole batch, a collective over the ranks that an exported "
-            "program does not hold (each rank's program would take it over "
-            "its own rows and give other CAMs than the one-program "
-            "artifact); export a serving mode (bf16, int8, int8_hifi: the "
-            "per-sample norm) or export on one rank")
+    if args.seq_parallel:
+        # after the serving mode, as in JAX: clears the batch-axis fusions
+        model.cfg = meshlib.apply_seq_parallel(model.cfg)
+    elif args.data_parallel:
+        # the batch-global mask norm reads the data group of the mesh
+        model.cfg = model.cfg.replace(data_axis="data")
     model.requires_grad_(False)
     return ServingFn(model, with_cam=not args.no_cam), model.cfg, \
         calib_provenance
 
 
-def _world(args) -> int:
-    """The ranks that serve the artifact: the process group's under
-    ``--data_parallel``, else one."""
-    return meshlib.get_world_size() if args.data_parallel else 1
+def serving_mesh(args):
+    """The grid the artifact is traced, checked and served on: the
+    ('data', 'seq') grid of ``--seq_parallel`` N or the ('data',) mesh of
+    ``--data_parallel``, over the process group (one rank without one);
+    None for the plain artifact.  Every rank calls it (the groups are made
+    collectively)."""
+    if args.seq_parallel:
+        try:
+            return meshlib.seq_parallel_mesh(args.seq_parallel)
+        except ValueError as e:
+            raise SystemExit(f"--seq_parallel {args.seq_parallel}: {e}") \
+                from None
+    if args.data_parallel:
+        return meshlib.make_mesh((-1,), ("data",))
+    return None
+
+
+def program_path(out: str, rank: int) -> str:
+    """Where rank ``rank`` of a ``--seq_parallel`` export saves its program:
+    ``out`` for rank 0, else ``out`` with ``.rank<r>`` before its
+    suffix."""
+    if rank == 0:
+        return out
+    stem, ext = os.path.splitext(out)
+    return f"{stem}.rank{rank}{ext}"
 
 
 def main(argv=None) -> str:
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
-    if args.data_parallel:
+    if args.data_parallel or args.seq_parallel:
         # the group a launcher describes (none: one rank)
         meshlib.distributed_init(device)
-        world = meshlib.get_world_size()
-        if args.batch % world:
-            raise SystemExit(f"--batch {args.batch} must be a multiple of "
-                             f"the mesh's {world}-way batch axis")
+    mesh = serving_mesh(args)
+    if mesh is not None and args.batch % mesh.data_size:
+        raise SystemExit(f"--batch {args.batch} must be a multiple of "
+                         f"the mesh's {mesh.data_size}-way batch axis")
     if args.platform and args.platform != device.type:
         # the program's tensors and the kernels it launches belong to the
         # device it was traced on
@@ -186,34 +216,53 @@ def main(argv=None) -> str:
             f"{device.type}: export on the platform you deploy to (pass "
             f"--device {args.platform} there)")
     fn, cfg, calib_provenance = build_fn(args)
-    return write_artifact(args, fn, cfg, calib_provenance)
+    return write_artifact(args, fn, cfg, calib_provenance, mesh)
 
 
-def write_artifact(args, fn, cfg, calib_provenance) -> str:
-    """Export ``fn`` (from ``build_fn``) at the static batch (under
-    ``--data_parallel`` the local batch of a rank), save it to ``args.out``
-    with its sidecar (rank 0) and, with ``args.check``, hold the loaded
-    artifact to ``fn`` bit for bit (every rank, on its rows).  Returns
+def write_artifact(args, fn, cfg, calib_provenance, mesh=None) -> str:
+    """Export ``fn`` (from ``build_fn``) at the static batch (a data rank's
+    rows under ``--data_parallel`` and ``--seq_parallel``), save it to
+    ``args.out`` with its sidecar (rank 0; under ``--seq_parallel`` every
+    rank saves its own program) and, with ``args.check``, hold the loaded
+    artifact to ``fn`` bit for bit (every rank, on its rows).  ``mesh``:
+    ``serving_mesh(args)``, made here when not given.  Returns
     ``args.out``."""
     device = resolve_device(args.device)
-    world = _world(args)
+    if mesh is None:
+        mesh = serving_mesh(args)
+    world = meshlib.get_world_size() if mesh is not None else 1
     rank = meshlib.get_rank() if world > 1 else 0
-    local = args.batch // world
+    data_size, data_rank = (mesh.data_size, mesh.data_rank) if mesh \
+        else (1, 0)
+    local = args.batch // data_size
+    # the sequence ranks' traces differ (each bakes in its rows and its
+    # groups); the data-parallel program is one for every rank
+    own = bool(args.seq_parallel) and world > 1
+    path = program_path(args.out, rank) if own else args.out
+    groups = None
     t0 = time.perf_counter()
-    if rank == 0:
+    if own or rank == 0:
         spec = torch.zeros((local, cfg.img_size, cfg.img_size, 3),
                            dtype=torch.float32, device=device)
-        with matmul_precision(cfg), torch.no_grad():
+        with matmul_precision(cfg), torch.no_grad(), meshlib.set_mesh(mesh):
             exported = torch.export.export(fn, (spec,), strict=False)
         # the example batch is no part of the program (and 38.5 MB at
         # ViT-B/16's batch 64): not saved
         exported.example_inputs = None
-        torch.export.save(exported, args.out)
+        torch.export.save(exported, path)
+        groups = kops.process_groups(kops.program_groups(exported))
+        print(f"exported {os.path.getsize(path) / 1e6:.1f} MB -> {path} "
+              f"(platforms {[device.type]}, "
+              f"{time.perf_counter() - t0:.1f} s)" + (
+                  f", rank {rank}'s program: batch {local} on the "
+                  f"({data_size}, {args.seq_parallel}) ('data', 'seq') grid"
+                  if own else f", batch {local} a rank of {world}"
+                  if world > 1 else ""))
     meta = {"model_name": args.model_name, "serving": args.serving,
             "scoped_vmem_kib": None,
             "batch": args.batch, "img_size": cfg.img_size,
             "num_classes": args.num_classes, "with_cam": not args.no_cam,
-            "nr_devices": world, "seq_parallel": None,
+            "nr_devices": world, "seq_parallel": args.seq_parallel or None,
             "platforms": [device.type],
             "calibration": calib_provenance,
             "input": "float32 [batch, H, W, 3], ImageNet-normalized",
@@ -223,22 +272,29 @@ def write_artifact(args, fn, cfg, calib_provenance) -> str:
                        (", cam [batch, grid, grid])" if not args.no_cam
                         else ")"),
             "matmul_precision": _MATMUL_PRECISION[cfg.matmul_precision]}
+    if world > 1:
+        # by rank: the program it serves and the process groups that
+        # program's collectives name (rank 0's for every data-parallel rank)
+        ranks = meshlib.all_objects((os.path.basename(path), groups))
+        if not own:
+            ranks = [ranks[0]] * world
+        meta["programs"] = [p for p, _ in ranks]
+        meta["process_groups"] = [g for _, g in ranks]
     if rank == 0:
         with open(args.out + ".json", "w") as f:
             json.dump(meta, f, indent=1)
-        print(f"exported {os.path.getsize(args.out) / 1e6:.1f} MB -> "
-              f"{args.out} (platforms {meta['platforms']}, "
-              f"{time.perf_counter() - t0:.1f} s)" + (
-                  f", batch {local} a rank of {world}" if world > 1 else ""))
     if world > 1:
-        meshlib.barrier()       # the file is there for every rank
+        meshlib.barrier()       # the files are there for every rank
 
     if args.check:
-        program = kops.load_program(args.out, device).module()
+        program = kops.load_program(
+            path, device,
+            meta["process_groups"][rank] if world > 1 else None).module()
         x = torch.from_numpy(np.random.default_rng(3).standard_normal(
             (args.batch, cfg.img_size, cfg.img_size, 3)).astype(
-                np.float32))[rank * local:(rank + 1) * local].to(device)
-        with matmul_precision(cfg), torch.no_grad():
+                np.float32))[data_rank * local:(data_rank + 1) * local]
+        x = x.to(device)
+        with matmul_precision(cfg), torch.no_grad(), meshlib.set_mesh(mesh):
             got = program(x)
             want = fn(x)
         if len(got) != len(want):

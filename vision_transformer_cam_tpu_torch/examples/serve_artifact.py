@@ -24,18 +24,26 @@ mean / std of the artifact's JSON sidecar).  The artifact runs on the
 device its tensors were saved on (the sidecar's platform): an artifact
 exported for the card is refused on a host without one.
 
-An artifact exported with ``cli.export --data_parallel`` by N ranks
-(``nr_devices`` N in the sidecar) is served by a process group of N ranks,
-one device a rank, as JAX's script rebuilds its mesh of N devices:
+An artifact exported with ``cli.export --data_parallel`` or ``--seq_parallel
+S`` by N ranks (``nr_devices`` N in the sidecar) is served by a process
+group of N ranks, one device a rank, as JAX's script rebuilds its mesh of N
+devices:
 
   torchrun --nproc_per_node N -m \
       vision_transformer_cam_tpu_torch.examples.serve_artifact \
       --artifact model.pt2 --images /path/to/jpegs
 
-Each rank preprocesses and runs its rows of every batch (the global batch
-of the sidecar, cut into N blocks), the outputs are gathered, and rank 0
-writes the overlays and prints the classes.  A group of another size is
-refused.
+The script makes the exporter's grid first, in the exporter's order: the
+(N / S, S) ('data', 'seq') grid of ``parallel.seq_parallel_mesh(S)`` for a
+sequence-sharded artifact, else the ('data',) mesh.  Each rank loads the
+program the sidecar names for it (``programs``: one a rank under
+``--seq_parallel``) and ``kernels.ops.load_program`` refuses it where the
+process groups its collectives name are not the exporter's
+(``process_groups``).  Each data rank preprocesses and runs its rows of
+every batch (the global batch of the sidecar, cut into N / S blocks; the S
+ranks of a data group feed the same rows), the outputs are gathered over
+the data group, and rank 0 writes the overlays and prints the classes.  A
+group of another size is refused.
 """
 
 from __future__ import annotations
@@ -85,7 +93,7 @@ def main(argv=None):
                          "cuda); this host has none (torch.cuda."
                          "is_available() is false)")
     n_dev = meta.get("nr_devices", 1)
-    mesh, rank = None, 0
+    mesh, rank, path, groups = None, 0, args.artifact, None
     if n_dev > 1:
         from vision_transformer_cam_tpu_torch.parallel import mesh as meshlib
         meshlib.distributed_init(device)
@@ -94,18 +102,29 @@ def main(argv=None):
                 f"artifact was exported for {n_dev} devices: serve it on a "
                 f"process group of {n_dev} ranks (torchrun --nproc_per_node "
                 f"{n_dev}); this one has {meshlib.get_world_size()}")
-        mesh = meshlib.make_mesh((-1,), ("data",))
-        rank = mesh.data_rank
-    fn = ops.load_program(args.artifact, device).module()
+        # the exporter's grid, made first: its collectives name the groups
+        sp = meta.get("seq_parallel") or 0
+        mesh = meshlib.seq_parallel_mesh(sp) if sp else \
+            meshlib.make_mesh((-1,), ("data",))
+        rank = meshlib.get_rank()
+        if "programs" in meta:
+            path = os.path.join(os.path.dirname(args.artifact),
+                                meta["programs"][rank])
+            groups = meta["process_groups"][rank]
+    fn = ops.load_program(path, device, groups).module()
     if device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
     batch, size = meta["batch"], meta["img_size"]
-    local = batch // n_dev
+    data_size, data_rank = (mesh.data_size, mesh.data_rank) if mesh \
+        else (1, 0)
+    local = batch // data_size
     say = print if rank == 0 else (lambda *a, **k: None)
     say(f"artifact: {meta['model_name']} serving={meta['serving']} "
         f"batch={batch} img={size} platforms={meta['platforms']} "
         f"calibration={meta.get('calibration', '?')}"
-        + (f" nr_devices={n_dev}" if n_dev > 1 else ""))
+        + (f" nr_devices={n_dev}" if n_dev > 1 else "")
+        + (f" seq_parallel={meta['seq_parallel']}"
+           if meta.get("seq_parallel") else ""))
 
     if os.path.isdir(args.images):
         paths = sorted(p for pat in ("*.jpg", "*.jpeg", "*.JPG", "*.JPEG")
@@ -130,12 +149,13 @@ def main(argv=None):
             chunk = paths[lo:lo + batch]
             # this rank's rows of the batch, the tail padded
             x = np.zeros((local, size, size, 3), np.float32)
-            for i, p in enumerate(chunk[rank * local:(rank + 1) * local]):
+            for i, p in enumerate(
+                    chunk[data_rank * local:(data_rank + 1) * local]):
                 x[i] = load_and_preprocess(p, size, mean, std)
             with torch.no_grad():
                 logits, head1_logits, cam = fn(torch.from_numpy(x).to(device))
             if mesh is not None:
-                # every rank's rows, in rank order: the global batch
+                # every data rank's rows, in rank order: the global batch
                 head1_logits, cam = (mesh.data_all_gather(t)
                                      for t in (head1_logits, cam))
                 if rank:

@@ -1146,12 +1146,13 @@ def masked_attention_seq(qkv_local, bg_local, *, group, n_real: int,
     qkv_local: [B, NQ, 3C], this rank's rows of a token axis that the caller
     padded to Np = group size * NQ; bg_local: [B, NQ]; ``n_real`` the
     unpadded token count N.  The K | V columns and bg are all-gathered over
-    the group, ``masked_attention_seq_local`` runs on the local query rows,
-    and the cls row is taken from sequence-rank 0 (a broadcast; only there
-    is local row 0 the global one).  Returns (out [B, NQ, C], the local
-    rows; cls_row [B, N], the same on every rank; and with ``with_headmean``
-    hm [B, NQ, N]): the padded key columns are cut off, the padded query
-    rows of the last rank are the caller's to drop."""
+    the group, ``masked_attention_seq_local`` runs on the local query rows
+    (through its ``vitcam::`` op, ``kernels/ops.py``, so that an exported
+    program holds it), and the cls row is taken from sequence-rank 0 (a
+    broadcast; only there is local row 0 the global one).  Returns (out [B,
+    NQ, C], the local rows; cls_row [B, N], the same on every rank; and with
+    ``with_headmean`` hm [B, NQ, N]): the padded key columns are cut off,
+    the padded query rows of the last rank are the caller's to drop."""
     c = qkv_local.shape[-1] // 3
     q = qkv_local[:, :, :c].contiguous()
     kv_l = qkv_local[:, :, c:]
@@ -1160,7 +1161,8 @@ def masked_attention_seq(qkv_local, bg_local, *, group, n_real: int,
     else:
         kv = group.all_gather(kv_l.contiguous(), dim=1)
         bg_k = group.all_gather(bg_local.contiguous(), dim=1)
-    res = masked_attention_seq_local(
+    from vision_transformer_cam_tpu_torch.kernels import ops
+    res = ops.masked_attention_seq_local(
         q, kv, bg_local, bg_k, num_heads=num_heads, scale=scale,
         mask_value=mask_value, with_headmean=with_headmean,
         clamp_softmax=clamp_softmax, hm_dtype=hm_dtype, n_real=n_real)

@@ -1,6 +1,6 @@
 """The serving kernels as ``torch.library`` custom ops (namespace ``vitcam``).
 
-A serving forward reaches six hand-written kernels.  Each is registered here
+A serving forward reaches seven hand-written kernels.  Each is registered here
 as a custom op whose implementation calls the kernel's wrapper, so that a
 ``torch.export`` program of the forward (``cli/export.py``) holds
 ``vitcam::...`` nodes and launches the kernels wherever it runs on the card:
@@ -14,22 +14,30 @@ as a custom op whose implementation calls the kernel's wrapper, so that a
   vitcam::mlp_fused_int8                the same on two static int8 layers
   vitcam::attention_block_fused         the attention sub-block: (out, cls_row)
   vitcam::attention_block_fused_rollout the same with the rollout update
+  vitcam::masked_attention_seq_local    the sequence-parallel kernel on one
+                                        rank's query rows: (out, row0)
+  vitcam::masked_attention_seq_local_hm the same with the head mean:
+                                        (out, row0, hm)
 
-A schema has one fixed return, so kernel 1 and the block kernel have one op
-per arity.  The implementations are the wrappers of ``kernels/attention.py``
-and ``kernels/gemm.py`` unchanged: on a CUDA tensor the kernel (or a raise),
-on a CPU tensor the plain version, and the wrappers' launch counters count
-every launch made through an op.  Each op's fake implementation states the
-wrapper's output shapes and dtypes; a wrong dtype there would change the
-casts the traced graph puts after the op.
+A schema has one fixed return, so kernel 1, the block kernel and the
+sequence-parallel kernel have one op per arity.  The implementations are the
+wrappers of ``kernels/attention.py`` and ``kernels/gemm.py`` unchanged: on a
+CUDA tensor the kernel (or a raise), on a CPU tensor the plain version, and
+the wrappers' launch counters count every launch made through an op.  Each
+op's fake implementation states the wrapper's output shapes and dtypes; a
+wrong dtype there would change the casts the traced graph puts after the op.
 
 The functions below have the wrappers' signatures and pick the op; the
-model (``models/vit.py``) and ``ops/quant.py`` call them, on the live path
-and under export alike.  The kernels no serving forward reaches are not
+model (``models/vit.py``), ``ops/quant.py`` and
+``attention.masked_attention_seq`` call them, on the live path and under
+export alike.  The kernels no serving forward reaches are not
 registered: the v1 split-tensor kernel and the ablation variants (scripts
-only), the sequence-parallel kernel (its collectives cannot be exported, and
-``cli.export`` refuses ``--seq_parallel``) and the backward (training, which
-keeps ``attention.fused_attention_diff``).  No op has an autograd formula.
+only) and the backward (training, which keeps
+``attention.fused_attention_diff``).  The sequence-parallel kernel's op holds
+the kernel alone: the all-gathers of K | V and of the key mask around it and
+the broadcast of the cls row after it are the functional collectives of
+``parallel.mesh.SeqMesh``, which a traced program holds as
+``_c10d_functional`` nodes.  No op has an autograd formula.
 """
 
 from __future__ import annotations
@@ -257,12 +265,124 @@ def attention_block_fused(xn, tokens, wqkv, bqkv, wproj, bproj, bg,
                           num_heads, scale, mask_value, clamp_softmax)
 
 
-def load_program(path: str, device):
+def _seq_fake(q, kv, bg_q, bg_k, num_heads, with_headmean, hm_dtype,
+              n_real):
+    ka._check_seq_shapes(q, kv, bg_q, bg_k, num_heads, n_real)
+    b, nq, _ = q.shape
+    np_ = kv.shape[1]
+    out = (q.new_empty(q.shape), q.new_empty((b, np_)))
+    if with_headmean:
+        return out + (q.new_empty((b, nq, np_), dtype=hm_dtype or q.dtype),)
+    return out
+
+
+@torch.library.custom_op("vitcam::masked_attention_seq_local",
+                         mutates_args=())
+def _seq(q: Tensor, kv: Tensor, bg_q: Tensor, bg_k: Tensor, num_heads: int,
+         scale: float, mask_value: float, clamp_softmax: bool,
+         n_real: int) -> tuple[Tensor, Tensor]:
+    return ka.masked_attention_seq_local(
+        q, kv, bg_q, bg_k, num_heads=num_heads, scale=scale,
+        mask_value=mask_value, clamp_softmax=clamp_softmax, n_real=n_real)
+
+
+@_seq.register_fake
+def _(q, kv, bg_q, bg_k, num_heads, scale, mask_value, clamp_softmax,
+      n_real):
+    return _seq_fake(q, kv, bg_q, bg_k, num_heads, False, None, n_real)
+
+
+@torch.library.custom_op("vitcam::masked_attention_seq_local_hm",
+                         mutates_args=())
+def _seq_hm(q: Tensor, kv: Tensor, bg_q: Tensor, bg_k: Tensor,
+            num_heads: int, scale: float, mask_value: float,
+            clamp_softmax: bool, hm_dtype: Optional[torch.dtype],
+            n_real: int) -> tuple[Tensor, Tensor, Tensor]:
+    return ka.masked_attention_seq_local(
+        q, kv, bg_q, bg_k, num_heads=num_heads, scale=scale,
+        mask_value=mask_value, with_headmean=True,
+        clamp_softmax=clamp_softmax, hm_dtype=hm_dtype, n_real=n_real)
+
+
+@_seq_hm.register_fake
+def _(q, kv, bg_q, bg_k, num_heads, scale, mask_value, clamp_softmax,
+      hm_dtype, n_real):
+    return _seq_fake(q, kv, bg_q, bg_k, num_heads, True, hm_dtype, n_real)
+
+
+def masked_attention_seq_local(q, kv, bg_q, bg_k, *, num_heads: int,
+                               scale: float, mask_value: float = -100.0,
+                               with_headmean: bool = False,
+                               clamp_softmax: bool = False, hm_dtype=None,
+                               n_real: int = 0):
+    """``kernels.attention.masked_attention_seq_local`` through its op: two
+    outputs, three with ``with_headmean``."""
+    if with_headmean:
+        return _seq_hm(q, kv, bg_q, bg_k, num_heads, scale, mask_value,
+                       clamp_softmax, hm_dtype, n_real)
+    return _seq(q, kv, bg_q, bg_k, num_heads, scale, mask_value,
+                clamp_softmax, n_real)
+
+
+def program_groups(exported) -> dict:
+    """{process-group name: the ``_c10d_functional`` ops that name it} of
+    an ``ExportedProgram``: the groups its collectives run on."""
+    names = {}
+    for node in exported.graph.nodes:
+        if node.op == "call_function" and \
+                str(node.target).startswith("_c10d_functional.") and \
+                isinstance(node.args[-1], str):
+            names.setdefault(node.args[-1], set()).add(
+                str(node.target).split(".")[1])
+    return names
+
+
+def process_groups(names) -> dict:
+    """{name: {"ranks": the group's world ranks, "backend": ...}} of this
+    process's process groups ``names``; raises where a name resolves to no
+    group this process is a member of."""
+    import torch.distributed as dist
+    out = {}
+    for name in names:
+        try:
+            pg = torch._C._distributed_c10d._resolve_process_group(name)
+        except RuntimeError as e:
+            raise RuntimeError(
+                f"the program's collectives run on the process group named "
+                f"{name!r}, which this process does not hold ({e}); make "
+                f"the process grid as the exporter made it, first and in "
+                f"its order (the sidecar's seq_parallel)") from None
+        out[name] = {"ranks": dist.get_process_group_ranks(pg),
+                     "backend": dist.get_backend(pg)}
+    return out
+
+
+def load_program(path: str, device, groups=None):
     """The ``ExportedProgram`` that ``cli.export`` saved at ``path`` (its
     ops are registered here), on ``device``: a program exported on another
     card of the same kind (rank 0's, for the ranks of a ``--data_parallel``
-    group that each have a card) is moved to this rank's."""
+    group that each have a card) is moved to this rank's.
+
+    A program whose collectives name process groups runs only where every
+    name resolves to a group of the ranks and the backend the exporter's
+    group had: ``groups`` is what the sidecar recorded for this rank
+    ({name: {"ranks", "backend"}}, ``process_groups`` at export).  The
+    names come from the order in which a process made its groups, so a
+    server that made them in another order would run a collective on other
+    ranks, or find no group: both raise here."""
     exported = torch.export.load(path)
+    names = program_groups(exported)
+    if names:
+        have = process_groups(names)
+        want = groups or {}
+        for name in sorted(names):
+            if want.get(name) != have[name]:
+                raise RuntimeError(
+                    f"the program's process group {name!r} "
+                    f"({', '.join(sorted(names[name]))}) was exported as "
+                    f"{want.get(name)}, but here it is {have[name]}: make "
+                    f"the process grid as the exporter made it, first and "
+                    f"in its order")
     device = torch.device(device)
     if device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())

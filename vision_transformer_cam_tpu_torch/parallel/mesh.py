@@ -24,7 +24,9 @@ train step's gradient mean and the ZeRO-1 optimizer read it with
 ``ambient_mesh``.  NCCL carries the collectives between cards; gloo carries
 them between CPU processes, and between processes that share one card, where
 NCCL refuses: CUDA tensors are then staged through host memory (a transport,
-not another path: the kernels still run on the card).
+not another path: the kernels still run on the card).  The collectives are
+the functional ``_c10d_functional`` ops, so that a ``torch.export`` program
+of a forward holds them (``cli.export --seq_parallel``).
 
 A model sharded over 'model' or 'stage' carries a ``Layout`` (``model.
 layout``): which of its parameters are parts of a larger whole, how to
@@ -43,6 +45,8 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 from torch import nn
+
+_C10D = torch.ops._c10d_functional
 
 
 @dataclasses.dataclass
@@ -97,26 +101,50 @@ class SeqMesh:
             return t, back
         return t, lambda r: r
 
+    # The collectives below are the functional ``_c10d_functional`` ops:
+    # out of place, so that a ``torch.export`` trace of the forward holds
+    # them (and the staging around them) as graph nodes, which name their
+    # group by its process-group name.  Their results carry no gradient,
+    # as the in-place ``torch.distributed`` calls' did; the autograd
+    # wrappers (``_GatherRows``, ``models.vit``'s) give the backwards.
+
+    def _gather(self, t, group, size: int, dim: int):
+        """Every rank's ``t`` of ``group`` (``size`` ranks) joined along
+        ``dim`` in group-rank order."""
+        s, back = self._staged(t.detach().contiguous(), group)
+        r = _C10D.wait_tensor(_C10D.all_gather_into_tensor(
+            s, size, group.group_name))
+        if dim != 0:
+            r = torch.cat(r.chunk(size), dim=dim)
+        return back(r)
+
+    def _reduce(self, t, group, op: str):
+        """``op`` ("sum" or "max") of ``t`` over ``group``, carried in
+        float32 at least and returned in that width."""
+        wide = torch.promote_types(t.dtype, torch.float32)
+        s, back = self._staged(t.detach().to(wide).contiguous(), group)
+        return back(_C10D.wait_tensor(_C10D.all_reduce(s, op,
+                                                       group.group_name)))
+
+    def _broadcast(self, t, group, src: int):
+        """Group-rank ``src``'s ``t`` on every rank of ``group``."""
+        s, back = self._staged(t.detach().contiguous(), group)
+        return back(_C10D.wait_tensor(_C10D.broadcast(s, src,
+                                                      group.group_name)))
+
     def all_gather(self, t, dim: int):
         """Every rank's ``t`` of the inner group, joined along ``dim`` in
         inner-rank order."""
         if self.inner_size == 1:
             return t
-        t, back = self._staged(t.contiguous())
-        parts = [torch.empty_like(t) for _ in range(self.inner_size)]
-        dist.all_gather(parts, t, group=self.inner_group)
-        return back(torch.cat(parts, dim=dim))
+        return self._gather(t, self.inner_group, self.inner_size, dim)
 
     def inner_broadcast(self, t, src: int):
         """Inner-rank ``src``'s ``t`` on every rank of the inner group (the
         other ranks pass a tensor of the same shape and dtype)."""
         if self.inner_size == 1:
             return t
-        t, back = self._staged(t.contiguous())
-        if self.inner_rank != src:
-            t = torch.empty_like(t)
-        dist.broadcast(t, src=self.inner_root + src, group=self.inner_group)
-        return back(t)
+        return self._broadcast(t, self.inner_group, src)
 
     def inner_sum(self, t):
         """Sum of ``t`` over the inner group (the 'seq', 'model' or 'stage'
@@ -124,20 +152,15 @@ class SeqMesh:
         every rank gets the same bits."""
         if self.inner_size == 1:
             return t
-        wide = torch.promote_types(t.dtype, torch.float32)
-        r, back = self._staged(t.to(wide).contiguous().clone())
-        dist.all_reduce(r, op=dist.ReduceOp.SUM, group=self.inner_group)
-        return back(r).to(t.dtype)
+        return self._reduce(t, self.inner_group, "sum").to(t.dtype)
 
     def inner_list(self, t):
         """Every inner rank's ``t`` (the same shape on each), by inner
         rank."""
         if self.inner_size == 1:
             return [t]
-        s, back = self._staged(t.contiguous())
-        parts = [torch.empty_like(s) for _ in range(self.inner_size)]
-        dist.all_gather(parts, s, group=self.inner_group)
-        return [back(p) for p in parts]
+        return list(self._gather(t, self.inner_group, self.inner_size,
+                                 0).chunk(self.inner_size))
 
     def inner_objects(self, obj):
         """Every inner rank's picklable ``obj``, by inner rank."""
@@ -180,47 +203,32 @@ class SeqMesh:
         microbatch layout); ``t`` has the same shape on every rank."""
         if self.data_size == 1:
             return t
-        t, back = self._staged(t.contiguous(), self.data_group)
-        parts = [torch.empty_like(t) for _ in range(self.data_size)]
-        dist.all_gather(parts, t, group=self.data_group)
-        return back(torch.cat(parts, dim=dim))
-
-    def _data_reduce(self, t, op):
-        # carried in float32 at least: a sum never moves bf16 bits, and the
-        # max of bf16 values is one of them, so the cast back is exact
-        wide = torch.promote_types(t.dtype, torch.float32)
-        r, back = self._staged(t.to(wide).contiguous().clone(),
-                               self.data_group)
-        dist.all_reduce(r, op=op, group=self.data_group)
-        return back(r)
+        return self._gather(t, self.data_group, self.data_size, dim)
 
     def data_sum(self, t):
         """Sum of ``t`` over the data group, in float32 at least (float64
         stays float64)."""
         if self.data_size == 1:
             return t.to(torch.promote_types(t.dtype, torch.float32))
-        return self._data_reduce(t, dist.ReduceOp.SUM)
+        # a sum never moves bf16 bits
+        return self._reduce(t, self.data_group, "sum")
 
     def data_mean(self, t):
         """Mean of ``t`` over the data group, in float32 at least."""
         return self.data_sum(t) / self.data_size
 
     def data_max(self, t):
-        """Elementwise max of ``t`` over the data group, in ``t``'s dtype."""
+        """Elementwise max of ``t`` over the data group, in ``t``'s dtype
+        (the max of bf16 values is one of them: the cast back is exact)."""
         if self.data_size == 1:
             return t
-        return self._data_reduce(t, dist.ReduceOp.MAX).to(t.dtype)
+        return self._reduce(t, self.data_group, "max").to(t.dtype)
 
     def data_broadcast(self, t, src: int = 0):
         """Data-rank ``src``'s ``t`` on every rank of the data group."""
         if self.data_size == 1:
             return t
-        root = src * self.inner_size + self.inner_rank
-        s, back = self._staged(t.contiguous(), self.data_group)
-        if self.data_rank != src:
-            s = torch.empty_like(s)
-        dist.broadcast(s, src=root, group=self.data_group)
-        return back(s)
+        return self._broadcast(t, self.data_group, src)
 
 
 class _GatherRows(torch.autograd.Function):
@@ -594,6 +602,16 @@ def get_rank() -> int:
 
 def is_main_process() -> bool:
     return get_rank() == 0
+
+
+def all_objects(obj) -> list:
+    """Every rank's picklable ``obj``, by world rank (``[obj]`` without a
+    process group)."""
+    if get_world_size() == 1:
+        return [obj]
+    out = [None] * get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
 
 
 def barrier() -> None:
